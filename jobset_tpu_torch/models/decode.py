@@ -1,0 +1,197 @@
+"""Greedy autoregressive decoding for the flagship transformer: the serving
+path of `jobset_tpu/models/decode.py`, on one device.
+
+A prompt is prefilled in one batched causal pass per layer through
+`blockwise_causal_attention` (the flash block kernel on the card), which
+fills a KV cache in the compute dtype; then each new token runs one cached
+step, whose attention over the cache is plain matmuls. Unlike the JAX
+version the cache is updated in place: each step writes one position of a
+preallocated [layers, B, max_len, H_kv, D] buffer instead of returning a
+new array.
+
+Not ported yet: sampling (temperature, top-k), int8 weights and KV cache,
+MoE, and dp/tp meshes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..device import resolve_device
+from ..ops.flash_block import NEG_INF, blockwise_causal_attention
+from .quant import weight_cast
+from .transformer import (
+    TransformerConfig,
+    _dense_mlp,
+    _embed_tokens,
+    layer_params,
+    n_layers_of,
+    rms_norm,
+    rotary,
+    unembed_logits,
+)
+
+
+def init_kv_cache(config: TransformerConfig, batch: int, max_len: int, device) -> dict:
+    """Zeroed K/V caches [layers, B, max_len, H_kv, D] in the compute dtype.
+    With GQA the cache holds only the n_kv_heads heads."""
+    cfg = config
+    shape = (cfg.n_layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+    }
+
+
+def _cache_write(cache_part, value, pos: int):
+    """Store value [B, T, H, D] at positions pos..pos+T-1, in place."""
+    cache_part[:, pos:pos + value.shape[1]] = value.to(cache_part.dtype)
+    return cache_part
+
+
+def _cache_read(cache_part, dtype):
+    """The whole cache in the compute dtype (identity for a plain cache)."""
+    return weight_cast(cache_part, dtype)
+
+
+def _layer_qkv(p, xn, base: int, cfg: TransformerConfig):
+    """q/k/v for the tokens of xn at positions base..base+T-1, rotary
+    applied; k/v with the kv head count, as the cache stores them."""
+    compute = cfg.dtype
+    positions = base + torch.arange(xn.shape[1], dtype=torch.float32, device=xn.device)
+
+    def proj(w, n_heads):
+        y = xn.to(compute) @ weight_cast(w, compute)
+        return y.reshape(*y.shape[:-1], n_heads, cfg.head_dim)
+
+    q = rotary(proj(p["wq"], cfg.n_heads), positions, cfg.rope_theta)
+    k = rotary(proj(p["wk"], cfg.kv_heads), positions, cfg.rope_theta)
+    return q, k, proj(p["wv"], cfg.kv_heads)
+
+
+def _layer_tail(p, x, attn, cfg: TransformerConfig):
+    """Output projection and MLP: attn [B, T, H, D]."""
+    compute = cfg.dtype
+    attn = attn.reshape(*attn.shape[:-2], attn.shape[-2] * attn.shape[-1])
+    x = x + (attn.to(compute) @ weight_cast(p["wo"], compute)).to(x.dtype)
+    xn2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + _dense_mlp(p, xn2, cfg).to(x.dtype)
+
+
+def _decode_layer(p, x, cache_k, cache_v, pos: int, cfg: TransformerConfig):
+    """One layer, one token: x [B, 1, d]; cache_k/v [B, T_max, H_kv, D],
+    written at `pos` in place. Returns x."""
+    batch = x.shape[0]
+    group = cfg.n_heads // cfg.kv_heads
+    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = _layer_qkv(p, xn, pos, cfg)
+    _cache_write(cache_k, k, pos)
+    _cache_write(cache_v, v, pos)
+
+    # GQA without a broadcast copy: q heads are grouped [n_kv, group] and
+    # each group reads its kv head. Operands in the compute dtype, upcast
+    # to f32 for the product; softmax statistics in f32.
+    full_k = _cache_read(cache_k, cfg.dtype)
+    full_v = _cache_read(cache_v, cfg.dtype)
+    q5 = q.reshape(batch, 1, cfg.kv_heads, group, cfg.head_dim)
+    logits = torch.einsum("bqngd,bknd->bngqk", q5.float(), full_k.float())
+    logits = logits.reshape(batch, cfg.n_heads, 1, -1) * cfg.head_dim ** -0.5
+    visible = torch.arange(logits.shape[-1], device=x.device) <= pos
+    logits = torch.where(visible, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    probs5 = probs.reshape(batch, cfg.kv_heads, group, 1, -1)
+    attn = torch.einsum(
+        "bngqk,bknd->bqngd", probs5.to(full_v.dtype).float(), full_v.float()
+    ).reshape(batch, 1, cfg.n_heads, cfg.head_dim)
+    return _layer_tail(p, x, attn, cfg)
+
+
+def _prefill_layer(p, x, cache_k, cache_v, cfg: TransformerConfig):
+    """One layer over the whole prompt: x [B, Tp, d]. Writes K/V for
+    positions 0..Tp-1 and folds attention blockwise over the flash step."""
+    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = _layer_qkv(p, xn, 0, cfg)
+    _cache_write(cache_k, k, 0)
+    _cache_write(cache_v, v, 0)
+    attn = blockwise_causal_attention(q, k, v)  # GQA broadcast inside
+    return _layer_tail(p, x, attn, cfg)
+
+
+def _run_stack(params, x, cache, cfg, layer_fn):
+    """Run layer_fn over the layers (cache slices per layer), final-norm
+    the last position and unembed it. Returns logits [B, vocab] f32."""
+    for i in range(n_layers_of(params)):
+        x = layer_fn(layer_params(params, i), x, cache["k"][i], cache["v"][i])
+    xn = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    return unembed_logits(params, xn, cfg)[:, 0].float()
+
+
+def _prefill_logits(params, prompt, cache, cfg):
+    """prompt [B, Tp] -> last-position logits [B, vocab]; fills the cache."""
+    x = _embed_tokens(params["embed"], prompt, cfg)
+    return _run_stack(
+        params, x, cache, cfg,
+        lambda p, x, ck, cv: _prefill_layer(p, x, ck, cv, cfg),
+    )
+
+
+def _token_logits(params, token, cache, pos: int, cfg):
+    """token [B] at position pos -> logits [B, vocab]; writes the cache."""
+    x = _embed_tokens(params["embed"], token[:, None], cfg)
+    return _run_stack(
+        params, x, cache, cfg,
+        lambda p, x, ck, cv: _decode_layer(p, x, ck, cv, pos, cfg),
+    )
+
+
+def _global_argmax(logits):
+    """Greedy pick over the whole vocab (tp = 1); the lowest index wins a
+    tie, as torch.argmax returns the first maximum."""
+    return torch.argmax(logits, dim=-1)
+
+
+def _pick_token(logits, temperature: float = 0.0):
+    """Greedy pick. Sampling is not ported yet."""
+    if temperature > 0.0:
+        raise NotImplementedError("sampling (temperature > 0) is not ported yet")
+    return _global_argmax(logits)
+
+
+def cast_params(params: dict, dtype: torch.dtype) -> dict:
+    """Every float leaf cast once to the compute dtype (serving streams the
+    whole parameter set each step; this halves its bytes from f32 to
+    bf16). Norm scales are rounded to the compute dtype too, as in JAX."""
+    return {
+        name: cast_params(v, dtype) if isinstance(v, dict)
+        else v.to(dtype) if v.is_floating_point() else v
+        for name, v in params.items()
+    }
+
+
+def build_generate(config: TransformerConfig, max_new_tokens: int, device=None):
+    """generate(params, prompt [B, Tp]) -> tokens [B, Tp + max_new_tokens],
+    greedy, on `device` (the card unless the caller names another).
+
+    The prompt is prefilled in one batched pass, then new tokens decode
+    through the cached step. max_new_tokens == 0 returns the prompt."""
+    cfg = config
+    cfg.validate()
+    device = resolve_device(device)
+
+    @torch.no_grad()
+    def generate(params, prompt):
+        prompt = prompt.to(device)
+        if max_new_tokens == 0:
+            return prompt
+        params = cast_params(params, cfg.dtype)
+        t_prompt = prompt.shape[1]
+        cache = init_kv_cache(cfg, prompt.shape[0], t_prompt + max_new_tokens, device)
+        token = _pick_token(_prefill_logits(params, prompt, cache, cfg)).to(prompt.dtype)
+        parts = [prompt, token[:, None]]
+        for pos in range(t_prompt, t_prompt + max_new_tokens - 1):
+            token = _pick_token(_token_logits(params, token, cache, pos, cfg))
+            token = token.to(prompt.dtype)
+            parts.append(token[:, None])
+        return torch.cat(parts, dim=1)
+
+    return generate

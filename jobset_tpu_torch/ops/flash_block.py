@@ -1,0 +1,242 @@
+"""Flash-attention block step: PyTorch, with a CUDA kernel on the card.
+
+Counterpart of `jobset_tpu/ops/flash_block.py`. One (q-block, kv-block)
+step of the online-softmax recurrence that `parallel.ring_attention` and
+`blockwise_causal_attention` fold:
+
+    block_attention(q, k, v, bias) ->
+        (block_max [B,H,Tq] f32, block_sum [B,H,Tq] f32,
+         weighted [B,Tq,H,D] f32)
+
+with *unnormalized* statistics, so a caller can fold many blocks into one
+accumulator and divide once at the end.
+
+Dispatch: a CUDA tensor goes to the hand-written kernel in
+`csrc/flash_block.cu` (built with nvcc at first use) and a CPU tensor to
+the plain version, `block_attention_reference`. There is no switch between
+them: on the card the kernel launches or the call raises.
+
+k and v may also be given as the 5-D GQA view that `_repeat_heads` returns,
+[B, Tk, H_kv, group, D] with a stride-0 group axis; both paths take it as
+[B, Tk, H_kv*group, D], and the kernel reads it without a copy.
+
+The backward (the JAX package's `_bwd` recompute) is not ported yet:
+`block_attention` raises if an input requires grad.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import cuda_build
+
+NEG_INF = -1.0e30
+
+# Launches of the CUDA kernel, counted by the wrapper where it launches.
+KERNEL_LAUNCHES = 0
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 128  # the kernel keeps a [64, D] f32 accumulator in registers
+
+
+def _flat_heads(x):
+    """[B, T, H_kv, group, D] -> [B, T, H, D] (a copy for an expand view;
+    plain version only). 4-D input passes through."""
+    return x.flatten(2, 3) if x.dim() == 5 else x
+
+
+def _block_probs(q, k, bias):
+    """Logits -> masked unnormalized probabilities, the softmax numerator.
+
+    The products take the operands in their input dtype, upcast to f32
+    (exact for bf16) and accumulate in f32, as the JAX version's
+    preferred_element_type=f32; statistics are f32. Fully masked rows are
+    zeroed. Returns (block_max [B,H,Tq] f32, probs [B,H,Tq,Tk] f32)."""
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), _flat_heads(k).float())
+    logits = logits * scale + bias.float()[None, None]
+    block_max = logits.amax(dim=-1)
+    probs = torch.exp(logits - block_max[..., None])
+    # exp(NEG_INF - NEG_INF) = 1 would count masked entries; zero them.
+    valid = block_max > NEG_INF / 2
+    return block_max, torch.where(valid[..., None], probs, 0.0)
+
+
+def block_attention_reference(q, k, v, bias):
+    """One flash step in plain PyTorch.
+
+    q: [B, Tq, H, D], k/v: [B, Tk, H, D] (or the 5-D GQA view), bias:
+    [Tq, Tk] additive mask. The probabilities are cast to v's dtype before
+    the PV product, as in the JAX version: bf16 parity depends on it."""
+    block_max, probs = _block_probs(q, k, bias)
+    v = _flat_heads(v)
+    weighted = torch.einsum(
+        "bhqk,bkhd->bqhd", probs.to(v.dtype).float(), v.float()
+    )
+    return block_max, probs.sum(dim=-1), weighted
+
+
+@functools.cache
+def _kernel():
+    fn = cuda_build.load("flash_block").flash_block_forward
+    fn.argtypes = (
+        [ctypes.c_int]
+        + [ctypes.c_void_p] * 7
+        + [ctypes.POINTER(ctypes.c_longlong)] * 2
+        + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _block_attention_cuda(q, k, v, bias):
+    """Check the operands, allocate the outputs, launch the kernel on the
+    current stream and raise if the launch failed."""
+    global KERNEL_LAUNCHES
+    k5 = k.unsqueeze(3) if k.dim() == 4 else k
+    v5 = v.unsqueeze(3) if v.dim() == 4 else v
+    if q.dim() != 4 or k5.dim() != 5 or v5.shape != k5.shape:
+        raise ValueError(
+            f"block_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"v {tuple(v.shape)} are not [B,T,H,D] (or matching GQA views)"
+        )
+    batch, tq, heads, dim = q.shape
+    _, tk, kv_heads, group, kdim = k5.shape
+    if k5.shape[0] != batch or kv_heads * group != heads or kdim != dim:
+        raise ValueError(
+            f"block_attention: k/v {tuple(k.shape)} do not match q {tuple(q.shape)}"
+        )
+    if tuple(bias.shape) != (tq, tk):
+        raise ValueError(f"block_attention: bias {tuple(bias.shape)} is not [{tq}, {tk}]")
+    if not 1 <= dim <= MAX_HEAD_DIM:
+        raise ValueError(f"block_attention: head dim {dim} outside 1..{MAX_HEAD_DIM}")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(
+            f"block_attention: dtypes q {q.dtype}, k {k.dtype}, v {v.dtype}; "
+            "the kernel takes float32 or bfloat16, all alike"
+        )
+    if any(t.device != q.device for t in (k, v, bias)):
+        raise ValueError("block_attention: q, k, v and bias must share one device")
+    if tq == 0 or tk == 0 or batch * heads == 0 or batch * heads > 65535:
+        raise ValueError(f"block_attention: unsupported shape {tuple(q.shape)}, Tk={tk}")
+
+    out_max = torch.empty((batch, heads, tq), dtype=torch.float32, device=q.device)
+    out_sum = torch.empty_like(out_max)
+    weighted = torch.empty((batch, tq, heads, dim), dtype=torch.float32, device=q.device)
+    dims = (ctypes.c_longlong * 6)(batch, heads, tq, tk, dim, group)
+    strides = (ctypes.c_longlong * 16)(
+        *q.stride(), *k5.stride(), *v5.stride(), *bias.stride()
+    )
+    launch = _kernel()
+    with torch.cuda.device(q.device):
+        err = launch(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k5.data_ptr(), v5.data_ptr(),
+            bias.data_ptr(), out_max.data_ptr(), out_sum.data_ptr(),
+            weighted.data_ptr(), dims, strides,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"flash_block kernel launch failed: CUDA error {err}")
+    KERNEL_LAUNCHES += 1
+    return out_max, out_sum, weighted
+
+
+def block_attention(q, k, v, bias):
+    """The flash block step; see the module docstring for the contract.
+    q/k/v stay in their dtype (f32 or bf16); bias and every output are f32."""
+    if any(t.requires_grad for t in (q, k, v, bias)):
+        raise NotImplementedError(
+            "block_attention has no backward in the port yet (the training "
+            "slice ports the JAX package's _bwd recompute)"
+        )
+    bias = bias.float()
+    if q.device.type == "cuda":
+        return _block_attention_cuda(q, k, v, bias)
+    if q.device.type == "cpu":
+        return block_attention_reference(q, k, v, bias)
+    raise ValueError(f"block_attention: no implementation on device {q.device}")
+
+
+def _repeat_heads(x, group: int):
+    """GQA broadcast of [B, T, H_kv, D]: an expand view [B, T, H_kv, group,
+    D] (stride 0 on the group axis, no copy), which block_attention takes
+    as [B, T, H_kv*group, D]. group == 1 returns x."""
+    if group == 1:
+        return x
+    b, t, hkv, d = x.shape
+    return x[:, :, :, None, :].expand(b, t, hkv, group, d)
+
+
+def causal_bias(n: int, device) -> torch.Tensor:
+    """[n, n] f32 lower-triangular additive mask: 0 on and below the
+    diagonal, NEG_INF above."""
+    idx = torch.arange(n, device=device)
+    rel = idx[:, None] - idx[None, :]
+    return torch.where(rel >= 0, 0.0, NEG_INF).to(torch.float32)
+
+
+def merge_block_stats(acc, blk):
+    """Online-softmax merge of two unnormalized (max, sum, weighted)
+    triples; max/sum are [B, H, Tq], weighted is [B, Tq, H, D]."""
+    acc_max, acc_sum, acc_out = acc
+    blk_max, blk_sum, blk_out = blk
+    new_max = torch.maximum(acc_max, blk_max)
+    old_scale = torch.exp(acc_max - new_max)
+    blk_scale = torch.exp(blk_max - new_max)
+    new_sum = acc_sum * old_scale + blk_sum * blk_scale
+    new_out = (
+        acc_out * old_scale.transpose(1, 2)[..., None]
+        + blk_out * blk_scale.transpose(1, 2)[..., None]
+    )
+    return new_max, new_sum, new_out
+
+
+def normalize_block_stats(acc_sum, acc_out):
+    """Final division of the folded accumulator; clamped so fully-masked
+    rows yield 0 instead of NaN."""
+    denom = torch.clamp(acc_sum, min=1e-20).transpose(1, 2)[..., None]
+    return acc_out / denom
+
+
+def blockwise_causal_attention(q, k, v, chunk: int = 512, causal: bool = True):
+    """Exact attention over positions 0..T-1, folded chunk by chunk so no
+    [T, T] bias or probability matrix materializes: a [c, c] triangle on
+    the diagonal, zeros below it, and (with `causal`) strictly-future
+    chunk pairs skipped. The chunk is floored at T/16.
+
+    q/k/v: [B, T, H, D]; k/v may carry fewer heads than q (GQA), broadcast
+    per block as a view. Returns [B, T, H, D] f32."""
+    t_total = q.shape[1]
+    batch, _, heads, dim = q.shape
+    group = heads // k.shape[2]
+    chunk = max(chunk, -(-t_total // 16))
+    starts = list(range(0, t_total, chunk))
+
+    out_chunks = []
+    for i, qs in enumerate(starts):
+        q_len = min(chunk, t_total - qs)
+        q_i = q[:, qs:qs + q_len]
+        acc = (
+            torch.full((batch, heads, q_len), NEG_INF, dtype=torch.float32, device=q.device),
+            torch.zeros((batch, heads, q_len), dtype=torch.float32, device=q.device),
+            torch.zeros((batch, q_len, heads, dim), dtype=torch.float32, device=q.device),
+        )
+        kv_starts = starts[: i + 1] if causal else starts
+        for j, ks in enumerate(kv_starts):
+            k_len = min(chunk, t_total - ks)
+            if causal and j == i:
+                bias = causal_bias(q_len, q.device)
+            else:
+                bias = torch.zeros((q_len, k_len), dtype=torch.float32, device=q.device)
+            blk = block_attention(
+                q_i,
+                _repeat_heads(k[:, ks:ks + k_len], group),
+                _repeat_heads(v[:, ks:ks + k_len], group),
+                bias,
+            )
+            acc = merge_block_stats(acc, blk)
+        out_chunks.append(normalize_block_stats(acc[1], acc[2]))
+    return torch.cat(out_chunks, dim=1)
