@@ -12,52 +12,91 @@
 // Outputs: block_max and block_sum [B, H, Tq] f32, weighted [B, Tq, H, D]
 // f32 (unnormalized), plain arrays with no lane packing.
 //
-// Design. One thread block per (batch*head, 64-row q tile). The kv axis,
-// which the TPU ran as a sequential grid dimension with VMEM scratch, is a
-// loop inside the block: m, l and the f32 accumulator [64, D] live in
-// registers for the whole loop. K and V stream through shared memory in
-// 64-row tiles (f32 after conversion: 70 KB at D = 64, 119 KB at D = 128,
-// inside the 227 KB a block may use). Operands are read in place from
-// [B, T, H, D] through element strides, so there is no transpose or pad
-// pass, and a GQA broadcast (a stride-0 group axis on k and v) is read
-// without a copy. Ragged edges are masked here: kv columns past Tk get
-// NEG_INF, q rows past Tq are not written. The products are FMA loops on
-// f32 copies of the operands, so a bf16 product is exact and an f32 one
-// stays f32 (no TF32). For bf16, p is rounded to bf16 before the PV
-// product, as the TPU kernel does with p.astype(v.dtype).
+// What bounds it. At the flagship prefill block (B=8, H=16, Tq=Tk=512,
+// D=64, bf16, causal triangle) the call must read q, k, v (25.2 MB) and the
+// bias (1.0 MB) and write weighted f32 (16.8 MB) and the stats (0.5 MB):
+// 43.5 MB, 13 us at 3.35 TB/s. The unmasked half of the products is
+// 4.3 GFLOP, 4.4 us on the bf16 tensor cores (989 TFLOP/s), but 64 us on
+// the f32 pipes (67 TFLOP/s). So on tensor cores the bound is memory; what
+// keeps a simple kernel from it is the work around the products: address arithmetic, the softmax's
+// exponentials and waits for data. The design moves each of those off the
+// consumer threads:
 //
-// Bound at the flagship prefill shape (B=8, H=16, Tq=Tk=512, D=64, bf16),
-// worked out from the shapes, not measured: it must read q, k, v
-// (25.2 MB) and the bias (1.0 MB) and write weighted f32 (16.8 MB) and the
-// stats (0.5 MB): 43.5 MB, 13 us at 3.35 TB/s. It does 8.6 GFLOP, 8.7 us
-// at the 989 TFLOP/s bf16 tensor-core rate. So the bound is memory, about
-// 13 us a launch. This kernel runs its products on the FP32 pipes
-// (67 TFLOP/s), so it cannot come near that bound; tensor cores (mma.sync,
-// then wgmma with TMA) are the later step.
+// - Tile classes (tile_classes_kernel). A pre-pass reads the [Tq, Tk] bias
+//   once per call and writes one class per 64x64 (q tile, kv tile):
+//   0 = every entry <= NEG_INF/2 (the tile adds p = 0 everywhere and cannot
+//   raise a max above NEG_INF/2, so it is skipped: no load, no product),
+//   1 = every entry exactly 0.0 (the bias is not read), 2 = anything else
+//   (the bias tile is read). Exact, not approximate. The causal triangle
+//   at T=512 has 28 tiles of class 0, 28 of class 1 and 8 of class 2.
+// - bf16: tensor cores (flash_block_tc_kernel). One block per (batch*head,
+//   64-row q tile): one consumer warpgroup (four warps, 16 q rows each) and
+//   one producer warp. The producer's lane 0 starts TMA loads of the K and
+//   V tiles of every live kv tile into a ring of stages in shared memory;
+//   each load completes on an mbarrier, and the consumers free a stage on
+//   another. So loads cost the consumers no registers and
+//   no instructions, and run ahead of the products. TMA's 128-byte swizzle
+//   is the layout the wgmma descriptors name, so no thread reshuffles a
+//   tile. S = Q.K^T is wgmma.m64n64k16 with Q and K in shared memory and f32
+//   accumulators in registers. The C fragments of two n8 column groups of
+//   S are the A fragment of one k16 step of P.V, so P goes from the
+//   accumulators to bf16 A registers (rounded against the running max, as
+//   the TPU kernel's p.astype(v.dtype)) without shared memory, and
+//   O += P.V is wgmma.m64nDk16 with V read in its [kv, D] layout through
+//   the transpose bit. m, l and O stay in registers across the kv loop.
+//   Each step of that loop waits on the one before (K, S, softmax, V, P.V),
+//   so what keeps the tensor cores fed is the number of warpgroups an SM
+//   holds: at D <= 64 two K/V stages and 96 registers a thread fit four
+//   blocks on an SM, with no setmaxnreg hand-over between producer and
+//   consumers. The block reads its row of tile classes into shared
+//   memory once, and thread 0 starts the Q load at entry, so no step of the
+//   loop waits on a global load of its own.
+//   The softmax runs in base 2 with log2(e) folded into the scale, one
+//   ex2.approx per entry; every value stays finite (masked entries are
+//   about -1.4e30, never -inf), so no difference of two infinities occurs.
+//   O leaves from the accumulators, each quad of threads writing 32
+//   contiguous bytes of a row (whole sectors) per store.
+//   Blocks of the longest q tiles (most live kv tiles under a causal mask)
+//   are launched first. Ragged Tq, Tk and D < 64 or < 128 come from TMA's
+//   zero fill of out-of-bounds boxes; kv columns past Tk also get NEG_INF.
+// - f32: FMA loops (flash_block_kernel), kept so an f32 product stays true
+//   f32 (no TF32); it applies the tile classes too. Only the differential
+//   tests and small f32 configurations run it.
+//
+// Operands are read in place from [B, T, H, D] (k and v as [B, T, H_kv,
+// group, D]: query head h reads kv head h / group, with a stride-0 group
+// axis for a GQA expand view), so the fused-QKV split views and GQA views
+// go in without a copy. The bf16 kernel's tensor maps cover the compact
+// [B, T, H_kv, D] storage and address kv head h / group by coordinate, so
+// no stride-0 axis reaches a map; TMA needs unit stride on D, a 16-byte
+// aligned base and strides that are multiples of 16 bytes, and the wrapper
+// raises on any other view.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;              // q rows per block
-constexpr int BK = 64;              // kv rows per shared-memory tile
-constexpr int THREADS = 128;        // 16 row groups x 8 lanes
-constexpr int LANES = 8;            // threads that share one row group
-constexpr int ROWS = 4;             // q rows per thread
-constexpr int SCOLS = BK / LANES;   // logits columns per thread, strided by LANES
+constexpr int TILE = 64;            // q rows and kv rows of one tile (and of one class)
 constexpr float NEG_INF = -1.0e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+constexpr float NEG_INF2 = NEG_INF * LOG2E;  // NEG_INF in base-2 logits
+constexpr unsigned char CLASS_MASKED = 0, CLASS_ZERO = 1;
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   const float* bias;
+  const unsigned char* classes;     // [ceil(Tq/TILE), n_kt]
   float* out_max;
   float* out_sum;
   float* out_weighted;
-  int B, H, Tq, Tk, D, group;
+  int B, H, Tq, Tk, D, group, n_kt;
   float scale;
   // Element strides. k and v are [B, Tk, H / group, group, D]: query head h
   // reads kv head h / group at slot h % group (slot stride 0 for GQA views).
@@ -67,16 +106,55 @@ struct Params {
   long long bias_sq, bias_sk;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+// ---------------------------------------------------------------------------
+// Tile classes of the bias
+// ---------------------------------------------------------------------------
 
-// p as the PV product sees it: rounded to the operand dtype of v.
-template <typename T>
-__device__ __forceinline__ float round_like(float x) { return x; }
-template <>
-__device__ __forceinline__ float round_like<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
+constexpr int CLASS_THREADS = 256;
+constexpr int CLASS_LOADS = TILE * TILE / CLASS_THREADS;  // entries per thread
+
+// One block per tile. Every thread starts all its loads before it looks at
+// one, so a block waits for memory once; entries past a ragged edge count
+// as both masked and zero.
+__global__ void __launch_bounds__(CLASS_THREADS)
+tile_classes_kernel(const float* bias, unsigned char* classes, int Tq, int Tk,
+                    long long sq, long long sk) {
+  const int qt = blockIdx.y, kt = blockIdx.x;
+  float x[CLASS_LOADS];
+  bool in[CLASS_LOADS];
+#pragma unroll
+  for (int j = 0; j < CLASS_LOADS; ++j) {
+    const int i = j * CLASS_THREADS + threadIdx.x;
+    const int r = qt * TILE + i / TILE, c = kt * TILE + i % TILE;
+    in[j] = r < Tq && c < Tk;
+    x[j] = in[j] ? __ldg(&bias[r * sq + c * sk]) : 0.f;
+  }
+  int masked = 1, zero = 1;
+#pragma unroll
+  for (int j = 0; j < CLASS_LOADS; ++j) {
+    masked &= !in[j] || x[j] <= 0.5f * NEG_INF;
+    zero &= x[j] == 0.f;
+  }
+  masked = __syncthreads_and(masked);
+  zero = __syncthreads_and(zero);
+  if (threadIdx.x == 0) classes[qt * gridDim.x + kt] = masked ? 0 : zero ? 1 : 2;
 }
+
+__device__ __forceinline__ int next_live_tile(const unsigned char* cls, int kt, int n_kt) {
+  while (kt < n_kt && cls[kt] == CLASS_MASKED) ++kt;
+  return kt;
+}
+
+// ---------------------------------------------------------------------------
+// f32: FMA loops
+// ---------------------------------------------------------------------------
+
+constexpr int BQ = TILE;            // q rows per block
+constexpr int BK = TILE;            // kv rows per shared-memory tile
+constexpr int THREADS = 128;        // 16 row groups x 8 lanes
+constexpr int LANES = 8;            // threads that share one row group
+constexpr int ROWS = 4;             // q rows per thread
+constexpr int SCOLS = BK / LANES;   // logits columns per thread, strided by LANES
 
 __device__ __forceinline__ float lane_group_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -96,7 +174,7 @@ constexpr int smem_floats() {
   return 3 * BQ * (DP + 4) + BQ * (BK + 4);
 }
 
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(THREADS) flash_block_kernel(Params p) {
   constexpr int RS = DP + 4;         // q/k/v row stride in floats (16-byte rows, spread banks)
   constexpr int PS = BK + 4;         // p row stride
@@ -119,15 +197,16 @@ __global__ void __launch_bounds__(THREADS) flash_block_kernel(Params p) {
   const int q0 = blockIdx.x * BQ;
   const int hk = h / p.group;
   const int hg = h % p.group;
+  const unsigned char* cls = p.classes + (long long)blockIdx.x * p.n_kt;
 
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh + hg * p.k_sg;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh + hg * p.v_sg;
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh + hg * p.k_sg;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh + hg * p.v_sg;
 
   for (int i = tid; i < BQ * DP; i += THREADS) {
     const int r = i / DP, d = i % DP;
     float x = 0.f;
-    if (q0 + r < p.Tq && d < p.D) x = to_f32(q[(q0 + r) * p.q_st + d * p.q_sd]);
+    if (q0 + r < p.Tq && d < p.D) x = q[(q0 + r) * p.q_st + d * p.q_sd];
     q_s[r * RS + d] = x;
   }
 
@@ -140,14 +219,17 @@ __global__ void __launch_bounds__(THREADS) flash_block_kernel(Params p) {
     for (int c = 0; c < OC; ++c) acc[i][c] = 0.f;
   }
 
-  for (int k0 = 0; k0 < p.Tk; k0 += BK) {
+  for (int kt = next_live_tile(cls, 0, p.n_kt); kt < p.n_kt;
+       kt = next_live_tile(cls, kt + 1, p.n_kt)) {
+    const int k0 = kt * BK;
+    const bool add_bias = cls[kt] != CLASS_ZERO;
     __syncthreads();  // the last tile's readers are done
     for (int i = tid; i < BK * DP; i += THREADS) {
       const int r = i / DP, d = i % DP;
       float kx = 0.f, vx = 0.f;
       if (k0 + r < p.Tk && d < p.D) {
-        kx = to_f32(k[(k0 + r) * p.k_st + d * p.k_sd]);
-        vx = to_f32(v[(k0 + r) * p.v_st + d * p.v_sd]);
+        kx = k[(k0 + r) * p.k_st + d * p.k_sd];
+        vx = v[(k0 + r) * p.v_st + d * p.v_sd];
       }
       k_s[r * RS + d] = kx;
       v_s[r * RS + d] = vx;
@@ -191,7 +273,8 @@ __global__ void __launch_bounds__(THREADS) flash_block_kernel(Params p) {
         const int col = k0 + lane + LANES * j;
         float x = NEG_INF;
         if (col < p.Tk) {
-          const float bias = row < p.Tq ? p.bias[row * p.bias_sq + col * p.bias_sk] : 0.f;
+          const float bias =
+              add_bias && row < p.Tq ? p.bias[row * p.bias_sq + col * p.bias_sk] : 0.f;
           x = s[i][j] * p.scale + bias;
         }
         s[i][j] = x;
@@ -204,7 +287,7 @@ __global__ void __launch_bounds__(THREADS) flash_block_kernel(Params p) {
       for (int j = 0; j < SCOLS; ++j) {
         const float e = s[i][j] > 0.5f * NEG_INF ? expf(s[i][j] - m_new) : 0.f;
         rs += e;
-        p_s[(rg * ROWS + i) * PS + lane + LANES * j] = round_like<T>(e);
+        p_s[(rg * ROWS + i) * PS + lane + LANES * j] = e;
       }
       l[i] = l[i] * corr + lane_group_sum(rs);
       m[i] = m_new;
@@ -256,40 +339,500 @@ __global__ void __launch_bounds__(THREADS) flash_block_kernel(Params p) {
   }
 }
 
-template <typename T, int DP>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+template <int DP>
+cudaError_t launch_fma(const Params& p, cudaStream_t stream) {
   constexpr int bytes = smem_floats<DP>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_block_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_block_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Tq + BQ - 1) / BQ, p.B * p.H);
-  flash_block_kernel<T, DP><<<grid, THREADS, bytes, stream>>>(p);
+  flash_block_kernel<DP><<<grid, THREADS, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dtype(const Params& p, cudaStream_t stream) {
-  if (p.D <= 32) return launch<T, 32>(p, stream);
-  if (p.D <= 64) return launch<T, 64>(p, stream);
-  return launch<T, 128>(p, stream);
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (wgmma fed by TMA from one producer warp)
+// ---------------------------------------------------------------------------
+
+constexpr int TC_CONSUMERS = 128;              // one warpgroup: 64 q rows, 16 per warp
+constexpr int TC_THREADS = TC_CONSUMERS + 32;  // and the producer warp
+constexpr int SUB_BYTES = TILE * 64 * 2;       // one [64 rows][64] bf16 swizzled sub-tile
+
+// Per padded head dim: K/V ring depth and the blocks per SM that the
+// registers (96 a thread at DP = 64, 168 at DP = 128) and the shared memory
+// (43 KB and 83 KB a block) are sized for. At DP = 64 a fourth resident
+// block hides more of each block's serial wait chain than a third stage.
+template <int DP>
+struct TcConfig;
+template <>
+struct TcConfig<64> {
+  static constexpr int STAGES = 2, MIN_BLOCKS = 4;
+};
+template <>
+struct TcConfig<128> {
+  static constexpr int STAGES = 2, MIN_BLOCKS = 2;
+};
+
+template <int DP>
+int tc_smem_bytes(int n_kt) {
+  // 1024-byte alignment slack, Q, the [stage][K, V] ring, the barriers,
+  // then one q tile's row of tile classes.
+  return 1024 + (1 + 2 * TcConfig<DP>::STAGES) * (DP / 64) * SUB_BYTES +
+         8 * (3 * TcConfig<DP>::STAGES + 1) + n_kt;
 }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done;
+}
+
+// Wait for the phase of `parity` to complete. A wait of more than about a
+// second means a lost arrival: trap, so the launch fails instead of
+// holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  if (mbar_try_wait(addr, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try_wait(addr, parity))
+    if (clock64() - start > (1ll << 31)) __trap();
+}
+
+// One TMA box of a 4-D tensor map (coordinates innermost first) into
+// shared memory; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a tile stored as 128-byte swizzled rows
+// (the layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B): start address,
+// leading and stride byte offsets (16-byte units), layout type 1 = 128B.
+__device__ __forceinline__ uint64_t sw128_desc(const void* smem, int lbo, int sbo) {
+  return (uint64_t)((smem_u32(smem) & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(sbo >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from touching a register that a wgmma in flight still
+// reads or writes before wgmma_wait_all.
+__device__ __forceinline__ void reg_fence(float& r) { asm volatile("" : "+f"(r) :: "memory"); }
+__device__ __forceinline__ void reg_fence(uint32_t& r) { asm volatile("" : "+r"(r) :: "memory"); }
+
+template <int N, int E, typename T>
+__device__ __forceinline__ void reg_fence(T (&r)[N][E]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < E; ++e) reg_fence(r[i][e]);
+}
+
+#define WG_D8(j) "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+#define WG_D64 WG_D8(0), WG_D8(1), WG_D8(2), WG_D8(3), WG_D8(4), WG_D8(5), WG_D8(6), WG_D8(7)
+#define WG_D128 WG_D64, WG_D8(8), WG_D8(9), WG_D8(10), WG_D8(11), WG_D8(12), WG_D8(13), \
+                WG_D8(14), WG_D8(15)
+#define WG_R32                                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define WG_R64                                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "  \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "  \
+  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "  \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d (+)= A . B, m64n64k16: A and B K-major in shared memory; `accumulate`
+// 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_R32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_D64
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d += A . B, m64nNk16: A in registers (per warp, the A fragment of
+// mma.m16n8k16), B MN-major in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_D64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16][4], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_R64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_D128
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Grid: (B*H, q tiles). Warps 0-3 are the consumer warpgroup (warp w owns
+// q rows 16w..16w+15 of the tile); warp 4 is the producer, whose lane 0
+// starts every TMA load.
+template <int DP>
+__global__ void __launch_bounds__(TC_THREADS, TcConfig<DP>::MIN_BLOCKS)
+    flash_block_tc_kernel(const __grid_constant__ Params p,
+                          const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v) {
+  using Cfg = TcConfig<DP>;
+  constexpr int NSUB = DP / 64;          // 64-column sub-tiles of the head dim
+  constexpr int TB = NSUB * SUB_BYTES;   // bytes of one [TILE][DP] tile
+  constexpr int KS = DP / 16;            // k16 steps of Q.K^T
+  constexpr int SN = TILE / 8;           // n8 tiles of S (kv columns)
+  constexpr int ON = DP / 8;             // n8 tiles of O (head-dim columns)
+
+  extern __shared__ unsigned char smem_raw[];
+  // 128-byte swizzled boxes want 1024-byte aligned destinations.
+  unsigned char* q_s = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = q_s + TB;  // [stage][K, V][TB]
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(ring + 2 * Cfg::STAGES * TB);
+  uint64_t* full_v = full_k + Cfg::STAGES;
+  uint64_t* empty = full_v + Cfg::STAGES;
+  uint64_t* q_full = empty + Cfg::STAGES;
+  unsigned char* cls = reinterpret_cast<unsigned char*>(q_full + 1);  // this q tile's classes
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bh = blockIdx.x;
+  const int b = bh / p.H, h = bh % p.H;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // longest q tiles first
+  const int q0 = qt * TILE;
+
+  // Thread 0 starts the Q load as soon as its barrier exists; meanwhile the
+  // block copies its row of tile classes to shared memory in one pass, so
+  // the kv loop never waits on a global load to find its next tile.
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Cfg::STAGES; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty[s], TC_CONSUMERS / 32);
+    }
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(q_full, TB);
+    for (int s = 0; s < NSUB; ++s) tma_load_4d(q_s + s * SUB_BYTES, &tm_q, q_full, s * 64, h, q0, b);
+  }
+  for (int j = threadIdx.x; j < p.n_kt; j += TC_THREADS)
+    cls[j] = p.classes[(long long)qt * p.n_kt + j];
+  __syncthreads();
+
+  if (warp == TC_CONSUMERS / 32) {
+    // Producer: K and V of each live kv tile into the ring.
+    if (lane == 0) {
+      const int hk = h / p.group;
+      int i = 0;
+      for (int kt = next_live_tile(cls, 0, p.n_kt); kt < p.n_kt;
+           kt = next_live_tile(cls, kt + 1, p.n_kt), ++i) {
+        const int stage = i % Cfg::STAGES;
+        if (i >= Cfg::STAGES) mbar_wait(&empty[stage], ((i / Cfg::STAGES) & 1) ^ 1);
+        unsigned char* k_s = ring + stage * 2 * TB;
+        mbar_expect_tx(&full_k[stage], TB);
+        for (int s = 0; s < NSUB; ++s)
+          tma_load_4d(k_s + s * SUB_BYTES, &tm_k, &full_k[stage], s * 64, hk, kt * TILE, b);
+        mbar_expect_tx(&full_v[stage], TB);
+        for (int s = 0; s < NSUB; ++s)
+          tma_load_4d(k_s + TB + s * SUB_BYTES, &tm_v, &full_v[stage], s * 64, hk, kt * TILE, b);
+      }
+    }
+    return;
+  }
+
+  // Consumers: S = Q.K^T, online softmax, O += P.V for each live tile.
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = q0 + warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+  const float scale2 = p.scale * LOG2E;
+  // Base-2 running max of each row, and this thread's partial sums over the
+  // columns it holds (reduced across the quad at the end).
+  float m[2] = {NEG_INF2, NEG_INF2}, l[2] = {0.f, 0.f};
+  float o[ON][4];
+#pragma unroll
+  for (int n = 0; n < ON; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  mbar_wait(q_full, 0);  // even with no live kv tile: no TMA write outlives the block
+  int i = 0;
+  for (int kt = next_live_tile(cls, 0, p.n_kt); kt < p.n_kt;
+       kt = next_live_tile(cls, kt + 1, p.n_kt), ++i) {
+    const int stage = i % Cfg::STAGES, parity = (i / Cfg::STAGES) & 1;
+    const unsigned char* k_s = ring + stage * 2 * TB;
+    const unsigned char* v_s = k_s + TB;
+
+    float s[SN][4];
+#pragma unroll
+    for (int j = 0; j < SN; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    mbar_wait(&full_k[stage], parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      // k16 step kk: 32 bytes into the 128-byte swizzled rows of its sub-tile.
+      const int off = (kk / 4) * SUB_BYTES + (kk % 4) * 32;
+      wgmma_ss_n64(s, sw128_desc(q_s + off, 16, 1024), sw128_desc(k_s + off, 16, 1024),
+                   kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(s);
+
+    // Base-2 logits x2 = log2(e) * (q.k * scale + bias); kv columns past Tk
+    // get NEG_INF2 whatever the tile's class. Clamped reads stay in bounds.
+    const int k0 = kt * TILE;
+    if (cls[kt] != CLASS_ZERO) {
+      const float* brow[2] = {p.bias + (long long)min(r0, p.Tq - 1) * p.bias_sq,
+                              p.bias + (long long)min(r0 + 8, p.Tq - 1) * p.bias_sq};
+#pragma unroll
+      for (int j = 0; j < SN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = min(k0 + j * 8 + 2 * t + (e & 1), p.Tk - 1);
+          s[j][e] = fmaf(s[j][e], scale2, brow[e >> 1][col * p.bias_sk] * LOG2E);
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < SN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= scale2;
+    }
+    if (k0 + TILE > p.Tk) {
+#pragma unroll
+      for (int j = 0; j < SN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + j * 8 + 2 * t + (e & 1) >= p.Tk) s[j][e] = NEG_INF2;
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < SN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    float m_used[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float corr = fast_exp2(m[r] - mx[r]);  // both finite: never NaN
+      m[r] = mx[r];
+      // A row with no entry above NEG_INF/2 yet subtracts 0, so its masked
+      // entries give exp2(-1.4e30) = 0 and not exp2(0) = 1.
+      m_used[r] = mx[r] > 0.5f * NEG_INF2 ? mx[r] : 0.f;
+      l[r] *= corr;
+#pragma unroll
+      for (int n = 0; n < ON; ++n) {
+        o[n][2 * r] *= corr;
+        o[n][2 * r + 1] *= corr;
+      }
+    }
+    // P as bf16 A fragments: the C fragments of S's n8 tiles 2j and 2j+1
+    // are the A fragment of k16 step j of P.V.
+    uint32_t pa[TILE / 16][4];
+#pragma unroll
+    for (int j = 0; j < SN; ++j) {
+      float pe[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        pe[e] = fast_exp2(s[j][e] - m_used[e >> 1]);
+        l[e >> 1] += pe[e];
+      }
+      pa[j / 2][(j % 2) * 2] = pack_bf16(pe[0], pe[1]);
+      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(pe[2], pe[3]);
+    }
+
+    mbar_wait(&full_v[stage], parity);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < TILE / 16; ++j)  // 16 kv rows = two 8-row groups of 1024 bytes
+      wgmma_rs(o, pa[j], sw128_desc(v_s + j * 2048, SUB_BYTES, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(o);
+    reg_fence(pa);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
+  }
+
+  // Stats: reduce l across the quad that shares a row; max back to base e.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = r0 + r * 8;
+    if (t == 0 && row < p.Tq) {
+      p.out_max[(long long)bh * p.Tq + row] = m[r] * LN2;
+      p.out_sum[(long long)bh * p.Tq + row] = l[r];
+    }
+  }
+
+  // O straight from the accumulators: a quad writes 32 contiguous bytes of
+  // a row per store, whole 32-byte sectors.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + r * 8;
+    if (row >= p.Tq) continue;
+    float* out = p.out_weighted + (((long long)b * p.Tq + row) * p.H + h) * p.D;
+#pragma unroll
+    for (int n = 0; n < ON; ++n) {
+      const int col = n * 8 + 2 * t;
+      if (p.D % 2 == 0 && col + 1 < p.D) {
+        *reinterpret_cast<float2*>(out + col) = make_float2(o[n][2 * r], o[n][2 * r + 1]);
+      } else {
+        if (col < p.D) out[col] = o[n][2 * r];
+        if (col + 1 < p.D) out[col + 1] = o[n][2 * r + 1];
+      }
+    }
+  }
+}
+
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+// cuTensorMapEncodeTiled from libcuda, found through the runtime (no
+// link against libcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A 4-D map over a bf16 operand [B, T, Hm, D] (element strides b, t, h; unit
+// stride on D): boxes of 64 head-dim columns by TILE rows of one (b, h),
+// 128-byte swizzled. Coordinates past the operand's edges read as zeros.
+// A dimension of size 1 is never stepped; it gets the stride a compact
+// tensor would have.
+bool make_map(CUtensorMap* map, const void* ptr, int B, int T, int Hm, int D, long long sb,
+              long long st, long long sh) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hm, (cuuint64_t)T, (cuuint64_t)B};
+  const long long given[3] = {sh, st, sb};
+  cuuint64_t strides[3];
+  cuuint64_t compact = ((cuuint64_t)D * 2 + 15) / 16 * 16;
+  for (int i = 0; i < 3; ++i) {
+    strides[i] = dims[i + 1] == 1 ? compact : (cuuint64_t)given[i] * 2;
+    compact = strides[i] * dims[i + 1];
+  }
+  const cuuint32_t box[4] = {64, 1, TILE, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DP>
+cudaError_t launch_tc(const Params& p, cudaStream_t stream) {
+  const int bytes = tc_smem_bytes<DP>(p.n_kt);
+  cudaError_t err = cudaFuncSetAttribute(flash_block_tc_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tm_q, tm_k, tm_v;
+  const int hkv = p.H / p.group;
+  if (!make_map(&tm_q, p.q, p.B, p.Tq, p.H, p.D, p.q_sb, p.q_st, p.q_sh) ||
+      !make_map(&tm_k, p.k, p.B, p.Tk, hkv, p.D, p.k_sb, p.k_st, p.k_sh) ||
+      !make_map(&tm_v, p.v, p.B, p.Tk, hkv, p.D, p.v_sb, p.v_st, p.v_sh))
+    return cudaErrorInvalidValue;
+  const dim3 grid(p.B * p.H, (p.Tq + TILE - 1) / TILE);
+  flash_block_tc_kernel<DP><<<grid, TC_THREADS, bytes, stream>>>(p, tm_q, tm_k, tm_v);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k and v share it; bias is f32).
+// Classes of the [Tq, Tk] f32 bias, one byte per 64x64 tile, row-major
+// [ceil(Tq/64), ceil(Tk/64)]: 0 all <= NEG_INF/2, 1 all 0.0, 2 otherwise.
+extern "C" int flash_block_tile_classes(const void* bias, void* classes, long long Tq,
+                                        long long Tk, long long bias_sq, long long bias_sk,
+                                        void* stream) {
+  if (Tq < 1 || Tk < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((Tk + TILE - 1) / TILE), (unsigned)((Tq + TILE - 1) / TILE));
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  tile_classes_kernel<<<grid, CLASS_THREADS, 0, (cudaStream_t)stream>>>(
+      static_cast<const float*>(bias), static_cast<unsigned char*>(classes), (int)Tq, (int)Tk,
+      bias_sq, bias_sk);
+  return (int)cudaGetLastError();
+}
+
+// dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (tensor-core kernel); q, k
+// and v share it; bias is f32. classes: flash_block_tile_classes's output.
 // dims: B, H, Tq, Tk, D, group.
 // strides (elements): q b,t,h,d; k b,t,h,g,d; v b,t,h,g,d; bias q,k.
 // Returns a cudaError_t: the launch's own error, or cudaErrorInvalidValue
 // for arguments the kernel does not take.
 extern "C" int flash_block_forward(int dtype, const void* q, const void* k, const void* v,
-                                   const void* bias, void* out_max, void* out_sum,
-                                   void* out_weighted, const long long* dims,
+                                   const void* bias, const void* classes, void* out_max,
+                                   void* out_sum, void* out_weighted, const long long* dims,
                                    const long long* strides, void* stream) {
   Params p;
   p.q = q;
   p.k = k;
   p.v = v;
   p.bias = static_cast<const float*>(bias);
+  p.classes = static_cast<const unsigned char*>(classes);
   p.out_max = static_cast<float*>(out_max);
   p.out_sum = static_cast<float*>(out_sum);
   p.out_weighted = static_cast<float*>(out_weighted);
@@ -302,13 +845,28 @@ extern "C" int flash_block_forward(int dtype, const void* q, const void* k, cons
   if (p.D < 1 || p.D > 128 || p.group < 1 || p.H % p.group || p.Tq < 1 || p.Tk < 1 ||
       p.B * p.H > 65535)
     return (int)cudaErrorInvalidValue;
+  p.n_kt = (p.Tk + TILE - 1) / TILE;
   p.scale = (float)(1.0 / sqrt((double)p.D));
   long long* dst[] = {&p.q_sb, &p.q_st, &p.q_sh, &p.q_sd, &p.k_sb, &p.k_st,
                       &p.k_sh, &p.k_sg, &p.k_sd, &p.v_sb, &p.v_st, &p.v_sh,
                       &p.v_sg, &p.v_sd, &p.bias_sq, &p.bias_sk};
   for (int i = 0; i < 16; ++i) *dst[i] = strides[i];
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return (int)launch_dtype<float>(p, s);
-  if (dtype == 1) return (int)launch_dtype<__nv_bfloat16>(p, s);
+  if (dtype == 0) {
+    if (p.D <= 32) return (int)launch_fma<32>(p, s);
+    if (p.D <= 64) return (int)launch_fma<64>(p, s);
+    return (int)launch_fma<128>(p, s);
+  }
+  if (dtype == 1) {
+    // TMA: unit stride on D, 16-byte aligned bases and strides.
+    bool ok = p.q_sd == 1 && p.k_sd == 1 && p.v_sd == 1 && aligned16(q) && aligned16(k) &&
+              aligned16(v);
+    const long long rows[] = {p.q_sb, p.q_st, p.q_sh, p.k_sb, p.k_st, p.k_sh,
+                              p.k_sg, p.v_sb, p.v_st, p.v_sh, p.v_sg};
+    for (long long st : rows) ok = ok && st % 8 == 0;
+    if (!ok) return (int)cudaErrorInvalidValue;
+    if (p.D <= 64) return (int)launch_tc<64>(p, s);
+    return (int)launch_tc<128>(p, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -11,14 +11,23 @@ step of the online-softmax recurrence that `parallel.ring_attention` and
 with *unnormalized* statistics, so a caller can fold many blocks into one
 accumulator and divide once at the end.
 
-Dispatch: a CUDA tensor goes to the hand-written kernel in
+Dispatch: a CUDA tensor goes to the hand-written kernels in
 `csrc/flash_block.cu` (built with nvcc at first use) and a CPU tensor to
 the plain version, `block_attention_reference`. There is no switch between
-them: on the card the kernel launches or the call raises.
+them: on the card a kernel launches or the call raises. On the card a call
+is two launches: the tile-class pre-pass over the bias (`tile_classes`,
+plain version `tile_classes_reference`), then the block kernel, which
+skips fully masked 64x64 tiles and reads no bias where a tile's bias is
+all zero. The block kernel has one variant per dtype: bf16 runs on the
+tensor cores, f32 on the FMA pipes (true f32, no TF32).
 
 k and v may also be given as the 5-D GQA view that `_repeat_heads` returns,
 [B, Tk, H_kv, group, D] with a stride-0 group axis; both paths take it as
-[B, Tk, H_kv*group, D], and the kernel reads it without a copy.
+[B, Tk, H_kv*group, D], and the kernels read it without a copy. The bf16
+kernel loads its tiles with TMA (the Tensor Memory Accelerator), so a bf16
+view on the card needs unit stride on D, a 16-byte aligned base and
+strides that are multiples of 16 bytes; the wrapper raises on any other
+view rather than copy it.
 
 The backward (the JAX package's `_bwd` recompute) is not ported yet:
 `block_attention` raises if an input requires grad.
@@ -35,11 +44,18 @@ from . import cuda_build
 
 NEG_INF = -1.0e30
 
-# Launches of the CUDA kernel, counted by the wrapper where it launches.
+# Launches counted by the wrapper where it launches: the block kernel (all
+# variants), each variant of it, and the tile-class pre-pass.
 KERNEL_LAUNCHES = 0
+TENSOR_CORE_LAUNCHES = 0
+FMA_LAUNCHES = 0
+TILE_CLASS_LAUNCHES = 0
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128  # the kernel keeps a [64, D] f32 accumulator in registers
+# dtype -> (kernel variant, dtype code of the C interface)
+_VARIANTS = {torch.bfloat16: ("tensor_core", 1), torch.float32: ("fma", 0)}
+MAX_HEAD_DIM = 128  # the kernels keep a [64, D] f32 accumulator in registers
+TILE = 64  # q rows and kv rows of one tile class (and of the kernels' tiles)
+MASKED, ZERO_BIAS, BIAS = 0, 1, 2  # tile classes
 
 
 def _flat_heads(x):
@@ -79,23 +95,101 @@ def block_attention_reference(q, k, v, bias):
     return block_max, probs.sum(dim=-1), weighted
 
 
+def tile_classes_reference(bias):
+    """The class of each 64x64 tile of a [Tq, Tk] bias, as uint8
+    [ceil(Tq/64), ceil(Tk/64)]: MASKED (0) where every entry is <= NEG_INF/2,
+    ZERO_BIAS (1) where every entry is exactly 0.0, BIAS (2) otherwise.
+    Entries past a ragged edge do not count. A MASKED tile adds p = 0 to
+    every row and cannot raise a max above NEG_INF/2, so the kernels skip
+    it; a ZERO_BIAS tile adds nothing, so they do not read it."""
+    bias = bias.float()
+    tq, tk = bias.shape
+    nq, nk = -(-tq // TILE), -(-tk // TILE)
+    pad = (0, nk * TILE - tk, 0, nq * TILE - tq)
+
+    def every(flags):
+        padded = torch.nn.functional.pad(flags.float(), pad, value=1.0)
+        return padded.reshape(nq, TILE, nk, TILE).amin(dim=(1, 3)) > 0
+
+    zero = torch.where(every(bias == 0), ZERO_BIAS, BIAS)
+    return torch.where(every(bias <= NEG_INF / 2), MASKED, zero).to(torch.uint8)
+
+
 @functools.cache
-def _kernel():
-    fn = cuda_build.load("flash_block").flash_block_forward
-    fn.argtypes = (
+def _library():
+    lib = cuda_build.load("flash_block")
+    lib.flash_block_forward.argtypes = (
         [ctypes.c_int]
-        + [ctypes.c_void_p] * 7
+        + [ctypes.c_void_p] * 8
         + [ctypes.POINTER(ctypes.c_longlong)] * 2
         + [ctypes.c_void_p]
     )
-    fn.restype = ctypes.c_int
-    return fn
+    lib.flash_block_tile_classes.argtypes = (
+        [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
+    )
+    for fn in (lib.flash_block_forward, lib.flash_block_tile_classes):
+        fn.restype = ctypes.c_int
+    return lib
 
 
-def _block_attention_cuda(q, k, v, bias):
-    """Check the operands, allocate the outputs, launch the kernel on the
-    current stream and raise if the launch failed."""
-    global KERNEL_LAUNCHES
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _tile_classes_cuda(bias):
+    """Launch the tile-class pre-pass on the current stream."""
+    global TILE_CLASS_LAUNCHES
+    tq, tk = bias.shape
+    classes = torch.empty((-(-tq // TILE), -(-tk // TILE)), dtype=torch.uint8,
+                          device=bias.device)
+    with torch.cuda.device(bias.device):
+        err = _library().flash_block_tile_classes(
+            bias.data_ptr(), classes.data_ptr(), tq, tk, *bias.stride(),
+            _stream(bias.device),
+        )
+    if err:
+        raise RuntimeError(f"flash_block tile-class kernel launch failed: CUDA error {err}")
+    TILE_CLASS_LAUNCHES += 1
+    return classes
+
+
+def tile_classes(bias):
+    """Tile classes of an f32 [Tq, Tk] bias: the pre-pass kernel on the
+    card, `tile_classes_reference` on the CPU."""
+    if bias.device.type == "cuda":
+        return _tile_classes_cuda(bias.float())
+    if bias.device.type == "cpu":
+        return tile_classes_reference(bias)
+    raise ValueError(f"tile_classes: no implementation on device {bias.device}")
+
+
+def _check_rows(name, t):
+    """A bf16 operand of the tensor-core kernel, whose TMA tensor maps take
+    unit stride on D, a 16-byte aligned base, and non-zero strides that are
+    multiples of 8 elements (a dim of size 1 is exempt: its stride is never
+    used; so is the stride-0 group axis of a GQA view)."""
+    strides = [s for i, (s, n) in enumerate(zip(t.stride()[:-1], t.shape[:-1]))
+               if n > 1 and not (i == 3 and s == 0)]
+    if (t.shape[-1] > 1 and t.stride(-1) != 1) or t.data_ptr() % 16 or any(
+        s % 8 or s == 0 for s in strides
+    ):
+        raise ValueError(
+            f"block_attention: bf16 {name} view (strides {t.stride()}, base "
+            f"offset {t.data_ptr() % 16} mod 16 bytes) does not give 16-byte "
+            "aligned rows with unit stride on D; the tensor-core kernel does "
+            "not copy it to a contiguous tensor"
+        )
+
+
+def _used_strides(t):
+    """Element strides as the kernels use them: 0 on dims of size 1."""
+    return [0 if n == 1 else s for s, n in zip(t.stride(), t.shape)]
+
+
+def _kernel_args(q, k, v, bias):
+    """Check the operands against what the kernels take, raising ValueError
+    on anything else, before any library is built. Returns (variant, dtype
+    code, k5, v5, dims, strides) for the C interface."""
     k5 = k.unsqueeze(3) if k.dim() == 4 else k
     v5 = v.unsqueeze(3) if v.dim() == 4 else v
     if q.dim() != 4 or k5.dim() != 5 or v5.shape != k5.shape:
@@ -109,38 +203,69 @@ def _block_attention_cuda(q, k, v, bias):
         raise ValueError(
             f"block_attention: k/v {tuple(k.shape)} do not match q {tuple(q.shape)}"
         )
-    if tuple(bias.shape) != (tq, tk):
-        raise ValueError(f"block_attention: bias {tuple(bias.shape)} is not [{tq}, {tk}]")
+    if tuple(bias.shape) != (tq, tk) or bias.dtype != torch.float32:
+        raise ValueError(
+            f"block_attention: bias {tuple(bias.shape)} {bias.dtype} is not f32 [{tq}, {tk}]"
+        )
     if not 1 <= dim <= MAX_HEAD_DIM:
         raise ValueError(f"block_attention: head dim {dim} outside 1..{MAX_HEAD_DIM}")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _VARIANTS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(
             f"block_attention: dtypes q {q.dtype}, k {k.dtype}, v {v.dtype}; "
-            "the kernel takes float32 or bfloat16, all alike"
+            "the kernels take float32 or bfloat16, all alike"
         )
     if any(t.device != q.device for t in (k, v, bias)):
         raise ValueError("block_attention: q, k, v and bias must share one device")
     if tq == 0 or tk == 0 or batch * heads == 0 or batch * heads > 65535:
         raise ValueError(f"block_attention: unsupported shape {tuple(q.shape)}, Tk={tk}")
+    variant, code = _VARIANTS[q.dtype]
+    if variant == "tensor_core" and group > 1 and (k5.stride(3) or v5.stride(3)):
+        # The kernel reads kv head h // group of a compact [B, T, H_kv, D];
+        # a 5-D k/v with a group axis of its own is read as H heads.
+        try:
+            k5, v5 = (t.view(batch, tk, heads, 1, dim) for t in (k5, v5))
+        except RuntimeError as err:
+            raise ValueError(
+                f"block_attention: bf16 k/v {tuple(k.shape)} with strides {k.stride()} "
+                "are neither a stride-0 GQA view nor viewable as [B, T, H, D]"
+            ) from err
+        group = 1
+    strides = [_used_strides(t) for t in (q, k5, v5)]
+    if variant == "tensor_core":
+        for name, t in (("q", q), ("k", k5), ("v", v5)):
+            _check_rows(name, t)
+        for s in strides:
+            s[-1] = 1
+    dims = (batch, heads, tq, tk, dim, group)
+    return variant, code, k5, v5, dims, [x for s in strides for x in s] + list(bias.stride())
 
+
+def _block_attention_cuda(q, k, v, bias, classes=None):
+    """Check the operands, launch the tile-class pre-pass (unless `classes`
+    is given) and the block kernel's variant for q's dtype on the current
+    stream, and raise if a launch failed."""
+    global KERNEL_LAUNCHES, TENSOR_CORE_LAUNCHES, FMA_LAUNCHES
+    variant, code, k5, v5, dims, strides = _kernel_args(q, k, v, bias)
+    batch, heads, tq, _, dim, _ = dims
+    if classes is None:
+        classes = _tile_classes_cuda(bias)
     out_max = torch.empty((batch, heads, tq), dtype=torch.float32, device=q.device)
     out_sum = torch.empty_like(out_max)
     weighted = torch.empty((batch, tq, heads, dim), dtype=torch.float32, device=q.device)
-    dims = (ctypes.c_longlong * 6)(batch, heads, tq, tk, dim, group)
-    strides = (ctypes.c_longlong * 16)(
-        *q.stride(), *k5.stride(), *v5.stride(), *bias.stride()
-    )
-    launch = _kernel()
     with torch.cuda.device(q.device):
-        err = launch(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k5.data_ptr(), v5.data_ptr(),
-            bias.data_ptr(), out_max.data_ptr(), out_sum.data_ptr(),
-            weighted.data_ptr(), dims, strides,
-            torch.cuda.current_stream(q.device).cuda_stream,
+        err = _library().flash_block_forward(
+            code, q.data_ptr(), k5.data_ptr(), v5.data_ptr(), bias.data_ptr(),
+            classes.data_ptr(), out_max.data_ptr(), out_sum.data_ptr(),
+            weighted.data_ptr(), (ctypes.c_longlong * 6)(*dims),
+            (ctypes.c_longlong * 16)(*strides), _stream(q.device),
         )
     if err:
-        raise RuntimeError(f"flash_block kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_block {variant} kernel launch failed: CUDA error {err}")
     KERNEL_LAUNCHES += 1
+    if variant == "tensor_core":
+        TENSOR_CORE_LAUNCHES += 1
+    else:
+        FMA_LAUNCHES += 1
     return out_max, out_sum, weighted
 
 
