@@ -14,7 +14,9 @@ Phases, in order; any failure exits non-zero before the result line:
      card, at the flagship prefill shape with six bias kinds and at edge
      shapes, and time the kernel, the plain version and the nearest
      PyTorch library call at the flagship and forward shapes, rotating
-     input sets larger than the 50 MB L2 (L2-cold);
+     input sets larger than the 50 MB L2 (L2-cold), and the host time of
+     one `generate`'s 24 block calls under no_grad, through the wrapper,
+     through the autograd.Function and straight to the launch;
   4. the flagship forward (`build_forward`) at B=8, T=1024: finite logits
      that match the plain path on the card, and a small config that
      matches the plain path on the CPU;
@@ -24,7 +26,21 @@ Phases, in order; any failure exits non-zero before the result line:
      tokens/s and time to first token (medians of a few more calls);
   6. a torch.profiler trace of one warm first-token call: the top 10
      device ops by device time and the card's idle share;
-  7. one `kernels` JSON line, then the result line
+  7. training at the flagship width and depth: `run_model_bench` (B=8,
+     T=1024, remat off, adam 1e-3; 8 block launches a step, all on the
+     tensor-core variant), one train step through the kernel against the
+     same step through the plain version (loss and every gradient leaf),
+     remat "full" (16 launches a step) and "dots" (8), the eval step
+     (8), the block backward's device time at the training shape and
+     the two ways to run its products, a torch.profiler trace of one
+     warm train step, and a small f32 config's step on the card against
+     the CPU;
+  8. the worker (`python -m jobset_tpu_torch.runtime.worker`) in a
+     subprocess on a small f32 LM workload with checkpoints: an
+     uninterrupted run, a run that fails at a step, and its restart,
+     which resumes from the checkpoint and ends at the uninterrupted
+     run's loss; the FMA variant's counter moves;
+  9. one `kernels` JSON line, then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 The flagship is the repo's training/decode bench config: vocab 32000,
@@ -72,6 +88,18 @@ SPIN_CYCLES = 10_000_000  # about 5 ms of the card's clock before a timed run
 # Flagship logits, kernel path against plain path (bf16 through 8 layers):
 # max|d| <= 5e-2 * max|ref| and mean|d| <= 1e-2 * mean|ref|.
 LOGITS_MAX_REL, LOGITS_MEAN_REL = 5e-2, 1e-2
+# Flagship train step, kernel path against plain path, and remat against
+# none (bf16 through 8 layers): loss within 1e-2 relative; each gradient
+# leaf within 5e-2 of the reference in relative norm. The kernel rounds p
+# to bf16 against its running max, the plain version against the block
+# max, and the plain backward differentiates through the max (the kernel
+# path's drops it: the gauge); both are bf16-level differences.
+TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-2, 5e-2
+# A small f32 config, the card's kernel path against the CPU's plain path:
+# loss rtol 1e-4, gradient leaves 1e-3 in relative norm (f32 in another
+# summation order, through 2 layers).
+F32_LOSS_REL, F32_GRAD_REL = 1e-4, 1e-3
+TRAIN_WARMUP, TRAIN_STEPS = 3, 20  # run_model_bench's untimed and timed steps
 
 FAILURES: list[str] = []
 
@@ -340,6 +368,34 @@ def time_block(case, n_sets, other_bias_kinds=()):
     return out
 
 
+def host_call_ms(case, calls=GENERATE_LAUNCHES, repeats=TTFT_REPEATS):
+    """Host time to issue `calls` block calls (one `generate`'s prefill
+    worth) on one case's inputs: the wrapper under no_grad, as serving
+    calls it; the autograd.Function under no_grad; and the kernel's launch
+    function alone. Median over `repeats`, the three interleaved."""
+    from jobset_tpu_torch.ops import flash_block as fb
+
+    args = (case["q"], case["k"], case["v"], case["bias"])
+    ways = {
+        "block_attention": lambda: fb.block_attention(*args),
+        "autograd_function": lambda: fb._BlockAttention.apply(*args),
+        "kernel_launch": lambda: fb._block_attention_cuda(*args),
+    }
+    runs = {name: [] for name in ways}
+    with torch.no_grad():
+        for fn in ways.values():
+            fn()
+        for _ in range(repeats):
+            for name, fn in ways.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    fn()
+                runs[name].append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+    return {name: sorted(r)[len(r) // 2] for name, r in runs.items()}
+
+
 def phase_kernels():
     from jobset_tpu_torch.ops import flash_block as fb
 
@@ -373,6 +429,10 @@ def phase_kernels():
               f"({t['bound_by']}), {t['bound_ms'] / t['ms']:.1%} of bound", flush=True)
     print("flash_block flagship bf16 [8,512,16,64], kernel alone by bias kind, L2-cold: "
           + ", ".join(f"{k} {ms:.4f} ms" for k, ms in flag_t["ms_by_bias"].items()), flush=True)
+    host = host_call_ms(flagship)
+    print(f"flash_block flagship bf16 [8,512,16,64], host time of {GENERATE_LAUNCHES} calls "
+          f"under no_grad, median of {TTFT_REPEATS}: "
+          + ", ".join(f"{k} {ms:.4f} ms" for k, ms in host.items()), flush=True)
 
     # The pre-pass over 64 distinct 1 MB triangle biases (64 MB > L2).
     biases = [flagship["bias"].clone() for _ in range(64)]
@@ -389,8 +449,9 @@ def phase_kernels():
             "route": "cuda",
             "source": "jobset_tpu_torch/ops/csrc/flash_block.cu",
             "replaces": "jobset_tpu/ops/flash_block.py:194",
-            "variant": "bf16 tensor cores (flash_block_tc_kernel); f32 FMA variant checked "
-                       "above, not on the main path",
+            "variant": "bf16 tensor cores (flash_block_tc_kernel) on the flagship paths; "
+                       "f32 FMA variant (flash_block_kernel) on the LM workload's default "
+                       "f32 path, which the worker phase drives",
             "max_abs_err": flagship["errs"]["weighted"],
             "ms": flag_t["ms"],
             "plain_ms": flag_t["plain_ms"],
@@ -402,6 +463,7 @@ def phase_kernels():
             "shape": "bf16 B=8 H=16 Tq=Tk=512 D=64, triangle bias; L2-cold",
             "call_ms": flag_t["call_ms"],
             "ms_by_bias": flag_t["ms_by_bias"],
+            "host_ms_per_generate_calls": host,
             "forward_shape": {k: fwd_t[k] for k in
                               ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
                                "bound_by")},
@@ -439,12 +501,10 @@ def compare_logits(name, got, want):
 
 
 def flagship_config():
-    from jobset_tpu_torch.models import TransformerConfig
+    """The bench's flagship config (remat off)."""
+    from jobset_tpu_torch.runtime.model_bench import flagship_config as bench_config
 
-    return TransformerConfig(
-        vocab_size=32000, d_model=1024, n_heads=16, d_ff=4096, n_layers=LAYERS,
-        dtype=torch.bfloat16,
-    )
+    return bench_config(n_layers=LAYERS)
 
 
 def phase_forward(params, results):
@@ -546,32 +606,23 @@ def merged_span_us(spans) -> float:
     return total + (cur_end - cur_start if cur_end is not None else 0.0)
 
 
-def phase_trace(params, results):
-    """torch.profiler over one warm `first_token` call (the TTFT path): the
-    top 10 device ops by device time and the card's idle share of the
-    traced window (first to last event, host or device)."""
+def traced(fn, label):
+    """torch.profiler over one call of fn: the top 10 device ops by device
+    time and the card's idle share of the traced window (first to last
+    event, host or device). None when the profiler saw no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from jobset_tpu_torch.models import build_generate
-
-    cfg = flagship_config()
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
-                           device="cuda", dtype=torch.int32)
-    first_token = build_generate(cfg, 1)
-    first_token(params, prompt)  # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        first_token(params, prompt)
+        fn()
         torch.cuda.synchronize()
     events = list(prof.events())
     device = [e for e in events if e.device_type == DeviceType.CUDA]
     if not device:
-        print("trace first_token: the profiler recorded no device events; device time "
+        print(f"trace {label}: the profiler recorded no device events; device time "
               "and idle share not measured", flush=True)
-        results["trace"] = None
-        return
+        return None
     window = (max(e.time_range.end for e in events)
               - min(e.time_range.start for e in events))
     busy = merged_span_us((e.time_range.start, e.time_range.end) for e in device)
@@ -580,17 +631,248 @@ def phase_trace(params, results):
         total, count = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (total + e.time_range.end - e.time_range.start, count + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    results["trace"] = {
+    print(f"trace {label}: window {window / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
+          f"idle share {1.0 - busy / window:.1%}; top 10 device ops:", flush=True)
+    for n, (t, c) in top:
+        print(f"  {t / 1e3:9.3f} ms  {c:5d}x  {n[:100]}", flush=True)
+    return {
         "window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
         "idle_share": 1.0 - busy / window,
         "device_ms_total": sum(t for t, _ in by_name.values()) / 1e3,
         "top10": [{"name": n[:120], "ms": t / 1e3, "count": c} for n, (t, c) in top],
     }
-    print(f"trace first_token (B={BATCH}, prompt {PROMPT}): window {window / 1e3:.3f} ms, "
-          f"device busy {busy / 1e3:.3f} ms, idle share {1.0 - busy / window:.1%}; "
-          f"top 10 device ops:", flush=True)
-    for n, (t, c) in top:
-        print(f"  {t / 1e3:9.3f} ms  {c:5d}x  {n[:100]}", flush=True)
+
+
+def phase_trace(params, results):
+    """The trace of one warm `first_token` call (the TTFT path)."""
+    from jobset_tpu_torch.models import build_generate
+
+    cfg = flagship_config()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    first_token = build_generate(cfg, 1)
+    first_token(params, prompt)  # warm-up
+    results["trace"] = traced(lambda: first_token(params, prompt),
+                              f"first_token (B={BATCH}, prompt {PROMPT})")
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: training
+# ---------------------------------------------------------------------------
+
+
+def token_batch(vocab, batch, seq, seed, device="cuda"):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tokens = torch.randint(0, vocab, (batch, seq + 1), generator=gen, device=device)
+    return {"inputs": tokens[:, :-1], "targets": tokens[:, 1:]}
+
+
+def sgd_step(cfg, params, batch, device=None):
+    """One train step at SGD lr 1.0 through `build_train_step`, so that
+    p - p' is the gradient: (loss, gradient leaves in tree order)."""
+    from jobset_tpu_torch import tree
+    from jobset_tpu_torch.models import build_train_step
+    from jobset_tpu_torch.runtime import optim
+
+    opt = optim.sgd(1.0)
+    new, _, loss = build_train_step(cfg, opt, device=device)(params, opt.init(params), batch)
+    grads = [p - q for p, q in zip(tree.leaves(params), tree.leaves(new))]
+    return float(loss), grads
+
+
+def compare_step(name, got, want, loss_rel, grad_rel):
+    """(loss, grads) of one step against a reference step's."""
+    (loss, grads), (ref_loss, ref_grads) = got, want
+    check(abs(loss - ref_loss) <= loss_rel * abs(ref_loss) and loss == loss,
+          f"{name}: loss {loss:.6f} vs {ref_loss:.6f} (rel {loss_rel})")
+    rels = [((g.float().cpu() - w.float().cpu()).norm() / w.float().cpu().norm()).item()
+            for g, w in zip(grads, ref_grads)]
+    check(all(r <= grad_rel for r in rels) and all(bool(torch.isfinite(g).all()) for g in grads),
+          f"{name}: every gradient leaf within {grad_rel} in relative norm "
+          f"(worst {max(rels):.3e} over {len(rels)} leaves)")
+    return max(rels)
+
+
+def launches_now():
+    from jobset_tpu_torch.ops import flash_block as fb
+
+    return {name: getattr(fb, name) for name in LAUNCH_COUNTERS}
+
+
+def phase_train(results):
+    from dataclasses import replace
+
+    from jobset_tpu_torch.models import TransformerConfig, init_params
+    from jobset_tpu_torch.ops import flash_block as fb
+    from jobset_tpu_torch.runtime import model_bench
+
+    card = results["card"]
+    reset_launches()
+    bench = model_bench.run_model_bench(steps=TRAIN_STEPS, warmup=TRAIN_WARMUP, batch=BATCH,
+                                        seq_len=PROMPT)
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    counts = check_launches(f"run_model_bench ({steps} steps)", LAYERS * steps)
+    results["train_step_launches"] = {k: v // steps for k, v in counts.items()}
+    losses = bench.pop("losses")
+    check(all(l == l and abs(l) < float("inf") for l in losses) and losses[-1] < losses[0],
+          f"run_model_bench: every loss finite, last {losses[-1]:.4f} < first {losses[0]:.4f}")
+    results["model_bench"] = bench
+    results["model_bench_losses"] = losses
+    lo, hi = bench["step_time_ms_range"]
+    print(f"train step flagship B={BATCH} T={PROMPT} (remat off, adam): median of "
+          f"{TRAIN_STEPS} {bench['step_time_ms_median']:.3f} ms ({lo:.3f}-{hi:.3f}), "
+          f"{bench['tokens_per_sec']:.1f} tokens/s, {bench['achieved_tflops']:.2f} TFLOP/s, "
+          f"MFU {bench['mfu_pct']}% of {bench['peak_tflops']} TFLOP/s, peak memory "
+          f"{bench['peak_memory_gb']:.2f} GB (information; {card})", flush=True)
+
+    # One step through the kernel against the same step through the plain
+    # version, from the same params and batch; then remat "full" and "dots".
+    cfg = flagship_config()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    batch = token_batch(cfg.vocab_size, BATCH, PROMPT, seed=3)
+    reset_launches()
+    kernel = sgd_step(cfg, params, batch)
+    results["train_launches_remat_off"] = check_launches("train step, remat off", LAYERS)
+    with plain_attention():
+        plain = sgd_step(cfg, params, batch)
+    results["train_grad_rel_vs_plain"] = compare_step(
+        "train step flagship, kernel vs plain", kernel, plain, TRAIN_LOSS_REL, TRAIN_GRAD_REL)
+    del plain
+    for policy, want in (("full", 2 * LAYERS), ("dots", LAYERS)):
+        reset_launches()
+        # "full" re-runs each layer's forward, kernel included, in the
+        # backward; "dots" keeps the attention output and re-runs no kernel.
+        remat = sgd_step(replace(cfg, remat=True, remat_policy=policy), params, batch)
+        results[f"train_launches_remat_{policy}"] = check_launches(
+            f"train step, remat {policy!r}", want)
+        compare_step(f"train step flagship, remat {policy!r} vs off", remat, kernel,
+                     TRAIN_LOSS_REL, TRAIN_GRAD_REL)
+        del remat
+    from jobset_tpu_torch.models import build_eval_step
+
+    reset_launches()
+    eval_loss = float(build_eval_step(cfg)(params, batch))
+    results["eval_launches"] = check_launches("eval step", LAYERS)
+    check(abs(eval_loss - kernel[0]) <= TRAIN_LOSS_REL * abs(kernel[0]),
+          f"eval step flagship: loss {eval_loss:.6f} vs the train step's {kernel[0]:.6f}")
+    del kernel
+    torch.cuda.empty_cache()
+
+    # The block backward at the training shape: device time of one call
+    # (recompute, dW.V^T, dlogits, dq, dk, dv; each [B,H,T,T] f32 tensor
+    # is 512 MB, far past L2), against the forward kernel at that shape.
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v = make_qkv(torch.bfloat16, BATCH, PROMPT, PROMPT, 16, 64, 16, gen, fused=True)
+    bias = make_bias("triangle", PROMPT, PROMPT)
+    dsum = torch.randn((BATCH, 16, PROMPT), generator=gen, device="cuda")
+    dw = torch.randn((BATCH, PROMPT, 16, 64), generator=gen, device="cuda")
+    needs = (True, True, True, False)
+    bwd_ms = cuda_ms(lambda: fb._block_attention_bwd(q, k, v, bias, dsum, dw, needs), 5)
+    results["block_backward_ms"] = bwd_ms
+    print(f"block backward bf16 [8,1024,16,64] triangle: {bwd_ms:.3f} ms a call, "
+          f"{LAYERS * bwd_ms:.3f} ms a step ({LAYERS} layers; {card})", flush=True)
+    # Its products: bf16 operands with an f32 result (the path taken)
+    # against the same product on operands upcast to f32 (TF32 off).
+    a, b = fb._heads_first(dw.to(torch.bfloat16)), fb._heads_first(v).transpose(1, 2)
+    results["backward_product_ms"] = {
+        "bf16_out_f32": cuda_ms(lambda: fb._bmm_f32(a, b), ITERS),
+        "f32_upcast": cuda_ms(lambda: torch.bmm(a.float(), b.float()), ITERS),
+    }
+    print(f"backward product dW.V^T [128,1024,64]x[128,64,1024]: bf16 with f32 result "
+          f"{results['backward_product_ms']['bf16_out_f32']:.4f} ms, f32 upcast "
+          f"{results['backward_product_ms']['f32_upcast']:.4f} ms ({card})", flush=True)
+    del a, b
+    del q, k, v, dsum, dw
+
+    # The trace of one warm flagship train step (remat off, adam).
+    from jobset_tpu_torch.models import build_train_step
+    from jobset_tpu_torch.runtime import optim
+
+    opt = optim.adam(1e-3)
+    state = opt.init(params)
+    step = build_train_step(cfg, opt)
+    params, state, _ = step(params, state, batch)  # warm-up
+    holder = {}
+
+    def one_step():
+        holder["out"] = step(params, state, batch)
+
+    trace = traced(one_step, f"train step (B={BATCH}, T={PROMPT}, remat off, adam)")
+    if trace is not None:
+        trace["block_backward_share"] = LAYERS * bwd_ms / trace["device_busy_ms"]
+        print(f"block backward share of the step's device busy time: "
+              f"{trace['block_backward_share']:.1%} ({LAYERS} x {bwd_ms:.3f} ms)", flush=True)
+    results["train_trace"] = trace
+    del params, state, holder, step
+    torch.cuda.empty_cache()
+
+    # A small f32 GQA config: the card's kernel path against the CPU's.
+    small = TransformerConfig(vocab_size=128, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+                              n_layers=2, dtype=torch.float32, remat=False)
+    small_params = init_params(small, torch.Generator().manual_seed(0), "cpu")
+    small_batch = token_batch(128, 4, 64, seed=5, device="cpu")
+    before = launches_now()["FMA_LAUNCHES"]
+    card_step = sgd_step(small, to_device(small_params, "cuda"),
+                         {k: t.cuda() for k, t in small_batch.items()})
+    check(launches_now()["FMA_LAUNCHES"] - before == small.n_layers,
+          "small f32 train step: one FMA-variant launch per layer")
+    compare_step("small f32 train step, card vs CPU plain path", card_step,
+                 sgd_step(small, small_params, small_batch, device="cpu"),
+                 F32_LOSS_REL, F32_GRAD_REL)
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the worker
+# ---------------------------------------------------------------------------
+
+
+def run_worker(workload_file, restart_attempt):
+    env = dict(os.environ, JOBSET_RESTART_ATTEMPT=str(restart_attempt))
+    env.pop("JOBSET_WORKLOAD", None)
+    run = subprocess.run(
+        [sys.executable, "-m", "jobset_tpu_torch.runtime.worker", "--workload-file",
+         workload_file], capture_output=True, text=True, timeout=600, env=env,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+    )
+    lines = run.stdout.strip().splitlines()
+    result = json.loads(lines[-1]) if lines else None
+    if run.returncode not in (0, 1):
+        print(run.stderr[-2000:], file=sys.stderr)
+    return run.returncode, result
+
+
+def phase_worker(results):
+    import tempfile
+
+    small = {"vocab_size": 256, "d_model": 128, "n_heads": 4, "d_ff": 256, "n_layers": 2}
+    with tempfile.TemporaryDirectory() as tmp:
+        def workload(name, **kw):
+            path = os.path.join(tmp, f"{name}.json")
+            with open(path, "w") as f:
+                json.dump({"kind": "lm", "steps": 6, "config": small, **kw}, f)
+            return path
+
+        rc, straight = run_worker(workload("straight"), 0)
+        check(rc == 0 and straight is not None and straight["steps"] == 6,
+              f"worker: uninterrupted run exits {rc} with its result line")
+        launches = (straight or {}).get("kernel_launches", {})
+        check(launches.get("FMA_LAUNCHES", 0) >= 6 * small["n_layers"]
+              and launches.get("TENSOR_CORE_LAUNCHES") == 0,
+              f"worker: the f32 run launched the FMA variant ({launches})")
+        crashing = workload("crashing", checkpoint_every=2,
+                            checkpoint_dir=os.path.join(tmp, "ckpt"), fail_at_step=3)
+        rc_fail, failed = run_worker(crashing, 0)
+        check(rc_fail == 1 and failed is not None and "step 3" in failed.get("failed", ""),
+              f"worker: the run with fail_at_step=3 exits {rc_fail} and says where it failed")
+        rc_resume, resumed = run_worker(crashing, 1)
+        ok = rc_resume == 0 and resumed is not None and straight is not None
+        check(ok and resumed["steps"] == 4
+              and abs(resumed["final_loss"] - straight["final_loss"])
+              <= 1e-5 * abs(straight["final_loss"]),
+              f"worker: restart attempt 1 resumes at step 2 and ends at the uninterrupted "
+              f"loss ({(resumed or {}).get('final_loss')} vs {(straight or {}).get('final_loss')})")
+    results["worker"] = {"straight": straight, "failed": failed, "resumed": resumed}
 
 
 def main() -> int:
@@ -633,12 +915,22 @@ def main() -> int:
     phase_forward(params, results)
     phase_generate(params, results)
     phase_trace(params, results)
+    del params
+    torch.cuda.empty_cache()
+    phase_train(results)
+    phase_worker(results)
 
     counters = {"flash_block": "TENSOR_CORE_LAUNCHES",
                 "flash_block_tile_classes": "TILE_CLASS_LAUNCHES"}
     for kernel in kernels:
-        kernel["launches"] = results["launches"][counters[kernel["name"]]]
-        kernel["forward_launches"] = results["forward_launches"][counters[kernel["name"]]]
+        counter = counters[kernel["name"]]
+        kernel["launches"] = results["launches"][counter]
+        kernel["forward_launches"] = results["forward_launches"][counter]
+        kernel["train_step_launches"] = results["train_step_launches"][counter]
+        kernel["train_step_launches_by_remat"] = {
+            policy: results[f"train_launches_remat_{policy}"][counter]
+            for policy in ("off", "full", "dots")}
+        kernel["eval_step_launches"] = results["eval_launches"][counter]
     results["kernels"] = kernels
     results["seconds"] = time.perf_counter() - t_start
     if args.out:

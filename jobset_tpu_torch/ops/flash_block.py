@@ -29,8 +29,14 @@ view on the card needs unit stride on D, a 16-byte aligned base and
 strides that are multiples of 16 bytes; the wrapper raises on any other
 view rather than copy it.
 
-The backward (the JAX package's `_bwd` recompute) is not ported yet:
-`block_attention` raises if an input requires grad.
+`block_attention` is differentiable: its backward is the JAX package's
+`_bwd` in torch code. It recomputes the block's probabilities from the
+saved q, k, v and bias (they are never stored) and forms the backward
+products from operands in the compute dtype with f32 results. No
+cotangent flows through `block_max`: the (max, sum, weighted) triple is a
+gauge that every consumer (merge and normalization) is invariant to, so
+the end-to-end gradient does not depend on it. The backward is torch code
+on the card too (a hand-written backward kernel is later work).
 """
 
 from __future__ import annotations
@@ -64,16 +70,37 @@ def _flat_heads(x):
     return x.flatten(2, 3) if x.dim() == 5 else x
 
 
+def _bmm_f32(a, b):
+    """[N, m, k] x [N, k, n] -> [N, m, n] f32 from two operands of one
+    dtype, accumulated in f32: the JAX version's preferred_element_type=f32.
+    A bf16 pair on the card runs on the tensor cores with an f32 result
+    (`out_dtype`, an overload CUDA has and the CPU lacks); otherwise the
+    operands are upcast, which is exact for bf16, so both give the same
+    products. The overload has no derivative, so where autograd records
+    the product (the plain version differentiated directly) the operands
+    are upcast too."""
+    recorded = torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
+    if a.is_cuda and a.dtype == torch.bfloat16 and not recorded:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _heads_first(x):
+    """[B, T, H, D] (or the 5-D GQA view) -> [B*H, T, D]."""
+    x = _flat_heads(x)
+    b, t, h, d = x.shape
+    return x.transpose(1, 2).reshape(b * h, t, d)
+
+
 def _block_probs(q, k, bias):
     """Logits -> masked unnormalized probabilities, the softmax numerator.
 
-    The products take the operands in their input dtype, upcast to f32
-    (exact for bf16) and accumulate in f32, as the JAX version's
-    preferred_element_type=f32; statistics are f32. Fully masked rows are
-    zeroed. Returns (block_max [B,H,Tq] f32, probs [B,H,Tq,Tk] f32)."""
-    scale = q.shape[-1] ** -0.5
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), _flat_heads(k).float())
-    logits = logits * scale + bias.float()[None, None]
+    The products take the operands in their input dtype with f32 results
+    (`_bmm_f32`); statistics are f32. Fully masked rows are zeroed.
+    Returns (block_max [B,H,Tq] f32, probs [B,H,Tq,Tk] f32)."""
+    batch, tq, heads, dim = q.shape
+    logits = _bmm_f32(_heads_first(q), _heads_first(k).transpose(1, 2))
+    logits = logits.view(batch, heads, tq, -1) * dim ** -0.5 + bias.float()[None, None]
     block_max = logits.amax(dim=-1)
     probs = torch.exp(logits - block_max[..., None])
     # exp(NEG_INF - NEG_INF) = 1 would count masked entries; zero them.
@@ -269,20 +296,75 @@ def _block_attention_cuda(q, k, v, bias, classes=None):
     return out_max, out_sum, weighted
 
 
-def block_attention(q, k, v, bias):
-    """The flash block step; see the module docstring for the contract.
-    q/k/v stay in their dtype (f32 or bf16); bias and every output are f32."""
-    if any(t.requires_grad for t in (q, k, v, bias)):
-        raise NotImplementedError(
-            "block_attention has no backward in the port yet (the training "
-            "slice ports the JAX package's _bwd recompute)"
-        )
-    bias = bias.float()
+def _block_attention_bwd(q, k, v, bias, dsum, dweighted, needs):
+    """The JAX package's `_bwd`: gradients of (block_sum, weighted) with
+    respect to (q, k, v, bias), each in its input's dtype and shape (a GQA
+    view's gradient keeps the view's shape; autograd sums its group axis).
+    `needs` is ctx.needs_input_grad; an input that needs none gets None."""
+    compute = q.dtype
+    batch, tq, heads, dim = q.shape
+    scale = dim ** -0.5
+    # Recompute the probabilities: the same `_block_probs` the plain
+    # forward runs, so forward and backward cannot drift.
+    _, probs = _block_probs(q, k, bias)
+    tk = probs.shape[-1]
+
+    # d(probs) from block_sum (broadcast) and from weighted = probs @ v;
+    # with unnormalized probs d(logits) = probs * d(probs), and the
+    # softmax Jacobian's subtraction arrives through dsum.
+    dw_c = _heads_first(dweighted.to(compute))
+    dlogits = _bmm_f32(dw_c, _heads_first(v).transpose(1, 2)).view(batch, heads, tq, tk)
+    dlogits.add_(dsum[..., None]).mul_(probs)
+    probs_c = probs.to(compute).view(batch * heads, tq, tk)
+    del probs
+    dl_c = dlogits.to(compute).view(batch * heads, tq, tk)
+
+    def back(g, like):  # [B*H, T, D] f32 -> like's shape and dtype
+        g = g.view(batch, heads, -1, dim).transpose(1, 2)
+        return g.reshape(like.shape).to(like.dtype)
+
+    dq = back(_bmm_f32(dl_c, _heads_first(k)) * scale, q) if needs[0] else None
+    dk = back(_bmm_f32(dl_c.transpose(1, 2), _heads_first(q)) * scale, k) if needs[1] else None
+    dv = back(_bmm_f32(probs_c.transpose(1, 2), dw_c), v) if needs[2] else None
+    dbias = dlogits.sum(dim=(0, 1)).to(bias.dtype) if needs[3] else None
+    return dq, dk, dv, dbias
+
+
+def _block_attention_forward(q, k, v, bias):
+    """The kernel on the card, the plain version on the CPU."""
     if q.device.type == "cuda":
         return _block_attention_cuda(q, k, v, bias)
     if q.device.type == "cpu":
         return block_attention_reference(q, k, v, bias)
     raise ValueError(f"block_attention: no implementation on device {q.device}")
+
+
+class _BlockAttention(torch.autograd.Function):
+    """The block step with the recompute backward (`jax.custom_vjp` of the
+    JAX version): the forward saves its inputs only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        ctx.save_for_backward(q, k, v, bias)
+        return _block_attention_forward(q, k, v, bias)
+
+    @staticmethod
+    def backward(ctx, dmax, dsum, dweighted):
+        del dmax  # the gauge direction: no flow through the block max
+        return _block_attention_bwd(*ctx.saved_tensors, dsum, dweighted,
+                                    ctx.needs_input_grad)
+
+
+def block_attention(q, k, v, bias):
+    """The flash block step; see the module docstring for the contract.
+    q/k/v stay in their dtype (f32 or bf16); bias and every output are f32.
+    Differentiable in q, k, v and bias. A call that autograd does not
+    record (grad disabled, as in serving, or no input that requires grad)
+    goes straight to the forward, without the autograd.Function's cost."""
+    bias = bias.float()
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
+        return _BlockAttention.apply(q, k, v, bias)
+    return _block_attention_forward(q, k, v, bias)
 
 
 def _repeat_heads(x, group: int):

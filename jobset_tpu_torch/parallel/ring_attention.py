@@ -4,8 +4,9 @@
 At sp = 1 the ring has one rank: the fold runs once, over the whole local
 sequence with the triangular (or, without `causal`, zero) bias. Merging
 one block into the empty accumulator returns the block unchanged, so the
-block's statistics are normalized directly. The K/V rotation for sp > 1
-comes with the multi-device slice.
+block's statistics are normalized directly; gradients flow back through
+the normalization and `block_attention`'s backward. The K/V rotation for
+sp > 1 comes with the multi-device slice.
 """
 
 from __future__ import annotations

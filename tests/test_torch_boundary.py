@@ -62,6 +62,16 @@ def test_entry_without_device_raises():
         entry()
 
 
+def test_worker_without_cpu_flag_raises(tmp_path):
+    _no_cuda()
+    path = tmp_path / "w.json"
+    path.write_text('{"kind": "lm", "steps": 1}')
+    run = subprocess.run([sys.executable, "-m", "jobset_tpu_torch.runtime.worker",
+                          "--workload-file", str(path)], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert run.returncode != 0 and "no CUDA device" in run.stderr
+
+
 def test_chip_smoke_fails_without_a_card():
     _no_cuda()
     run = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")], cwd=REPO,
@@ -70,9 +80,12 @@ def test_chip_smoke_fails_without_a_card():
     assert '"ok"' not in run.stdout and '"kernels"' not in run.stdout
 
 
-@pytest.mark.parametrize("entry_point", ["build_generate", "build_forward", "init_params"])
+@pytest.mark.parametrize("entry_point", ["build_generate", "build_forward", "init_params",
+                                         "build_train_step", "build_eval_step",
+                                         "train_workload", "run_model_bench"])
 def test_entry_points_without_device_raise(entry_point):
     from jobset_tpu_torch.models import decode, transformer
+    from jobset_tpu_torch.runtime import model_bench, optim, runner
 
     _no_cuda()
     cfg = transformer.TransformerConfig(vocab_size=16, d_model=16, n_heads=2, d_ff=16,
@@ -81,6 +94,10 @@ def test_entry_points_without_device_raise(entry_point):
         "build_generate": lambda: decode.build_generate(cfg, 2),
         "build_forward": lambda: transformer.build_forward(cfg),
         "init_params": lambda: transformer.init_params(cfg, torch.Generator()),
+        "build_train_step": lambda: transformer.build_train_step(cfg, optim.sgd(0.1)),
+        "build_eval_step": lambda: transformer.build_eval_step(cfg),
+        "train_workload": lambda: runner.train_workload({"kind": "lm", "steps": 1}),
+        "run_model_bench": lambda: model_bench.run_model_bench(steps=1, config=cfg),
     }[entry_point]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()

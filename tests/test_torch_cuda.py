@@ -1,5 +1,7 @@
 """Card-only tests of the port: the CUDA kernel against its plain version,
-and the serving path on the card against the same path on the CPU.
+the serving path and the train step on the card against the same paths on
+the CPU, the block backward on the card against the CPU's, and the kernel
+launches per train step under each remat setting.
 
 They skip without a CUDA device. This file imports no JAX, so it also runs
 on a machine that has none: `python -m pytest --noconftest -m cuda
@@ -14,8 +16,12 @@ against the block max in the plain version).
 import pytest
 import torch
 
+from dataclasses import replace
+
+from jobset_tpu_torch import tree
 from jobset_tpu_torch.models import decode, transformer
 from jobset_tpu_torch.ops import flash_block as fb
+from jobset_tpu_torch.runtime import optim
 
 
 @pytest.fixture
@@ -119,3 +125,60 @@ def test_generate_on_card_matches_cpu_at_f32(cuda):
     logits = transformer.build_forward(cfg)(on_card, prompt)
     want_logits = transformer.build_forward(cfg, "cpu")(params, prompt)
     assert _within(logits.cpu(), want_logits, 1e-4, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_block_backward_on_card_matches_cpu(cuda, dtype):
+    # The card's forward is the kernel; both backwards recompute with the
+    # plain products. bf16: 2e-2 relative to the tensor's largest value.
+    gen = torch.Generator().manual_seed(9)
+    q = torch.randn((2, 96, 4, 32), generator=gen).to(dtype)
+    k_c, v_c = (torch.randn((2, 96, 2, 32), generator=gen).to(dtype) for _ in range(2))
+    bias = _bias("triangle", 96, 96, "cpu")
+    cot = [torch.randn(s, generator=gen) for s in ((2, 4, 96), (2, 4, 96), (2, 96, 4, 32))]
+
+    def grads(device):
+        xs = [t.to(device).requires_grad_() for t in (q, k_c, v_c, bias)]
+        outs = fb.block_attention(xs[0], fb._repeat_heads(xs[1], 2), fb._repeat_heads(xs[2], 2),
+                                  xs[3])
+        return torch.autograd.grad(outs, xs, grad_outputs=[c.to(device) for c in cot])
+
+    before = fb.KERNEL_LAUNCHES
+    got = grads(cuda)
+    assert fb.KERNEL_LAUNCHES == before + 1
+    rtol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for g, w in zip(got, grads("cpu")):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert _within(g.cpu(), w, rtol, 1e-5)
+
+
+def _small_config(**kw):
+    return transformer.TransformerConfig(vocab_size=128, d_model=64, n_heads=4, n_kv_heads=2,
+                                         d_ff=128, n_layers=2, dtype=torch.float32, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat, launches", [("off", 2), ("full", 4), ("dots", 2)])
+def test_train_step_launches_and_matches_cpu(cuda, remat, launches):
+    cfg = _small_config(remat=remat != "off", remat_policy="full" if remat == "off" else remat)
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.randint(0, 128, (4, 65), generator=torch.Generator().manual_seed(1))
+    batch = {"inputs": tokens[:, :-1], "targets": tokens[:, 1:]}
+    opt = optim.sgd(1.0)
+
+    def step(device, p):
+        return transformer.build_train_step(cfg, opt, device=device)(p, opt.init(p), batch)
+
+    before = fb.KERNEL_LAUNCHES
+    got, _, loss = step(None, tree.tree_map(lambda t: t.to(cuda), params))
+    assert fb.KERNEL_LAUNCHES - before == launches
+    want, _, want_loss = step("cpu", params)
+    assert abs(loss.item() - want_loss.item()) <= 1e-4 * abs(want_loss.item())
+    for g, w, p in zip(tree.leaves(got), tree.leaves(want), tree.leaves(params)):
+        assert _within((p - g.cpu()), (p - w), 1e-3, 1e-7)
+
+    before = fb.KERNEL_LAUNCHES
+    transformer.build_eval_step(replace(cfg, remat=True))(
+        tree.tree_map(lambda t: t.to(cuda), params), batch)
+    assert fb.KERNEL_LAUNCHES - before == cfg.n_layers

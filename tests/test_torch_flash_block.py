@@ -13,6 +13,8 @@ Pallas kernel rounds them against its running max where the references
 round against the block max) and 1e-4 on the max.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -178,9 +180,32 @@ def test_repeat_heads_is_a_view():
 
 
 def test_block_attention_has_no_backward_yet():
-    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 4, 4, 1, 8))
-    with pytest.raises(NotImplementedError, match="backward"):
-        tfb.block_attention(q.requires_grad_(), k, v, torch.zeros(4, 4))
+    # The name is older than the backward: block_attention is now
+    # differentiable in every input, and tests/test_torch_train.py holds its
+    # gradients against the JAX package's _bwd.
+    q, k, v = (torch.from_numpy(x).requires_grad_() for x in _qkv(1, 4, 4, 1, 8))
+    bias = torch.zeros(4, 4, requires_grad=True)
+    _, block_sum, weighted = tfb.block_attention(q, k, v, bias)
+    grads = torch.autograd.grad(block_sum.sum() + weighted.sum(), (q, k, v, bias))
+    for g, x in zip(grads, (q, k, v, bias)):
+        assert g.shape == x.shape and torch.isfinite(g).all()
+
+
+@pytest.mark.parametrize("mode", ["no_grad", "no_input_requires_grad"])
+def test_block_attention_unrecorded_call_skips_autograd(mode):
+    # A call that autograd does not record (serving runs under no_grad)
+    # goes straight to the forward: no graph node, the same values.
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 8, 8, 2, 8, seed=7))
+    bias = torch.from_numpy(np.triu(np.full((8, 8), tfb.NEG_INF, np.float32), 1))
+    if mode == "no_grad":
+        q.requires_grad_()
+    context = torch.no_grad() if mode == "no_grad" else contextlib.nullcontext()
+    with context:
+        got = tfb.block_attention(q, k, v, bias)
+    want = tfb.block_attention_reference(q.detach(), k, v, bias)
+    for g, w in zip(got, want):
+        assert g.grad_fn is None and not g.requires_grad
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
 def test_block_attention_refuses_other_devices():
