@@ -40,12 +40,23 @@ Phases, in order; any failure exits non-zero before the result line:
      uninterrupted run, a run that fails at a step, and its restart,
      which resumes from the checkpoint and ends at the uninterrupted
      run's loss; the FMA variant's counter moves;
-  9. one `kernels` JSON line, then the result line
+  9. the placement solver plane at the 15k-node shape (512 jobs x 960
+     domains) and a 100k-node one (512 x 6250): the auction kernel against
+     its plain version on the card (assignments, iterations and prices
+     identical) on the structured production surface, the heterogeneous
+     dense surface (also exactly optimal against scipy), an 8-problem
+     structured storm, a dense batch, the 100k shape and edge cases; the
+     kernel's device time, iterations and bound, the plain version's time
+     and scipy's on the host; solve wall p50/p99 through `AssignmentSolver`;
+     `solve_async` shown not to block; the sidecar's handlers on packed
+     frames against direct solves; launch counts per path;
+ 10. one `kernels` JSON line, then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 The flagship is the repo's training/decode bench config: vocab 32000,
 d_model 1024, 16 heads (head_dim 64), d_ff 4096, 8 layers, bf16 compute,
-f32 params, weights random from a seed. Imports nothing of JAX.
+f32 params, weights random from a seed. The placement problems are made
+with numpy from seeds. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -58,6 +69,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16
@@ -875,6 +887,406 @@ def phase_worker(results):
     results["worker"] = {"straight": straight, "failed": failed, "resumed": resumed}
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the placement solver plane
+# ---------------------------------------------------------------------------
+
+# The 15k-node shape: bench.py's 960 domains of 16 nodes with 16 pod slots
+# each, under a gang of 512 jobs of 4 pods; storms of 8 JobSets; the
+# 100k-node shape has 6250 such domains.
+SOLVER_JOBS, SOLVER_DOMAINS, STORM_PROBLEMS, BIG_DOMAINS = 512, 960, 8, 6250
+NODES_PER_DOMAIN, NODE_SLOTS, PODS_PER_JOB = 16, 16, 4
+SOLVE_REPEATS = 30  # wall-clock solves behind each p50/p99
+AUCTION_COUNTERS = ("AUCTION_LAUNCHES", "DENSE_LAUNCHES", "STRUCTURED_LAUNCHES",
+                    "DENSE_BATCH_LAUNCHES", "STRUCTURED_BATCH_LAUNCHES")
+# Each solver path and the variant counter its one launch must move.
+PATH_COUNTERS = {"structured": "STRUCTURED_LAUNCHES", "dense": "DENSE_LAUNCHES",
+                 "structured_batch": "STRUCTURED_BATCH_LAUNCHES",
+                 "dense_batch": "DENSE_BATCH_LAUNCHES", "structured_100k": "STRUCTURED_LAUNCHES"}
+
+
+def gradient_problem(domains, seed, jobs=SOLVER_JOBS):
+    """The structured surface of a gang arriving on a load-skewed cluster
+    (bench.py `preload_domain_gradient`: domain i has round(16 * 0.9 * i /
+    (D - 1)) of each node's 16 slots taken), 4 pods a job: every job ranks
+    the domains alike. 64 jobs are sticky (recovering to their previous
+    domain), 16 of them own their domain exclusively, and 32 other domains
+    are owned by other JobSets."""
+    rng = np.random.default_rng(seed)
+    taken = np.round(NODE_SLOTS * 0.9 * np.arange(domains) / max(domains - 1, 1))
+    free = (NODES_PER_DOMAIN * (NODE_SLOTS - taken)).astype(np.float32)
+    load = (1.0 - free / (NODES_PER_DOMAIN * NODE_SLOTS)).astype(np.float32)
+    picks = rng.choice(domains, size=96, replace=False).astype(np.int32)
+    movers = rng.choice(jobs, size=64, replace=False)
+    sticky = np.full(jobs, -1, np.int32)
+    sticky[movers] = picks[:64]
+    own = np.full(jobs, -1, np.int32)
+    own[movers[:16]] = picks[:16]
+    occupied = np.zeros(domains, bool)
+    occupied[picks[:16]] = True
+    occupied[picks[64:]] = True
+    return dict(load=load, free=free, pods_needed=np.full(jobs, PODS_PER_JOB, np.float32),
+                sticky=sticky, occupied=occupied, own_domain=own)
+
+
+def hetero_costs(seed):
+    """bench.py's heterogeneous surface (`run_contended_optimality`): costs
+    on the 1/256 grid scaled x256 to the integers 0..255, so the auction's
+    result must be exactly optimal. The warm start cannot be its
+    equilibrium, so the bidding loop really runs."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 256, size=(SOLVER_JOBS, SOLVER_DOMAINS)).astype(np.float32)
+
+
+def edge_cases():
+    """Small dense problems at the edges: (cost, feasible) by name."""
+    rng = np.random.default_rng(5)
+    feasible = rng.random((24, 40)) > 0.4
+    feasible[[1, 7, 20], :] = False
+    sticky = np.ones((12, 32), np.float32)
+    sticky[[0, 3, 11], [5, 5, 30]] = 0.0
+    contended = np.round((1.0 + np.linspace(0, 0.9, 96)[None, :].repeat(64, 0)) * 64)
+    dead = np.ones((64, 96), bool)
+    dead[:, 64:] = False
+    return {
+        "infeasible rows 24x40": (rng.integers(0, 20, size=(24, 40)).astype(np.float32),
+                                  feasible),
+        "more jobs than domains 20x6": (rng.integers(0, 9, size=(20, 6)).astype(np.float32),
+                                        None),
+        "stickiness 12x32": (sticky, None),
+        "one domain 5x1": (np.zeros((5, 1), np.float32), None),
+        "contended, dead columns 64x96": (contended.astype(np.float32), dead),
+    }
+
+
+def reset_auction():
+    from jobset_tpu_torch.ops import auction
+
+    for name in AUCTION_COUNTERS:
+        setattr(auction, name, 0)
+
+
+def auction_counts():
+    from jobset_tpu_torch.ops import auction
+
+    return {name: getattr(auction, name) for name in AUCTION_COUNTERS}
+
+
+def dense_benefit(costs, feasibles=None):
+    """[B, J, D] costs -> the padded, scaled benefit on the card, as the
+    surface builds it."""
+    from jobset_tpu_torch.placement import solver as S
+
+    if feasibles is None:
+        feasibles = np.ones(costs.shape, bool)
+    return S._dense_benefit(costs, feasibles, S._round_up_pow2(costs.shape[1]),
+                            S._round_up_pow2(costs.shape[2]), "cuda")
+
+
+def structured_operands(problems):
+    """Structured problems padded and stacked on the card, as the surface
+    does it."""
+    from jobset_tpu_torch.placement import solver as S
+
+    jobs_p = S._round_up_pow2(max(len(p["pods_needed"]) for p in problems))
+    domains_p = S._round_up_pow2(max(len(p["load"]) for p in problems))
+    stacked = S._stack_structured(problems, jobs_p, domains_p)
+    return [torch.from_numpy(a).cuda() for a in stacked.values()]
+
+
+def auction_agree(name, got, want):
+    """The kernel's (assignment, prices, iterations) against the plain
+    version's on the same inputs: identical, prices bit for bit. Returns
+    the largest difference, 0.0 when they agree."""
+    a, p, it = (t.cpu() for t in got[:3])
+    wa, wp, wit = (t.cpu() for t in want[:3])
+    same = (torch.equal(a, wa.int()) and torch.equal(it, wit.int())
+            and torch.equal(p.view(torch.int32), wp.view(torch.int32)))
+    err = max((a - wa.int()).abs().max().item(), (p - wp).abs().max().item(),
+              (it - wit.int()).abs().max().item())
+    check(same, f"auction {name}: kernel equals the plain version (assignments, prices bit "
+                f"for bit, iterations {it.tolist()[:8]}; max |d| {err})")
+    return float(err)
+
+
+def auction_bound_ms(stats, jobs_p, domains_p) -> float:
+    """Least time of one launch: the benefit bytes it must read at the HBM
+    rate (the rows of every round's bidders, plus one full pass per phase),
+    from the kernel's own counts of this run."""
+    s = stats.cpu().long()
+    rows = int(s[:, 0].sum()) + int(s[:, 2].sum()) * jobs_p
+    return 1e3 * rows * domains_p * 4 / HBM_BYTES_PER_S
+
+
+def pct(samples, q):
+    s = sorted(samples)
+    return s[min(len(s) - 1, int(q * len(s)))]
+
+
+def wall_ms(fn, repeats):
+    """Host-clock ms of `repeats` calls (each ends on the host with its
+    result): (p50, p99, samples)."""
+    samples = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        samples.append(1e3 * (time.perf_counter() - t0))
+    return pct(samples, 0.5), pct(samples, 0.99), samples
+
+
+def scipy_ms(cost, feasible=None):
+    """scipy's Hungarian on the host (the yardstick: no PyTorch call
+    computes a linear assignment), as the portfolio calls it."""
+    from jobset_tpu_torch.placement.solver import AssignmentSolver
+
+    if feasible is None:
+        feasible = np.ones(cost.shape, bool)
+    t0 = time.perf_counter()
+    AssignmentSolver._hungarian_solve(cost, feasible, t0)
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def time_auction(name, launch, plain, jobs_p, domains_p, scipy):
+    """Device ms of the kernel (CUDA events, the benefit L2-resident as a
+    solve keeps it) beside the plain version's wall ms on the card (one
+    call, from the comparison), the bound and scipy's host ms."""
+    out = launch()
+    torch.cuda.synchronize()
+    t = {"ms": cuda_ms(launch, ITERS), "plain_ms": plain,
+         "bound_ms": auction_bound_ms(out[3], jobs_p, domains_p), "bound_by": "bytes",
+         "iterations": out[2].tolist(), "stats": out[3].tolist(), "scipy_ms": scipy}
+    print(f"auction {name}: kernel {t['ms']:.4f} ms ({t['iterations'][:8]} iterations; rows "
+          f"bid/repair, phases, repair passes {t['stats'][0]}), plain {t['plain_ms']:.3f} ms, "
+          f"bound {t['bound_ms']:.4f} ms (bytes), scipy on the host {scipy:.3f} ms", flush=True)
+    return t
+
+
+def phase_solver(results):
+    """The solver plane: kernel checks, times, the main paths' launches."""
+    from scipy.optimize import linear_sum_assignment
+
+    from jobset_tpu_torch.ops import auction as ops
+    from jobset_tpu_torch.placement import solver as S
+    from jobset_tpu_torch.placement.service import (SolverService, pack_problem,
+                                                    unpack_assignment)
+
+    card = results["card"]
+    grad = gradient_problem(SOLVER_DOMAINS, seed=0)
+    storm = [gradient_problem(SOLVER_DOMAINS, seed=1 + i) for i in range(STORM_PROBLEMS)]
+    big = gradient_problem(BIG_DOMAINS, seed=9)
+    hetero = hetero_costs(17)
+    hetero8 = np.stack([hetero_costs(17 + i) for i in range(STORM_PROBLEMS)])
+    jobs_p, domains_p, big_p = (S._round_up_pow2(n) for n in
+                                (SOLVER_JOBS, SOLVER_DOMAINS, BIG_DOMAINS))
+
+    # -- the kernel against its plain version, on the card; the plain
+    #    version's one call there is also its time
+    errs, plain = {}, {}
+
+    def compare(label, kernel, reference):
+        got = kernel()
+        want, secs = wall_s(reference)
+        plain[label] = 1e3 * secs
+        errs[label] = auction_agree(label, got, want)
+        return got
+
+    grad_ops, storm_ops, big_ops = (structured_operands(p) for p in ([grad], storm, [big]))
+    for label, ops_ in (("structured 512x960", grad_ops),
+                        ("structured storm 8x512x960", storm_ops),
+                        ("structured 100k-node 512x6250", big_ops)):
+        compare(label, lambda: ops.structured(*ops_, batched=len(ops_[0]) > 1),
+                lambda: S._auction_plain(S._structured_benefit(*ops_)))
+    singles = [ops.structured(*(t[b:b + 1] for t in storm_ops)) for b in range(STORM_PROBLEMS)]
+    storm_got = ops.structured(*storm_ops, batched=True)
+    check(all(torch.equal(storm_got[0][b], s[0][0]) and torch.equal(storm_got[2][b], s[2][0])
+              for b, s in enumerate(singles)),
+          "auction storm: each member's assignment and iterations equal its single solve")
+    hetero_b, hetero8_b = dense_benefit(hetero[None]), dense_benefit(hetero8)
+    got = compare("dense 512x960", lambda: ops.dense(hetero_b), lambda: S._auction_plain(hetero_b))
+    assign = got[0][0, :SOLVER_JOBS].cpu().numpy()
+    rows, cols = linear_sum_assignment(hetero)
+    ours, best = float(hetero[np.arange(SOLVER_JOBS), assign].sum()), float(hetero[rows, cols].sum())
+    check(bool((assign < SOLVER_DOMAINS).all()) and ours == best,
+          f"auction heterogeneous dense 512x960: exactly optimal (cost {ours} vs scipy {best})")
+    results["hetero_cost"] = {"auction": ours, "scipy": best}
+    compare("dense batch 8x512x960", lambda: ops.dense(hetero8_b, batched=True),
+            lambda: S._auction_plain(hetero8_b))
+    for label, (cost, feasible) in edge_cases().items():
+        b = dense_benefit(cost[None], None if feasible is None else feasible[None])
+        compare(f"edge {label}", lambda: ops.dense(b), lambda: S._auction_plain(b))
+    edge = dict(load=np.zeros(1, np.float32), free=np.full(1, 8.0, np.float32),
+                pods_needed=np.full(5, 4.0, np.float32), sticky=np.array([0, -1, -1, 0, -1],
+                                                                          np.int32),
+                occupied=np.zeros(1, bool), own_domain=np.full(5, -1, np.int32))
+    e_ops = structured_operands([edge])
+    compare("edge structured 5 jobs x 1 domain", lambda: ops.structured(*e_ops),
+            lambda: S._auction_plain(S._structured_benefit(*e_ops)))
+
+    # -- times: kernel, plain version, bound, scipy on the host
+    grad_cost = S._structured_cost_np(*(grad[k] for k in S._STRUCTURED))
+    big_cost = S._structured_cost_np(*(big[k] for k in S._STRUCTURED))
+    times = {
+        "structured": time_auction(
+            "structured 512x960", lambda: ops.structured(*grad_ops),
+            plain["structured 512x960"], jobs_p, domains_p, scipy_ms(*grad_cost)),
+        "dense": time_auction(
+            "heterogeneous dense 512x960", lambda: ops.dense(hetero_b),
+            plain["dense 512x960"], jobs_p, domains_p, scipy_ms(hetero)),
+        "structured_batch": time_auction(
+            "structured storm 8x512x960", lambda: ops.structured(*storm_ops, batched=True),
+            plain["structured storm 8x512x960"], jobs_p, domains_p,
+            sum(scipy_ms(*S._structured_cost_np(*(p[k] for k in S._STRUCTURED)))
+                for p in storm)),
+        "dense_batch": time_auction(
+            "heterogeneous dense batch 8x512x960", lambda: ops.dense(hetero8_b, batched=True),
+            plain["dense batch 8x512x960"], jobs_p, domains_p,
+            sum(scipy_ms(c) for c in hetero8)),
+        "structured_100k": time_auction(
+            "structured 100k-node 512x6250", lambda: ops.structured(*big_ops),
+            plain["structured 100k-node 512x6250"], jobs_p, big_p, scipy_ms(*big_cost)),
+    }
+    del grad_ops, storm_ops, big_ops, hetero_b, hetero8_b
+
+    # -- the main paths, through the surface a user calls (auto routing,
+    #    the card); counts reset just before each path and read just after
+    solver = S.AssignmentSolver()
+    solver.solve_structured_async(**grad).result()  # warm-up: the ping, the allocator
+    launches, walls = {}, {}
+    paths = {
+        "structured": lambda: solver.solve_structured_async(**grad).result(),
+        "dense": lambda: solver.solve(hetero),
+        "structured_batch": lambda: [p.result()
+                                     for p in solver.solve_structured_batch_async(storm)],
+        "dense_batch": lambda: solver.solve_batch(hetero8),
+        "structured_100k": lambda: solver.solve_structured_async(**big).result(),
+    }
+    outs = {}
+    for path, fn in paths.items():
+        routes = dict(solver.routes)
+        reset_auction()
+        outs[path] = fn()
+        counts = auction_counts()
+        launches[path] = counts
+        want = {name: 0 for name in AUCTION_COUNTERS}
+        want.update(AUCTION_LAUNCHES=1, **{PATH_COUNTERS[path]: 1})
+        check(counts == want and solver.routes["cuda"] == routes["cuda"] + 1
+              and solver.routes["cpu"] == routes["cpu"],
+              f"solver path {path}: one launch of its variant, routed to the card ({counts})")
+        walls[path] = wall_ms(fn, SOLVE_REPEATS if path != "structured_100k" else 5)
+    on_cpu = S.AssignmentSolver(backend="default", device="cpu")
+    check(np.array_equal(outs["structured"], on_cpu.solve_structured_async(**grad).result()),
+          "structured 512x960: the card's solve equals the plain version's on the CPU")
+    check(all(np.array_equal(a, b) for a, b in zip(
+        outs["structured_batch"], [solver.solve_structured_async(**p).result() for p in storm])),
+        "storm: each member's result equals its single solve through the surface")
+    check(np.array_equal(outs["dense"], assign.astype(np.int64)),
+          "dense solve through the surface equals the kernel's direct result")
+    check(solver.batch_operand_reuses > 0,
+          f"storm residency: repeated rounds reuse operands on the card "
+          f"({solver.batch_operand_transfers} copies, {solver.batch_operand_reuses} reuses)")
+    for path, (p50, p99, _) in walls.items():
+        print(f"solve wall {path} (host clock, result on the host; {card}): p50 {p50:.4f} ms, "
+              f"p99 {p99:.4f} ms over {len(walls[path][2])} solves", flush=True)
+
+    # -- solve_async does not block. The heterogeneous problem is polled
+    #    right after dispatch; its dispatch carries the 2.5 MB cost copy,
+    #    which outlasts its 28-round solve, so dispatch against device time
+    #    is shown on the structured problem, whose solve runs far longer.
+    def dispatch(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending = fn()
+        dispatch_ms = 1e3 * (time.perf_counter() - t0)
+        ready_now = pending.is_ready()
+        pending.result()
+        return dispatch_ms, ready_now
+
+    async_ = {}
+    for key, fn in (("dense", lambda: solver.solve_async(hetero)),
+                    ("structured", lambda: solver.solve_structured_async(**grad))):
+        dispatch_ms, ready_now = dispatch(fn)
+        async_[key] = {"dispatch_ms": dispatch_ms, "ready_right_after": ready_now,
+                       "kernel_ms": times[key]["ms"]}
+        print(f"solve_async {key}: dispatch {dispatch_ms:.4f} ms (host), is_ready() "
+              f"{ready_now} right after, kernel {times[key]['ms']:.4f} ms (device)", flush=True)
+    check(not async_["dense"]["ready_right_after"]
+          and not async_["structured"]["ready_right_after"]
+          and async_["structured"]["dispatch_ms"] < 0.1 * async_["structured"]["kernel_ms"],
+          "solve_async returns before the solve ends: is_ready() False right after dispatch "
+          "(heterogeneous dense and structured), structured dispatch under a tenth of its "
+          "kernel time")
+    results["solve_async"] = async_
+
+    # -- the sidecar's handlers in process (the card's machine has no grpc)
+    service = SolverService(solver=solver)
+    frame2, frame3 = pack_problem(hetero, None), pack_problem(hetero8, None)
+    reset_auction()
+    got2 = unpack_assignment(service.solve(frame2, None))
+    got3 = unpack_assignment(service.solve(frame3, None))
+    streamed = [unpack_assignment(r) for r in service.solve_stream(iter([frame2, frame3]), None)]
+    launches["sidecar"] = auction_counts()
+    check(launches["sidecar"]["DENSE_LAUNCHES"] == 2
+          and launches["sidecar"]["DENSE_BATCH_LAUNCHES"] == 2,
+          f"sidecar: solve and solve_stream launched the kernel ({launches['sidecar']})")
+    check(np.array_equal(got2, outs["dense"]) and np.array_equal(got3, outs["dense_batch"])
+          and np.array_equal(streamed[0], outs["dense"])
+          and np.array_equal(streamed[1], outs["dense_batch"]),
+          "sidecar: packed 512x960 and [8,512,960] frames give the direct solves' assignments")
+
+    results["solver"] = {"times": times, "launches": launches, "errs": errs,
+                         "walls": {k: {"p50": v[0], "p99": v[1], "samples": v[2]}
+                                   for k, v in walls.items()},
+                         "residency": [solver.batch_operand_transfers,
+                                       solver.batch_operand_reuses],
+                         "routes": solver.routes}
+    src = "jobset_tpu_torch/ops/csrc/auction.cu"
+    xla = "; an XLA program (lax.while_loop), no Pallas counterpart"
+    entries = [
+        ("auction_structured", "structured", "jobset_tpu/placement/solver.py:317 "
+         "(_auction_structured, around _auction at :77)" + xla, "structured 512x960",
+         "structured 512x960 (15k nodes): load gradient, 64 sticky jobs, 16 own domains, "
+         "32 domains owned by other JobSets; padded to 512x1024"),
+        ("auction_dense", "dense", "jobset_tpu/placement/solver.py:77 (_auction)" + xla,
+         "dense 512x960", "heterogeneous dense 512x960 (bench.py seed 17, integer costs "
+         "0..255); padded to 512x1024"),
+        ("auction_structured_batch", "structured_batch",
+         "jobset_tpu/placement/solver.py:370 (_auction_structured_batch)" + xla,
+         "structured storm 8x512x960", "8 structured 512x960 problems (seeds 1..8), one launch"),
+        ("auction_dense_batch", "dense_batch",
+         "jobset_tpu/placement/solver.py:363 (_auction_batch)" + xla,
+         "dense batch 8x512x960", "8 heterogeneous dense 512x960 problems (seeds 17..24), "
+         "one launch; the sidecar's SolveBatch path"),
+    ]
+    kernels = []
+    for name, key, replaces, err_key, shape in entries:
+        t = times[key]
+        path = "sidecar" if key == "dense_batch" else key
+        entry = {
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches[path][PATH_COUNTERS[key]],
+            "max_abs_err": errs[err_key],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "library_call": "none: no PyTorch call computes a linear assignment; scipy's "
+                            "Hungarian on the host is the yardstick (scipy_host_ms)",
+            "scipy_host_ms": t["scipy_ms"], "iterations": t["iterations"],
+            "shape": shape,
+            "solve_wall_ms": {"p50": walls[key][0], "p99": walls[key][1]},
+        }
+        if key == "structured":
+            big_t = times["structured_100k"]
+            entry["shape_100k_nodes"] = {
+                "shape": "structured 512x6250 padded to 512x8192", "ms": big_t["ms"],
+                "plain_ms": big_t["plain_ms"], "bound_ms": big_t["bound_ms"],
+                "scipy_host_ms": big_t["scipy_ms"], "iterations": big_t["iterations"],
+                "solve_wall_ms": {"p50": walls["structured_100k"][0],
+                                  "p99": walls["structured_100k"][1]},
+                "max_abs_err": errs["structured 100k-node 512x6250"]}
+        kernels.append(entry)
+    return kernels
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the results as JSON to this file")
@@ -896,7 +1308,7 @@ def main() -> int:
     results: dict = {"card": card}
 
     t0 = time.perf_counter()
-    libraries = cuda_build.build_all(["flash_block"])
+    libraries = cuda_build.build_all(["flash_block", "auction"])
     results["build_s"] = time.perf_counter() - t0
     print(f"build: {results['build_s']:.2f} s", flush=True)
     for name, log in cuda_build.BUILD_LOG.items():
@@ -931,6 +1343,7 @@ def main() -> int:
             policy: results[f"train_launches_remat_{policy}"][counter]
             for policy in ("off", "full", "dots")}
         kernel["eval_step_launches"] = results["eval_launches"][counter]
+    kernels += phase_solver(results)
     results["kernels"] = kernels
     results["seconds"] = time.perf_counter() - t_start
     if args.out:

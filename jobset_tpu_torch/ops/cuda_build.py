@@ -24,6 +24,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+# Flags of one source only. The auction must round every operation as the
+# reference does, so no multiply-add is contracted there.
+SOURCE_FLAGS = {"auction": ("-fmad=false",)}
 
 # ptxas report (registers, shared memory, spills) of each source built by
 # this process, by name.
@@ -44,9 +47,13 @@ def nvcc_path() -> str:
     )
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def _library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -62,7 +69,7 @@ def build_all(names) -> dict[str, Path]:
     procs = {}
     for name, path in todo.items():
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ))

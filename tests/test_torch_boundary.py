@@ -82,9 +82,11 @@ def test_chip_smoke_fails_without_a_card():
 
 @pytest.mark.parametrize("entry_point", ["build_generate", "build_forward", "init_params",
                                          "build_train_step", "build_eval_step",
-                                         "train_workload", "run_model_bench"])
+                                         "train_workload", "run_model_bench",
+                                         "AssignmentSolver", "solver_service"])
 def test_entry_points_without_device_raise(entry_point):
     from jobset_tpu_torch.models import decode, transformer
+    from jobset_tpu_torch.placement import service, solver
     from jobset_tpu_torch.runtime import model_bench, optim, runner
 
     _no_cuda()
@@ -98,6 +100,26 @@ def test_entry_points_without_device_raise(entry_point):
         "build_eval_step": lambda: transformer.build_eval_step(cfg),
         "train_workload": lambda: runner.train_workload({"kind": "lm", "steps": 1}),
         "run_model_bench": lambda: model_bench.run_model_bench(steps=1, config=cfg),
+        "AssignmentSolver": lambda: solver.AssignmentSolver(),
+        "solver_service": lambda: service.main(["--addr", "127.0.0.1:0"]),
     }[entry_point]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
+
+
+def test_solver_ping_that_raises_raises():
+    """A card that cannot move 32 bytes is a fault to report: the routing
+    ping raises, caches nothing, and the solve it was routing raises too,
+    instead of going to the host. (The device index past the last card
+    fails on any machine.)"""
+    import numpy as np
+
+    from jobset_tpu_torch.placement.solver import AssignmentSolver
+
+    s = AssignmentSolver(device=f"cuda:{torch.cuda.device_count()}")
+    with pytest.raises((RuntimeError, AssertionError)):
+        s._ping_default_device()
+    assert s._accel_rtt_s is None
+    with pytest.raises((RuntimeError, AssertionError)):
+        s.solve(np.zeros((4, 4), np.float32))
+    assert s.routes == {"cuda": 0, "cpu": 0}

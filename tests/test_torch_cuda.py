@@ -1,7 +1,8 @@
-"""Card-only tests of the port: the CUDA kernel against its plain version,
-the serving path and the train step on the card against the same paths on
-the CPU, the block backward on the card against the CPU's, and the kernel
-launches per train step under each remat setting.
+"""Card-only tests of the port: the CUDA kernels against their plain
+versions, the serving path and the train step on the card against the same
+paths on the CPU, the block backward on the card against the CPU's, the
+kernel launches per train step under each remat setting, and the auction
+kernel and the solver surface on the card against the CPU.
 
 They skip without a CUDA device. This file imports no JAX, so it also runs
 on a machine that has none: `python -m pytest --noconftest -m cuda
@@ -10,9 +11,11 @@ tests/test_torch_cuda.py` (the repo's conftest imports JAX).
 Tolerances: f32 1e-4 (the kernel's FMA order against cuBLAS/CPU sums);
 bf16 2e-2 relative to the tensor's largest value on sums and weighted
 values (p is rounded to bf16 against the running max in the kernel and
-against the block max in the plain version).
+against the block max in the plain version). The auction: none; its
+assignments, prices and iteration counts are identical.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -20,7 +23,9 @@ from dataclasses import replace
 
 from jobset_tpu_torch import tree
 from jobset_tpu_torch.models import decode, transformer
+from jobset_tpu_torch.ops import auction as auction_ops
 from jobset_tpu_torch.ops import flash_block as fb
+from jobset_tpu_torch.placement import solver as S
 from jobset_tpu_torch.runtime import optim
 
 
@@ -182,3 +187,88 @@ def test_train_step_launches_and_matches_cpu(cuda, remat, launches):
     transformer.build_eval_step(replace(cfg, remat=True))(
         tree.tree_map(lambda t: t.to(cuda), params), batch)
     assert fb.KERNEL_LAUNCHES - before == cfg.n_layers
+
+
+def _same_solve(got, want):
+    """Kernel and plain version: identical assignments and iterations,
+    prices bit for bit."""
+    assert torch.equal(got[0].cpu(), want[0].cpu())
+    assert torch.equal(got[2].cpu(), want[2].cpu())
+    assert torch.equal(got[1].cpu().view(torch.int32), want[1].cpu().view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("jobs,domains,seed", [(4, 4, 0), (32, 64, 3), (64, 100, 4), (5, 2, 6),
+                                               (1, 7, 5), (512, 960, 17)])
+def test_auction_kernel_matches_plain_version(cuda, jobs, domains, seed):
+    rng = np.random.default_rng(seed)
+    costs = rng.integers(0, 256, size=(1, jobs, domains)).astype(np.float32)
+    feasible = rng.random(costs.shape) > 0.1
+    benefit = S._dense_benefit(costs, feasible, S._round_up_pow2(jobs),
+                               S._round_up_pow2(domains), cuda)
+    before = (auction_ops.AUCTION_LAUNCHES, auction_ops.DENSE_LAUNCHES)
+    got = auction_ops.dense(benefit)
+    assert (auction_ops.AUCTION_LAUNCHES, auction_ops.DENSE_LAUNCHES) == (before[0] + 1,
+                                                                          before[1] + 1)
+    _same_solve(got, S._auction_plain(benefit))
+
+
+def _structured(seed, jobs, domains):
+    rng = np.random.default_rng(seed)
+    own = np.full(jobs, -1, np.int32)
+    occupied = rng.random(domains) < 0.15
+    owned = np.flatnonzero(occupied)[: jobs // 4]
+    own[: len(owned)] = owned
+    return dict(load=rng.random(domains).astype(np.float32),
+                free=rng.integers(0, 24, domains).astype(np.float32),
+                pods_needed=rng.integers(1, 12, jobs).astype(np.float32),
+                sticky=np.where(rng.random(jobs) < 0.3, rng.integers(0, domains, jobs),
+                                -1).astype(np.int32),
+                occupied=occupied, own_domain=own)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("jobs,domains", [(5, 12), (48, 96), (512, 960), (40, 6250)])
+def test_structured_auction_kernel_matches_plain_version(cuda, jobs, domains):
+    problems = [_structured(seed, jobs, domains) for seed in range(3)]
+    stacked = S._stack_structured(problems, S._round_up_pow2(jobs), S._round_up_pow2(domains))
+    ops = [torch.from_numpy(a).to(cuda) for a in stacked.values()]
+    before = auction_ops.STRUCTURED_BATCH_LAUNCHES
+    got = auction_ops.structured(*ops, batched=True)
+    assert auction_ops.STRUCTURED_BATCH_LAUNCHES == before + 1
+    _same_solve(got, S._auction_plain(S._structured_benefit(*ops)))
+    for b in range(len(problems)):  # each member equals its single solve
+        single = auction_ops.structured(*(t[b:b + 1] for t in ops))
+        assert torch.equal(single[0][0], got[0][b]) and torch.equal(single[2][0], got[2][b])
+
+
+@pytest.mark.cuda
+def test_solver_surface_on_card_matches_cpu(cuda):
+    rng = np.random.default_rng(3)
+    cost = rng.integers(0, 64, size=(24, 40)).astype(np.float32)
+    costs = rng.integers(0, 40, size=(3, 8, 12)).astype(np.float32)
+    problem = _structured(7, 30, 50)
+    card = S.AssignmentSolver(backend="default")
+    host = S.AssignmentSolver(backend="default", device="cpu")
+    pending = card.solve_async(cost)
+    np.testing.assert_array_equal(pending.result(), host.solve(cost))
+    assert pending.is_ready() and pending.iterations == host.last_iterations
+    np.testing.assert_array_equal(card.solve_structured_async(**problem).result(),
+                                  host.solve_structured_async(**problem).result())
+    np.testing.assert_array_equal(card.solve_batch(costs), host.solve_batch(costs))
+    storm = [_structured(s, 20, 30) for s in range(4)]
+    for got, want in zip(card.solve_structured_batch_async(storm),
+                         host.solve_structured_batch_async(storm)):
+        np.testing.assert_array_equal(got.result(), want.result())
+        assert got.iterations == want.iterations
+    assert card.routes == {"cuda": 4, "cpu": 0}
+
+
+@pytest.mark.cuda
+def test_auction_launcher_rejects_what_the_kernel_does_not_take(cuda):
+    with pytest.raises(ValueError, match="power of two"):
+        auction_ops.dense(torch.zeros((1, 8, 12), device=cuda))
+    with pytest.raises(ValueError, match="shared memory"):
+        auction_ops.dense(torch.zeros((1, 8, 16384), device=cuda))
+    with pytest.raises(ValueError, match="expected contiguous"):
+        auction_ops.dense(torch.zeros((1, 16, 8), device=cuda).transpose(1, 2))
