@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (jobset_tpu_torch) on one CUDA GPU.
 
-    python3 chip_smoke.py [--out RESULTS.json]
+    python3 chip_smoke.py [--out RESULTS.json] [--solver-only]
 
-Phases, in order; any failure exits non-zero before the result line:
+(`--solver-only` builds the auction kernel and runs phase 9 alone, without
+the result line.) Phases, in order; any failure exits non-zero before the
+result line:
   1. the card's name and power limit (nvidia-smi); TF32 off;
   2. build every CUDA kernel from this checkout (one nvcc per source, all
      started together) and print the build seconds, the ptxas report and
@@ -13,7 +15,8 @@ Phases, in order; any failure exits non-zero before the result line:
      the tile-class pre-pass) against its plain PyTorch version on the
      card, at the flagship prefill shape with six bias kinds and at edge
      shapes, and time the kernel, the plain version and the nearest
-     PyTorch library call at the flagship and forward shapes, rotating
+     PyTorch library call at the flagship and forward shapes (and the f32
+     FMA variant at the flagship block shape in f32), rotating
      input sets larger than the 50 MB L2 (L2-cold), and the host time of
      one `generate`'s 24 block calls under no_grad, through the wrapper,
      through the autograd.Function and straight to the launch;
@@ -47,7 +50,12 @@ Phases, in order; any failure exits non-zero before the result line:
      dense surface (also exactly optimal against scipy), an 8-problem
      structured storm, a dense batch, the 100k shape and edge cases; the
      kernel's device time, iterations and bound, the plain version's time
-     and scipy's on the host; solve wall p50/p99 through `AssignmentSolver`;
+     and scipy's on the host; the SM clock under load (nvidia-smi), which
+     turns the kernel's own cycle counts into µs a round split into the
+     bidder list, the bids and the resolution, with warp 0's latency per
+     full scan and per cached bid, the share of bids the candidate lists
+     answered and the bytes the kernel read against the bound's;
+     solve wall p50/p99 through `AssignmentSolver`;
      `solve_async` shown not to block; the sidecar's handlers on packed
      frames against direct solves; launch counts per path;
  10. one `kernels` JSON line, then the result line
@@ -427,13 +435,20 @@ def phase_kernels():
     flash_case("bf16 D128 B8 H8 T512", bf16, 8, 512, 512, 8, 128, "triangle", seed=6)
     forward = flash_case("forward shape bf16 B8 H16 T1024 D64, fused-QKV views", bf16,
                          8, 1024, 1024, 16, 64, "triangle", seed=5, fused=True)
+    # The FMA variant at the flagship block shape in f32: the kernel the LM
+    # workload's default f32 path runs (the worker phase counts its launches).
+    flagship_f32 = flash_case("flagship f32 B8 H16 T512 D64 triangle", f32,
+                              8, 512, 512, 16, 64, "triangle", seed=7)
 
-    # L2-cold: 4 sets of q/k/v at the flagship shape (100 MB) and 2 fused
-    # QKV buffers at the forward shape (100 MB) against the 50 MB L2.
+    # L2-cold: 4 sets of q/k/v at the flagship shape (100 MB in bf16, 200 MB
+    # in f32) and 2 fused QKV buffers at the forward shape (100 MB) against
+    # the 50 MB L2.
     flag_t = time_block(flagship, 4, ("zero", "alibi"))
     fwd_t = time_block(forward, 2)
+    f32_t = time_block(flagship_f32, 4)
     for label, t in (("flagship bf16 [8,512,16,64]", flag_t),
-                     ("forward shape bf16 [8,1024,16,64]", fwd_t)):
+                     ("forward shape bf16 [8,1024,16,64]", fwd_t),
+                     ("flagship f32 (FMA variant) [8,512,16,64]", f32_t)):
         print(f"flash_block {label} triangle, L2-cold: kernel {t['ms']:.4f} ms "
               f"(call with pre-pass {t['call_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, "
               f"library_ms (scaled_dot_product_attention, same mask; normalized output, "
@@ -479,6 +494,24 @@ def phase_kernels():
             "forward_shape": {k: fwd_t[k] for k in
                               ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
                                "bound_by")},
+        },
+        {
+            "name": "flash_block_fma",
+            "route": "cuda",
+            "source": "jobset_tpu_torch/ops/csrc/flash_block.cu",
+            "replaces": "jobset_tpu/ops/flash_block.py:194",
+            "variant": "f32 FMA variant (flash_block_kernel), the LM workload's default f32 "
+                       "path; launches counted on the worker's uninterrupted run",
+            "max_abs_err": flagship_f32["errs"]["weighted"],
+            "ms": f32_t["ms"],
+            "plain_ms": f32_t["plain_ms"],
+            "bound_ms": f32_t["bound_ms"],
+            "bound_by": f32_t["bound_by"],
+            "library_ms": f32_t["library_ms"],
+            "library_call": "scaled_dot_product_attention in f32 with the same additive mask "
+                            "(nearest: normalized output, no stats)",
+            "shape": "f32 B=8 H=16 Tq=Tk=512 D=64, triangle bias; L2-cold",
+            "call_ms": f32_t["call_ms"],
         },
         {
             "name": "flash_block_tile_classes",
@@ -1009,13 +1042,72 @@ def auction_agree(name, got, want):
     return float(err)
 
 
+def stat_sums(stats) -> dict:
+    """The kernel's per-problem counters, summed over the batch, by name."""
+    from jobset_tpu_torch.ops.auction import STATS
+
+    return dict(zip(STATS, stats.cpu().long().sum(dim=0).tolist()))
+
+
+def auction_bound_bytes(stats, jobs_p, domains_p) -> int:
+    """The benefit bytes the reference algorithm reads in this run: the
+    rows of every round's bidders, plus one full pass per phase."""
+    s = stat_sums(stats)
+    return (s["bid_rows"] + s["phases"] * jobs_p) * domains_p * 4
+
+
 def auction_bound_ms(stats, jobs_p, domains_p) -> float:
-    """Least time of one launch: the benefit bytes it must read at the HBM
-    rate (the rows of every round's bidders, plus one full pass per phase),
-    from the kernel's own counts of this run."""
+    """Least time of one launch: auction_bound_bytes at the HBM rate, from
+    the kernel's own counts of this run."""
+    return 1e3 * auction_bound_bytes(stats, jobs_p, domains_p) / HBM_BYTES_PER_S
+
+
+def auction_read_bytes(stats, domains_p) -> int:
+    """The bytes the kernel itself read for its bids and repairs: full-scan
+    and repair rows, plus candidate lists read from global memory."""
+    s = stat_sums(stats)
+    return (s["full_scan_rows"] + s["repair_rows"]) * domains_p * 4 + s["candidate_bytes"]
+
+
+def round_split(stats, clock_mhz) -> dict:
+    """The slowest problem's bidding round in µs, part by part (thread 0's
+    clock64 sums over its timed rounds, one in 16, at the SM clock read
+    under load), its repairs in µs, warp 0's latency per full-scan and per
+    cached bid, and the batch's share of bids answered by candidate lists."""
+    from jobset_tpu_torch.ops.auction import STATS
+
     s = stats.cpu().long()
-    rows = int(s[:, 0].sum()) + int(s[:, 2].sum()) * jobs_p
-    return 1e3 * rows * domains_p * 4 / HBM_BYTES_PER_S
+    slow = int(s[:, STATS.index("cycles_total")].argmax())
+    row = dict(zip(STATS, s[slow].tolist()))
+    rounds = max(row["timed_rounds"], 1)
+    sums = stat_sums(stats)
+    out = {part: row[f"cycles_{part}"] / clock_mhz / rounds
+           for part in ("list", "bid", "resolve", "barrier")}
+    out["round"] = out["list"] + out["bid"] + out["resolve"]
+    out["repair_total"] = row["cycles_repair"] / clock_mhz
+    out["kernel_total"] = row["cycles_total"] / clock_mhz
+    for kind, count, cycles in (("scan", "warp0_scans", "warp0_scan_cycles"),
+                                ("hit", "warp0_hits", "warp0_hit_cycles")):
+        out[f"warp0_{kind}_latency"] = (row[cycles] / row[count] / clock_mhz
+                                        if row[count] else None)
+    out["hit_rate"] = sums["cached_bids"] / max(sums["bid_rows"], 1)
+    out["full_scan_rows"], out["cached_bids"] = sums["full_scan_rows"], sums["cached_bids"]
+    return out
+
+
+def sm_clock_mhz(launch, n: int) -> tuple[float, float]:
+    """nvidia-smi's SM clock and its maximum, read while n queued launches
+    of `launch` keep the card busy."""
+    torch.cuda.synchronize()
+    for _ in range(n):
+        launch()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    torch.cuda.synchronize()
+    now, top = (float(x) for x in out.split(","))
+    return now, top
 
 
 def pct(samples, q):
@@ -1047,18 +1139,38 @@ def scipy_ms(cost, feasible=None):
     return 1e3 * (time.perf_counter() - t0)
 
 
-def time_auction(name, launch, plain, jobs_p, domains_p, scipy):
+def time_auction(name, launch, plain, jobs_p, domains_p, scipy, clock_mhz):
     """Device ms of the kernel (CUDA events, the benefit L2-resident as a
     solve keeps it) beside the plain version's wall ms on the card (one
-    call, from the comparison), the bound and scipy's host ms."""
+    call, from the comparison), the bound and scipy's host ms; the round
+    split at `clock_mhz`, the hit rate, and the bytes the kernel read
+    against the bound's."""
+    from jobset_tpu_torch.ops.auction import STATS
+
     out = launch()
     torch.cuda.synchronize()
     t = {"ms": cuda_ms(launch, ITERS), "plain_ms": plain,
          "bound_ms": auction_bound_ms(out[3], jobs_p, domains_p), "bound_by": "bytes",
-         "iterations": out[2].tolist(), "stats": out[3].tolist(), "scipy_ms": scipy}
-    print(f"auction {name}: kernel {t['ms']:.4f} ms ({t['iterations'][:8]} iterations; rows "
-          f"bid/repair, phases, repair passes {t['stats'][0]}), plain {t['plain_ms']:.3f} ms, "
-          f"bound {t['bound_ms']:.4f} ms (bytes), scipy on the host {scipy:.3f} ms", flush=True)
+         "bound_bytes": auction_bound_bytes(out[3], jobs_p, domains_p),
+         "read_bytes": auction_read_bytes(out[3], domains_p),
+         "iterations": out[2].tolist(), "stats": dict(zip(STATS, out[3][0].tolist())),
+         "scipy_ms": scipy, "split_us": round_split(out[3], clock_mhz)}
+    slowest = max(t["iterations"])
+    t["us_per_round"] = 1e3 * t["ms"] / max(slowest, 1)
+    sp = t["split_us"]
+    latency = ", ".join(f"{k} {sp[f'warp0_{k}_latency']:.3f} µs"
+                        for k in ("scan", "hit") if sp[f"warp0_{k}_latency"] is not None)
+    print(f"auction {name}: kernel {t['ms']:.4f} ms ({t['iterations'][:8]} iterations; "
+          f"{t['us_per_round']:.3f} µs a round of the slowest problem), plain "
+          f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms (bytes: "
+          f"{t['bound_bytes']:,}; the kernel read {t['read_bytes']:,}), scipy on the host "
+          f"{scipy:.3f} ms", flush=True)
+    print(f"  round split (µs a timed round at {clock_mhz:.0f} MHz): list {sp['list']:.3f}, bids "
+          f"{sp['bid']:.3f}, resolution {sp['resolve']:.3f} (barrier waits inside these "
+          f"{sp['barrier']:.3f}); repairs {sp['repair_total']:.1f} µs of "
+          f"{sp['kernel_total']:.1f} µs; hit rate {sp['hit_rate']:.4f} ({sp['cached_bids']:,} "
+          f"cached bids, {sp['full_scan_rows']:,} full scans); warp 0 latency per bid: "
+          f"{latency}", flush=True)
     return t
 
 
@@ -1123,28 +1235,34 @@ def phase_solver(results):
     compare("edge structured 5 jobs x 1 domain", lambda: ops.structured(*e_ops),
             lambda: S._auction_plain(S._structured_benefit(*e_ops)))
 
-    # -- times: kernel, plain version, bound, scipy on the host
+    # -- times: kernel, plain version, bound, scipy on the host; the SM
+    #    clock that converts the kernel's cycle counts, read while 20
+    #    structured solves (over a second of work) keep the card busy
+    clock, clock_max = sm_clock_mhz(lambda: ops.structured(*grad_ops), ITERS)
+    results["sm_clock_mhz"] = {"under_load": clock, "max": clock_max}
+    print(f"SM clock under the structured solve (nvidia-smi): {clock:.0f} MHz "
+          f"(max {clock_max:.0f} MHz; {card})", flush=True)
     grad_cost = S._structured_cost_np(*(grad[k] for k in S._STRUCTURED))
     big_cost = S._structured_cost_np(*(big[k] for k in S._STRUCTURED))
     times = {
         "structured": time_auction(
             "structured 512x960", lambda: ops.structured(*grad_ops),
-            plain["structured 512x960"], jobs_p, domains_p, scipy_ms(*grad_cost)),
+            plain["structured 512x960"], jobs_p, domains_p, scipy_ms(*grad_cost), clock),
         "dense": time_auction(
             "heterogeneous dense 512x960", lambda: ops.dense(hetero_b),
-            plain["dense 512x960"], jobs_p, domains_p, scipy_ms(hetero)),
+            plain["dense 512x960"], jobs_p, domains_p, scipy_ms(hetero), clock),
         "structured_batch": time_auction(
             "structured storm 8x512x960", lambda: ops.structured(*storm_ops, batched=True),
             plain["structured storm 8x512x960"], jobs_p, domains_p,
             sum(scipy_ms(*S._structured_cost_np(*(p[k] for k in S._STRUCTURED)))
-                for p in storm)),
+                for p in storm), clock),
         "dense_batch": time_auction(
             "heterogeneous dense batch 8x512x960", lambda: ops.dense(hetero8_b, batched=True),
             plain["dense batch 8x512x960"], jobs_p, domains_p,
-            sum(scipy_ms(c) for c in hetero8)),
+            sum(scipy_ms(c) for c in hetero8), clock),
         "structured_100k": time_auction(
             "structured 100k-node 512x6250", lambda: ops.structured(*big_ops),
-            plain["structured 100k-node 512x6250"], jobs_p, big_p, scipy_ms(*big_cost)),
+            plain["structured 100k-node 512x6250"], jobs_p, big_p, scipy_ms(*big_cost), clock),
     }
     del grad_ops, storm_ops, big_ops, hetero_b, hetero8_b
 
@@ -1273,12 +1391,16 @@ def phase_solver(results):
             "scipy_host_ms": t["scipy_ms"], "iterations": t["iterations"],
             "shape": shape,
             "solve_wall_ms": {"p50": walls[key][0], "p99": walls[key][1]},
+            "us_per_round": t["us_per_round"], "round_split_us": t["split_us"],
+            "bound_bytes": t["bound_bytes"], "read_bytes": t["read_bytes"],
         }
         if key == "structured":
             big_t = times["structured_100k"]
             entry["shape_100k_nodes"] = {
                 "shape": "structured 512x6250 padded to 512x8192", "ms": big_t["ms"],
                 "plain_ms": big_t["plain_ms"], "bound_ms": big_t["bound_ms"],
+                "bound_bytes": big_t["bound_bytes"], "read_bytes": big_t["read_bytes"],
+                "round_split_us": big_t["split_us"],
                 "scipy_host_ms": big_t["scipy_ms"], "iterations": big_t["iterations"],
                 "solve_wall_ms": {"p50": walls["structured_100k"][0],
                                   "p99": walls["structured_100k"][1]},
@@ -1290,6 +1412,8 @@ def phase_solver(results):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the results as JSON to this file")
+    parser.add_argument("--solver-only", action="store_true",
+                        help="build the auction kernel and run phase 9 alone (no result line)")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -1308,13 +1432,20 @@ def main() -> int:
     results: dict = {"card": card}
 
     t0 = time.perf_counter()
-    libraries = cuda_build.build_all(["flash_block", "auction"])
+    libraries = cuda_build.build_all(["auction"] if args.solver_only
+                                     else ["flash_block", "auction"])
     results["build_s"] = time.perf_counter() - t0
     print(f"build: {results['build_s']:.2f} s", flush=True)
     for name, log in cuda_build.BUILD_LOG.items():
         for line in log.splitlines():
             if any(w in line for w in ("Compiling entry", "registers", "spill", "error")):
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
+    if args.solver_only:
+        kernels = phase_solver(results)
+        print(json.dumps({"kernels": kernels}))
+        print(f"chip_smoke --solver-only: {len(FAILURES)} check(s) failed, "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        return 1 if FAILURES else 0
     results["sass"] = tensor_core_sass(libraries["flash_block"])
 
     kernels = phase_kernels()
@@ -1332,11 +1463,15 @@ def main() -> int:
     phase_train(results)
     phase_worker(results)
 
-    counters = {"flash_block": "TENSOR_CORE_LAUNCHES",
+    counters = {"flash_block": "TENSOR_CORE_LAUNCHES", "flash_block_fma": "FMA_LAUNCHES",
                 "flash_block_tile_classes": "TILE_CLASS_LAUNCHES"}
+    worker_launches = (results["worker"]["straight"] or {}).get("kernel_launches", {})
     for kernel in kernels:
         counter = counters[kernel["name"]]
-        kernel["launches"] = results["launches"][counter]
+        # The FMA variant's main path is the worker's f32 LM run; the
+        # others' is `generate`.
+        kernel["launches"] = (worker_launches.get(counter, 0) if counter == "FMA_LAUNCHES"
+                              else results["launches"][counter])
         kernel["forward_launches"] = results["forward_launches"][counter]
         kernel["train_step_launches"] = results["train_step_launches"][counter]
         kernel["train_step_launches_by_remat"] = {

@@ -8,9 +8,13 @@ on the card and never falls back. One kernel serves the reference's four
 variants; each launch adds one to `AUCTION_LAUNCHES` and to its variant's
 counter.
 
-The kernel also reports, per problem, the benefit rows it scanned (bid
-rounds and repair passes), its phases and its repair passes (`STATS`),
-from which `chip_smoke.py` bounds its time by bytes.
+The kernel also reports, per problem, its bids and the rows it scanned,
+its phases and repair passes, how many bids its candidate lists answered,
+and its own cycle counts by part of the round (`STATS`), from which
+`chip_smoke.py` bounds its time by bytes and splits its round. The
+launcher allocates the kernel's global scratch: a structured problem's
+benefit, and the candidate lists where they do not fit in shared memory
+(`auction_candidate_scratch_bytes` in the source says how much).
 """
 
 from __future__ import annotations
@@ -30,13 +34,33 @@ STRUCTURED_LAUNCHES = 0
 DENSE_BATCH_LAUNCHES = 0
 STRUCTURED_BATCH_LAUNCHES = 0
 
-STATS = ("bid_rows", "repair_rows", "phases", "repair_passes")
+# Per-problem counters of a launch, columns of the returned stats:
+# - bid_rows: bids made (one per bidder per round); repair_rows: rows read
+#   by the phase-start repairs; phases; repair_passes;
+# - full_scan_rows: bids that read the bidder's whole row; cached_bids:
+#   bids answered by the bidder's candidate list; candidate_bytes: bytes
+#   of candidate lists read from global memory (0 where they fit in
+#   shared memory);
+# - cycles_*: thread 0's SM clock over the whole kernel, the repairs, and
+#   the parts of the timed bidding rounds (bidder list, bids, conflict
+#   resolution), and its wait inside their barriers (part of those);
+# - warp0_*: warp 0's own bids in the timed rounds, split into full scans
+#   and cached bids, with the cycles each took;
+# - timed_rounds: the rounds timed, one in 16.
+STATS = ("bid_rows", "repair_rows", "phases", "repair_passes",
+         "full_scan_rows", "cached_bids", "candidate_bytes",
+         "cycles_total", "cycles_repair", "cycles_list", "cycles_bid", "cycles_resolve",
+         "cycles_barrier", "warp0_scans", "warp0_scan_cycles", "warp0_hits",
+         "warp0_hit_cycles", "timed_rounds")
 MAX_SHARED_BYTES = 232_448  # what one block may opt into on an H100
 
 
 def shared_bytes(jobs: int, domains: int) -> int:
-    """Dynamic shared memory of one block: 16 B per object, 12 B per job."""
-    return 16 * domains + 12 * jobs
+    """Shared memory of the solve's state: 16 B per object (bid key,
+    price, owner) and 20 B per job, rounded up to 16 B. The kernel adds the
+    bidders' candidate lists where they fit beside it and keeps them in a
+    global scratch otherwise."""
+    return (16 * domains + 20 * jobs + 15) // 16 * 16
 
 
 @functools.cache
@@ -46,6 +70,8 @@ def _library():
         [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_void_p] * 14
     )
     lib.auction_launch.restype = ctypes.c_int
+    lib.auction_candidate_scratch_bytes.argtypes = [ctypes.c_int] * 2
+    lib.auction_candidate_scratch_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -73,18 +99,24 @@ def _check(name, t, shape, dtype, device) -> None:
         )
 
 
-def _launch(batch, jobs, domains, max_iters, eps, device, benefit=None, scratch=None,
+def _launch(batch, jobs, domains, max_iters, eps, device, benefit=None,
             structured=(None,) * 7):
     assignment = torch.empty((batch, jobs), dtype=torch.int32, device=device)
     prices = torch.empty((batch, domains), dtype=torch.float32, device=device)
     iterations = torch.empty((batch,), dtype=torch.int32, device=device)
     stats = torch.empty((batch, len(STATS)), dtype=torch.int64, device=device)
+    # The kernel's scratch: a structured problem's benefit, which it writes
+    # once, then the candidate lists that do not fit in shared memory.
+    lib = _library()
+    floats = batch * (jobs * domains * (benefit is None)
+                      + lib.auction_candidate_scratch_bytes(jobs, domains) // 4)
+    scratch = torch.empty((floats,), dtype=torch.float32, device=device) if floats else None
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     with torch.cuda.device(device):
-        err = _library().auction_launch(
+        err = lib.auction_launch(
             batch, jobs, domains, domains.bit_length() - 1, max_iters, float(eps),
             ptr(benefit), ptr(scratch), *(ptr(t) for t in structured),
             assignment.data_ptr(), prices.data_ptr(), iterations.data_ptr(), stats.data_ptr(),
@@ -98,7 +130,8 @@ def _launch(batch, jobs, domains, max_iters, eps, device, benefit=None, scratch=
 def dense(benefit, eps=1.0, max_iters: int = 20000, batched: bool = False):
     """Auction solves of a [B, J_p, D_p] f32 scaled benefit stack on the
     card. Returns (assignment [B, J_p] int32 with D_p for "took the sink",
-    prices [B, D_p] f32, iterations [B] int32, stats [B, 4] int64)."""
+    prices [B, D_p] f32, iterations [B] int32, stats [B, len(STATS)]
+    int64)."""
     global AUCTION_LAUNCHES, DENSE_LAUNCHES, DENSE_BATCH_LAUNCHES
     if benefit.dim() != 3:
         raise ValueError(f"auction dense: benefit {tuple(benefit.shape)} is not [B, J, D]")
@@ -141,8 +174,7 @@ def structured(load, free, pods_needed, sticky, occupied, own_domain, num_domain
         ("num_domains", num_domains, (batch,), torch.int32),
     ):
         _check(name, t, shape, dtype, device)
-    scratch = torch.empty((batch, jobs, domains), dtype=torch.float32, device=device)
-    out = _launch(batch, jobs, domains, max_iters, 1.0, device, scratch=scratch,
+    out = _launch(batch, jobs, domains, max_iters, 1.0, device,
                   structured=(load, free, pods_needed, sticky, occupied, own_domain,
                               num_domains))
     AUCTION_LAUNCHES += 1

@@ -242,6 +242,87 @@ def test_structured_auction_kernel_matches_plain_version(cuda, jobs, domains):
         assert torch.equal(single[0][0], got[0][b]) and torch.equal(single[2][0], got[2][b])
 
 
+def _gradient(seed, jobs, domains):
+    """chip_smoke.py's structured surface: a load gradient over the
+    domains, a quarter of the jobs sticky, some owning their domain, and
+    domains owned by other JobSets."""
+    rng = np.random.default_rng(seed)
+    taken = np.round(16 * 0.9 * np.arange(domains) / max(domains - 1, 1))
+    free = (16 * (16 - taken)).astype(np.float32)
+    picks = rng.choice(domains, size=jobs // 4 + jobs // 8, replace=False).astype(np.int32)
+    movers = rng.choice(jobs, size=jobs // 4, replace=False)
+    sticky = np.full(jobs, -1, np.int32)
+    sticky[movers] = picks[: jobs // 4]
+    own = np.full(jobs, -1, np.int32)
+    own[movers[: jobs // 16]] = picks[: jobs // 16]
+    occupied = np.zeros(domains, bool)
+    occupied[picks[: jobs // 16]] = True
+    occupied[picks[jobs // 4:]] = True
+    return dict(load=(1.0 - free / 256).astype(np.float32), free=free,
+                pods_needed=np.full(jobs, 4, np.float32), sticky=sticky, occupied=occupied,
+                own_domain=own)
+
+
+def _check_stats(stats, iterations):
+    """The per-problem counters: every column present, every bid either a
+    full scan or answered by the candidates, the hit rate in [0, 1]."""
+    s = {name: stats[:, i].cpu() for i, name in enumerate(auction_ops.STATS)}
+    assert stats.shape[1] == len(auction_ops.STATS)
+    assert torch.equal(s["full_scan_rows"] + s["cached_bids"], s["bid_rows"])
+    hit_rate = s["cached_bids"].sum().item() / max(s["bid_rows"].sum().item(), 1)
+    assert 0.0 <= hit_rate <= 1.0
+    assert bool((s["cycles_total"] > 0).all()) and bool((s["phases"] >= 1).all())
+    assert bool((s["bid_rows"] >= iterations.cpu().long()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,jobs,domains", [(1, 512, 8192), (8, 128, 240)],
+                         ids=["512x8192, shared-memory budget", "storm of 8"])
+def test_structured_auction_kernel_on_gradient_surfaces(cuda, batch, jobs, domains):
+    problems = [_gradient(seed, jobs, domains) for seed in range(batch)]
+    stacked = S._stack_structured(problems, S._round_up_pow2(jobs), S._round_up_pow2(domains))
+    ops = [torch.from_numpy(a).to(cuda) for a in stacked.values()]
+    before = (auction_ops.AUCTION_LAUNCHES, auction_ops.STRUCTURED_BATCH_LAUNCHES)
+    got = auction_ops.structured(*ops, batched=True)
+    assert (auction_ops.AUCTION_LAUNCHES, auction_ops.STRUCTURED_BATCH_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    _same_solve(got, S._auction_plain(S._structured_benefit(*ops)))
+    _check_stats(got[3], got[2])
+
+
+def _contended_dead_columns():
+    """chip_smoke.py's edge case: 64 jobs alike over 96 domains on a
+    gradient, the last 32 domains dead."""
+    cost = np.round((1.0 + np.linspace(0, 0.9, 96)[None, :].repeat(64, 0)) * 64)
+    feasible = np.ones((64, 96), bool)
+    feasible[:, 64:] = False
+    return cost[None].astype(np.float32), feasible[None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["contended dead columns 64x96", "ties 64x128 costs 0..3",
+                                  "ties 512x1024 costs 0..7", "ties batch 4x256x512 costs 0..1"])
+def test_dense_auction_kernel_on_contended_and_tied_problems(cuda, case):
+    if case.startswith("contended"):
+        costs, feasible = _contended_dead_columns()
+    else:
+        shape, top = {"ties 64x128 costs 0..3": ((1, 64, 128), 4),
+                      "ties 512x1024 costs 0..7": ((1, 512, 1024), 8),
+                      "ties batch 4x256x512 costs 0..1": ((4, 256, 512), 2)}[case]
+        costs = np.random.default_rng(shape[1]).integers(0, top, size=shape).astype(np.float32)
+        feasible = np.ones(shape, bool)
+    benefit = S._dense_benefit(costs, feasible, S._round_up_pow2(costs.shape[1]),
+                               S._round_up_pow2(costs.shape[2]), cuda)
+    batched = costs.shape[0] > 1
+    counter = "DENSE_BATCH_LAUNCHES" if batched else "DENSE_LAUNCHES"
+    before = (auction_ops.AUCTION_LAUNCHES, getattr(auction_ops, counter))
+    got = auction_ops.dense(benefit, batched=batched)
+    assert (auction_ops.AUCTION_LAUNCHES, getattr(auction_ops, counter)) == (before[0] + 1,
+                                                                             before[1] + 1)
+    _same_solve(got, S._auction_plain(benefit))
+    _check_stats(got[3], got[2])
+
+
 @pytest.mark.cuda
 def test_solver_surface_on_card_matches_cpu(cuda):
     rng = np.random.default_rng(3)
