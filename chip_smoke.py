@@ -1,22 +1,25 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (jobset_tpu_torch) on one CUDA GPU.
 
-    python3 chip_smoke.py [--out RESULTS.json] [--solver-only]
+    python3 chip_smoke.py [--out RESULTS.json] [--solver-only | --flash-only]
 
-(`--solver-only` builds the auction kernel and runs phase 9 alone, without
-the result line.) Phases, in order; any failure exits non-zero before the
-result line:
+(`--solver-only` builds the auction kernel and runs phase 9 alone,
+`--flash-only` builds the flash block kernels and runs phases 2-3 alone;
+neither prints the result line.) Phases, in order; any failure exits
+non-zero before the result line:
   1. the card's name and power limit (nvidia-smi); TF32 off;
   2. build every CUDA kernel from this checkout (one nvcc per source, all
-     started together) and print the build seconds, the ptxas report and
+     started together) and print the build seconds, the ptxas report (the
+     f32 block kernel's registers and spills on a line of their own) and
      the tensor-core instructions in each kernel's SASS (the bf16 block
-     kernel must have HGMMA, i.e. wgmma);
+     kernel must have HGMMA, i.e. wgmma; the f32 one HMMA, i.e. mma.sync);
   3. hold each kernel (the flash block step in both dtype variants, and
      the tile-class pre-pass) against its plain PyTorch version on the
      card, at the flagship prefill shape with six bias kinds and at edge
      shapes, and time the kernel, the plain version and the nearest
-     PyTorch library call at the flagship and forward shapes (and the f32
-     FMA variant at the flagship block shape in f32), rotating
+     PyTorch library call at the flagship and forward shapes, in bf16 and
+     in f32 (the f32 variant beside two bounds: its own 3xTF32 arithmetic
+     and true f32 on the FMA pipes), rotating
      input sets larger than the 50 MB L2 (L2-cold), and the host time of
      one `generate`'s 24 block calls under no_grad, through the wrapper,
      through the autograd.Function and straight to the launch;
@@ -42,7 +45,7 @@ result line:
      subprocess on a small f32 LM workload with checkpoints: an
      uninterrupted run, a run that fails at a step, and its restart,
      which resumes from the checkpoint and ends at the uninterrupted
-     run's loss; the FMA variant's counter moves;
+     run's loss; the f32 variant's counter moves;
   9. the placement solver plane at the 15k-node shape (512 jobs x 960
      domains) and a 100k-node one (512 x 6250): the auction kernel against
      its plain version on the card (assignments, iterations and prices
@@ -80,14 +83,20 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16
-# tensor-core FLOP/s, and f32 FLOP/s outside the tensor cores.
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and
+# FLOP/s of bf16 and TF32 on the tensor cores and of f32 on the FMA pipes.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+BF16_FLOPS, TF32_FLOPS, F32_FMA_FLOPS = 989e12, 495e12, 67e12
+# The arithmetic each block-kernel variant performs for one product of the
+# function: (peak FLOP/s, passes). The f32 variant is 3xTF32: three TF32
+# products for each f32 one.
+PRODUCT_RATE = {torch.bfloat16: (BF16_FLOPS, 1), torch.float32: (TF32_FLOPS, 3)}
 
 # Stated tolerances (rtol, atol), kernel against plain version on the same
 # inputs; each bound is max|got - want| <= atol + rtol * max|want| over the
-# tensor. f32: same arithmetic in another order. bf16: operands are exact
+# tensor. f32: 3xTF32 in the kernel (errors near 2^-22 of each product,
+# about f32's own rounding) against true f32 in another order; the plain
+# version runs with TF32 off (`plain_is_f32`). bf16: operands are exact
 # in the f32 products, but p is rounded to bf16 for the PV product against
 # the running max (kernel) or the block max (plain).
 KERNEL_TOL = {
@@ -183,7 +192,7 @@ def plain_attention():
         flash_block.block_attention = real
 
 
-LAUNCH_COUNTERS = ("KERNEL_LAUNCHES", "TENSOR_CORE_LAUNCHES", "FMA_LAUNCHES",
+LAUNCH_COUNTERS = ("KERNEL_LAUNCHES", "TENSOR_CORE_LAUNCHES", "F32_LAUNCHES",
                    "TILE_CLASS_LAUNCHES")
 
 
@@ -201,7 +210,7 @@ def check_launches(path, expected):
 
     counts = {name: getattr(fb, name) for name in LAUNCH_COUNTERS}
     check(counts == {"KERNEL_LAUNCHES": expected, "TENSOR_CORE_LAUNCHES": expected,
-                     "FMA_LAUNCHES": 0, "TILE_CLASS_LAUNCHES": expected},
+                     "F32_LAUNCHES": 0, "TILE_CLASS_LAUNCHES": expected},
           f"{path}: launches {counts} (expected {expected} block launches, all on the "
           f"tensor-core variant, and {expected} pre-pass launches)")
     return counts
@@ -210,7 +219,7 @@ def check_launches(path, expected):
 def tensor_core_sass(library) -> dict:
     """Count the tensor-core instructions (HGMMA: wgmma, HMMA: mma.sync) in
     each kernel of a built library's SASS; the bf16 block kernel must have
-    HGMMA."""
+    HGMMA, the f32 one HMMA."""
     from jobset_tpu_torch.ops import cuda_build
 
     cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
@@ -229,7 +238,40 @@ def tensor_core_sass(library) -> dict:
     tc = {n: c for n, c in counts.items() if "flash_block_tc_kernel" in n}
     check(bool(tc) and all(c["HGMMA"] > 0 for c in tc.values()),
           f"sass: every bf16 tensor-core kernel instantiation has HGMMA ({len(tc)} found)")
+    f32 = {n: c for n, c in counts.items() if "flash_block_f32_kernel" in n}
+    check(bool(f32) and all(c["HMMA"] > 0 for c in f32.values()),
+          f"sass: every f32 block kernel instantiation has HMMA ({len(f32)} found)")
     return counts
+
+
+def f32_kernel_ptxas(log: str) -> dict:
+    """Registers and spill bytes of each f32 block kernel instantiation in
+    an `nvcc -Xptxas -v` log, by padded head dim; printed one a line."""
+    import re
+
+    out, dp = {}, None
+    for line in log.splitlines():
+        if m := re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line):
+            found = re.search(r"flash_block_f32_kernelILi(\d+)E", m.group(1))
+            dp = f"DP{found.group(1)}" if found else None
+            if dp:
+                out.setdefault(dp, {})
+        elif dp and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out[dp].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif dp and (m := re.search(r"Used (\d+) registers", line)):
+            out[dp]["registers"] = int(m.group(1))
+    for name, rep in sorted(out.items()):
+        print(f"ptxas f32 block kernel {name}: {rep.get('registers')} registers, "
+              f"{rep.get('spill_stores')} B spill stores, {rep.get('spill_loads')} B spill "
+              "loads", flush=True)
+    return out
+
+
+def plain_is_f32(what: str) -> None:
+    """The plain yardstick's f32 products must be true f32 (no TF32)."""
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          f"{what}: the plain version's f32 matmuls run in true f32 (TF32 off)")
 
 
 def to_device(tree, device):
@@ -282,14 +324,20 @@ def make_qkv(dtype, batch, tq, tk, heads, dim, kv_heads, gen, fused=False):
 
 
 def flash_case(name, dtype, batch, tq, tk, heads, dim, bias_kind, kv_heads=None, seed=0,
-               fused=False):
+               fused=False, q_scale=1.0, d_stride=1):
     """One comparison of the block kernel, and of the tile-class pre-pass,
-    with their plain versions; the variant counter for the dtype must move."""
+    with their plain versions; the variant counter for the dtype must move.
+    `q_scale` scales q (large logits); `d_stride` > 1 hands the kernel q, k
+    and v as views with that stride on D."""
     from jobset_tpu_torch.ops import flash_block as fb
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     kv_heads = kv_heads or heads
-    q, k_c, v_c = make_qkv(dtype, batch, tq, tk, heads, dim, kv_heads, gen, fused)
+    q, k_c, v_c = make_qkv(dtype, batch, tq, tk, heads, dim * d_stride, kv_heads, gen, fused)
+    if q_scale != 1.0:
+        q = q * q_scale
+    if d_stride > 1:
+        q, k_c, v_c = (t[..., ::d_stride] for t in (q, k_c, v_c))
     k = fb._repeat_heads(k_c, heads // kv_heads)
     v = fb._repeat_heads(v_c, heads // kv_heads)
     bias = make_bias(bias_kind, tq, tk)
@@ -300,11 +348,13 @@ def flash_case(name, dtype, batch, tq, tk, heads, dim, bias_kind, kv_heads=None,
     check(torch.equal(classes, want_classes),
           f"tile_classes {name}: pre-pass equals the plain version "
           f"({[int((want_classes == c).sum()) for c in range(3)]} tiles of class 0/1/2)")
-    counter = "TENSOR_CORE_LAUNCHES" if dtype == torch.bfloat16 else "FMA_LAUNCHES"
+    counter = "TENSOR_CORE_LAUNCHES" if dtype == torch.bfloat16 else "F32_LAUNCHES"
     before = getattr(fb, counter)
     got = fb.block_attention(q, k, v, bias)
     torch.cuda.synchronize()
     check(getattr(fb, counter) == before + 1, f"flash_block {name}: ran the {counter} variant")
+    if dtype == torch.float32:
+        plain_is_f32(f"flash_block {name}")
     want = fb.block_attention_reference(q, k, v, bias)
     errs = {}
     for label, g, w in zip(("max", "sum", "weighted"), got, want):
@@ -318,23 +368,27 @@ def flash_case(name, dtype, batch, tq, tk, heads, dim, bias_kind, kv_heads=None,
         check(bool((got[1] == 0).all() and (got[2] == 0).all()
                    and (got[0] <= fb.NEG_INF / 2).all()),
               f"flash_block {name}: fully masked rows give max ~NEG_INF, sum 0, weighted 0")
+    print(f"flash_block {name}: max|d| max {errs['max']:.3e}, sum {errs['sum']:.3e}, "
+          f"weighted {errs['weighted']:.3e}", flush=True)
     return dict(q=q, k=k, v=v, k_c=k_c, v_c=v_c, bias=bias, bias_kind=bias_kind,
                 classes=classes, errs=errs, classes_err=classes_err,
                 shape=(dtype, batch, tq, tk, heads, dim, kv_heads, fused))
 
 
-def flash_bound_ms(case) -> tuple[float, str]:
+def flash_bound_ms(case, rate=None) -> tuple[float, str]:
     """Least time for one launch: each input read once and each output
     written once at HBM rate, or the products these inputs need (the
-    unmasked logits only) at the dtype's peak rate; the larger."""
+    unmasked logits only) in the arithmetic the dtype's variant performs
+    (`PRODUCT_RATE`; `rate` = (FLOP/s, passes) overrides it); the larger."""
     q, k_c, v_c, bias = case["q"], case["k_c"], case["v_c"], case["bias"]
     batch, tq, heads, dim = q.shape
     moved = sum(t.numel() * t.element_size() for t in (q, k_c, v_c, bias))
     moved += 4 * (2 * batch * heads * tq + batch * tq * heads * dim)
     unmasked = int((bias > -5e29).sum())
     flops = 4 * batch * heads * dim * unmasked
+    peak, passes = rate or PRODUCT_RATE[q.dtype]
     t_bytes = moved / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[q.dtype]
+    t_ops = passes * flops / peak
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -365,6 +419,8 @@ def time_block(case, n_sets, other_bias_kinds=()):
         q, k_c, v_c = make_qkv(dtype, batch, tq, tk, heads, dim, kv_heads, gen, fused)
         sets.append((q, fb._repeat_heads(k_c, group), fb._repeat_heads(v_c, group)))
     bias, classes = case["bias"], case["classes"]
+    if dtype == torch.float32:
+        plain_is_f32("flash_block timing")
     out = {
         "ms": rotating_ms(lambda i: fb._block_attention_cuda(*sets[i], bias, classes),
                           n_sets, ITERS),
@@ -385,6 +441,8 @@ def time_block(case, n_sets, other_bias_kinds=()):
                                                                    attn_mask=mask),
         n_sets, ITERS)
     out["bound_ms"], out["bound_by"] = flash_bound_ms(case)
+    if dtype == torch.float32:
+        out["fma_bound_ms"], out["fma_bound_by"] = flash_bound_ms(case, (F32_FMA_FLOPS, 1))
     return out
 
 
@@ -416,7 +474,7 @@ def host_call_ms(case, calls=GENERATE_LAUNCHES, repeats=TTFT_REPEATS):
     return {name: sorted(r)[len(r) // 2] for name, r in runs.items()}
 
 
-def phase_kernels():
+def phase_kernels(results):
     from jobset_tpu_torch.ops import flash_block as fb
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -435,27 +493,51 @@ def phase_kernels():
     flash_case("bf16 D128 B8 H8 T512", bf16, 8, 512, 512, 8, 128, "triangle", seed=6)
     forward = flash_case("forward shape bf16 B8 H16 T1024 D64, fused-QKV views", bf16,
                          8, 1024, 1024, 16, 64, "triangle", seed=5, fused=True)
-    # The FMA variant at the flagship block shape in f32: the kernel the LM
-    # workload's default f32 path runs (the worker phase counts its launches).
-    flagship_f32 = flash_case("flagship f32 B8 H16 T512 D64 triangle", f32,
-                              8, 512, 512, 16, 64, "triangle", seed=7)
+    # The f32 variant: the kernel the LM workload's default f32 path runs
+    # (the worker phase counts its launches). Every bias kind at the
+    # flagship block; both loaders (16-byte copies for aligned views, 4-byte
+    # ones for D=5 rows and D-strided views); GQA; large logits, where
+    # single-pass TF32 would miss the tolerance; the forward shape's fused
+    # QKV views.
+    flagship_f32 = None
+    for bias_kind in ("triangle", "zero", "all_masked", "band", "reverse_triangle", "alibi"):
+        case = flash_case(f"flagship f32 B8 H16 T512 D64 {bias_kind}", f32,
+                          8, 512, 512, 16, 64, bias_kind, seed=7)
+        if bias_kind == "triangle":
+            flagship_f32 = case
+    flash_case("f32 D5 ragged Tq70 Tk90 (4-byte copies)", f32, 2, 70, 90, 4, 5, "alibi", seed=8)
+    flash_case("f32 D-stride-2 views, GQA H8/Hkv2 T200 D64 (4-byte copies)", f32,
+               2, 200, 200, 8, 64, "band", kv_heads=2, seed=9, d_stride=2)
+    flash_case("f32 GQA expand view H16/Hkv4 T512 D64", f32, 4, 512, 512, 16, 64,
+               "triangle", kv_heads=4, seed=10)
+    flash_case("f32 D128 Tq130 Tk200", f32, 2, 130, 200, 4, 128, "triangle", seed=11)
+    large = flash_case("f32 large logits |q.k| ~1e3 B2 H4 T256 D64", f32, 2, 256, 256, 4, 64,
+                       "triangle", seed=12, q_scale=125.0)
+    forward_f32 = flash_case("forward shape f32 B8 H16 T1024 D64, fused-QKV views", f32,
+                             8, 1024, 1024, 16, 64, "triangle", seed=13, fused=True)
 
     # L2-cold: 4 sets of q/k/v at the flagship shape (100 MB in bf16, 200 MB
-    # in f32) and 2 fused QKV buffers at the forward shape (100 MB) against
-    # the 50 MB L2.
+    # in f32) and 2 fused QKV buffers at the forward shape (100 MB in bf16,
+    # 200 MB in f32) against the 50 MB L2.
     flag_t = time_block(flagship, 4, ("zero", "alibi"))
     fwd_t = time_block(forward, 2)
-    f32_t = time_block(flagship_f32, 4)
+    f32_t = time_block(flagship_f32, 4, ("zero", "alibi"))
+    fwd_f32_t = time_block(forward_f32, 2)
     for label, t in (("flagship bf16 [8,512,16,64]", flag_t),
                      ("forward shape bf16 [8,1024,16,64]", fwd_t),
-                     ("flagship f32 (FMA variant) [8,512,16,64]", f32_t)):
+                     ("flagship f32 [8,512,16,64]", f32_t),
+                     ("forward shape f32 [8,1024,16,64]", fwd_f32_t)):
+        fma = (f"; true-f32 FMA bound {t['fma_bound_ms']:.4f} ms ({t['fma_bound_by']})"
+               if "fma_bound_ms" in t else "")
         print(f"flash_block {label} triangle, L2-cold: kernel {t['ms']:.4f} ms "
               f"(call with pre-pass {t['call_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, "
               f"library_ms (scaled_dot_product_attention, same mask; normalized output, "
               f"no stats) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_by']}), {t['bound_ms'] / t['ms']:.1%} of bound", flush=True)
-    print("flash_block flagship bf16 [8,512,16,64], kernel alone by bias kind, L2-cold: "
-          + ", ".join(f"{k} {ms:.4f} ms" for k, ms in flag_t["ms_by_bias"].items()), flush=True)
+              f"({t['bound_by']}), {t['bound_ms'] / t['ms']:.1%} of bound{fma}", flush=True)
+    for label, t in (("bf16", flag_t), ("f32", f32_t)):
+        print(f"flash_block flagship {label} [8,512,16,64], kernel alone by bias kind, "
+              "L2-cold: " + ", ".join(f"{k} {ms:.4f} ms" for k, ms in t["ms_by_bias"].items()),
+              flush=True)
     host = host_call_ms(flagship)
     print(f"flash_block flagship bf16 [8,512,16,64], host time of {GENERATE_LAUNCHES} calls "
           f"under no_grad, median of {TTFT_REPEATS}: "
@@ -477,8 +559,7 @@ def phase_kernels():
             "source": "jobset_tpu_torch/ops/csrc/flash_block.cu",
             "replaces": "jobset_tpu/ops/flash_block.py:194",
             "variant": "bf16 tensor cores (flash_block_tc_kernel) on the flagship paths; "
-                       "f32 FMA variant (flash_block_kernel) on the LM workload's default "
-                       "f32 path, which the worker phase drives",
+                       "the f32 variant (flash_block_f32_kernel) is its own entry",
             "max_abs_err": flagship["errs"]["weighted"],
             "ms": flag_t["ms"],
             "plain_ms": flag_t["plain_ms"],
@@ -496,22 +577,32 @@ def phase_kernels():
                                "bound_by")},
         },
         {
-            "name": "flash_block_fma",
+            "name": "flash_block_f32",
             "route": "cuda",
             "source": "jobset_tpu_torch/ops/csrc/flash_block.cu",
             "replaces": "jobset_tpu/ops/flash_block.py:194",
-            "variant": "f32 FMA variant (flash_block_kernel), the LM workload's default f32 "
-                       "path; launches counted on the worker's uninterrupted run",
+            "variant": "f32 variant (flash_block_f32_kernel, 3xTF32 on mma.sync), the LM "
+                       "workload's default f32 path; launches counted on the worker's "
+                       "uninterrupted run",
             "max_abs_err": flagship_f32["errs"]["weighted"],
+            "max_abs_err_by_output": flagship_f32["errs"],
+            "large_logits_max_abs_err": large["errs"],
             "ms": f32_t["ms"],
             "plain_ms": f32_t["plain_ms"],
             "bound_ms": f32_t["bound_ms"],
             "bound_by": f32_t["bound_by"],
+            "bound_arithmetic": "3xTF32: three TF32 products at 495 TFLOP/s",
+            "fma_bound_ms": f32_t["fma_bound_ms"],
             "library_ms": f32_t["library_ms"],
             "library_call": "scaled_dot_product_attention in f32 with the same additive mask "
                             "(nearest: normalized output, no stats)",
             "shape": "f32 B=8 H=16 Tq=Tk=512 D=64, triangle bias; L2-cold",
             "call_ms": f32_t["call_ms"],
+            "ms_by_bias": f32_t["ms_by_bias"],
+            "forward_shape": {k: fwd_f32_t[k] for k in
+                              ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
+                               "bound_by", "fma_bound_ms")},
+            "ptxas": results.get("f32_ptxas"),
         },
         {
             "name": "flash_block_tile_classes",
@@ -857,11 +948,11 @@ def phase_train(results):
                               n_layers=2, dtype=torch.float32, remat=False)
     small_params = init_params(small, torch.Generator().manual_seed(0), "cpu")
     small_batch = token_batch(128, 4, 64, seed=5, device="cpu")
-    before = launches_now()["FMA_LAUNCHES"]
+    before = launches_now()["F32_LAUNCHES"]
     card_step = sgd_step(small, to_device(small_params, "cuda"),
                          {k: t.cuda() for k, t in small_batch.items()})
-    check(launches_now()["FMA_LAUNCHES"] - before == small.n_layers,
-          "small f32 train step: one FMA-variant launch per layer")
+    check(launches_now()["F32_LAUNCHES"] - before == small.n_layers,
+          "small f32 train step: one f32-variant launch per layer")
     compare_step("small f32 train step, card vs CPU plain path", card_step,
                  sgd_step(small, small_params, small_batch, device="cpu"),
                  F32_LOSS_REL, F32_GRAD_REL)
@@ -902,9 +993,9 @@ def phase_worker(results):
         check(rc == 0 and straight is not None and straight["steps"] == 6,
               f"worker: uninterrupted run exits {rc} with its result line")
         launches = (straight or {}).get("kernel_launches", {})
-        check(launches.get("FMA_LAUNCHES", 0) >= 6 * small["n_layers"]
+        check(launches.get("F32_LAUNCHES", 0) >= 6 * small["n_layers"]
               and launches.get("TENSOR_CORE_LAUNCHES") == 0,
-              f"worker: the f32 run launched the FMA variant ({launches})")
+              f"worker: the f32 run launched the f32 variant ({launches})")
         crashing = workload("crashing", checkpoint_every=2,
                             checkpoint_dir=os.path.join(tmp, "ckpt"), fail_at_step=3)
         rc_fail, failed = run_worker(crashing, 0)
@@ -1412,8 +1503,12 @@ def phase_solver(results):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the results as JSON to this file")
-    parser.add_argument("--solver-only", action="store_true",
-                        help="build the auction kernel and run phase 9 alone (no result line)")
+    only = parser.add_mutually_exclusive_group()
+    only.add_argument("--solver-only", action="store_true",
+                      help="build the auction kernel and run phase 9 alone (no result line)")
+    only.add_argument("--flash-only", action="store_true",
+                      help="build the flash block kernels and run phases 2-3 alone "
+                           "(no result line)")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -1432,8 +1527,9 @@ def main() -> int:
     results: dict = {"card": card}
 
     t0 = time.perf_counter()
-    libraries = cuda_build.build_all(["auction"] if args.solver_only
-                                     else ["flash_block", "auction"])
+    sources = (["auction"] if args.solver_only else ["flash_block"] if args.flash_only
+               else ["flash_block", "auction"])
+    libraries = cuda_build.build_all(sources)
     results["build_s"] = time.perf_counter() - t0
     print(f"build: {results['build_s']:.2f} s", flush=True)
     for name, log in cuda_build.BUILD_LOG.items():
@@ -1446,9 +1542,18 @@ def main() -> int:
         print(f"chip_smoke --solver-only: {len(FAILURES)} check(s) failed, "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
         return 1 if FAILURES else 0
+    if "flash_block" in cuda_build.BUILD_LOG:
+        results["f32_ptxas"] = f32_kernel_ptxas(cuda_build.BUILD_LOG["flash_block"])
     results["sass"] = tensor_core_sass(libraries["flash_block"])
 
-    kernels = phase_kernels()
+    kernels = phase_kernels(results)
+    if args.flash_only:
+        print(json.dumps({"kernels": kernels}))
+        print(f"chip_smoke --flash-only: {len(FAILURES)} check(s) failed, "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        for what in FAILURES:
+            print(f"  FAILED: {what}", flush=True)
+        return 1 if FAILURES else 0
 
     cfg = flagship_config()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
@@ -1463,14 +1568,14 @@ def main() -> int:
     phase_train(results)
     phase_worker(results)
 
-    counters = {"flash_block": "TENSOR_CORE_LAUNCHES", "flash_block_fma": "FMA_LAUNCHES",
+    counters = {"flash_block": "TENSOR_CORE_LAUNCHES", "flash_block_f32": "F32_LAUNCHES",
                 "flash_block_tile_classes": "TILE_CLASS_LAUNCHES"}
     worker_launches = (results["worker"]["straight"] or {}).get("kernel_launches", {})
     for kernel in kernels:
         counter = counters[kernel["name"]]
-        # The FMA variant's main path is the worker's f32 LM run; the
+        # The f32 variant's main path is the worker's f32 LM run; the
         # others' is `generate`.
-        kernel["launches"] = (worker_launches.get(counter, 0) if counter == "FMA_LAUNCHES"
+        kernel["launches"] = (worker_launches.get(counter, 0) if counter == "F32_LAUNCHES"
                               else results["launches"][counter])
         kernel["forward_launches"] = results["forward_launches"][counter]
         kernel["train_step_launches"] = results["train_step_launches"][counter]

@@ -59,9 +59,30 @@
 //   Blocks of the longest q tiles (most live kv tiles under a causal mask)
 //   are launched first. Ragged Tq, Tk and D < 64 or < 128 come from TMA's
 //   zero fill of out-of-bounds boxes; kv columns past Tk also get NEG_INF.
-// - f32: FMA loops (flash_block_kernel), kept so an f32 product stays true
-//   f32 (no TF32); it applies the tile classes too. Only the differential
-//   tests and small f32 configurations run it.
+// - f32: 3xTF32 on the tensor cores (flash_block_f32_kernel). The LM
+//   workload's default f32 compute runs it: the worker's steps, f32 train
+//   and eval steps, f32 `generate`. At the flagship block in f32 the call
+//   moves 68.7 MB (21 us) and its 4.3 GFLOP take 64 us on the FP32 pipe
+//   (67 TFLOP/s), so an FMA kernel is bound by operations. Here every
+//   operand is split x = big + small, each a TF32 value (as cvt.rna), and a
+//   product is small.big + big.small + big.big in f32 accumulators (small.
+//   small, below 2^-22 of the product, is dropped): three TF32 products,
+//   26 us at 495 TFLOP/s, at an accuracy on a par with f32, which the f32
+//   tolerances hold. mma.sync m16n8k8 (tf32 wgmma takes K-major operands
+//   only, and V is not); one block per (batch*head, 64-row q tile), four
+//   warps of 16 q rows; Q in registers; P stays in registers (the kv
+//   order inside each k8 step is permuted so that S's accumulator is
+//   P.V's A fragment). What bounds it is the instruction stream around
+//   the 384 HMMAs of a warp's 16 x 64 tile step: the splits, the shared-
+//   memory fragment loads and the softmax. So the block splits each K and
+//   V tile once, in shared memory (big parts in place, small parts in one
+//   buffer that K and V take in turn), instead of every warp splitting
+//   all of it; K, V and class-2 bias tiles arrive by cp.async (16-byte
+//   copies where the view allows, 4-byte ones elsewhere), V of a tile in
+//   flight during its S product and the next K during P.V, one buffer
+//   each: a ring of stages would need about 108 KB a block, two blocks
+//   an SM instead of three. The softmax, the tile classes and the launch
+//   order are the bf16 kernel's.
 //
 // Operands are read in place from [B, T, H, D] (k and v as [B, T, H_kv,
 // group, D]: query head h reads kv head h / group, with a stride-0 group
@@ -77,6 +98,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 namespace {
 
@@ -104,6 +127,9 @@ struct Params {
   long long k_sb, k_st, k_sh, k_sg, k_sd;
   long long v_sb, v_st, v_sh, v_sg, v_sd;
   long long bias_sq, bias_sk;
+  // f32 kernel: the operand's tiles go by 16-byte copies (unit stride on D,
+  // 16-byte aligned base and strides), else by 4-byte copies.
+  int vec_q, vec_k, vec_v, vec_bias;
 };
 
 // ---------------------------------------------------------------------------
@@ -145,208 +171,422 @@ __device__ __forceinline__ int next_live_tile(const unsigned char* cls, int kt, 
   return kt;
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Both block kernels end alike. Thread (g, t) of warp w holds rows r0 and
+// r0 + 8 (r0 = q0 + 16w + g): a base-2 max, a partial sum over its columns
+// (reduced here across the quad that shares a row) and O's accumulator
+// columns 8n + 2t, 8n + 2t + 1. The max goes back to base e; O leaves
+// from the accumulators, each quad writing 32 contiguous bytes of a row
+// (whole sectors) per store.
+template <int ON>
+__device__ __forceinline__ void store_outputs(const Params& p, const float (&m)[2], float (&l)[2],
+                                              const float (&o)[ON][4], int b, int h, int r0,
+                                              int t) {
+  const long long bh = (long long)b * p.H + h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = r0 + r * 8;
+    if (row >= p.Tq) continue;
+    if (t == 0) {
+      p.out_max[bh * p.Tq + row] = m[r] * LN2;
+      p.out_sum[bh * p.Tq + row] = l[r];
+    }
+    float* out = p.out_weighted + (((long long)b * p.Tq + row) * p.H + h) * p.D;
+#pragma unroll
+    for (int n = 0; n < ON; ++n) {
+      const int col = n * 8 + 2 * t;
+      if (p.D % 2 == 0 && col + 1 < p.D) {
+        *reinterpret_cast<float2*>(out + col) = make_float2(o[n][2 * r], o[n][2 * r + 1]);
+      } else {
+        if (col < p.D) out[col] = o[n][2 * r];
+        if (col + 1 < p.D) out[col + 1] = o[n][2 * r + 1];
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
-// f32: FMA loops
+// f32: 3xTF32 products on the tensor cores (mma.sync m16n8k8)
 // ---------------------------------------------------------------------------
 
-constexpr int BQ = TILE;            // q rows per block
-constexpr int BK = TILE;            // kv rows per shared-memory tile
-constexpr int THREADS = 128;        // 16 row groups x 8 lanes
-constexpr int LANES = 8;            // threads that share one row group
-constexpr int ROWS = 4;             // q rows per thread
-constexpr int SCOLS = BK / LANES;   // logits columns per thread, strided by LANES
+constexpr int F32_THREADS = 128;       // four warps, 16 q rows each
+constexpr int BIAS_STRIDE = TILE + 8;  // floats; 8 mod 32 keeps float2 reads conflict-free
 
-__device__ __forceinline__ float lane_group_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
-}
-
-__device__ __forceinline__ float lane_group_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x + __shfl_xor_sync(0xffffffffu, x, 4);
-}
-
-// DP: D rounded up to 32, 64 or 128; the extra columns load as zeros.
+// Row strides in floats. Q and K are read as float2 along D, so their rows
+// are 8 mod 32 floats apart; V is read as single floats down two adjacent
+// rows, so its rows are 4 mod 32 apart. Both keep a warp's reads free of
+// bank conflicts and every row 16-byte aligned for cp.async.
 template <int DP>
-constexpr int smem_floats() {
-  return 3 * BQ * (DP + 4) + BQ * (BK + 4);
+struct F32Config {
+  static constexpr int QK_STRIDE = DP + 8;
+  static constexpr int V_STRIDE = DP + 4;
+  // Region A holds Q until it is in registers, then each class-2 bias tile.
+  static constexpr int A_FLOATS = TILE * (QK_STRIDE > BIAS_STRIDE ? QK_STRIDE : BIAS_STRIDE);
+  // A, K and V (their TF32 big parts once split), and the small parts of
+  // K (during S) or V (during P.V).
+  static constexpr int FLOATS = A_FLOATS + 2 * TILE * QK_STRIDE + TILE * V_STRIDE;
+  static constexpr int MIN_BLOCKS = DP <= 64 ? 3 : 1;  // as the shared memory allows
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
 }
 
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Start the copy of a [TILE][COLS] f32 tile into shared memory (row stride
+// DS floats): element (r, c) from base[r * srow + c * scol] for r < rows and
+// c < cols, zero elsewhere. `vec`: unit stride on columns (or one column),
+// 16-byte aligned base and row stride, so 16-byte copies (each thread
+// always the same 4 columns, every F32_THREADS * 4 / COLS rows), the tail
+// of a row zero-filled by the copy's source size; otherwise one 4-byte copy
+// an element. Nothing waits here: the caller commits and waits.
+template <int COLS, int DS>
+__device__ __forceinline__ void load_tile(float* dst, const float* base, int rows, int cols,
+                                          long long srow, long long scol, bool vec) {
+  if (vec) {
+    constexpr int CH = COLS / 4, RSTEP = F32_THREADS / CH;
+    static_assert(F32_THREADS % CH == 0, "a thread keeps its columns");
+    const int c = 4 * (threadIdx.x % CH), r0 = threadIdx.x / CH;
+    const int bytes = 4 * max(0, min(cols - c, 4));
+    const float* src = base + (long long)r0 * srow + c;
+    float* d = dst + r0 * DS + c;
+#pragma unroll
+    for (int i = 0; i < TILE / RSTEP; ++i) {
+      // A copy of 0 bytes reads nothing: its source may lie past the tensor.
+      cp_async16(d, src, r0 + i * RSTEP < rows ? bytes : 0);
+      src += RSTEP * srow;
+      d += RSTEP * DS;
+    }
+  } else {
+    for (int i = threadIdx.x; i < TILE * COLS; i += F32_THREADS) {
+      const int r = i / COLS, c = i % COLS;
+      const bool in = r < rows && c < cols;
+      cp_async4(dst + r * DS + c, in ? base + r * srow + c * scol : base, in ? 4 : 0);
+    }
+  }
+}
+
+// x = big + small, each a TF32 value rounded as cvt.rna.tf32.f32 rounds
+// (to nearest, ties away from zero: add half of the 13 dropped bits' range
+// to the magnitude, then drop them), with |x - big - small| <= 2^-22 |x|.
+// Written out, because the compiler's cvt.rna adds a guard against inf of
+// three more instructions an element; here a non-finite operand still
+// gives a non-finite product, as in f32. small's 13 low bits are
+// left in place: the tensor core ignores them, and the compiler's own cvt
+// leaves them too.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
+}
+
+__device__ __forceinline__ void split_frag(const float (&x)[4], uint32_t (&big)[4],
+                                           uint32_t (&small)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split_tf32(x[e], big[e], small[e]);
+}
+
+// Split the [TILE][DP] f32 tile at x (row stride XS) in place into its
+// big parts, and write its small parts at the same places of `small`: the
+// block splits each K and V element once, where every warp would split the
+// whole tile for its own fragments.
+template <int DP, int XS>
+__device__ __forceinline__ void split_tile(float* x, float* small) {
+  constexpr int CH = DP / 4, RSTEP = F32_THREADS / CH;
+  const int c = 4 * (threadIdx.x % CH), r0 = threadIdx.x / CH;
+#pragma unroll
+  for (int i = 0; i < TILE / RSTEP; ++i) {
+    const int r = r0 + i * RSTEP;
+    float4* xv = reinterpret_cast<float4*>(x + r * XS + c);
+    const float4 v = *xv;
+    uint4 big, sm;
+    split_tf32(v.x, big.x, sm.x);
+    split_tf32(v.y, big.y, sm.y);
+    split_tf32(v.z, big.z, sm.z);
+    split_tf32(v.w, big.w, sm.w);
+    *reinterpret_cast<uint4*>(xv) = big;
+    *reinterpret_cast<uint4*>(small + r * XS + c) = sm;
+  }
+}
+
+// d += A . B, m16n8k8, TF32 operands, f32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d[n] += A . B[n] for N n8 tiles as 3xTF32: the two cross terms, then
+// big . big (the order of CUTLASS's OpMultiplyAddFastF32); small . small
+// (below 2^-22 of the product) is dropped. bb[n] and bs[n] are B[n]'s
+// fragment, split.
+template <int N>
+__device__ __forceinline__ void mma_3xtf32(float (*d)[4], const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4],
+                                           const uint32_t (&bb)[N][2],
+                                           const uint32_t (&bs)[N][2]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(d[n], a_small, bb[n][0], bb[n][1]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(d[n], a_big, bs[n][0], bs[n][1]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(d[n], a_big, bb[n][0], bb[n][1]);
+}
+
+// Fragment maps (lane = 4g + t). m16n8k8's A fragment holds (row g, k t),
+// (g + 8, t), (g, t + 4), (g + 8, t + 4); B holds (k t, col g), (t + 4, g);
+// the accumulator holds (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+// The sum over k does not care which physical index each logical k names,
+// as long as A and B agree, so each k8 step reads its logical k = t and
+// t + 4 as physical 2t and 2t + 1:
+// - S = Q.K^T: Q's and K's two values are adjacent along D (one float2);
+// - O += P.V: the k8 step over kv rows 8j..8j+7 takes its A fragment
+//   straight from S's accumulator of n8 tile j, (c0, c2, c1, c3), and B
+//   from V rows 8j + 2t and 8j + 2t + 1. P never leaves the registers.
+//
+// Grid: (B*H, q tiles), the longest q tiles first. Warp w owns q rows
+// 16w..16w+15 of the tile. K and V have one buffer each, loaded in turn:
+// V(i) is in flight during S(i) and the softmax, K(i+1) (and its bias
+// tile) during P.V(i). Each tile is split in place once it has landed.
 template <int DP>
-__global__ void __launch_bounds__(THREADS) flash_block_kernel(Params p) {
-  constexpr int RS = DP + 4;         // q/k/v row stride in floats (16-byte rows, spread banks)
-  constexpr int PS = BK + 4;         // p row stride
-  constexpr int OC = DP / LANES;     // output columns per thread, contiguous
-  static_assert(BQ == BK, "q and kv tiles share the row stride");
-  static_assert(OC % 4 == 0, "output columns are read as float4");
+__global__ void __launch_bounds__(F32_THREADS, F32Config<DP>::MIN_BLOCKS)
+    flash_block_f32_kernel(const __grid_constant__ Params p) {
+  using Cfg = F32Config<DP>;
+  constexpr int QS = Cfg::QK_STRIDE, VS = Cfg::V_STRIDE;
+  constexpr int KS = DP / 8;    // k8 steps of Q.K^T
+  constexpr int SN = TILE / 8;  // n8 tiles of S (kv columns)
+  constexpr int ON = DP / 8;    // n8 tiles of O (head-dim columns)
+  constexpr int OG = ON < 8 ? ON : 8;  // n8 tiles of O per 3xTF32 call
 
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                 // [BQ][RS]
-  float* k_s = q_s + BQ * RS;        // [BK][RS]
-  float* v_s = k_s + BK * RS;        // [BK][RS]
-  float* p_s = v_s + BK * RS;        // [BQ][PS]
+  extern __shared__ __align__(16) float smem_f[];
+  float* a_s = smem_f;                 // Q [TILE][QS], then bias [TILE][BIAS_STRIDE]
+  float* k_s = a_s + Cfg::A_FLOATS;    // [TILE][QS]
+  float* small_s = k_s + TILE * QS;    // K's small parts [TILE][QS] or V's [TILE][VS]
+  float* v_s = small_s + TILE * QS;    // [TILE][VS]
+  unsigned char* cls = reinterpret_cast<unsigned char*>(v_s + TILE * VS);
 
-  const int tid = threadIdx.x;
-  const int rg = tid / LANES;
-  const int lane = tid % LANES;
-  const int bh = blockIdx.y;
-  const int b = bh / p.H;
-  const int h = bh % p.H;
-  const int q0 = blockIdx.x * BQ;
-  const int hk = h / p.group;
-  const int hg = h % p.group;
-  const unsigned char* cls = p.classes + (long long)blockIdx.x * p.n_kt;
-
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.x;
+  const int b = bh / p.H, h = bh % p.H;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // longest q tiles first
+  const int q0 = qt * TILE;
+  const int hk = h / p.group, hg = h % p.group;
   const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh + hg * p.k_sg;
   const float* v = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh + hg * p.v_sg;
 
-  for (int i = tid; i < BQ * DP; i += THREADS) {
-    const int r = i / DP, d = i % DP;
-    float x = 0.f;
-    if (q0 + r < p.Tq && d < p.D) x = q[(q0 + r) * p.q_st + d * p.q_sd];
-    q_s[r * RS + d] = x;
+  // Start the copies of kv tile `tile`: K, and (separately) the bias tile
+  // unless its class says it is all zero.
+  auto load_k = [&](int tile) {
+    load_tile<DP, QS>(k_s, k + (long long)tile * TILE * p.k_st, p.Tk - tile * TILE, p.D, p.k_st,
+                      p.k_sd, p.vec_k);
+  };
+  auto load_bias = [&](int tile) {
+    if (cls[tile] != CLASS_ZERO)
+      load_tile<TILE, BIAS_STRIDE>(
+          a_s, p.bias + (long long)q0 * p.bias_sq + (long long)tile * TILE * p.bias_sk,
+          p.Tq - q0, p.Tk - tile * TILE, p.bias_sq, p.bias_sk, p.vec_bias);
+  };
+
+  // Q's copy starts at entry; meanwhile the block copies its row of tile
+  // classes to shared memory, then starts the first live K tile's copy.
+  load_tile<DP, QS>(a_s, q + (long long)q0 * p.q_st, p.Tq - q0, p.D, p.q_st, p.q_sd, p.vec_q);
+  cp_async_commit();
+  for (int j = threadIdx.x; j < p.n_kt; j += F32_THREADS)
+    cls[j] = p.classes[(long long)qt * p.n_kt + j];
+  __syncthreads();
+  int kt = next_live_tile(cls, 0, p.n_kt);
+  if (kt < p.n_kt) load_k(kt);
+  cp_async_commit();
+
+  // Q into registers (its region then takes the bias tiles): this thread's
+  // A-fragment values of each k8 step, (row g, 2t), (g + 8, 2t),
+  // (g, 2t + 1), (g + 8, 2t + 1).
+  cp_async_wait<1>();
+  __syncthreads();
+  float qf[KS][4];
+  {
+    const float* q_row = a_s + (warp * 16 + g) * QS + 2 * t;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const float2 lo = *reinterpret_cast<const float2*>(q_row + ks * 8);
+      const float2 hi = *reinterpret_cast<const float2*>(q_row + 8 * QS + ks * 8);
+      qf[ks][0] = lo.x;
+      qf[ks][1] = hi.x;
+      qf[ks][2] = lo.y;
+      qf[ks][3] = hi.y;
+    }
   }
+  __syncthreads();  // every warp has its Q: region A is free
+  if (kt < p.n_kt) load_bias(kt);
+  cp_async_commit();
 
-  float m[ROWS], l[ROWS], acc[ROWS][OC];
+  const int r0 = q0 + warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+  const float scale2 = p.scale * LOG2E;
+  // Base-2 running max of each row, and this thread's partial sums over the
+  // columns it holds (reduced across the quad at the end).
+  float m[2] = {NEG_INF2, NEG_INF2}, l[2] = {0.f, 0.f};
+  float o[ON][4];
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < OC; ++c) acc[i][c] = 0.f;
-  }
+  for (int n = 0; n < ON; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
 
-  for (int kt = next_live_tile(cls, 0, p.n_kt); kt < p.n_kt;
-       kt = next_live_tile(cls, kt + 1, p.n_kt)) {
-    const int k0 = kt * BK;
-    const bool add_bias = cls[kt] != CLASS_ZERO;
-    __syncthreads();  // the last tile's readers are done
-    for (int i = tid; i < BK * DP; i += THREADS) {
-      const int r = i / DP, d = i % DP;
-      float kx = 0.f, vx = 0.f;
-      if (k0 + r < p.Tk && d < p.D) {
-        kx = k[(k0 + r) * p.k_st + d * p.k_sd];
-        vx = v[(k0 + r) * p.v_st + d * p.v_sd];
+  while (kt < p.n_kt) {
+    const int k0 = kt * TILE;
+    cp_async_wait<0>();
+    __syncthreads();  // K(kt) and its bias have landed; every warp is done with V
+    load_tile<DP, VS>(v_s, v + (long long)k0 * p.v_st, p.Tk - k0, p.D, p.v_st, p.v_sd, p.vec_v);
+    cp_async_commit();
+    split_tile<DP, QS>(k_s, small_s);
+    __syncthreads();  // K is split
+
+    float s[SN][4];
+#pragma unroll
+    for (int j = 0; j < SN; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t a_big[4], a_small[4];
+      split_frag(qf[ks], a_big, a_small);
+      uint32_t kb[SN][2], kx[SN][2];
+#pragma unroll
+      for (int j = 0; j < SN; ++j) {
+        const int at = (j * 8 + g) * QS + ks * 8 + 2 * t;
+        const uint2 big = *reinterpret_cast<const uint2*>(k_s + at);
+        const uint2 sm = *reinterpret_cast<const uint2*>(small_s + at);
+        kb[j][0] = big.x;
+        kb[j][1] = big.y;
+        kx[j][0] = sm.x;
+        kx[j][1] = sm.y;
       }
-      k_s[r * RS + d] = kx;
-      v_s[r * RS + d] = vx;
+      mma_3xtf32<SN>(s, a_big, a_small, kb, kx);
     }
-    __syncthreads();
 
-    // s[i][j]: q row rg*ROWS+i against kv row lane + LANES*j of this tile.
-    float s[ROWS][SCOLS];
+    // Base-2 logits x2 = log2(e) * (q.k * scale + bias); kv columns past Tk
+    // get NEG_INF2 whatever the tile's class.
+    if (cls[kt] != CLASS_ZERO) {
+      const float* brow = a_s + (warp * 16 + g) * BIAS_STRIDE + 2 * t;
 #pragma unroll
-    for (int i = 0; i < ROWS; ++i)
+      for (int j = 0; j < SN; ++j)
 #pragma unroll
-      for (int j = 0; j < SCOLS; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DP; d += 4) {
-      float4 a[ROWS], kb[SCOLS];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-        a[i] = *reinterpret_cast<const float4*>(&q_s[(rg * ROWS + i) * RS + d]);
-#pragma unroll
-      for (int j = 0; j < SCOLS; ++j)
-        kb[j] = *reinterpret_cast<const float4*>(&k_s[(lane + LANES * j) * RS + d]);
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-        for (int j = 0; j < SCOLS; ++j) {
-          float t = s[i][j];
-          t = fmaf(a[i].x, kb[j].x, t);
-          t = fmaf(a[i].y, kb[j].y, t);
-          t = fmaf(a[i].z, kb[j].z, t);
-          s[i][j] = fmaf(a[i].w, kb[j].w, t);
+        for (int r = 0; r < 2; ++r) {
+          const float2 bv = *reinterpret_cast<const float2*>(brow + r * 8 * BIAS_STRIDE + j * 8);
+          s[j][2 * r] = fmaf(s[j][2 * r], scale2, bv.x * LOG2E);
+          s[j][2 * r + 1] = fmaf(s[j][2 * r + 1], scale2, bv.y * LOG2E);
         }
+    } else {
+#pragma unroll
+      for (int j = 0; j < SN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= scale2;
     }
-
-    // Online softmax over this tile, one row group per 8 lanes.
+    if (k0 + TILE > p.Tk) {
 #pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int row = q0 + rg * ROWS + i;
-      float mx = m[i];
+      for (int j = 0; j < SN; ++j)
 #pragma unroll
-      for (int j = 0; j < SCOLS; ++j) {
-        const int col = k0 + lane + LANES * j;
-        float x = NEG_INF;
-        if (col < p.Tk) {
-          const float bias =
-              add_bias && row < p.Tq ? p.bias[row * p.bias_sq + col * p.bias_sk] : 0.f;
-          x = s[i][j] * p.scale + bias;
-        }
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      const float m_new = lane_group_max(mx);
-      const float corr = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < SCOLS; ++j) {
-        const float e = s[i][j] > 0.5f * NEG_INF ? expf(s[i][j] - m_new) : 0.f;
-        rs += e;
-        p_s[(rg * ROWS + i) * PS + lane + LANES * j] = e;
-      }
-      l[i] = l[i] * corr + lane_group_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < OC; ++c) acc[i][c] *= corr;
+        for (int e = 0; e < 4; ++e)
+          if (k0 + j * 8 + 2 * t + (e & 1) >= p.Tk) s[j][e] = NEG_INF2;
     }
-    __syncthreads();
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < SN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    float m_used[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float corr = fast_exp2(m[r] - mx[r]);  // both finite: never NaN
+      m[r] = mx[r];
+      // A row with no entry above NEG_INF/2 yet subtracts 0, so its masked
+      // entries give exp2(-1.4e30) = 0 and not exp2(0) = 1.
+      m_used[r] = mx[r] > 0.5f * NEG_INF2 ? mx[r] : 0.f;
+      l[r] *= corr;
+#pragma unroll
+      for (int n = 0; n < ON; ++n) {
+        o[n][2 * r] *= corr;
+        o[n][2 * r + 1] *= corr;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < SN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = fast_exp2(s[j][e] - m_used[e >> 1]);
+        l[e >> 1] += s[j][e];
+      }
 
-    // acc[i][c] += p[row i] . v[:, lane*OC + c]
-#pragma unroll 2
-    for (int kk = 0; kk < BK; kk += 4) {
-      float4 a[ROWS];
+    cp_async_wait<0>();
+    __syncthreads();  // V(kt) has landed; every warp is done with K(kt), its small parts
+                      // and the bias
+    const int next = next_live_tile(cls, kt + 1, p.n_kt);
+    if (next < p.n_kt) {
+      load_k(next);
+      load_bias(next);
+      cp_async_commit();
+    }
+    split_tile<DP, VS>(v_s, small_s);
+    __syncthreads();  // V is split
+
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-        a[i] = *reinterpret_cast<const float4*>(&p_s[(rg * ROWS + i) * PS + kk]);
+    for (int j = 0; j < SN; ++j) {
+      const float pf[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
+      uint32_t a_big[4], a_small[4];
+      split_frag(pf, a_big, a_small);
+      const int row = (j * 8 + 2 * t) * VS + g;
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const float* vrow = &v_s[(kk + t) * RS + lane * OC];
+      for (int n0 = 0; n0 < ON; n0 += OG) {
+        uint32_t vb[OG][2], vx[OG][2];
 #pragma unroll
-        for (int c4 = 0; c4 < OC; c4 += 4) {
-          const float4 vb = *reinterpret_cast<const float4*>(&vrow[c4]);
+        for (int n = 0; n < OG; ++n)
 #pragma unroll
-          for (int i = 0; i < ROWS; ++i) {
-            const float pa = t == 0 ? a[i].x : t == 1 ? a[i].y : t == 2 ? a[i].z : a[i].w;
-            acc[i][c4 + 0] = fmaf(pa, vb.x, acc[i][c4 + 0]);
-            acc[i][c4 + 1] = fmaf(pa, vb.y, acc[i][c4 + 1]);
-            acc[i][c4 + 2] = fmaf(pa, vb.z, acc[i][c4 + 2]);
-            acc[i][c4 + 3] = fmaf(pa, vb.w, acc[i][c4 + 3]);
+          for (int e = 0; e < 2; ++e) {
+            vb[n][e] = __float_as_uint(v_s[row + e * VS + (n0 + n) * 8]);
+            vx[n][e] = __float_as_uint(small_s[row + e * VS + (n0 + n) * 8]);
           }
-        }
+        mma_3xtf32<OG>(o + n0, a_big, a_small, vb, vx);
       }
     }
+    kt = next;
   }
 
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int row = q0 + rg * ROWS + i;
-    if (row >= p.Tq) continue;
-    if (lane == 0) {
-      p.out_max[(long long)bh * p.Tq + row] = m[i];
-      p.out_sum[(long long)bh * p.Tq + row] = l[i];
-    }
-    float* out = p.out_weighted + (((long long)b * p.Tq + row) * p.H + h) * p.D;
-#pragma unroll
-    for (int c = 0; c < OC; ++c) {
-      const int d = lane * OC + c;
-      if (d < p.D) out[d] = acc[i][c];
-    }
-  }
+  store_outputs(p, m, l, o, b, h, r0, t);
 }
 
 template <int DP>
-cudaError_t launch_fma(const Params& p, cudaStream_t stream) {
-  constexpr int bytes = smem_floats<DP>() * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_block_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
+  const int bytes = F32Config<DP>::FLOATS * (int)sizeof(float) + p.n_kt;
+  cudaError_t err = cudaFuncSetAttribute(flash_block_f32_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Tq + BQ - 1) / BQ, p.B * p.H);
-  flash_block_kernel<DP><<<grid, THREADS, bytes, stream>>>(p);
+  const dim3 grid(p.B * p.H, (p.Tq + TILE - 1) / TILE);
+  flash_block_f32_kernel<DP><<<grid, F32_THREADS, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -379,10 +619,6 @@ int tc_smem_bytes(int n_kt) {
   // then one q tile's row of tile classes.
   return 1024 + (1 + 2 * TcConfig<DP>::STAGES) * (DP / 64) * SUB_BYTES +
          8 * (3 * TcConfig<DP>::STAGES + 1) + n_kt;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
@@ -513,12 +749,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16][4], const uint32_t (&a)[
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // Grid: (B*H, q tiles). Warps 0-3 are the consumer warpgroup (warp w owns
@@ -703,36 +933,7 @@ __global__ void __launch_bounds__(TC_THREADS, TcConfig<DP>::MIN_BLOCKS)
     if (lane == 0) mbar_arrive(&empty[stage]);
   }
 
-  // Stats: reduce l across the quad that shares a row; max back to base e.
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const int row = r0 + r * 8;
-    if (t == 0 && row < p.Tq) {
-      p.out_max[(long long)bh * p.Tq + row] = m[r] * LN2;
-      p.out_sum[(long long)bh * p.Tq + row] = l[r];
-    }
-  }
-
-  // O straight from the accumulators: a quad writes 32 contiguous bytes of
-  // a row per store, whole 32-byte sectors.
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + r * 8;
-    if (row >= p.Tq) continue;
-    float* out = p.out_weighted + (((long long)b * p.Tq + row) * p.H + h) * p.D;
-#pragma unroll
-    for (int n = 0; n < ON; ++n) {
-      const int col = n * 8 + 2 * t;
-      if (p.D % 2 == 0 && col + 1 < p.D) {
-        *reinterpret_cast<float2*>(out + col) = make_float2(o[n][2 * r], o[n][2 * r + 1]);
-      } else {
-        if (col < p.D) out[col] = o[n][2 * r];
-        if (col + 1 < p.D) out[col + 1] = o[n][2 * r + 1];
-      }
-    }
-  }
+  store_outputs(p, m, l, o, b, h, r0, t);
 }
 
 using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
@@ -801,6 +1002,15 @@ cudaError_t launch_tc(const Params& p, cudaStream_t stream) {
 
 bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
 
+// An f32 operand whose tiles can go by 16-byte copies: unit stride along
+// the row, a 16-byte aligned base, and every row stride a multiple of 4
+// elements.
+int rows16(const void* ptr, bool unit_stride, std::initializer_list<long long> strides) {
+  bool ok = unit_stride && aligned16(ptr);
+  for (long long st : strides) ok = ok && st % 4 == 0;
+  return ok;
+}
+
 }  // namespace
 
 // Classes of the [Tq, Tk] f32 bias, one byte per 64x64 tile, row-major
@@ -817,7 +1027,7 @@ extern "C" int flash_block_tile_classes(const void* bias, void* classes, long lo
   return (int)cudaGetLastError();
 }
 
-// dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (tensor-core kernel); q, k
+// dtype: 0 = float32 (3xTF32 kernel), 1 = bfloat16 (wgmma kernel); q, k
 // and v share it; bias is f32. classes: flash_block_tile_classes's output.
 // dims: B, H, Tq, Tk, D, group.
 // strides (elements): q b,t,h,d; k b,t,h,g,d; v b,t,h,g,d; bias q,k.
@@ -853,9 +1063,14 @@ extern "C" int flash_block_forward(int dtype, const void* q, const void* k, cons
   for (int i = 0; i < 16; ++i) *dst[i] = strides[i];
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
-    if (p.D <= 32) return (int)launch_fma<32>(p, s);
-    if (p.D <= 64) return (int)launch_fma<64>(p, s);
-    return (int)launch_fma<128>(p, s);
+    const bool unit_d = p.D == 1;  // one column: its stride is never used
+    p.vec_q = rows16(q, unit_d || p.q_sd == 1, {p.q_sb, p.q_st, p.q_sh});
+    p.vec_k = rows16(k, unit_d || p.k_sd == 1, {p.k_sb, p.k_st, p.k_sh, p.k_sg});
+    p.vec_v = rows16(v, unit_d || p.v_sd == 1, {p.v_sb, p.v_st, p.v_sh, p.v_sg});
+    p.vec_bias = rows16(bias, p.Tk == 1 || p.bias_sk == 1, {p.bias_sq});
+    if (p.D <= 32) return (int)launch_f32<32>(p, s);
+    if (p.D <= 64) return (int)launch_f32<64>(p, s);
+    return (int)launch_f32<128>(p, s);
   }
   if (dtype == 1) {
     // TMA: unit stride on D, 16-byte aligned bases and strides.

@@ -18,8 +18,10 @@ them: on the card a kernel launches or the call raises. On the card a call
 is two launches: the tile-class pre-pass over the bias (`tile_classes`,
 plain version `tile_classes_reference`), then the block kernel, which
 skips fully masked 64x64 tiles and reads no bias where a tile's bias is
-all zero. The block kernel has one variant per dtype: bf16 runs on the
-tensor cores, f32 on the FMA pipes (true f32, no TF32).
+all zero. The block kernel has one variant per dtype, both on the tensor
+cores: bf16 by `wgmma`, f32 as 3xTF32 (each operand split into two TF32
+values and three TF32 products summed in f32, an accuracy on a par with
+f32; the f32 tolerances hold it).
 
 k and v may also be given as the 5-D GQA view that `_repeat_heads` returns,
 [B, Tk, H_kv, group, D] with a stride-0 group axis; both paths take it as
@@ -27,7 +29,8 @@ k and v may also be given as the 5-D GQA view that `_repeat_heads` returns,
 kernel loads its tiles with TMA (the Tensor Memory Accelerator), so a bf16
 view on the card needs unit stride on D, a 16-byte aligned base and
 strides that are multiples of 16 bytes; the wrapper raises on any other
-view rather than copy it.
+view rather than copy it. The f32 kernel takes any strides: it copies
+tiles 16 bytes at a time where a view allows that, 4 bytes elsewhere.
 
 `block_attention` is differentiable: its backward is the JAX package's
 `_bwd` in torch code. It recomputes the block's probabilities from the
@@ -54,11 +57,11 @@ NEG_INF = -1.0e30
 # variants), each variant of it, and the tile-class pre-pass.
 KERNEL_LAUNCHES = 0
 TENSOR_CORE_LAUNCHES = 0
-FMA_LAUNCHES = 0
+F32_LAUNCHES = 0
 TILE_CLASS_LAUNCHES = 0
 
 # dtype -> (kernel variant, dtype code of the C interface)
-_VARIANTS = {torch.bfloat16: ("tensor_core", 1), torch.float32: ("fma", 0)}
+_VARIANTS = {torch.bfloat16: ("tensor_core", 1), torch.float32: ("f32", 0)}
 MAX_HEAD_DIM = 128  # the kernels keep a [64, D] f32 accumulator in registers
 TILE = 64  # q rows and kv rows of one tile class (and of the kernels' tiles)
 MASKED, ZERO_BIAS, BIAS = 0, 1, 2  # tile classes
@@ -271,7 +274,7 @@ def _block_attention_cuda(q, k, v, bias, classes=None):
     """Check the operands, launch the tile-class pre-pass (unless `classes`
     is given) and the block kernel's variant for q's dtype on the current
     stream, and raise if a launch failed."""
-    global KERNEL_LAUNCHES, TENSOR_CORE_LAUNCHES, FMA_LAUNCHES
+    global KERNEL_LAUNCHES, TENSOR_CORE_LAUNCHES, F32_LAUNCHES
     variant, code, k5, v5, dims, strides = _kernel_args(q, k, v, bias)
     batch, heads, tq, _, dim, _ = dims
     if classes is None:
@@ -292,7 +295,7 @@ def _block_attention_cuda(q, k, v, bias, classes=None):
     if variant == "tensor_core":
         TENSOR_CORE_LAUNCHES += 1
     else:
-        FMA_LAUNCHES += 1
+        F32_LAUNCHES += 1
     return out_max, out_sum, weighted
 
 

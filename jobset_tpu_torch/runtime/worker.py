@@ -77,7 +77,7 @@ def main(argv=None) -> int:
         "final_loss": losses[-1] if losses else None,
         "val_losses": losses.val_losses,
         "kernel_launches": {name: getattr(flash_block, name) for name in
-                            ("KERNEL_LAUNCHES", "TENSOR_CORE_LAUNCHES", "FMA_LAUNCHES",
+                            ("KERNEL_LAUNCHES", "TENSOR_CORE_LAUNCHES", "F32_LAUNCHES",
                              "TILE_CLASS_LAUNCHES")},
     }), flush=True)
     return 0

@@ -8,7 +8,9 @@ They skip without a CUDA device. This file imports no JAX, so it also runs
 on a machine that has none: `python -m pytest --noconftest -m cuda
 tests/test_torch_cuda.py` (the repo's conftest imports JAX).
 
-Tolerances: f32 1e-4 (the kernel's FMA order against cuBLAS/CPU sums);
+Tolerances: f32 1e-4 (the kernel's 3xTF32 products, errors near 2^-22 of
+each product, in another order than cuBLAS/CPU sums; TF32 off for the
+plain version);
 bf16 2e-2 relative to the tensor's largest value on sums and weighted
 values (p is rounded to bf16 against the running max in the kernel and
 against the block max in the plain version). The auction: none; its
@@ -74,7 +76,7 @@ def test_kernel_matches_plain_version(cuda, dtype, bias_kind):
                 for _ in range(2))
     k, v = fb._repeat_heads(k_c, 2), fb._repeat_heads(v_c, 2)
     bias = _bias(bias_kind, 100, 77, cuda)
-    counter = "TENSOR_CORE_LAUNCHES" if dtype == torch.bfloat16 else "FMA_LAUNCHES"
+    counter = "TENSOR_CORE_LAUNCHES" if dtype == torch.bfloat16 else "F32_LAUNCHES"
     before, before_variant = fb.KERNEL_LAUNCHES, getattr(fb, counter)
     got = fb.block_attention(q, k, v, bias)
     torch.cuda.synchronize()
@@ -86,6 +88,85 @@ def test_kernel_matches_plain_version(cuda, dtype, bias_kind):
     assert _within(got[2], want[2], rtol, 1e-5)
     if bias_kind == "all_masked":
         assert torch.all(got[1] == 0) and torch.all(got[2] == 0)
+
+
+def _f32_operands(view, device, tq=130, tk=200, heads=4, dim=64, q_scale=1.0):
+    """q [B, Tq, H, D], k and v as the f32 kernel gets them in one kind of
+    view: "aligned" (16-byte copies), "unaligned_base" (base 4 bytes past a
+    16-byte boundary), "d_stride" (stride 2 on D), "d5" (D=5 rows, 20 bytes
+    apart) take the 4-byte copies; "gqa" (stride-0 group axis) and
+    "fused_qkv" (split views of one [B, T, (H + 2 H_kv) D] buffer) the
+    16-byte ones."""
+    gen = torch.Generator(device=device).manual_seed(11)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    if view == "d5":
+        dim = 5
+    if view == "fused_qkv":
+        qkv = randn(2, tq, 3 * heads * dim)
+        q, k, v = (t.reshape(2, tq, heads, dim) for t in qkv.split(heads * dim, dim=-1))
+    elif view == "gqa":
+        q = randn(2, tq, heads, dim)
+        k, v = (fb._repeat_heads(randn(2, tk, heads // 2, dim), 2) for _ in range(2))
+    elif view == "unaligned_base":
+        q, k, v = (randn(2 * t * heads * dim + 1)[1:].view(2, t, heads, dim)
+                   for t in (tq, tk, tk))
+    elif view == "d_stride":
+        q, k, v = (randn(2, t, heads, 2 * dim)[..., ::2] for t in (tq, tk, tk))
+    else:
+        q, k, v = (randn(2, t, heads, dim) for t in (tq, tk, tk))
+    return q * q_scale if q_scale != 1.0 else q, k, v
+
+
+F32_VIEWS = ["aligned", "unaligned_base", "d_stride", "d5", "gqa", "fused_qkv"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias_kind", ["triangle", "alibi"])
+@pytest.mark.parametrize("view", F32_VIEWS)
+def test_f32_kernel_takes_every_view(cuda, view, bias_kind):
+    # Both loaders of the f32 kernel (16-byte and 4-byte copies), at the
+    # f32 tolerances.
+    q, k, v = _f32_operands(view, cuda, tq=130 if view != "fused_qkv" else 200)
+    bias = _bias(bias_kind, q.shape[1], k.shape[1], cuda)
+    before = fb.F32_LAUNCHES
+    got = fb.block_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert fb.F32_LAUNCHES == before + 1
+    want = fb.block_attention_reference(q, k, v, bias)
+    assert _within(got[0], want[0], 1e-5, 1e-4)
+    assert _within(got[1], want[1], 1e-4, 1e-5)
+    assert _within(got[2], want[2], 1e-4, 1e-5)
+
+
+@pytest.mark.cuda
+def test_f32_kernel_loaders_agree_bit_for_bit(cuda):
+    # The same values through the 16-byte and the 4-byte copies: only the
+    # loader differs, so the outputs are identical.
+    q, k, v = _f32_operands("aligned", cuda)
+    shifted = [torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape) for t in (q, k, v)]
+    for dst, src in zip(shifted, (q, k, v)):
+        dst.copy_(src)
+    bias = _bias("band", q.shape[1], k.shape[1], cuda)
+    for a, b in zip(fb.block_attention(q, k, v, bias), fb.block_attention(*shifted, bias)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_f32_kernel_holds_large_logits(cuda):
+    # |q.k| about 1e3: single-pass TF32 (10 mantissa bits) would miss the
+    # f32 tolerance here by far (tests/test_torch_f32_split.py); the 3xTF32
+    # split holds it.
+    q, k, v = _f32_operands("aligned", cuda, q_scale=125.0)
+    assert 300 < torch.einsum("bqhd,bkhd->bhqk", q, k).std().item() < 3000
+    bias = _bias("triangle", q.shape[1], k.shape[1], cuda)
+    got = fb.block_attention(q, k, v, bias)
+    want = fb.block_attention_reference(q, k, v, bias)
+    assert _within(got[0], want[0], 1e-5, 1e-4)
+    assert _within(got[1], want[1], 1e-4, 1e-5)
+    assert _within(got[2], want[2], 1e-4, 1e-5)
 
 
 @pytest.mark.cuda

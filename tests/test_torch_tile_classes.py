@@ -159,7 +159,8 @@ def _bf16(*shape):
 
 
 @pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "tensor_core"),
-                                           (torch.float32, "fma")])
+                                           (torch.float32, "f32")],
+                         ids=["dtype0-tensor_core", "dtype1-fma"])  # stable ids: f32 was "fma"
 def test_wrapper_routes_by_dtype(dtype, variant):
     q = torch.zeros((2, 8, 4, 16), dtype=dtype)
     k = v = torch.zeros((2, 12, 4, 16), dtype=dtype)
@@ -193,5 +194,5 @@ def test_wrapper_rejects_bf16_views_tma_cannot_take(case):
         v = _bf16(1, 8, 2, 32)[..., ::2]
     with pytest.raises(ValueError, match="16-byte"):
         tfb._kernel_args(q, k, v, torch.zeros((8, 8)))
-    f32 = [t.float() for t in (q, k, v)]  # the FMA kernel reads any strides
-    assert tfb._kernel_args(*f32, torch.zeros((8, 8)))[0] == "fma"
+    f32 = [t.float() for t in (q, k, v)]  # the f32 kernel reads any strides
+    assert tfb._kernel_args(*f32, torch.zeros((8, 8)))[0] == "f32"
