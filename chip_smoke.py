@@ -14,30 +14,42 @@ non-zero before the result line:
      the tensor-core instructions in each kernel's SASS (the bf16 block
      kernel must have HGMMA, i.e. wgmma; the f32 one HMMA, i.e. mma.sync);
   3. hold each kernel (the flash block step in both dtype variants, and
-     the tile-class pre-pass) against its plain PyTorch version on the
+     the tile-class pass) against its plain PyTorch version on the
      card, at the flagship prefill shape with six bias kinds and at edge
-     shapes, and time the kernel, the plain version and the nearest
-     PyTorch library call at the flagship and forward shapes, in bf16 and
-     in f32 (the f32 variant beside two bounds: its own 3xTF32 arithmetic
-     and true f32 on the FMA pipes), rotating
-     input sets larger than the 50 MB L2 (L2-cold), and the host time of
-     one `generate`'s 24 block calls under no_grad, through the wrapper,
-     through the autograd.Function and straight to the launch;
-  4. the flagship forward (`build_forward`) at B=8, T=1024: finite logits
+     shapes; every block case runs both host paths, the one call that
+     launches the pass and the block kernel under programmatic dependent
+     launch (PDL) and the call given the classes, which must agree bit for
+     bit; the pass at [512,512] and [1024,1024] under every bias kind. Time
+     the kernel (given classes), the PDL call, the plain version and the
+     nearest PyTorch library call at the flagship and forward shapes, in
+     bf16 and in f32 (the f32 variant beside two bounds: its own 3xTF32
+     arithmetic and true f32 on the FMA pipes), rotating
+     input sets larger than the 50 MB L2 (L2-cold); the pass alone at both
+     shapes; and the host time of one `generate`'s 24 block calls under
+     no_grad, through the wrapper, through the autograd.Function, straight
+     to the launch, and as the main path makes them (masks and classes
+     from `constant_mask`);
+  4. the flagship forward (`build_forward`) at B=8, T=1024 (the mask
+     cache emptied first, so its one mask is built and classified): finite
+     logits
      that match the plain path on the card, and a small config that
      matches the plain path on the CPU;
   5. the flagship greedy `build_generate` at B=8, prompt 1024, 32 new
-     tokens: kernel launches counted per variant across one run (all on
-     the tensor-core variant), prefill logits against the plain path,
+     tokens: kernel launches counted per variant across the first run
+     after the mask cache is emptied (all on the tensor-core variant; one
+     tile-class pass per mask) and across a second run (no pass), prefill
+     logits against the plain path,
      tokens/s and time to first token (medians of a few more calls);
   6. a torch.profiler trace of one warm first-token call: the top 10
-     device ops by device time and the card's idle share;
+     device ops by device time, the number of device ops and the card's
+     idle share;
   7. training at the flagship width and depth: `run_model_bench` (B=8,
      T=1024, remat off, adam 1e-3; 8 block launches a step, all on the
      tensor-core variant), one train step through the kernel against the
      same step through the plain version (loss and every gradient leaf),
      remat "full" (16 launches a step) and "dots" (8), the eval step
-     (8), the block backward's device time at the training shape and
+     (8), tile-class passes only on the first step at a shape, the block
+     backward's device time at the training shape and
      the two ways to run its products, a torch.profiler trace of one
      warm train step, and a small f32 config's step on the card against
      the CPU;
@@ -182,7 +194,7 @@ def plain_attention():
 
     real = flash_block.block_attention
 
-    def plain(q, k, v, bias):
+    def plain(q, k, v, bias, classes=None):
         return flash_block.block_attention_reference(q, k, v, bias.float())
 
     flash_block.block_attention = plain
@@ -203,16 +215,23 @@ def reset_launches():
         setattr(fb, name, 0)
 
 
-def check_launches(path, expected):
-    """Read the counters after a bf16 run of `path`: every block launch went
-    through the tensor-core variant, each after its tile-class pre-pass."""
+def empty_mask_cache():
+    """Empty the port's constant-mask cache, so the next run at a shape
+    builds and classifies its masks again."""
     from jobset_tpu_torch.ops import flash_block as fb
 
-    counts = {name: getattr(fb, name) for name in LAUNCH_COUNTERS}
+    fb.constant_mask.cache_clear()
+
+
+def check_launches(path, expected, passes):
+    """Read the counters after a bf16 run of `path`: every block launch went
+    through the tensor-core variant, and the tile-class pass ran `passes`
+    times (once for each constant mask the run built)."""
+    counts = launches_now()
     check(counts == {"KERNEL_LAUNCHES": expected, "TENSOR_CORE_LAUNCHES": expected,
-                     "F32_LAUNCHES": 0, "TILE_CLASS_LAUNCHES": expected},
+                     "F32_LAUNCHES": 0, "TILE_CLASS_LAUNCHES": passes},
           f"{path}: launches {counts} (expected {expected} block launches, all on the "
-          f"tensor-core variant, and {expected} pre-pass launches)")
+          f"tensor-core variant, and {passes} tile-class passes)")
     return counts
 
 
@@ -346,13 +365,19 @@ def flash_case(name, dtype, batch, tq, tk, heads, dim, bias_kind, kv_heads=None,
     want_classes = fb.tile_classes_reference(bias)
     classes_err = (classes.int() - want_classes.int()).abs().max().item()
     check(torch.equal(classes, want_classes),
-          f"tile_classes {name}: pre-pass equals the plain version "
+          f"tile_classes {name}: the pass equals the plain version "
           f"({[int((want_classes == c).sum()) for c in range(3)]} tiles of class 0/1/2)")
     counter = "TENSOR_CORE_LAUNCHES" if dtype == torch.bfloat16 else "F32_LAUNCHES"
-    before = getattr(fb, counter)
-    got = fb.block_attention(q, k, v, bias)
+    before = launches_now()
+    got = fb.block_attention(q, k, v, bias)  # one call: the pass, then the kernel under PDL
+    given = fb.block_attention(q, k, v, bias, classes=classes)  # the kernel alone
     torch.cuda.synchronize()
-    check(getattr(fb, counter) == before + 1, f"flash_block {name}: ran the {counter} variant")
+    after = launches_now()
+    check(after[counter] == before[counter] + 2
+          and after["TILE_CLASS_LAUNCHES"] == before["TILE_CLASS_LAUNCHES"] + 1,
+          f"flash_block {name}: both calls ran the {counter} variant, the pass ran once")
+    check(all(torch.equal(a, b) for a, b in zip(got, given)),
+          f"flash_block {name}: the PDL call equals the given-classes call bit for bit")
     if dtype == torch.float32:
         plain_is_f32(f"flash_block {name}")
     want = fb.block_attention_reference(q, k, v, bias)
@@ -406,9 +431,12 @@ def rotating_ms(fn, n_sets: int, iters: int) -> float:
 
 def time_block(case, n_sets, other_bias_kinds=()):
     """L2-cold times at one case's shape: the block kernel alone (classes
-    computed beforehand), the plain version, scaled_dot_product_attention
-    with the same additive mask, and the whole wrapper call; and the kernel
-    alone under each of `other_bias_kinds` (`ms_by_bias`)."""
+    given, as the main path gives them), the plain version,
+    scaled_dot_product_attention with the same additive mask, and the call
+    without classes (one host call: the pass, then the kernel under PDL),
+    whose excess over the kernel is the pass's cost on the path
+    (`path_ms`); and the kernel alone under each of `other_bias_kinds`
+    (`ms_by_bias`)."""
     from jobset_tpu_torch.ops import flash_block as fb
 
     dtype, batch, tq, tk, heads, dim, kv_heads, fused = case["shape"]
@@ -428,6 +456,7 @@ def time_block(case, n_sets, other_bias_kinds=()):
         "plain_ms": rotating_ms(lambda i: fb.block_attention_reference(*sets[i], bias),
                                 n_sets, ITERS // 4),
     }
+    out["path_ms"] = out["call_ms"] - out["ms"]
     out["ms_by_bias"] = {case["bias_kind"]: out["ms"]}
     for kind in other_bias_kinds:
         other = make_bias(kind, tq, tk)
@@ -448,16 +477,25 @@ def time_block(case, n_sets, other_bias_kinds=()):
 
 def host_call_ms(case, calls=GENERATE_LAUNCHES, repeats=TTFT_REPEATS):
     """Host time to issue `calls` block calls (one `generate`'s prefill
-    worth) on one case's inputs: the wrapper under no_grad, as serving
-    calls it; the autograd.Function under no_grad; and the kernel's launch
-    function alone. Median over `repeats`, the three interleaved."""
+    worth) on one case's inputs: the wrapper under no_grad without classes
+    (one host call for the pass and the kernel); the autograd.Function
+    under no_grad; the kernel's launch function alone; and the main path's
+    way, the mask and its classes from `constant_mask`, then the wrapper
+    given them. Median over `repeats`, the four interleaved."""
     from jobset_tpu_torch.ops import flash_block as fb
 
     args = (case["q"], case["k"], case["v"], case["bias"])
+    tq, tk = case["bias"].shape
+
+    def cached_mask():
+        bias, classes = fb.constant_mask("causal", tq, tk, case["q"].device)
+        return fb.block_attention(*args[:3], bias, classes=classes)
+
     ways = {
         "block_attention": lambda: fb.block_attention(*args),
-        "autograd_function": lambda: fb._BlockAttention.apply(*args),
+        "autograd_function": lambda: fb._BlockAttention.apply(*args, None),
         "kernel_launch": lambda: fb._block_attention_cuda(*args),
+        "cached_mask": cached_mask,
     }
     runs = {name: [] for name in ways}
     with torch.no_grad():
@@ -474,12 +512,31 @@ def host_call_ms(case, calls=GENERATE_LAUNCHES, repeats=TTFT_REPEATS):
     return {name: sorted(r)[len(r) // 2] for name, r in runs.items()}
 
 
+BIAS_KINDS = ("triangle", "zero", "all_masked", "band", "reverse_triangle", "alibi")
+
+
+def time_classes(n) -> dict:
+    """The pass alone over distinct [n, n] triangle biases, 64 MB of them
+    (past the 50 MB L2), against its plain version and its bound."""
+    from jobset_tpu_torch.ops import flash_block as fb
+
+    bias = make_bias("triangle", n, n)
+    count = max(2, (64 << 20) // (4 * n * n))
+    biases = [bias.clone() for _ in range(count)]
+    n_classes = fb.tile_classes_reference(bias).numel()
+    return {
+        "ms": rotating_ms(lambda i: fb._tile_classes_cuda(biases[i]), count, 64),
+        "plain_ms": rotating_ms(lambda i: fb.tile_classes_reference(biases[i]), count, 16),
+        "bound_ms": 1e3 * (bias.numel() * 4 + n_classes) / HBM_BYTES_PER_S,
+    }
+
+
 def phase_kernels(results):
     from jobset_tpu_torch.ops import flash_block as fb
 
     bf16, f32 = torch.bfloat16, torch.float32
     flagship = None
-    for bias_kind in ("triangle", "zero", "all_masked", "band", "reverse_triangle", "alibi"):
+    for bias_kind in BIAS_KINDS:
         case = flash_case(f"flagship bf16 B8 H16 T512 D64 {bias_kind}", bf16,
                           8, 512, 512, 16, 64, bias_kind)
         if bias_kind == "triangle":
@@ -500,7 +557,7 @@ def phase_kernels(results):
     # single-pass TF32 would miss the tolerance; the forward shape's fused
     # QKV views.
     flagship_f32 = None
-    for bias_kind in ("triangle", "zero", "all_masked", "band", "reverse_triangle", "alibi"):
+    for bias_kind in BIAS_KINDS:
         case = flash_case(f"flagship f32 B8 H16 T512 D64 {bias_kind}", f32,
                           8, 512, 512, 16, 64, bias_kind, seed=7)
         if bias_kind == "triangle":
@@ -530,7 +587,8 @@ def phase_kernels(results):
         fma = (f"; true-f32 FMA bound {t['fma_bound_ms']:.4f} ms ({t['fma_bound_by']})"
                if "fma_bound_ms" in t else "")
         print(f"flash_block {label} triangle, L2-cold: kernel {t['ms']:.4f} ms "
-              f"(call with pre-pass {t['call_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, "
+              f"(PDL call with the pass {t['call_ms']:.4f} ms, the pass's cost on the path "
+              f"{1e3 * t['path_ms']:.2f} us), plain {t['plain_ms']:.4f} ms, "
               f"library_ms (scaled_dot_product_attention, same mask; normalized output, "
               f"no stats) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']}), {t['bound_ms'] / t['ms']:.1%} of bound{fma}", flush=True)
@@ -543,14 +601,19 @@ def phase_kernels(results):
           f"under no_grad, median of {TTFT_REPEATS}: "
           + ", ".join(f"{k} {ms:.4f} ms" for k, ms in host.items()), flush=True)
 
-    # The pre-pass over 64 distinct 1 MB triangle biases (64 MB > L2).
-    biases = [flagship["bias"].clone() for _ in range(64)]
-    classes_ms = rotating_ms(lambda i: fb._tile_classes_cuda(biases[i]), 64, 64)
-    classes_plain_ms = rotating_ms(lambda i: fb.tile_classes_reference(biases[i]), 64, 16)
-    bias = flagship["bias"]
-    classes_bound_ms = 1e3 * (bias.numel() * 4 + flagship["classes"].numel()) / HBM_BYTES_PER_S
-    print(f"tile_classes [512,512] triangle, L2-cold: kernel {classes_ms:.4f} ms, plain "
-          f"{classes_plain_ms:.4f} ms, bound {classes_bound_ms:.4f} ms (bytes)", flush=True)
+    # The pass against its plain version at [1024, 1024] under every bias
+    # kind ([512, 512] is the flagship cases' above), then alone, L2-cold.
+    for kind in BIAS_KINDS:
+        bias = make_bias(kind, 1024, 1024)
+        check(torch.equal(fb.tile_classes(bias), fb.tile_classes_reference(bias)),
+              f"tile_classes [1024,1024] {kind}: the pass equals the plain version")
+    classes_t = {n: time_classes(n) for n in (512, 1024)}
+    for n, t in classes_t.items():
+        print(f"tile_classes [{n},{n}] triangle, L2-cold: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (bytes)", flush=True)
+    path_ms = {label: t["path_ms"] for label, t in (
+        ("flagship bf16", flag_t), ("forward shape bf16", fwd_t), ("flagship f32", f32_t),
+        ("forward shape f32", fwd_f32_t))}
 
     return [
         {
@@ -570,11 +633,12 @@ def phase_kernels(results):
                             "(nearest: normalized output, no stats)",
             "shape": "bf16 B=8 H=16 Tq=Tk=512 D=64, triangle bias; L2-cold",
             "call_ms": flag_t["call_ms"],
+            "path_ms": flag_t["path_ms"],
             "ms_by_bias": flag_t["ms_by_bias"],
             "host_ms_per_generate_calls": host,
             "forward_shape": {k: fwd_t[k] for k in
                               ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
-                               "bound_by")},
+                               "bound_by", "path_ms")},
         },
         {
             "name": "flash_block_f32",
@@ -598,10 +662,11 @@ def phase_kernels(results):
                             "(nearest: normalized output, no stats)",
             "shape": "f32 B=8 H=16 Tq=Tk=512 D=64, triangle bias; L2-cold",
             "call_ms": f32_t["call_ms"],
+            "path_ms": f32_t["path_ms"],
             "ms_by_bias": f32_t["ms_by_bias"],
             "forward_shape": {k: fwd_f32_t[k] for k in
                               ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
-                               "bound_by", "fma_bound_ms")},
+                               "bound_by", "fma_bound_ms", "path_ms")},
             "ptxas": results.get("f32_ptxas"),
         },
         {
@@ -610,12 +675,16 @@ def phase_kernels(results):
             "source": "jobset_tpu_torch/ops/csrc/flash_block.cu",
             "replaces": "jobset_tpu/ops/flash_block.py:194",
             "max_abs_err": flagship["classes_err"],
-            "ms": classes_ms,
-            "plain_ms": classes_plain_ms,
-            "bound_ms": classes_bound_ms,
+            "ms": classes_t[512]["ms"],
+            "plain_ms": classes_t[512]["plain_ms"],
+            "bound_ms": classes_t[512]["bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,
             "shape": "f32 bias [512, 512], triangle; L2-cold",
+            "at_1024": classes_t[1024],
+            "path_ms": flag_t["path_ms"],
+            "path_ms_by_shape": path_ms,
+            "path_ms_is": "call_ms - ms: the PDL call's excess over the kernel given classes",
         },
     ]
 
@@ -655,9 +724,10 @@ def phase_forward(params, results):
     forward(params, tokens[:, :64])  # warm-up: cuBLAS handles, kernel library
     torch.cuda.synchronize()
 
+    empty_mask_cache()
     reset_launches()
     logits, secs = wall_s(lambda: forward(params, tokens))
-    results["forward_launches"] = check_launches("forward", FORWARD_LAUNCHES)
+    results["forward_launches"] = check_launches("forward", FORWARD_LAUNCHES, 1)
     check(tuple(logits.shape) == (BATCH, PROMPT, cfg.vocab_size),
           f"forward: logits shape {tuple(logits.shape)}")
     with plain_attention():
@@ -686,17 +756,23 @@ def phase_generate(params, results):
     first_token(params, prompt)  # warm-up
     torch.cuda.synchronize()
 
+    # The first run builds the two masks of its chunk shape (the triangle
+    # and the zero bias) and classifies each once; the second builds none.
+    empty_mask_cache()
     reset_launches()
     tokens, secs = wall_s(lambda: generate(params, prompt))
-    results["launches"] = check_launches("generate", GENERATE_LAUNCHES)
+    results["launches"] = check_launches("generate", GENERATE_LAUNCHES, 2)
+    reset_launches()
+    _, secs_second = wall_s(lambda: generate(params, prompt))
+    results["second_generate_launches"] = check_launches("second generate", GENERATE_LAUNCHES, 0)
     check(tuple(tokens.shape) == (BATCH, PROMPT + NEW_TOKENS)
           and bool((tokens[:, :PROMPT] == prompt).all())
           and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
           f"generate: tokens shape {tuple(tokens.shape)}, prompt kept, ids in vocab")
     # Host-bound and noisy (the host's cores are shared): medians of a few
     # more calls, with the spread.
-    gen_runs = sorted([secs] + [wall_s(lambda: generate(params, prompt))[1]
-                                for _ in range(GEN_REPEATS - 1)])
+    gen_runs = sorted([secs, secs_second] + [wall_s(lambda: generate(params, prompt))[1]
+                                             for _ in range(GEN_REPEATS - 2)])
     ttft_runs = sorted(wall_s(lambda: first_token(params, prompt))[1]
                        for _ in range(TTFT_REPEATS))
     secs, ttft = gen_runs[len(gen_runs) // 2], ttft_runs[len(ttft_runs) // 2]
@@ -768,12 +844,13 @@ def traced(fn, label):
         by_name[e.name] = (total + e.time_range.end - e.time_range.start, count + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     print(f"trace {label}: window {window / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
-          f"idle share {1.0 - busy / window:.1%}; top 10 device ops:", flush=True)
+          f"idle share {1.0 - busy / window:.1%}, {len(device)} device ops; top 10:", flush=True)
     for n, (t, c) in top:
         print(f"  {t / 1e3:9.3f} ms  {c:5d}x  {n[:100]}", flush=True)
     return {
         "window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
         "idle_share": 1.0 - busy / window,
+        "device_ops": len(device),
         "device_ms_total": sum(t for t, _ in by_name.values()) / 1e3,
         "top10": [{"name": n[:120], "ms": t / 1e3, "count": c} for n, (t, c) in top],
     }
@@ -844,11 +921,14 @@ def phase_train(results):
     from jobset_tpu_torch.runtime import model_bench
 
     card = results["card"]
+    # The first step builds and classifies the triangle; no later one does.
+    empty_mask_cache()
     reset_launches()
     bench = model_bench.run_model_bench(steps=TRAIN_STEPS, warmup=TRAIN_WARMUP, batch=BATCH,
                                         seq_len=PROMPT)
     steps = TRAIN_WARMUP + TRAIN_STEPS
-    counts = check_launches(f"run_model_bench ({steps} steps)", LAYERS * steps)
+    counts = check_launches(f"run_model_bench ({steps} steps)", LAYERS * steps, 1)
+    results["train_bench_launches"] = counts
     results["train_step_launches"] = {k: v // steps for k, v in counts.items()}
     losses = bench.pop("losses")
     check(all(l == l and abs(l) < float("inf") for l in losses) and losses[-1] < losses[0],
@@ -869,7 +949,7 @@ def phase_train(results):
     batch = token_batch(cfg.vocab_size, BATCH, PROMPT, seed=3)
     reset_launches()
     kernel = sgd_step(cfg, params, batch)
-    results["train_launches_remat_off"] = check_launches("train step, remat off", LAYERS)
+    results["train_launches_remat_off"] = check_launches("train step, remat off", LAYERS, 0)
     with plain_attention():
         plain = sgd_step(cfg, params, batch)
     results["train_grad_rel_vs_plain"] = compare_step(
@@ -881,7 +961,7 @@ def phase_train(results):
         # backward; "dots" keeps the attention output and re-runs no kernel.
         remat = sgd_step(replace(cfg, remat=True, remat_policy=policy), params, batch)
         results[f"train_launches_remat_{policy}"] = check_launches(
-            f"train step, remat {policy!r}", want)
+            f"train step, remat {policy!r}", want, 0)
         compare_step(f"train step flagship, remat {policy!r} vs off", remat, kernel,
                      TRAIN_LOSS_REL, TRAIN_GRAD_REL)
         del remat
@@ -889,7 +969,7 @@ def phase_train(results):
 
     reset_launches()
     eval_loss = float(build_eval_step(cfg)(params, batch))
-    results["eval_launches"] = check_launches("eval step", LAYERS)
+    results["eval_launches"] = check_launches("eval step", LAYERS, 0)
     check(abs(eval_loss - kernel[0]) <= TRAIN_LOSS_REL * abs(kernel[0]),
           f"eval step flagship: loss {eval_loss:.6f} vs the train step's {kernel[0]:.6f}")
     del kernel
@@ -996,6 +1076,9 @@ def phase_worker(results):
         check(launches.get("F32_LAUNCHES", 0) >= 6 * small["n_layers"]
               and launches.get("TENSOR_CORE_LAUNCHES") == 0,
               f"worker: the f32 run launched the f32 variant ({launches})")
+        # One mask (the [16, 16] triangle) classified once per process.
+        check(launches.get("TILE_CLASS_LAUNCHES") == 1,
+              f"worker: the uninterrupted run ran the tile-class pass once ({launches})")
         crashing = workload("crashing", checkpoint_every=2,
                             checkpoint_dir=os.path.join(tmp, "ckpt"), fail_at_step=3)
         rc_fail, failed = run_worker(crashing, 0)
@@ -1008,6 +1091,9 @@ def phase_worker(results):
               <= 1e-5 * abs(straight["final_loss"]),
               f"worker: restart attempt 1 resumes at step 2 and ends at the uninterrupted "
               f"loss ({(resumed or {}).get('final_loss')} vs {(straight or {}).get('final_loss')})")
+        resumed_launches = (resumed or {}).get("kernel_launches", {})
+        check(resumed_launches.get("TILE_CLASS_LAUNCHES") == 1,
+              f"worker: the resumed run ran the tile-class pass once ({resumed_launches})")
     results["worker"] = {"straight": straight, "failed": failed, "resumed": resumed}
 
 
@@ -1583,6 +1669,19 @@ def main() -> int:
             policy: results[f"train_launches_remat_{policy}"][counter]
             for policy in ("off", "full", "dots")}
         kernel["eval_step_launches"] = results["eval_launches"][counter]
+        if counter == "TILE_CLASS_LAUNCHES":
+            resumed = (results["worker"]["resumed"] or {}).get("kernel_launches", {})
+            kernel["launches_by_path"] = {
+                "generate, first at its shape": results["launches"][counter],
+                "generate, second": results["second_generate_launches"][counter],
+                "forward": results["forward_launches"][counter],
+                "run_model_bench, all steps": results["train_bench_launches"][counter],
+                **{f"train step, remat {policy}": results[f"train_launches_remat_{policy}"][counter]
+                   for policy in ("off", "full", "dots")},
+                "eval step": results["eval_launches"][counter],
+                "worker, uninterrupted run": worker_launches.get(counter),
+                "worker, resumed run": resumed.get(counter),
+            }
     kernels += phase_solver(results)
     results["kernels"] = kernels
     results["seconds"] = time.perf_counter() - t_start

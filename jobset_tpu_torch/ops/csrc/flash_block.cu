@@ -22,13 +22,37 @@
 // exponentials and waits for data. The design moves each of those off the
 // consumer threads:
 //
-// - Tile classes (tile_classes_kernel). A pre-pass reads the [Tq, Tk] bias
-//   once per call and writes one class per 64x64 (q tile, kv tile):
+// - Tile classes (tile_classes_kernel). A pass over the [Tq, Tk] bias
+//   writes one class per 64x64 (q tile, kv tile):
 //   0 = every entry <= NEG_INF/2 (the tile adds p = 0 everywhere and cannot
 //   raise a max above NEG_INF/2, so it is skipped: no load, no product),
 //   1 = every entry exactly 0.0 (the bias is not read), 2 = anything else
 //   (the bias tile is read). Exact, not approximate. The causal triangle
 //   at T=512 has 28 tiles of class 0, 28 of class 1 and 8 of class 2.
+//   What bounds the pass: its bytes (1 MB at [512, 512], 0.3 us at 3.35
+//   TB/s) are far below what any launch costs; its time is a launch, one
+//   DRAM round trip and a block-wide vote, a few us, and on the block
+//   kernel's serial chain it also costs the drain and launch gap between
+//   two dependent grids. So the design takes it off that chain rather than
+//   polishing its body. (1) The main path's masks (the causal triangle and
+//   the zero bias) depend on the shape alone: ops/flash_block.py builds each
+//   once with its classes (`constant_mask`) and hands them to the block
+//   call, which then launches the block kernel alone. (2) A call without
+//   classes launches both grids from one host call (flash_block_forward),
+//   the block kernel under programmatic dependent launch (PDL): the pass
+//   issues griddepcontrol.launch_dependents at entry, so the block grid is
+//   scheduled while the pass runs; each block kernel does what reads no
+//   class first (barriers, Q's load, tensor-map prefetch), then waits in
+//   griddepcontrol.wait until the pass has completed and its writes are
+//   visible, then reads its row of classes. This is safe because PDL
+//   relaxes only the dependency on the pass: q, k, v and the bias come from
+//   work ahead of the pass in stream order, which a normally launched pass
+//   waits for, and the block kernel writes nothing before its wait. The
+//   kernel after the block kernel is launched normally and waits for it to
+//   complete. Launched without the attribute, griddepcontrol.wait returns
+//   at once. Each thread loads its 16 entries as four 16-byte vectors where
+//   the bias rows are unit-stride and 16-byte aligned (the main path's
+//   masks are contiguous), as 16 scalars elsewhere.
 // - bf16: tensor cores (flash_block_tc_kernel). One block per (batch*head,
 //   64-row q tile): one consumer warpgroup (four warps, 16 q rows each) and
 //   one producer warp. The producer's lane 0 starts TMA loads of the K and
@@ -100,6 +124,7 @@
 #include <stdint.h>
 
 #include <initializer_list>
+#include <utility>
 
 namespace {
 
@@ -138,22 +163,65 @@ struct Params {
 
 constexpr int CLASS_THREADS = 256;
 constexpr int CLASS_LOADS = TILE * TILE / CLASS_THREADS;  // entries per thread
+constexpr int CLASS_VECS = CLASS_LOADS / 4;               // 16-byte loads per thread
+
+// Programmatic dependent launch (sm_90). A grid launched with programmatic
+// stream serialization may be scheduled once every block of the grid ahead
+// of it has issued launch_dependents (or exited); griddepcontrol.wait then
+// blocks until that grid has completed and its writes are visible. In a
+// grid launched without the attribute the wait returns at once.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_for_prerequisite_grid() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
 
 // One block per tile. Every thread starts all its loads before it looks at
 // one, so a block waits for memory once; entries past a ragged edge count
-// as both masked and zero.
+// as both masked and zero. VEC: the bias rows are unit-stride with a
+// 16-byte aligned base and row stride, so each thread reads four 16-byte
+// vectors (a vector that would cross the ragged column edge is read as
+// scalars); otherwise 16 scalars at any strides.
+template <bool VEC>
 __global__ void __launch_bounds__(CLASS_THREADS)
 tile_classes_kernel(const float* bias, unsigned char* classes, int Tq, int Tk,
                     long long sq, long long sk) {
+  launch_dependents();  // a block kernel under PDL may be scheduled now; it waits for our writes
   const int qt = blockIdx.y, kt = blockIdx.x;
   float x[CLASS_LOADS];
   bool in[CLASS_LOADS];
+  if (VEC) {
 #pragma unroll
-  for (int j = 0; j < CLASS_LOADS; ++j) {
-    const int i = j * CLASS_THREADS + threadIdx.x;
-    const int r = qt * TILE + i / TILE, c = kt * TILE + i % TILE;
-    in[j] = r < Tq && c < Tk;
-    x[j] = in[j] ? __ldg(&bias[r * sq + c * sk]) : 0.f;
+    for (int j = 0; j < CLASS_VECS; ++j) {
+      const int i = j * CLASS_THREADS + threadIdx.x;  // 16-byte vector i of the tile
+      const int r = qt * TILE + i / (TILE / 4), c = kt * TILE + 4 * (i % (TILE / 4));
+      const float* src = bias + r * sq + c;
+      if (r < Tq && c + 3 < Tk) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(src));
+        x[4 * j] = v.x;
+        x[4 * j + 1] = v.y;
+        x[4 * j + 2] = v.z;
+        x[4 * j + 3] = v.w;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) in[4 * j + e] = true;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          in[4 * j + e] = r < Tq && c + e < Tk;
+          x[4 * j + e] = in[4 * j + e] ? __ldg(src + e) : 0.f;
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < CLASS_LOADS; ++j) {
+      const int i = j * CLASS_THREADS + threadIdx.x;
+      const int r = qt * TILE + i / TILE, c = kt * TILE + i % TILE;
+      in[j] = r < Tq && c < Tk;
+      x[j] = in[j] ? __ldg(&bias[r * sq + c * sk]) : 0.f;
+    }
   }
   int masked = 1, zero = 1;
 #pragma unroll
@@ -415,10 +483,13 @@ __global__ void __launch_bounds__(F32_THREADS, F32Config<DP>::MIN_BLOCKS)
           p.Tq - q0, p.Tk - tile * TILE, p.bias_sq, p.bias_sk, p.vec_bias);
   };
 
-  // Q's copy starts at entry; meanwhile the block copies its row of tile
-  // classes to shared memory, then starts the first live K tile's copy.
+  // Q's copy starts at entry, before the wait for the tile-class pass (a
+  // no-op unless launched under PDL; see the note at the top); then the
+  // block copies its row of tile classes to shared memory and starts the
+  // first live K tile's copy.
   load_tile<DP, QS>(a_s, q + (long long)q0 * p.q_st, p.Tq - q0, p.D, p.q_st, p.q_sd, p.vec_q);
   cp_async_commit();
+  wait_for_prerequisite_grid();
   for (int j = threadIdx.x; j < p.n_kt; j += F32_THREADS)
     cls[j] = p.classes[(long long)qt * p.n_kt + j];
   __syncthreads();
@@ -579,15 +650,63 @@ __global__ void __launch_bounds__(F32_THREADS, F32Config<DP>::MIN_BLOCKS)
   store_outputs(p, m, l, o, b, h, r0, t);
 }
 
+bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
+
+// The tile-class pass over a [Tq, Tk] f32 bias, launched normally: it waits
+// for all work ahead of it on the stream.
+cudaError_t launch_classes(const float* bias, unsigned char* classes, long long Tq, long long Tk,
+                           long long sq, long long sk, cudaStream_t stream) {
+  if (Tq < 1 || Tk < 1) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((Tk + TILE - 1) / TILE), (unsigned)((Tq + TILE - 1) / TILE));
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  if (aligned16(bias) && (sk == 1 || Tk == 1) && (sq % 4 == 0 || Tq == 1))
+    tile_classes_kernel<true><<<grid, CLASS_THREADS, 0, stream>>>(bias, classes, (int)Tq, (int)Tk,
+                                                                  sq, 1);
+  else
+    tile_classes_kernel<false><<<grid, CLASS_THREADS, 0, stream>>>(bias, classes, (int)Tq,
+                                                                   (int)Tk, sq, sk);
+  return cudaGetLastError();
+}
+
+// With `pdl`, the tile-class pass into p.classes (the caller's workspace)
+// goes ahead of the block kernel on the stream.
+cudaError_t classes_first(const Params& p, cudaStream_t stream, bool pdl) {
+  if (!pdl) return cudaSuccess;
+  return launch_classes(p.bias, const_cast<unsigned char*>(p.classes), p.Tq, p.Tk, p.bias_sq,
+                        p.bias_sk, stream);
+}
+
+// Launch `kernel` on `stream`. With `pdl`, under programmatic stream
+// serialization: the grid may be scheduled before the grid ahead of it on
+// the stream has completed, and waits for it in griddepcontrol.wait.
+// Returns the launch's error (the last error is cleared either way).
+template <typename... Expected, typename... Actual>
+cudaError_t launch(void (*kernel)(Expected...), dim3 grid, int threads, int smem,
+                   cudaStream_t stream, bool pdl, Actual&&... args) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = grid;
+  config.blockDim = dim3(threads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  config.attrs = &attr;
+  config.numAttrs = pdl ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&config, kernel, std::forward<Actual>(args)...);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
 template <int DP>
-cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
+cudaError_t launch_f32(const Params& p, cudaStream_t stream, bool pdl) {
   const int bytes = F32Config<DP>::FLOATS * (int)sizeof(float) + p.n_kt;
   cudaError_t err = cudaFuncSetAttribute(flash_block_f32_kernel<DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
+  if ((err = classes_first(p, stream, pdl)) != cudaSuccess) return err;
   const dim3 grid(p.B * p.H, (p.Tq + TILE - 1) / TILE);
-  flash_block_f32_kernel<DP><<<grid, F32_THREADS, bytes, stream>>>(p);
-  return cudaGetLastError();
+  return launch(flash_block_f32_kernel<DP>, grid, F32_THREADS, bytes, stream, pdl, p);
 }
 
 // ---------------------------------------------------------------------------
@@ -783,10 +902,16 @@ __global__ void __launch_bounds__(TC_THREADS, TcConfig<DP>::MIN_BLOCKS)
   const int qt = gridDim.y - 1 - blockIdx.y;  // longest q tiles first
   const int q0 = qt * TILE;
 
-  // Thread 0 starts the Q load as soon as its barrier exists; meanwhile the
-  // block copies its row of tile classes to shared memory in one pass, so
-  // the kv loop never waits on a global load to find its next tile.
+  // Thread 0 prefetches the three tensor maps and starts the Q load as soon
+  // as its barrier exists. All of that reads no class, so it comes before
+  // the wait for the tile-class pass (a no-op unless launched under PDL;
+  // see the note at the top). Then the block copies its row of tile
+  // classes to shared memory in one pass, so the kv loop never waits on a
+  // global load to find its next tile.
   if (threadIdx.x == 0) {
+    for (const CUtensorMap* map : {&tm_q, &tm_k, &tm_v})
+      asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(map))
+                   : "memory");
     for (int s = 0; s < Cfg::STAGES; ++s) {
       mbar_init(&full_k[s], 1);
       mbar_init(&full_v[s], 1);
@@ -797,6 +922,7 @@ __global__ void __launch_bounds__(TC_THREADS, TcConfig<DP>::MIN_BLOCKS)
     mbar_expect_tx(q_full, TB);
     for (int s = 0; s < NSUB; ++s) tma_load_4d(q_s + s * SUB_BYTES, &tm_q, q_full, s * 64, h, q0, b);
   }
+  wait_for_prerequisite_grid();
   for (int j = threadIdx.x; j < p.n_kt; j += TC_THREADS)
     cls[j] = p.classes[(long long)qt * p.n_kt + j];
   __syncthreads();
@@ -984,7 +1110,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int T, int Hm, int D, lo
 }
 
 template <int DP>
-cudaError_t launch_tc(const Params& p, cudaStream_t stream) {
+cudaError_t launch_tc(const Params& p, cudaStream_t stream, bool pdl) {
   const int bytes = tc_smem_bytes<DP>(p.n_kt);
   cudaError_t err = cudaFuncSetAttribute(flash_block_tc_kernel<DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -995,12 +1121,11 @@ cudaError_t launch_tc(const Params& p, cudaStream_t stream) {
       !make_map(&tm_k, p.k, p.B, p.Tk, hkv, p.D, p.k_sb, p.k_st, p.k_sh) ||
       !make_map(&tm_v, p.v, p.B, p.Tk, hkv, p.D, p.v_sb, p.v_st, p.v_sh))
     return cudaErrorInvalidValue;
+  if ((err = classes_first(p, stream, pdl)) != cudaSuccess) return err;
   const dim3 grid(p.B * p.H, (p.Tq + TILE - 1) / TILE);
-  flash_block_tc_kernel<DP><<<grid, TC_THREADS, bytes, stream>>>(p, tm_q, tm_k, tm_v);
-  return cudaGetLastError();
+  return launch(flash_block_tc_kernel<DP>, grid, TC_THREADS, bytes, stream, pdl, p, tm_q, tm_k,
+                tm_v);
 }
-
-bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
 
 // An f32 operand whose tiles can go by 16-byte copies: unit stride along
 // the row, a 16-byte aligned base, and every row stride a multiple of 4
@@ -1018,25 +1143,25 @@ int rows16(const void* ptr, bool unit_stride, std::initializer_list<long long> s
 extern "C" int flash_block_tile_classes(const void* bias, void* classes, long long Tq,
                                         long long Tk, long long bias_sq, long long bias_sk,
                                         void* stream) {
-  if (Tq < 1 || Tk < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((Tk + TILE - 1) / TILE), (unsigned)((Tq + TILE - 1) / TILE));
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  tile_classes_kernel<<<grid, CLASS_THREADS, 0, (cudaStream_t)stream>>>(
-      static_cast<const float*>(bias), static_cast<unsigned char*>(classes), (int)Tq, (int)Tk,
-      bias_sq, bias_sk);
-  return (int)cudaGetLastError();
+  return (int)launch_classes(static_cast<const float*>(bias), static_cast<unsigned char*>(classes),
+                             Tq, Tk, bias_sq, bias_sk, (cudaStream_t)stream);
 }
 
 // dtype: 0 = float32 (3xTF32 kernel), 1 = bfloat16 (wgmma kernel); q, k
-// and v share it; bias is f32. classes: flash_block_tile_classes's output.
+// and v share it; bias is f32. classes: the bias's tile classes
+// (flash_block_tile_classes's layout), or with `compute_classes` a
+// workspace of that size: then the tile-class pass is launched into it
+// first and the block kernel after it under programmatic dependent launch.
 // dims: B, H, Tq, Tk, D, group.
 // strides (elements): q b,t,h,d; k b,t,h,g,d; v b,t,h,g,d; bias q,k.
-// Returns a cudaError_t: the launch's own error, or cudaErrorInvalidValue
-// for arguments the kernel does not take.
+// Returns a cudaError_t: the first launch error, or cudaErrorInvalidValue
+// for arguments the kernels do not take (then nothing is launched; a
+// failed launch of the pass launches no block kernel).
 extern "C" int flash_block_forward(int dtype, const void* q, const void* k, const void* v,
-                                   const void* bias, const void* classes, void* out_max,
+                                   const void* bias, void* classes, void* out_max,
                                    void* out_sum, void* out_weighted, const long long* dims,
-                                   const long long* strides, void* stream) {
+                                   const long long* strides, int compute_classes,
+                                   void* stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -1062,15 +1187,16 @@ extern "C" int flash_block_forward(int dtype, const void* q, const void* k, cons
                       &p.v_sg, &p.v_sd, &p.bias_sq, &p.bias_sk};
   for (int i = 0; i < 16; ++i) *dst[i] = strides[i];
   cudaStream_t s = (cudaStream_t)stream;
+  const bool pdl = compute_classes != 0;
   if (dtype == 0) {
     const bool unit_d = p.D == 1;  // one column: its stride is never used
     p.vec_q = rows16(q, unit_d || p.q_sd == 1, {p.q_sb, p.q_st, p.q_sh});
     p.vec_k = rows16(k, unit_d || p.k_sd == 1, {p.k_sb, p.k_st, p.k_sh, p.k_sg});
     p.vec_v = rows16(v, unit_d || p.v_sd == 1, {p.v_sb, p.v_st, p.v_sh, p.v_sg});
     p.vec_bias = rows16(bias, p.Tk == 1 || p.bias_sk == 1, {p.bias_sq});
-    if (p.D <= 32) return (int)launch_f32<32>(p, s);
-    if (p.D <= 64) return (int)launch_f32<64>(p, s);
-    return (int)launch_f32<128>(p, s);
+    if (p.D <= 32) return (int)launch_f32<32>(p, s, pdl);
+    if (p.D <= 64) return (int)launch_f32<64>(p, s, pdl);
+    return (int)launch_f32<128>(p, s, pdl);
   }
   if (dtype == 1) {
     // TMA: unit stride on D, 16-byte aligned bases and strides.
@@ -1080,8 +1206,8 @@ extern "C" int flash_block_forward(int dtype, const void* q, const void* k, cons
                               p.k_sg, p.v_sb, p.v_st, p.v_sh, p.v_sg};
     for (long long st : rows) ok = ok && st % 8 == 0;
     if (!ok) return (int)cudaErrorInvalidValue;
-    if (p.D <= 64) return (int)launch_tc<64>(p, s);
-    return (int)launch_tc<128>(p, s);
+    if (p.D <= 64) return (int)launch_tc<64>(p, s, pdl);
+    return (int)launch_tc<128>(p, s, pdl);
   }
   return (int)cudaErrorInvalidValue;
 }

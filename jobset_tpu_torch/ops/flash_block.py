@@ -14,14 +14,18 @@ accumulator and divide once at the end.
 Dispatch: a CUDA tensor goes to the hand-written kernels in
 `csrc/flash_block.cu` (built with nvcc at first use) and a CPU tensor to
 the plain version, `block_attention_reference`. There is no switch between
-them: on the card a kernel launches or the call raises. On the card a call
-is two launches: the tile-class pre-pass over the bias (`tile_classes`,
-plain version `tile_classes_reference`), then the block kernel, which
+them: on the card a kernel launches or the call raises. The block kernel
 skips fully masked 64x64 tiles and reads no bias where a tile's bias is
-all zero. The block kernel has one variant per dtype, both on the tensor
-cores: bf16 by `wgmma`, f32 as 3xTF32 (each operand split into two TF32
-values and three TF32 products summed in f32, an accuracy on a par with
-f32; the f32 tolerances hold it).
+all zero, by the bias's tile classes (`tile_classes`, plain version
+`tile_classes_reference`). A call given `classes` launches the block
+kernel alone. A call without them makes one host call that launches the
+tile-class pass and then the block kernel under programmatic dependent
+launch, which overlaps the block kernel's start with the pass. The main
+path's masks (the causal triangle and the zero bias) come with their
+classes from `constant_mask`, built once per shape. The block kernel has
+one variant per dtype, both on the tensor cores: bf16 by `wgmma`, f32 as
+3xTF32 (each operand split into two TF32 values and three TF32 products
+summed in f32, an accuracy on a par with f32; the f32 tolerances hold it).
 
 k and v may also be given as the 5-D GQA view that `_repeat_heads` returns,
 [B, Tk, H_kv, group, D] with a stride-0 group axis; both paths take it as
@@ -54,7 +58,8 @@ from . import cuda_build
 NEG_INF = -1.0e30
 
 # Launches counted by the wrapper where it launches: the block kernel (all
-# variants), each variant of it, and the tile-class pre-pass.
+# variants), each variant of it, and the tile-class pass (standalone or in
+# a block call without classes).
 KERNEL_LAUNCHES = 0
 TENSOR_CORE_LAUNCHES = 0
 F32_LAUNCHES = 0
@@ -65,6 +70,7 @@ _VARIANTS = {torch.bfloat16: ("tensor_core", 1), torch.float32: ("f32", 0)}
 MAX_HEAD_DIM = 128  # the kernels keep a [64, D] f32 accumulator in registers
 TILE = 64  # q rows and kv rows of one tile class (and of the kernels' tiles)
 MASKED, ZERO_BIAS, BIAS = 0, 1, 2  # tile classes
+MASK_CACHE_SIZE = 16  # (kind, shape, device) entries `constant_mask` keeps
 
 
 def _flat_heads(x):
@@ -152,7 +158,7 @@ def _library():
         [ctypes.c_int]
         + [ctypes.c_void_p] * 8
         + [ctypes.POINTER(ctypes.c_longlong)] * 2
-        + [ctypes.c_void_p]
+        + [ctypes.c_int, ctypes.c_void_p]
     )
     lib.flash_block_tile_classes.argtypes = (
         [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
@@ -166,12 +172,15 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _class_shape(tq, tk):
+    return -(-tq // TILE), -(-tk // TILE)
+
+
 def _tile_classes_cuda(bias):
-    """Launch the tile-class pre-pass on the current stream."""
+    """Launch the tile-class pass alone on the current stream."""
     global TILE_CLASS_LAUNCHES
     tq, tk = bias.shape
-    classes = torch.empty((-(-tq // TILE), -(-tk // TILE)), dtype=torch.uint8,
-                          device=bias.device)
+    classes = torch.empty(_class_shape(tq, tk), dtype=torch.uint8, device=bias.device)
     with torch.cuda.device(bias.device):
         err = _library().flash_block_tile_classes(
             bias.data_ptr(), classes.data_ptr(), tq, tk, *bias.stride(),
@@ -184,8 +193,8 @@ def _tile_classes_cuda(bias):
 
 
 def tile_classes(bias):
-    """Tile classes of an f32 [Tq, Tk] bias: the pre-pass kernel on the
-    card, `tile_classes_reference` on the CPU."""
+    """Tile classes of an f32 [Tq, Tk] bias: the pass kernel on the card,
+    `tile_classes_reference` on the CPU."""
     if bias.device.type == "cuda":
         return _tile_classes_cuda(bias.float())
     if bias.device.type == "cpu":
@@ -271,14 +280,24 @@ def _kernel_args(q, k, v, bias):
 
 
 def _block_attention_cuda(q, k, v, bias, classes=None):
-    """Check the operands, launch the tile-class pre-pass (unless `classes`
-    is given) and the block kernel's variant for q's dtype on the current
-    stream, and raise if a launch failed."""
-    global KERNEL_LAUNCHES, TENSOR_CORE_LAUNCHES, F32_LAUNCHES
+    """Check the operands and launch the block kernel's variant for q's
+    dtype on the current stream: alone where `classes` (the bias's tile
+    classes) is given, else in one host call with the tile-class pass ahead
+    of it (the block kernel under programmatic dependent launch). Raise if
+    a launch failed."""
+    global KERNEL_LAUNCHES, TENSOR_CORE_LAUNCHES, F32_LAUNCHES, TILE_CLASS_LAUNCHES
     variant, code, k5, v5, dims, strides = _kernel_args(q, k, v, bias)
-    batch, heads, tq, _, dim, _ = dims
-    if classes is None:
-        classes = _tile_classes_cuda(bias)
+    batch, heads, tq, tk, dim, _ = dims
+    shape = _class_shape(tq, tk)
+    compute = classes is None
+    if compute:
+        classes = torch.empty(shape, dtype=torch.uint8, device=q.device)
+    elif (classes.dtype != torch.uint8 or tuple(classes.shape) != shape
+          or classes.device != q.device or not classes.is_contiguous()):
+        raise ValueError(
+            f"block_attention: classes {tuple(classes.shape)} {classes.dtype} on "
+            f"{classes.device} are not a contiguous uint8 {shape} on {q.device}"
+        )
     out_max = torch.empty((batch, heads, tq), dtype=torch.float32, device=q.device)
     out_sum = torch.empty_like(out_max)
     weighted = torch.empty((batch, tq, heads, dim), dtype=torch.float32, device=q.device)
@@ -287,10 +306,12 @@ def _block_attention_cuda(q, k, v, bias, classes=None):
             code, q.data_ptr(), k5.data_ptr(), v5.data_ptr(), bias.data_ptr(),
             classes.data_ptr(), out_max.data_ptr(), out_sum.data_ptr(),
             weighted.data_ptr(), (ctypes.c_longlong * 6)(*dims),
-            (ctypes.c_longlong * 16)(*strides), _stream(q.device),
+            (ctypes.c_longlong * 16)(*strides), int(compute), _stream(q.device),
         )
     if err:
-        raise RuntimeError(f"flash_block {variant} kernel launch failed: CUDA error {err}")
+        after = " after its tile-class pass, under programmatic dependent launch" if compute else ""
+        raise RuntimeError(f"flash_block {variant} kernel launch{after} failed: CUDA error {err}")
+    TILE_CLASS_LAUNCHES += compute
     KERNEL_LAUNCHES += 1
     if variant == "tensor_core":
         TENSOR_CORE_LAUNCHES += 1
@@ -333,10 +354,11 @@ def _block_attention_bwd(q, k, v, bias, dsum, dweighted, needs):
     return dq, dk, dv, dbias
 
 
-def _block_attention_forward(q, k, v, bias):
-    """The kernel on the card, the plain version on the CPU."""
+def _block_attention_forward(q, k, v, bias, classes=None):
+    """The kernel on the card, the plain version on the CPU (which has no
+    use for `classes`)."""
     if q.device.type == "cuda":
-        return _block_attention_cuda(q, k, v, bias)
+        return _block_attention_cuda(q, k, v, bias, classes)
     if q.device.type == "cpu":
         return block_attention_reference(q, k, v, bias)
     raise ValueError(f"block_attention: no implementation on device {q.device}")
@@ -347,27 +369,30 @@ class _BlockAttention(torch.autograd.Function):
     JAX version): the forward saves its inputs only."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias):
+    def forward(ctx, q, k, v, bias, classes):
         ctx.save_for_backward(q, k, v, bias)
-        return _block_attention_forward(q, k, v, bias)
+        return _block_attention_forward(q, k, v, bias, classes)
 
     @staticmethod
     def backward(ctx, dmax, dsum, dweighted):
         del dmax  # the gauge direction: no flow through the block max
-        return _block_attention_bwd(*ctx.saved_tensors, dsum, dweighted,
-                                    ctx.needs_input_grad)
+        return *_block_attention_bwd(*ctx.saved_tensors, dsum, dweighted,
+                                     ctx.needs_input_grad), None
 
 
-def block_attention(q, k, v, bias):
+def block_attention(q, k, v, bias, *, classes=None):
     """The flash block step; see the module docstring for the contract.
     q/k/v stay in their dtype (f32 or bf16); bias and every output are f32.
-    Differentiable in q, k, v and bias. A call that autograd does not
-    record (grad disabled, as in serving, or no input that requires grad)
-    goes straight to the forward, without the autograd.Function's cost."""
+    `classes`: the bias's tile classes (`tile_classes`), where the caller
+    has them, as `constant_mask` returns them; without them the call
+    computes them on the card. Differentiable in q, k, v and bias. A call
+    that autograd does not record (grad disabled, as in serving, or no
+    input that requires grad) goes straight to the forward, without the
+    autograd.Function's cost."""
     bias = bias.float()
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
-        return _BlockAttention.apply(q, k, v, bias)
-    return _block_attention_forward(q, k, v, bias)
+        return _BlockAttention.apply(q, k, v, bias, classes)
+    return _block_attention_forward(q, k, v, bias, classes)
 
 
 def _repeat_heads(x, group: int):
@@ -386,6 +411,27 @@ def causal_bias(n: int, device) -> torch.Tensor:
     idx = torch.arange(n, device=device)
     rel = idx[:, None] - idx[None, :]
     return torch.where(rel >= 0, 0.0, NEG_INF).to(torch.float32)
+
+
+@functools.lru_cache(maxsize=MASK_CACHE_SIZE)
+def constant_mask(kind: str, tq: int, tk: int, device: torch.device):
+    """(bias, classes) of one of the main path's constant masks: "causal"
+    (`causal_bias(tq)`, square) or "zero" (a [tq, tk] f32 zero bias), with
+    its tile classes (`tile_classes`: the pass kernel on the card, the plain
+    version on the CPU). Built once per (kind, shape, device), the device as
+    a tensor's `.device` gives it, and kept in a bounded LRU cache
+    (`constant_mask.cache_clear()` empties it). The tensors are shared by
+    every caller and must never be written."""
+    if kind not in ("causal", "zero") or (kind == "causal" and tq != tk):
+        raise ValueError(f"constant_mask: no {kind!r} mask of shape [{tq}, {tk}]")
+    # Ordinary tensors even under inference_mode, so that a later training
+    # step may save them for its backward.
+    with torch.inference_mode(False), torch.no_grad():
+        if kind == "causal":
+            bias = causal_bias(tq, device)
+        else:
+            bias = torch.zeros((tq, tk), dtype=torch.float32, device=device)
+        return bias, tile_classes(bias)
 
 
 def merge_block_stats(acc, blk):
@@ -438,14 +484,15 @@ def blockwise_causal_attention(q, k, v, chunk: int = 512, causal: bool = True):
         for j, ks in enumerate(kv_starts):
             k_len = min(chunk, t_total - ks)
             if causal and j == i:
-                bias = causal_bias(q_len, q.device)
+                bias, classes = constant_mask("causal", q_len, q_len, q.device)
             else:
-                bias = torch.zeros((q_len, k_len), dtype=torch.float32, device=q.device)
+                bias, classes = constant_mask("zero", q_len, k_len, q.device)
             blk = block_attention(
                 q_i,
                 _repeat_heads(k[:, ks:ks + k_len], group),
                 _repeat_heads(v[:, ks:ks + k_len], group),
                 bias,
+                classes=classes,
             )
             acc = merge_block_stats(acc, blk)
         out_chunks.append(normalize_block_stats(acc[1], acc[2]))

@@ -195,6 +195,63 @@ def test_tile_class_kernel_matches_plain_version(cuda, bias_kind, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("bias_kind", BIAS_KINDS)
+def test_pdl_call_equals_the_given_classes_call(cuda, dtype, bias_kind):
+    # The call without classes launches the pass and then the kernel under
+    # programmatic dependent launch; q and the bias are written by the
+    # kernels just ahead of it on the stream.
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q_src = torch.randn((2, 200, 4, 64), generator=gen, device=cuda)
+    k_c, v_c = (torch.randn((2, 200, 2, 64), generator=gen, device=cuda).to(dtype)
+                for _ in range(2))
+    k, v = fb._repeat_heads(k_c, 2), fb._repeat_heads(v_c, 2)
+    q = (q_src * 2.0).to(dtype)
+    bias = _bias(bias_kind, 200, 200, cuda)
+    before = fb.TILE_CLASS_LAUNCHES
+    pdl = fb.block_attention(q, k, v, bias)
+    assert fb.TILE_CLASS_LAUNCHES == before + 1
+    given = fb.block_attention(q, k, v, bias, classes=fb.tile_classes_reference(bias))
+    assert fb.TILE_CLASS_LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    for a, b in zip(pdl, given):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_constant_mask_on_card(cuda):
+    fb.constant_mask.cache_clear()
+    device = torch.ones(1, device=cuda).device  # as a tensor's .device names it
+    before = fb.TILE_CLASS_LAUNCHES
+    bias, classes = fb.constant_mask("causal", 512, 512, device)
+    again = fb.constant_mask("causal", 512, 512, device)
+    assert fb.TILE_CLASS_LAUNCHES == before + 1
+    assert again[0] is bias and again[1] is classes and bias.is_cuda and classes.is_cuda
+    on_cpu = fb.constant_mask("causal", 512, 512, torch.device("cpu"))
+    assert on_cpu[0] is not bias and on_cpu[0].device.type == "cpu"
+    assert torch.equal(bias.cpu(), on_cpu[0]) and torch.equal(classes.cpu(), on_cpu[1])
+
+
+@pytest.mark.cuda
+def test_second_generate_at_one_shape_launches_no_class_pass(cuda):
+    cfg = transformer.TransformerConfig(vocab_size=128, d_model=64, n_heads=4, n_kv_heads=2,
+                                        d_ff=128, n_layers=2, dtype=torch.bfloat16)
+    params = tree.tree_map(lambda t: t.to(cuda),
+                           transformer.init_params(cfg, torch.Generator().manual_seed(0), "cpu"))
+    prompt = torch.randint(0, 128, (2, 600), generator=torch.Generator().manual_seed(1))
+    generate = decode.build_generate(cfg, 2)
+    fb.constant_mask.cache_clear()
+    counts = []
+    for _ in range(2):
+        before = fb.TILE_CLASS_LAUNCHES, fb.KERNEL_LAUNCHES
+        generate(params, prompt)
+        counts.append((fb.TILE_CLASS_LAUNCHES - before[0], fb.KERNEL_LAUNCHES - before[1]))
+    # Chunks of 512 and 88: triangles of both sizes and the [88, 512] zero
+    # bias, classified in the first run only; 3 block launches a layer.
+    assert counts == [(3, 3 * cfg.n_layers), (0, 3 * cfg.n_layers)]
+
+
+@pytest.mark.cuda
 def test_generate_on_card_matches_cpu_at_f32(cuda):
     cfg = transformer.TransformerConfig(vocab_size=128, d_model=64, n_heads=4, n_kv_heads=2,
                                         d_ff=128, n_layers=2, dtype=torch.float32)

@@ -97,9 +97,9 @@ def test_prefill_of_1024_tokens_runs_three_flash_blocks_per_layer(monkeypatch):
     calls = []
     real = tfb.block_attention
 
-    def counting(q, k, v, bias):
+    def counting(q, k, v, bias, **kw):
         calls.append((q.shape[1], k.shape[1], bool(bias.eq(0).all())))
-        return real(q, k, v, bias)
+        return real(q, k, v, bias, **kw)
 
     monkeypatch.setattr(tfb, "block_attention", counting)
     tdec.build_generate(tcfg, 3, "cpu")(params, prompt)

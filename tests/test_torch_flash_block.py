@@ -157,9 +157,9 @@ def test_chunk_floor_is_t_over_16():
     calls = []
     real = tfb.block_attention
 
-    def counting(*args):
+    def counting(*args, **kw):
         calls.append(args[0].shape[1])
-        return real(*args)
+        return real(*args, **kw)
 
     tfb.block_attention = counting
     try:
