@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (jobset_tpu_torch) on one CUDA GPU.
 
-    python3 chip_smoke.py [--out RESULTS.json] [--solver-only | --flash-only]
+    python3 chip_smoke.py [--out RESULTS.json] [--solver-only | --flash-only |
+                                                 --control-only]
 
 (`--solver-only` builds the auction kernel and runs phase 9 alone,
-`--flash-only` builds the flash block kernels and runs phases 2-3 alone;
-neither prints the result line.) Phases, in order; any failure exits
+`--flash-only` builds the flash block kernels and runs phases 2-3 alone,
+`--control-only` runs phase 10 alone and builds nothing; none of them
+prints the result line.) Phases, in order; any failure exits
 non-zero before the result line:
   1. the card's name and power limit (nvidia-smi); TF32 off;
   2. build every CUDA kernel from this checkout (one nvcc per source, all
@@ -73,7 +75,26 @@ non-zero before the result line:
      solve wall p50/p99 through `AssignmentSolver`;
      `solve_async` shown not to block; the sidecar's handlers on packed
      frames against direct solves; launch counts per path;
- 10. one `kernels` JSON line, then the result line
+ 10. the control plane's device programs, torch code with no hand kernel,
+     each held on the card to the port's CPU path and plain versions: the
+     admission scorer (queue/scorer.py) at the queue bench's shape (64
+     queues, 1 resource, 8 cohorts, 512 candidates; bench values and
+     quotas in steps of 0.1) and at 1024 queues x 8 resources x 64
+     cohorts x 16384 candidates (steps of 0.1), feasibility and both share
+     vectors bit for bit against the greedy numpy path; the gang-readiness
+     aggregate (core/columnar.py) at 16384 pods x 1024 jobs and 2^20 x
+     2^16 (10% dead rows, all four phases), equal to numpy bincount; the
+     policy MLP (policy/model.py) at 960 and 6250 candidate domains, also
+     with TF32 matmuls allowed in the process; the trainer
+     (policy/train.py) on a seeded corpus of 16384 examples, 200 epochs,
+     twice on the card (byte-identical checkpoints) and once on the CPU.
+     For each: wall p50/p99 (host clock to the result on the host), the
+     device program's time by CUDA events, the CUDA kernels a call
+     launches and their device busy time (torch.profiler), the plain
+     path's time and a bound at 3.35 TB/s. The phase runs in a process
+     of its own (`--control-only`), where the profiler has not traced
+     before;
+ 11. one `kernels` JSON line, then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 The flagship is the repo's training/decode bench config: vocab 32000,
@@ -1586,6 +1607,302 @@ def phase_solver(results):
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the control plane's device programs
+# ---------------------------------------------------------------------------
+
+# Each program's card path is held to the port's CPU path (or its plain
+# numpy version) on the same inputs, made with numpy from seeds. Scorer:
+# feasibility and both share vectors bit for bit against the greedy numpy
+# path. Aggregate: the three counts exactly against numpy bincount. MLP:
+# max|got - want| <= 1e-6 * max(max|want|, 1) against forward_np and the
+# port's CPU path (f32 products in another order; three layers). Trainer:
+# two card runs give byte-identical checkpoints; against the CPU path,
+# losses within 1e-5 relative and every parameter within 1e-4 of the
+# largest magnitude of its tensor (200 full-batch steps compound
+# differences in the order of the gradient's sums).
+CONTROL_REPEATS = 30  # wall-clock calls behind each p50/p99
+MLP_TOL, TRAIN_LOSS_TOL, TRAIN_PARAM_TOL = 1e-6, 1e-5, 1e-4
+# The queue bench's shape (bench.py's run_queue_bench: 64 queues of 16
+# pods in 8 cohorts, 512 workloads of 1/2/4/8 pods) and a large one.
+SCORER_SHAPES = {"bench 64q x 1r x 8c, 512 candidates": (64, 1, 8, 512),
+                 "large 1024q x 8r x 64c, 16384 candidates": (1024, 8, 64, 16384)}
+# The aggregate at the reference's jit threshold (_JAX_MIN_ROWS pods, 1024
+# job rows) and at 100k-node scale (2^20 pod rows, 2^16 job rows).
+AGG_SHAPES = {"16384 pods x 1024 jobs": (16384, 1024), "2^20 pods x 2^16 jobs": (1 << 20, 1 << 16)}
+# Candidate domains a placement scores: the 15k- and 100k-node shapes.
+MLP_ROWS = (960, 6250)
+TRAIN_EXAMPLES, TRAIN_EPOCHS, TRAIN_LR = 16384, 200, 0.05
+
+
+def kernels_per_call(fn, tries: int = 3):
+    """(CUDA kernels, copies and sets, device busy ms) of one call of fn,
+    by torch.profiler (busy: the union of its device events' spans). Now
+    and then a trace holds no device event at all; the call is then
+    traced again, up to `tries` times, and (None, None, None) means that
+    no trace saw one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if device:
+            copies = sum(1 for e in device if e.name.startswith(("Memcpy", "Memset")))
+            busy = merged_span_us((e.time_range.start, e.time_range.end) for e in device)
+            return len(device) - copies, copies, busy / 1e3
+    return None, None, None
+
+
+def control_row(label, call, device_call, plain_call, nbytes, flops=0.0, iters=20):
+    """Times of one program at one shape: wall p50/p99 of `call` (host clock
+    to the result on the host), ms of `device_call` (inputs already on the
+    card) by CUDA events over back-to-back calls (a program of many small
+    launches is held there by the host's launch rate), CUDA kernels a
+    `call` launches and their device busy time, the plain path's wall
+    time, and the bound for `nbytes` at 3.35 TB/s (or its f32 operations
+    at 67 TFLOP/s, whichever is larger)."""
+    p50, p99, _ = wall_ms(call, CONTROL_REPEATS)
+    dev = cuda_ms(device_call, iters)
+    kernels, copies, busy = kernels_per_call(call)
+    plain_p50, _, _ = wall_ms(plain_call, max(3, CONTROL_REPEATS // 3))
+    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / F32_FMA_FLOPS
+    row = {"wall_p50_ms": p50, "wall_p99_ms": p99, "device_ms": dev,
+           "kernels_per_call": kernels, "copies_per_call": copies, "device_busy_ms": busy,
+           "plain_ms": plain_p50,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": nbytes}
+    print(f"  {label}: wall p50 {p50:.4f} / p99 {p99:.4f} ms, events {dev:.4f} ms, "
+          f"{kernels} kernels + {copies} copies a call, device busy {busy} ms, "
+          f"plain {plain_p50:.4f} ms, "
+          f"bound {row['bound_ms']:.6f} ms ({row['bound_by']}, {nbytes} B)", flush=True)
+    return row
+
+
+def scorer_snapshot(S, queues, resources, cohorts, candidates, seed, tenths):
+    """A snapshot at one shape: the bench's (quota 16 pods a queue, weight
+    1 + i % 3, cohort i % 8, requests of 1/2/4/8 pods) or, with `tenths`,
+    quotas, usage and requests in steps of 0.1 at random."""
+    rng = np.random.default_rng(seed)
+    Q, R, C, P = queues, resources, cohorts, candidates
+    if tenths:
+        declared = rng.random((Q, R)) > 0.1
+        nominal = (rng.integers(0, 640, (Q, R)) * 0.1 * declared).astype(np.float32)
+        usage = (rng.integers(0, 320, (Q, R)) * 0.1).astype(np.float32)
+        request = (rng.integers(0, 160, (P, R)) * 0.1).astype(np.float32)
+        cohort = rng.integers(-1, C, Q).astype(np.int32)
+        weight = rng.integers(1, 5, Q).astype(np.float32)
+        qi = rng.integers(0, Q, P).astype(np.int32)
+    else:
+        nominal = np.full((Q, R), 16.0, np.float32)
+        declared = np.ones((Q, R), bool)
+        usage = rng.integers(0, 17, (Q, R)).astype(np.float32)
+        request = np.array([(1, 2, 4, 8)[i % 4] for i in range(P)], np.float32)[:, None]
+        request = np.repeat(request, R, axis=1)
+        cohort = (np.arange(Q) % C).astype(np.int32)
+        weight = (1.0 + np.arange(Q) % 3).astype(np.float32)
+        qi = (np.arange(P) % Q).astype(np.int32)
+    return S.Snapshot([f"r{i}" for i in range(R)], [f"q{i:04d}" for i in range(Q)], nominal,
+                      declared, usage * declared, weight, cohort, C, request, qi)
+
+
+def same_bits(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(
+        a.view(np.uint8), b.view(np.uint8))
+
+
+def phase_control(results):
+    """The scorer, the aggregate, the policy MLP and its trainer on the card."""
+    import tempfile
+
+    from jobset_tpu_torch.core import columnar as CC
+    from jobset_tpu_torch.device import backend_label
+    from jobset_tpu_torch.policy import dataset as PD
+    from jobset_tpu_torch.policy import features as PF
+    from jobset_tpu_torch.policy import model as PM
+    from jobset_tpu_torch.policy import train as PT
+    from jobset_tpu_torch.queue import scorer as S
+
+    card, dev = results["card"], torch.device("cuda")
+    out: dict = {"card": card, "backend_label": backend_label()}
+    check(out["backend_label"] == "cuda", f"control: backend_label() is 'cuda' ({out['backend_label']})")
+
+    print(f"control plane, scorer ({card}):", flush=True)
+    out["scorer"] = {}
+    for (label, shape), seed in zip(SCORER_SHAPES.items(), (0, 1)):
+        for tenths in ((False, True) if shape[1] == 1 else (True,)):
+            S._P_HIGH_WATER.clear()
+            snap = scorer_snapshot(S, *shape, seed=seed, tenths=tenths)
+            name = f"{label}, {'tenths' if tenths else 'bench values'}"
+            got, want = S.score(snap), S._score_greedy(snap)
+            cpu = S.score(snap, device="cpu")
+            ok = all(same_bits(getattr(got, f), getattr(want, f)) and
+                     same_bits(getattr(cpu, f), getattr(want, f))
+                     for f in ("feasible", "queue_share", "candidate_share"))
+            check(ok and got.backend == "torch",
+                  f"scorer {name}: feasible, queue_share, candidate_share bit for bit "
+                  f"against the greedy path (feasible {int(want.feasible.sum())}/{shape[3]})")
+            arrays = S._pad(snap)
+            tensors = [torch.from_numpy(a).to(dev) for a in arrays]
+            P, Q = arrays[6].shape[0], arrays[0].shape[0]
+            nbytes = sum(t.nbytes for t in tensors) + P + 4 * (Q + P)
+            out["scorer"][name] = control_row(
+                name, lambda: S.score(snap),
+                lambda: S.score_tensors(*tensors, queues=shape[0], resources=shape[1]),
+                lambda: S._score_greedy(snap), nbytes)
+
+    print(f"control plane, gang-readiness aggregate ({card}):", flush=True)
+    out["aggregate"] = {}
+    rng = np.random.default_rng(2)
+    for label, (Pc, Jc) in AGG_SHAPES.items():
+        jobs = rng.integers(0, Jc - Jc // 16, Pc).astype(np.int32)
+        jobs[rng.random(Pc) < 0.1] = -1
+        phase = rng.integers(0, 4, Pc).astype(np.int32)
+        ready = (rng.random(Pc) < 0.5).astype(np.int8)
+        got = CC.job_counts(jobs, phase, ready, Jc)
+        want = CC.job_counts_reference(jobs, phase, ready, Jc)
+        check(all(g.dtype == np.int32 and np.array_equal(g, w) for g, w in zip(got, want))
+              and len(np.unique(phase)) == 4 and (jobs < 0).any(),
+              f"aggregate {label}: active, ready, failed equal numpy bincount exactly "
+              f"({int(got[0].sum())} active, {int(got[1].sum())} ready, "
+              f"{int(got[2].sum())} failed, {int((jobs < 0).sum())} dead rows)")
+        cols = [torch.from_numpy(a).to(dev) for a in (jobs, phase, ready)]
+        nbytes = sum(t.nbytes for t in cols) + 3 * 4 * Jc
+        out["aggregate"][label] = control_row(
+            label, lambda: CC.job_counts(jobs, phase, ready, Jc),
+            lambda: CC.count_tensors(*cols, Jc),
+            lambda: CC.job_counts_reference(jobs, phase, ready, Jc), nbytes)
+
+    print(f"control plane, policy MLP ({card}):", flush=True)
+    out["mlp"] = {}
+    rng = np.random.default_rng(3)
+    model = PM.PolicyModel(
+        params=[(w, (rng.standard_normal(b.shape) * 0.1).astype(np.float32))
+                for w, b in PM.init_params(3)],
+        feat_mean=rng.random(PF.FEATURE_DIM).astype(np.float32),
+        feat_std=(0.5 + rng.random(PF.FEATURE_DIM)).astype(np.float32),
+        label_mean=30.0, label_std=12.0)
+    dims = model.dims
+    for rows in MLP_ROWS:
+        feats = (rng.random((rows, PF.FEATURE_DIM)) * 2).astype(np.float32)
+        got = PM.score(model, feats)
+        want = PM.score(model, feats, backend="numpy")
+        cpu = PM.score(model, feats, device="cpu")
+        scale = max(float(np.abs(want).max()), 1.0)
+        err_np = float(np.abs(got - want).max())
+        err_cpu = float(np.abs(got - cpu).max())
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32_on = PM.score(model, feats)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+        check(got.shape == (rows,) and np.isfinite(got).all()
+              and err_np <= MLP_TOL * scale and err_cpu <= MLP_TOL * scale,
+              f"policy MLP {rows} rows: max|card - forward_np| {err_np:.3g}, "
+              f"max|card - cpu| {err_cpu:.3g} <= {MLP_TOL} * {scale:.4g}")
+        check(same_bits(tf32_on, got), f"policy MLP {rows} rows: the same bits with TF32 "
+                                       "matmuls allowed in the process")
+        rows_p = PM._round_up_pow2(rows)
+        mlp = PM.PolicyMLP(model.params)
+        x = torch.zeros((rows_p, PF.FEATURE_DIM), device=dev)
+        n_params = sum(w.size + b.size for w, b in model.params)
+        flops = 2.0 * rows_p * sum(a * b for a, b in zip(dims, dims[1:]))
+
+        def forward():
+            with torch.no_grad():
+                return mlp(x)
+
+        out["mlp"][f"{rows} rows"] = control_row(
+            f"{rows} rows (bucket {rows_p})", lambda: PM.score(model, feats), forward,
+            lambda: PM.score(model, feats, backend="numpy"),
+            4 * (rows_p * dims[0] + n_params + rows_p), flops)
+        out["mlp"][f"{rows} rows"].update(max_abs_err_numpy=err_np, max_abs_err_cpu=err_cpu)
+
+    print(f"control plane, policy trainer ({card}):", flush=True)
+    rng = np.random.default_rng(4)
+    x = (rng.random((TRAIN_EXAMPLES, PF.FEATURE_DIM)) * 3).astype(np.float32)
+    y = ((x[:, 0] * 5 + x[:, 3] ** 2 + rng.random(TRAIN_EXAMPLES)) * 10).astype(np.float32)
+    corpus = PD.Dataset(features=x, labels=y, history=PF.DomainHistory(),
+                        meta={"synthetic": TRAIN_EXAMPLES})
+    runs, walls = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        for device in ("cuda", "cuda", "cpu"):
+            t0 = time.perf_counter()
+            trained, summary = PT.train(corpus, epochs=TRAIN_EPOCHS, lr=TRAIN_LR, device=device)
+            walls.append(1e3 * (time.perf_counter() - t0))
+            path = os.path.join(tmp, f"run{len(runs)}.npz")
+            PM.save_checkpoint(path, trained)
+            with open(path, "rb") as f:
+                runs.append((trained, summary, f.read()))
+    (card_a, sum_a, bytes_a), (_, _, bytes_b), (cpu_m, sum_cpu, _) = runs
+    check(bytes_a == bytes_b, f"trainer: two card runs give byte-identical checkpoints "
+                              f"({len(bytes_a)} B)")
+    loss_err = max(abs(sum_a[k] - sum_cpu[k]) / max(abs(sum_cpu[k]), 1e-12)
+                   for k in ("lossFirst", "lossFinal"))
+    param_err = max(float(np.abs(a - c).max() / max(np.abs(c).max(), 1e-30))
+                    for (wa, ba), (wc, bc) in zip(card_a.params, cpu_m.params)
+                    for a, c in ((wa, wc), (ba, bc)))
+    check(loss_err <= TRAIN_LOSS_TOL and param_err <= TRAIN_PARAM_TOL
+          and sum_a["lossFinal"] < sum_a["lossFirst"],
+          f"trainer: card against the CPU path, losses {sum_a['lossFirst']} -> "
+          f"{sum_a['lossFinal']} (cpu {sum_cpu['lossFirst']} -> {sum_cpu['lossFinal']}), "
+          f"relative {loss_err:.3g} <= {TRAIN_LOSS_TOL}; parameters {param_err:.3g} of each "
+          f"tensor's largest <= {TRAIN_PARAM_TOL}")
+    rows_p = PM._round_up_pow2(TRAIN_EXAMPLES)
+    flat = [torch.from_numpy(a).to(dev).requires_grad_()
+            for wb in PM.init_params(0) for a in wb]
+    xd = torch.from_numpy(np.zeros((rows_p, PF.FEATURE_DIM), np.float32)).to(dev)
+    yd = torch.zeros(rows_p, device=dev)
+    mask = torch.ones(rows_p, device=dev)
+    step_ms = cuda_ms(lambda: PT.train_step(flat, xd, yd, mask, TRAIN_LR), 20)
+    step_kernels, step_copies, step_busy = kernels_per_call(
+        lambda: PT.train_step(flat, xd, yd, mask, TRAIN_LR))
+    n_params = sum(t.numel() for t in flat)
+    step_bytes = 4 * (rows_p * (PF.FEATURE_DIM + 2) + 2 * n_params + 1)
+    step_flops = 6.0 * rows_p * sum(a * b for a, b in zip(card_a.dims, card_a.dims[1:]))
+    bound = max(1e3 * step_bytes / HBM_BYTES_PER_S, 1e3 * step_flops / F32_FMA_FLOPS)
+    out["trainer"] = {
+        "examples": TRAIN_EXAMPLES, "epochs": TRAIN_EPOCHS, "lr": TRAIN_LR,
+        "train_wall_ms": walls[:2], "cpu_path_wall_ms": walls[2],
+        "step_device_ms": step_ms, "step_device_busy_ms": step_busy,
+        "kernels_per_step": step_kernels,
+        "copies_per_step": step_copies, "step_bound_ms": bound, "step_bytes": step_bytes,
+        "loss_first": sum_a["lossFirst"], "loss_final": sum_a["lossFinal"],
+        "cpu_loss_first": sum_cpu["lossFirst"], "cpu_loss_final": sum_cpu["lossFinal"],
+        "loss_rel_err": loss_err, "param_rel_err": param_err,
+        "checkpoint_bytes": len(bytes_a)}
+    print(f"  {TRAIN_EXAMPLES} examples x {TRAIN_EPOCHS} epochs: card {walls[0]:.1f} / "
+          f"{walls[1]:.1f} ms, CPU path {walls[2]:.1f} ms; a step {step_ms:.4f} ms on the "
+          f"card (busy {step_busy} ms), {step_kernels} kernels + {step_copies} copies, bound "
+          f"{bound:.6f} ms", flush=True)
+    results["control"] = out
+
+
+def phase_control_apart(results):
+    """Phase 10 in a process of its own (`--control-only`): in a process
+    that has traced before (phases 6-7), torch.profiler dropped device
+    events, and the kernel counts read short (2 for the MLP's 11)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "control.json")
+        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--control-only",
+                              "--out", path], capture_output=True, text=True, timeout=900)
+        print(run.stdout, end="", flush=True)
+        if run.returncode != 0:
+            print(run.stderr[-4000:], file=sys.stderr, flush=True)
+        check(run.returncode == 0 and os.path.exists(path),
+              f"phase 10 in a process of its own exits {run.returncode}")
+        if os.path.exists(path):
+            with open(path) as f:
+                results["control"] = json.load(f).get("control")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the results as JSON to this file")
@@ -1595,6 +1912,9 @@ def main() -> int:
     only.add_argument("--flash-only", action="store_true",
                       help="build the flash block kernels and run phases 2-3 alone "
                            "(no result line)")
+    only.add_argument("--control-only", action="store_true",
+                      help="run phase 10 (the control plane's device programs) alone; "
+                           "builds no kernel (no result line)")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -1611,6 +1931,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     results: dict = {"card": card}
+    if args.control_only:
+        phase_control(results)
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump(results, f, indent=1)
+        print(f"chip_smoke --control-only: {len(FAILURES)} check(s) failed, "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        for what in FAILURES:
+            print(f"  FAILED: {what}", flush=True)
+        return 1 if FAILURES else 0
 
     t0 = time.perf_counter()
     sources = (["auction"] if args.solver_only else ["flash_block"] if args.flash_only
@@ -1683,6 +2014,7 @@ def main() -> int:
                 "worker, resumed run": resumed.get(counter),
             }
     kernels += phase_solver(results)
+    phase_control_apart(results)
     results["kernels"] = kernels
     results["seconds"] = time.perf_counter() - t_start
     if args.out:

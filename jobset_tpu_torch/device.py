@@ -16,3 +16,16 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device: pass device='cpu' to run the port on the CPU"
         )
     return torch.device("cuda")
+
+
+def backend_label() -> str:
+    """The torch backend a health or build-info report names, without
+    bringing the card up: "unloaded" while CUDA has not been initialized
+    in this process, then "cuda" or "cpu" ("unavailable" if asking
+    fails). It reads no environment switch."""
+    try:
+        if not torch.cuda.is_initialized():
+            return "unloaded"
+        return "cuda" if torch.cuda.is_available() else "cpu"
+    except Exception:
+        return "unavailable"

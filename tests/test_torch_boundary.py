@@ -83,15 +83,28 @@ def test_chip_smoke_fails_without_a_card():
 @pytest.mark.parametrize("entry_point", ["build_generate", "build_forward", "init_params",
                                          "build_train_step", "build_eval_step",
                                          "train_workload", "run_model_bench",
-                                         "AssignmentSolver", "solver_service"])
-def test_entry_points_without_device_raise(entry_point):
+                                         "AssignmentSolver", "solver_service",
+                                         "queue_score", "job_counts", "policy_score",
+                                         "PolicyMLP", "policy_train",
+                                         "train_bundles_to_checkpoint", "policy_train_main"])
+def test_entry_points_without_device_raise(entry_point, tmp_path):
+    import numpy as np
+
+    from jobset_tpu_torch.core import columnar
     from jobset_tpu_torch.models import decode, transformer
     from jobset_tpu_torch.placement import service, solver
+    from jobset_tpu_torch.policy import dataset, features, model, train
+    from jobset_tpu_torch.queue import scorer
     from jobset_tpu_torch.runtime import model_bench, optim, runner
 
     _no_cuda()
     cfg = transformer.TransformerConfig(vocab_size=16, d_model=16, n_heads=2, d_ff=16,
                                         n_layers=1)
+    n_candidates = 0  # even a snapshot with nothing to score names its device
+    policy_model = model.PolicyModel(model.init_params(0), np.zeros(16, np.float32),
+                                     np.ones(16, np.float32), 0.0, 1.0)
+    corpus = dataset.Dataset(np.zeros((4, 16), np.float32), np.ones(4, np.float32),
+                             features.DomainHistory())
     call = {
         "build_generate": lambda: decode.build_generate(cfg, 2),
         "build_forward": lambda: transformer.build_forward(cfg),
@@ -102,6 +115,19 @@ def test_entry_points_without_device_raise(entry_point):
         "run_model_bench": lambda: model_bench.run_model_bench(steps=1, config=cfg),
         "AssignmentSolver": lambda: solver.AssignmentSolver(),
         "solver_service": lambda: service.main(["--addr", "127.0.0.1:0"]),
+        "queue_score": lambda: scorer.score(scorer.Snapshot(
+            ["r"], ["q"], np.ones((1, 1), np.float32), np.ones((1, 1), bool),
+            np.zeros((1, 1), np.float32), np.ones(1, np.float32), np.full(1, -1, np.int32), 0,
+            np.zeros((n_candidates, 1), np.float32), np.zeros(n_candidates, np.int32))),
+        "job_counts": lambda: columnar.job_counts(np.zeros(4, np.int32), np.zeros(4, np.int32),
+                                                  np.zeros(4, np.int8), 4),
+        "policy_score": lambda: model.score(policy_model, np.zeros((3, 16), np.float32)),
+        "PolicyMLP": lambda: model.PolicyMLP(policy_model.params),
+        "policy_train": lambda: train.train(corpus),
+        "train_bundles_to_checkpoint": lambda: train.train_bundles_to_checkpoint(
+            str(tmp_path), str(tmp_path / "out.npz")),
+        "policy_train_main": lambda: train.main(["--bundles", str(tmp_path),
+                                                 "--out", str(tmp_path / "out.npz")]),
     }[entry_point]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
@@ -123,3 +149,28 @@ def test_solver_ping_that_raises_raises():
     with pytest.raises((RuntimeError, AssertionError)):
         s.solve(np.zeros((4, 4), np.float32))
     assert s.routes == {"cuda": 0, "cpu": 0}
+
+
+def test_policy_train_module_without_cpu_flag_raises(tmp_path):
+    _no_cuda()
+    run = subprocess.run([sys.executable, "-m", "jobset_tpu_torch.policy.train",
+                          "--bundles", str(tmp_path), "--out", str(tmp_path / "o.npz")],
+                         cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert run.returncode != 0 and "no CUDA device" in run.stderr
+
+
+def test_backend_label_does_not_bring_the_card_up():
+    """Before any CUDA use the label is "unloaded", and asking for it
+    initializes nothing."""
+    from jobset_tpu_torch.device import backend_label
+
+    code = ("import torch\n"
+            "from jobset_tpu_torch.device import backend_label\n"
+            "label = backend_label()\n"
+            "print(label, torch.cuda.is_initialized())\n")
+    run = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert run.returncode == 0, run.stderr
+    assert run.stdout.split() == ["unloaded", "False"]
+    if not torch.cuda.is_initialized():
+        assert backend_label() == "unloaded"

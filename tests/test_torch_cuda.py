@@ -1,8 +1,10 @@
 """Card-only tests of the port: the CUDA kernels against their plain
 versions, the serving path and the train step on the card against the same
 paths on the CPU, the block backward on the card against the CPU's, the
-kernel launches per train step under each remat setting, and the auction
-kernel and the solver surface on the card against the CPU.
+kernel launches per train step under each remat setting, the auction
+kernel and the solver surface on the card against the CPU, and the control
+plane's device programs (admission scorer, gang-readiness aggregate,
+policy MLP and trainer) against the port's CPU path and plain versions.
 
 They skip without a CUDA device. This file imports no JAX, so it also runs
 on a machine that has none: `python -m pytest --noconftest -m cuda
@@ -14,7 +16,9 @@ plain version);
 bf16 2e-2 relative to the tensor's largest value on sums and weighted
 values (p is rounded to bf16 against the running max in the kernel and
 against the block max in the plain version). The auction: none; its
-assignments, prices and iteration counts are identical.
+assignments, prices and iteration counts are identical. The scorer and
+the aggregate: none (bit for bit, exact counts); the MLP and the trainer:
+as stated in their tests.
 """
 
 import numpy as np
@@ -491,3 +495,103 @@ def test_auction_launcher_rejects_what_the_kernel_does_not_take(cuda):
         auction_ops.dense(torch.zeros((1, 8, 16384), device=cuda))
     with pytest.raises(ValueError, match="expected contiguous"):
         auction_ops.dense(torch.zeros((1, 16, 8), device=cuda).transpose(1, 2))
+
+
+# ---------------------------------------------------------------------------
+# The control plane's device programs (torch code, no hand kernel): each on
+# the card against the port's CPU path and plain versions.
+# ---------------------------------------------------------------------------
+
+
+def _tenths_snapshot(seed, Q, R, P, C):
+    from jobset_tpu_torch.queue import scorer as QS
+
+    rng = np.random.default_rng(seed)
+    declared = rng.random((Q, R)) > 0.2
+    return QS.Snapshot(
+        [f"r{i}" for i in range(R)], [f"q{i}" for i in range(Q)],
+        (rng.integers(0, 640, (Q, R)) * 0.1 * declared).astype(np.float32), declared,
+        (rng.integers(0, 320, (Q, R)) * 0.1).astype(np.float32),
+        rng.integers(1, 5, Q).astype(np.float32), rng.integers(-1, C, Q).astype(np.int32), C,
+        (rng.integers(0, 160, (P, R)) * 0.1).astype(np.float32),
+        rng.integers(0, Q, P).astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,R,P,C", [(64, 1, 512, 8), (37, 3, 100, 5), (130, 8, 700, 12)])
+def test_queue_scorer_on_card_matches_greedy_bit_for_bit(cuda, Q, R, P, C):
+    from jobset_tpu_torch.queue import scorer as QS
+
+    QS._P_HIGH_WATER.clear()
+    snap = _tenths_snapshot(Q + R, Q, R, P, C)
+    got, want = QS.score(snap), QS._score_greedy(snap)
+    assert got.backend == "torch"
+    for field in ("feasible", "queue_share", "candidate_share"):
+        a, b = getattr(got, field), getattr(want, field)
+        assert a.dtype == b.dtype and np.array_equal(a.view(np.uint8), b.view(np.uint8)), field
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pods,jobs", [(1024, 1024), (16384, 1024), (1 << 18, 1 << 14)])
+def test_job_counts_on_card_equal_bincount(cuda, pods, jobs):
+    from jobset_tpu_torch.core import columnar as CC
+
+    rng = np.random.default_rng(pods)
+    job = rng.integers(-1, jobs + 3, pods).astype(np.int32)  # dead rows and past-capacity rows
+    phase = rng.integers(0, 4, pods).astype(np.int32)
+    ready = (rng.random(pods) < 0.5).astype(np.int8)
+    for got, want in zip(CC.job_counts(job, phase, ready, jobs),
+                         CC.job_counts_reference(job, phase, ready, jobs)):
+        assert got.dtype == np.int32 and np.array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 9, 960])
+def test_policy_score_on_card_matches_cpu(cuda, rows):
+    """Tolerance 1e-6 of the largest magnitude (f32 through three layers,
+    sums in another order), with TF32 matmuls allowed in the process or
+    not: the scorer's products are no matmuls, so the bits are the same."""
+    from jobset_tpu_torch.policy import model as PM
+
+    rng = np.random.default_rng(rows)
+    model = PM.PolicyModel(PM.init_params(1), rng.random(16).astype(np.float32),
+                           (0.5 + rng.random(16)).astype(np.float32), 20.0, 5.0)
+    feats = rng.random((rows, 16)).astype(np.float32)
+    got = PM.score(model, feats)
+    want = PM.score(model, feats, device="cpu")
+    assert np.abs(got - want).max() <= 1e-6 * max(np.abs(want).max(), 1.0)
+    assert np.abs(got - PM.score(model, feats, backend="numpy")).max() <= \
+        1e-6 * max(np.abs(want).max(), 1.0)
+    torch.backends.cuda.matmul.allow_tf32 = True  # the fixture restores it
+    assert np.array_equal(PM.score(model, feats), got)
+
+
+@pytest.mark.cuda
+def test_policy_train_on_card_is_byte_deterministic_and_matches_cpu(cuda, tmp_path):
+    """Two card runs of one seed write identical checkpoint bytes; against
+    the CPU path, losses within 1e-5 relative and parameters within 1e-4
+    of each tensor's largest magnitude."""
+    from jobset_tpu_torch.device import backend_label
+    from jobset_tpu_torch.policy import dataset as PD
+    from jobset_tpu_torch.policy import features as PF
+    from jobset_tpu_torch.policy import model as PM
+    from jobset_tpu_torch.policy import train as PT
+
+    rng = np.random.default_rng(0)
+    x = (rng.random((300, 16)) * 3).astype(np.float32)
+    y = ((x[:, 0] * 5 + x[:, 3] ** 2 + rng.random(300)) * 10).astype(np.float32)
+    corpus = PD.Dataset(x, y, PF.DomainHistory(), {"synthetic": 300})
+    blobs, summaries, models = [], [], []
+    for i, device in enumerate(("cuda", "cuda", "cpu")):
+        model, summary = PT.train(corpus, seed=3, epochs=60, device=device)
+        PM.save_checkpoint(str(tmp_path / f"{i}.npz"), model)
+        blobs.append((tmp_path / f"{i}.npz").read_bytes())
+        summaries.append(summary)
+        models.append(model)
+    assert blobs[0] == blobs[1]
+    for key in ("lossFirst", "lossFinal"):
+        assert abs(summaries[0][key] - summaries[2][key]) <= 1e-5 * abs(summaries[2][key])
+    for (wa, ba), (wc, bc) in zip(models[0].params, models[2].params):
+        for a, c in ((wa, wc), (ba, bc)):
+            assert np.abs(a - c).max() <= 1e-4 * np.abs(c).max()
+    assert backend_label() == "cuda"
