@@ -2,12 +2,13 @@
 """Smoke run of the PyTorch port (jobset_tpu_torch) on one CUDA GPU.
 
     python3 chip_smoke.py [--out RESULTS.json] [--solver-only | --flash-only |
-                                                 --control-only]
+                                                 --control-only | --serving-only]
 
 (`--solver-only` builds the auction kernel and runs phase 9 alone,
 `--flash-only` builds the flash block kernels and runs phases 2-3 alone,
-`--control-only` runs phase 10 alone and builds nothing; none of them
-prints the result line.) Phases, in order; any failure exits
+`--control-only` runs phase 10 alone and builds nothing, `--serving-only`
+builds the flash block and int8 kernels and runs phase 11 alone; none of
+them prints the result line.) Phases, in order; any failure exits
 non-zero before the result line:
   1. the card's name and power limit (nvidia-smi); TF32 off;
   2. build every CUDA kernel from this checkout (one nvcc per source, all
@@ -94,7 +95,26 @@ non-zero before the result line:
      path's time and a bound at 3.35 TB/s. The phase runs in a process
      of its own (`--control-only`), where the profiler has not traced
      before;
- 11. one `kernels` JSON line, then the result line
+ 11. the serving path with int8 weights, the int8 KV cache and sampling,
+     in a process of its own (`--serving-only`): the int8 decode kernel
+     (`ops/csrc/int8_matmul.cu`) against its plain version at the four
+     flagship decode shapes (x [8, K] against int8 [1024, 1024],
+     [1024, 4096], [4096, 1024], [1024, 32000]) in bf16 and f32 and at edge
+     shapes (1 and 16 rows, N not a multiple of 16, K not a multiple of
+     the chunk), two launches equal bit for bit; its L2-cold time, bound,
+     plain version and torch.matmul on the bf16 weight; the flagship tree
+     quantized on the card equal to the CPU's bit for bit; `generate`
+     (prompt 1024, 32 new) and a TTFT call for `decode`, `decode_int8` and
+     `decode_int8_kv`, counts set to 0 just before each: int8 launches 1520
+     and 1 on the int8 paths, 0 on bf16, flash launches 24 everywhere; a
+     sampled int8 generate (temperature 0.9, top_k 4); a torch.profiler
+     trace of one warm decode step per variant; `run_decode_bench` for the
+     three points at prompt 32 / 96 new and 1024 / 32 (tokens/s, TTFT;
+     medians of 3 rounds, the points in turns);
+     and on a small f32 GQA config, card tokens equal to the CPU's with
+     int8 weights, the int8 cache and both, top_k=1 equal to greedy, and
+     all-tied logits with top_k 2 drawing only tokens 0 and 1;
+ 12. one `kernels` JSON line, then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 The flagship is the repo's training/decode bench config: vocab 32000,
@@ -1903,6 +1923,367 @@ def phase_control_apart(results):
                 results["control"] = json.load(f).get("control")
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: serving with int8 weights, the int8 KV cache and sampling
+# ---------------------------------------------------------------------------
+
+# The int8 kernel against its plain version, per element: bf16
+# |got - want| <= 2^-7 |want| + 1e-4 max|want| (the output is rounded once
+# to bf16 on both sides, from f32 sums in other orders, which may put the
+# two one bf16 ulp apart; an ulp is at most 2^-7 of the value), f32
+# 1e-5 max|want| (f32 sums of up to 4096 products in another order).
+INT8_REL_BF16, INT8_ABS = 2.0 ** -7, {torch.bfloat16: 1e-4, torch.float32: 1e-5}
+# The decode step's products at the flagship (x rows, K, N), and how many
+# of each one step makes: wq, wk, wv, wo in each of 8 layers, w1, w2, and
+# the unembedding.
+INT8_SHAPES = {"wq/wk/wv/wo": (1024, 1024, 4 * LAYERS), "w1": (1024, 4096, LAYERS),
+               "w2": (4096, 1024, LAYERS), "unembed": (1024, 32000, 1)}
+INT8_EDGES = [(1, 1024, 1024), (16, 1024, 1024), (8, 1000, 1000), (16, 1030, 4096),
+              (3, 70, 24), (16, 300, 17)]
+# The int8 launches of one call: a TTFT call unembeds the prefill's last
+# position (8 rows); a generate of n new tokens adds n - 1 steps of 49.
+INT8_STEP_LAUNCHES = 6 * LAYERS + 1
+INT8_GENERATE_LAUNCHES = 1 + (NEW_TOKENS - 1) * INT8_STEP_LAUNCHES
+# run_decode_bench's three serving points (the reference's `decode`,
+# `decode_int8`, `decode_int8_kv`), at its shape and at the flagship's.
+SERVING_POINTS = {"decode": (False, False), "decode_int8": (True, False),
+                  "decode_int8_kv": (True, True)}
+SERVING_SHAPES = ((32, 96), (PROMPT, NEW_TOKENS))
+BENCH_ROUNDS = 3
+
+
+def int8_case(name, dtype, rows, k, n, seed):
+    """The kernel against its plain version on one shape: the stated
+    tolerance, and two launches equal bit for bit. Returns max|got - want|."""
+    from jobset_tpu_torch.models import quant
+    from jobset_tpu_torch.ops import int8_matmul as i8
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qt = quant.quantize_int8(torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5)
+    x = torch.randn((rows, k), generator=gen, device="cuda").to(dtype)
+    before = i8.INT8_LAUNCHES
+    got = i8.int8_matmul(x, qt, dtype)
+    again = i8.int8_matmul(x, qt, dtype)
+    torch.cuda.synchronize()
+    want = i8.int8_matmul_plain(x, qt, dtype)
+    err = (got.float() - want.float()).abs()
+    limit = INT8_ABS[dtype] * want.float().abs().max().item()
+    if dtype == torch.bfloat16:
+        limit = INT8_REL_BF16 * want.float().abs() + limit
+    check(i8.INT8_LAUNCHES == before + 2 and got.dtype == dtype
+          and tuple(got.shape) == (rows, n) and bool(torch.isfinite(got.float()).all()),
+          f"int8_matmul {name}: two launches, {dtype} [{rows}, {n}], finite")
+    check(bool((err <= limit).all()),
+          f"int8_matmul {name}: within tolerance (max|d| {err.max().item():.3e})")
+    check(torch.equal(got, again), f"int8_matmul {name}: two launches equal bit for bit")
+    return err.max().item()
+
+
+def int8_bound_ms(rows, k, n, dtype=torch.bfloat16) -> float:
+    """Each input read once and the output written once at HBM rate: the
+    int8 weight, its f32 scales, x and y in the compute dtype (the
+    operations, 2 * rows * k * n, are far below the tensor cores' rate)."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    return 1e3 * (k * n + 4 * n + size * rows * (k + n)) / HBM_BYTES_PER_S
+
+
+def time_int8(rows, k, n) -> dict:
+    """L2-cold times at one bf16 decode shape: the kernel, the plain version
+    (dequantize, then matmul) and the yardstick, torch.matmul against the
+    weight dequantized to bf16 beforehand (the product int8 replaces, at
+    twice the weight bytes), over weight sets of 128 MB or more of int8."""
+    from jobset_tpu_torch.models import quant
+    from jobset_tpu_torch.ops import int8_matmul as i8
+
+    n_sets = max(2, -(-(128 << 20) // (k * n)))
+    gen = torch.Generator(device="cuda").manual_seed(k + n)
+    sets = [quant.quantize_int8(torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5)
+            for _ in range(n_sets)]
+    dense = [quant.weight_cast(qt, torch.bfloat16) for qt in sets]
+    x = torch.randn((rows, k), generator=gen, device="cuda").to(torch.bfloat16)
+    out = {
+        "ms": rotating_ms(lambda i: i8.int8_matmul(x, sets[i], torch.bfloat16), n_sets, ITERS),
+        "plain_ms": rotating_ms(lambda i: i8.int8_matmul_plain(x, sets[i], torch.bfloat16),
+                                n_sets, ITERS),
+        "library_ms": rotating_ms(lambda i: torch.matmul(x, dense[i]), n_sets, ITERS),
+        "bound_ms": int8_bound_ms(rows, k, n),
+        "bound_by": "bytes",
+        "weight_sets": n_sets,
+    }
+    del sets, dense
+    torch.cuda.empty_cache()
+    return out
+
+
+def int8_host_us(calls=200, repeats=5) -> dict:
+    """Host time to issue one product at a tiny shape (the card keeps up):
+    through the wrapper, the C launch function alone (ctypes, pointers
+    given), and a bf16 torch.matmul; medians of `repeats` runs of `calls` calls, in µs."""
+    from jobset_tpu_torch.models import quant
+    from jobset_tpu_torch.ops import int8_matmul as i8
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    qt = quant.quantize_int8(torch.randn((64, 64), generator=gen, device="cuda"))
+    x = torch.randn((BATCH, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    dense = quant.weight_cast(qt, torch.bfloat16)
+    y = torch.empty((BATCH, 64), dtype=torch.bfloat16, device="cuda")
+    lib, stream = i8._library(), torch.cuda.current_stream().cuda_stream
+    args = (1, x.data_ptr(), qt.q.data_ptr(), qt.scale.data_ptr(), y.data_ptr(), BATCH, 64, 64,
+            x.device.index, stream)
+    ways = {"int8_matmul": lambda: i8.int8_matmul(x, qt, torch.bfloat16),
+            "launch_alone": lambda: lib.int8_matmul_launch(*args),
+            "torch_matmul": lambda: torch.matmul(x, dense)}
+    runs = {name: [] for name in ways}
+    for _ in range(repeats):
+        for name, fn in ways.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            runs[name].append(1e6 * (time.perf_counter() - t0) / calls)
+    torch.cuda.synchronize()
+    return {name: sorted(r)[len(r) // 2] for name, r in runs.items()}
+
+
+def serving_kernel_checks(results):
+    """Phase 11a: the int8 kernel against its plain version at the decode
+    shapes (bf16 and f32) and the edge shapes; L2-cold times in bf16."""
+    errs = {}
+    seed = 20
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        for label, (k, n, _) in INT8_SHAPES.items():
+            errs[f"{tag} {label}"] = int8_case(f"{tag} {label} [8,{k}]x[{k},{n}]", dtype,
+                                               BATCH, k, n, seed)
+            seed += 1
+        for rows, k, n in INT8_EDGES:
+            int8_case(f"{tag} edge [{rows},{k}]x[{k},{n}]", dtype, rows, k, n, seed)
+            seed += 1
+    times = {label: time_int8(BATCH, k, n) for label, (k, n, _) in INT8_SHAPES.items()}
+    host = int8_host_us()
+    print(f"int8_matmul host time a call, enqueue only (x [8,64], weight [64,64], median of "
+          f"5 runs of 200): wrapper {host['int8_matmul']:.2f} us, kernel launch alone "
+          f"{host['launch_alone']:.2f} us, torch.matmul {host['torch_matmul']:.2f} us "
+          f"({results['card']})", flush=True)
+    step = {key: sum(count * times[label][key]
+                     for label, (_, _, count) in INT8_SHAPES.items())
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    card = results["card"]
+    for label, t in times.items():
+        k, n, count = INT8_SHAPES[label]
+        print(f"int8_matmul bf16 {label} [8,{k}]x[{k},{n}] ({count} a step), L2-cold over "
+              f"{t['weight_sets']} weight sets: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, library_ms (torch.matmul, bf16 weight) "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (bytes), "
+              f"{t['bound_ms'] / t['ms']:.1%} of bound ({card})", flush=True)
+    print(f"int8_matmul, a decode step's {sum(c for _, _, c in INT8_SHAPES.values())} "
+          f"products: kernel {step['ms']:.4f} ms, plain {step['plain_ms']:.4f} ms, "
+          f"torch.matmul on bf16 weights {step['library_ms']:.4f} ms, bound "
+          f"{step['bound_ms']:.4f} ms ({card})", flush=True)
+    results["int8_matmul"] = {"max_abs_err": errs, "by_shape": times, "decode_step": step,
+                              "host_us": host}
+
+
+def tree_bits_equal(a, b) -> bool:
+    from jobset_tpu_torch import tree
+
+    la, lb = tree.leaves(a), tree.leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x.cpu().view(torch.uint8), y.cpu().view(torch.uint8))
+        for x, y in zip(la, lb))
+
+
+def serving_decode_step_trace(cfg, params, label, quantized_kv):
+    """torch.profiler over one warm cached decode step (B=8, after a
+    1024-token prefill): the step's device busy time, ops and idle share."""
+    from jobset_tpu_torch.models import decode
+
+    cast = decode.cast_params(params, cfg.dtype)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    cache = decode.init_kv_cache(cfg, BATCH, PROMPT + 2, "cuda", quantized_kv=quantized_kv)
+    with torch.no_grad():
+        token = decode._pick_token(decode._prefill_logits(cast, prompt, cache, cfg))
+        decode._token_logits(cast, token, cache, PROMPT, cfg)  # warm step
+        torch.cuda.synchronize()
+        return traced(lambda: decode._pick_token(
+            decode._token_logits(cast, token, cache, PROMPT + 1, cfg)), label)
+
+
+def phase_serving(results):
+    """Phase 11: the serving path with int8 weights, the int8 KV cache and
+    sampling, at the flagship's width and depth."""
+    from jobset_tpu_torch.models import (TransformerConfig, build_generate, decode,
+                                         init_params, quantize_params_for_serving)
+    from jobset_tpu_torch.ops import int8_matmul as i8
+    from jobset_tpu_torch.runtime.model_bench import run_decode_bench
+
+    serving_kernel_checks(results)
+    card = results["card"]
+    cfg = flagship_config()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    qparams = quantize_params_for_serving(params)
+    check(tree_bits_equal(qparams, quantize_params_for_serving(to_device(params, "cpu"))),
+          "quantize_params_for_serving: the flagship tree on the card equals the CPU's "
+          "bit for bit")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
+                           device="cuda", dtype=torch.int32)
+
+    # The main path: each variant's generate and TTFT call, counts set to 0
+    # just before and read just after. Flash launches: the prefill's 24.
+    launches = {}
+    for point, (quantized, quantized_kv) in SERVING_POINTS.items():
+        p = qparams if quantized else params
+        flags = dict(quantized=quantized, quantized_kv=quantized_kv)
+        generate, first = build_generate(cfg, NEW_TOKENS, **flags), build_generate(cfg, 1, **flags)
+        first(p, prompt)  # warm-up (constant masks, cuBLAS)
+        torch.cuda.synchronize()
+        for call, fn, want_int8 in (("generate", generate, INT8_GENERATE_LAUNCHES),
+                                    ("ttft", first, 1)):
+            reset_launches()
+            i8.INT8_LAUNCHES = 0
+            tokens = fn(p, prompt)
+            torch.cuda.synchronize()
+            counts = {"INT8_LAUNCHES": i8.INT8_LAUNCHES, **launches_now()}
+            want = want_int8 if quantized else 0
+            launches[f"{point} {call}"] = counts
+            check(counts["INT8_LAUNCHES"] == want
+                  and counts["TENSOR_CORE_LAUNCHES"] == GENERATE_LAUNCHES
+                  and counts["KERNEL_LAUNCHES"] == GENERATE_LAUNCHES,
+                  f"{point} {call}: launches {counts} (expected {want} int8, "
+                  f"{GENERATE_LAUNCHES} flash on the tensor-core variant)")
+            new = NEW_TOKENS if call == "generate" else 1
+            check(tuple(tokens.shape) == (BATCH, PROMPT + new)
+                  and bool((tokens[:, :PROMPT] == prompt).all())
+                  and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+                  f"{point} {call}: tokens shape {tuple(tokens.shape)}, prompt kept, ids in vocab")
+    results["serving_launches"] = launches
+
+    # Sampling at the flagship (the reference demo's temperature 0.9, top_k
+    # 4), int8 weights and cache: tokens in vocab, a seed reproduces them.
+    sampler = build_generate(cfg, NEW_TOKENS, temperature=0.9, top_k=4, quantized=True,
+                             quantized_kv=True)
+    draws = [sampler(qparams, prompt, torch.Generator(device="cuda").manual_seed(s))
+             for s in (0, 0, 1)]
+    check(torch.equal(draws[0], draws[1]) and not torch.equal(draws[0], draws[2])
+          and bool(((draws[0] >= 0) & (draws[0] < cfg.vocab_size)).all()),
+          "sampled int8 generate (temperature 0.9, top_k 4): ids in vocab, one seed "
+          "reproduces its tokens, another seed differs")
+
+    traces = {}
+    for point, (quantized, quantized_kv) in SERVING_POINTS.items():
+        traces[point] = serving_decode_step_trace(
+            cfg, qparams if quantized else params,
+            f"{point} decode step (B={BATCH}, cache {PROMPT + 2})", quantized_kv)
+    results["serving_step_traces"] = traces
+    del params, qparams
+    torch.cuda.empty_cache()
+
+    # Each point's one timed call is host-bound and the host's cores are
+    # shared: the three points in turns, BENCH_ROUNDS times, and medians.
+    bench = {}
+    for prompt_len, new in SERVING_SHAPES:
+        runs = {point: [] for point in SERVING_POINTS}
+        for _ in range(BENCH_ROUNDS):
+            for point, (quantized, quantized_kv) in SERVING_POINTS.items():
+                runs[point].append(run_decode_bench(
+                    batch=BATCH, prompt_len=prompt_len, max_new_tokens=new,
+                    quantized=quantized, quantized_kv=quantized_kv, measure_ttft=True))
+        for point, rs in runs.items():
+            tps = sorted(r["decode_tokens_per_sec"] for r in rs)
+            ttft = sorted(r["ttft_ms"] for r in rs)
+            bench[f"{point} prompt {prompt_len} new {new}"] = {
+                **rs[0], "decode_tokens_per_sec": tps[len(tps) // 2],
+                "ttft_ms": ttft[len(ttft) // 2], "decode_tokens_per_sec_runs": tps,
+                "ttft_ms_runs": ttft}
+            print(f"run_decode_bench {point} B={BATCH} prompt {prompt_len} new {new}, median "
+                  f"of {BENCH_ROUNDS}: {tps[len(tps) // 2]:.1f} new tokens/s ({tps[0]:.1f}-"
+                  f"{tps[-1]:.1f}), TTFT {ttft[len(ttft) // 2]:.3f} ms ({ttft[0]:.3f}-"
+                  f"{ttft[-1]:.3f}) ({card})", flush=True)
+    results["decode_bench"] = bench
+
+    # A small f32 GQA config: the card's tokens equal the CPU path's, with
+    # int8 weights, the int8 cache, and both; sampling properties on the card.
+    small = TransformerConfig(vocab_size=128, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+                              n_layers=2, dtype=torch.float32)
+    small_params = init_params(small, torch.Generator().manual_seed(0), "cpu")
+    small_q = quantize_params_for_serving(small_params)
+    small_prompt = torch.randint(0, 128, (2, 40), generator=torch.Generator().manual_seed(1))
+    for label, quantized, quantized_kv in (("int8 weights", True, False),
+                                           ("int8 KV cache", False, True),
+                                           ("int8 weights and KV cache", True, True)):
+        p = small_q if quantized else small_params
+        flags = dict(quantized=quantized, quantized_kv=quantized_kv)
+        want = build_generate(small, 6, "cpu", **flags)(p, small_prompt)
+        got = build_generate(small, 6, **flags)(to_device(p, "cuda"), small_prompt)
+        check(torch.equal(got.cpu(), want),
+              f"generate small f32 GQA config, {label}: card tokens equal the CPU path's")
+    small_card = to_device(small_params, "cuda")
+    greedy = build_generate(small, 6)(small_card, small_prompt)
+    top1 = build_generate(small, 6, temperature=1.7, top_k=1)(
+        small_card, small_prompt, torch.Generator(device="cuda").manual_seed(7))
+    check(torch.equal(top1, greedy), "sampling on the card: top_k=1 at temperature 1.7 "
+          "equals greedy")
+    tied = torch.full((3, 16), 9.0, device="cuda")
+    seen = set()
+    for seed in range(40):
+        seen.update(decode._pick_token(tied, torch.Generator(device="cuda").manual_seed(seed),
+                                       1.3, 2).tolist())
+    check(seen == {0, 1}, f"sampling on the card: all-tied logits with top_k 2 draw only "
+          f"tokens 0 and 1 over 40 seeds (drew {sorted(seen)})")
+
+    t = results["int8_matmul"]
+    unembed = t["by_shape"]["unembed"]
+    return {
+        "name": "int8_matmul",
+        "route": "cuda",
+        "source": "jobset_tpu_torch/ops/csrc/int8_matmul.cu",
+        "replaces": "jobset_tpu/models/quant.py:82",
+        "replaces_is": "weight_cast, which XLA fuses into the decode step's dots (no Pallas "
+                       "kernel)",
+        "launches": launches["decode_int8 generate"]["INT8_LAUNCHES"],
+        "launches_by_path": {k: v["INT8_LAUNCHES"] for k, v in launches.items()},
+        "max_abs_err": t["max_abs_err"]["bf16 unembed"],
+        "max_abs_err_by_shape": t["max_abs_err"],
+        "ms": unembed["ms"],
+        "plain_ms": unembed["plain_ms"],
+        "bound_ms": unembed["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": unembed["library_ms"],
+        "library_call": "torch.matmul against the weight dequantized to bf16 beforehand",
+        "shape": "bf16 x [8, 1024] x int8 [1024, 32000] (the unembedding); L2-cold",
+        "by_shape": t["by_shape"],
+        "decode_step": t["decode_step"],
+    }
+
+
+def phase_serving_apart(results):
+    """Phase 11 in a process of its own (`--serving-only`), where the
+    profiler has not traced before (see `phase_control_apart`). Returns
+    its `kernels` entry."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "serving.json")
+        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--serving-only",
+                              "--out", path], capture_output=True, text=True, timeout=900)
+        print(run.stdout, end="", flush=True)
+        if run.returncode != 0:
+            print(run.stderr[-4000:], file=sys.stderr, flush=True)
+        check(run.returncode == 0 and os.path.exists(path),
+              f"phase 11 in a process of its own exits {run.returncode}")
+        if not os.path.exists(path):
+            return None
+        with open(path) as f:
+            serving = json.load(f)
+    for key in ("int8_matmul", "serving_launches", "serving_step_traces", "decode_bench"):
+        results[key] = serving.get(key)
+    return serving.get("kernel")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the results as JSON to this file")
@@ -1915,6 +2296,9 @@ def main() -> int:
     only.add_argument("--control-only", action="store_true",
                       help="run phase 10 (the control plane's device programs) alone; "
                            "builds no kernel (no result line)")
+    only.add_argument("--serving-only", action="store_true",
+                      help="build the flash block and int8 kernels and run phase 11 "
+                           "(int8 serving and sampling) alone (no result line)")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -1945,7 +2329,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     sources = (["auction"] if args.solver_only else ["flash_block"] if args.flash_only
-               else ["flash_block", "auction"])
+               else ["flash_block", "int8_matmul"] if args.serving_only
+               else ["flash_block", "auction", "int8_matmul"])
     libraries = cuda_build.build_all(sources)
     results["build_s"] = time.perf_counter() - t0
     print(f"build: {results['build_s']:.2f} s", flush=True)
@@ -1953,6 +2338,17 @@ def main() -> int:
         for line in log.splitlines():
             if any(w in line for w in ("Compiling entry", "registers", "spill", "error")):
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
+    if args.serving_only:
+        results["kernel"] = phase_serving(results)
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump(results, f, indent=1)
+        print(f"chip_smoke --serving-only: {len(FAILURES)} check(s) failed, "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        for what in FAILURES:
+            print(f"  FAILED: {what}", flush=True)
+        return 1 if FAILURES else 0
     if args.solver_only:
         kernels = phase_solver(results)
         print(json.dumps({"kernels": kernels}))
@@ -2015,6 +2411,9 @@ def main() -> int:
             }
     kernels += phase_solver(results)
     phase_control_apart(results)
+    int8_kernel = phase_serving_apart(results)
+    if int8_kernel is not None:
+        kernels.append(int8_kernel)
     results["kernels"] = kernels
     results["seconds"] = time.perf_counter() - t_start
     if args.out:

@@ -1,12 +1,16 @@
 """Convert a JAX parameter tree, given as nested dicts of numpy arrays,
 into the port's tensors. The caller does the `np.asarray` on the JAX side;
-this module imports no JAX.
+this module imports no JAX. A node with `q` and `scale` (the JAX
+package's `QuantizedTensor`, after `jax.tree.map(np.asarray, ...)`)
+becomes the port's `QuantizedTensor`.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .models.quant import QuantizedTensor
 
 
 def _leaf(a) -> torch.Tensor:
@@ -17,9 +21,14 @@ def _leaf(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _node(v, device):
+    if isinstance(v, dict):
+        return params_from_jax(v, device)
+    if hasattr(v, "q") and hasattr(v, "scale"):
+        return QuantizedTensor(_leaf(v.q).to(device), _leaf(v.scale).to(device))
+    return _leaf(v).to(device)
+
+
 def params_from_jax(tree: dict, device="cpu") -> dict:
     """Same names and shapes as the JAX tree, as torch tensors on `device`."""
-    return {
-        name: params_from_jax(v, device) if isinstance(v, dict) else _leaf(v).to(device)
-        for name, v in tree.items()
-    }
+    return {name: _node(v, device) for name, v in tree.items()}

@@ -1,7 +1,8 @@
-"""The flagship transformer's forward, greedy serving path and
-single-device training step in PyTorch."""
+"""The flagship transformer's forward, serving path (greedy or sampled,
+bf16 or int8) and single-device training step in PyTorch."""
 
 from .decode import build_generate
+from .quant import quantize_params_for_serving
 from .transformer import (
     TransformerConfig,
     build_eval_step,
@@ -17,4 +18,5 @@ __all__ = [
     "build_generate",
     "build_train_step",
     "init_params",
+    "quantize_params_for_serving",
 ]

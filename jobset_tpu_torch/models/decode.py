@@ -1,16 +1,22 @@
-"""Greedy autoregressive decoding for the flagship transformer: the serving
-path of `jobset_tpu/models/decode.py`, on one device.
+"""Autoregressive decoding for the flagship transformer: the serving path
+of `jobset_tpu/models/decode.py`, on one device.
 
 A prompt is prefilled in one batched causal pass per layer through
 `blockwise_causal_attention` (the flash block kernel on the card), which
-fills a KV cache in the compute dtype; then each new token runs one cached
-step, whose attention over the cache is plain matmuls. Unlike the JAX
-version the cache is updated in place: each step writes one position of a
-preallocated [layers, B, max_len, H_kv, D] buffer instead of returning a
-new array.
+fills a KV cache; then each new token runs one cached step, whose
+attention over the cache is plain matmuls. Unlike the JAX version the
+cache is updated in place: each step writes one position of a
+preallocated [layers, B, max_len, H_kv, D] buffer (for an int8 cache, of
+its values and of its scales) instead of returning a new array.
 
-Not ported yet: sampling (temperature, top-k), int8 weights and KV cache,
-MoE, and dp/tp meshes.
+Tokens are picked greedily or sampled (Gumbel-max at a temperature,
+optionally over the exact top k logits). Weights may be int8
+(`quant.quantize_params_for_serving`; every matmul site goes through
+`quant.matmul`, which sends a decode step's products to the int8 kernel
+on the card), and the KV cache may be int8 with one scale per cached
+vector.
+
+Not ported yet: MoE, and dp/tp meshes.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.flash_block import NEG_INF, blockwise_causal_attention
-from .quant import weight_cast
+from .quant import QUANTIZED_WEIGHTS, QuantizedTensor, matmul, quantize_int8, weight_cast
 from .transformer import (
     TransformerConfig,
     _dense_mlp,
@@ -32,11 +38,24 @@ from .transformer import (
 )
 
 
-def init_kv_cache(config: TransformerConfig, batch: int, max_len: int, device) -> dict:
+def init_kv_cache(config: TransformerConfig, batch: int, max_len: int, device,
+                  quantized_kv: bool = False) -> dict:
     """Zeroed K/V caches [layers, B, max_len, H_kv, D] in the compute dtype.
-    With GQA the cache holds only the n_kv_heads heads."""
+    With GQA the cache holds only the n_kv_heads heads.
+
+    quantized_kv: each cache is a QuantizedTensor, int8 values with one
+    f32 scale per [layer, batch, position, head] vector. Unwritten
+    positions read as exactly 0 (q = 0, scale = 1)."""
     cfg = config
     shape = (cfg.n_layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
+    if quantized_kv:
+        def part():
+            return QuantizedTensor(
+                q=torch.zeros(shape, dtype=torch.int8, device=device),
+                scale=torch.ones((*shape[:-1], 1), dtype=torch.float32, device=device),
+            )
+
+        return {"k": part(), "v": part()}
     return {
         "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
         "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -44,13 +63,23 @@ def init_kv_cache(config: TransformerConfig, batch: int, max_len: int, device) -
 
 
 def _cache_write(cache_part, value, pos: int):
-    """Store value [B, T, H, D] at positions pos..pos+T-1, in place."""
-    cache_part[:, pos:pos + value.shape[1]] = value.to(cache_part.dtype)
+    """Store value [B, T, H, D] at positions pos..pos+T-1, in place: a
+    dtype cast for a plain cache; for an int8 cache, the values quantized
+    per vector (scale = absmax over D / 127), values and scales written at
+    the same positions."""
+    end = pos + value.shape[1]
+    if isinstance(cache_part, QuantizedTensor):
+        qt = quantize_int8(value, axis=-1)
+        cache_part.q[:, pos:end] = qt.q
+        cache_part.scale[:, pos:end] = qt.scale
+        return cache_part
+    cache_part[:, pos:end] = value.to(cache_part.dtype)
     return cache_part
 
 
 def _cache_read(cache_part, dtype):
-    """The whole cache in the compute dtype (identity for a plain cache)."""
+    """The whole cache in the compute dtype: identity for a plain cache,
+    the int8 values dequantized for an int8 one (`weight_cast`)."""
     return weight_cast(cache_part, dtype)
 
 
@@ -61,7 +90,7 @@ def _layer_qkv(p, xn, base: int, cfg: TransformerConfig):
     positions = base + torch.arange(xn.shape[1], dtype=torch.float32, device=xn.device)
 
     def proj(w, n_heads):
-        y = xn.to(compute) @ weight_cast(w, compute)
+        y = matmul(xn, w, compute)
         return y.reshape(*y.shape[:-1], n_heads, cfg.head_dim)
 
     q = rotary(proj(p["wq"], cfg.n_heads), positions, cfg.rope_theta)
@@ -73,7 +102,7 @@ def _layer_tail(p, x, attn, cfg: TransformerConfig):
     """Output projection and MLP: attn [B, T, H, D]."""
     compute = cfg.dtype
     attn = attn.reshape(*attn.shape[:-2], attn.shape[-2] * attn.shape[-1])
-    x = x + (attn.to(compute) @ weight_cast(p["wo"], compute)).to(x.dtype)
+    x = x + matmul(attn, p["wo"], compute).to(x.dtype)
     xn2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + _dense_mlp(p, xn2, cfg).to(x.dtype)
 
@@ -150,27 +179,93 @@ def _global_argmax(logits):
     return torch.argmax(logits, dim=-1)
 
 
-def _pick_token(logits, temperature: float = 0.0):
-    """Greedy pick. Sampling is not ported yet."""
-    if temperature > 0.0:
-        raise NotImplementedError("sampling (temperature > 0) is not ported yet")
-    return _global_argmax(logits)
+def _gumbel(generator, shape, device):
+    """Standard Gumbel noise, f32: -log(-log(u)) with u uniform in
+    [tiny, 1), as jax.random.gumbel draws it (other bits than JAX's). The
+    one source of sampling noise, so a test can feed both packages the
+    same numbers."""
+    u = torch.rand(shape, generator=generator, dtype=torch.float32, device=device)
+    return -torch.log(-torch.log(u.clamp_(min=torch.finfo(torch.float32).tiny)))
+
+
+def _top_k_mask(logits, top_k: int):
+    """Keep exactly the top_k largest logits [B, V], ties broken by the
+    lowest vocab index: a stable descending sort picks the k winners, and a
+    logit tied with the k-th is kept only up to the highest index among
+    the winners that share its value. A top_k above the vocab keeps all."""
+    k = min(top_k, logits.shape[-1])
+    sel_vals, sel_idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    sel_vals, sel_idx = sel_vals[..., :k], sel_idx[..., :k]
+    thresh = sel_vals[..., -1:]
+    idx_cut = torch.where(sel_vals == thresh, sel_idx, -1).amax(dim=-1, keepdim=True)
+    idx = torch.arange(logits.shape[-1], device=logits.device)
+    return (logits > thresh) | ((logits == thresh) & (idx <= idx_cut))
+
+
+def _pick_token(logits, generator=None, temperature: float = 0.0, top_k: int = 0):
+    """Greedy (temperature 0) or sampled pick from logits [B, V] f32.
+
+    Sampling is Gumbel-max: argmax(logits / T + G) is an exact draw from
+    softmax(logits / T). top_k > 0 restricts it to exactly the k largest
+    logits (`_top_k_mask`), as the reference's `_pick_token` does at
+    tp = 1."""
+    if temperature <= 0.0:
+        return _global_argmax(logits)
+    # True division on the card too (see quant.quantize_int8), as on the CPU.
+    z = logits.float() / torch.full((), temperature, device=logits.device)
+    if top_k > 0:
+        z = torch.where(_top_k_mask(logits, top_k), z, NEG_INF)
+    return _global_argmax(z + _gumbel(generator, z.shape, z.device))
 
 
 def cast_params(params: dict, dtype: torch.dtype) -> dict:
     """Every float leaf cast once to the compute dtype (serving streams the
     whole parameter set each step; this halves its bytes from f32 to
-    bf16). Norm scales are rounded to the compute dtype too, as in JAX."""
+    bf16). Norm scales are rounded to the compute dtype too, as in JAX.
+    QuantizedTensors stay whole: int8 values and f32 scales."""
     return {
         name: cast_params(v, dtype) if isinstance(v, dict)
+        else v if isinstance(v, QuantizedTensor)
         else v.to(dtype) if v.is_floating_point() else v
         for name, v in params.items()
     }
 
 
-def build_generate(config: TransformerConfig, max_new_tokens: int, device=None):
-    """generate(params, prompt [B, Tp]) -> tokens [B, Tp + max_new_tokens],
-    greedy, on `device` (the card unless the caller names another).
+def _check_quantized(params: dict, quantized: bool) -> None:
+    """The parameters must match the `quantized` flag: every serving matmul
+    weight (QUANTIZED_WEIGHTS) int8 with it, none without it."""
+    def walk(tree):
+        for name, v in tree.items():
+            if isinstance(v, dict):
+                yield from walk(v)
+            elif name in QUANTIZED_WEIGHTS:
+                yield name, isinstance(v, QuantizedTensor)
+
+    wrong = sorted(name for name, is_q in walk(params) if is_q != quantized)
+    if wrong:
+        raise ValueError(
+            f"build_generate(quantized={quantized}): weights {wrong} are "
+            f"{'not ' if quantized else ''}int8 QuantizedTensors"
+            + ("; quantize them with quantize_params_for_serving" if quantized else "")
+        )
+
+
+def build_generate(config: TransformerConfig, max_new_tokens: int, device=None,
+                   temperature: float = 0.0, top_k: int = 0, quantized: bool = False,
+                   quantized_kv: bool = False):
+    """generate(params, prompt [B, Tp], generator=None) -> tokens
+    [B, Tp + max_new_tokens], on `device` (the card unless the caller names
+    another).
+
+    temperature 0 decodes greedily; above 0 each token is drawn from
+    softmax(logits / temperature), optionally over the top_k logits only
+    (`_pick_token`). `generator` (a torch.Generator on the device) seeds
+    the sampling; without one, a generator seeded with 0 is made on the
+    device for each call. Greedy decoding ignores it.
+
+    quantized: the parameters came through `quantize_params_for_serving`
+    (int8 matmul weights); parameters that do not match the flag raise.
+    quantized_kv: the KV cache is int8, one scale per cached vector.
 
     The prompt is prefilled in one batched pass, then new tokens decode
     through the cached step. max_new_tokens == 0 returns the prompt."""
@@ -179,18 +274,25 @@ def build_generate(config: TransformerConfig, max_new_tokens: int, device=None):
     device = resolve_device(device)
 
     @torch.no_grad()
-    def generate(params, prompt):
+    def generate(params, prompt, generator=None):
+        _check_quantized(params, quantized)
         prompt = prompt.to(device)
         if max_new_tokens == 0:
             return prompt
+        if generator is None and temperature > 0.0:
+            generator = torch.Generator(device=device).manual_seed(0)
+
+        def pick(logits):
+            return _pick_token(logits, generator, temperature, top_k).to(prompt.dtype)
+
         params = cast_params(params, cfg.dtype)
         t_prompt = prompt.shape[1]
-        cache = init_kv_cache(cfg, prompt.shape[0], t_prompt + max_new_tokens, device)
-        token = _pick_token(_prefill_logits(params, prompt, cache, cfg)).to(prompt.dtype)
+        cache = init_kv_cache(cfg, prompt.shape[0], t_prompt + max_new_tokens, device,
+                              quantized_kv=quantized_kv)
+        token = pick(_prefill_logits(params, prompt, cache, cfg))
         parts = [prompt, token[:, None]]
         for pos in range(t_prompt, t_prompt + max_new_tokens - 1):
-            token = _pick_token(_token_logits(params, token, cache, pos, cfg))
-            token = token.to(prompt.dtype)
+            token = pick(_token_logits(params, token, cache, pos, cfg))
             parts.append(token[:, None])
         return torch.cat(parts, dim=1)
 

@@ -7,7 +7,9 @@ Parameters are a plain dict that keeps the JAX tree's names and stacked
 (bf16 by default) over f32 parameters, with f32 norm and softmax
 statistics. Attention goes through `ring_attention` at sp = 1, that is one
 flash block step (`ops.flash_block`) per layer. The GEMMs stay
-`torch.matmul`, as the JAX package leaves them to XLA.
+`torch.matmul`, as the JAX package leaves them to XLA; every matmul site
+goes through `quant.matmul`, so int8 serving weights (`QuantizedTensor`)
+work here too.
 
 Training (`build_train_step`, `build_eval_step`) is the JAX package's on
 one device: the per-token cross-entropy with label smoothing and z-loss,
@@ -35,7 +37,7 @@ from .. import tree
 from ..device import resolve_device
 from ..ops.flash_block import MAX_HEAD_DIM
 from ..parallel.ring_attention import ring_attention
-from .quant import weight_cast
+from .quant import QuantizedTensor, matmul, weight_cast
 
 
 @dataclass(frozen=True)
@@ -235,15 +237,16 @@ def _attention_inputs(p, x, cfg: TransformerConfig):
     positions = torch.arange(t, dtype=torch.float32, device=x.device)
     xn = rms_norm(x, p["ln1"], cfg.norm_eps)
 
-    # Fused QKV: one [d, (h + 2*hkv)*dh] GEMM instead of three narrow ones.
+    # Fused QKV: one [d, (h + 2*hkv)*dh] GEMM instead of three narrow ones
+    # (int8 weights are joined as int8, each column keeping its scale).
     q_width = cfg.n_heads * cfg.head_dim
     kv_width = cfg.kv_heads * cfg.head_dim
-    w_qkv = torch.cat([
-        weight_cast(p["wq"], compute),
-        weight_cast(p["wk"], compute),
-        weight_cast(p["wv"], compute),
-    ], dim=1)
-    qkv = xn.to(compute) @ w_qkv
+    parts = [p["wq"], p["wk"], p["wv"]]
+    if isinstance(parts[0], QuantizedTensor):
+        w_qkv = QuantizedTensor.cat(parts)
+    else:
+        w_qkv = torch.cat([weight_cast(w, compute) for w in parts], dim=1)
+    qkv = matmul(xn, w_qkv, compute)
     q, key, value = torch.split(qkv, [q_width, kv_width, kv_width], dim=-1)
 
     def heads(y, n_heads):
@@ -256,15 +259,15 @@ def _attention_inputs(p, x, cfg: TransformerConfig):
 
 def _dense_mlp(p, xn, cfg):
     compute = cfg.dtype
-    h = F.silu(xn.to(compute) @ weight_cast(p["w1"], compute))
-    return h @ weight_cast(p["w2"], compute)
+    h = F.silu(matmul(xn, p["w1"], compute))
+    return matmul(h, p["w2"], compute)
 
 
 def _layer_out(p, x, attn, cfg: TransformerConfig):
     """The output projection of attn [B, T, H, D] onto the residual x,
     then the MLP on the residual."""
     batch, t, heads, dim = attn.shape
-    out = attn.reshape(batch, t, heads * dim).to(cfg.dtype) @ weight_cast(p["wo"], cfg.dtype)
+    out = matmul(attn.reshape(batch, t, heads * dim), p["wo"], cfg.dtype)
     x = x + out.to(x.dtype)
     xn = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + _dense_mlp(p, xn, cfg).to(x.dtype)
@@ -304,7 +307,7 @@ def unembed_logits(params, xn, cfg):
     transposed embedding when tied."""
     if cfg.tie_embeddings:
         return xn.to(cfg.dtype) @ params["embed"].to(cfg.dtype).T
-    return xn.to(cfg.dtype) @ weight_cast(params["unembed"], cfg.dtype)
+    return matmul(xn, params["unembed"], cfg.dtype)
 
 
 def _layer_views(params: dict) -> list:

@@ -1,4 +1,6 @@
-"""Attention ops of the port: the flash block step and its folds."""
+"""Ops of the port: the flash block step and its folds (exported here),
+the auction kernel (`ops.auction`) and the int8 decode product
+(`ops.int8_matmul`)."""
 
 from .flash_block import (
     NEG_INF,

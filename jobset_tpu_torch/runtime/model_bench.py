@@ -1,6 +1,7 @@
-"""Single-device model benchmark: step time, tokens/s and MFU of the
+"""Single-device model benchmarks: step time, tokens/s and MFU of the
 flagship transformer's train step (the method of
-`jobset_tpu/runtime/model_bench.py::run_model_bench`).
+`jobset_tpu/runtime/model_bench.py::run_model_bench`), and the serving
+path's decode throughput and time to first token (`run_decode_bench`).
 
 * The flagship config with remat off, adam at lr 1e-3, one fixed batch of
   random tokens, `warmup` untimed steps, then `steps` timed ones. Each step
@@ -158,4 +159,70 @@ def run_model_bench(steps: int = 20, warmup: int = 3, batch: int = 8, seq_len: i
         "losses": losses,
         "final_loss": losses[-1],
         **({"profile_dir": profile_dir} if profile_dir else {}),
+    }
+
+
+def run_decode_bench(batch: int = 8, prompt_len: int = 32, max_new_tokens: int = 96,
+                     config: Optional[transformer.TransformerConfig] = None,
+                     quantized: bool = False, quantized_kv: Optional[bool] = None,
+                     measure_ttft: bool = False, device=None) -> dict:
+    """Serving benchmark (the reference's `run_decode_bench`): new tokens/s
+    of a greedy `build_generate` call, timed after one warm call, on
+    `device` (the card unless the caller names another).
+
+    quantized: int8 weights (`quantize_params_for_serving`); quantized_kv
+    (None: as `quantized`) the int8 KV cache. measure_ttft also times a
+    max_new_tokens=1 call (the batched prefill and the first pick, no
+    cached step) after its own warm call. The default config is the
+    reference's: vocab 32000, d_model 1024, 16 heads, d_ff 4096, 8 layers,
+    bf16 compute over f32 parameters."""
+    from ..models.decode import build_generate
+    from ..models.quant import quantize_params_for_serving
+
+    device = resolve_device(device)
+    cfg = config or transformer.TransformerConfig(
+        vocab_size=32000, d_model=1024, n_heads=16, d_ff=4096, n_layers=8,
+        max_seq_len=prompt_len + max_new_tokens)
+    cfg.validate()
+    on_card = device.type == "cuda"
+
+    def timed(fn):
+        out = fn()  # warm call
+        if on_card:
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        out = fn()
+        if on_card:
+            torch.cuda.synchronize(device)
+        return out, time.perf_counter() - t0
+
+    params = transformer.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+    if quantized:
+        params = quantize_params_for_serving(params)
+    if quantized_kv is None:
+        quantized_kv = quantized
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           generator=torch.Generator(device=device).manual_seed(1),
+                           device=device, dtype=torch.int32)
+    flags = dict(quantized=quantized, quantized_kv=quantized_kv)
+    generate = build_generate(cfg, max_new_tokens, device, **flags)
+    _, elapsed = timed(lambda: generate(params, prompt))
+    ttft_ms = None
+    if measure_ttft:
+        first = build_generate(cfg, 1, device, **flags)
+        ttft_ms = 1e3 * timed(lambda: first(params, prompt))[1]
+
+    return {
+        "phase": "decode",
+        "quantized": quantized,
+        "quantized_kv": quantized_kv,
+        "backend": device.type,
+        "device_kind": torch.cuda.get_device_name(device) if on_card else "cpu",
+        "batch": batch,
+        "prompt_len": prompt_len,
+        "max_new_tokens": max_new_tokens,
+        "params_m": round(matmul_param_count(cfg) / 1e6, 1),
+        "decode_tokens_per_sec": batch * max_new_tokens / elapsed,
+        "per_token_latency_ms": 1e3 * elapsed / (prompt_len + max_new_tokens),
+        **({"ttft_ms": ttft_ms} if ttft_ms is not None else {}),
     }

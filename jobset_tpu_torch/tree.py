@@ -1,8 +1,11 @@
 """Parameter trees: nested dicts of tensors (the port's stand-in for JAX
 pytrees), walked in sorted key order as JAX walks a dict, so two trees of
-one structure line up leaf for leaf whatever order their keys went in."""
+one structure line up leaf for leaf whatever order their keys went in. A
+`QuantizedTensor` is a node of two leaves, `q` then `scale`, as in JAX."""
 
 from __future__ import annotations
+
+from .models.quant import QuantizedTensor
 
 
 def leaves(tree: dict) -> list:
@@ -10,7 +13,12 @@ def leaves(tree: dict) -> list:
     out = []
     for key in sorted(tree):
         value = tree[key]
-        out.extend(leaves(value) if isinstance(value, dict) else [value])
+        if isinstance(value, dict):
+            out.extend(leaves(value))
+        elif isinstance(value, QuantizedTensor):
+            out.extend([value.q, value.scale])
+        else:
+            out.append(value)
     return out
 
 
@@ -19,8 +27,11 @@ def rebuild(tree: dict, new_leaves) -> dict:
     it = iter(new_leaves)
 
     def walk(node):
-        return {k: walk(node[k]) if isinstance(node[k], dict) else next(it)
-                for k in sorted(node)}
+        if isinstance(node, dict):
+            return {k: walk(node[k]) for k in sorted(node)}
+        if isinstance(node, QuantizedTensor):
+            return QuantizedTensor(next(it), next(it))
+        return next(it)
 
     return walk(tree)
 

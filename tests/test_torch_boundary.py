@@ -80,9 +80,11 @@ def test_chip_smoke_fails_without_a_card():
     assert '"ok"' not in run.stdout and '"kernels"' not in run.stdout
 
 
-@pytest.mark.parametrize("entry_point", ["build_generate", "build_forward", "init_params",
+@pytest.mark.parametrize("entry_point", ["build_generate", "build_generate_int8_sampled",
+                                         "build_forward", "init_params",
                                          "build_train_step", "build_eval_step",
                                          "train_workload", "run_model_bench",
+                                         "run_decode_bench",
                                          "AssignmentSolver", "solver_service",
                                          "queue_score", "job_counts", "policy_score",
                                          "PolicyMLP", "policy_train",
@@ -107,12 +109,16 @@ def test_entry_points_without_device_raise(entry_point, tmp_path):
                              features.DomainHistory())
     call = {
         "build_generate": lambda: decode.build_generate(cfg, 2),
+        "build_generate_int8_sampled": lambda: decode.build_generate(
+            cfg, 2, temperature=0.9, top_k=4, quantized=True, quantized_kv=True),
         "build_forward": lambda: transformer.build_forward(cfg),
         "init_params": lambda: transformer.init_params(cfg, torch.Generator()),
         "build_train_step": lambda: transformer.build_train_step(cfg, optim.sgd(0.1)),
         "build_eval_step": lambda: transformer.build_eval_step(cfg),
         "train_workload": lambda: runner.train_workload({"kind": "lm", "steps": 1}),
         "run_model_bench": lambda: model_bench.run_model_bench(steps=1, config=cfg),
+        "run_decode_bench": lambda: model_bench.run_decode_bench(
+            batch=1, prompt_len=2, max_new_tokens=1, config=cfg, quantized=True),
         "AssignmentSolver": lambda: solver.AssignmentSolver(),
         "solver_service": lambda: service.main(["--addr", "127.0.0.1:0"]),
         "queue_score": lambda: scorer.score(scorer.Snapshot(

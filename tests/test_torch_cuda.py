@@ -2,9 +2,11 @@
 versions, the serving path and the train step on the card against the same
 paths on the CPU, the block backward on the card against the CPU's, the
 kernel launches per train step under each remat setting, the auction
-kernel and the solver surface on the card against the CPU, and the control
+kernel and the solver surface on the card against the CPU, the control
 plane's device programs (admission scorer, gang-readiness aggregate,
-policy MLP and trainer) against the port's CPU path and plain versions.
+policy MLP and trainer) against the port's CPU path and plain versions,
+and the serving path's int8 kernel, launch counts, int8 decoding and
+sampling on the card.
 
 They skip without a CUDA device. This file imports no JAX, so it also runs
 on a machine that has none: `python -m pytest --noconftest -m cuda
@@ -18,7 +20,11 @@ values (p is rounded to bf16 against the running max in the kernel and
 against the block max in the plain version). The auction: none; its
 assignments, prices and iteration counts are identical. The scorer and
 the aggregate: none (bit for bit, exact counts); the MLP and the trainer:
-as stated in their tests.
+as stated in their tests. The int8 kernel, per element: bf16
+|got - want| <= 2^-7 |want| + 1e-4 max|want| (one rounding of the output
+to bf16, which two f32 sums in another order may put one ulp apart; an
+ulp is at most 2^-7 of the value), f32 1e-5 max|want| (f32 sums in
+another order).
 """
 
 import numpy as np
@@ -28,9 +34,10 @@ import torch
 from dataclasses import replace
 
 from jobset_tpu_torch import tree
-from jobset_tpu_torch.models import decode, transformer
+from jobset_tpu_torch.models import decode, quant, transformer
 from jobset_tpu_torch.ops import auction as auction_ops
 from jobset_tpu_torch.ops import flash_block as fb
+from jobset_tpu_torch.ops import int8_matmul as i8
 from jobset_tpu_torch.placement import solver as S
 from jobset_tpu_torch.runtime import optim
 
@@ -595,3 +602,132 @@ def test_policy_train_on_card_is_byte_deterministic_and_matches_cpu(cuda, tmp_pa
         for a, c in ((wa, wc), (ba, bc)):
             assert np.abs(a - c).max() <= 1e-4 * np.abs(c).max()
     assert backend_label() == "cuda"
+
+
+def _int8_within(got, want, dtype):
+    """The int8 kernel's tolerance (module docstring), per element."""
+    got, want = got.float(), want.float()
+    peak = want.abs().max().item()
+    if dtype == torch.bfloat16:
+        limit = 2.0 ** -7 * want.abs() + 1e-4 * peak
+    else:
+        limit = torch.full_like(want, 1e-5 * peak)
+    return bool(((got - want).abs() <= limit).all())
+
+
+def _int8_operands(rows, k, n, dtype, device, seed=0, lead=()):
+    gen = torch.Generator().manual_seed(seed)
+    qt = quant.quantize_int8(torch.randn(k, n, generator=gen) / k ** 0.5)
+    x = torch.randn(*lead, rows, k, generator=gen).to(dtype)
+    return x.to(device), qt.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows,k,n", [(8, 1024, 1024), (8, 1024, 4096), (8, 4096, 1024),
+                                      (8, 1024, 32000), (1, 1024, 1024), (16, 1024, 1024),
+                                      (5, 1000, 1000), (3, 70, 24), (16, 300, 17), (2, 8, 8)])
+def test_int8_kernel_matches_plain_version(cuda, dtype, rows, k, n):
+    x, qt = _int8_operands(rows, k, n, dtype, cuda, seed=rows + k + n)
+    before = i8.INT8_LAUNCHES
+    got = i8.int8_matmul(x, qt, dtype)
+    again = i8.int8_matmul(x, qt, dtype)
+    torch.cuda.synchronize()
+    assert i8.INT8_LAUNCHES == before + 2
+    assert got.dtype == dtype and got.shape == (rows, n)
+    assert torch.equal(got, again)  # a fixed order of sums: the same bits
+    want = i8.int8_matmul_plain(x, qt, dtype)
+    assert _int8_within(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_int8_kernel_takes_batched_rows_and_layer_slices(cuda):
+    # x [B, 1, K] as the decode step gives it; q and scale as layer views of
+    # a stacked [1, L, K, N] weight.
+    gen = torch.Generator().manual_seed(5)
+    stacked = quant.quantize_int8(torch.randn(1, 3, 256, 96, generator=gen) * 0.1).to(cuda)
+    x = torch.randn(8, 1, 256, generator=gen).to(cuda, torch.bfloat16)
+    layer = stacked[0, 2]
+    got = quant.matmul(x, layer, torch.bfloat16)
+    assert got.shape == (8, 1, 96)
+    assert _int8_within(got, i8.int8_matmul_plain(x, layer, torch.bfloat16), torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_int8_matmul_above_the_cut_is_a_gemm(cuda):
+    x, qt = _int8_operands(i8.ROW_CUT + 1, 64, 32, torch.float32, cuda)
+    before = i8.INT8_LAUNCHES
+    got = i8.int8_matmul(x, qt, torch.float32)
+    assert i8.INT8_LAUNCHES == before
+    assert torch.equal(got, i8.int8_matmul_plain(x, qt, torch.float32))
+
+
+@pytest.mark.cuda
+def test_int8_kernel_rejects_what_it_does_not_take(cuda):
+    x, qt = _int8_operands(4, 64, 32, torch.float32, cuda)
+    for bad_x, bad_qt, dtype in ((x, quant.QuantizedTensor(qt.q.float(), qt.scale),
+                                  torch.float32),
+                                 (x[:, :63], qt, torch.float32),
+                                 (x, qt, torch.float16),
+                                 (x, qt.to("cpu"), torch.float32)):
+        with pytest.raises(ValueError, match="the kernel takes"):
+            i8.int8_matmul(bad_x, bad_qt, dtype)
+
+
+def _quantized_small(cuda, dtype=torch.float32):
+    cfg = _small_config()
+    cfg = replace(cfg, dtype=dtype)
+    params = quant.quantize_params_for_serving(
+        transformer.init_params(cfg, torch.Generator().manual_seed(0), "cpu"))
+    return cfg, params, tree.tree_map(lambda t: t.to(cuda), params)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized,quantized_kv", [(True, False), (False, True), (True, True)],
+                         ids=["int8", "int8_kv", "int8_both"])
+def test_int8_generate_on_card_matches_cpu_at_f32(cuda, quantized, quantized_kv):
+    cfg, qparams, qcard = _quantized_small(cuda)
+    plain = transformer.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    params, on_card = ((qparams, qcard) if quantized
+                       else (plain, tree.tree_map(lambda t: t.to(cuda), plain)))
+    prompt = torch.randint(0, 128, (2, 40), generator=torch.Generator().manual_seed(1))
+    flags = dict(quantized=quantized, quantized_kv=quantized_kv)
+    want = decode.build_generate(cfg, 6, "cpu", **flags)(params, prompt)
+    before = i8.INT8_LAUNCHES
+    got = decode.build_generate(cfg, 6, **flags)(on_card, prompt)
+    # The prefill's last-position unembedding, then 5 steps of 6 products
+    # a layer and the unembedding.
+    assert i8.INT8_LAUNCHES - before == (1 + 5 * (6 * cfg.n_layers + 1) if quantized else 0)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_int8_ttft_call_launches_once_and_the_tree_quantizes_alike(cuda):
+    cfg, qparams, qcard = _quantized_small(cuda, torch.bfloat16)
+    card_tree = quant.quantize_params_for_serving(
+        tree.tree_map(lambda t: t.to(cuda),
+                      transformer.init_params(cfg, torch.Generator().manual_seed(0), "cpu")))
+    for a, b in zip(tree.leaves(card_tree), tree.leaves(qparams)):
+        assert torch.equal(a.cpu(), b)  # bit for bit
+    prompt = torch.randint(0, 128, (8, 40), generator=torch.Generator().manual_seed(1))
+    before = i8.INT8_LAUNCHES
+    decode.build_generate(cfg, 1, quantized=True)(qcard, prompt)
+    assert i8.INT8_LAUNCHES - before == 1
+
+
+@pytest.mark.cuda
+def test_sampling_on_card_top_k_one_is_greedy_and_ties_give_exactly_k(cuda):
+    cfg = _small_config()
+    params = tree.tree_map(lambda t: t.to(cuda),
+                           transformer.init_params(cfg, torch.Generator().manual_seed(0), "cpu"))
+    prompt = torch.randint(0, 128, (2, 5), generator=torch.Generator().manual_seed(2))
+    greedy = decode.build_generate(cfg, 6)(params, prompt)
+    sampled = decode.build_generate(cfg, 6, temperature=1.7, top_k=1)(
+        params, prompt, torch.Generator(device=cuda).manual_seed(7))
+    assert torch.equal(sampled, greedy)
+    logits = torch.full((3, 16), 9.0, device=cuda)
+    seen = set()
+    for seed in range(40):
+        gen = torch.Generator(device=cuda).manual_seed(seed)
+        seen.update(decode._pick_token(logits, gen, 1.3, 2).tolist())
+    assert seen == {0, 1}

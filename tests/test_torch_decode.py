@@ -112,8 +112,16 @@ def test_global_argmax_takes_lowest_index_on_ties():
 
 
 def test_sampling_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="sampling"):
-        tdec._pick_token(torch.zeros(1, 4), temperature=0.7)
+    # The name dates from before sampling was ported: a temperature above 0
+    # used to raise. Now it draws a token (test_torch_sampling.py holds the
+    # draws to JAX), reproducibly for one generator seed.
+    def draw(seed):
+        return tdec._pick_token(torch.zeros(1, 4), torch.Generator().manual_seed(seed),
+                                temperature=0.7)
+
+    token = draw(0)
+    assert token.shape == (1,) and 0 <= int(token) < 4
+    assert torch.equal(draw(0), token)
 
 
 def test_generate_casts_params_once_to_compute_dtype():
