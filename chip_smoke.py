@@ -97,20 +97,28 @@ non-zero before the result line:
      before;
  11. the serving path with int8 weights, the int8 KV cache and sampling,
      in a process of its own (`--serving-only`): the int8 decode kernel
-     (`ops/csrc/int8_matmul.cu`) against its plain version at the four
-     flagship decode shapes (x [8, K] against int8 [1024, 1024],
-     [1024, 4096], [4096, 1024], [1024, 32000]) in bf16 and f32 and at edge
-     shapes (1 and 16 rows, N not a multiple of 16, K not a multiple of
-     the chunk), two launches equal bit for bit; its L2-cold time, bound,
-     plain version and torch.matmul on the bf16 weight; the flagship tree
-     quantized on the card equal to the CPU's bit for bit; `generate`
+     (`ops/csrc/int8_matmul.cu`) against its plain version at the flagship
+     decode step's launches (x [8, K] against the grouped Q/K/V [1024,
+     3 x 1024], [1024, 1024], [1024, 4096], [4096, 1024], [1024, 32000]),
+     grouped launches (MHA and GQA widths, 1, 8 and 16 rows) equal to their
+     members' separate launches bit for bit, and edge shapes (N not a
+     multiple of 16, K not a multiple of the stage), in bf16 and f32, two
+     launches equal bit for bit, the built kernel's layout tables equal to
+     the wrapper's, ptxas registers and spills; L2-cold times (bf16 and
+     f32) beside the bound, the plain version and torch.matmul on the
+     dequantized weight, back to back and after an elementwise kernel (the
+     path's pattern), and a decode step's launches summed against the bf16
+     path's 49 products (`--int8-baseline DIR` also times another
+     checkout's kernel on the same inputs); host time a call; the flagship
+     tree quantized on the card equal to the CPU's bit for bit; `generate`
      (prompt 1024, 32 new) and a TTFT call for `decode`, `decode_int8` and
-     `decode_int8_kv`, counts set to 0 just before each: int8 launches 1520
+     `decode_int8_kv`, counts set to 0 just before each: int8 launches 1024
      and 1 on the int8 paths, 0 on bf16, flash launches 24 everywhere; a
      sampled int8 generate (temperature 0.9, top_k 4); a torch.profiler
-     trace of one warm decode step per variant; `run_decode_bench` for the
-     three points at prompt 32 / 96 new and 1024 / 32 (tokens/s, TTFT;
-     medians of 3 rounds, the points in turns);
+     trace of one warm decode step per variant (the int8 kernel's device
+     time in it); `run_decode_bench` for the three points at prompt 32 /
+     96 new and 1024 / 32 (tokens/s, TTFT; medians of 3 rounds, the points
+     in turns);
      and on a small f32 GQA config, card tokens equal to the CPU's with
      int8 weights, the int8 cache and both, top_k=1 equal to greedy, and
      all-tied logits with top_k 2 drawing only tokens 0 and 1;
@@ -859,10 +867,11 @@ def merged_span_us(spans) -> float:
     return total + (cur_end - cur_start if cur_end is not None else 0.0)
 
 
-def traced(fn, label):
+def traced(fn, label, kernel=None):
     """torch.profiler over one call of fn: the top 10 device ops by device
     time and the card's idle share of the traced window (first to last
-    event, host or device). None when the profiler saw no device events."""
+    event, host or device); with `kernel`, the device time and count of the
+    ops whose name holds it. None when the profiler saw no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -888,13 +897,19 @@ def traced(fn, label):
           f"idle share {1.0 - busy / window:.1%}, {len(device)} device ops; top 10:", flush=True)
     for n, (t, c) in top:
         print(f"  {t / 1e3:9.3f} ms  {c:5d}x  {n[:100]}", flush=True)
-    return {
+    out = {
         "window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
         "idle_share": 1.0 - busy / window,
         "device_ops": len(device),
         "device_ms_total": sum(t for t, _ in by_name.values()) / 1e3,
         "top10": [{"name": n[:120], "ms": t / 1e3, "count": c} for n, (t, c) in top],
     }
+    if kernel is not None:
+        mine = [(t, c) for n, (t, c) in by_name.items() if kernel in n]
+        out["kernel_ms"] = sum(t for t, _ in mine) / 1e3
+        out["kernel_ops"] = sum(c for _, c in mine)
+        print(f"  {kernel}: {out['kernel_ms']:.3f} ms in {out['kernel_ops']} launches", flush=True)
+    return out
 
 
 def phase_trace(params, results):
@@ -1933,16 +1948,24 @@ def phase_control_apart(results):
 # two one bf16 ulp apart; an ulp is at most 2^-7 of the value), f32
 # 1e-5 max|want| (f32 sums of up to 4096 products in another order).
 INT8_REL_BF16, INT8_ABS = 2.0 ** -7, {torch.bfloat16: 1e-4, torch.float32: 1e-5}
-# The decode step's products at the flagship (x rows, K, N), and how many
-# of each one step makes: wq, wk, wv, wo in each of 8 layers, w1, w2, and
-# the unembedding.
-INT8_SHAPES = {"wq/wk/wv/wo": (1024, 1024, 4 * LAYERS), "w1": (1024, 4096, LAYERS),
-               "w2": (4096, 1024, LAYERS), "unembed": (1024, 32000, 1)}
-INT8_EDGES = [(1, 1024, 1024), (16, 1024, 1024), (8, 1000, 1000), (16, 1030, 4096),
-              (3, 70, 24), (16, 300, 17)]
+# The decode step's int8 launches at the flagship: K, the widths that
+# share x, launches a step on the int8 path (4 * LAYERS + 1: a layer's Q, K
+# and V are one launch), and products a step on the bf16 path, the
+# yardstick's 49 (there Q, K, V and O are four [1024, 1024] products).
+INT8_SHAPES = {"wqkv": (1024, (1024, 1024, 1024), LAYERS, 0), "wo": (1024, (1024,), LAYERS, 4 * LAYERS),
+               "w1": (1024, (4096,), LAYERS, LAYERS), "w2": (4096, (1024,), LAYERS, LAYERS),
+               "unembed": (1024, (32000,), 1, 1)}
+INT8_EDGES = [(1, 1024, (1024,)), (16, 1024, (1024,)), (8, 1000, (1000,)), (16, 1030, (4096,)),
+              (3, 70, (24,)), (16, 300, (17,))]
+# Grouped launches against their members' separate launches: MHA and GQA
+# widths (the flagship's heads, and 4 kv heads of 64), 1, 8 and 16 rows,
+# and widths that are not multiples of 16.
+INT8_GROUPS = ([(rows, 1024, ns) for rows in (1, 8, 16)
+                for ns in ((1024, 1024, 1024), (1024, 256, 256))]
+               + [(5, 1024, (1024, 17, 64)), (16, 300, (17, 24, 40))])
 # The int8 launches of one call: a TTFT call unembeds the prefill's last
-# position (8 rows); a generate of n new tokens adds n - 1 steps of 49.
-INT8_STEP_LAUNCHES = 6 * LAYERS + 1
+# position (8 rows); a generate of n new tokens adds n - 1 steps.
+INT8_STEP_LAUNCHES = 4 * LAYERS + 1
 INT8_GENERATE_LAUNCHES = 1 + (NEW_TOKENS - 1) * INT8_STEP_LAUNCHES
 # run_decode_bench's three serving points (the reference's `decode`,
 # `decode_int8`, `decode_int8_kv`), at its shape and at the flagship's.
@@ -1952,64 +1975,131 @@ SERVING_SHAPES = ((32, 96), (PROMPT, NEW_TOKENS))
 BENCH_ROUNDS = 3
 
 
-def int8_case(name, dtype, rows, k, n, seed):
-    """The kernel against its plain version on one shape: the stated
-    tolerance, and two launches equal bit for bit. Returns max|got - want|."""
+@contextlib.contextmanager
+def f32_accumulating_plain():
+    """The plain version's bf16 matmuls sum in f32 throughout, as on the
+    CPU: cuBLAS may otherwise add split-K partial sums in bf16, which put
+    the yardstick itself several bf16 ulps off at a skinny N (17). The
+    tolerance is unchanged."""
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+
+
+def int8_operands(dtype, rows, k, ns, gen):
     from jobset_tpu_torch.models import quant
+
+    qts = [quant.quantize_int8(torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5)
+           for n in ns]
+    return torch.randn((rows, k), generator=gen, device="cuda").to(dtype), qts
+
+
+def int8_case(name, dtype, rows, k, ns, seed):
+    """The kernel against its plain version on one launch of the widths
+    `ns` that share x: the stated tolerance, one launch counted, two
+    launches equal bit for bit, and a group equal to its members' separate
+    launches bit for bit. Returns max|got - want|."""
     from jobset_tpu_torch.ops import int8_matmul as i8
 
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    qt = quant.quantize_int8(torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5)
-    x = torch.randn((rows, k), generator=gen, device="cuda").to(dtype)
+    x, qts = int8_operands(dtype, rows, k, ns, torch.Generator(device="cuda").manual_seed(seed))
     before = i8.INT8_LAUNCHES
-    got = i8.int8_matmul(x, qt, dtype)
-    again = i8.int8_matmul(x, qt, dtype)
+    got = i8.int8_matmul_group(x, qts, dtype)
+    launched = i8.INT8_LAUNCHES - before
+    again = i8.int8_matmul_group(x, qts, dtype)
+    apart = [i8.int8_matmul(x, qt, dtype) for qt in qts] if len(qts) > 1 else got
     torch.cuda.synchronize()
-    want = i8.int8_matmul_plain(x, qt, dtype)
-    err = (got.float() - want.float()).abs()
-    limit = INT8_ABS[dtype] * want.float().abs().max().item()
-    if dtype == torch.bfloat16:
-        limit = INT8_REL_BF16 * want.float().abs() + limit
-    check(i8.INT8_LAUNCHES == before + 2 and got.dtype == dtype
-          and tuple(got.shape) == (rows, n) and bool(torch.isfinite(got.float()).all()),
-          f"int8_matmul {name}: two launches, {dtype} [{rows}, {n}], finite")
-    check(bool((err <= limit).all()),
-          f"int8_matmul {name}: within tolerance (max|d| {err.max().item():.3e})")
-    check(torch.equal(got, again), f"int8_matmul {name}: two launches equal bit for bit")
-    return err.max().item()
+    with f32_accumulating_plain():
+        wants = i8.int8_matmul_group_plain(x, qts, dtype)
+    worst, within = 0.0, True
+    for y, want in zip(got, wants):
+        err = (y.float() - want.float()).abs()
+        limit = INT8_ABS[dtype] * want.float().abs().max().item()
+        if dtype == torch.bfloat16:
+            limit = INT8_REL_BF16 * want.float().abs() + limit
+        within = within and bool((err <= limit).all())
+        worst = max(worst, err.max().item())
+    check(launched == 1 and all(y.dtype == dtype and tuple(y.shape) == (rows, n)
+                                and bool(torch.isfinite(y.float()).all())
+                                for y, n in zip(got, ns)),
+          f"int8_matmul {name}: one launch, {dtype} [{rows}, {list(ns)}], finite")
+    check(within, f"int8_matmul {name}: within tolerance (max|d| {worst:.3e})")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"int8_matmul {name}: two launches equal bit for bit")
+    if len(qts) > 1:
+        check(all(torch.equal(a, b) for a, b in zip(got, apart)),
+              f"int8_matmul {name}: the group equals its members' separate launches bit for bit")
+    return worst
 
 
 def int8_bound_ms(rows, k, n, dtype=torch.bfloat16) -> float:
     """Each input read once and the output written once at HBM rate: the
-    int8 weight, its f32 scales, x and y in the compute dtype (the
-    operations, 2 * rows * k * n, are far below the tensor cores' rate)."""
+    int8 weights (n columns in all), their f32 scales, x and y in the
+    compute dtype (the operations, 2 * rows * k * n, are far below the
+    card's rate for the dtype)."""
     size = torch.tensor([], dtype=dtype).element_size()
     return 1e3 * (k * n + 4 * n + size * rows * (k + n)) / HBM_BYTES_PER_S
 
 
-def time_int8(rows, k, n) -> dict:
-    """L2-cold times at one bf16 decode shape: the kernel, the plain version
-    (dequantize, then matmul) and the yardstick, torch.matmul against the
-    weight dequantized to bf16 beforehand (the product int8 replaces, at
-    twice the weight bytes), over weight sets of 128 MB or more of int8."""
+def load_int8_baseline(root):
+    """The int8 wrapper of another checkout of this repo (its `ops` package
+    loaded under another name, its kernel built from its own source), to
+    time its kernel beside this one's on the same inputs."""
+    import importlib.util
+    import types
+
+    ops = os.path.join(os.path.abspath(root), "jobset_tpu_torch", "ops")
+    package = types.ModuleType("int8_baseline")
+    package.__path__ = [ops]
+    sys.modules["int8_baseline"] = package
+    spec = importlib.util.spec_from_file_location("int8_baseline.int8_matmul",
+                                                  os.path.join(ops, "int8_matmul.py"))
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+def time_int8(rows, k, ns, dtype, baseline=None) -> dict:
+    """L2-cold times of one launch at a decode shape (weight sets of 128 MB
+    or more of int8): the kernel; the plain version (dequantize, then
+    matmul); the yardstick, torch.matmul against the members' weights
+    dequantized to dtype and joined beforehand (the product int8 replaces,
+    at 2 or 4 times the weight bytes); and the kernel and the yardstick
+    each after a PyTorch elementwise kernel that writes their x, the
+    path's pattern (`path_ms`, `library_path_ms`, and that kernel alone,
+    `op_ms`). With a baseline wrapper, its kernel on the same inputs, one
+    launch a member."""
     from jobset_tpu_torch.models import quant
     from jobset_tpu_torch.ops import int8_matmul as i8
 
-    n_sets = max(2, -(-(128 << 20) // (k * n)))
-    gen = torch.Generator(device="cuda").manual_seed(k + n)
-    sets = [quant.quantize_int8(torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5)
-            for _ in range(n_sets)]
-    dense = [quant.weight_cast(qt, torch.bfloat16) for qt in sets]
-    x = torch.randn((rows, k), generator=gen, device="cuda").to(torch.bfloat16)
+    n_sets = max(2, -(-(128 << 20) // (k * sum(ns))))
+    gen = torch.Generator(device="cuda").manual_seed(k + sum(ns))
+    sets = [int8_operands(dtype, rows, k, ns, gen)[1] for _ in range(n_sets)]
+    dense = [torch.cat([quant.weight_cast(qt, dtype) for qt in qts], dim=1) for qts in sets]
+    x = torch.randn((rows, k), generator=gen, device="cuda").to(dtype)
+    if dtype == torch.float32:
+        plain_is_f32("int8_matmul timing")
+    one, xp = torch.ones_like(x), torch.empty_like(x)
     out = {
-        "ms": rotating_ms(lambda i: i8.int8_matmul(x, sets[i], torch.bfloat16), n_sets, ITERS),
-        "plain_ms": rotating_ms(lambda i: i8.int8_matmul_plain(x, sets[i], torch.bfloat16),
+        "ms": rotating_ms(lambda i: i8.int8_matmul_group(x, sets[i], dtype), n_sets, ITERS),
+        "plain_ms": rotating_ms(lambda i: i8.int8_matmul_group_plain(x, sets[i], dtype),
                                 n_sets, ITERS),
         "library_ms": rotating_ms(lambda i: torch.matmul(x, dense[i]), n_sets, ITERS),
-        "bound_ms": int8_bound_ms(rows, k, n),
+        "path_ms": rotating_ms(lambda i: i8.int8_matmul_group(torch.mul(x, one, out=xp), sets[i],
+                                                              dtype), n_sets, ITERS),
+        "library_path_ms": rotating_ms(lambda i: torch.matmul(torch.mul(x, one, out=xp), dense[i]),
+                                       n_sets, ITERS),
+        "op_ms": cuda_ms(lambda: torch.mul(x, one, out=xp), ITERS),
+        "bound_ms": int8_bound_ms(rows, k, sum(ns), dtype),
         "bound_by": "bytes",
         "weight_sets": n_sets,
     }
+    if baseline is not None:
+        out["parent_ms"] = rotating_ms(
+            lambda i: [baseline.int8_matmul(x, qt, dtype) for qt in sets[i]], n_sets, ITERS)
     del sets, dense
     torch.cuda.empty_cache()
     return out
@@ -2017,8 +2107,9 @@ def time_int8(rows, k, n) -> dict:
 
 def int8_host_us(calls=200, repeats=5) -> dict:
     """Host time to issue one product at a tiny shape (the card keeps up):
-    through the wrapper, the C launch function alone (ctypes, pointers
-    given), and a bf16 torch.matmul; medians of `repeats` runs of `calls` calls, in µs."""
+    through the wrapper, a group of three through the wrapper, the C
+    launch function alone (ctypes, pointers given), and a bf16
+    torch.matmul; medians of `repeats` runs of `calls` calls, in µs."""
     from jobset_tpu_torch.models import quant
     from jobset_tpu_torch.ops import int8_matmul as i8
 
@@ -2028,9 +2119,11 @@ def int8_host_us(calls=200, repeats=5) -> dict:
     dense = quant.weight_cast(qt, torch.bfloat16)
     y = torch.empty((BATCH, 64), dtype=torch.bfloat16, device="cuda")
     lib, stream = i8._library(), torch.cuda.current_stream().cuda_stream
-    args = (1, x.data_ptr(), qt.q.data_ptr(), qt.scale.data_ptr(), y.data_ptr(), BATCH, 64, 64,
+    args = (1, x.data_ptr(), BATCH, 64, 64, *i8._plan(64, (64,), x.device.index), 1,
+            qt.q.data_ptr(), qt.scale.data_ptr(), y.data_ptr(), 64, *([None, None, None, 0] * 2),
             x.device.index, stream)
     ways = {"int8_matmul": lambda: i8.int8_matmul(x, qt, torch.bfloat16),
+            "int8_matmul_group of 3": lambda: i8.int8_matmul_group(x, [qt, qt, qt], torch.bfloat16),
             "launch_alone": lambda: lib.int8_matmul_launch(*args),
             "torch_matmul": lambda: torch.matmul(x, dense)}
     runs = {name: [] for name in ways}
@@ -2045,43 +2138,97 @@ def int8_host_us(calls=200, repeats=5) -> dict:
     return {name: sorted(r)[len(r) // 2] for name, r in runs.items()}
 
 
-def serving_kernel_checks(results):
+def int8_kernel_ptxas(log: str) -> dict:
+    """Registers and spill bytes of each int8 kernel instantiation in an
+    `nvcc -Xptxas -v` log, printed one a line (their shared memory is
+    dynamic: phase 11 prints it a launch)."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        if m := re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line):
+            found = re.search(r"(int8_matmul_(?:tc|f32)_kernel)ILi(\d+)ELb(\d)E", m.group(1))
+            name = (f"{found.group(1)}<{found.group(2)}, {'true' if found.group(3) == '1' else 'false'}>"
+                    if found else None)
+            if name:
+                out.setdefault(name, {})
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name]["registers"] = int(m.group(1))
+    for name, rep in sorted(out.items()):
+        print(f"ptxas {name}: {rep.get('registers')} registers, {rep.get('spill_stores')} B spill "
+              f"stores, {rep.get('spill_loads')} B spill loads", flush=True)
+    check(bool(out) and all(rep.get("spill_stores") == 0 and rep.get("spill_loads") == 0
+                            for rep in out.values()),
+          f"ptxas: no int8 kernel instantiation spills ({len(out)} found)")
+    return out
+
+
+def serving_kernel_checks(results, baseline=None):
     """Phase 11a: the int8 kernel against its plain version at the decode
-    shapes (bf16 and f32) and the edge shapes; L2-cold times in bf16."""
+    shapes, the grouped launches and the edge shapes, bf16 and f32; the
+    built kernel's layout tables against the wrapper's; L2-cold times in
+    bf16 and f32 (and the baseline's, given one); host time a call."""
+    from jobset_tpu_torch.ops import int8_matmul as i8
+
+    check(i8.kernel_layout() == i8.layout(),
+          "int8_matmul: the built kernel's constants and layout tables equal the wrapper's")
+    smem = {label: i8.dynamic_smem(BATCH, k, ns, dtype)
+            for label, (k, ns, _, _) in INT8_SHAPES.items() for dtype in (torch.bfloat16,)}
+    print("int8_matmul dynamic shared memory a block, bf16, 8 rows: " + ", ".join(
+        f"{label} {b} B" for label, b in smem.items()), flush=True)
     errs = {}
     seed = 20
     for dtype in (torch.bfloat16, torch.float32):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
-        for label, (k, n, _) in INT8_SHAPES.items():
-            errs[f"{tag} {label}"] = int8_case(f"{tag} {label} [8,{k}]x[{k},{n}]", dtype,
-                                               BATCH, k, n, seed)
+        for label, (k, ns, _, _) in INT8_SHAPES.items():
+            errs[f"{tag} {label}"] = int8_case(f"{tag} {label} [8,{k}]x[{k},{list(ns)}]", dtype,
+                                               BATCH, k, ns, seed)
             seed += 1
-        for rows, k, n in INT8_EDGES:
-            int8_case(f"{tag} edge [{rows},{k}]x[{k},{n}]", dtype, rows, k, n, seed)
+        for rows, k, ns in INT8_EDGES + INT8_GROUPS:
+            int8_case(f"{tag} [{rows},{k}]x[{k},{list(ns)}]", dtype, rows, k, ns, seed)
             seed += 1
-    times = {label: time_int8(BATCH, k, n) for label, (k, n, _) in INT8_SHAPES.items()}
-    host = int8_host_us()
-    print(f"int8_matmul host time a call, enqueue only (x [8,64], weight [64,64], median of "
-          f"5 runs of 200): wrapper {host['int8_matmul']:.2f} us, kernel launch alone "
-          f"{host['launch_alone']:.2f} us, torch.matmul {host['torch_matmul']:.2f} us "
-          f"({results['card']})", flush=True)
-    step = {key: sum(count * times[label][key]
-                     for label, (_, _, count) in INT8_SHAPES.items())
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     card = results["card"]
-    for label, t in times.items():
-        k, n, count = INT8_SHAPES[label]
-        print(f"int8_matmul bf16 {label} [8,{k}]x[{k},{n}] ({count} a step), L2-cold over "
-              f"{t['weight_sets']} weight sets: kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, library_ms (torch.matmul, bf16 weight) "
-              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (bytes), "
-              f"{t['bound_ms'] / t['ms']:.1%} of bound ({card})", flush=True)
-    print(f"int8_matmul, a decode step's {sum(c for _, _, c in INT8_SHAPES.values())} "
-          f"products: kernel {step['ms']:.4f} ms, plain {step['plain_ms']:.4f} ms, "
-          f"torch.matmul on bf16 weights {step['library_ms']:.4f} ms, bound "
-          f"{step['bound_ms']:.4f} ms ({card})", flush=True)
-    results["int8_matmul"] = {"max_abs_err": errs, "by_shape": times, "decode_step": step,
-                              "host_us": host}
+    times, steps = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        times[tag] = {label: time_int8(BATCH, k, ns, dtype, baseline)
+                      for label, (k, ns, _, _) in INT8_SHAPES.items()}
+        for label, t in times[tag].items():
+            k, ns, count, _ = INT8_SHAPES[label]
+            parent = f", parent kernel {t['parent_ms']:.4f} ms" if "parent_ms" in t else ""
+            print(f"int8_matmul {tag} {label} [8,{k}]x[{k},{list(ns)}] ({count} a step), L2-cold over "
+                  f"{t['weight_sets']} weight sets: kernel {t['ms']:.4f} ms{parent}, plain "
+                  f"{t['plain_ms']:.4f} ms, library_ms (torch.matmul, {tag} weight) "
+                  f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (bytes), "
+                  f"{t['bound_ms'] / t['ms']:.1%} of bound; after an elementwise kernel: kernel "
+                  f"{t['path_ms']:.4f} ms, torch.matmul {t['library_path_ms']:.4f} ms, the "
+                  f"elementwise kernel alone {t['op_ms']:.4f} ms ({card})", flush=True)
+        step = {key: sum(INT8_SHAPES[label][2] * t[key] for label, t in times[tag].items())
+                for key in ("ms", "plain_ms", "bound_ms", "path_ms")
+                + (("parent_ms",) if baseline is not None else ())}
+        step["library_ms"] = sum(INT8_SHAPES[label][3] * t["library_ms"]
+                                 for label, t in times[tag].items())
+        step["library_path_ms"] = sum(INT8_SHAPES[label][3] * t["library_path_ms"]
+                                      for label, t in times[tag].items())
+        steps[tag] = step
+        parent = f", parent kernel {step['parent_ms']:.4f} ms" if baseline is not None else ""
+        print(f"int8_matmul {tag}, a decode step's {INT8_STEP_LAUNCHES} launches: kernel "
+              f"{step['ms']:.4f} ms{parent}, plain {step['plain_ms']:.4f} ms, bound "
+              f"{step['bound_ms']:.4f} ms; the bf16 path's "
+              f"{sum(v[3] for v in INT8_SHAPES.values())} torch.matmul products on {tag} "
+              f"weights {step['library_ms']:.4f} ms; after an elementwise kernel each: kernel "
+              f"{step['path_ms']:.4f} ms, torch.matmul {step['library_path_ms']:.4f} ms ({card})",
+              flush=True)
+    host = int8_host_us()
+    print("int8_matmul host time a call, enqueue only (x [8,64], weight [64,64], median of 5 "
+          "runs of 200): " + ", ".join(f"{name} {us:.2f} us" for name, us in host.items())
+          + f" ({card})", flush=True)
+    results["int8_matmul"] = {"max_abs_err": errs, "by_shape": times["bf16"],
+                              "f32_by_shape": times["f32"], "decode_step": steps["bf16"],
+                              "f32_decode_step": steps["f32"], "host_us": host,
+                              "dynamic_smem": smem}
 
 
 def tree_bits_equal(a, b) -> bool:
@@ -2109,18 +2256,19 @@ def serving_decode_step_trace(cfg, params, label, quantized_kv):
         decode._token_logits(cast, token, cache, PROMPT, cfg)  # warm step
         torch.cuda.synchronize()
         return traced(lambda: decode._pick_token(
-            decode._token_logits(cast, token, cache, PROMPT + 1, cfg)), label)
+            decode._token_logits(cast, token, cache, PROMPT + 1, cfg)), label, "int8_matmul")
 
 
-def phase_serving(results):
+def phase_serving(results, baseline=None):
     """Phase 11: the serving path with int8 weights, the int8 KV cache and
-    sampling, at the flagship's width and depth."""
+    sampling, at the flagship's width and depth. `baseline`: another
+    checkout whose int8 kernel is timed beside this one's."""
     from jobset_tpu_torch.models import (TransformerConfig, build_generate, decode,
                                          init_params, quantize_params_for_serving)
     from jobset_tpu_torch.ops import int8_matmul as i8
     from jobset_tpu_torch.runtime.model_bench import run_decode_bench
 
-    serving_kernel_checks(results)
+    serving_kernel_checks(results, load_int8_baseline(baseline) if baseline else None)
     card = results["card"]
     cfg = flagship_config()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
@@ -2236,7 +2384,7 @@ def phase_serving(results):
           f"tokens 0 and 1 over 40 seeds (drew {sorted(seen)})")
 
     t = results["int8_matmul"]
-    unembed = t["by_shape"]["unembed"]
+    unembed, f32_unembed = t["by_shape"]["unembed"], t["f32_by_shape"]["unembed"]
     return {
         "name": "int8_matmul",
         "route": "cuda",
@@ -2257,10 +2405,15 @@ def phase_serving(results):
         "shape": "bf16 x [8, 1024] x int8 [1024, 32000] (the unembedding); L2-cold",
         "by_shape": t["by_shape"],
         "decode_step": t["decode_step"],
+        "f32": {"ms": f32_unembed["ms"], "plain_ms": f32_unembed["plain_ms"],
+                "bound_ms": f32_unembed["bound_ms"], "bound_by": "bytes",
+                "library_ms": f32_unembed["library_ms"],
+                "library_call": "torch.matmul against the weight dequantized to f32, TF32 off",
+                "by_shape": t["f32_by_shape"], "decode_step": t["f32_decode_step"]},
     }
 
 
-def phase_serving_apart(results):
+def phase_serving_apart(results, baseline=None):
     """Phase 11 in a process of its own (`--serving-only`), where the
     profiler has not traced before (see `phase_control_apart`). Returns
     its `kernels` entry."""
@@ -2268,8 +2421,10 @@ def phase_serving_apart(results):
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "serving.json")
+        extra = ["--int8-baseline", baseline] if baseline else []
         run = subprocess.run([sys.executable, os.path.abspath(__file__), "--serving-only",
-                              "--out", path], capture_output=True, text=True, timeout=900)
+                              "--out", path, *extra], capture_output=True, text=True,
+                             timeout=900)
         print(run.stdout, end="", flush=True)
         if run.returncode != 0:
             print(run.stderr[-4000:], file=sys.stderr, flush=True)
@@ -2299,6 +2454,9 @@ def main() -> int:
     only.add_argument("--serving-only", action="store_true",
                       help="build the flash block and int8 kernels and run phase 11 "
                            "(int8 serving and sampling) alone (no result line)")
+    parser.add_argument("--int8-baseline", metavar="DIR",
+                        help="another checkout of this repo (the parent commit): phase 11 "
+                             "also times its int8 kernel on the same inputs")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -2338,8 +2496,11 @@ def main() -> int:
         for line in log.splitlines():
             if any(w in line for w in ("Compiling entry", "registers", "spill", "error")):
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
+    if "int8_matmul" in cuda_build.BUILD_LOG:  # built by this process
+        results["int8_ptxas"] = int8_kernel_ptxas(cuda_build.BUILD_LOG["int8_matmul"])
     if args.serving_only:
-        results["kernel"] = phase_serving(results)
+        results["kernel"] = phase_serving(results, args.int8_baseline)
+        results["kernel"]["ptxas"] = results.get("int8_ptxas")
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
             with open(args.out, "w") as f:
@@ -2411,8 +2572,9 @@ def main() -> int:
             }
     kernels += phase_solver(results)
     phase_control_apart(results)
-    int8_kernel = phase_serving_apart(results)
+    int8_kernel = phase_serving_apart(results, args.int8_baseline)
     if int8_kernel is not None:
+        int8_kernel["ptxas"] = results.get("int8_ptxas")
         kernels.append(int8_kernel)
     results["kernels"] = kernels
     results["seconds"] = time.perf_counter() - t_start

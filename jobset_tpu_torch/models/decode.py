@@ -13,8 +13,8 @@ Tokens are picked greedily or sampled (Gumbel-max at a temperature,
 optionally over the exact top k logits). Weights may be int8
 (`quant.quantize_params_for_serving`; every matmul site goes through
 `quant.matmul`, which sends a decode step's products to the int8 kernel
-on the card), and the KV cache may be int8 with one scale per cached
-vector.
+on the card, a layer's Q, K and V in one launch), and the KV cache may
+be int8 with one scale per cached vector.
 
 Not ported yet: MoE, and dp/tp meshes.
 """
@@ -25,7 +25,14 @@ import torch
 
 from ..device import resolve_device
 from ..ops.flash_block import NEG_INF, blockwise_causal_attention
-from .quant import QUANTIZED_WEIGHTS, QuantizedTensor, matmul, quantize_int8, weight_cast
+from .quant import (
+    QUANTIZED_WEIGHTS,
+    QuantizedTensor,
+    matmul,
+    matmul_group,
+    quantize_int8,
+    weight_cast,
+)
 from .transformer import (
     TransformerConfig,
     _dense_mlp,
@@ -85,17 +92,17 @@ def _cache_read(cache_part, dtype):
 
 def _layer_qkv(p, xn, base: int, cfg: TransformerConfig):
     """q/k/v for the tokens of xn at positions base..base+T-1, rotary
-    applied; k/v with the kv head count, as the cache stores them."""
-    compute = cfg.dtype
+    applied; k/v with the kv head count, as the cache stores them. The
+    three products share xn: with int8 weights a decode step's are one
+    kernel launch (`quant.matmul_group`)."""
     positions = base + torch.arange(xn.shape[1], dtype=torch.float32, device=xn.device)
-
-    def proj(w, n_heads):
-        y = matmul(xn, w, compute)
-        return y.reshape(*y.shape[:-1], n_heads, cfg.head_dim)
-
-    q = rotary(proj(p["wq"], cfg.n_heads), positions, cfg.rope_theta)
-    k = rotary(proj(p["wk"], cfg.kv_heads), positions, cfg.rope_theta)
-    return q, k, proj(p["wv"], cfg.kv_heads)
+    q, k, v = (
+        y.reshape(*y.shape[:-1], n_heads, cfg.head_dim)
+        for y, n_heads in zip(matmul_group(xn, [p["wq"], p["wk"], p["wv"]], cfg.dtype),
+                              (cfg.n_heads, cfg.kv_heads, cfg.kv_heads))
+    )
+    q = rotary(q, positions, cfg.rope_theta)
+    return q, rotary(k, positions, cfg.rope_theta), v
 
 
 def _layer_tail(p, x, attn, cfg: TransformerConfig):

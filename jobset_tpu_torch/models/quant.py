@@ -27,7 +27,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..ops.int8_matmul import dequantize, int8_matmul
+from ..ops.int8_matmul import dequantize, int8_matmul, int8_matmul_group
 
 # Weight names quantized for serving; all contract over axis -2.
 QUANTIZED_WEIGHTS = frozenset(
@@ -96,6 +96,16 @@ def matmul(x: torch.Tensor, w, dtype: torch.dtype) -> torch.Tensor:
     if isinstance(w, QuantizedTensor):
         return int8_matmul(x, w, dtype)
     return x.to(dtype) @ w.to(dtype)
+
+
+def matmul_group(x: torch.Tensor, ws, dtype: torch.dtype) -> list[torch.Tensor]:
+    """Matmul sites that share x: `[matmul(x, w, dtype) for w in ws]`. When
+    every weight is a QuantizedTensor they go to `ops.int8_matmul_group`:
+    one kernel launch on the card at decode shapes, the same bits as the
+    separate products."""
+    if all(isinstance(w, QuantizedTensor) for w in ws):
+        return int8_matmul_group(x, ws, dtype)
+    return [matmul(x, w, dtype) for w in ws]
 
 
 def quantize_params_for_serving(params: dict) -> dict:

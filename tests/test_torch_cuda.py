@@ -674,6 +674,40 @@ def test_int8_kernel_rejects_what_it_does_not_take(cuda):
             i8.int8_matmul(bad_x, bad_qt, dtype)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("widths", [(1024, 1024, 1024), (1024, 256, 256), (1024, 17, 64)],
+                         ids=["mha", "gqa", "unaligned"])
+@pytest.mark.parametrize("rows", range(1, i8.ROW_CUT + 1))
+def test_int8_group_is_one_launch_equal_to_separate_launches(cuda, dtype, widths, rows):
+    gen = torch.Generator().manual_seed(rows + sum(widths))
+    qts = [quant.quantize_int8(torch.randn(1024, n, generator=gen) / 32.0).to(cuda)
+           for n in widths]
+    x = torch.randn(rows, 1024, generator=gen).to(cuda, dtype)
+    before = i8.INT8_LAUNCHES
+    got = i8.int8_matmul_group(x, qts, dtype)
+    assert i8.INT8_LAUNCHES == before + 1
+    apart = [i8.int8_matmul(x, qt, dtype) for qt in qts]
+    torch.cuda.synchronize()
+    # The yardstick's bf16 matmuls sum in f32 throughout, as on the CPU
+    # (cuBLAS may otherwise add split-K partial sums in bf16).
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        wants = i8.int8_matmul_group_plain(x, qts, dtype)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+    for y, y_apart, want, n in zip(got, apart, wants, widths):
+        assert y.dtype == dtype and y.shape == (rows, n)
+        assert torch.equal(y, y_apart)  # the sum order depends on K alone
+        assert _int8_within(y, want, dtype)
+
+
+@pytest.mark.cuda
+def test_int8_kernel_reports_the_wrappers_layout(cuda):
+    assert i8.kernel_layout() == i8.layout()
+
+
 def _quantized_small(cuda, dtype=torch.float32):
     cfg = _small_config()
     cfg = replace(cfg, dtype=dtype)
@@ -695,9 +729,9 @@ def test_int8_generate_on_card_matches_cpu_at_f32(cuda, quantized, quantized_kv)
     want = decode.build_generate(cfg, 6, "cpu", **flags)(params, prompt)
     before = i8.INT8_LAUNCHES
     got = decode.build_generate(cfg, 6, **flags)(on_card, prompt)
-    # The prefill's last-position unembedding, then 5 steps of 6 products
-    # a layer and the unembedding.
-    assert i8.INT8_LAUNCHES - before == (1 + 5 * (6 * cfg.n_layers + 1) if quantized else 0)
+    # The prefill's last-position unembedding, then 5 steps of 4 launches
+    # a layer (Q, K and V grouped into one; O, w1, w2) and the unembedding.
+    assert i8.INT8_LAUNCHES - before == (1 + 5 * (4 * cfg.n_layers + 1) if quantized else 0)
     assert torch.equal(got.cpu(), want)
 
 
