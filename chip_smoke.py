@@ -2,13 +2,15 @@
 """Smoke run of the PyTorch port (jobset_tpu_torch) on one CUDA GPU.
 
     python3 chip_smoke.py [--out RESULTS.json] [--solver-only | --flash-only |
-                                                 --control-only | --serving-only]
+                                                 --control-only | --serving-only |
+                                                 --moe-only]
 
 (`--solver-only` builds the auction kernel and runs phase 9 alone,
 `--flash-only` builds the flash block kernels and runs phases 2-3 alone,
 `--control-only` runs phase 10 alone and builds nothing, `--serving-only`
-builds the flash block and int8 kernels and runs phase 11 alone; none of
-them prints the result line.) Phases, in order; any failure exits
+builds the flash block and int8 kernels and runs phase 11 alone,
+`--moe-only` builds the flash block, int8 and grouped kernels and runs
+phase 12 alone; none of them prints the result line.) Phases, in order; any failure exits
 non-zero before the result line:
   1. the card's name and power limit (nvidia-smi); TF32 off;
   2. build every CUDA kernel from this checkout (one nvcc per source, all
@@ -122,12 +124,35 @@ non-zero before the result line:
      and on a small f32 GQA config, card tokens equal to the CPU's with
      int8 weights, the int8 cache and both, top_k=1 equal to greedy, and
      all-tied logits with top_k 2 drawing only tokens 0 and 1;
- 12. one `kernels` JSON line, then the result line
+ 12. mixture-of-experts serving and forward, in a process of its own
+     (`--moe-only`), on the MoE flagship (the flagship with 8 experts of
+     d_ff_expert 4096, token-choice top 2, dropless): the grouped expert
+     kernel (`ops/csrc/grouped_matmul.cu`) against its plain version at
+     the prefill's two products ([16384, 1024] x [8, 1024, 4096] and
+     [16384, 4096] x [8, 4096, 1024]) with balanced, skewed and
+     empty-group routings, bf16 and f32, two launches equal bit for bit;
+     its L2-cold times beside the bound, the plain version, a torch.matmul
+     a group and torch._grouped_mm (`library_ms`, where it runs); the int8
+     kernel's expert axis at the decode step's two stacks against each
+     expert's 2-D launch bit for bit, and its times; the dropless forward
+     at B=8, T=1024 (16 grouped launches, two runs the same bits) and the
+     generate prefill, each layer against the plain grouped products on
+     the same input; `generate` (prompt 1024, 32 new) and a TTFT call for
+     `decode`, `decode_int8` and `decode_int8_kv`, counts set to 0 just
+     before each: 16 grouped launches each, int8 1024 and 1, flash 24; a
+     prefill and a decode layer under `set_sync_debug_mode("error")`,
+     bf16 and int8; a torch.profiler trace of a TTFT call and a decode
+     step, bf16 and int8; `run_decode_bench` for the three points (two
+     runs each); a small f32 MoE config's tokens on the card equal to the
+     CPU's, plain and with int8 weights, cache and both (its f32 generate
+     counts the f32 grouped kernel's launches, its `kernels` entry);
+ 13. one `kernels` JSON line, then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 The flagship is the repo's training/decode bench config: vocab 32000,
 d_model 1024, 16 heads (head_dim 64), d_ff 4096, 8 layers, bf16 compute,
-f32 params, weights random from a seed. The placement problems are made
+f32 params, weights random from a seed; the MoE flagship replaces each
+layer's MLP by 8 experts. The placement problems are made
 with numpy from seeds. Imports nothing of JAX.
 """
 
@@ -310,29 +335,6 @@ def tensor_core_sass(library) -> dict:
     check(bool(f32) and all(c["HMMA"] > 0 for c in f32.values()),
           f"sass: every f32 block kernel instantiation has HMMA ({len(f32)} found)")
     return counts
-
-
-def f32_kernel_ptxas(log: str) -> dict:
-    """Registers and spill bytes of each f32 block kernel instantiation in
-    an `nvcc -Xptxas -v` log, by padded head dim; printed one a line."""
-    import re
-
-    out, dp = {}, None
-    for line in log.splitlines():
-        if m := re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line):
-            found = re.search(r"flash_block_f32_kernelILi(\d+)E", m.group(1))
-            dp = f"DP{found.group(1)}" if found else None
-            if dp:
-                out.setdefault(dp, {})
-        elif dp and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
-            out[dp].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
-        elif dp and (m := re.search(r"Used (\d+) registers", line)):
-            out[dp]["registers"] = int(m.group(1))
-    for name, rep in sorted(out.items()):
-        print(f"ptxas f32 block kernel {name}: {rep.get('registers')} registers, "
-              f"{rep.get('spill_stores')} B spill stores, {rep.get('spill_loads')} B spill "
-              "loads", flush=True)
-    return out
 
 
 def plain_is_f32(what: str) -> None:
@@ -2121,7 +2123,7 @@ def int8_host_us(calls=200, repeats=5) -> dict:
     lib, stream = i8._library(), torch.cuda.current_stream().cuda_stream
     args = (1, x.data_ptr(), BATCH, 64, 64, *i8._plan(64, (64,), x.device.index), 1,
             qt.q.data_ptr(), qt.scale.data_ptr(), y.data_ptr(), 64, *([None, None, None, 0] * 2),
-            x.device.index, stream)
+            1, 0, x.device.index, stream)
     ways = {"int8_matmul": lambda: i8.int8_matmul(x, qt, torch.bfloat16),
             "int8_matmul_group of 3": lambda: i8.int8_matmul_group(x, [qt, qt, qt], torch.bfloat16),
             "launch_alone": lambda: lib.int8_matmul_launch(*args),
@@ -2138,20 +2140,24 @@ def int8_host_us(calls=200, repeats=5) -> dict:
     return {name: sorted(r)[len(r) // 2] for name, r in runs.items()}
 
 
-def int8_kernel_ptxas(log: str) -> dict:
-    """Registers and spill bytes of each int8 kernel instantiation in an
-    `nvcc -Xptxas -v` log, printed one a line (their shared memory is
-    dynamic: phase 11 prints it a launch)."""
+def kernel_ptxas(log: str, kernels: str, no_spills_of: str | None = None) -> dict:
+    """Registers and spill bytes of each instantiation of the kernels that
+    the regex `kernels` names in an `nvcc -Xptxas -v` log, printed one a
+    line with its template arguments. Given `no_spills_of` (what the
+    kernels are, for the check's line), a spill fails."""
     import re
 
     out, name = {}, None
     for line in log.splitlines():
         if m := re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line):
-            found = re.search(r"(int8_matmul_(?:tc|f32)_kernel)ILi(\d+)ELb(\d)E", m.group(1))
-            name = (f"{found.group(1)}<{found.group(2)}, {'true' if found.group(3) == '1' else 'false'}>"
-                    if found else None)
-            if name:
+            found = re.search(rf"({kernels})I((?:L[ib]\d+E)+)E", m.group(1))
+            if found:
+                args = [v if kind == "i" else "true" if v == "1" else "false"
+                        for kind, v in re.findall(r"L([ib])(\d+)E", found.group(2))]
+                name = f"{found.group(1)}<{', '.join(args)}>"
                 out.setdefault(name, {})
+            else:
+                name = None
         elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
             out[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
         elif name and (m := re.search(r"Used (\d+) registers", line)):
@@ -2159,9 +2165,10 @@ def int8_kernel_ptxas(log: str) -> dict:
     for name, rep in sorted(out.items()):
         print(f"ptxas {name}: {rep.get('registers')} registers, {rep.get('spill_stores')} B spill "
               f"stores, {rep.get('spill_loads')} B spill loads", flush=True)
-    check(bool(out) and all(rep.get("spill_stores") == 0 and rep.get("spill_loads") == 0
-                            for rep in out.values()),
-          f"ptxas: no int8 kernel instantiation spills ({len(out)} found)")
+    if no_spills_of:
+        check(bool(out) and all(rep.get("spill_stores") == 0 and rep.get("spill_loads") == 0
+                                for rep in out.values()),
+              f"ptxas: no {no_spills_of} instantiation spills ({len(out)} found)")
     return out
 
 
@@ -2439,6 +2446,612 @@ def phase_serving_apart(results, baseline=None):
     return serving.get("kernel")
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: mixture-of-experts serving and forward
+# ---------------------------------------------------------------------------
+
+# The MoE flagship: the flagship's widths and depth with 8 experts of
+# d_ff_expert 4096, token-choice top 2, dropless (Mixtral 8x7B's routing
+# shape at this repo's widths).
+MOE_EXPERTS, MOE_TOP_K, MOE_D_FF = 8, 2, 4096
+MOE_SLOTS = BATCH * PROMPT * MOE_TOP_K  # rows of the prefill's grouped products
+# Grouped launches: two products a layer in a prefill (generate and TTFT
+# call alike) and in the dropless forward; the decode step runs every
+# expert (no grouped launch). int8 launches are the dense model's
+# (INT8_GENERATE_LAUNCHES), the two expert stacks in w1's and w2's places.
+MOE_GROUPED_LAUNCHES = 2 * LAYERS
+# The two products of a prefill layer: (K, N) of xs [slots, K] @ w [E, K, N].
+MOE_PRODUCTS = {"we1": (1024, MOE_D_FF), "we2": (MOE_D_FF, 1024)}
+MOE_ROUTINGS = ("balanced", "skewed", "empty")
+# The MoE path against its plain path is checked a layer at a time: each
+# layer of the kernel path's run again on the same input with the grouped
+# products plain (the attention kernel in both, so the router sees the
+# same bits and routes alike), within the dense forward's tolerance
+# (LOGITS_MAX_REL, LOGITS_MEAN_REL). Through 8 layers end to end the two
+# paths route apart: a token whose second and third gates lie within the
+# paths' bf16 difference takes another expert in one of them, which moves
+# its output wholesale; that divergence is reported, not bounded.
+
+
+def moe_config(**overrides):
+    from dataclasses import replace
+
+    return replace(flagship_config(), **{
+        "n_experts": MOE_EXPERTS, "moe_top_k": MOE_TOP_K, "d_ff_expert": MOE_D_FF,
+        "moe_dispatch": "dropless", **overrides})
+
+
+@contextlib.contextmanager
+def plain_grouped():
+    """Route the MoE path's grouped products to their plain version, on the
+    card, for a reference run of the same path. The grouped kernel must not
+    launch meanwhile: a caller that reached it by another name would hold
+    the kernel against itself."""
+    from jobset_tpu_torch.models import transformer
+    from jobset_tpu_torch.ops import grouped_matmul as gm
+
+    transformer.grouped_matmul = gm.grouped_matmul_plain
+    before = gm.GROUPED_LAUNCHES
+    try:
+        yield
+    finally:
+        transformer.grouped_matmul = gm.grouped_matmul
+    if gm.GROUPED_LAUNCHES != before:
+        check(False, f"plain grouped run: the grouped kernel launched "
+                     f"{gm.GROUPED_LAUNCHES - before} time(s) with the plain version in its place")
+
+
+def moe_group_sizes(routing, rows=MOE_SLOTS, experts=MOE_EXPERTS):
+    sizes = [0] * experts
+    if routing == "balanced":
+        sizes = [rows // experts] * experts
+    elif routing == "skewed":  # one expert takes every slot
+        sizes[3] = rows
+    else:  # "empty": three experts take every slot, unevenly, five get none
+        sizes[0], sizes[4], sizes[7] = rows // 2, rows // 4, rows - rows // 2 - rows // 4
+    return torch.tensor(sizes, dtype=torch.int32, device="cuda")
+
+
+def grouped_operands(dtype, k, n, gen, rows=MOE_SLOTS):
+    xs = torch.randn((rows, k), generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((MOE_EXPERTS, k, n), generator=gen, device="cuda") / k ** 0.5).to(dtype)
+    return xs, w
+
+
+def grouped_bound_ms(rows, k, n, dtype) -> tuple[float, str]:
+    """Each input read once and the output written once at HBM rate, or the
+    products (2 rows k n, every row routed once) at the dtype's peak (bf16
+    tensor cores; f32 on the FMA pipes): the larger."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    t_bytes = size * (rows * k + MOE_EXPERTS * k * n + rows * n) / HBM_BYTES_PER_S
+    t_ops = 2 * rows * k * n / (BF16_FLOPS if dtype == torch.bfloat16 else F32_FMA_FLOPS)
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def grouped_case(name, dtype, k, n, routing, seed):
+    """The kernel against its plain version at one product of a prefill
+    layer: the stated tolerance, one launch counted, two launches equal bit
+    for bit. Returns max|got - want|."""
+    from jobset_tpu_torch.ops import grouped_matmul as gm
+
+    xs, w = grouped_operands(dtype, k, n, torch.Generator(device="cuda").manual_seed(seed))
+    sizes = moe_group_sizes(routing)
+    before = gm.GROUPED_LAUNCHES
+    got = gm.grouped_matmul(xs, w, sizes)
+    launched = gm.GROUPED_LAUNCHES - before
+    again = gm.grouped_matmul(xs, w, sizes)
+    torch.cuda.synchronize()
+    with f32_accumulating_plain():
+        want = gm.grouped_matmul_plain(xs, w, sizes)
+    err = (got.float() - want.float()).abs()
+    limit = INT8_ABS[dtype] * want.float().abs().max().item()
+    if dtype == torch.bfloat16:
+        limit = INT8_REL_BF16 * want.float().abs() + limit
+    worst = err.max().item()
+    check(launched == 1 and got.dtype == dtype and tuple(got.shape) == (MOE_SLOTS, n)
+          and bool(torch.isfinite(got.float()).all()),
+          f"grouped_matmul {name}: one launch, {dtype} [{MOE_SLOTS}, {n}], finite")
+    check(bool((err <= limit).all()), f"grouped_matmul {name}: within tolerance (max|d| {worst:.3e})")
+    check(torch.equal(got, again), f"grouped_matmul {name}: two launches equal bit for bit")
+    return worst
+
+
+def grouped_mm_library(xs, w, sizes):
+    """torch._grouped_mm on the same inputs, where the card's torch has it
+    (its yardstick role only; the port never calls it): a callable, or the
+    reason there is none."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, "torch has no _grouped_mm"
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    w_cols = w.transpose(-2, -1).contiguous().transpose(-2, -1)  # column-major B
+    errors = []
+    for b in (w, w_cols):
+        try:
+            out = fn(xs, b, offs=offs, out_dtype=xs.dtype)
+            torch.cuda.synchronize()
+            if tuple(out.shape) == (xs.shape[0], w.shape[-1]):
+                return (lambda b=b: fn(xs, b, offs=offs, out_dtype=xs.dtype)), None
+            errors.append(f"shape {tuple(out.shape)}")
+        except Exception as e:  # a yardstick that does not run is reported, not fatal
+            errors.append(f"{type(e).__name__}: {str(e)[:160]}")
+    return None, "; ".join(errors)
+
+
+def time_grouped(dtype, k, n, routing="balanced") -> dict:
+    """L2-cold times at one product of a prefill layer (two input sets of 96
+    MB or more alternate): the kernel; the plain version (which reads the
+    sizes on the host); a torch.matmul a group with the sizes known on the
+    host beforehand (no read-back timed); torch._grouped_mm where it runs
+    (`library_ms`)."""
+    from jobset_tpu_torch.ops import grouped_matmul as gm
+
+    gen = torch.Generator(device="cuda").manual_seed(k + n)
+    sets = [grouped_operands(dtype, k, n, gen) for _ in range(2)]
+    sizes = moe_group_sizes(routing)
+    host_sizes = sizes.tolist()
+    if dtype == torch.float32:
+        plain_is_f32("grouped_matmul timing")
+    out = torch.empty((MOE_SLOTS, n), dtype=dtype, device="cuda")
+
+    def loop(i):
+        xs, w = sets[i]
+        start = 0
+        for e, size in enumerate(host_sizes):
+            if size:
+                torch.matmul(xs[start:start + size], w[e], out=out[start:start + size])
+            start += size
+
+    times = {
+        "ms": rotating_ms(lambda i: gm.grouped_matmul(*sets[i], sizes), 2, ITERS),
+        "plain_ms": rotating_ms(lambda i: gm.grouped_matmul_plain(*sets[i], sizes), 2, ITERS // 4),
+        "loop_ms": rotating_ms(loop, 2, ITERS),
+    }
+    library, why = grouped_mm_library(*sets[0], sizes)
+    if library is not None:
+        lib_sets = [grouped_mm_library(*s, sizes)[0] for s in sets]
+        times["library_ms"] = rotating_ms(lambda i: lib_sets[i](), 2, ITERS)
+    else:
+        times["library_ms"] = None
+        times["library_missing"] = why
+    times["bound_ms"], times["bound_by"] = grouped_bound_ms(MOE_SLOTS, k, n, dtype)
+    del sets, out
+    torch.cuda.empty_cache()
+    return times
+
+
+def int8_experts_case(name, dtype, k, n, shared, seed) -> float:
+    """The int8 kernel's expert launch against each expert's 2-D launch (bit
+    for bit) and against its plain version (the int8 tolerance); one launch
+    counted. Returns max|got - plain|."""
+    from jobset_tpu_torch.models import quant
+    from jobset_tpu_torch.ops import int8_matmul as i8
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qt = quant.quantize_int8(torch.randn((MOE_EXPERTS, k, n), generator=gen, device="cuda")
+                             / k ** 0.5)
+    x = torch.randn((1 if shared else MOE_EXPERTS, BATCH, k), generator=gen,
+                    device="cuda").to(dtype)
+    before = i8.INT8_LAUNCHES
+    got = i8.int8_matmul_experts(x, qt, dtype)
+    launched = i8.INT8_LAUNCHES - before
+    apart = [i8.int8_matmul(x[0 if shared else e], quant.QuantizedTensor(qt.q[e], qt.scale[e]),
+                            dtype) for e in range(MOE_EXPERTS)]
+    torch.cuda.synchronize()
+    with f32_accumulating_plain():
+        want = i8.int8_matmul_experts_plain(x, qt, dtype)
+    err = (got.float() - want.float()).abs()
+    limit = INT8_ABS[dtype] * want.float().abs().max().item()
+    if dtype == torch.bfloat16:
+        limit = INT8_REL_BF16 * want.float().abs() + limit
+    check(launched == 1 and tuple(got.shape) == (MOE_EXPERTS, BATCH, n),
+          f"int8_matmul experts {name}: one launch, [{MOE_EXPERTS}, {BATCH}, {n}]")
+    check(all(torch.equal(got[e], apart[e]) for e in range(MOE_EXPERTS)),
+          f"int8_matmul experts {name}: each expert equals its 2-D launch bit for bit")
+    check(bool((err <= limit).all()),
+          f"int8_matmul experts {name}: within tolerance (max|d| {err.max().item():.3e})")
+    return err.max().item()
+
+
+def time_int8_experts(dtype, k, n, shared) -> dict:
+    """L2-cold times of one expert-stack launch at a decode step's shape
+    (four stacks of 32 MB of int8 alternate): the kernel; eight 2-D
+    launches; the plain version (dequantize, batched matmul); torch.matmul
+    on the stack dequantized to dtype beforehand (`library_ms`, the product
+    at twice the weight bytes); the bound (bytes)."""
+    from jobset_tpu_torch.models import quant
+    from jobset_tpu_torch.ops import int8_matmul as i8
+
+    gen = torch.Generator(device="cuda").manual_seed(k * 3 + n)
+    sets = [quant.quantize_int8(torch.randn((MOE_EXPERTS, k, n), generator=gen, device="cuda")
+                                / k ** 0.5) for _ in range(4)]
+    parts = [[quant.QuantizedTensor(qt.q[e], qt.scale[e]) for e in range(MOE_EXPERTS)]
+             for qt in sets]
+    dense = [quant.weight_cast(qt, dtype) for qt in sets]
+    x = torch.randn((1 if shared else MOE_EXPERTS, BATCH, k), generator=gen,
+                    device="cuda").to(dtype)
+    if dtype == torch.float32:
+        plain_is_f32("int8 expert timing")
+    size = torch.tensor([], dtype=dtype).element_size()
+    moved = MOE_EXPERTS * (k * n + 4 * n + size * BATCH * n) + size * x.numel()
+    out = {
+        "ms": rotating_ms(lambda i: i8.int8_matmul_experts(x, sets[i], dtype), 4, ITERS),
+        "apart_ms": rotating_ms(lambda i: [i8.int8_matmul(x[0 if shared else e], parts[i][e], dtype)
+                                           for e in range(MOE_EXPERTS)], 4, ITERS),
+        "plain_ms": rotating_ms(lambda i: i8.int8_matmul_experts_plain(x, sets[i], dtype), 4,
+                                ITERS),
+        "library_ms": rotating_ms(lambda i: torch.matmul(x, dense[i]), 4, ITERS),
+        "bound_ms": 1e3 * moved / HBM_BYTES_PER_S,
+        "bound_by": "bytes",
+    }
+    del sets, parts, dense
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_kernel_checks(results):
+    """Phase 12a: the grouped kernel at the prefill's two products (three
+    routings, bf16 and f32) and the int8 kernel's expert axis at the decode
+    step's two stacks; their L2-cold times."""
+    from jobset_tpu_torch.ops import grouped_matmul as gm
+
+    card = results["card"]
+    check(gm.kernel_layout() == gm.layout(),
+          "grouped_matmul: the built kernel's constants equal the wrapper's")
+    errs, seed = {}, 40
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        for label, (k, n) in MOE_PRODUCTS.items():
+            for routing in MOE_ROUTINGS:
+                errs[f"{tag} {label} {routing}"] = grouped_case(
+                    f"{tag} {label} [{MOE_SLOTS},{k}]x[{MOE_EXPERTS},{k},{n}] {routing}", dtype,
+                    k, n, routing, seed)
+                seed += 1
+    times = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        for label, (k, n) in MOE_PRODUCTS.items():
+            routings = MOE_ROUTINGS if dtype == torch.bfloat16 else ("balanced",)
+            for routing in routings:
+                t = time_grouped(dtype, k, n, routing)
+                times[f"{tag} {label} {routing}"] = t
+                lib = (f"{t['library_ms']:.4f} ms" if t["library_ms"] is not None
+                       else f"none ({t['library_missing']})")
+                print(f"grouped_matmul {tag} {label} [{MOE_SLOTS},{k}]x[{MOE_EXPERTS},{k},{n}] "
+                      f"{routing}, L2-cold: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                      f"torch.matmul a group {t['loop_ms']:.4f} ms, library_ms (torch._grouped_mm) "
+                      f"{lib}, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+                      f"{t['bound_ms'] / t['ms']:.1%} of bound ({card})", flush=True)
+    int8_errs, int8_times = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        for label, (k, n), shared in (("we1", MOE_PRODUCTS["we1"], True),
+                                      ("we2", MOE_PRODUCTS["we2"], False)):
+            name = f"{tag} {label} x [{1 if shared else MOE_EXPERTS},{BATCH},{k}]"
+            int8_errs[f"{tag} {label}"] = int8_experts_case(name, dtype, k, n, shared, seed)
+            seed += 1
+            t = time_int8_experts(dtype, k, n, shared)
+            int8_times[f"{tag} {label}"] = t
+            print(f"int8_matmul experts {name} x int8 [{MOE_EXPERTS},{k},{n}], L2-cold: kernel "
+                  f"{t['ms']:.4f} ms, {MOE_EXPERTS} 2-D launches {t['apart_ms']:.4f} ms, plain "
+                  f"{t['plain_ms']:.4f} ms, library_ms (torch.matmul, {tag} stack) "
+                  f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (bytes), "
+                  f"{t['bound_ms'] / t['ms']:.1%} of bound ({card})", flush=True)
+    results["grouped_matmul"] = {"max_abs_err": errs, "by_shape": times}
+    results["int8_experts"] = {"max_abs_err": int8_errs, "by_shape": int8_times}
+
+
+def moe_launches_now() -> dict:
+    from jobset_tpu_torch.ops import grouped_matmul as gm
+    from jobset_tpu_torch.ops import int8_matmul as i8
+
+    return {"GROUPED_LAUNCHES": gm.GROUPED_LAUNCHES, "INT8_LAUNCHES": i8.INT8_LAUNCHES,
+            **launches_now()}
+
+
+def reset_moe_launches():
+    from jobset_tpu_torch.ops import grouped_matmul as gm
+    from jobset_tpu_torch.ops import int8_matmul as i8
+
+    reset_launches()
+    gm.GROUPED_LAUNCHES = 0
+    i8.INT8_LAUNCHES = 0
+
+
+def moe_layerwise(cfg, params, prompt, serving=False) -> list:
+    """Each layer of the MoE path (the forward's `_layer`, or with serving
+    the generate prefill's `_prefill_layer` on the cast parameters) run on
+    the kernel path's input to it, and again with the grouped products
+    plain: the outputs within the dense forward's tolerance, and the layer's
+    routing identical by construction (the same attention kernel before
+    it). Returns each layer's (max|d|, mean|d|)."""
+    from jobset_tpu_torch.models import decode, transformer
+
+    p = decode.cast_params(params, cfg.dtype) if serving else params
+    cache = decode.init_kv_cache(cfg, BATCH, PROMPT, "cuda") if serving else None
+    name = "MoE generate prefill" if serving else "MoE forward"
+
+    def layer(i, x):
+        lp = transformer.layer_params(p, i)
+        if serving:
+            return decode._prefill_layer(lp, x, cache["k"][i], cache["v"][i], cfg)
+        return transformer._layer(lp, x, cfg)
+
+    out = []
+    with torch.no_grad():
+        x = transformer._embed_tokens(p["embed"], prompt, cfg)
+        for i in range(cfg.n_layers):
+            got = layer(i, x)
+            with plain_grouped():
+                want = layer(i, x)
+            d = (got.float() - want.float()).abs()
+            ref = want.float().abs()
+            out.append((d.max().item(), d.mean().item()))
+            check(d.max().item() <= LOGITS_MAX_REL * ref.max().item()
+                  and d.mean().item() <= LOGITS_MEAN_REL * ref.mean().item(),
+                  f"{name} layer {i}, kernel vs plain grouped products on the same input: "
+                  f"max|d| {d.max().item():.4g} (ref max {ref.max().item():.4g}), mean|d| "
+                  f"{d.mean().item():.4g} (ref mean {ref.mean().item():.4g})")
+            x = got
+    return out
+
+
+def moe_no_sync(cfg, params, label):
+    """One prefill layer (B=8, T=1024) and one decode step's layer of the
+    MoE flagship under set_sync_debug_mode("error"): a host sync raises."""
+    from jobset_tpu_torch.models import decode, transformer
+
+    cast = decode.cast_params(params, cfg.dtype)
+    layer = transformer.layer_params(cast, 0)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn((BATCH, PROMPT, cfg.d_model), generator=gen, device="cuda").to(cfg.dtype)
+    cache = decode.init_kv_cache(cfg, BATCH, PROMPT + 1, "cuda")
+    ok, why = True, ""
+    with torch.no_grad():
+        decode._prefill_layer(layer, x, cache["k"][0], cache["v"][0], cfg)  # warm (masks)
+        decode._decode_layer(layer, x[:, :1], cache["k"][0], cache["v"][0], PROMPT, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            decode._prefill_layer(layer, x, cache["k"][0], cache["v"][0], cfg)
+            decode._decode_layer(layer, x[:, :1], cache["k"][0], cache["v"][0], PROMPT, cfg)
+        except RuntimeError as e:
+            ok, why = False, str(e)[:300]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(ok, f"MoE {label}: a prefill layer and a decode layer make no host sync "
+              f"(set_sync_debug_mode error){' - ' + why if why else ''}")
+
+
+def phase_moe(results):
+    """Phase 12: mixture-of-experts serving and the dropless forward at the
+    flagship's width and depth."""
+    from jobset_tpu_torch.models import (build_forward, build_generate, init_params,
+                                         quantize_params_for_serving)
+    from jobset_tpu_torch.runtime.model_bench import run_decode_bench
+
+    card = results["card"]
+    moe_kernel_checks(results)
+    cfg = moe_config()
+    cfg.validate()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    qparams = quantize_params_for_serving(params)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device="cuda",
+                           dtype=torch.int32)
+
+    # The dropless forward, B=8 T=1024: launches, twice the same bits, and
+    # against its plain path (grouped products and attention plain).
+    forward = build_forward(cfg)
+    forward(params, prompt[:, :64])  # warm-up
+    torch.cuda.synchronize()
+    reset_moe_launches()
+    logits, secs = wall_s(lambda: forward(params, prompt))
+    counts = moe_launches_now()
+    results["moe_forward_launches"] = counts
+    check(counts["GROUPED_LAUNCHES"] == MOE_GROUPED_LAUNCHES
+          and counts["TENSOR_CORE_LAUNCHES"] == FORWARD_LAUNCHES,
+          f"MoE forward: launches {counts} (expected {MOE_GROUPED_LAUNCHES} grouped, "
+          f"{FORWARD_LAUNCHES} flash)")
+    again = forward(params, prompt)
+    check(torch.equal(logits, again), "MoE forward: two runs give the same bits")
+    del again
+    check(bool(torch.isfinite(logits.float()).all())
+          and tuple(logits.shape) == (BATCH, PROMPT, cfg.vocab_size),
+          f"MoE forward: finite logits of shape {tuple(logits.shape)} ({secs:.4f} s wall)")
+    with plain_grouped(), plain_attention():
+        plain = forward(params, prompt)
+    d = (logits.float() - plain.float()).abs()
+    results["moe_forward"] = {
+        "wall_s": secs, "end_to_end_mean_rel": d.mean().item() / plain.float().abs().mean().item(),
+        "end_to_end_max_abs": d.max().item(),
+        "end_to_end_argmax_agree": (logits.argmax(-1) == plain.argmax(-1)).float().mean().item()}
+    print(f"MoE forward end to end, kernel vs plain path (information: the paths route apart): "
+          f"mean|d| {results['moe_forward']['end_to_end_mean_rel']:.3e} of mean|ref|, argmax "
+          f"agrees at {results['moe_forward']['end_to_end_argmax_agree']:.4%} of positions",
+          flush=True)
+    del logits, plain, d
+    torch.cuda.empty_cache()
+    results["moe_forward"]["layers"] = moe_layerwise(cfg, params, prompt)
+
+    # The main path: each serving variant's generate and TTFT call, counts
+    # set to 0 just before and read just after.
+    launches, walls = {}, {}
+    for point, (quantized, quantized_kv) in SERVING_POINTS.items():
+        p = qparams if quantized else params
+        flags = dict(quantized=quantized, quantized_kv=quantized_kv)
+        generate, first = build_generate(cfg, NEW_TOKENS, **flags), build_generate(cfg, 1, **flags)
+        first(p, prompt)  # warm-up
+        torch.cuda.synchronize()
+        for call, fn, want_int8 in (("generate", generate, INT8_GENERATE_LAUNCHES),
+                                    ("ttft", first, 1)):
+            reset_moe_launches()
+            tokens, secs = wall_s(lambda: fn(p, prompt))
+            counts = moe_launches_now()
+            launches[f"{point} {call}"], walls[f"{point} {call}"] = counts, secs
+            want = want_int8 if quantized else 0
+            check(counts["GROUPED_LAUNCHES"] == MOE_GROUPED_LAUNCHES
+                  and counts["INT8_LAUNCHES"] == want
+                  and counts["TENSOR_CORE_LAUNCHES"] == GENERATE_LAUNCHES,
+                  f"MoE {point} {call}: launches {counts} (expected {MOE_GROUPED_LAUNCHES} "
+                  f"grouped, {want} int8, {GENERATE_LAUNCHES} flash) ({secs:.4f} s wall)")
+            new = NEW_TOKENS if call == "generate" else 1
+            check(tuple(tokens.shape) == (BATCH, PROMPT + new)
+                  and bool((tokens[:, :PROMPT] == prompt).all())
+                  and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+                  f"MoE {point} {call}: tokens shape {tuple(tokens.shape)}, prompt kept, "
+                  "ids in vocab")
+    results["moe_launches"], results["moe_walls"] = launches, walls
+
+    # The serving prefill's layers against the plain path, a layer at a time.
+    results["moe_prefill_layers"] = moe_layerwise(cfg, params, prompt, serving=True)
+
+    for label, p in (("bf16", params), ("int8", qparams)):
+        moe_no_sync(cfg, p, label)
+
+    # Where a decode step's and a TTFT call's device time goes.
+    traces = {}
+    for point, (quantized, quantized_kv) in SERVING_POINTS.items():
+        if point == "decode_int8_kv":
+            continue
+        p = qparams if quantized else params
+        first = build_generate(cfg, 1, quantized=quantized, quantized_kv=quantized_kv)
+        traces[f"{point} ttft"] = traced(lambda: first(p, prompt),
+                                         f"MoE {point} first_token (B={BATCH}, prompt {PROMPT})",
+                                         "grouped_mm")
+        traces[f"{point} step"] = serving_decode_step_trace(
+            cfg, p, f"MoE {point} decode step (B={BATCH}, cache {PROMPT + 2})", quantized_kv)
+    results["moe_traces"] = traces
+    del params, qparams
+    torch.cuda.empty_cache()
+
+    bench = {}
+    for point, (quantized, quantized_kv) in SERVING_POINTS.items():
+        runs = [run_decode_bench(batch=BATCH, prompt_len=PROMPT, max_new_tokens=NEW_TOKENS,
+                                 config=moe_config(max_seq_len=PROMPT + NEW_TOKENS),
+                                 quantized=quantized, quantized_kv=quantized_kv,
+                                 measure_ttft=True) for _ in range(2)]
+        tps = sorted(r["decode_tokens_per_sec"] for r in runs)
+        ttft = sorted(r["ttft_ms"] for r in runs)
+        bench[point] = {**runs[0], "decode_tokens_per_sec_runs": tps, "ttft_ms_runs": ttft}
+        print(f"run_decode_bench MoE {point} B={BATCH} prompt {PROMPT} new {NEW_TOKENS}, 2 runs: "
+              f"{tps[0]:.1f}-{tps[-1]:.1f} new tokens/s, TTFT {ttft[0]:.3f}-{ttft[-1]:.3f} ms "
+              f"({card})", flush=True)
+    results["moe_decode_bench"] = bench
+
+    # A small f32 MoE config: the card's tokens equal the CPU's, plain and
+    # with int8 weights, the int8 cache and both.
+    small = moe_config(vocab_size=128, d_model=64, n_heads=4, n_kv_heads=2, n_layers=2,
+                       d_ff_expert=96, dtype=torch.float32)
+    small_params = init_params(small, torch.Generator().manual_seed(0), "cpu")
+    small_q = quantize_params_for_serving(small_params)
+    small_prompt = torch.randint(0, 128, (2, 40), generator=torch.Generator().manual_seed(1))
+    small_launches = {}
+    for label, quantized, quantized_kv in (("f32", False, False), ("int8 weights", True, False),
+                                           ("int8 KV cache", False, True),
+                                           ("int8 weights and KV cache", True, True)):
+        p = small_q if quantized else small_params
+        flags = dict(quantized=quantized, quantized_kv=quantized_kv)
+        want = build_generate(small, 6, "cpu", **flags)(p, small_prompt)
+        generate, p_card = build_generate(small, 6, **flags), to_device(p, "cuda")
+        reset_moe_launches()
+        got = generate(p_card, small_prompt)
+        small_launches[label] = moe_launches_now()["GROUPED_LAUNCHES"]
+        check(torch.equal(got.cpu(), want) and small_launches[label] == 2 * small.n_layers,
+              f"MoE generate small f32 config, {label}: card tokens equal the CPU path's; "
+              f"{small_launches[label]} f32 grouped launches (expected {2 * small.n_layers})")
+
+    g = results["grouped_matmul"]
+    pair = [g["by_shape"][f"bf16 {label} balanced"] for label in MOE_PRODUCTS]
+    f32_pair = [g["by_shape"][f"f32 {label} balanced"] for label in MOE_PRODUCTS]
+
+    def total(rows, key):
+        vals = [r[key] for r in rows]
+        return None if any(v is None for v in vals) else sum(vals)
+
+    def entry(tag, rows):
+        return {
+            "ms": total(rows, "ms"),
+            "plain_ms": total(rows, "plain_ms"),
+            "bound_ms": total(rows, "bound_ms"),
+            "bound_by": "operations",
+            "library_ms": total(rows, "library_ms"),
+            "library_call": f"torch._grouped_mm ({tag}), where the card's torch has it",
+            "loop_ms": total(rows, "loop_ms"),
+            "shape": f"{tag}, a prefill layer's two products: [{MOE_SLOTS},1024] x "
+                     f"[{MOE_EXPERTS},1024,{MOE_D_FF}] and [{MOE_SLOTS},{MOE_D_FF}] x "
+                     f"[{MOE_EXPERTS},{MOE_D_FF},1024], balanced routing; L2-cold",
+            "max_abs_err": max(g["max_abs_err"][f"{tag} {label} balanced"]
+                               for label in MOE_PRODUCTS),
+            "max_abs_err_by_case": {k: v for k, v in g["max_abs_err"].items()
+                                    if k.startswith(tag)},
+            "by_shape": {k: v for k, v in g["by_shape"].items() if k.startswith(tag)},
+        }
+
+    replaces = {"replaces": "jobset_tpu/models/transformer.py:670",
+                "replaces_is": "lax.ragged_dot in sorted_ragged_expert_ffn (:670 and :675), an "
+                               "XLA program (no Pallas kernel)"}
+    return [
+        {
+            "name": "grouped_matmul",
+            "route": "cuda",
+            "source": "jobset_tpu_torch/ops/csrc/grouped_matmul.cu",
+            **replaces,
+            "variant": "bf16 tensor cores (grouped_mm_bf16_kernel) on the MoE flagship's paths; "
+                       "the f32 variant (grouped_mm_f32_kernel) is its own entry",
+            "launches": launches["decode generate"]["GROUPED_LAUNCHES"],
+            "launches_by_path": {"forward": results["moe_forward_launches"]["GROUPED_LAUNCHES"],
+                                 **{k: v["GROUPED_LAUNCHES"] for k, v in launches.items()}},
+            **entry("bf16", pair),
+        },
+        {
+            "name": "grouped_matmul_f32",
+            "route": "cuda",
+            "source": "jobset_tpu_torch/ops/csrc/grouped_matmul.cu",
+            **replaces,
+            "variant": "f32 variant (grouped_mm_f32_kernel, true f32 on the FMA pipes), the small "
+                       "f32 MoE config's paths; launches counted on its f32 generate",
+            "launches": small_launches["f32"],
+            "launches_by_path": {f"small f32 config generate, {k}": v
+                                 for k, v in small_launches.items()},
+            **entry("f32", f32_pair),
+        },
+    ]
+
+
+def attach_grouped_ptxas(entries, ptxas) -> None:
+    """Each grouped entry gets its variant's instantiations from a build
+    log this process parsed (none when the kernel was built elsewhere)."""
+    for entry in entries if ptxas else ():
+        variant = "f32" if entry["name"].endswith("_f32") else "bf16"
+        entry["ptxas"] = {k: v for k, v in ptxas.items() if f"_{variant}_" in k}
+
+
+def phase_moe_apart(results):
+    """Phase 12 in a process of its own (`--moe-only`). Returns its
+    `kernels` entries (none if it failed)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "moe.json")
+        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--moe-only",
+                              "--out", path], capture_output=True, text=True, timeout=900)
+        print(run.stdout, end="", flush=True)
+        if run.returncode != 0:
+            print(run.stderr[-4000:], file=sys.stderr, flush=True)
+        check(run.returncode == 0 and os.path.exists(path),
+              f"phase 12 in a process of its own exits {run.returncode}")
+        if not os.path.exists(path):
+            return []
+        with open(path) as f:
+            moe = json.load(f)
+    for key in ("grouped_matmul", "int8_experts", "moe_forward", "moe_forward_launches",
+                "moe_launches", "moe_walls", "moe_traces", "moe_decode_bench", "moe_prefill_layers"):
+        results[key] = moe.get(key)
+    return moe.get("moe_kernels") or []
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the results as JSON to this file")
@@ -2454,6 +3067,9 @@ def main() -> int:
     only.add_argument("--serving-only", action="store_true",
                       help="build the flash block and int8 kernels and run phase 11 "
                            "(int8 serving and sampling) alone (no result line)")
+    only.add_argument("--moe-only", action="store_true",
+                      help="build the flash block, int8 and grouped kernels and run phase 12 "
+                           "(mixture-of-experts serving and forward) alone (no result line)")
     parser.add_argument("--int8-baseline", metavar="DIR",
                         help="another checkout of this repo (the parent commit): phase 11 "
                              "also times its int8 kernel on the same inputs")
@@ -2488,7 +3104,8 @@ def main() -> int:
     t0 = time.perf_counter()
     sources = (["auction"] if args.solver_only else ["flash_block"] if args.flash_only
                else ["flash_block", "int8_matmul"] if args.serving_only
-               else ["flash_block", "auction", "int8_matmul"])
+               else ["flash_block", "int8_matmul", "grouped_matmul"] if args.moe_only
+               else ["flash_block", "auction", "int8_matmul", "grouped_matmul"])
     libraries = cuda_build.build_all(sources)
     results["build_s"] = time.perf_counter() - t0
     print(f"build: {results['build_s']:.2f} s", flush=True)
@@ -2497,7 +3114,23 @@ def main() -> int:
             if any(w in line for w in ("Compiling entry", "registers", "spill", "error")):
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
     if "int8_matmul" in cuda_build.BUILD_LOG:  # built by this process
-        results["int8_ptxas"] = int8_kernel_ptxas(cuda_build.BUILD_LOG["int8_matmul"])
+        results["int8_ptxas"] = kernel_ptxas(cuda_build.BUILD_LOG["int8_matmul"],
+                                              r"int8_matmul_(?:tc|f32)_kernel", "int8 kernel")
+    if "grouped_matmul" in cuda_build.BUILD_LOG:
+        results["grouped_ptxas"] = kernel_ptxas(cuda_build.BUILD_LOG["grouped_matmul"],
+                                                 r"grouped_mm_(?:bf16|f32)_kernel")
+    if args.moe_only:
+        results["moe_kernels"] = phase_moe(results)
+        attach_grouped_ptxas(results["moe_kernels"], results.get("grouped_ptxas"))
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump(results, f, indent=1)
+        print(f"chip_smoke --moe-only: {len(FAILURES)} check(s) failed, "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        for what in FAILURES:
+            print(f"  FAILED: {what}", flush=True)
+        return 1 if FAILURES else 0
     if args.serving_only:
         results["kernel"] = phase_serving(results, args.int8_baseline)
         results["kernel"]["ptxas"] = results.get("int8_ptxas")
@@ -2517,7 +3150,8 @@ def main() -> int:
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
         return 1 if FAILURES else 0
     if "flash_block" in cuda_build.BUILD_LOG:
-        results["f32_ptxas"] = f32_kernel_ptxas(cuda_build.BUILD_LOG["flash_block"])
+        results["f32_ptxas"] = kernel_ptxas(cuda_build.BUILD_LOG["flash_block"],
+                                           "flash_block_f32_kernel")
     results["sass"] = tensor_core_sass(libraries["flash_block"])
 
     kernels = phase_kernels(results)
@@ -2573,9 +3207,17 @@ def main() -> int:
     kernels += phase_solver(results)
     phase_control_apart(results)
     int8_kernel = phase_serving_apart(results, args.int8_baseline)
+    grouped_kernels = phase_moe_apart(results)
     if int8_kernel is not None:
         int8_kernel["ptxas"] = results.get("int8_ptxas")
+        # The expert axis (phase 12): its checks and times, and the MoE
+        # serving paths' launches.
+        int8_kernel["expert_axis"] = results.get("int8_experts")
+        int8_kernel["launches_by_path"].update(
+            {f"MoE {k}": v["INT8_LAUNCHES"] for k, v in (results.get("moe_launches") or {}).items()})
         kernels.append(int8_kernel)
+    attach_grouped_ptxas(grouped_kernels, results.get("grouped_ptxas"))
+    kernels += grouped_kernels
     results["kernels"] = kernels
     results["seconds"] = time.perf_counter() - t_start
     if args.out:

@@ -10,13 +10,18 @@ preallocated [layers, B, max_len, H_kv, D] buffer (for an int8 cache, of
 its values and of its scales) instead of returning a new array.
 
 Tokens are picked greedily or sampled (Gumbel-max at a temperature,
-optionally over the exact top k logits). Weights may be int8
+optionally over the exact top k logits). A mixture-of-experts model
+serves as the reference serves it: top-k routing runs the prefill
+through the sorted ragged products (`ops.grouped_matmul`) and the decode
+step through every expert weighted by the top-k gates (every expert's
+weights stream each step either way); expert choice, not causal, serves
+through soft dispatch. Weights may be int8
 (`quant.quantize_params_for_serving`; every matmul site goes through
 `quant.matmul`, which sends a decode step's products to the int8 kernel
 on the card, a layer's Q, K and V in one launch), and the KV cache may
 be int8 with one scale per cached vector.
 
-Not ported yet: MoE, and dp/tp meshes.
+Not ported yet: dp/tp meshes.
 """
 
 from __future__ import annotations
@@ -36,11 +41,16 @@ from .quant import (
 from .transformer import (
     TransformerConfig,
     _dense_mlp,
+    _all_experts,
     _embed_tokens,
+    _moe_mlp,
+    _router_gates,
     layer_params,
     n_layers_of,
+    renormalized_topk,
     rms_norm,
     rotary,
+    sorted_ragged_expert_ffn,
     unembed_logits,
 )
 
@@ -105,13 +115,60 @@ def _layer_qkv(p, xn, base: int, cfg: TransformerConfig):
     return q, rotary(k, positions, cfg.rope_theta), v
 
 
+def _topk_gates(p, xn, cfg: TransformerConfig):
+    """The top-k serving formulations' router: f32 softmax gates, the top-k
+    pick and renormalized weights. Returns (top_w, top_i), each [B, T, k]."""
+    return renormalized_topk(_router_gates(xn, p["wg"]), cfg.moe_top_k)
+
+
+def _moe_mlp_topk_decode(p, xn, cfg: TransformerConfig):
+    """Token-choice top-k, all experts on every token, weighted by the
+    top-k gates (zero elsewhere): the decode step's formulation. Its time
+    is every expert's weights streaming from memory either way; with int8
+    weights each expert stack is one `int8_matmul` launch."""
+    n = xn.shape[0] * xn.shape[1]
+    top_w, top_i = _topk_gates(p, xn, cfg)
+    # [B*T, E]: each token's k gate weights at its experts, 0 elsewhere (a
+    # token's k experts are distinct, so a scatter sets what the
+    # reference's one-hot sum adds to 0).
+    weights = torch.zeros((n, cfg.n_experts), dtype=torch.float32, device=xn.device)
+    weights.scatter_(-1, top_i.reshape(n, -1), top_w.reshape(n, -1))
+    return _all_experts(p, xn, weights, cfg)
+
+
+def _moe_mlp_topk_sorted(p, xn, cfg: TransformerConfig):
+    """Token-choice top-k for the prefill: the sorted ragged dispatch at
+    activated FLOPs (`transformer.sorted_ragged_expert_ffn`); int8 expert
+    stacks are dequantized once for the grouped products."""
+    b, t, d = xn.shape
+    k = cfg.moe_top_k
+    top_w, top_i = _topk_gates(p, xn, cfg)
+    out, _ = sorted_ragged_expert_ffn(p, xn.reshape(b * t, d), top_w.reshape(b * t, k),
+                                      top_i.reshape(b * t, k), cfg)
+    return out.reshape(b, t, d).to(cfg.dtype)
+
+
+def _decode_mlp(p, xn, cfg: TransformerConfig):
+    """Serving's feed-forward: dense; top-k MoE, sorted ragged for the
+    prefill (T > 1) and all experts for the decode step; soft dispatch for
+    soft-dispatch models and for expert choice (not causal: served at its
+    full-capacity limit, as the reference does)."""
+    if "wg" not in p:
+        return _dense_mlp(p, xn, cfg)
+    if cfg.moe_router == "token" and cfg.moe_top_k > 0:
+        if xn.shape[1] > 1:
+            return _moe_mlp_topk_sorted(p, xn, cfg)
+        return _moe_mlp_topk_decode(p, xn, cfg)
+    return _moe_mlp(p, xn, cfg)
+
+
 def _layer_tail(p, x, attn, cfg: TransformerConfig):
     """Output projection and MLP: attn [B, T, H, D]."""
     compute = cfg.dtype
     attn = attn.reshape(*attn.shape[:-2], attn.shape[-2] * attn.shape[-1])
     x = x + matmul(attn, p["wo"], compute).to(x.dtype)
     xn2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _dense_mlp(p, xn2, cfg).to(x.dtype)
+    return x + _decode_mlp(p, xn2, cfg).to(x.dtype)
 
 
 def _decode_layer(p, x, cache_k, cache_v, pos: int, cfg: TransformerConfig):
@@ -229,10 +286,12 @@ def cast_params(params: dict, dtype: torch.dtype) -> dict:
     """Every float leaf cast once to the compute dtype (serving streams the
     whole parameter set each step; this halves its bytes from f32 to
     bf16). Norm scales are rounded to the compute dtype too, as in JAX.
-    QuantizedTensors stay whole: int8 values and f32 scales."""
+    QuantizedTensors stay whole: int8 values and f32 scales. The MoE
+    router `wg` stays as it is: routing reads it in f32, and a rounded
+    copy would flip near-tied routes."""
     return {
         name: cast_params(v, dtype) if isinstance(v, dict)
-        else v if isinstance(v, QuantizedTensor)
+        else v if isinstance(v, QuantizedTensor) or name == "wg"
         else v.to(dtype) if v.is_floating_point() else v
         for name, v in params.items()
     }

@@ -6,7 +6,8 @@ weight bytes. The scheme is the reference's:
 
 * per-output-channel symmetric int8: for every matmul weight the
   contraction axis is the second-to-last, so the scale is the abs-max
-  over axis -2 divided by 127, kept rank-preserved ([..., 1, d_out]);
+  over axis -2 divided by 127, kept rank-preserved ([..., 1, d_out]; an
+  expert stack [.., E, d_in, d_out] gets one per expert and column);
 * dequantization happens at the matmul site (`weight_cast`): in f32,
   rounded once to the compute dtype. On the card a decode-step product
   goes to `ops.int8_matmul`, whose kernel does that per element while it
@@ -27,7 +28,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..ops.int8_matmul import dequantize, int8_matmul, int8_matmul_group
+from ..ops.int8_matmul import dequantize, int8_matmul, int8_matmul_experts, int8_matmul_group
 
 # Weight names quantized for serving; all contract over axis -2.
 QUANTIZED_WEIGHTS = frozenset(
@@ -106,6 +107,16 @@ def matmul_group(x: torch.Tensor, ws, dtype: torch.dtype) -> list[torch.Tensor]:
     if all(isinstance(w, QuantizedTensor) for w in ws):
         return int8_matmul_group(x, ws, dtype)
     return [matmul(x, w, dtype) for w in ws]
+
+
+def matmul_experts(x: torch.Tensor, w, dtype: torch.dtype) -> torch.Tensor:
+    """Every expert's product: x [E or 1, R, K] (1: shared by all experts)
+    @ weight_cast(w) [E, K, N] -> [E, R, N] in `dtype`. An int8 stack goes
+    to `ops.int8_matmul_experts`: one kernel launch on the card at decode
+    shapes, each expert's slice the bits of a 2-D launch on its weight."""
+    if isinstance(w, QuantizedTensor):
+        return int8_matmul_experts(x, w, dtype)
+    return torch.matmul(x.to(dtype), w.to(dtype))
 
 
 def quantize_params_for_serving(params: dict) -> dict:

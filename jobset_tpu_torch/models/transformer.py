@@ -1,5 +1,5 @@
-"""Flagship decoder-only transformer in PyTorch: the dense single-device
-subset of `jobset_tpu/models/transformer.py`.
+"""Flagship decoder-only transformer in PyTorch: the single-device subset
+of `jobset_tpu/models/transformer.py`, dense or mixture-of-experts.
 
 Parameters are a plain dict that keeps the JAX tree's names and stacked
 `[pp=1, layers, ...]` shapes, so a JAX param tree converts leaf for leaf
@@ -18,8 +18,17 @@ the time-chunked loss (`loss_chunk`), per-layer rematerialization
 accumulation, and an optimizer from `runtime.optim` applied as
 `(p + u).to(p.dtype)`.
 
-Not ported yet: MoE, tp/sp/pp/ep > 1, microbatched pipelines and Ulysses
-attention; `TransformerConfig.validate` rejects them.
+Mixture-of-experts layers (`n_experts > 0`) run every router of the
+reference at ep = 1: soft dispatch, token-choice top-k with a capacity
+buffer or dropless (the experts' products over sorted ragged row
+segments, `ops.grouped_matmul`), and expert choice. The router's product
+is taken in f64 and rounded to f32 (`_router_logits`), so no TF32 setting
+reaches it. The forward computes each layer's balancing statistics as the
+reference does and drops them; MoE training is not ported yet
+(`build_train_step` and `build_eval_step` raise).
+
+Not ported yet: MoE training, tp/sp/pp/ep > 1, microbatched pipelines and
+Ulysses attention; `TransformerConfig.validate` rejects the settings.
 """
 
 from __future__ import annotations
@@ -36,8 +45,9 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 from .. import tree
 from ..device import resolve_device
 from ..ops.flash_block import MAX_HEAD_DIM
+from ..ops.grouped_matmul import grouped_matmul
 from ..parallel.ring_attention import ring_attention
-from .quant import QuantizedTensor, matmul, weight_cast
+from .quant import QuantizedTensor, matmul, matmul_experts, weight_cast
 
 
 @dataclass(frozen=True)
@@ -49,8 +59,19 @@ class TransformerConfig:
     n_kv_heads: int = 0
     d_ff: int = 2048
     n_layers: int = 8
-    # MoE experts; 0 = dense MLP. Only 0 is ported so far.
+    # MoE: 0 experts = dense MLP in every layer.
     n_experts: int = 0
+    d_ff_expert: int = 512
+    # 0 = soft dispatch (every expert on every token, gate-weighted);
+    # k > 0 = token-choice top-k routing.
+    moe_top_k: int = 0
+    moe_capacity_factor: float = 1.25
+    # Token-choice formulation: "capacity" (a static per-expert buffer,
+    # overflow drops) or "dropless" (sorted ragged grouped products).
+    moe_dispatch: str = "capacity"
+    # "token" = token choice; "expert" = expert choice (each expert takes
+    # its top-C tokens; moe_top_k ignored).
+    moe_router: str = "token"
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
     dtype: torch.dtype = torch.bfloat16
@@ -85,8 +106,9 @@ class TransformerConfig:
         return self.n_kv_heads or self.n_heads
 
     def validate(self, mesh_shape: Mapping[str, int] | None = None) -> None:
-        """Reject what the port cannot run: bad widths, and every setting
-        it has not ported (experts, any mesh axis > 1, Ulysses)."""
+        """Reject what the port cannot run: bad widths and MoE settings (the
+        reference's rules at ep = 1), and every setting it has not ported
+        (any mesh axis > 1, Ulysses, pipelines)."""
         for axis, size in (mesh_shape or {}).items():
             if size != 1:
                 raise NotImplementedError(
@@ -104,8 +126,27 @@ class TransformerConfig:
                 f"head_dim {self.head_dim} must be even (rotary) and at most "
                 f"{MAX_HEAD_DIM} (the flash kernel)"
             )
-        if self.n_experts:
-            raise NotImplementedError("n_experts > 0 (MoE) is not ported yet")
+        if self.n_experts < 0:
+            raise ValueError(f"n_experts must be >= 0, got {self.n_experts}")
+        if self.moe_router not in ("token", "expert"):
+            raise ValueError(f"unknown moe_router {self.moe_router!r}")
+        if self.moe_router == "expert" and not self.n_experts:
+            raise ValueError("moe_router='expert' requires n_experts > 0")
+        if self.moe_top_k and not self.n_experts:
+            raise ValueError("moe_top_k requires n_experts > 0")
+        if self.moe_dispatch not in ("capacity", "dropless"):
+            raise ValueError(
+                f"unknown moe_dispatch {self.moe_dispatch!r} (expected 'capacity' or 'dropless')"
+            )
+        if self.moe_dispatch == "dropless" and (self.moe_top_k == 0 or self.moe_router == "expert"):
+            raise ValueError(
+                "moe_dispatch='dropless' applies to token-choice top-k routing only "
+                "(set moe_top_k > 0 and moe_router='token')"
+            )
+        if self.moe_top_k > self.n_experts > 0:
+            raise ValueError(
+                f"MoE routing: moe_top_k {self.moe_top_k} exceeds n_experts {self.n_experts}"
+            )
         if self.attn_impl != "ring":
             raise NotImplementedError(
                 f"attn_impl={self.attn_impl!r}: only 'ring' (sp=1) is ported"
@@ -155,10 +196,20 @@ def param_shapes(config: TransformerConfig) -> dict:
             "wk": ((1, lps, d, cfg.kv_heads * dh), d),
             "wv": ((1, lps, d, cfg.kv_heads * dh), d),
             "wo": ((1, lps, h * dh, d), h * dh),
-            "w1": ((1, lps, d, cfg.d_ff), d),
-            "w2": ((1, lps, cfg.d_ff, d), cfg.d_ff),
         },
     }
+    if cfg.n_experts:
+        e, f = cfg.n_experts, cfg.d_ff_expert
+        shapes["layers"].update({
+            "wg": ((1, lps, d, e), d),
+            "we1": ((1, lps, e, d, f), d),
+            "we2": ((1, lps, e, f, d), f),
+        })
+    else:
+        shapes["layers"].update({
+            "w1": ((1, lps, d, cfg.d_ff), d),
+            "w2": ((1, lps, cfg.d_ff, d), cfg.d_ff),
+        })
     if not cfg.tie_embeddings:
         shapes["unembed"] = ((d, cfg.vocab_size), d)
     return shapes
@@ -263,14 +314,196 @@ def _dense_mlp(p, xn, cfg):
     return matmul(h, p["w2"], compute)
 
 
+# ---------------------------------------------------------------------------
+# Mixture of experts (ep = 1)
+# ---------------------------------------------------------------------------
+
+
+def _router_logits(x, wg):
+    """x [..., d] @ wg [d, E] as an f32 product, taken in f64 and rounded
+    to f32: every f32 product is exact in f64, and no TF32 setting of the
+    process reaches an f64 product (an f32 matmul on the card may run in
+    TF32). No [..., d, E] temporary: the prefill routes 8192 tokens a
+    layer at the flagship."""
+    return (x.double() @ wg.double()).float()
+
+
+def _router_gates(x, wg):
+    """The reference's f32 routing distribution: softmax of the router
+    logits over the experts, [..., E]."""
+    return torch.softmax(_router_logits(x, wg), dim=-1)
+
+
+def _top_k(values, k: int):
+    """(values, indices) of the k largest along the last axis, ties to the
+    lower index first, as `lax.top_k` picks (`torch.topk` promises no order
+    among equal values; a stable descending sort keeps the index order)."""
+    vals, idx = torch.sort(values, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def renormalized_topk(gates, k: int):
+    """Top-k gate pick and sum-renormalization, the routing weights of
+    every token-choice formulation. gates [..., E] f32 -> (top_w, top_i),
+    each [..., k]."""
+    top_w, top_i = _top_k(gates, k)
+    return top_w / torch.clamp(top_w.sum(dim=-1, keepdim=True), min=1e-9), top_i
+
+
+def aux_stat_width(cfg: TransformerConfig) -> int:
+    """Width of a layer's balancing statistics [2, width]: the expert count
+    on the routed path, 1 (a zero placeholder) elsewhere."""
+    return max(cfg.n_experts, 1)
+
+
+def _zero_stats(cfg, device):
+    return torch.zeros((2, aux_stat_width(cfg)), dtype=torch.float32, device=device)
+
+
+def _expert_ffn(p, x, cfg):
+    """Every expert's FFN: x [E or 1, R, d] (1: shared by all) -> [E, R, d]
+    in the compute dtype."""
+    compute = cfg.dtype
+    return matmul_experts(F.silu(matmul_experts(x, p["we1"], compute)), p["we2"], compute)
+
+
+def _all_experts(p, xn, weights, cfg):
+    """Every expert on every token of xn [B, T, d], the outputs weighted by
+    weights [B*T, E] (f32, cast to the compute dtype) and summed."""
+    b, t, d = xn.shape
+    y = _expert_ffn(p, xn.reshape(1, b * t, d), cfg)  # [E, n, d]
+    return torch.einsum("end,ne->nd", y, weights.to(cfg.dtype)).reshape(b, t, d)
+
+
+def _moe_mlp(p, xn, cfg):
+    """Soft dispatch: every expert on every token, gate-weighted."""
+    return _all_experts(p, xn, _router_gates(xn.reshape(-1, xn.shape[-1]), p["wg"]), cfg)
+
+
+def sorted_ragged_expert_ffn(p, x_flat, top_w, top_i, cfg):
+    """The sorted ragged core of the dropless forward and the serving
+    prefill (the reference's `local_experts=None` form, ep = 1).
+
+    x_flat [n, d]; top_w/top_i [n, k]. Each token's k slots are sorted by
+    expert (stable, as `jnp.argsort`), the experts' FFNs run as two grouped
+    products over the contiguous segments (`ops.grouped_matmul`, the hand
+    kernel on the card; the segment sizes stay on the device), and each
+    token's k gate-weighted results are added in f32 in slot order,
+    gathered through the inverse permutation, so two runs give the same
+    bits (an `index_add_` on the card adds in no fixed order). Returns
+    (out [n, d] f32, group_sizes int32 [E])."""
+    k = top_i.shape[-1]
+    n, d = x_flat.shape
+    compute = cfg.dtype
+    expert_of = top_i.reshape(n * k)  # slot order: token-major
+    order = torch.argsort(expert_of, stable=True)
+    # Counted on the device: a bincount on the card reads its length back.
+    group_sizes = torch.zeros(cfg.n_experts, dtype=torch.int32, device=x_flat.device)
+    group_sizes.scatter_add_(0, expert_of, torch.ones_like(expert_of, dtype=torch.int32))
+    xs = x_flat[order // k].to(compute)  # the slots' tokens, by expert
+    h = F.silu(grouped_matmul(xs, weight_cast(p["we1"], compute), group_sizes))
+    y = grouped_matmul(h, weight_cast(p["we2"], compute), group_sizes)
+    inverse = torch.empty_like(order).scatter_(0, order, torch.arange(n * k, device=order.device))
+    parts = (y[inverse].float() * top_w.reshape(n * k, 1)).reshape(n, k, d)
+    out = parts[:, 0]
+    for j in range(1, k):
+        out = out + parts[:, j]
+    return out, group_sizes
+
+
+def _moe_mlp_dropless(p, xn, cfg):
+    """Dropless token-choice top-k (ep = 1): exact routed math through the
+    sorted ragged products, no capacity and no drops. Returns (out, stats
+    [2, E]: choice counts and gate-probability sums)."""
+    b, t, d = xn.shape
+    x = xn.reshape(b * t, d)
+    gates = _router_gates(x, p["wg"])
+    top_w, top_i = renormalized_topk(gates, cfg.moe_top_k)
+    out, group_sizes = sorted_ragged_expert_ffn(p, x, top_w, top_i, cfg)
+    stats = torch.stack([group_sizes.float(), gates.sum(dim=0)])
+    return out.to(cfg.dtype).reshape(b, t, d), stats
+
+
+def _route_prologue(p, xn, cfg):
+    """The routers' head at ep = 1 (the reference's chunk is the whole
+    token set): (tokens [n, d], gates [n, E] f32, n)."""
+    b, t, d = xn.shape
+    x = xn.reshape(b * t, d)
+    return x, _router_gates(x, p["wg"]), b * t
+
+
+def _dispatch_combine_experts(p, chunk, dispatch, combine, cfg):
+    """Pack the tokens into expert-major [E, C, d] slot buffers per
+    `dispatch` [n, E, C], run the experts' FFNs, and weight the results
+    back into token positions per `combine` [n, E, C]. At ep = 1 the
+    reference's all_to_all and all_gather are identities."""
+    compute = cfg.dtype
+    send = torch.einsum("nd,nec->ecd", chunk.to(compute), dispatch.to(compute))
+    y = _expert_ffn(p, send, cfg)
+    return torch.einsum("ecd,nec->nd", y, combine.to(compute))
+
+
+def _moe_mlp_routed(p, xn, cfg):
+    """Token-choice top-k with a static per-expert capacity C (switch
+    style): slot-major positions, so first choices win capacity over
+    second ones; overflow drops. Returns (out, stats [2, E])."""
+    num_experts, k = cfg.n_experts, cfg.moe_top_k
+    b, t, d = xn.shape
+    chunk, gates, n = _route_prologue(p, xn, cfg)
+    top_w, top_i = renormalized_topk(gates, k)
+    choice = F.one_hot(top_i, num_experts).float()  # [n, k, E]
+    stats = torch.stack([choice.sum(dim=(0, 1)), gates.sum(dim=0)])
+    capacity = max(1, math.ceil(k * n / num_experts * cfg.moe_capacity_factor))
+    flat = choice.transpose(0, 1).reshape(k * n, num_experts)
+    pos = torch.cumsum(flat, dim=0) - flat  # [k*n, E]
+    kept = flat * (pos < capacity)
+    # A position past the capacity has no slot (the reference's one_hot
+    # row of zeros); `kept` is 0 there, so the clamped slot never counts.
+    slot = F.one_hot(pos.long().clamp(max=capacity - 1), capacity).float()
+    dispatch = (kept[..., None] * slot).reshape(k, n, num_experts, capacity)
+    combine = (dispatch * top_w.T[..., None, None]).sum(dim=0)
+    out = _dispatch_combine_experts(p, chunk, dispatch.sum(dim=0), combine, cfg)
+    return out.reshape(b, t, d), stats
+
+
+def _moe_mlp_expert_choice(p, xn, cfg):
+    """Expert choice: each expert takes its top-C tokens by gate score
+    (ties to the lower token index). Balanced by construction; no
+    balancing statistics (zeros)."""
+    num_experts = cfg.n_experts
+    b, t, d = xn.shape
+    chunk, gates, n = _route_prologue(p, xn, cfg)
+    capacity = min(n, max(1, math.ceil(n / num_experts * cfg.moe_capacity_factor)))
+    top_w, top_i = _top_k(gates.T, capacity)  # [E, C]
+    dispatch = F.one_hot(top_i, n).float().permute(2, 0, 1)  # [n, E, C]
+    out = _dispatch_combine_experts(p, chunk, dispatch, dispatch * top_w[None], cfg)
+    return out.reshape(b, t, d), _zero_stats(cfg, xn.device)
+
+
+def _mlp(p, xn, cfg):
+    """The layer's feed-forward: (out [B, T, d] in the compute dtype, stats
+    [2, aux_stat_width]), the routed paths' balancing statistics (zeros on
+    the dense and soft-dispatch paths)."""
+    if "wg" not in p:
+        return _dense_mlp(p, xn, cfg), _zero_stats(cfg, xn.device)
+    if cfg.moe_router == "expert":
+        return _moe_mlp_expert_choice(p, xn, cfg)
+    if cfg.moe_top_k > 0:
+        if cfg.moe_dispatch == "dropless":
+            return _moe_mlp_dropless(p, xn, cfg)
+        return _moe_mlp_routed(p, xn, cfg)
+    return _moe_mlp(p, xn, cfg), _zero_stats(cfg, xn.device)
+
+
 def _layer_out(p, x, attn, cfg: TransformerConfig):
     """The output projection of attn [B, T, H, D] onto the residual x,
-    then the MLP on the residual."""
+    then the MLP on the residual. The MoE balancing statistics are
+    dropped: only training (not ported for MoE) reads them."""
     batch, t, heads, dim = attn.shape
     out = matmul(attn.reshape(batch, t, heads * dim), p["wo"], cfg.dtype)
     x = x + out.to(x.dtype)
     xn = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _dense_mlp(p, xn, cfg).to(x.dtype)
+    return x + _mlp(p, xn, cfg)[0].to(x.dtype)
 
 
 def _layer(p, x, cfg: TransformerConfig):
@@ -385,6 +618,14 @@ def _batch_on(batch: dict, device):
     return inputs, targets, mask
 
 
+def _no_moe_training(cfg: TransformerConfig) -> None:
+    if cfg.n_experts:
+        raise NotImplementedError(
+            "MoE training (the balancing aux loss, the grouped products' backward) "
+            "is not ported yet; build_forward and build_generate serve MoE models"
+        )
+
+
 def build_train_step(config: TransformerConfig, optimizer, accum_steps: int = 1, device=None):
     """train_step(params, opt_state, batch) -> (params, opt_state, loss) on
     `device` (the card unless the caller names another). The loss is
@@ -397,6 +638,7 @@ def build_train_step(config: TransformerConfig, optimizer, accum_steps: int = 1,
     arguments as they were."""
     cfg = config
     cfg.validate()
+    _no_moe_training(cfg)
     device = resolve_device(device)
 
     def loss_and_grads(params, inputs, targets, mask):
@@ -437,6 +679,7 @@ def build_eval_step(config: TransformerConfig, device=None):
     smoothing and z-loss are off, so exp(loss) stays a perplexity."""
     cfg = replace(config, label_smoothing=0.0, z_loss_coef=0.0)
     cfg.validate()
+    _no_moe_training(cfg)
     device = resolve_device(device)
 
     @torch.no_grad()

@@ -5,7 +5,9 @@
 //
 // for a few rows of x (M <= 16, the decode batch), int8 q_i [K, N_i] and
 // one f32 scale per output column; T is the compute dtype (bfloat16 or
-// float32). It is what `jobset_tpu/models/quant.py::weight_cast` (`:82-92`)
+// float32). Or, in one launch, the same product for every expert e of an
+// MoE stack, q [E, K, N] with scales [E, 1, N], against x[e] or one x
+// shared by all experts: y[e] = x[e] @ T(q[e] * scale[e]). It is what `jobset_tpu/models/quant.py::weight_cast` (`:82-92`)
 // followed by the step's dot computes on the TPU, where XLA fuses the
 // dequantization into the dot's operand read (no Pallas kernel there).
 //
@@ -76,6 +78,14 @@
 // - Rows of q that are not 16-byte aligned (N not a multiple of 16, or a
 //   misaligned base) are read byte by byte into the same stages (the
 //   `VecQ = false` instantiations); the arithmetic is the same.
+// - An expert stack is one member whose tiles run on: tile t is expert t /
+//   tiles_e's column tile t % tiles_e, so a tile, and the cluster that
+//   takes it, never spans two experts, and each expert's sums are those of
+//   a 2-D launch on its weight (the split is K's). Where each expert has
+//   its own x, a block (or cluster) takes one tile and stages that
+//   expert's x; a shared x is staged once, as for a group. The stack's
+//   code is its own instantiation (`Experts`): a 2-D launch runs none of
+//   it.
 // - No programmatic dependent launch: on the decode path every product
 //   follows a PyTorch kernel, which never triggers early.
 
@@ -126,9 +136,12 @@ struct Member {
 };
 
 struct Params {
-  const void* x;        // [M, K] in T, contiguous
+  const void* x;        // [M, K] in T, contiguous (an expert's, see x_expert)
   Member member[MAX_MEMBERS];
   int members, M, K, ldy;
+  int tiles_e;          // an expert stack's tiles an expert; 0: no expert axis
+  long long x_expert;   // bytes between experts' x (0: shared)
+  long long y_expert;   // bytes between experts' y
   int ranks, rank_rows; // the split, from K alone
   int rank_lanes, ranks_per_warp, cluster;  // where the ranks live
   int tiles;            // 128-column tiles of all members
@@ -251,12 +264,21 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&pair);
 }
 
+template <bool Experts>
 __device__ __forceinline__ Member member_of(const Params& p, int tile) {
   // Selects, not an indexed read: a dynamic index into the parameters
   // would copy them to local memory.
   const bool second = p.members > 1 && tile >= p.member[1].tile0;
   const bool third = p.members > 2 && tile >= p.member[2].tile0;
-  return third ? p.member[2] : second ? p.member[1] : p.member[0];
+  Member m = third ? p.member[2] : second ? p.member[1] : p.member[0];
+  if constexpr (Experts) {  // an expert stack: expert e's weight, scales and y
+    const int e = tile / p.tiles_e;
+    m.q += (size_t)e * p.K * m.n;
+    m.scale += (size_t)e * m.n;
+    m.y = static_cast<char*>(m.y) + e * p.y_expert;
+    m.tile0 = e * p.tiles_e;
+  }
+  return m;
 }
 
 __device__ __forceinline__ void store_out(float* y, size_t at, int valid, float4 s, bool vec) {
@@ -282,8 +304,10 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* y, size_t at, int valid
   }
 }
 
-// The kernel body. MR: 8 or 16 rows of x; VecQ: 16-byte weight rows.
-template <typename T, int MR, bool VecQ>
+// The kernel body. MR: 8 or 16 rows of x; VecQ: 16-byte weight rows;
+// Experts: an expert stack (instantiated apart, so that a 2-D launch runs
+// none of its code).
+template <typename T, int MR, bool VecQ, bool Experts>
 __device__ __forceinline__ void int8_matmul_body(const Params& p) {
   constexpr bool BF16 = sizeof(T) == 2;
   constexpr int E = 16 / sizeof(T);  // values of x in 16 bytes
@@ -318,7 +342,7 @@ __device__ __forceinline__ void int8_matmul_body(const Params& p) {
   // tau / CHUNKS (a warp: whole rows an instruction) and, in a tile's first
   // stage, the scale of column tau. One group a stage, empty past the end.
   int p_left = total, p_slot = 0, p_stage = 0, p_rank = 0, p_tile = cid;
-  Member p_mb = member_of(p, p_tile);
+  Member p_mb = member_of<Experts>(p, p_tile);
   int p_col = (p_tile - p_mb.tile0) * TILE_COLS + 16 * (tau % CHUNKS);
   int p_row = rank0 * p.rank_rows, p_end = min(K, p_row + p.rank_rows);
   const int lr = tau / CHUNKS;
@@ -359,7 +383,7 @@ __device__ __forceinline__ void int8_matmul_body(const Params& p) {
         if (++p_rank == RPW) {
           p_rank = 0;
           p_tile += p.grid_clusters;
-          p_mb = member_of(p, p_tile);
+          p_mb = member_of<Experts>(p, p_tile);
           p_col = (p_tile - p_mb.tile0) * TILE_COLS + 16 * (tau % CHUNKS);
         }
         p_row = (rank0 + p_rank) * p.rank_rows;
@@ -385,7 +409,10 @@ __device__ __forceinline__ void int8_matmul_body(const Params& p) {
   // x rows m < M, values brank * x_rows .. + x_rows of K (zeros from K
   // on), by the whole block, in the first group.
   {
+    // An expert's own x: the block's one tile is that expert's.
     const T* x = static_cast<const T*>(p.x);
+    if constexpr (Experts) x = reinterpret_cast<const T*>(
+        static_cast<const char*>(p.x) + cid / p.tiles_e * p.x_expert);
     const int chunks = x_rows / E, x_row0 = brank * x_rows;
     for (int u = t; u < M * chunks; u += blockDim.x) {
       const int m = u / chunks, e = u - m * chunks, k = x_row0 + e * E;
@@ -533,7 +560,7 @@ __device__ __forceinline__ void int8_matmul_body(const Params& p) {
     // block's share of the outputs, the ranks added in rank order, from 0.
     if (C > 1) mbar_wait(pushed, 0); else __syncthreads();
     const int tile = cid + tile_i * p.grid_clusters;
-    const Member mb = member_of(p, tile);
+    const Member mb = member_of<Experts>(p, tile);
     for (int u = t; u < share; u += blockDim.x) {
       float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
       for (int r0 = 0; r0 < p.ranks; r0 += 8) {
@@ -557,16 +584,16 @@ __device__ __forceinline__ void int8_matmul_body(const Params& p) {
   cp_async_wait<0>();
 }
 
-template <int MR, bool VecQ>
+template <int MR, bool VecQ, bool Experts>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
 int8_matmul_tc_kernel(const __grid_constant__ Params p) {
-  int8_matmul_body<__nv_bfloat16, MR, VecQ>(p);
+  int8_matmul_body<__nv_bfloat16, MR, VecQ, Experts>(p);
 }
 
-template <int MR, bool VecQ>
+template <int MR, bool VecQ, bool Experts>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
 int8_matmul_f32_kernel(const __grid_constant__ Params p) {
-  int8_matmul_body<float, MR, VecQ>(p);
+  int8_matmul_body<float, MR, VecQ, Experts>(p);
 }
 
 int sm_count() {
@@ -581,6 +608,21 @@ int sm_count() {
 }
 
 using Kernel = void (*)(Params);
+
+// The instantiation for a launch: dtype 1 bf16 (tensor cores) else f32;
+// 16 or 8 rows of x; 16-byte weight rows or not.
+template <bool Experts>
+Kernel kernel_for(int dtype, bool rows16, bool vec_q) {
+  if (dtype == 1)
+    return rows16 ? (vec_q ? &int8_matmul_tc_kernel<16, true, Experts>
+                           : &int8_matmul_tc_kernel<16, false, Experts>)
+                  : (vec_q ? &int8_matmul_tc_kernel<8, true, Experts>
+                           : &int8_matmul_tc_kernel<8, false, Experts>);
+  return rows16 ? (vec_q ? &int8_matmul_f32_kernel<16, true, Experts>
+                         : &int8_matmul_f32_kernel<16, false, Experts>)
+                : (vec_q ? &int8_matmul_f32_kernel<8, true, Experts>
+                         : &int8_matmul_f32_kernel<8, false, Experts>);
+}
 
 // Resident blocks an SM for (kernel, device, threads, shared memory),
 // cached: the occupancy query costs host time, and a decode step meets
@@ -641,7 +683,9 @@ int int8_matmul_smem(int dtype, int M, int K, int ranks, int rank_rows, int rank
 
 // dtype: 0 = float32, 1 = bfloat16 (x and y). x [M, K] contiguous; member
 // i (i < members): q_i [K, n_i] int8 contiguous, scale_i [n_i] f32, y_i
-// rows ldy elements apart; ranks and rank_rows the split of K
+// rows ldy elements apart. experts > 1: one member, a stack q [experts, K,
+// n], scale [experts, n], y [experts, M, ldy], against x[e] x_stride
+// elements apart (0: one x for every expert). ranks and rank_rows the split of K
 // (`split_for`); rank_lanes, ranks_per_warp and cluster where the ranks
 // live (`block_for`); all on CUDA device `device`, made current
 // for the launch (and the previous one restored), on `stream`. Returns a
@@ -653,7 +697,7 @@ int int8_matmul_launch(int dtype, const void* x, int M, int K, int ldy, int rank
                        const void* q0, const void* s0, void* y0, int n0,
                        const void* q1, const void* s1, void* y1, int n1,
                        const void* q2, const void* s2, void* y2, int n2,
-                       int device, void* stream) {
+                       int experts, long long x_stride, int device, void* stream) {
   const void* qs[3] = {q0, q1, q2};
   const void* ss[3] = {s0, s1, s2};
   void* ys[3] = {y0, y1, y2};
@@ -662,7 +706,8 @@ int int8_matmul_launch(int dtype, const void* x, int M, int K, int ldy, int rank
       members > MAX_MEMBERS || !pow2(ranks) || ranks > MAX_RANKS || rank_rows < STAGE_ROWS ||
       rank_rows % STAGE_ROWS || (long long)ranks * rank_rows < K || !pow2(rank_lanes) ||
       rank_lanes > MAX_RANK_LANES || ranks_per_warp < 1 || !pow2(cluster) || cluster > MAX_CLUSTER ||
-      cluster * rank_lanes * ranks_per_warp != ranks)
+      cluster * rank_lanes * ranks_per_warp != ranks || experts < 1 ||
+      (experts > 1 && members != 1) || x_stride < 0 || (x_stride && experts == 1))
     return (int)cudaErrorInvalidValue;
   const int size = dtype == 1 ? 2 : 4;
   Params p = {};
@@ -683,9 +728,16 @@ int int8_matmul_launch(int dtype, const void* x, int M, int K, int ldy, int rank
     vec_y = vec_y && reinterpret_cast<uintptr_t>(ys[i]) % (4 * size) == 0;
   }
   if (ldy < width) return (int)cudaErrorInvalidValue;
+  if (experts > 1) {
+    p.tiles_e = tiles;
+    tiles *= experts;
+    p.x_expert = x_stride * size;
+    p.y_expert = (long long)M * ldy * size;
+  }
   p.tiles = tiles;
   p.vec_y = vec_y;
-  p.vec_x = K % (16 / size) == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  p.vec_x = K % (16 / size) == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+            p.x_expert % 16 == 0;
 
   const int threads = LANE_THREADS * rank_lanes;
   const int x_rows = rank_lanes * ranks_per_warp * rank_rows;
@@ -696,22 +748,18 @@ int int8_matmul_launch(int dtype, const void* x, int M, int K, int ldy, int rank
       int8_matmul_smem(dtype, M, K, ranks, rank_rows, rank_lanes, ranks_per_warp, cluster);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   const bool rows16 = M > 8;
-  Kernel kernel;
-  if (dtype == 1)
-    kernel = rows16 ? (vec_q ? &int8_matmul_tc_kernel<16, true> : &int8_matmul_tc_kernel<16, false>)
-                    : (vec_q ? &int8_matmul_tc_kernel<8, true> : &int8_matmul_tc_kernel<8, false>);
-  else
-    kernel = rows16 ? (vec_q ? &int8_matmul_f32_kernel<16, true> : &int8_matmul_f32_kernel<16, false>)
-                    : (vec_q ? &int8_matmul_f32_kernel<8, true> : &int8_matmul_f32_kernel<8, false>);
+  const Kernel kernel = experts > 1 ? kernel_for<true>(dtype, rows16, vec_q)
+                                    : kernel_for<false>(dtype, rows16, vec_q);
 
   int current = device;
   cudaError_t err = cudaGetDevice(&current);
   if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   // Blocks resident at once (G) walk tiles c, c + G, ...; a cluster takes
-  // one tile.
+  // one tile, and so does a block whose expert has its own x.
   const int resident = blocks_per_sm(kernel, device, threads, smem) * sm_count();
-  p.grid_clusters = cluster > 1 || tiles < resident ? tiles : resident < 1 ? 1 : resident;
+  p.grid_clusters = cluster > 1 || tiles < resident || p.x_expert ? tiles
+                    : resident < 1 ? 1 : resident;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
   attr.val.clusterDim.x = cluster;

@@ -10,7 +10,10 @@ path's decode throughput and time to first token (`run_decode_bench`).
 * FLOPs per token are the standard training estimate (PaLM appendix B):
   6 per matmul parameter (forward and backward) plus the causal attention
   score and context products, 12 * L * T * d halved. The embedding lookup
-  is not counted; the vocab projection is, through its parameters.
+  is not counted; the vocab projection is, through its parameters. An MoE
+  model counts its router and every expert; token-choice top-k is
+  credited at activated FLOPs (a token touches its k experts), as the
+  reference counts it.
 * MFU is achieved FLOP/s over the card's peak dense bf16 rate from a table
   keyed on `torch.cuda.get_device_name()`; an unlisted card gives
   mfu_pct None (set BENCH_PEAK_TFLOPS to name a peak).
@@ -54,18 +57,42 @@ def peak_flops_for(device_name: str) -> Optional[float]:
     return None
 
 
+def expert_ffn_params(cfg) -> int:
+    """Matmul parameters of one expert's FFN (both the total count and the
+    activated-FLOPs rule use it)."""
+    return 2 * cfg.d_model * cfg.d_ff_expert
+
+
 def matmul_param_count(cfg) -> int:
     """Parameters that take part in matmuls: per layer wq and wo at full
-    head width, wk and wv at the kv head width, the MLP; plus the vocab
-    projection once. Norm scales are left out."""
+    head width, wk and wv at the kv head width, the MLP (an MoE layer: the
+    router and every expert); plus the vocab projection once. Norm scales
+    are left out."""
     d, dh = cfg.d_model, cfg.head_dim
-    per_layer = 2 * d * cfg.n_heads * dh + 2 * d * cfg.kv_heads * dh + 2 * d * cfg.d_ff
+    per_layer = 2 * d * cfg.n_heads * dh + 2 * d * cfg.kv_heads * dh
+    if cfg.n_experts:
+        per_layer += d * cfg.n_experts + cfg.n_experts * expert_ffn_params(cfg)
+    else:
+        per_layer += 2 * d * cfg.d_ff
     return cfg.n_layers * per_layer + cfg.vocab_size * d
 
 
-def train_flops_per_token(cfg, seq_len: int) -> float:
-    """6 * P_matmul + the causal attention term (PaLM appendix B)."""
-    return 6.0 * matmul_param_count(cfg) + 12 * cfg.n_layers * seq_len * cfg.d_model * 0.5
+def active_param_count(cfg) -> Optional[int]:
+    """Matmul parameters a token touches, where that is not all of them:
+    token-choice top-k routing skips n_experts - k experts a layer. None
+    otherwise (soft dispatch runs every expert; expert choice's compute is
+    set by its capacity)."""
+    if cfg.n_experts and cfg.moe_top_k and cfg.moe_router == "token":
+        inactive = cfg.n_experts - cfg.moe_top_k
+        return matmul_param_count(cfg) - cfg.n_layers * inactive * expert_ffn_params(cfg)
+    return None
+
+
+def train_flops_per_token(cfg, seq_len: int, active_params: Optional[int] = None) -> float:
+    """6 * P_matmul + the causal attention term (PaLM appendix B); an MoE
+    model passes its activated parameters."""
+    p = active_params if active_params is not None else matmul_param_count(cfg)
+    return 6.0 * p + 12 * cfg.n_layers * seq_len * cfg.d_model * 0.5
 
 
 def flagship_config(seq_len: int = 1024, **overrides) -> transformer.TransformerConfig:
@@ -126,7 +153,8 @@ def run_model_bench(steps: int = 20, warmup: int = 3, batch: int = 8, seq_len: i
 
     median_s = statistics.median(step_s)
     tokens_per_sec = batch * seq_len / median_s
-    flops_per_token = train_flops_per_token(cfg, seq_len)
+    active_params = active_param_count(cfg)
+    flops_per_token = train_flops_per_token(cfg, seq_len, active_params)
     achieved = tokens_per_sec * flops_per_token
     kind = torch.cuda.get_device_name(device) if on_card else "cpu"
     peak = peak_flops_for(kind) if on_card else None
@@ -146,6 +174,13 @@ def run_model_bench(steps: int = 20, warmup: int = 3, batch: int = 8, seq_len: i
         "remat_policy": cfg.remat_policy if cfg.remat else None,
         "loss_chunk": cfg.loss_chunk,
         "params_m": round(matmul_param_count(cfg) / 1e6, 1),
+        # An MoE run records its routing (a soft-dispatch or expert-choice
+        # record must not read as a dense run), and top-k its activated count.
+        **({"n_experts": cfg.n_experts, "moe_top_k": cfg.moe_top_k,
+            "d_ff_expert": cfg.d_ff_expert, "moe_router": cfg.moe_router,
+            "moe_dispatch": cfg.moe_dispatch} if cfg.n_experts else {}),
+        **({"active_params_m": round(active_params / 1e6, 1)}
+           if active_params is not None else {}),
         "steps": steps,
         "step_time_ms": 1e3 * sum(step_s) / steps,
         "step_time_ms_median": 1e3 * median_s,
@@ -168,7 +203,8 @@ def run_decode_bench(batch: int = 8, prompt_len: int = 32, max_new_tokens: int =
                      measure_ttft: bool = False, device=None) -> dict:
     """Serving benchmark (the reference's `run_decode_bench`): new tokens/s
     of a greedy `build_generate` call, timed after one warm call, on
-    `device` (the card unless the caller names another).
+    `device` (the card unless the caller names another). `config` may be
+    an MoE model.
 
     quantized: int8 weights (`quantize_params_for_serving`); quantized_kv
     (None: as `quantized`) the int8 KV cache. measure_ttft also times a

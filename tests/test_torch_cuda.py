@@ -5,8 +5,10 @@ kernel launches per train step under each remat setting, the auction
 kernel and the solver surface on the card against the CPU, the control
 plane's device programs (admission scorer, gang-readiness aggregate,
 policy MLP and trainer) against the port's CPU path and plain versions,
-and the serving path's int8 kernel, launch counts, int8 decoding and
-sampling on the card.
+the serving path's int8 kernel, launch counts, int8 decoding and
+sampling on the card, and the MoE path: the grouped expert kernel against
+its plain version, the int8 kernel's expert axis against 2-D launches,
+MoE serving and forward against the CPU, with no host sync.
 
 They skip without a CUDA device. This file imports no JAX, so it also runs
 on a machine that has none: `python -m pytest --noconftest -m cuda
@@ -24,7 +26,7 @@ as stated in their tests. The int8 kernel, per element: bf16
 |got - want| <= 2^-7 |want| + 1e-4 max|want| (one rounding of the output
 to bf16, which two f32 sums in another order may put one ulp apart; an
 ulp is at most 2^-7 of the value), f32 1e-5 max|want| (f32 sums in
-another order).
+another order); the grouped expert kernel the same, for the same reasons.
 """
 
 import numpy as np
@@ -37,6 +39,7 @@ from jobset_tpu_torch import tree
 from jobset_tpu_torch.models import decode, quant, transformer
 from jobset_tpu_torch.ops import auction as auction_ops
 from jobset_tpu_torch.ops import flash_block as fb
+from jobset_tpu_torch.ops import grouped_matmul as gm
 from jobset_tpu_torch.ops import int8_matmul as i8
 from jobset_tpu_torch.placement import solver as S
 from jobset_tpu_torch.runtime import optim
@@ -765,3 +768,163 @@ def test_sampling_on_card_top_k_one_is_greedy_and_ties_give_exactly_k(cuda):
         gen = torch.Generator(device=cuda).manual_seed(seed)
         seen.update(decode._pick_token(logits, gen, 1.3, 2).tolist())
     assert seen == {0, 1}
+
+
+# --- MoE: the grouped expert kernel, the int8 expert axis, serving ----------
+
+
+def _group_sizes(routing, m, experts):
+    """Group sizes [E] for a routing case (the last two leave rows past the
+    groups, which the kernel writes as zeros)."""
+    if routing == "balanced":
+        sizes = [m // experts] * experts
+        sizes[-1] += m - sum(sizes)
+    elif routing == "skewed":
+        sizes = [0] * experts
+        sizes[experts // 2] = m
+    elif routing == "empty":
+        sizes = [0] * experts
+        sizes[0], sizes[-1] = m // 3, m - m // 3
+    elif routing == "ragged":
+        rng = np.random.default_rng(m)
+        cuts = np.sort(rng.integers(0, m + 1, experts - 1))
+        sizes = list(np.diff(np.concatenate([[0], cuts, [m]])))
+        sizes[1] = 0
+        sizes = [int(v) for v in sizes]
+        sizes[-1] -= min(sizes[-1], 5)
+    else:  # "none": no row routed
+        sizes = [0] * experts
+    return torch.tensor(sizes, dtype=torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("routing", ["balanced", "skewed", "empty", "ragged", "none"])
+@pytest.mark.parametrize("m,k,n,experts", [(1000, 256, 512, 8), (333, 64, 136, 4),
+                                           (130, 37, 19, 3), (1, 16, 16, 2), (2048, 128, 128, 40)])
+def test_grouped_kernel_matches_plain_version(cuda, dtype, routing, m, k, n, experts):
+    gen = torch.Generator().manual_seed(m + k + n)
+    xs = torch.randn(m, k, generator=gen).to(cuda, dtype)
+    w = (torch.randn(experts, k, n, generator=gen) / k ** 0.5).to(cuda, dtype)
+    sizes = _group_sizes(routing, m, experts).to(cuda)
+    before = gm.GROUPED_LAUNCHES
+    got = gm.grouped_matmul(xs, w, sizes)
+    again = gm.grouped_matmul(xs, w, sizes)
+    torch.cuda.synchronize()
+    assert gm.GROUPED_LAUNCHES == before + 2
+    assert got.dtype == dtype and got.shape == (m, n)
+    assert torch.equal(got, again)  # one thread's chain an output: the same bits
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        want = gm.grouped_matmul_plain(xs, w, sizes)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+    assert _int8_within(got, want, dtype)
+    assert torch.all(got[int(sizes.sum()):] == 0)
+
+
+@pytest.mark.cuda
+def test_grouped_kernel_reports_the_wrappers_layout_and_rejects_bad_operands(cuda):
+    assert gm.kernel_layout() == gm.layout()
+    xs = torch.randn(8, 16, device=cuda)
+    w = torch.randn(2, 16, 8, device=cuda)
+    sizes = torch.tensor([3, 5], dtype=torch.int32, device=cuda)
+    for bad in ((xs.half(), w.half(), sizes), (xs, w, sizes.long()), (xs, w[:, :15], sizes),
+                (xs, w.cpu(), sizes), (xs, w, sizes[:1])):
+        with pytest.raises(ValueError, match="the kernel takes"):
+            gm.grouped_matmul(*bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shared", [True, False], ids=["shared_x", "expert_x"])
+@pytest.mark.parametrize("rows,k,n,experts", [(8, 1024, 4096, 8), (8, 4096, 1024, 8),
+                                              (1, 256, 96, 3), (16, 300, 17, 5)])
+def test_int8_expert_launch_equals_2d_launches_bit_for_bit(cuda, dtype, shared, rows, k, n,
+                                                           experts):
+    gen = torch.Generator().manual_seed(rows + k + n)
+    qt = quant.quantize_int8(torch.randn(experts, k, n, generator=gen) / k ** 0.5).to(cuda)
+    x = torch.randn(1 if shared else experts, rows, k, generator=gen).to(cuda, dtype)
+    before = i8.INT8_LAUNCHES
+    got = i8.int8_matmul_experts(x, qt, dtype)
+    assert i8.INT8_LAUNCHES == before + 1
+    assert got.shape == (experts, rows, n) and got.dtype == dtype
+    for e in range(experts):
+        one = quant.QuantizedTensor(qt.q[e].contiguous(), qt.scale[e].contiguous())
+        assert torch.equal(got[e], i8.int8_matmul(x[0 if shared else e], one, dtype))
+    assert _int8_within(got, i8.int8_matmul_experts_plain(x, qt, dtype), dtype)
+
+
+def _moe_small(**kw):
+    return transformer.TransformerConfig(vocab_size=128, d_model=64, n_heads=4, n_kv_heads=2,
+                                         n_layers=2, n_experts=4, d_ff_expert=96, moe_top_k=2,
+                                         moe_dispatch="dropless", dtype=torch.float32, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized,quantized_kv", [(False, False), (True, False), (True, True)],
+                         ids=["f32", "int8", "int8_both"])
+def test_moe_generate_on_card_matches_cpu_at_f32(cuda, quantized, quantized_kv):
+    cfg = _moe_small()
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    if quantized:
+        params = quant.quantize_params_for_serving(params)
+    prompt = torch.randint(0, 128, (2, 40), generator=torch.Generator().manual_seed(1))
+    flags = dict(quantized=quantized, quantized_kv=quantized_kv)
+    want = decode.build_generate(cfg, 6, "cpu", **flags)(params, prompt)
+    grouped, int8 = gm.GROUPED_LAUNCHES, i8.INT8_LAUNCHES
+    got = decode.build_generate(cfg, 6, **flags)(tree.tree_map(lambda t: t.to(cuda), params),
+                                                 prompt)
+    # The prefill: two grouped products a layer. Each decode step with int8
+    # weights: Q/K/V, O and the two expert stacks a layer, the unembedding.
+    assert gm.GROUPED_LAUNCHES - grouped == 2 * cfg.n_layers
+    assert i8.INT8_LAUNCHES - int8 == (1 + 5 * (4 * cfg.n_layers + 1) if quantized else 0)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_moe_forward_on_card_matches_cpu_at_f32(cuda):
+    cfg = _moe_small()
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(2), "cpu")
+    tokens = torch.randint(0, 128, (2, 70), generator=torch.Generator().manual_seed(3))
+    want = transformer.build_forward(cfg, "cpu")(params, tokens)
+    before = gm.GROUPED_LAUNCHES
+    got = transformer.build_forward(cfg)(tree.tree_map(lambda t: t.to(cuda), params), tokens)
+    assert gm.GROUPED_LAUNCHES - before == 2 * cfg.n_layers
+    assert _within(got.cpu(), want, 1e-4, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_moe_layers_make_no_host_sync(cuda, dtype):
+    cfg = _moe_small(max_seq_len=64)
+    cfg = replace(cfg, dtype=dtype)
+    params = decode.cast_params(tree.tree_map(
+        lambda t: t.to(cuda), transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                                      "cpu")), dtype)
+    layer = transformer.layer_params(params, 0)
+    x = torch.randn(2, 40, 64, generator=torch.Generator().manual_seed(4)).to(cuda, dtype)
+    cache = decode.init_kv_cache(cfg, 2, 48, cuda)
+    with torch.no_grad():
+        decode._prefill_layer(layer, x, cache["k"][0], cache["v"][0], cfg)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            decode._prefill_layer(layer, x, cache["k"][0], cache["v"][0], cfg)
+            decode._decode_layer(layer, x[:, :1], cache["k"][0], cache["v"][0], 40, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_moe_router_ignores_tf32(cuda):
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn(512, 1024, generator=gen).to(cuda)
+    wg = torch.randn(1024, 8, generator=gen).to(cuda)
+    torch.backends.cuda.matmul.allow_tf32 = True  # the fixture restores it
+    got = transformer._router_logits(x, wg)
+    exact = (x.double() @ wg.double()).float()
+    assert torch.equal(got, exact)
+    assert not torch.equal(x @ wg, exact)  # an f32 matmul here would run in TF32

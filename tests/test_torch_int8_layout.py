@@ -256,6 +256,10 @@ def test_flagship_schedule():
     assert i8.block_for(32, [1024], 132) == (2, 2, 8)  # w2 [4096, 1024]
     assert i8.block_for(8, [32000], 132) == (2, 4, 1)  # the unembedding
     assert i8.block_for(64, [1024], 132) == (2, 4, 8)  # K = 8192
+    # An MoE layer's expert stacks (8 experts): we1 [8, 1024, 4096] in
+    # whole tiles, we2 [8, 4096, 1024] over clusters of 4, 4 ranks a warp.
+    assert i8.block_for(8, [4096] * 8, 132) == (2, 4, 1)
+    assert i8.block_for(32, [1024] * 8, 132) == (2, 4, 4)
 
 
 def _operands(rows, k_dim, ns, dtype, seed=0, lead=()):

@@ -115,7 +115,7 @@ def test_entry_config_matches_jax_entry():
 
 
 @pytest.mark.parametrize("bad, match", [
-    (dict(n_experts=4), "MoE"),
+    (dict(n_experts=4, moe_top_k=8), "MoE"),
     (dict(attn_impl="ulysses"), "ring"),
     (dict(n_heads=3), "divide"),
     (dict(d_model=512, n_heads=2), "head_dim"),
