@@ -127,25 +127,32 @@ non-zero before the result line:
  12. mixture-of-experts serving and forward, in a process of its own
      (`--moe-only`), on the MoE flagship (the flagship with 8 experts of
      d_ff_expert 4096, token-choice top 2, dropless): the grouped expert
-     kernel (`ops/csrc/grouped_matmul.cu`) against its plain version at
+     kernels (`ops/csrc/grouped_matmul.cu`) against their plain version at
      the prefill's two products ([16384, 1024] x [8, 1024, 4096] and
-     [16384, 4096] x [8, 4096, 1024]) with balanced, skewed and
-     empty-group routings, bf16 and f32, two launches equal bit for bit;
-     its L2-cold times beside the bound, the plain version, a torch.matmul
-     a group and torch._grouped_mm (`library_ms`, where it runs); the int8
+     [16384, 4096] x [8, 4096, 1024]) with balanced, skewed, empty-group
+     and mid-tile boundary routings, bf16 (the TMA/wgmma kernel) and f32
+     (3xTF32), each launch counted on its variant, two launches equal bit
+     for bit; the grouped library's ptxas registers and spills and its
+     SASS (HGMMA and UTMALDG in the TMA kernel, HMMA in the others); their
+     L2-cold times beside the bound, the plain version, a torch.matmul a
+     group and torch._grouped_mm (`library_ms`, where it runs)
+     (`--grouped-baseline DIR` also times that checkout's grouped kernel
+     on the same inputs); the int8
      kernel's expert axis at the decode step's two stacks against each
      expert's 2-D launch bit for bit, and its times; the dropless forward
      at B=8, T=1024 (16 grouped launches, two runs the same bits) and the
      generate prefill, each layer against the plain grouped products on
      the same input; `generate` (prompt 1024, 32 new) and a TTFT call for
      `decode`, `decode_int8` and `decode_int8_kv`, counts set to 0 just
-     before each: 16 grouped launches each, int8 1024 and 1, flash 24; a
+     before each: 16 grouped launches each, all on the TMA/wgmma kernel,
+     int8 1024 and 1, flash 24; a
      prefill and a decode layer under `set_sync_debug_mode("error")`,
      bf16 and int8; a torch.profiler trace of a TTFT call and a decode
      step, bf16 and int8; `run_decode_bench` for the three points (two
      runs each); a small f32 MoE config's tokens on the card equal to the
      CPU's, plain and with int8 weights, cache and both (its f32 generate
      counts the f32 grouped kernel's launches, its `kernels` entry);
+     the dropless forward's 16 launches also all on the TMA kernel;
  13. one `kernels` JSON line, then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -309,10 +316,12 @@ def check_launches(path, expected, passes):
     return counts
 
 
-def tensor_core_sass(library) -> dict:
-    """Count the tensor-core instructions (HGMMA: wgmma, HMMA: mma.sync) in
-    each kernel of a built library's SASS; the bf16 block kernel must have
-    HGMMA, the f32 one HMMA."""
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG")
+
+
+def sass_counts(library) -> dict:
+    """Count the tensor-core instructions (HGMMA: wgmma, HMMA: mma.sync) and
+    the TMA loads (UTMALDG) in each kernel of a built library's SASS."""
     from jobset_tpu_torch.ops import cuda_build
 
     cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
@@ -322,18 +331,40 @@ def tensor_core_sass(library) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            counts[name] = {"HGMMA": 0, "HMMA": 0}
+            counts[name] = dict.fromkeys(SASS_OPS, 0)
         elif name is not None:
-            for op in ("HGMMA", "HMMA"):
-                counts[name][op] += f" {op}." in line
+            for op in SASS_OPS:
+                counts[name][op] += f" {op}." in line or f" {op} " in line
     for name, c in counts.items():
-        print(f"  sass {name}: HGMMA {c['HGMMA']}, HMMA {c['HMMA']}", flush=True)
+        print(f"  sass {name}: " + ", ".join(f"{op} {c[op]}" for op in SASS_OPS), flush=True)
+    return counts
+
+
+def tensor_core_sass(library) -> dict:
+    """The flash block library's SASS: the bf16 block kernel must have
+    HGMMA, the f32 one HMMA."""
+    counts = sass_counts(library)
     tc = {n: c for n, c in counts.items() if "flash_block_tc_kernel" in n}
     check(bool(tc) and all(c["HGMMA"] > 0 for c in tc.values()),
           f"sass: every bf16 tensor-core kernel instantiation has HGMMA ({len(tc)} found)")
     f32 = {n: c for n, c in counts.items() if "flash_block_f32_kernel" in n}
     check(bool(f32) and all(c["HMMA"] > 0 for c in f32.values()),
           f"sass: every f32 block kernel instantiation has HMMA ({len(f32)} found)")
+    return counts
+
+
+def grouped_sass(library) -> dict:
+    """The grouped library's SASS: the TMA kernel loads by TMA (UTMALDG)
+    into wgmma (HGMMA); the f32 and the other bf16 kernel run mma.sync
+    (HMMA)."""
+    counts = sass_counts(library)
+    tma = {n: c for n, c in counts.items() if "grouped_mm_tma_kernel" in n}
+    check(len(tma) == 1 and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in tma.values()),
+          f"sass: the grouped TMA kernel has HGMMA and UTMALDG ({tma})")
+    mma = {n: c for n, c in counts.items()
+           if "grouped_mm_f32_kernel" in n or "grouped_mm_bf16_kernel" in n}
+    check(len(mma) == 3 and all(c["HMMA"] > 0 for c in mma.values()),
+          f"sass: the grouped f32 and mma.sync kernels have HMMA ({len(mma)} found)")
     return counts
 
 
@@ -2045,23 +2076,25 @@ def int8_bound_ms(rows, k, n, dtype=torch.bfloat16) -> float:
     return 1e3 * (k * n + 4 * n + size * rows * (k + n)) / HBM_BYTES_PER_S
 
 
-def load_int8_baseline(root):
-    """The int8 wrapper of another checkout of this repo (its `ops` package
+def load_baseline(root, module):
+    """A wrapper module of another checkout of this repo (its `ops` package
     loaded under another name, its kernel built from its own source), to
     time its kernel beside this one's on the same inputs."""
     import importlib.util
     import types
 
     ops = os.path.join(os.path.abspath(root), "jobset_tpu_torch", "ops")
-    package = types.ModuleType("int8_baseline")
-    package.__path__ = [ops]
-    sys.modules["int8_baseline"] = package
-    spec = importlib.util.spec_from_file_location("int8_baseline.int8_matmul",
-                                                  os.path.join(ops, "int8_matmul.py"))
-    module = importlib.util.module_from_spec(spec)
-    sys.modules[spec.name] = module
-    spec.loader.exec_module(module)
-    return module
+    package = sys.modules.get("baseline_ops")
+    if package is None:
+        package = types.ModuleType("baseline_ops")
+        package.__path__ = [ops]
+        sys.modules["baseline_ops"] = package
+    spec = importlib.util.spec_from_file_location(f"baseline_ops.{module}",
+                                                  os.path.join(ops, f"{module}.py"))
+    loaded = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = loaded
+    spec.loader.exec_module(loaded)
+    return loaded
 
 
 def time_int8(rows, k, ns, dtype, baseline=None) -> dict:
@@ -2143,21 +2176,24 @@ def int8_host_us(calls=200, repeats=5) -> dict:
 def kernel_ptxas(log: str, kernels: str, no_spills_of: str | None = None) -> dict:
     """Registers and spill bytes of each instantiation of the kernels that
     the regex `kernels` names in an `nvcc -Xptxas -v` log, printed one a
-    line with its template arguments. Given `no_spills_of` (what the
-    kernels are, for the check's line), a spill fails."""
+    line with its template arguments (if any). Given `no_spills_of` (what
+    the kernels are, for the check's line), a spill fails."""
     import re
 
     out, name = {}, None
     for line in log.splitlines():
         if m := re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line):
-            found = re.search(rf"({kernels})I((?:L[ib]\d+E)+)E", m.group(1))
-            if found:
+            found = re.search(rf"({kernels})(?:I((?:L[ib]\d+E)+)E|E)", m.group(1))
+            if found and found.group(2):
                 args = [v if kind == "i" else "true" if v == "1" else "false"
                         for kind, v in re.findall(r"L([ib])(\d+)E", found.group(2))]
                 name = f"{found.group(1)}<{', '.join(args)}>"
-                out.setdefault(name, {})
+            elif found:
+                name = found.group(1)
             else:
                 name = None
+            if name:
+                out.setdefault(name, {})
         elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
             out[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
         elif name and (m := re.search(r"Used (\d+) registers", line)):
@@ -2275,7 +2311,7 @@ def phase_serving(results, baseline=None):
     from jobset_tpu_torch.ops import int8_matmul as i8
     from jobset_tpu_torch.runtime.model_bench import run_decode_bench
 
-    serving_kernel_checks(results, load_int8_baseline(baseline) if baseline else None)
+    serving_kernel_checks(results, load_baseline(baseline, "int8_matmul") if baseline else None)
     card = results["card"]
     cfg = flagship_config()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
@@ -2463,6 +2499,9 @@ MOE_GROUPED_LAUNCHES = 2 * LAYERS
 # The two products of a prefill layer: (K, N) of xs [slots, K] @ w [E, K, N].
 MOE_PRODUCTS = {"we1": (1024, MOE_D_FF), "we2": (MOE_D_FF, 1024)}
 MOE_ROUTINGS = ("balanced", "skewed", "empty")
+# Checked, not timed: groups ending inside a row tile beside a full group,
+# where a store of whole tiles would overwrite the neighbour's rows.
+MOE_CHECK_ROUTINGS = MOE_ROUTINGS + ("boundary",)
 # The MoE path against its plain path is checked a layer at a time: each
 # layer of the kernel path's run again on the same input with the grouped
 # products plain (the attention kernel in both, so the router sees the
@@ -2507,6 +2546,10 @@ def moe_group_sizes(routing, rows=MOE_SLOTS, experts=MOE_EXPERTS):
         sizes = [rows // experts] * experts
     elif routing == "skewed":  # one expert takes every slot
         sizes[3] = rows
+    elif routing == "boundary":  # every group but the last ends inside a row tile
+        ends = [rows // experts * (e + 1) + (64, 100, 1, 127, 33, 90, 5)[e % 7]
+                for e in range(experts - 1)] + [rows]
+        sizes = [end - start for start, end in zip([0] + ends, ends)]
     else:  # "empty": three experts take every slot, unevenly, five get none
         sizes[0], sizes[4], sizes[7] = rows // 2, rows // 4, rows - rows // 2 - rows // 4
     return torch.tensor(sizes, dtype=torch.int32, device="cuda")
@@ -2520,12 +2563,31 @@ def grouped_operands(dtype, k, n, gen, rows=MOE_SLOTS):
 
 def grouped_bound_ms(rows, k, n, dtype) -> tuple[float, str]:
     """Each input read once and the output written once at HBM rate, or the
-    products (2 rows k n, every row routed once) at the dtype's peak (bf16
-    tensor cores; f32 on the FMA pipes): the larger."""
+    products (2 rows k n, every row routed once) as the kernel does them
+    (`PRODUCT_RATE`: bf16 on the tensor cores; f32 as three TF32 products
+    on them): the larger."""
     size = torch.tensor([], dtype=dtype).element_size()
     t_bytes = size * (rows * k + MOE_EXPERTS * k * n + rows * n) / HBM_BYTES_PER_S
-    t_ops = 2 * rows * k * n / (BF16_FLOPS if dtype == torch.bfloat16 else F32_FMA_FLOPS)
+    peak, passes = PRODUCT_RATE[dtype]
+    t_ops = passes * 2 * rows * k * n / peak
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def grouped_fma_bound_ms(rows, k, n) -> float:
+    """The f32 products on the FMA pipes instead (true f32, as the plain
+    version and torch._grouped_mm do them)."""
+    return 1e3 * 2 * rows * k * n / F32_FMA_FLOPS
+
+
+# The variant each dtype launches at the prefill's products, and the
+# counters (all, TMA, f32) one launch of it steps.
+GROUPED_VARIANT = {torch.bfloat16: ("tma", (1, 1, 0)), torch.float32: ("f32", (1, 0, 1))}
+
+
+def grouped_counts() -> tuple:
+    from jobset_tpu_torch.ops import grouped_matmul as gm
+
+    return gm.GROUPED_LAUNCHES, gm.GROUPED_TMA_LAUNCHES, gm.GROUPED_F32_LAUNCHES
 
 
 def grouped_case(name, dtype, k, n, routing, seed):
@@ -2536,9 +2598,9 @@ def grouped_case(name, dtype, k, n, routing, seed):
 
     xs, w = grouped_operands(dtype, k, n, torch.Generator(device="cuda").manual_seed(seed))
     sizes = moe_group_sizes(routing)
-    before = gm.GROUPED_LAUNCHES
+    before = grouped_counts()
     got = gm.grouped_matmul(xs, w, sizes)
-    launched = gm.GROUPED_LAUNCHES - before
+    launched = tuple(a - b for a, b in zip(grouped_counts(), before))
     again = gm.grouped_matmul(xs, w, sizes)
     torch.cuda.synchronize()
     with f32_accumulating_plain():
@@ -2548,9 +2610,11 @@ def grouped_case(name, dtype, k, n, routing, seed):
     if dtype == torch.bfloat16:
         limit = INT8_REL_BF16 * want.float().abs() + limit
     worst = err.max().item()
-    check(launched == 1 and got.dtype == dtype and tuple(got.shape) == (MOE_SLOTS, n)
+    kind, step = GROUPED_VARIANT[dtype]
+    check(launched == step and got.dtype == dtype and tuple(got.shape) == (MOE_SLOTS, n)
           and bool(torch.isfinite(got.float()).all()),
-          f"grouped_matmul {name}: one launch, {dtype} [{MOE_SLOTS}, {n}], finite")
+          f"grouped_matmul {name}: one launch, of the {kind} kernel, {dtype} [{MOE_SLOTS}, {n}], "
+          "finite")
     check(bool((err <= limit).all()), f"grouped_matmul {name}: within tolerance (max|d| {worst:.3e})")
     check(torch.equal(got, again), f"grouped_matmul {name}: two launches equal bit for bit")
     return worst
@@ -2578,12 +2642,13 @@ def grouped_mm_library(xs, w, sizes):
     return None, "; ".join(errors)
 
 
-def time_grouped(dtype, k, n, routing="balanced") -> dict:
+def time_grouped(dtype, k, n, routing="balanced", baseline=None) -> dict:
     """L2-cold times at one product of a prefill layer (two input sets of 96
     MB or more alternate): the kernel; the plain version (which reads the
     sizes on the host); a torch.matmul a group with the sizes known on the
     host beforehand (no read-back timed); torch._grouped_mm where it runs
-    (`library_ms`)."""
+    (`library_ms`); with a baseline wrapper, its kernel on the same inputs
+    (`parent_ms`), kernel and parent in turns."""
     from jobset_tpu_torch.ops import grouped_matmul as gm
 
     gen = torch.Generator(device="cuda").manual_seed(k + n)
@@ -2607,6 +2672,14 @@ def time_grouped(dtype, k, n, routing="balanced") -> dict:
         "plain_ms": rotating_ms(lambda i: gm.grouped_matmul_plain(*sets[i], sizes), 2, ITERS // 4),
         "loop_ms": rotating_ms(loop, 2, ITERS),
     }
+    if baseline is not None:
+        parent = [rotating_ms(lambda i: baseline.grouped_matmul(*sets[i], sizes), 2, ITERS)]
+        times["ms_runs"] = [times["ms"], rotating_ms(lambda i: gm.grouped_matmul(*sets[i], sizes),
+                                                     2, ITERS)]
+        parent.append(rotating_ms(lambda i: baseline.grouped_matmul(*sets[i], sizes), 2, ITERS))
+        times["parent_ms_runs"] = parent
+        times["parent_ms"] = min(parent)
+        times["ms"] = min(times["ms_runs"])
     library, why = grouped_mm_library(*sets[0], sizes)
     if library is not None:
         lib_sets = [grouped_mm_library(*s, sizes)[0] for s in sets]
@@ -2615,6 +2688,8 @@ def time_grouped(dtype, k, n, routing="balanced") -> dict:
         times["library_ms"] = None
         times["library_missing"] = why
     times["bound_ms"], times["bound_by"] = grouped_bound_ms(MOE_SLOTS, k, n, dtype)
+    if dtype == torch.float32:
+        times["bound_fma_ms"] = grouped_fma_bound_ms(MOE_SLOTS, k, n)
     del sets, out
     torch.cuda.empty_cache()
     return times
@@ -2689,10 +2764,11 @@ def time_int8_experts(dtype, k, n, shared) -> dict:
     return out
 
 
-def moe_kernel_checks(results):
-    """Phase 12a: the grouped kernel at the prefill's two products (three
-    routings, bf16 and f32) and the int8 kernel's expert axis at the decode
-    step's two stacks; their L2-cold times."""
+def moe_kernel_checks(results, baseline=None):
+    """Phase 12a: the grouped kernel at the prefill's two products (four
+    routings checked, three timed; bf16 and f32) and the int8 kernel's
+    expert axis at the decode step's two stacks; their L2-cold times (and
+    the baseline wrapper's grouped kernel beside them, given one)."""
     from jobset_tpu_torch.ops import grouped_matmul as gm
 
     card = results["card"]
@@ -2702,7 +2778,7 @@ def moe_kernel_checks(results):
     for dtype in (torch.bfloat16, torch.float32):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
         for label, (k, n) in MOE_PRODUCTS.items():
-            for routing in MOE_ROUTINGS:
+            for routing in MOE_CHECK_ROUTINGS:
                 errs[f"{tag} {label} {routing}"] = grouped_case(
                     f"{tag} {label} [{MOE_SLOTS},{k}]x[{MOE_EXPERTS},{k},{n}] {routing}", dtype,
                     k, n, routing, seed)
@@ -2713,15 +2789,20 @@ def moe_kernel_checks(results):
         for label, (k, n) in MOE_PRODUCTS.items():
             routings = MOE_ROUTINGS if dtype == torch.bfloat16 else ("balanced",)
             for routing in routings:
-                t = time_grouped(dtype, k, n, routing)
+                t = time_grouped(dtype, k, n, routing, baseline)
                 times[f"{tag} {label} {routing}"] = t
                 lib = (f"{t['library_ms']:.4f} ms" if t["library_ms"] is not None
                        else f"none ({t['library_missing']})")
+                parent = (f", parent kernel {t['parent_ms']:.4f} ms (runs {t['parent_ms_runs']}, "
+                          f"kernel runs {t['ms_runs']})" if baseline is not None else "")
+                fma = (f", FMA-pipe bound {t['bound_fma_ms']:.4f} ms" if "bound_fma_ms" in t
+                       else "")
                 print(f"grouped_matmul {tag} {label} [{MOE_SLOTS},{k}]x[{MOE_EXPERTS},{k},{n}] "
-                      f"{routing}, L2-cold: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-                      f"torch.matmul a group {t['loop_ms']:.4f} ms, library_ms (torch._grouped_mm) "
-                      f"{lib}, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
-                      f"{t['bound_ms'] / t['ms']:.1%} of bound ({card})", flush=True)
+                      f"{routing}, L2-cold: kernel {t['ms']:.4f} ms{parent}, plain "
+                      f"{t['plain_ms']:.4f} ms, torch.matmul a group {t['loop_ms']:.4f} ms, "
+                      f"library_ms (torch._grouped_mm) {lib}, bound {t['bound_ms']:.4f} ms "
+                      f"({t['bound_by']}){fma}, {t['bound_ms'] / t['ms']:.1%} of bound ({card})",
+                      flush=True)
     int8_errs, int8_times = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
@@ -2745,7 +2826,9 @@ def moe_launches_now() -> dict:
     from jobset_tpu_torch.ops import grouped_matmul as gm
     from jobset_tpu_torch.ops import int8_matmul as i8
 
-    return {"GROUPED_LAUNCHES": gm.GROUPED_LAUNCHES, "INT8_LAUNCHES": i8.INT8_LAUNCHES,
+    return {"GROUPED_LAUNCHES": gm.GROUPED_LAUNCHES,
+            "GROUPED_TMA_LAUNCHES": gm.GROUPED_TMA_LAUNCHES,
+            "GROUPED_F32_LAUNCHES": gm.GROUPED_F32_LAUNCHES, "INT8_LAUNCHES": i8.INT8_LAUNCHES,
             **launches_now()}
 
 
@@ -2754,7 +2837,7 @@ def reset_moe_launches():
     from jobset_tpu_torch.ops import int8_matmul as i8
 
     reset_launches()
-    gm.GROUPED_LAUNCHES = 0
+    gm.GROUPED_LAUNCHES = gm.GROUPED_TMA_LAUNCHES = gm.GROUPED_F32_LAUNCHES = 0
     i8.INT8_LAUNCHES = 0
 
 
@@ -2824,15 +2907,16 @@ def moe_no_sync(cfg, params, label):
               f"(set_sync_debug_mode error){' - ' + why if why else ''}")
 
 
-def phase_moe(results):
+def phase_moe(results, baseline=None):
     """Phase 12: mixture-of-experts serving and the dropless forward at the
-    flagship's width and depth."""
+    flagship's width and depth. `baseline`: another checkout, whose grouped
+    kernel phase 12a times beside this one's."""
     from jobset_tpu_torch.models import (build_forward, build_generate, init_params,
                                          quantize_params_for_serving)
     from jobset_tpu_torch.runtime.model_bench import run_decode_bench
 
     card = results["card"]
-    moe_kernel_checks(results)
+    moe_kernel_checks(results, load_baseline(baseline, "grouped_matmul") if baseline else None)
     cfg = moe_config()
     cfg.validate()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
@@ -2850,10 +2934,10 @@ def phase_moe(results):
     logits, secs = wall_s(lambda: forward(params, prompt))
     counts = moe_launches_now()
     results["moe_forward_launches"] = counts
-    check(counts["GROUPED_LAUNCHES"] == MOE_GROUPED_LAUNCHES
+    check(counts["GROUPED_LAUNCHES"] == counts["GROUPED_TMA_LAUNCHES"] == MOE_GROUPED_LAUNCHES
           and counts["TENSOR_CORE_LAUNCHES"] == FORWARD_LAUNCHES,
-          f"MoE forward: launches {counts} (expected {MOE_GROUPED_LAUNCHES} grouped, "
-          f"{FORWARD_LAUNCHES} flash)")
+          f"MoE forward: launches {counts} (expected {MOE_GROUPED_LAUNCHES} grouped, all on the "
+          f"TMA/wgmma kernel, {FORWARD_LAUNCHES} flash)")
     again = forward(params, prompt)
     check(torch.equal(logits, again), "MoE forward: two runs give the same bits")
     del again
@@ -2891,11 +2975,13 @@ def phase_moe(results):
             counts = moe_launches_now()
             launches[f"{point} {call}"], walls[f"{point} {call}"] = counts, secs
             want = want_int8 if quantized else 0
-            check(counts["GROUPED_LAUNCHES"] == MOE_GROUPED_LAUNCHES
+            check(counts["GROUPED_LAUNCHES"] == counts["GROUPED_TMA_LAUNCHES"]
+                  == MOE_GROUPED_LAUNCHES
                   and counts["INT8_LAUNCHES"] == want
                   and counts["TENSOR_CORE_LAUNCHES"] == GENERATE_LAUNCHES,
                   f"MoE {point} {call}: launches {counts} (expected {MOE_GROUPED_LAUNCHES} "
-                  f"grouped, {want} int8, {GENERATE_LAUNCHES} flash) ({secs:.4f} s wall)")
+                  f"grouped, all on the TMA/wgmma kernel, {want} int8, {GENERATE_LAUNCHES} flash) "
+                  f"({secs:.4f} s wall)")
             new = NEW_TOKENS if call == "generate" else 1
             check(tuple(tokens.shape) == (BATCH, PROMPT + new)
                   and bool((tokens[:, :PROMPT] == prompt).all())
@@ -2957,8 +3043,10 @@ def phase_moe(results):
         generate, p_card = build_generate(small, 6, **flags), to_device(p, "cuda")
         reset_moe_launches()
         got = generate(p_card, small_prompt)
-        small_launches[label] = moe_launches_now()["GROUPED_LAUNCHES"]
-        check(torch.equal(got.cpu(), want) and small_launches[label] == 2 * small.n_layers,
+        counts = moe_launches_now()
+        small_launches[label] = counts["GROUPED_F32_LAUNCHES"]
+        check(torch.equal(got.cpu(), want)
+              and small_launches[label] == counts["GROUPED_LAUNCHES"] == 2 * small.n_layers,
               f"MoE generate small f32 config, {label}: card tokens equal the CPU path's; "
               f"{small_launches[label]} f32 grouped launches (expected {2 * small.n_layers})")
 
@@ -2973,9 +3061,11 @@ def phase_moe(results):
     def entry(tag, rows):
         return {
             "ms": total(rows, "ms"),
+            "parent_ms": total(rows, "parent_ms") if baseline else None,
             "plain_ms": total(rows, "plain_ms"),
             "bound_ms": total(rows, "bound_ms"),
             "bound_by": "operations",
+            **({"bound_fma_ms": total(rows, "bound_fma_ms")} if tag == "f32" else {}),
             "library_ms": total(rows, "library_ms"),
             "library_call": f"torch._grouped_mm ({tag}), where the card's torch has it",
             "loop_ms": total(rows, "loop_ms"),
@@ -2998,9 +3088,12 @@ def phase_moe(results):
             "route": "cuda",
             "source": "jobset_tpu_torch/ops/csrc/grouped_matmul.cu",
             **replaces,
-            "variant": "bf16 tensor cores (grouped_mm_bf16_kernel) on the MoE flagship's paths; "
-                       "the f32 variant (grouped_mm_f32_kernel) is its own entry",
+            "variant": "bf16: wgmma fed by TMA from a producer warp, persistent over the row "
+                       "slots, output staged in shared memory and copied a row at a time by the "
+                       "bulk-copy engine (grouped_mm_tma_kernel); operands TMA cannot take go to "
+                       "mma.sync (grouped_mm_bf16_kernel); the f32 variant is its own entry",
             "launches": launches["decode generate"]["GROUPED_LAUNCHES"],
+            "tma_launches": launches["decode generate"]["GROUPED_TMA_LAUNCHES"],
             "launches_by_path": {"forward": results["moe_forward_launches"]["GROUPED_LAUNCHES"],
                                  **{k: v["GROUPED_LAUNCHES"] for k, v in launches.items()}},
             **entry("bf16", pair),
@@ -3010,8 +3103,10 @@ def phase_moe(results):
             "route": "cuda",
             "source": "jobset_tpu_torch/ops/csrc/grouped_matmul.cu",
             **replaces,
-            "variant": "f32 variant (grouped_mm_f32_kernel, true f32 on the FMA pipes), the small "
-                       "f32 MoE config's paths; launches counted on its f32 generate",
+            "variant": "f32 variant (grouped_mm_f32_kernel): 3xTF32 on mma.sync.m16n8k8 from a "
+                       "4-stage cp.async ring, operands split into TF32 big and small parts where "
+                       "a warp reads them, each K step's sums added to the output in f32; the "
+                       "small f32 MoE config's paths; launches counted on its f32 generate",
             "launches": small_launches["f32"],
             "launches_by_path": {f"small f32 config generate, {k}": v
                                  for k, v in small_launches.items()},
@@ -3020,23 +3115,28 @@ def phase_moe(results):
     ]
 
 
-def attach_grouped_ptxas(entries, ptxas) -> None:
-    """Each grouped entry gets its variant's instantiations from a build
-    log this process parsed (none when the kernel was built elsewhere)."""
-    for entry in entries if ptxas else ():
-        variant = "f32" if entry["name"].endswith("_f32") else "bf16"
-        entry["ptxas"] = {k: v for k, v in ptxas.items() if f"_{variant}_" in k}
+def attach_grouped_ptxas(entries, ptxas, sass=None) -> None:
+    """Each grouped entry gets its kernels' ptxas reports from a build log
+    this process parsed (none when the kernel was built elsewhere) and
+    their SASS counts."""
+    for entry in entries:
+        kernels = ("_f32_",) if entry["name"].endswith("_f32") else ("_tma_", "_bf16_")
+        if ptxas:
+            entry["ptxas"] = {k: v for k, v in ptxas.items() if any(s in k for s in kernels)}
+        if sass:
+            entry["sass"] = {k: v for k, v in sass.items() if any(s in k for s in kernels)}
 
 
-def phase_moe_apart(results):
+def phase_moe_apart(results, baseline=None):
     """Phase 12 in a process of its own (`--moe-only`). Returns its
     `kernels` entries (none if it failed)."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "moe.json")
+        extra = ["--grouped-baseline", baseline] if baseline else []
         run = subprocess.run([sys.executable, os.path.abspath(__file__), "--moe-only",
-                              "--out", path], capture_output=True, text=True, timeout=900)
+                              "--out", path, *extra], capture_output=True, text=True, timeout=900)
         print(run.stdout, end="", flush=True)
         if run.returncode != 0:
             print(run.stderr[-4000:], file=sys.stderr, flush=True)
@@ -3047,7 +3147,8 @@ def phase_moe_apart(results):
         with open(path) as f:
             moe = json.load(f)
     for key in ("grouped_matmul", "int8_experts", "moe_forward", "moe_forward_launches",
-                "moe_launches", "moe_walls", "moe_traces", "moe_decode_bench", "moe_prefill_layers"):
+                "moe_launches", "moe_walls", "moe_traces", "moe_decode_bench", "moe_prefill_layers",
+                "grouped_sass"):
         results[key] = moe.get(key)
     return moe.get("moe_kernels") or []
 
@@ -3073,6 +3174,9 @@ def main() -> int:
     parser.add_argument("--int8-baseline", metavar="DIR",
                         help="another checkout of this repo (the parent commit): phase 11 "
                              "also times its int8 kernel on the same inputs")
+    parser.add_argument("--grouped-baseline", metavar="DIR",
+                        help="another checkout of this repo (the parent commit): phase 12 "
+                             "also times its grouped kernel on the same inputs")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -3118,10 +3222,13 @@ def main() -> int:
                                               r"int8_matmul_(?:tc|f32)_kernel", "int8 kernel")
     if "grouped_matmul" in cuda_build.BUILD_LOG:
         results["grouped_ptxas"] = kernel_ptxas(cuda_build.BUILD_LOG["grouped_matmul"],
-                                                 r"grouped_mm_(?:bf16|f32)_kernel")
+                                                 r"grouped_mm_(?:bf16|f32|tma)_kernel",
+                                                 "grouped kernel")
     if args.moe_only:
-        results["moe_kernels"] = phase_moe(results)
-        attach_grouped_ptxas(results["moe_kernels"], results.get("grouped_ptxas"))
+        results["grouped_sass"] = grouped_sass(libraries["grouped_matmul"])
+        results["moe_kernels"] = phase_moe(results, args.grouped_baseline)
+        attach_grouped_ptxas(results["moe_kernels"], results.get("grouped_ptxas"),
+                             results["grouped_sass"])
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
             with open(args.out, "w") as f:
@@ -3207,7 +3314,7 @@ def main() -> int:
     kernels += phase_solver(results)
     phase_control_apart(results)
     int8_kernel = phase_serving_apart(results, args.int8_baseline)
-    grouped_kernels = phase_moe_apart(results)
+    grouped_kernels = phase_moe_apart(results, args.grouped_baseline)
     if int8_kernel is not None:
         int8_kernel["ptxas"] = results.get("int8_ptxas")
         # The expert axis (phase 12): its checks and times, and the MoE
@@ -3216,7 +3323,7 @@ def main() -> int:
         int8_kernel["launches_by_path"].update(
             {f"MoE {k}": v["INT8_LAUNCHES"] for k, v in (results.get("moe_launches") or {}).items()})
         kernels.append(int8_kernel)
-    attach_grouped_ptxas(grouped_kernels, results.get("grouped_ptxas"))
+    attach_grouped_ptxas(grouped_kernels, results.get("grouped_ptxas"), results.get("grouped_sass"))
     kernels += grouped_kernels
     results["kernels"] = kernels
     results["seconds"] = time.perf_counter() - t_start

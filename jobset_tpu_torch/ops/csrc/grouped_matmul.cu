@@ -13,53 +13,115 @@
 //
 // Bound: operations. The flagship prefill's products, [16384, 1024] x
 // [8, 1024, 4096] and back, do 2 * 16384 * 1024 * 4096 operations each
-// (137 GFLOP, 0.14 ms at the card's 989 TFLOP/s in bf16) against 50 MB
-// of operands (0.015 ms at 3.35 TB/s).
+// (137 GFLOP, 0.14 ms at the card's 989 TFLOP/s in bf16; 0.83 ms as
+// three TF32 products at 495 TFLOP/s, 2.05 ms on the f32 FMA pipes)
+// against 50 MB of bf16 operands (0.015 ms at 3.35 TB/s).
 //
-// - No host sync. The group sizes are decided on the card, so the grid
-//   is sized from their static bound: a group of s rows takes ceil(s /
-//   BM) row tiles, so all of them, and the zero rows past the last group,
-//   take at most ceil(M / BM) + E + 1 (`row_slots` in
-//   `ops/grouped_matmul.py`). Block (c, s) finds its row tile s by a
-//   warp's prefix sums over group_sizes (one load a lane, shuffles), then
-//   its group, its first row and the group's end; slots past the last
-//   tile exit at once. Rows of a tile past its group's end are neither
-//   read (zeros in shared memory) nor written, so a tile never mixes two
-//   experts. Column tiles run fastest in the grid, so the blocks in
-//   flight share an expert's weight in L2 and read each row tile once.
-// - bf16 (`grouped_mm_bf16_kernel`): 128 x 128 tiles, K in steps of 64
-//   through a 3-stage `cp.async` ring in shared memory (32 KB a stage,
-//   two blocks an SM); 8 warps of 64 x 32, each k16 step 4 `ldmatrix.x4`
-//   of A, 2 `ldmatrix.x4.trans` of B and 16 `mma.sync.m16n8k16` into f32.
-//   Shared rows are xor-swizzled by 16-byte chunk, so the ldmatrix reads
-//   are free of bank conflicts. A 128 x 128 tile asks L2 for a byte every
-//   64 operations, so L2's rate, more than the tensor cores, likely sets
-//   the pace (on an H100, tiles of 128 x 256 with one block an SM ran
-//   slower; K steps of 64 rather than 32 ran 5-7% faster). `wgmma`, TMA
-//   and cluster multicast are a later step.
-// - f32 (`grouped_mm_f32_kernel`): true f32 on the FMA pipes: 128 x 128
-//   tiles, K in steps of 8, A kept transposed in shared memory, two
-//   buffers with the next step's loads in registers, 8 x 8 sums a thread.
-// - Each output is one thread's chain in k order: two launches give the
-//   same bits. Operands that are not 16-byte aligned, or N or K not a
-//   multiple of 8 (bf16) or 4 (f32), are read element by element (the
-//   `Vec = false` instantiations); the arithmetic is the same.
+// - No host sync. The group sizes are decided on the card, so the work is
+//   sized from their static bound: a group of s rows takes ceil(s / BM)
+//   row tiles, so all of them, and the zero rows past the last group, take
+//   at most ceil(M / BM) + E + 1 row slots (`row_slots` in
+//   `ops/grouped_matmul.py`). Row slot s finds its tile by a warp's prefix
+//   sums over group_sizes (`find_tile`: one load a lane, shuffles): its
+//   group, its first row and the group's end. The busy slots come first;
+//   a slot past the last tile is idle. A tile never mixes two experts:
+//   rows of a tile past its group's end are never written.
+// - bf16 (`grouped_mm_tma_kernel`, where K and N are multiples of 8 and
+//   xs, w and y 16-byte aligned, which TMA needs): warp-specialized and
+//   persistent. One block an SM walks the (row slot, 256-column tile)
+//   pairs in a fixed stride, column tiles fastest, so the blocks in flight
+//   share a few A row tiles and an expert's weight in L2. Warp 0 of the
+//   producer warpgroup (lane 0) loads each K step of 64 by TMA into a ring
+//   of three 48 KB stages, each with a full and an empty mbarrier: A as one
+//   box of 128 rows x 64 k from a 2-D map over xs (rows past the group's
+//   end come along, the next group's rows or TMA's zeros past M; each
+//   output row depends on its own A row only, and those rows are not
+//   stored), B as four boxes of 64 k x 64 columns from a 3-D map over w
+//   [E, K, N] (the expert is a coordinate; boxes wholly past N are not
+//   loaded: their columns are not stored). Two consumer warpgroups each
+//   own 64 rows x 256 columns of the tile: wgmma m64n256k16 reads A
+//   (K-major) and B (N-major, through the transpose bit) from the
+//   128-byte swizzled stages TMA wrote, into 128 f32 accumulators a
+//   thread; each K step's products run while the step before completes,
+//   then that step's stage is released. A tile's output goes to shared
+//   memory and each of the group's rows to y by the bulk-copy engine
+//   (`cp.async.bulk`, a row's bytes exactly: a box-wide store would
+//   overwrite a neighbouring group's rows that another block writes),
+//   which runs on while the consumers start the next tile and the
+//   producer fills its stages. What bounds it is L2: a 128 x 256 tile
+//   reads 48 KB a K step for 4.2 MFLOP, 11.6 TB/s at the tensor cores'
+//   peak. Stores straight from the accumulators (4 bytes a thread, the
+//   tensor cores idle meanwhile) were slower on an H100 than the staging
+//   and the fourth ring stage whose room it takes. Registers move to the
+//   consumers by setmaxnreg (40 for the producer warpgroup, 232 for each
+//   consumer one: 128 x (40 + 2 x 232) <= 65,536).
+// - bf16 operands TMA cannot take (`grouped_mm_bf16_kernel`): 128 x 128
+//   tiles, one block a (column tile, row slot), K in steps of 64 read
+//   element by element into a 3-stage ring in shared memory; 8 warps of
+//   64 x 32, `ldmatrix` and `mma.sync.m16n8k16`. Shared rows are
+//   xor-swizzled by 16-byte chunk, so the ldmatrix reads are free of bank
+//   conflicts.
+// - f32 (`grouped_mm_f32_kernel`): 3xTF32 on the tensor cores
+//   (mma.sync.m16n8k8; tf32 wgmma takes K-major operands only, and w is
+//   N-major), each operand x = big + small (two TF32 values) and a
+//   product small.big + big.small + big.big, within f32's tolerances.
+//   128 x 128 tiles, one block a (column tile, row slot), one block an
+//   SM; K in steps of 32 through a 4-stage `cp.async` ring (16-byte
+//   copies where K and N are multiples of 4 and the operands 16-byte
+//   aligned, 4-byte ones elsewhere). 8 warps of 64 x 32; each k8 step
+//   reads its logical k = t, t + 4 as physical 2t, 2t + 1 and B's column
+//   of (n8 tile j, g) as 4g + j, so A fragments come as float2 pairs (row
+//   pitch 8 mod 32 words), B fragments as float4 quads (pitch 4 mod 32),
+//   both free of bank conflicts, and a thread's outputs of a row are 8
+//   adjacent columns (two float4 stores). Operands are split where a warp
+//   reads its fragments: on an H100 a pass that split each stage once in
+//   shared memory (big parts in place, small parts beside them), with
+//   its traffic and a second barrier a step, cost more than the redundant
+//   splits, whose instructions hide under the tensor cores' time. The
+//   tensor core's f32 adds truncate, so each K step's sums start from
+//   zero and are added to the output's in f32 (rounded to nearest): one
+//   chain of 3K/8 truncating adds drifts past the f32 tolerance at K =
+//   4096.
+// - Each output's sums run in one fixed order, with no split of K across
+//   blocks and no atomics: two launches give the same bits.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BM = 128, BN = 128;      // output tile
-constexpr int THREADS = 256;           // 8 warps
-constexpr int BK = 64, STAGES = 3;     // bf16: K step, ring depth
-constexpr int A_STAGE = BM * BK * 2;   // bytes of A a stage: 16 KB
-constexpr int B_STAGE = BK * BN * 2;   // bytes of B a stage: 16 KB
+constexpr int BM = 128;                 // rows of an output tile (every kernel)
+constexpr int BN = 128, THREADS = 256;  // bf16 mma.sync and f32: tile columns, threads
+constexpr int BK = 64, STAGES = 3;      // bf16 mma.sync: K step, ring depth
+constexpr int A_STAGE = BM * BK * 2;    // bytes of A a stage: 16 KB
+constexpr int B_STAGE = BK * BN * 2;    // bytes of B a stage: 16 KB
 constexpr int SMEM_BF16 = STAGES * (A_STAGE + B_STAGE);
-constexpr int FK = 8;                  // f32: K step
-constexpr int A_PITCH = BM + 4;        // f32: floats between transposed A rows
+
+constexpr int TMA_BN = 256, TMA_BK = 64, TMA_STAGES = 3;  // bf16 TMA: tile columns, K step, ring
+constexpr int TMA_THREADS = 384;        // producer warpgroup, two consumer warpgroups
+constexpr int CONSUMER_WARPS = 8;
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr int TMA_A_BYTES = BM * TMA_BK * 2;      // 16 KB: 128 rows x 128-byte swizzled k
+constexpr int TMA_B_BOX = TMA_BK * 64 * 2;        // 8 KB: 64 k x 64 columns, 128-byte swizzled
+constexpr int TMA_STAGE = TMA_A_BYTES + 4 * TMA_B_BOX;  // 48 KB
+// A tile's output staged as bf16 rows 528 bytes apart (132 words: 4 mod
+// 32, so a warp's accumulator writes are free of bank conflicts).
+constexpr int TMA_OUT_PITCH = TMA_BN * 2 + 16;
+constexpr int TMA_OUT_BYTES = BM * TMA_OUT_PITCH;
+// 1024-byte alignment slack, the ring, the staged output, a full and an
+// empty barrier a stage.
+constexpr int TMA_SMEM = 1024 + TMA_STAGES * TMA_STAGE + TMA_OUT_BYTES + 2 * TMA_STAGES * 8;
+
+constexpr int F_BK = 32, F_STAGES = 4;  // f32: K step, ring depth
+constexpr int F_AP = F_BK + 8;          // A row pitch (floats): 8 mod 32
+constexpr int F_BP = BN + 4;            // B row pitch (floats): 4 mod 32
+constexpr int F_A_FLOATS = BM * F_AP, F_STAGE_FLOATS = F_A_FLOATS + F_BK * F_BP;
+constexpr int SMEM_F32 = F_STAGES * F_STAGE_FLOATS * 4;
 constexpr unsigned FULL = 0xffffffffu;
+
+enum Variant { F32 = 0, TMA = 1, MMA = 2 };
 
 struct Params {
   const void* x;       // [M, K] in T
@@ -74,9 +136,9 @@ struct Tile {
   int row0, row_end;
 };
 
-// Row tile `slot` of the launch, found by warp 0 (all its lanes return the
-// same): groups in chunks of 32, a lane a group, inclusive prefix sums of
-// their rows and row tiles by shuffles.
+// Row tile `slot`, found by one warp (all its lanes return the same):
+// groups in chunks of 32, a lane a group, inclusive prefix sums of their
+// rows and row tiles by shuffles.
 __device__ Tile find_tile(const Params& p, int slot) {
   const int lane = threadIdx.x % 32;
   int rows_before = 0, tiles_before = 0;
@@ -110,8 +172,9 @@ __device__ Tile find_tile(const Params& p, int slot) {
   return {-2, 0, 0};
 }
 
-// The block's tile in shared memory, found once. Returns false where the
-// block has nothing to do (it has then written its zeros, if any).
+// The tile of block (column tile blockIdx.x, row slot blockIdx.y) in
+// shared memory, found once. Returns false where the block has nothing
+// to do (it has then written its zeros, if any).
 template <typename T>
 __device__ __forceinline__ bool block_tile(const Params& p, Tile& tile) {
   __shared__ Tile shared;
@@ -135,8 +198,15 @@ __device__ __forceinline__ unsigned smem_addr(const void* ptr) {
   return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
 }
 
+// A copy of `src_bytes` (0 or the full size) from global memory; the rest
+// of the destination is zero-filled, and a 0-byte copy reads nothing.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
                :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
 }
 
@@ -148,6 +218,10 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
 }
+
+// ---------------------------------------------------------------------------
+// bf16, operands TMA cannot take: mma.sync
+// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* ptr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
@@ -175,7 +249,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
 __device__ __forceinline__ int a_off(int row, int ch) { return row * (2 * BK) + 16 * (ch ^ (row & 7)); }
 __device__ __forceinline__ int b_off(int row, int ch) { return row * 256 + 16 * (ch ^ (row & 7)); }
 
-template <bool Vec>
 __global__ void __launch_bounds__(THREADS, 2) grouped_mm_bf16_kernel(const __grid_constant__ Params p) {
   Tile tile;
   if (!block_tile<__nv_bfloat16>(p, tile)) return;
@@ -188,8 +261,8 @@ __global__ void __launch_bounds__(THREADS, 2) grouped_mm_bf16_kernel(const __gri
   const int steps = (K + BK - 1) / BK;
 
   // Stage `slot` <- K step `kt`: A rows row0.. (zeros past the group's
-  // end), B rows kt * BK.. of columns col0..; four 16-byte chunks of each
-  // a thread.
+  // end), B rows kt * BK.. of columns col0..; four 8-element chunks of each
+  // a thread, read element by element.
   auto load = [&](int slot, int kt) {
     unsigned char* a_s = smem + slot * (A_STAGE + B_STAGE);
     unsigned char* b_s = a_s + A_STAGE;
@@ -198,30 +271,22 @@ __global__ void __launch_bounds__(THREADS, 2) grouped_mm_bf16_kernel(const __gri
       const int u = t + i * THREADS;
       const int row = u / (BK / 8), ch = u % (BK / 8), r = tile.row0 + row, k = kt * BK + ch * 8;
       const bool in = r < tile.row_end && k < K;
-      if (Vec) {
-        cp_async16(a_s + a_off(row, ch), in ? x + (size_t)r * K + k : x, in ? 16 : 0);
-      } else {
-        __align__(16) __nv_bfloat16 v[8];
+      __align__(16) __nv_bfloat16 v[8];
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          v[j] = in && k + j < K ? x[(size_t)r * K + k + j] : __float2bfloat16_rn(0.f);
-        *reinterpret_cast<uint4*>(a_s + a_off(row, ch)) = *reinterpret_cast<const uint4*>(v);
-      }
+      for (int j = 0; j < 8; ++j)
+        v[j] = in && k + j < K ? x[(size_t)r * K + k + j] : __float2bfloat16_rn(0.f);
+      *reinterpret_cast<uint4*>(a_s + a_off(row, ch)) = *reinterpret_cast<const uint4*>(v);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int u = t + i * THREADS;
       const int row = u / 16, ch = u % 16, k = kt * BK + row, n = col0 + ch * 8;
       const bool in = k < K && n < N;
-      if (Vec) {
-        cp_async16(b_s + b_off(row, ch), in ? w + (size_t)k * N + n : w, in ? 16 : 0);
-      } else {
-        __align__(16) __nv_bfloat16 v[8];
+      __align__(16) __nv_bfloat16 v[8];
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          v[j] = in && n + j < N ? w[(size_t)k * N + n + j] : __float2bfloat16_rn(0.f);
-        *reinterpret_cast<uint4*>(b_s + b_off(row, ch)) = *reinterpret_cast<const uint4*>(v);
-      }
+      for (int j = 0; j < 8; ++j)
+        v[j] = in && n + j < N ? w[(size_t)k * N + n + j] : __float2bfloat16_rn(0.f);
+      *reinterpret_cast<uint4*>(b_s + b_off(row, ch)) = *reinterpret_cast<const uint4*>(v);
     }
   };
 
@@ -230,15 +295,11 @@ __global__ void __launch_bounds__(THREADS, 2) grouped_mm_bf16_kernel(const __gri
   const int wm = warp / 4, wn = warp % 4;
   float acc[4][4][4] = {};
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
+  for (int s = 0; s < STAGES - 1; ++s)
     if (s < steps) load(s, s);
-    cp_async_commit();
-  }
   for (int kt = 0; kt < steps; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // step kt landed; the slot of step kt - 1 is free
+    __syncthreads();  // step kt is in place; the slot of step kt - 1 is free
     if (kt + STAGES - 1 < steps) load((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
-    cp_async_commit();
     const unsigned char* a_s = smem + (kt % STAGES) * (A_STAGE + B_STAGE);
     const unsigned char* b_s = a_s + A_STAGE;
 #pragma unroll
@@ -264,12 +325,10 @@ __global__ void __launch_bounds__(THREADS, 2) grouped_mm_bf16_kernel(const __gri
         for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], a[mt], b[nt][0], b[nt][1]);
     }
   }
-  cp_async_wait<0>();
 
   // D fragment: d0, d1 row g, columns 2c, 2c + 1; d2, d3 row g + 8.
   __nv_bfloat16* y = static_cast<__nv_bfloat16*>(p.y);
   const int g = lane / 4, c = lane % 4;
-  const bool pairs = Vec && N % 2 == 0;
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
@@ -279,168 +338,609 @@ __global__ void __launch_bounds__(THREADS, 2) grouped_mm_bf16_kernel(const __gri
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
         const int n = col0 + 32 * wn + 8 * nt + 2 * c;
-        const float v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
-        if (pairs && n + 1 < N) {
-          *reinterpret_cast<__nv_bfloat162*>(y + (size_t)r * N + n) = __floats2bfloat162_rn(v0, v1);
+        if (n < N) y[(size_t)r * N + n] = __float2bfloat16_rn(acc[mt][nt][2 * h]);
+        if (n + 1 < N) y[(size_t)r * N + n + 1] = __float2bfloat16_rn(acc[mt][nt][2 * h + 1]);
+      }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// bf16: wgmma fed by TMA from a producer warp, persistent
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done;
+}
+
+// Wait for the phase of `parity` to complete. A wait of more than about a
+// second means a lost arrival: trap, so the launch fails instead of
+// holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_addr(bar);
+  if (mbar_try_wait(addr, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try_wait(addr, parity))
+    if (clock64() - start > (1ll << 31)) __trap();
+}
+
+// One TMA box into shared memory (coordinates innermost first); completion
+// is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
+         "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
+         "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from shared memory to global memory by the
+// bulk-copy engine, in this thread's bulk group; both addresses 16-byte
+// aligned. The shared memory written before it must be fenced for the
+// async proxy (fence_proxy_async).
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               :: "l"(dst), "r"(smem_addr(src)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until this thread's bulk copies have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// Wait until this thread's bulk copies have completed.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma shared-memory descriptor of a tile stored as 128-byte swizzled rows
+// (the layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B): start address,
+// leading and stride byte offsets (16-byte units), layout type 1 = 128B.
+__device__ __forceinline__ uint64_t sw128_desc(const void* smem, int lbo, int sbo) {
+  return (uint64_t)((smem_addr(smem) & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(sbo >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keep the compiler from touching an accumulator that a wgmma in flight
+// still writes before wgmma_wait.
+__device__ __forceinline__ void reg_fence(float (&d)[32][4]) {
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e]) :: "memory");
+}
+
+#define WG_D8(j) "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+#define WG_D64(j) WG_D8(j), WG_D8(j + 1), WG_D8(j + 2), WG_D8(j + 3), WG_D8(j + 4), \
+                  WG_D8(j + 5), WG_D8(j + 6), WG_D8(j + 7)
+#define WG_R128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
+
+// d (+)= A . B, m64n256k16: A K-major and B N-major (transpose bit) in
+// shared memory; `accumulate` 0 overwrites d.
+__device__ __forceinline__ void wgmma_n256(float (&d)[32][4], uint64_t a, uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " WG_R128
+      ", %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : WG_D64(0), WG_D64(8), WG_D64(16), WG_D64(24)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// Grid: one block an SM (or one a tile where there are fewer). Warpgroup 0
+// is the producer (warp 0's lane 0 issues every load; warps 1-3 leave at
+// once); warpgroups 1 and 2 are the consumers, rows 0-63 and 64-127 of
+// each tile. Every warp finds each tile itself (find_tile), so the roles
+// share nothing but the ring: the same walk, the same tiles skipped.
+__global__ void __launch_bounds__(TMA_THREADS, 1)
+    grouped_mm_tma_kernel(const __grid_constant__ Params p, const __grid_constant__ CUtensorMap tm_x,
+                          const __grid_constant__ CUtensorMap tm_w, int col_tiles, int tiles) {
+  extern __shared__ unsigned char smem_raw[];
+  // 128-byte swizzled boxes want 1024-byte aligned destinations.
+  unsigned char* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* staged = ring + TMA_STAGES * TMA_STAGE;  // [BM][TMA_OUT_PITCH]
+  uint64_t* full = reinterpret_cast<uint64_t*>(staged + TMA_OUT_BYTES);
+  uint64_t* empty = full + TMA_STAGES;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int steps = (p.K + TMA_BK - 1) / TMA_BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TMA_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+    if (warp != 0) return;
+    if (lane == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(&tm_x)) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(&tm_w)) : "memory");
+    }
+    int it = 0;  // K steps loaded so far (lane 0)
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const Tile tile = find_tile(p, t / col_tiles);
+      if (tile.group == -2) break;  // the busy slots come first: the rest are idle
+      if (tile.group < 0) continue;
+      if (lane == 0) {
+        const int col0 = (t % col_tiles) * TMA_BN;
+        const int boxes = min(4, (p.N - col0 + 63) / 64);
+        for (int ks = 0; ks < steps; ++ks, ++it) {
+          const int stage = it % TMA_STAGES;
+          if (it >= TMA_STAGES) mbar_wait(&empty[stage], ((it / TMA_STAGES) & 1) ^ 1);
+          unsigned char* a_s = ring + stage * TMA_STAGE;
+          mbar_expect_tx(&full[stage], TMA_A_BYTES + boxes * TMA_B_BOX);
+          tma_load_2d(a_s, &tm_x, &full[stage], ks * TMA_BK, tile.row0);
+          for (int j = 0; j < boxes; ++j)
+            tma_load_3d(a_s + TMA_A_BYTES + j * TMA_B_BOX, &tm_w, &full[stage], col0 + 64 * j,
+                        ks * TMA_BK, tile.group);
+        }
+      }
+      __syncwarp();
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+  const int wg = warp / 4 - 1;  // rows 64 wg .. 64 wg + 63 of each tile
+  const int g = lane / 4, c = lane % 4;
+  __nv_bfloat16* y = static_cast<__nv_bfloat16*>(p.y);
+  float d[32][4];
+  int it = 0;  // K steps consumed so far
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const Tile tile = find_tile(p, t / col_tiles);
+    if (tile.group == -2) break;
+    const int col0 = (t % col_tiles) * TMA_BN;
+    const int r_lo = tile.row0 + 64 * wg, r_hi = min(r_lo + 64, tile.row_end);
+    if (tile.group < 0) {
+      // Zeros: this warpgroup's rows of the tile, 16 bytes a store.
+      const int chunks = min(TMA_BN, p.N - col0) / 8;
+      for (int u = threadIdx.x % 128; u < (r_hi - r_lo) * chunks; u += 128)
+        *reinterpret_cast<uint4*>(y + (size_t)(r_lo + u / chunks) * p.N + col0 + 8 * (u % chunks)) =
+            make_uint4(0, 0, 0, 0);
+      continue;
+    }
+    int prev = 0;
+    for (int ks = 0; ks < steps; ++ks, ++it) {
+      const int stage = it % TMA_STAGES;
+      mbar_wait(&full[stage], (it / TMA_STAGES) & 1);
+      const unsigned char* a_s = ring + stage * TMA_STAGE + wg * (64 * 128);
+      const unsigned char* b_s = ring + stage * TMA_STAGE + TMA_A_BYTES;
+      reg_fence(d);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TMA_BK / 16; ++kk)
+        // k16 step kk: 32 bytes into A's 128-byte rows; 16 k rows of B's
+        // boxes (1024 bytes an 8-row group, 8 KB from one 64-column box to
+        // the next).
+        wgmma_n256(d, sw128_desc(a_s + 32 * kk, 16, 1024),
+                   sw128_desc(b_s + 2048 * kk, TMA_B_BOX, 1024), ks > 0 || kk > 0);
+      wgmma_commit();
+      if (ks > 0) {
+        // The step before is done: release its stage.
+        wgmma_wait<1>();
+        reg_fence(d);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[prev]);
+      }
+      prev = stage;
+    }
+    wgmma_wait<0>();
+    reg_fence(d);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[prev]);
+
+    // The warp's 16 rows of the tile go to shared memory (accumulator of n8
+    // tile j: row g, columns 8j + 2c, 8j + 2c + 1, then row g + 8), then
+    // lane l < 16 copies row l, if it is the group's, to y by the bulk-copy
+    // engine, which runs on while the warp goes on to the next tile. So only
+    // the group's rows are written, a row's bytes at a time.
+    unsigned char* rows = staged + (64 * wg + 16 * (warp % 4)) * TMA_OUT_PITCH;
+    if (lane < 16) bulk_wait_read();  // the last tile's copies are done with these rows
+    __syncwarp();
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(rows + (g + 8 * h) * TMA_OUT_PITCH + 2 * (8 * j + 2 * c)) =
+            __floats2bfloat162_rn(d[j][2 * h], d[j][2 * h + 1]);
+    fence_proxy_async();
+    __syncwarp();
+    const int r = r_lo + 16 * (warp % 4) + lane;
+    if (lane < 16 && r < r_hi) {
+      bulk_store(y + (size_t)r * p.N + col0, rows + lane * TMA_OUT_PITCH, 2 * min(TMA_BN, p.N - col0));
+      bulk_commit();
+    }
+  }
+  if (lane < 16) bulk_wait();  // no copy outlives the block's shared memory
+}
+
+// ---------------------------------------------------------------------------
+// f32: 3xTF32 on the tensor cores (mma.sync.m16n8k8)
+// ---------------------------------------------------------------------------
+
+// x = big + small, each a TF32 value rounded as cvt.rna.tf32.f32 rounds
+// (to nearest, ties away from zero: add half of the 13 dropped bits' range
+// to the magnitude, then drop them), with |x - big - small| <= 2^-22 |x|.
+// small's 13 low bits are left in place: the tensor core ignores them.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
+}
+
+// d += A . B, m16n8k8, TF32 operands, f32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d[n] += A . B[n] for N n8 tiles as 3xTF32: the two cross terms, then
+// big . big (the order of CUTLASS's OpMultiplyAddFastF32); small . small
+// (below 2^-22 of the product) is dropped. bb[n] and bs[n] are B[n]'s
+// fragment, split.
+template <int N>
+__device__ __forceinline__ void mma_3xtf32(float (*d)[4], const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4],
+                                           const uint32_t (&bb)[N][2],
+                                           const uint32_t (&bs)[N][2]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(d[n], a_small, bb[n][0], bb[n][1]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(d[n], a_big, bs[n][0], bs[n][1]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(d[n], a_big, bb[n][0], bb[n][1]);
+}
+
+// m16n8k8 fragments (lane = 4g + c): A holds (row g, k c), (g + 8, c),
+// (g, c + 4), (g + 8, c + 4); B holds (k c, column g), (c + 4, g); the
+// accumulator (g, 2c), (g, 2c + 1), (g + 8, 2c), (g + 8, 2c + 1). Logical
+// k c and c + 4 of k8 step j are physical k 8j + 2c and 8j + 2c + 1 of
+// the stage, in A and B alike; logical column g of n8 tile nt is physical
+// column 4g + nt of the warp's 32. So a thread reads A as float2 pairs,
+// B as float4 quads, and holds 8 adjacent output columns of each row.
+template <bool Vec>
+__global__ void __launch_bounds__(THREADS, 1) grouped_mm_f32_kernel(const __grid_constant__ Params p) {
+  Tile tile;
+  if (!block_tile<float>(p, tile)) return;
+  extern __shared__ __align__(16) float fsm[];
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const int col0 = blockIdx.x * BN;
+  const int K = p.K, N = p.N;
+  const float* x = static_cast<const float*>(p.x);
+  const float* w = static_cast<const float*>(p.w) + (size_t)tile.group * K * N;
+  const int steps = (K + F_BK - 1) / F_BK;
+
+  // Stage `slot` <- K step `kt`: A [BM][F_BK] at pitch F_AP (zeros past the
+  // group's end and past K), B [F_BK][BN] at pitch F_BP (zeros past K and
+  // N). Vec: a thread's four 16-byte chunks of each (K and N multiples of
+  // 4, so a chunk is wholly in or out); else 4-byte copies.
+  auto load = [&](int slot, int kt) {
+    float* a_s = fsm + slot * F_STAGE_FLOATS;
+    float* b_s = a_s + F_A_FLOATS;
+    const int k0 = kt * F_BK;
+    if (Vec) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int u = t + i * THREADS, row = u / 8, k = k0 + 4 * (u % 8), r = tile.row0 + row;
+        const bool in = r < tile.row_end && k < K;
+        cp_async16(a_s + row * F_AP + 4 * (u % 8), in ? x + (size_t)r * K + k : x, in ? 16 : 0);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int u = t + i * THREADS, kr = u / 32, n = col0 + 4 * (u % 32), k = k0 + kr;
+        const bool in = k < K && n < N;
+        cp_async16(b_s + kr * F_BP + 4 * (u % 32), in ? w + (size_t)k * N + n : w, in ? 16 : 0);
+      }
+    } else {
+#pragma unroll 4
+      for (int i = 0; i < 16; ++i) {
+        const int u = t + i * THREADS, row = u / F_BK, k = k0 + u % F_BK, r = tile.row0 + row;
+        const bool in = r < tile.row_end && k < K;
+        cp_async4(a_s + row * F_AP + u % F_BK, in ? x + (size_t)r * K + k : x, in ? 4 : 0);
+      }
+#pragma unroll 4
+      for (int i = 0; i < 16; ++i) {
+        const int u = t + i * THREADS, kr = u / BN, n = col0 + u % BN, k = k0 + kr;
+        const bool in = k < K && n < N;
+        cp_async4(b_s + kr * F_BP + u % BN, in ? w + (size_t)k * N + n : w, in ? 4 : 0);
+      }
+    }
+  };
+
+  // Warp (wm, wn) owns rows 64 wm .. + 63 and columns 32 wn .. + 31 of the
+  // tile: 4 m16 tiles by 4 n8 tiles. Steps kt + 1 .. kt + F_STAGES - 1 load
+  // while step kt computes.
+  const int wm = warp / 4, wn = warp % 4, g = lane / 4, c = lane % 4;
+  float acc[4][4][4] = {};
+#pragma unroll
+  for (int s = 0; s < F_STAGES - 1; ++s) {
+    if (s < steps) load(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < steps; ++kt) {
+    cp_async_wait<F_STAGES - 2>();
+    __syncthreads();  // step kt landed; every warp is done with step kt - 1
+    if (kt + F_STAGES - 1 < steps) load((kt + F_STAGES - 1) % F_STAGES, kt + F_STAGES - 1);
+    cp_async_commit();
+    const float* a_s = fsm + (kt % F_STAGES) * F_STAGE_FLOATS;
+    const float* b_s = a_s + F_A_FLOATS;
+
+    // The step's sums start from zero and are then added to acc in f32
+    // (rounded to nearest). The tensor core's own f32 adds truncate; over
+    // one chain of 3K/8 of them into acc the bias would grow past the f32
+    // tolerance at the prefill's K = 4096.
+    float part[4][4][4] = {};
+#pragma unroll
+    for (int j = 0; j < F_BK / 8; ++j) {
+      const int b_at = (8 * j + 2 * c) * F_BP + 32 * wn + 4 * g;
+      const float4 b0 = *reinterpret_cast<const float4*>(b_s + b_at);
+      const float4 b1 = *reinterpret_cast<const float4*>(b_s + b_at + F_BP);
+      const float b[4][2] = {{b0.x, b1.x}, {b0.y, b1.y}, {b0.z, b1.z}, {b0.w, b1.w}};
+      uint32_t bb[4][2], bs[4][2];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) split_tf32(b[nt][e], bb[nt][e], bs[nt][e]);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        const int a_at = (64 * wm + 16 * mt + g) * F_AP + 8 * j + 2 * c;
+        const float2 lo = *reinterpret_cast<const float2*>(a_s + a_at);
+        const float2 hi = *reinterpret_cast<const float2*>(a_s + a_at + 8 * F_AP);
+        const float a[4] = {lo.x, hi.x, lo.y, hi.y};
+        uint32_t a_big[4], a_small[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(a[e], a_big[e], a_small[e]);
+        mma_3xtf32<4>(part[mt], a_big, a_small, bb, bs);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];
+  }
+
+  // Row r of m16 tile mt: columns 32 wn + 8c + nt from acc[mt][nt][e] (e
+  // = 0 or 2) and 32 wn + 8c + 4 + nt from e = 1 or 3.
+  float* y = static_cast<float*>(p.y);
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = tile.row0 + 64 * wm + 16 * mt + g + 8 * h;
+      if (r >= tile.row_end) continue;
+      const int n = col0 + 32 * wn + 8 * c;
+      const float v[8] = {acc[mt][0][2 * h],     acc[mt][1][2 * h],     acc[mt][2][2 * h],
+                          acc[mt][3][2 * h],     acc[mt][0][2 * h + 1], acc[mt][1][2 * h + 1],
+                          acc[mt][2][2 * h + 1], acc[mt][3][2 * h + 1]};
+      float* out = y + (size_t)r * N + n;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        if (Vec && n + 4 * q + 3 < N) {
+          *reinterpret_cast<float4*>(out + 4 * q) =
+              make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
         } else {
-          if (n < N) y[(size_t)r * N + n] = __float2bfloat16_rn(v0);
-          if (n + 1 < N) y[(size_t)r * N + n + 1] = __float2bfloat16_rn(v1);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (n + 4 * q + e < N) out[4 * q + e] = v[4 * q + e];
         }
       }
     }
 }
 
-template <bool Vec>
-__global__ void __launch_bounds__(THREADS, 2) grouped_mm_f32_kernel(const __grid_constant__ Params p) {
-  Tile tile;
-  if (!block_tile<float>(p, tile)) return;
-  __shared__ __align__(16) float a_s[2][FK][A_PITCH];  // A transposed: [k][row]
-  __shared__ __align__(16) float b_s[2][FK][BN];
-  const int t = threadIdx.x;
-  const int col0 = blockIdx.x * BN;
-  const int K = p.K, N = p.N;
-  const float* x = static_cast<const float*>(p.x);
-  const float* w = static_cast<const float*>(p.w) + (size_t)tile.group * K * N;
-  const int steps = (K + FK - 1) / FK;
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
 
-  // A: row t / 2, k 4 (t % 2) .. + 3; B: k row t / 32, columns 4 (t % 32)
-  // .. + 3; both into registers a step ahead.
-  const int ar = t / 2, ak = 4 * (t % 2), bk = t / 32, bn = 4 * (t % 32);
-  float ra[4], rb[4];
-  auto fetch = [&](int kt) {
-    const int r = tile.row0 + ar, k = kt * FK + ak;
-    const bool a_in = r < tile.row_end && k < K;
-    if (Vec && a_in) {
-      const float4 v = *reinterpret_cast<const float4*>(x + (size_t)r * K + k);
-      ra[0] = v.x, ra[1] = v.y, ra[2] = v.z, ra[3] = v.w;
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ra[j] = a_in && k + j < K ? x[(size_t)r * K + k + j] : 0.f;
-    }
-    const int kb = kt * FK + bk, n = col0 + bn;
-    const bool b_in = kb < K && n < N;
-    if (Vec && b_in) {
-      const float4 v = *reinterpret_cast<const float4*>(w + (size_t)kb * N + n);
-      rb[0] = v.x, rb[1] = v.y, rb[2] = v.z, rb[3] = v.w;
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) rb[j] = b_in && n + j < N ? w[(size_t)kb * N + n + j] : 0.f;
-    }
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) a_s[buf][ak + j][ar] = ra[j];
-    *reinterpret_cast<float4*>(&b_s[buf][bk][bn]) = make_float4(rb[0], rb[1], rb[2], rb[3]);
-  };
+bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
 
-  // Thread (ty, tx) sums rows 4 ty .. + 3 and 64 + 4 ty .. + 3, columns
-  // 4 tx .. + 3 and 64 + 4 tx .. + 3 of the tile.
-  const int ty = t / 16, tx = t % 16;
-  float acc[8][8] = {};
-  if (steps > 0) {
-    fetch(0);
-    store(0);
-  }
-  __syncthreads();
-  for (int kt = 0; kt < steps; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < steps) fetch(kt + 1);
-#pragma unroll
-    for (int k = 0; k < FK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&a_s[buf][k][4 * ty]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&a_s[buf][k][64 + 4 * ty]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&b_s[buf][k][4 * tx]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&b_s[buf][k][64 + 4 * tx]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    if (kt + 1 < steps) store(buf ^ 1);  // the other buffer: read last step, before the barrier
-    __syncthreads();
-  }
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
 
-  float* y = static_cast<float*>(p.y);
-  const bool quads = Vec;  // N % 4 == 0 and y 16-byte aligned
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = tile.row0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
-    if (r >= tile.row_end) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int n = col0 + 64 * h + 4 * tx;
-      if (quads && n + 3 < N) {
-        *reinterpret_cast<float4*>(y + (size_t)r * N + n) =
-            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (n + j < N) y[(size_t)r * N + n + j] = acc[i][4 * h + j];
-      }
-    }
+// cuTensorMapEncodeTiled from libcuda, found through the runtime (no
+// link against libcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
   }
+  return fn;
 }
 
-using Kernel = void (*)(Params);
+// A bf16 tensor map, 128-byte swizzled, dims and box innermost first;
+// coordinates past the edges read as zeros.
+bool make_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+              const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Once a device and kernel: the shared-memory opt-in; for the TMA kernel
+// also the check that it was built with the registers its setmaxnreg
+// hand-over moves (168 a thread at entry: 128 x (40 + 2 x 232) in all),
+// and the device's SM count. `which` numbers the four kernels.
+cudaError_t prepare(int which, const void* kernel, int smem, int device, int* sms) {
+  static bool ready[64][4];
+  static int sm_count[64];
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (!ready[device][which]) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess && which == TMA) {
+      cudaFuncAttributes attr;
+      err = cudaFuncGetAttributes(&attr, kernel);
+      if (err == cudaSuccess &&
+          attr.numRegs * TMA_THREADS < 128 * (PRODUCER_REGS + 2 * CONSUMER_REGS))
+        err = cudaErrorInvalidDeviceFunction;
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sm_count[device], cudaDevAttrMultiProcessorCount, device);
+    }
+    if (err != cudaSuccess) return err;
+    ready[device][which] = true;
+  }
+  *sms = sm_count[device];
+  return cudaSuccess;
+}
+
+cudaError_t launch(Variant v, const Params& p, int device, cudaStream_t stream) {
+  const int row_slots = (p.M + BM - 1) / BM + p.E + 1;
+  int sms = 0;
+  cudaError_t err;
+  if (v == TMA) {
+    const void* kernel = reinterpret_cast<const void*>(&grouped_mm_tma_kernel);
+    if ((err = prepare(TMA, kernel, TMA_SMEM, device, &sms)) != cudaSuccess) return err;
+    CUtensorMap tm_x, tm_w;
+    const cuuint64_t x_dims[2] = {(cuuint64_t)p.K, (cuuint64_t)p.M};
+    const cuuint64_t x_strides[1] = {(cuuint64_t)p.K * 2};
+    const cuuint32_t x_box[2] = {TMA_BK, BM};
+    const cuuint64_t w_dims[3] = {(cuuint64_t)p.N, (cuuint64_t)p.K, (cuuint64_t)p.E};
+    const cuuint64_t w_strides[2] = {(cuuint64_t)p.N * 2, (cuuint64_t)p.K * p.N * 2};
+    const cuuint32_t w_box[3] = {64, TMA_BK, 1};
+    if (!make_map(&tm_x, p.x, 2, x_dims, x_strides, x_box) ||
+        !make_map(&tm_w, p.w, 3, w_dims, w_strides, w_box))
+      return cudaErrorInvalidValue;
+    const int col_tiles = (p.N + TMA_BN - 1) / TMA_BN;
+    const long long tiles = (long long)row_slots * col_tiles;
+    if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
+    const int grid = (int)(tiles < sms ? tiles : sms);
+    grouped_mm_tma_kernel<<<grid, TMA_THREADS, TMA_SMEM, stream>>>(p, tm_x, tm_w, col_tiles,
+                                                                   (int)tiles);
+    return cudaGetLastError();
+  }
+  if (row_slots > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((p.N + BN - 1) / BN, row_slots);
+  if (v == MMA) {
+    const void* kernel = reinterpret_cast<const void*>(&grouped_mm_bf16_kernel);
+    if ((err = prepare(MMA, kernel, SMEM_BF16, device, &sms)) != cudaSuccess) return err;
+    grouped_mm_bf16_kernel<<<grid, THREADS, SMEM_BF16, stream>>>(p);
+    return cudaGetLastError();
+  }
+  // f32: 16-byte copies where K and N are multiples of 4 and the operands
+  // 16-byte aligned, else 4-byte ones.
+  const bool vec =
+      p.K % 4 == 0 && p.N % 4 == 0 && aligned16(p.x) && aligned16(p.w) && aligned16(p.y);
+  void (*kernel)(Params) = vec ? &grouped_mm_f32_kernel<true> : &grouped_mm_f32_kernel<false>;
+  if ((err = prepare(vec ? 3 : F32, reinterpret_cast<const void*>(kernel), SMEM_F32, device,
+                     &sms)) != cudaSuccess)
+    return err;
+  kernel<<<grid, THREADS, SMEM_F32, stream>>>(p);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
 extern "C" {
 
-// The tile constants the kernels are built with: BM, BN, THREADS, BK,
-// STAGES, FK. Returns the count written (at most cap).
+// The constants the kernels are built with, in the order
+// `ops/grouped_matmul.py::layout` lists them. Returns the count written
+// (at most cap).
 int grouped_matmul_layout(int* out, int cap) {
-  const int v[6] = {BM, BN, THREADS, BK, STAGES, FK};
-  const int n = cap < 6 ? cap : 6;
+  const int v[] = {BM,         BN,        THREADS,       BK,           STAGES,
+                   TMA_BN,     TMA_BK,    TMA_STAGES,    TMA_THREADS,  PRODUCER_REGS,
+                   CONSUMER_REGS, TMA_SMEM, F_BK,        F_STAGES,     F_AP,
+                   F_BP,       SMEM_F32};
+  const int count = (int)(sizeof(v) / sizeof(v[0]));
+  const int n = cap < count ? cap : count;
   for (int i = 0; i < n; ++i) out[i] = v[i];
   return n;
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (x, w and y). x [M, K], w [E, K, N]
-// and y [M, N] contiguous; sizes [E] int32; all on CUDA device `device`
-// (made current for the launch, and the previous one restored), on
-// `stream`; the grid is col_tiles x row_slots blocks (`ops/grouped_matmul.py`
-// sizes it: ceil(N / BN) x ceil(M / BM) + E + 1). Returns a cudaError_t:
-// cudaErrorInvalidValue for what the kernels do not take (nothing is
-// launched), else the launch's error.
-int grouped_matmul_launch(int dtype, const void* x, const void* w, const int* sizes, void* y,
-                          int M, int K, int N, int E, int col_tiles, int row_slots, int device,
-                          void* stream) {
-  if ((dtype != 0 && dtype != 1) || M < 1 || K < 0 || N < 1 || E < 1 || !x || !w || !sizes || !y ||
-      col_tiles != (N + BN - 1) / BN || row_slots < (M + BM - 1) / BM + E + 1 ||
-      row_slots > 65535)
+// variant: 0 = float32 (3xTF32), 1 = bfloat16 by TMA and wgmma, 2 =
+// bfloat16 by mma.sync (`ops/grouped_matmul.py::variant` chooses, by
+// shape and alignment). x [M, K], w [E, K, N] and y [M, N] contiguous in
+// the variant's dtype; sizes [E] int32; all on CUDA device `device` (made
+// current for the launch, and the previous one restored), on `stream`.
+// Returns a cudaError_t: cudaErrorInvalidValue for what the variant does
+// not take (nothing is launched), else the launch's error.
+int grouped_matmul_launch(int variant, const void* x, const void* w, const int* sizes, void* y,
+                          int M, int K, int N, int E, int device, void* stream) {
+  if (variant < F32 || variant > MMA || M < 1 || K < 0 || N < 1 || E < 1 || !x || !w || !sizes ||
+      !y)
     return (int)cudaErrorInvalidValue;
-  const int size = dtype == 1 ? 2 : 4, per = 16 / size;
-  const bool vec = K % per == 0 && N % per == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(w) % 16 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
-  Params p = {x, w, y, sizes, M, K, N, E};
-  Kernel kernel;
-  int smem = 0;
-  if (dtype == 1) {
-    kernel = vec ? &grouped_mm_bf16_kernel<true> : &grouped_mm_bf16_kernel<false>;
-    smem = SMEM_BF16;
-  } else {
-    kernel = vec ? &grouped_mm_f32_kernel<true> : &grouped_mm_f32_kernel<false>;
-  }
+  // TMA: rows and experts 16-byte strides, 16-byte aligned bases.
+  if (variant == TMA && !(K > 0 && K % 8 == 0 && N % 8 == 0 && aligned16(x) && aligned16(w) &&
+                          aligned16(y)))
+    return (int)cudaErrorInvalidValue;
+  const Params p = {x, w, y, sizes, M, K, N, E};
   int current = device;
   cudaError_t err = cudaGetDevice(&current);
   if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  // The bf16 kernels' shared-memory opt-in, once a device and kernel.
-  static unsigned opted[2];
-  const int which = vec ? 1 : 0;
-  if (smem && device < 32 && !(opted[which] >> device & 1u)) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err == cudaSuccess) opted[which] |= 1u << device;
-  } else if (smem && device >= 32) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  }
-  if (err == cudaSuccess) {
-    kernel<<<dim3(col_tiles, row_slots), THREADS, smem, (cudaStream_t)stream>>>(p);
-    err = cudaGetLastError();
-  }
+  err = launch(static_cast<Variant>(variant), p, device, (cudaStream_t)stream);
   if (current != device) cudaSetDevice(current);
   return (int)err;
 }

@@ -10,14 +10,20 @@ preferred_element_type = the compute dtype, as
 `grouped_matmul_plain` is that in PyTorch, a loop over the groups.
 
 Dispatch, by device: CPU tensors go to the plain version; CUDA tensors
-launch the hand-written kernel in `csrc/grouped_matmul.cu` once, or raise.
-The group sizes stay on the card: the grid is sized from their static
-bound (`row_slots`), each block finds its expert and rows from them, and
-blocks past the last tile exit, so no size is read back to the host (a
-loop of torch.matmul over the groups would read every size, twice in each
-MoE layer).
+launch one of the hand-written kernels in `csrc/grouped_matmul.cu` once,
+or raise. Which one depends on dtype, shape and alignment alone
+(`variant`): f32 runs 3xTF32 on `mma.sync`; bf16 runs `wgmma` fed by TMA
+where K and N are multiples of 8 and the operands 16-byte aligned, and
+`mma.sync` on operands read element by element elsewhere. The group
+sizes stay on the card: the work is sized from their static bound
+(`row_slots`), each block finds its expert and rows from them, and slots
+past the last tile are idle, so no size is read back to the host (a loop
+of torch.matmul over the groups would read every size, twice in each MoE
+layer).
 
-`GROUPED_LAUNCHES` counts the kernel's launches.
+`GROUPED_LAUNCHES` counts every launch of the kernels;
+`GROUPED_TMA_LAUNCHES` those of the bf16 TMA/wgmma kernel and
+`GROUPED_F32_LAUNCHES` those of the f32 one.
 """
 
 from __future__ import annotations
@@ -29,24 +35,55 @@ import torch
 
 from . import cuda_build
 
-# Launches of the grouped kernel, counted by the wrapper where it launches.
+# Launches of the grouped kernels, counted by the wrapper where it launches:
+# all of them, the bf16 TMA/wgmma kernel's, the f32 kernel's.
 GROUPED_LAUNCHES = 0
+GROUPED_TMA_LAUNCHES = 0
+GROUPED_F32_LAUNCHES = 0
 
-# The kernel's tiles: rows and columns of an output tile, threads a block,
-# the bf16 kernel's K step and ring depth, the f32 kernel's K step.
-BM, BN, THREADS, BK, STAGES, FK = 128, 128, 256, 64, 3, 8
+# Rows of an output tile (every kernel).
+BM = 128
+# bf16 on mma.sync: tile columns, threads a block, K step, ring depth.
+BN, THREADS, BK, STAGES = 128, 256, 64, 3
+# bf16 on TMA and wgmma: tile columns, K step, ring depth, threads a block
+# (a producer and two consumer warpgroups), the registers setmaxnreg gives
+# the producer and each consumer warpgroup, the pitch of the staged output
+# rows (bytes), dynamic shared memory (alignment slack, the ring, the
+# staged output tile, two barriers a stage).
+TMA_BN, TMA_BK, TMA_STAGES, TMA_THREADS = 256, 64, 3, 384
+PRODUCER_REGS, CONSUMER_REGS = 40, 232
+TMA_OUT_PITCH = 2 * TMA_BN + 16
+TMA_SMEM = (1024 + TMA_STAGES * (BM * TMA_BK * 2 + TMA_BK * TMA_BN * 2) + BM * TMA_OUT_PITCH
+            + 2 * TMA_STAGES * 8)
+# f32 on 3xTF32 (BM x BN tiles of THREADS threads, one block an SM): K
+# step, ring depth, A and B row pitches (floats), dynamic shared memory.
+F_BK, F_STAGES = 32, 4
+F_AP, F_BP = F_BK + 8, BN + 4
+SMEM_F32 = F_STAGES * (BM * F_AP + F_BK * F_BP) * 4
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_VARIANT_CODES = {"f32": 0, "tma": 1, "mma": 2}
 
 
 def layout() -> tuple:
     """The constants in the order `grouped_matmul_layout` in the kernel's
     source writes them."""
-    return (BM, BN, THREADS, BK, STAGES, FK)
+    return (BM, BN, THREADS, BK, STAGES, TMA_BN, TMA_BK, TMA_STAGES, TMA_THREADS, PRODUCER_REGS,
+            CONSUMER_REGS, TMA_SMEM, F_BK, F_STAGES, F_AP, F_BP, SMEM_F32)
+
+
+def variant(xs: torch.Tensor, w: torch.Tensor, y: torch.Tensor) -> str:
+    """The kernel a launch takes, from dtype, shape and alignment alone:
+    "f32", "tma" (bf16; TMA needs 16-byte strides and aligned bases) or
+    "mma" (bf16 otherwise)."""
+    if xs.dtype == torch.float32:
+        return "f32"
+    k, n = xs.shape[1], w.shape[-1]
+    aligned = all(t.data_ptr() % 16 == 0 for t in (xs, w, y))
+    return "tma" if k > 0 and k % 8 == 0 and n % 8 == 0 and aligned else "mma"
 
 
 def row_slots(m: int, experts: int) -> int:
-    """Row tiles the grid provides: group e takes ceil(size_e / BM) and the
+    """Row slots the kernels walk: group e takes ceil(size_e / BM) and the
     rows past the last group ceil(rest / BM), at most ceil(M / BM) + E + 1
     together whatever the sizes."""
     return -(-m // BM) + experts + 1
@@ -67,7 +104,7 @@ def grouped_matmul_plain(xs: torch.Tensor, w: torch.Tensor, group_sizes: torch.T
 @functools.cache
 def _library():
     lib = cuda_build.load("grouped_matmul")
-    lib.grouped_matmul_launch.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+    lib.grouped_matmul_launch.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     lib.grouped_matmul_launch.restype = ctypes.c_int
     lib.grouped_matmul_layout.argtypes = [ctypes.c_void_p, ctypes.c_int]
@@ -78,16 +115,16 @@ def _library():
 def kernel_layout() -> tuple:
     """The constants the built kernel reports (to compare with `layout()`
     on the card)."""
-    out = (ctypes.c_int * 16)()
-    count = _library().grouped_matmul_layout(ctypes.addressof(out), 16)
+    out = (ctypes.c_int * 32)()
+    count = _library().grouped_matmul_layout(ctypes.addressof(out), 32)
     return tuple(out[:count])
 
 
 def _grouped_matmul_cuda(xs: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
-    global GROUPED_LAUNCHES
+    global GROUPED_LAUNCHES, GROUPED_TMA_LAUNCHES, GROUPED_F32_LAUNCHES
     device = xs.device
-    if (xs.dtype not in _DTYPE_CODES or w.dtype != xs.dtype or xs.dim() != 2 or w.dim() != 3
-            or w.shape[1] != xs.shape[1] or group_sizes.dtype != torch.int32
+    if (xs.dtype not in (torch.float32, torch.bfloat16) or w.dtype != xs.dtype or xs.dim() != 2
+            or w.dim() != 3 or w.shape[1] != xs.shape[1] or group_sizes.dtype != torch.int32
             or tuple(group_sizes.shape) != (w.shape[0],)
             or not (xs.is_contiguous() and w.is_contiguous() and group_sizes.is_contiguous())
             or w.device != device or group_sizes.device != device):
@@ -101,15 +138,16 @@ def _grouped_matmul_cuda(xs: torch.Tensor, w: torch.Tensor, group_sizes: torch.T
     y = torch.empty((m, n), dtype=xs.dtype, device=device)
     if m == 0 or n == 0:
         return y
-    index = device.index
+    kind, index = variant(xs, w, y), device.index
     err = _library().grouped_matmul_launch(
-        _DTYPE_CODES[xs.dtype], xs.data_ptr(), w.data_ptr(), group_sizes.data_ptr(), y.data_ptr(),
-        m, k_dim, n, experts, -(-n // BN), row_slots(m, experts), index,
-        torch._C._cuda_getCurrentRawStream(index),
+        _VARIANT_CODES[kind], xs.data_ptr(), w.data_ptr(), group_sizes.data_ptr(), y.data_ptr(),
+        m, k_dim, n, experts, index, torch._C._cuda_getCurrentRawStream(index),
     )
     if err:
-        raise RuntimeError(f"grouped_matmul kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"grouped_matmul kernel launch failed ({kind}): CUDA error {err}")
     GROUPED_LAUNCHES += 1
+    GROUPED_TMA_LAUNCHES += kind == "tma"
+    GROUPED_F32_LAUNCHES += kind == "f32"
     return y
 
 

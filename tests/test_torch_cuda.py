@@ -26,7 +26,10 @@ as stated in their tests. The int8 kernel, per element: bf16
 |got - want| <= 2^-7 |want| + 1e-4 max|want| (one rounding of the output
 to bf16, which two f32 sums in another order may put one ulp apart; an
 ulp is at most 2^-7 of the value), f32 1e-5 max|want| (f32 sums in
-another order); the grouped expert kernel the same, for the same reasons.
+another order); the grouped expert kernel the same, for the same reasons
+(its f32 kernel's 3xTF32 products err by about 2^-22 of each product,
+and its sums add each K step's to the output in f32, rounded to
+nearest).
 """
 
 import numpy as np
@@ -807,21 +810,110 @@ def test_grouped_kernel_matches_plain_version(cuda, dtype, routing, m, k, n, exp
     xs = torch.randn(m, k, generator=gen).to(cuda, dtype)
     w = (torch.randn(experts, k, n, generator=gen) / k ** 0.5).to(cuda, dtype)
     sizes = _group_sizes(routing, m, experts).to(cuda)
-    before = gm.GROUPED_LAUNCHES
+    before = _grouped_counts()
     got = gm.grouped_matmul(xs, w, sizes)
     again = gm.grouped_matmul(xs, w, sizes)
     torch.cuda.synchronize()
-    assert gm.GROUPED_LAUNCHES == before + 2
+    kind = "f32" if dtype == torch.float32 else "tma" if k % 8 == 0 and n % 8 == 0 else "mma"
+    assert _grouped_delta(before, 2) == _GROUPED_STEP[kind]
     assert got.dtype == dtype and got.shape == (m, n)
-    assert torch.equal(got, again)  # one thread's chain an output: the same bits
+    assert torch.equal(got, again)  # one chain of sums an output: the same bits
+    want = _grouped_plain(xs, w, sizes)
+    assert _int8_within(got, want, dtype)
+    assert torch.all(got[int(sizes.sum()):] == 0)
+
+
+# Counter steps of one launch of each variant: (all, TMA, f32).
+_GROUPED_STEP = {"tma": (1, 1, 0), "mma": (1, 0, 0), "f32": (1, 0, 1)}
+
+
+def _grouped_counts():
+    return (gm.GROUPED_LAUNCHES, gm.GROUPED_TMA_LAUNCHES, gm.GROUPED_F32_LAUNCHES)
+
+
+def _grouped_delta(before, launches=1):
+    """The counters' steps since `before`, per launch."""
+    return tuple((now - then) / launches for now, then in zip(_grouped_counts(), before))
+
+
+def _grouped_plain(xs, w, sizes):
     flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     try:
-        want = gm.grouped_matmul_plain(xs, w, sizes)
+        return gm.grouped_matmul_plain(xs, w, sizes)
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
-    assert _int8_within(got, want, dtype)
+
+
+def _grouped_operands(m, k, n, experts, dtype, device, seed):
+    gen = torch.Generator().manual_seed(seed)
+    xs = torch.randn(m, k, generator=gen).to(device, dtype)
+    w = (torch.randn(experts, k, n, generator=gen) / k ** 0.5).to(device, dtype)
+    return xs, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_grouped_kernel_boundary_tile_beside_a_full_group(cuda, dtype):
+    # Group 0 ends 64 rows into a tile whose other rows belong to group 1,
+    # which is full there; group 2 ends 1 row into a tile. A store of the
+    # whole box would overwrite group 1's rows with group 0's products.
+    sizes = torch.tensor([gm.BM * 3 + 64, gm.BM * 2 - 64 + 5, gm.BM + 1, 300], dtype=torch.int32)
+    m = int(sizes.sum()) + 17
+    xs, w = _grouped_operands(m, 512, 768, 4, dtype, cuda, 11)
+    got = gm.grouped_matmul(xs, w, sizes.to(cuda))
+    want = _grouped_plain(xs, w, sizes.to(cuda))
+    torch.cuda.synchronize()
+    for r in range(m):  # row by row: each row of its own group's product
+        assert _int8_within(got[r:r + 1], want[r:r + 1], dtype), r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("m,k,n", [(300, 40, 72), (129, 8, 8), (5, 56, 248)])
+def test_grouped_kernel_zero_fills_past_k_and_n(cuda, dtype, m, k, n):
+    # K below one step and N below one tile: TMA's boxes (and the f32
+    # kernel's copies) read zeros past K and N.
+    xs, w = _grouped_operands(m, k, n, 3, dtype, cuda, m + k + n)
+    sizes = _group_sizes("ragged", m, 3).to(cuda)
+    before = _grouped_counts()
+    got = gm.grouped_matmul(xs, w, sizes)
+    assert _grouped_delta(before) == _GROUPED_STEP["f32" if dtype == torch.float32 else "tma"]
+    assert _int8_within(got, _grouped_plain(xs, w, sizes), dtype)
     assert torch.all(got[int(sizes.sum()):] == 0)
+
+
+@pytest.mark.cuda
+def test_grouped_kernel_variant_by_shape_and_alignment(cuda):
+    sizes = torch.tensor([40, 60], dtype=torch.int32, device=cuda)
+    xs, w = _grouped_operands(100, 64, 64, 2, torch.bfloat16, cuda, 5)
+    shifted = torch.empty(100 * 64 + 1, dtype=torch.bfloat16, device=cuda)[1:].view(100, 64)
+    shifted.copy_(xs)  # the same values at an address 2 bytes past 16-byte alignment
+    cases = [((xs, w), "tma"), ((shifted, w), "mma"), ((xs[:, :60].contiguous(), w[:, :60]
+                                                          .contiguous()), "mma"),
+             ((xs.float(), w.float()), "f32")]
+    outs = []
+    for (a, b), kind in cases:
+        before = _grouped_counts()
+        outs.append(gm.grouped_matmul(a, b, sizes))
+        assert _grouped_delta(before) == _GROUPED_STEP[kind], kind
+        assert gm.variant(a, b, outs[-1]) == kind
+    torch.cuda.synchronize()
+    # The same function whichever kernel ran (aligned and shifted operands).
+    assert _int8_within(outs[1], outs[0], torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_grouped_kernel_at_a_prefill_width_is_bit_for_bit_repeatable(cuda, dtype):
+    # More tiles than SMs: the persistent blocks walk several tiles each.
+    xs, w = _grouped_operands(4096, 1024, 2048, 8, dtype, cuda, 21)
+    sizes = _group_sizes("ragged", 4096, 8).to(cuda)
+    first = gm.grouped_matmul(xs, w, sizes)
+    runs = [gm.grouped_matmul(xs, w, sizes) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(first, r) for r in runs)
+    assert _int8_within(first, _grouped_plain(xs, w, sizes), dtype)
 
 
 @pytest.mark.cuda

@@ -1,21 +1,40 @@
-"""Models, on the CPU, of what the grouped expert kernel
-(`jobset_tpu_torch/ops/csrc/grouped_matmul.cu`) relies on, built from the
+"""Models, on the CPU, of what the grouped expert kernels
+(`jobset_tpu_torch/ops/csrc/grouped_matmul.cu`) rely on, built from the
 constants `ops/grouped_matmul.py` exposes (the card checks that the built
-kernel reports the same):
+kernels report the same):
 
 - The tile schedule (`find_tile` in the source, modelled here with numpy):
-  over the grid's `row_slots(M, E)` row slots, every row of every group is
+  over the `row_slots(M, E)` row slots, every row of every group is
   visited by exactly one tile of that group, rows past the last group by
   exactly one zero tile, no tile spans two groups, and the slots past the
   last tile are idle; for uniform, skewed, empty-group and over-full
   routings, M not a multiple of the tile, and more than 32 groups (the
   warp scans in chunks of 32).
-- The schedule's tiles, each computed as the kernel masks it (rows past
-  the group's end read as zeros and not written, columns past N dropped),
-  give exactly the grouped product on integer-valued inputs.
-- The shared-memory swizzles: each stage's 16-byte chunks are written
-  once, and each 8-lane phase of the `ldmatrix` reads touches all 32
-  banks once (no conflicts).
+- The bf16 TMA kernel's persistent walk: over grids of 1, 7 and 132
+  blocks, every (busy row slot, column tile) pair is taken by exactly one
+  block, and no block stops before a busy pair.
+- The tiles, each computed as its kernel masks it, give exactly the
+  grouped product on integer-valued inputs: the `mma.sync` kernels' tiles
+  (rows past the group's end read as zeros) and the TMA kernel's boxes
+  (the next group's rows, zeros past M, K and N, and stale columns where a
+  box lies wholly past N), storing only the group's rows and columns
+  below N; at a group boundary beside a full group, a store of the whole
+  box would not.
+- The shared-memory layouts: the `mma.sync` kernel's swizzled stages are
+  written once and each 8-lane phase of its `ldmatrix` reads touches all
+  32 banks once; the TMA boxes' 128-byte swizzle and the `wgmma`
+  descriptors' address arithmetic (A K-major, B N-major through the
+  transpose bit) name the same element for every (row, k) and (k,
+  column); the TMA kernel's ring and barriers fit an SM's shared memory
+  and its setmaxnreg split fits the register file.
+- The f32 kernel: its `mma.sync.m16n8k8` fragment maps with the permuted
+  k and column order give exactly the tile product on integer inputs,
+  its A (float2) and B (float4) fragment reads and its loads are free of
+  bank conflicts at the chosen pitches, its ring fits a block's shared
+  memory, and the 3xTF32 split at K = 4096, with the
+  tensor core's truncating sums started afresh every K step and added to
+  the output in f32, keeps the product within the f32 tolerance (where
+  one TF32 pass, or one truncating chain over all of K, does not).
 """
 
 import numpy as np
@@ -168,3 +187,392 @@ def test_ldmatrix_phases_are_free_of_bank_conflicts(warp):
             lanes = [b_off(16 * k16 + lane % 16, 4 * wn + 2 * j + lane // 16) for lane in range(32)]
             for phase in range(4):
                 assert _banks(lanes[8 * phase:8 * phase + 8]) == list(range(32))
+
+
+# --- the bf16 TMA kernel (`grouped_mm_tma_kernel`) ---------------------------
+
+TMA_BN, TMA_BK, TMA_STAGES = gm.TMA_BN, gm.TMA_BK, gm.TMA_STAGES
+TMA_A_BYTES, TMA_B_BOX = BM * TMA_BK * 2, TMA_BK * 64 * 2
+TMA_STAGE = TMA_A_BYTES + TMA_BN // 64 * TMA_B_BOX
+SMEM_OPT_IN = 232_448  # the most shared memory a block may ask for
+SMEM_PER_SM, SMEM_PER_BLOCK_RESERVED = 233_472, 1024
+REGISTERS_PER_SM = 65_536
+
+
+def walk(sizes, m, n_cols, grid):
+    """The persistent walk: block b takes tiles b, b + grid, ... of
+    row_slots x column tiles (column tiles fastest) and stops at the first
+    idle slot. Returns each block's (slot, column tile) pairs."""
+    col_tiles = -(-n_cols // TMA_BN)
+    tiles = gm.row_slots(m, len(sizes)) * col_tiles
+    taken = []
+    for b in range(min(grid, tiles)):
+        mine = []
+        for t in range(b, tiles, grid):
+            if find_tile(sizes, m, t // col_tiles)[0] == -2:
+                break
+            mine.append((t // col_tiles, t % col_tiles))
+        taken.append(mine)
+    return taken
+
+
+@pytest.mark.parametrize("grid", [1, 7, 132])
+@pytest.mark.parametrize("case", list(CASES))
+def test_persistent_walk_takes_every_busy_tile_once(case, grid):
+    sizes, m = CASES[case]
+    n_cols = 1000  # four column tiles, the last one ragged
+    col_tiles = -(-n_cols // TMA_BN)
+    busy = [s for s, (g, _, _) in enumerate(_schedule(sizes, m)) if g != -2]
+    taken = [pair for mine in walk(sizes, m, n_cols, grid) for pair in mine]
+    assert sorted(taken) == [(s, c) for s in busy for c in range(col_tiles)]
+
+
+def _box(src, row0, rows, col0, cols):
+    """A TMA box: src[row0:row0 + rows, col0:col0 + cols], zeros past the
+    tensor's edges."""
+    out = np.zeros((rows, cols))
+    part = src[row0:row0 + rows, col0:col0 + cols]
+    out[:part.shape[0], :part.shape[1]] = part
+    return out
+
+
+def _tma_product(xs, w, sizes, n_cols, masked=True):
+    """The TMA kernel's launch on the CPU: each busy tile's A box (rows
+    row0 .. row0 + 127, whichever group they belong to), its B boxes (64 k
+    x 64 columns of the tile's expert; a box wholly past N is not loaded
+    and holds stale values), K in steps of TMA_BK; the consumers store the
+    group's rows (all 128 with masked=False) and columns below N."""
+    m, k_dim = xs.shape
+    y = np.full((m, n_cols), np.nan)
+    stale = np.random.default_rng(7).integers(-50, 50, (TMA_BK, 64)).astype(np.float64)
+    for mine in walk(sizes, m, n_cols, 7):
+        for slot, ct in mine:
+            group, row0, row_end = find_tile(sizes, m, slot)
+            col0 = ct * TMA_BN
+            if group == -1:
+                y[row0:min(row_end, row0 + BM), col0:col0 + TMA_BN] = 0
+                continue
+            acc = np.zeros((BM, TMA_BN))
+            for k0 in range(0, k_dim, TMA_BK):
+                a = _box(xs, row0, BM, k0, TMA_BK)
+                b = np.concatenate([
+                    _box(w[group].T, col0 + 64 * j, 64, k0, TMA_BK).T if col0 + 64 * j < n_cols
+                    else stale for j in range(TMA_BN // 64)], axis=1)
+                acc += a @ b
+            end = min(row_end if masked else m, row0 + BM)
+            cols = min(TMA_BN, n_cols - col0)
+            y[row0:end, col0:col0 + cols] = acc[:end - row0, :cols]
+    return y
+
+
+def _grouped_reference(xs, w, sizes):
+    m = xs.shape[0]
+    want = np.zeros((m, w.shape[-1]))
+    start = 0
+    for e, size in enumerate(sizes):
+        end = min(start + size, m)
+        want[start:end] = xs[start:end] @ w[e]
+        start += size
+    return want
+
+
+# Group 0 ends 64 rows into a tile whose other rows belong to group 1, full
+# there: a store of the whole box races group 1's own tile.
+BOUNDARY = ([BM * 2 + 64, BM * 2 - 64 + 3, 5], BM * 5 - 20)
+
+
+@pytest.mark.parametrize("case", ["ragged", "rows_past_the_groups", "over_full", "one_row",
+                                  "boundary"])
+def test_tma_tiles_give_the_grouped_product(case):
+    sizes, m = BOUNDARY if case == "boundary" else CASES[case]
+    rng = np.random.default_rng(len(sizes) + m)
+    k_dim, n_cols = 72, 328  # K past one step; the last column tile has one box and a part
+    xs = rng.integers(-4, 5, (m, k_dim)).astype(np.float64)
+    w = rng.integers(-4, 5, (len(sizes), k_dim, n_cols)).astype(np.float64)
+    want = _grouped_reference(xs, w, sizes)
+    np.testing.assert_array_equal(_tma_product(xs, w, sizes, n_cols), want)
+    if case == "boundary":
+        assert not np.array_equal(_tma_product(xs, w, sizes, n_cols, masked=False), want)
+
+
+def swizzle128(addr):
+    """CU_TENSOR_MAP_SWIZZLE_128B / the wgmma 128B layout on a shared
+    address: the 16-byte chunk bits (4-6) xor the 128-byte row bits (7-9)."""
+    return addr ^ (((addr >> 7) & 7) << 4)
+
+
+def tma_box_address(base, row, col_bytes):
+    """Where TMA puts byte col_bytes of row `row` of a box with 128-byte
+    rows at a 1024-byte aligned base."""
+    return swizzle128(base + row * 128 + col_bytes)
+
+
+def sw128_desc(start, lbo, sbo):
+    """The kernel's `sw128_desc` bits."""
+    return (start & 0x3FFFF) >> 4 | (lbo >> 4) << 16 | (sbo >> 4) << 32 | 1 << 62
+
+
+def desc_fields(desc):
+    return ((desc & 0x3FFF) << 4, (desc >> 16 & 0x3FFF) << 4, (desc >> 32 & 0x3FFF) << 4, desc >> 62)
+
+
+def wgmma_a_address(desc, m, k):
+    """Element (m, k) of a K-major bf16 A operand (64 x 16) in the 128B
+    layout: 8-row groups SBO apart, 128-byte rows, then the swizzle."""
+    start, _, sbo, kind = desc_fields(desc)
+    assert kind == 1
+    return swizzle128(start + (m // 8) * sbo + (m % 8) * 128 + 2 * k)
+
+
+def wgmma_b_address(desc, k, n):
+    """Element (k, n) of an N-major bf16 B operand (16 x 256, the
+    transpose bit) in the 128B layout: 64-column blocks LBO apart, 8-row k
+    groups SBO apart, 128-byte rows of 64 columns, then the swizzle."""
+    start, lbo, sbo, kind = desc_fields(desc)
+    assert kind == 1
+    return swizzle128(start + (n // 64) * lbo + (k // 8) * sbo + (k % 8) * 128 + 2 * (n % 64))
+
+
+@pytest.mark.parametrize("stage", range(TMA_STAGES))
+def test_wgmma_descriptors_name_the_elements_tma_wrote(stage):
+    ring = 3 * 1024  # any 1024-byte aligned start of the ring
+    a_s = ring + stage * TMA_STAGE
+    b_s = a_s + TMA_A_BYTES
+    assert a_s % 1024 == 0 and b_s % 1024 == 0 and TMA_B_BOX % 1024 == 0
+    m, k = np.meshgrid(np.arange(64), np.arange(16), indexing="ij")
+    for wg in range(2):
+        for kk in range(TMA_BK // 16):
+            desc = sw128_desc(a_s + wg * 64 * 128 + 32 * kk, 16, 1024)
+            got = wgmma_a_address(desc, m, k)
+            want = tma_box_address(a_s, 64 * wg + m, 2 * (16 * kk + k))
+            np.testing.assert_array_equal(got, want)
+    k, n = np.meshgrid(np.arange(16), np.arange(TMA_BN), indexing="ij")
+    for kk in range(TMA_BK // 16):
+        desc = sw128_desc(b_s + 2048 * kk, TMA_B_BOX, 1024)
+        got = wgmma_b_address(desc, k, n)
+        want = tma_box_address(b_s + (n // 64) * TMA_B_BOX, 16 * kk + k, 2 * (n % 64))
+        np.testing.assert_array_equal(got, want)
+    # A box's swizzle is a permutation of its bytes' 16-byte chunks.
+    chunks = sorted(tma_box_address(a_s, r, 16 * c) for r in range(BM) for c in range(8))
+    assert chunks == list(range(a_s, a_s + TMA_A_BYTES, 16))
+
+
+def test_tma_ring_and_registers_fit_the_sm():
+    assert gm.TMA_SMEM == (1024 + TMA_STAGES * TMA_STAGE + BM * gm.TMA_OUT_PITCH
+                           + 2 * TMA_STAGES * 8) <= SMEM_OPT_IN
+    assert gm.TMA_SMEM + SMEM_PER_BLOCK_RESERVED <= SMEM_PER_SM
+    # setmaxnreg: a producer warpgroup and two consumer warpgroups of 128
+    # threads; at entry every thread has the launch's 65536 / 384 rounded
+    # down to a multiple of 8 (168), the hand-over keeps the total.
+    assert gm.TMA_THREADS == 3 * 128
+    entry = REGISTERS_PER_SM // gm.TMA_THREADS // 8 * 8
+    assert 128 * (gm.PRODUCER_REGS + 2 * gm.CONSUMER_REGS) <= entry * gm.TMA_THREADS
+    assert entry * gm.TMA_THREADS <= REGISTERS_PER_SM
+    assert gm.PRODUCER_REGS % 8 == 0 and gm.CONSUMER_REGS % 8 == 0 and gm.CONSUMER_REGS <= 255
+    # Each consumer thread's m64n256 accumulators: 128 f32.
+    assert 64 * TMA_BN // 128 == 128 < gm.CONSUMER_REGS
+
+
+def test_tma_staged_output_is_free_of_bank_conflicts_and_copies_whole_rows():
+    pitch = gm.TMA_OUT_PITCH
+    # Lane (g, c) of a warp writes rows g and g + 8 of its 16, columns 8j +
+    # 2c and + 1 (4 bytes) of n8 tile j: each write touches 32 banks once.
+    for h in range(2):
+        for j in range(TMA_BN // 8):
+            words = [((lane // 4 + 8 * h) * pitch + 2 * (8 * j + 2 * (lane % 4))) // 4
+                     for lane in range(32)]
+            assert _phase_banks(words, 1)
+    # Each row's bulk copy: a 16-byte aligned source and a multiple of 16
+    # bytes for any N that is a multiple of 8 (and the ring's end, where the
+    # staging starts, is 16-byte aligned).
+    assert pitch % 16 == 0 and (TMA_STAGES * TMA_STAGE) % 16 == 0
+    for n_cols in range(8, 1000, 8):
+        for col0 in range(0, n_cols, TMA_BN):
+            assert 2 * min(TMA_BN, n_cols - col0) % 16 == 0
+
+
+# --- the f32 kernel (3xTF32 on mma.sync.m16n8k8) -----------------------------
+
+F_BK, F_AP, F_BP = gm.F_BK, gm.F_AP, gm.F_BP
+F_WARPS = THREADS // 32  # 2 x 4 warps of 64 x 32
+
+
+def f32_b_column(wn, g, nt):
+    """The physical column (of the tile) of logical column g of n8 tile nt
+    in warp column wn."""
+    return 32 * wn + 4 * g + nt
+
+
+def f32_fragments(a_stage, b_stage, warp, lane, j):
+    """The kernel's reads for k8 step j of warp `warp`, lane `lane`: A
+    fragments of m16 tiles 0-3 (float2 pairs at rows g and g + 8,
+    physical k 8j + 2c and + 1), B fragments of n8 tiles 0-3 (a float4
+    quad at each of k rows 8j + 2c and + 1, columns 32 wn + 4g ..)."""
+    wm, wn, g, c = warp // 4, warp % 4, lane // 4, lane % 4
+    a = []
+    for mt in range(4):
+        at = (64 * wm + 16 * mt + g) * F_AP + 8 * j + 2 * c
+        lo, hi = a_stage[at:at + 2], a_stage[at + 8 * F_AP:at + 8 * F_AP + 2]
+        a.append([lo[0], hi[0], lo[1], hi[1]])
+    bt = (8 * j + 2 * c) * F_BP + 32 * wn + 4 * g
+    b0, b1 = b_stage[bt:bt + 4], b_stage[bt + F_BP:bt + F_BP + 4]
+    return a, [[b0[nt], b1[nt]] for nt in range(4)]
+
+
+def mma_m16n8k8(a_frags, b_frags):
+    """mma.sync.m16n8k8 over a warp's fragments (PTX ISA maps): A (row g,
+    k c), (g + 8, c), (g, c + 4), (g + 8, c + 4); B (k c, column g), (c +
+    4, g). Returns D [16, 8]."""
+    a, b = np.zeros((16, 8)), np.zeros((8, 8))
+    for lane in range(32):
+        g, c = lane // 4, lane % 4
+        a[g, c], a[g + 8, c], a[g, c + 4], a[g + 8, c + 4] = a_frags[lane]
+        b[c, g], b[c + 4, g] = b_frags[lane]
+    return a @ b
+
+
+def test_f32_fragment_maps_give_the_tile_product():
+    rng = np.random.default_rng(3)
+    a_tile = rng.integers(-5, 6, (BM, F_BK)).astype(np.float64)
+    b_tile = rng.integers(-5, 6, (F_BK, BN)).astype(np.float64)
+    a_stage = np.zeros(BM * F_AP)
+    b_stage = np.zeros(F_BK * F_BP)
+    for r in range(BM):
+        a_stage[r * F_AP:r * F_AP + F_BK] = a_tile[r]
+    for k in range(F_BK):
+        b_stage[k * F_BP:k * F_BP + BN] = b_tile[k]
+    y = np.full((BM, BN), np.nan)
+    for warp in range(F_WARPS):
+        acc = np.zeros((4, 4, 16, 8))
+        for j in range(F_BK // 8):
+            frags = [f32_fragments(a_stage, b_stage, warp, lane, j) for lane in range(32)]
+            for mt in range(4):
+                for nt in range(4):
+                    acc[mt, nt] += mma_m16n8k8([f[0][mt] for f in frags], [f[1][nt] for f in frags])
+        # The epilogue: lane (g, c) holds, for row g (+ 8), n8 tile nt's
+        # accumulator columns 2c and 2c + 1, stored at the physical columns
+        # of logical columns 2c and 2c + 1.
+        wm, wn = warp // 4, warp % 4
+        for lane in range(32):
+            g, c = lane // 4, lane % 4
+            for mt in range(4):
+                for h in range(2):
+                    row = 64 * wm + 16 * mt + g + 8 * h
+                    for nt in range(4):
+                        for e in range(2):
+                            y[row, f32_b_column(wn, 2 * c + e, nt)] = acc[mt, nt, g + 8 * h, 2 * c + e]
+    np.testing.assert_array_equal(y, a_tile @ b_tile)
+
+
+def test_f32_epilogue_columns_are_runs_of_8():
+    # Lane (g, c)'s columns of a row: 32 wn + 8c .. + 7 (two float4
+    # stores), and the warp's lanes cover its 32 once.
+    for wn in range(4):
+        cols = []
+        for c in range(4):
+            mine = sorted(f32_b_column(wn, 2 * c + e, nt) for nt in range(4) for e in range(2))
+            assert mine == [32 * wn + 8 * c + i for i in range(8)]
+            cols += mine
+        assert sorted(cols) == list(range(32 * wn, 32 * wn + 32))
+
+
+def _phase_banks(words_by_lane, width):
+    """Bank conflicts of one warp-wide shared access of `width` words a
+    lane: the hardware serves 32 // width lanes a phase; each phase must
+    touch every bank at most once."""
+    per = 32 // width
+    for p0 in range(0, 32, per):
+        banks = [(w + e) % 32 for w in words_by_lane[p0:p0 + per] for e in range(width)]
+        if len(set(banks)) != len(banks):
+            return False
+    return True
+
+
+@pytest.mark.parametrize("warp", range(F_WARPS))
+def test_f32_fragment_reads_are_free_of_bank_conflicts(warp):
+    wm, wn = warp // 4, warp % 4
+    for j in range(F_BK // 8):
+        for mt in range(4):
+            for h in range(2):
+                words = [(64 * wm + 16 * mt + lane // 4 + 8 * h) * F_AP + 8 * j + 2 * (lane % 4)
+                         for lane in range(32)]
+                assert _phase_banks(words, 2)
+        for e in range(2):
+            words = [(8 * j + 2 * (lane % 4) + e) * F_BP + 32 * wn + 4 * (lane // 4)
+                     for lane in range(32)]
+            assert _phase_banks(words, 4)
+    # The pitches the kernel chose: 8 and 4 words past a multiple of 32.
+    assert F_AP % 32 == 8 and F_BP % 32 == 4
+
+
+def test_f32_loads_cover_the_stage_once_without_conflicts():
+    a_chunks, b_chunks = [], []
+    for i in range(4):
+        for warp in range(THREADS // 32):
+            a_words, b_words = [], []
+            for lane in range(32):
+                u = 32 * warp + lane + i * THREADS
+                a_words.append((u // 8) * F_AP + 4 * (u % 8))
+                b_words.append((u // 32) * F_BP + 4 * (u % 32))
+            assert _phase_banks(a_words, 4) and _phase_banks(b_words, 4)
+            a_chunks += a_words
+            b_chunks += b_words
+    assert sorted(a_chunks) == [r * F_AP + 4 * c for r in range(BM) for c in range(F_BK // 4)]
+    assert sorted(b_chunks) == [k * F_BP + 4 * c for k in range(F_BK) for c in range(BN // 4)]
+    # The ring fits a block's shared memory.
+    assert gm.SMEM_F32 == gm.F_STAGES * (BM * F_AP + F_BK * F_BP) * 4 <= SMEM_OPT_IN
+
+
+def tf32_rna(x):
+    """cvt.rna.tf32.f32, as the kernel's split_tf32 writes it out."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(x):
+    big = tf32_rna(x)
+    return big, tf32_rna(np.asarray(x, np.float32) - big)
+
+
+def _rz(x):
+    """float64 -> float32 rounded toward zero, as the tensor core's f32
+    accumulator rounds its sums (it keeps no extra bits and truncates)."""
+    near = x.astype(np.float32)
+    over = np.abs(near.astype(np.float64)) > np.abs(x)
+    return np.where(over, np.nextafter(near, np.float32(0)), near)
+
+
+def _mma_chain(terms, k_dim, step):
+    """The kernel's sums: each m16n8k8 adds its 8 (exact) TF32 products to
+    its accumulator, rounded toward zero, the three terms in the kernel's
+    order; every `step` of K the step's accumulator (started from zero)
+    is added to the output's in f32, rounded to nearest."""
+    out = np.zeros((terms[0][0].shape[0], terms[0][1].shape[1]), np.float32)
+    for s0 in range(0, k_dim, step):
+        part = np.zeros_like(out)
+        for k0 in range(s0, min(s0 + step, k_dim), 8):
+            ks = slice(k0, k0 + 8)
+            for a, b in terms:
+                part = _rz(part.astype(np.float64) + a[:, ks].astype(np.float64) @ b[ks].astype(np.float64))
+        out = (out + part).astype(np.float32)
+    return out
+
+
+@pytest.mark.parametrize("k_dim", [1024, 4096])
+def test_3xtf32_split_holds_the_f32_tolerance_at_the_prefill_depth(k_dim):
+    # The prefill's operands (randn rows, weights randn / sqrt(K)); the
+    # card's tolerance for the f32 kernel against true f32: 1e-5 max|want|.
+    rng = np.random.default_rng(k_dim)
+    a = rng.standard_normal((64, k_dim)).astype(np.float32)
+    b = (rng.standard_normal((k_dim, 64)) / np.sqrt(k_dim)).astype(np.float32)
+    want = a.astype(np.float64) @ b.astype(np.float64)
+    limit = 1e-5 * np.abs(want).max()
+    (ab, as_), (bb, bs) = _split(a), _split(b)
+    three = [(as_, bb), (ab, bs), (ab, bb)]
+    got = _mma_chain(three, k_dim, F_BK)
+    assert np.abs(got - want).max() <= limit / 2
+    # One TF32 pass would not hold it; nor, at K = 4096, one chain of the
+    # tensor core's truncating adds over all of K.
+    assert np.abs(_mma_chain([(tf32_rna(a), tf32_rna(b))], k_dim, F_BK) - want).max() > limit
+    if k_dim == 4096:
+        assert np.abs(_mma_chain(three, k_dim, k_dim) - want).max() > limit
