@@ -3,14 +3,15 @@
 
     python3 chip_smoke.py [--out RESULTS.json] [--solver-only | --flash-only |
                                                  --control-only | --serving-only |
-                                                 --moe-only]
+                                                 --moe-only | --moe-train-only]
 
 (`--solver-only` builds the auction kernel and runs phase 9 alone,
 `--flash-only` builds the flash block kernels and runs phases 2-3 alone,
 `--control-only` runs phase 10 alone and builds nothing, `--serving-only`
 builds the flash block and int8 kernels and runs phase 11 alone,
 `--moe-only` builds the flash block, int8 and grouped kernels and runs
-phase 12 alone; none of them prints the result line.) Phases, in order; any failure exits
+phase 12 alone, `--moe-train-only` builds the flash block and grouped
+kernels and runs phase 13 alone; none of them prints the result line.) Phases, in order; any failure exits
 non-zero before the result line:
   1. the card's name and power limit (nvidia-smi); TF32 off;
   2. build every CUDA kernel from this checkout (one nvcc per source, all
@@ -153,7 +154,30 @@ non-zero before the result line:
      CPU's, plain and with int8 weights, cache and both (its f32 generate
      counts the f32 grouped kernel's launches, its `kernels` entry);
      the dropless forward's 16 launches also all on the TMA kernel;
- 13. one `kernels` JSON line, then the result line
+ 13. mixture-of-experts training, in a process of its own
+     (`--moe-train-only`), on the MoE flagship: the grouped product's
+     backward kernels against their plain versions at the two products
+     with the four routings of phase 12, bf16 and f32 (dgrad: w copied to
+     [E, N, K], then the forward's kernels; wgrad: `grouped_wgrad_*_kernel`,
+     ragged on the contraction), one launch counted on the dtype's
+     variant, two launches equal bit for bit, empty experts' weight
+     gradients exactly 0; their L2-cold times (dgrad with and without its
+     copy) beside the bound, the plain version and torch._grouped_mm
+     (`library_ms`, its ragged-K form for wgrad, where it runs); the main
+     path, `run_model_bench` (B=8, T=1024, remat off, adam, median of 20
+     steps; tokens/s, MFU at activated FLOPs, peak memory) with 16
+     forward, 16 dgrad and 16 wgrad grouped launches a step, all bf16;
+     the step in f32 at full width and depth through the kernels against
+     the same step on the plain grouped products, and remat "full" and
+     "dots" (32 forward launches a step: the reference recomputes its
+     ragged products under both) against none; each bf16 layer's forward
+     and backward against its plain grouped products on the same input;
+     a layer's forward and backward under `set_sync_debug_mode("error")`;
+     a torch.profiler trace of one warm bf16 step with the forward's,
+     dgrad's and wgrad's grouped device time; and a small f32 MoE config's
+     step on the card against the CPU's (its launches count the f32
+     backward kernels' entries);
+ 14. one `kernels` JSON line, then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 The flagship is the repo's training/decode bench config: vocab 32000,
@@ -354,17 +378,25 @@ def tensor_core_sass(library) -> dict:
 
 
 def grouped_sass(library) -> dict:
-    """The grouped library's SASS: the TMA kernel loads by TMA (UTMALDG)
-    into wgmma (HGMMA); the f32 and the other bf16 kernel run mma.sync
-    (HMMA)."""
+    """The grouped library's SASS: the TMA kernel (both instantiations)
+    loads by TMA (UTMALDG) into wgmma (HGMMA); the f32 and the other bf16
+    kernel, and the wgrad kernels, run mma.sync (HMMA)."""
     counts = sass_counts(library)
     tma = {n: c for n, c in counts.items() if "grouped_mm_tma_kernel" in n}
-    check(len(tma) == 1 and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in tma.values()),
-          f"sass: the grouped TMA kernel has HGMMA and UTMALDG ({tma})")
+    check(len(tma) == 2 and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in tma.values()),
+          f"sass: both instantiations of the grouped TMA kernel (w N-major for the forward, "
+          f"K-major for dgrad) have HGMMA and UTMALDG ({tma})")
     mma = {n: c for n, c in counts.items()
            if "grouped_mm_f32_kernel" in n or "grouped_mm_bf16_kernel" in n}
     check(len(mma) == 3 and all(c["HMMA"] > 0 for c in mma.values()),
           f"sass: the grouped f32 and mma.sync kernels have HMMA ({len(mma)} found)")
+    wgrad = {n: c for n, c in counts.items() if "grouped_wgrad_tma_kernel" in n}
+    check(len(wgrad) == 1 and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in wgrad.values()),
+          f"sass: the bf16 wgrad TMA kernel has HGMMA and UTMALDG ({wgrad})")
+    wgrad = {n: c for n, c in counts.items()
+             if "grouped_wgrad_bf16_kernel" in n or "grouped_wgrad_f32_kernel" in n}
+    check(len(wgrad) == 3 and all(c["HMMA"] > 0 for c in wgrad.values()),
+          f"sass: the mma.sync wgrad kernels have HMMA ({len(wgrad)} found)")
     return counts
 
 
@@ -900,11 +932,13 @@ def merged_span_us(spans) -> float:
     return total + (cur_end - cur_start if cur_end is not None else 0.0)
 
 
-def traced(fn, label, kernel=None):
+def traced(fn, label, kernel=None, keep_events=False):
     """torch.profiler over one call of fn: the top 10 device ops by device
     time and the card's idle share of the traced window (first to last
     event, host or device); with `kernel`, the device time and count of the
-    ops whose name holds it. None when the profiler saw no device events."""
+    ops whose name holds it; with keep_events, every device op as (name,
+    start µs, end µs) under "events". None when the profiler saw no device
+    events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -942,6 +976,8 @@ def traced(fn, label, kernel=None):
         out["kernel_ms"] = sum(t for t, _ in mine) / 1e3
         out["kernel_ops"] = sum(c for _, c in mine)
         print(f"  {kernel}: {out['kernel_ms']:.3f} ms in {out['kernel_ops']} launches", flush=True)
+    if keep_events:
+        out["events"] = [(e.name, e.time_range.start, e.time_range.end) for e in device]
     return out
 
 
@@ -2530,14 +2566,16 @@ def plain_grouped():
     from jobset_tpu_torch.ops import grouped_matmul as gm
 
     transformer.grouped_matmul = gm.grouped_matmul_plain
-    before = gm.GROUPED_LAUNCHES
+    before = moe_launches_now()
     try:
         yield
     finally:
         transformer.grouped_matmul = gm.grouped_matmul
-    if gm.GROUPED_LAUNCHES != before:
-        check(False, f"plain grouped run: the grouped kernel launched "
-                     f"{gm.GROUPED_LAUNCHES - before} time(s) with the plain version in its place")
+    moved = {name: moe_launches_now()[name] - before[name] for name in GROUPED_COUNTERS
+             if moe_launches_now()[name] != before[name]}
+    if moved:
+        check(False, f"plain grouped run: the grouped kernels launched {moved} with the plain "
+                     "version in their place")
 
 
 def moe_group_sizes(routing, rows=MOE_SLOTS, experts=MOE_EXPERTS):
@@ -2822,14 +2860,19 @@ def moe_kernel_checks(results, baseline=None):
     results["int8_experts"] = {"max_abs_err": int8_errs, "by_shape": int8_times}
 
 
+# The grouped product's counters: the forward's (all, TMA, f32) and the
+# backward's (dgrad and wgrad, all and f32).
+GROUPED_COUNTERS = ("GROUPED_LAUNCHES", "GROUPED_TMA_LAUNCHES", "GROUPED_F32_LAUNCHES",
+                    "GROUPED_DGRAD_LAUNCHES", "GROUPED_DGRAD_F32_LAUNCHES",
+                    "GROUPED_WGRAD_LAUNCHES", "GROUPED_WGRAD_F32_LAUNCHES")
+
+
 def moe_launches_now() -> dict:
     from jobset_tpu_torch.ops import grouped_matmul as gm
     from jobset_tpu_torch.ops import int8_matmul as i8
 
-    return {"GROUPED_LAUNCHES": gm.GROUPED_LAUNCHES,
-            "GROUPED_TMA_LAUNCHES": gm.GROUPED_TMA_LAUNCHES,
-            "GROUPED_F32_LAUNCHES": gm.GROUPED_F32_LAUNCHES, "INT8_LAUNCHES": i8.INT8_LAUNCHES,
-            **launches_now()}
+    return {**{name: getattr(gm, name) for name in GROUPED_COUNTERS},
+            "INT8_LAUNCHES": i8.INT8_LAUNCHES, **launches_now()}
 
 
 def reset_moe_launches():
@@ -2837,7 +2880,8 @@ def reset_moe_launches():
     from jobset_tpu_torch.ops import int8_matmul as i8
 
     reset_launches()
-    gm.GROUPED_LAUNCHES = gm.GROUPED_TMA_LAUNCHES = gm.GROUPED_F32_LAUNCHES = 0
+    for name in GROUPED_COUNTERS:
+        setattr(gm, name, 0)
     i8.INT8_LAUNCHES = 0
 
 
@@ -2858,7 +2902,7 @@ def moe_layerwise(cfg, params, prompt, serving=False) -> list:
         lp = transformer.layer_params(p, i)
         if serving:
             return decode._prefill_layer(lp, x, cache["k"][i], cache["v"][i], cfg)
-        return transformer._layer(lp, x, cfg)
+        return transformer._layer(lp, x, cfg)[0]
 
     out = []
     with torch.no_grad():
@@ -3115,12 +3159,24 @@ def phase_moe(results, baseline=None):
     ]
 
 
+# The kernels behind each grouped entry of the `kernels` line (dgrad runs
+# the forward's kernels on the transposed weights).
+GROUPED_ENTRY_KERNELS = {
+    "grouped_matmul": ("grouped_mm_tma_kernel", "grouped_mm_bf16_kernel"),
+    "grouped_matmul_f32": ("grouped_mm_f32_kernel",),
+    "grouped_matmul_dgrad": ("grouped_mm_tma_kernel", "grouped_mm_bf16_kernel"),
+    "grouped_matmul_dgrad_f32": ("grouped_mm_f32_kernel",),
+    "grouped_matmul_wgrad": ("grouped_wgrad_tma_kernel", "grouped_wgrad_bf16_kernel"),
+    "grouped_matmul_wgrad_f32": ("grouped_wgrad_f32_kernel",),
+}
+
+
 def attach_grouped_ptxas(entries, ptxas, sass=None) -> None:
     """Each grouped entry gets its kernels' ptxas reports from a build log
     this process parsed (none when the kernel was built elsewhere) and
     their SASS counts."""
     for entry in entries:
-        kernels = ("_f32_",) if entry["name"].endswith("_f32") else ("_tma_", "_bf16_")
+        kernels = GROUPED_ENTRY_KERNELS[entry["name"]]
         if ptxas:
             entry["ptxas"] = {k: v for k, v in ptxas.items() if any(s in k for s in kernels)}
         if sass:
@@ -3153,6 +3209,504 @@ def phase_moe_apart(results, baseline=None):
     return moe.get("moe_kernels") or []
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: mixture-of-experts training
+# ---------------------------------------------------------------------------
+
+# A MoE flagship train step's grouped launches: (forward, dgrad, wgrad).
+# Two products a layer, each differentiated once; under "full" and "dots"
+# the forward's run again in the backward (the reference's checkpoint_dots
+# saves no ragged_dot_general either). The flash launches are phase 7's.
+MOE_TRAIN_LAUNCHES = {"off": (2 * LAYERS, 2 * LAYERS, 2 * LAYERS),
+                      "full": (4 * LAYERS, 2 * LAYERS, 2 * LAYERS),
+                      "dots": (4 * LAYERS, 2 * LAYERS, 2 * LAYERS)}
+MOE_TRAIN_FLASH = {"off": LAYERS, "full": 2 * LAYERS, "dots": LAYERS}
+BACKWARD_OPS = ("dgrad", "wgrad")
+
+
+def train_counts(counts, f32) -> tuple:
+    """(forward, dgrad, wgrad) launches from the counters, each of which
+    must have gone to the variant of the dtype."""
+    if f32:
+        return (counts["GROUPED_F32_LAUNCHES"], counts["GROUPED_DGRAD_F32_LAUNCHES"],
+                counts["GROUPED_WGRAD_F32_LAUNCHES"])
+    return (counts["GROUPED_TMA_LAUNCHES"],
+            counts["GROUPED_DGRAD_LAUNCHES"] - counts["GROUPED_DGRAD_F32_LAUNCHES"],
+            counts["GROUPED_WGRAD_LAUNCHES"] - counts["GROUPED_WGRAD_F32_LAUNCHES"])
+
+
+def check_train_launches(path, counts, want, flash, f32):
+    """Every grouped launch of `path` on the dtype's kernels, in the counts
+    `want` (forward, dgrad, wgrad), and `flash` block launches."""
+    total = (counts["GROUPED_LAUNCHES"], counts["GROUPED_DGRAD_LAUNCHES"],
+             counts["GROUPED_WGRAD_LAUNCHES"])
+    block = counts["F32_LAUNCHES" if f32 else "TENSOR_CORE_LAUNCHES"]
+    check(train_counts(counts, f32) == total == tuple(want) and block == flash
+          and counts["KERNEL_LAUNCHES"] == flash,
+          f"{path}: grouped (forward, dgrad, wgrad) launches {total}, on the "
+          f"{'f32' if f32 else 'bf16'} kernels {train_counts(counts, f32)} (expected {tuple(want)}); "
+          f"{block} flash block launches (expected {flash})")
+
+
+def backward_operands(dtype, k, n, gen):
+    """A prefill-sized product's operands and its output's gradient."""
+    xs, w = grouped_operands(dtype, k, n, gen)
+    return xs, w, torch.randn((MOE_SLOTS, n), generator=gen, device="cuda").to(dtype)
+
+
+def backward_case(which, name, dtype, k, n, routing, seed):
+    """dgrad or wgrad against its plain version at one product of the MoE
+    flagship: the grouped kernels' tolerance, one launch counted on the
+    dtype's variant, two launches equal bit for bit, and wgrad's empty
+    experts exactly 0. Returns max|got - want|."""
+    from jobset_tpu_torch.ops import grouped_matmul as gm
+
+    xs, w, dy = backward_operands(dtype, k, n, torch.Generator(device="cuda").manual_seed(seed))
+    sizes = moe_group_sizes(routing)
+    if which == "dgrad":
+        fn, plain, args, shape = (gm.grouped_matmul_dgrad, gm.grouped_matmul_dgrad_plain,
+                                  (dy, w, sizes), (MOE_SLOTS, k))
+    else:
+        fn, plain, args, shape = (gm.grouped_matmul_wgrad, gm.grouped_matmul_wgrad_plain,
+                                  (xs, dy, sizes), (MOE_EXPERTS, k, n))
+    before = moe_launches_now()
+    got = fn(*args)
+    launched = {key: v - before[key] for key, v in moe_launches_now().items() if v != before[key]}
+    again = fn(*args)
+    torch.cuda.synchronize()
+    with f32_accumulating_plain():
+        want = plain(*args)
+    err = (got.float() - want.float()).abs()
+    limit = INT8_ABS[dtype] * want.float().abs().max().item()
+    if dtype == torch.bfloat16:
+        limit = INT8_REL_BF16 * want.float().abs() + limit
+    worst = err.max().item()
+    counter = f"GROUPED_{which.upper()}_LAUNCHES"
+    expect = {counter: 1}
+    if dtype == torch.float32:
+        expect[counter.replace("_LAUNCHES", "_F32_LAUNCHES")] = 1
+    check(launched == expect and got.dtype == dtype and tuple(got.shape) == shape
+          and bool(torch.isfinite(got.float()).all()),
+          f"grouped_matmul_{which} {name}: launches {launched} (expected {expect}), {dtype} "
+          f"{list(shape)}, finite")
+    check(bool((err <= limit).all()), f"grouped_matmul_{which} {name}: within tolerance "
+                                      f"(max|d| {worst:.3e})")
+    check(torch.equal(got, again), f"grouped_matmul_{which} {name}: two launches equal bit for bit")
+    if which == "dgrad" and dtype == torch.bfloat16:
+        # The TMA kernel reading w K-major against the forward's launch on a
+        # transposed copy of w: the same products in the same order.
+        check(torch.equal(got, gm.grouped_matmul(dy, w.transpose(1, 2).contiguous(), sizes)),
+              f"grouped_matmul_dgrad {name}: w read K-major equals the forward kernel on w "
+              "transposed, bit for bit")
+    if which == "wgrad":
+        empty = [e for e, size in enumerate(sizes.tolist()) if size == 0]
+        check(all(bool((got[e] == 0).all()) for e in empty),
+              f"grouped_matmul_wgrad {name}: the empty experts' {empty} gradients are exactly 0")
+    return worst
+
+
+def wgrad_mm_library(xs, dy, sizes):
+    """torch._grouped_mm's ragged-K form (2-D x 2-D, offsets on the
+    contraction) for xs^T dy, where the card's torch runs it (a yardstick
+    only): a callable, or the reason there is none."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, "torch has no _grouped_mm"
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    errors = []
+    for a in (xs.T, xs.T.contiguous()):
+        for b in (dy, dy.T.contiguous().T):
+            try:
+                out = fn(a, b, offs=offs, out_dtype=xs.dtype)
+                torch.cuda.synchronize()
+                if tuple(out.shape) == (MOE_EXPERTS, xs.shape[1], dy.shape[1]):
+                    return (lambda a=a, b=b: fn(a, b, offs=offs, out_dtype=xs.dtype)), None
+                errors.append(f"shape {tuple(out.shape)}")
+            except Exception as e:  # a yardstick that does not run is reported, not fatal
+                errors.append(f"{type(e).__name__}: {str(e)[:120]}")
+    return None, "; ".join(errors)
+
+
+def time_backward(dtype, k, n, routing="balanced") -> dict:
+    """L2-cold times of dgrad and wgrad at one product of the MoE flagship
+    (two input sets of 224 MB or more alternate): the wrapper's kernels
+    (dgrad: bf16 reads w K-major; f32 copies w to [E, N, K] first), the
+    copy of w alone (the f32 dgrad's, and what bf16 saves), the plain
+    versions, torch._grouped_mm where it runs (`library_ms`) and the bound
+    (every routed row once: 2 M K N operations; each operand read and the
+    result written once)."""
+    from jobset_tpu_torch.ops import grouped_matmul as gm
+
+    gen = torch.Generator(device="cuda").manual_seed(2 * k + n)
+    sets = [backward_operands(dtype, k, n, gen) for _ in range(2)]
+    sizes = moe_group_sizes(routing)
+    if dtype == torch.float32:
+        plain_is_f32("grouped backward timing")
+    out = {
+        "dgrad": {
+            "ms": rotating_ms(lambda i: gm.grouped_matmul_dgrad(sets[i][2], sets[i][1], sizes), 2,
+                              ITERS),
+            "copy_ms": rotating_ms(lambda i: sets[i][1].transpose(1, 2).contiguous(), 2, ITERS),
+            "plain_ms": rotating_ms(
+                lambda i: gm.grouped_matmul_dgrad_plain(sets[i][2], sets[i][1], sizes), 2,
+                ITERS // 4),
+        },
+        "wgrad": {
+            "ms": rotating_ms(lambda i: gm.grouped_matmul_wgrad(sets[i][0], sets[i][2], sizes), 2,
+                              ITERS),
+            "plain_ms": rotating_ms(
+                lambda i: gm.grouped_matmul_wgrad_plain(sets[i][0], sets[i][2], sizes), 2,
+                ITERS // 4),
+        },
+    }
+    libraries = {"dgrad": [grouped_mm_library(dy, w.transpose(1, 2), sizes) for _, w, dy in sets],
+                 "wgrad": [wgrad_mm_library(xs, dy, sizes) for xs, _, dy in sets]}
+    bound, bound_by = grouped_bound_ms(MOE_SLOTS, k, n, dtype)
+    for which in BACKWARD_OPS:
+        calls = libraries[which]
+        if all(fn is not None for fn, _ in calls):
+            out[which]["library_ms"] = rotating_ms(lambda i: calls[i][0](), 2, ITERS)
+        else:
+            out[which]["library_ms"] = None
+            out[which]["library_missing"] = calls[0][1] or calls[1][1]
+        out[which]["bound_ms"], out[which]["bound_by"] = bound, bound_by
+        if dtype == torch.float32:
+            out[which]["bound_fma_ms"] = grouped_fma_bound_ms(MOE_SLOTS, k, n)
+    del sets, libraries
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_backward_checks(results):
+    """Phase 13a: dgrad and wgrad at the MoE flagship's two products, four
+    routings, bf16 and f32, against their plain versions; their L2-cold
+    times (bf16 balanced and skewed, f32 balanced)."""
+    card = results["card"]
+    errs, seed = {}, 70
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        for label, (k, n) in MOE_PRODUCTS.items():
+            for routing in MOE_CHECK_ROUTINGS:
+                for which in BACKWARD_OPS:
+                    errs[f"{which} {tag} {label} {routing}"] = backward_case(
+                        which, f"{tag} {label} [{MOE_SLOTS},{k}]x[{MOE_EXPERTS},{k},{n}] {routing}",
+                        dtype, k, n, routing, seed)
+                    seed += 1
+    times = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        for label, (k, n) in MOE_PRODUCTS.items():
+            for routing in (("balanced", "skewed") if dtype == torch.bfloat16 else ("balanced",)):
+                t = time_backward(dtype, k, n, routing)
+                times[f"{tag} {label} {routing}"] = t
+                for which in BACKWARD_OPS:
+                    r = t[which]
+                    lib = (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
+                           else f"none ({r['library_missing']})")
+                    copy = ("" if "copy_ms" not in r else
+                            f" (of which the copy of w {r['copy_ms']:.4f} ms)" if tag == "f32" else
+                            f" (w read K-major; a copy of w would take {r['copy_ms']:.4f} ms)")
+                    print(f"grouped_matmul_{which} {tag} {label} [{MOE_SLOTS},{k}]x"
+                          f"[{MOE_EXPERTS},{k},{n}] {routing}, L2-cold: kernel {r['ms']:.4f} ms"
+                          f"{copy}, plain {r['plain_ms']:.4f} ms, library_ms (torch._grouped_mm) "
+                          f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                          f"{r['bound_ms'] / r['ms']:.1%} of bound ({card})", flush=True)
+    results["grouped_backward"] = {"max_abs_err": errs, "by_shape": times}
+
+
+def moe_train_layerwise(cfg, params, batch) -> list:
+    """Each layer of the bf16 MoE flagship, forward and backward, on the
+    kernel path's input to it, with the grouped products through the
+    kernels and again plain (the same routing: the router sees the same
+    input): its output within the dense forward's tolerance, and the
+    gradients of its input and of each of its parameters (through a random
+    cotangent on the output and on the gate-probability sums, as the aux
+    loss gives them) within TRAIN_GRAD_REL in relative norm. Returns each
+    layer's worst relative gradient."""
+    from jobset_tpu_torch.models import transformer
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    with torch.no_grad():
+        x = transformer._embed_tokens(params["embed"], batch["inputs"], cfg)
+    worst = []
+    for i in range(cfg.n_layers):
+        lp = {name: t.detach().requires_grad_() for name, t in
+              transformer.layer_params(params, i).items()}
+        cot = torch.randn(x.shape, generator=gen, device="cuda").to(cfg.dtype)
+        cot_stats = torch.randn((cfg.n_experts,), generator=gen, device="cuda")
+
+        def run():
+            xi = x.detach().requires_grad_()
+            out, stats = transformer._layer(lp, xi, cfg)
+            grads = torch.autograd.grad((out, stats[1]), [xi, *lp.values()], (cot, cot_stats))
+            return out.detach(), grads
+
+        got, got_grads = run()
+        with plain_grouped():
+            want, want_grads = run()
+        d, ref = (got.float() - want.float()).abs(), want.float().abs()
+        rels = [((g.float() - w.float()).norm() / w.float().norm()).item()
+                for g, w in zip(got_grads, want_grads)]
+        worst.append(max(rels))
+        check(d.max().item() <= LOGITS_MAX_REL * ref.max().item()
+              and d.mean().item() <= LOGITS_MEAN_REL * ref.mean().item()
+              and max(rels) <= TRAIN_GRAD_REL,
+              f"MoE train layer {i} bf16, kernels vs plain grouped products on the same input: "
+              f"output max|d| {d.max().item():.4g} (ref max {ref.max().item():.4g}); input and "
+              f"{len(lp)} parameter gradients within {TRAIN_GRAD_REL} in relative norm (worst "
+              f"{max(rels):.3e})")
+        x = got
+        del got_grads, want_grads, want
+    return worst
+
+
+def moe_train_no_sync(cfg, params):
+    """One MoE flagship layer's forward and backward (bf16, B=8, T=1024)
+    under set_sync_debug_mode("error"): a host sync raises."""
+    from jobset_tpu_torch.models import transformer
+
+    lp = {name: t.detach().requires_grad_() for name, t in
+          transformer.layer_params(params, 0).items()}
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn((BATCH, PROMPT, cfg.d_model), generator=gen, device="cuda").to(cfg.dtype)
+
+    def run():
+        xi = x.detach().requires_grad_()
+        out, stats = transformer._layer(lp, xi, cfg)
+        torch.autograd.grad((out.float().sum(), stats[1].sum()), [xi, *lp.values()])
+
+    run()  # warm (masks)
+    torch.cuda.synchronize()
+    ok, why = True, ""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run()
+    except RuntimeError as e:
+        ok, why = False, str(e)[:300]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(ok, "MoE train: a layer's forward and backward make no host sync "
+              f"(set_sync_debug_mode error){' - ' + why if why else ''}")
+
+
+def moe_train_trace(fn, label):
+    """`traced` over one train step (remat off), with the grouped kernels'
+    device time: the TMA kernel's first 2 x LAYERS launches are the
+    forward's (every one precedes the backward), the rest dgrad's; and the
+    top 10 ops' names in full."""
+    trace = traced(fn, label, keep_events=True)
+    if trace is None:
+        return None
+    events = trace.pop("events")
+    tma = sorted((e for e in events if "grouped_mm_tma_kernel" in e[0]), key=lambda e: e[1])
+    parts = {"forward": tma[:2 * LAYERS], "dgrad": tma[2 * LAYERS:],
+             "wgrad": [e for e in events if "grouped_wgrad_" in e[0]]}
+    names = {e[0] for e in events}
+    for top in trace["top10"]:
+        top["name"] = next((n for n in names if n.startswith(top["name"])), top["name"])[:400]
+        print(f"  top op {top['ms']:.3f} ms {top['count']}x: {top['name']}", flush=True)
+    for part, mine in parts.items():
+        ms = sum(end - start for _, start, end in mine) / 1e3
+        trace[f"{part}_ms"], trace[f"{part}_ops"] = ms, len(mine)
+        trace[f"{part}_share"] = ms / trace["device_busy_ms"]
+        print(f"  grouped {part}: {ms:.3f} ms in {len(mine)} launches, "
+              f"{ms / trace['device_busy_ms']:.1%} of device busy", flush=True)
+    return trace
+
+
+def phase_moe_train(results):
+    """Phase 13: mixture-of-experts training at the MoE flagship's width and
+    depth. Returns its `kernels` entries."""
+    from dataclasses import replace
+
+    from jobset_tpu_torch.models import build_train_step, init_params
+    from jobset_tpu_torch.runtime import model_bench, optim
+
+    card = results["card"]
+    moe_backward_checks(results)
+
+    # The main path: run_model_bench on the MoE flagship (B=8, T=1024,
+    # remat off, adam), counts set to 0 just before and read just after.
+    cfg = moe_config()
+    empty_mask_cache()
+    reset_moe_launches()
+    bench = model_bench.run_model_bench(steps=TRAIN_STEPS, warmup=TRAIN_WARMUP, batch=BATCH,
+                                        seq_len=PROMPT, config=cfg)
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    counts = moe_launches_now()
+    results["moe_train_bench_launches"] = counts
+    check_train_launches(f"MoE run_model_bench ({steps} steps)", counts,
+                         [steps * c for c in MOE_TRAIN_LAUNCHES["off"]], steps * LAYERS, False)
+    losses = bench.pop("losses")
+    check(all(l == l and abs(l) < float("inf") for l in losses) and losses[-1] < losses[0],
+          f"MoE run_model_bench: every loss finite, last {losses[-1]:.4f} < first {losses[0]:.4f}")
+    results["moe_model_bench"], results["moe_model_bench_losses"] = bench, losses
+    lo, hi = bench["step_time_ms_range"]
+    print(f"MoE train step flagship B={BATCH} T={PROMPT} (remat off, adam): median of "
+          f"{TRAIN_STEPS} {bench['step_time_ms_median']:.3f} ms ({lo:.3f}-{hi:.3f}), "
+          f"{bench['tokens_per_sec']:.1f} tokens/s, {bench['achieved_tflops']:.2f} TFLOP/s at "
+          f"activated FLOPs, MFU {bench['mfu_pct']}% of {bench['peak_tflops']} TFLOP/s, peak "
+          f"memory {bench['peak_memory_gb']:.2f} GB (information; {card})", flush=True)
+    torch.cuda.empty_cache()
+
+    # The step in f32 at full width and depth, through the kernels against
+    # the same step on the plain grouped products (the attention kernel in
+    # both), and remat "full" and "dots" against none.
+    cfg32 = moe_config(dtype=torch.float32)
+    params = init_params(cfg32, torch.Generator(device="cuda").manual_seed(0))
+    batch = token_batch(cfg32.vocab_size, BATCH, PROMPT, seed=3)
+    stepped, launches = {}, {}
+    for policy in ("off", "full", "dots"):
+        c = replace(cfg32, remat=policy != "off", remat_policy="full" if policy == "off" else policy)
+        reset_moe_launches()
+        stepped[policy] = sgd_step(c, params, batch)
+        launches[policy] = moe_launches_now()
+        check_train_launches(f"MoE train step f32, remat {policy}", launches[policy],
+                             MOE_TRAIN_LAUNCHES[policy], MOE_TRAIN_FLASH[policy], True)
+    results["moe_train_step_launches"] = launches
+    with plain_grouped():
+        plain = sgd_step(cfg32, params, batch)
+    results["moe_train_grad_rel_vs_plain"] = compare_step(
+        "MoE train step f32 flagship, kernels vs plain grouped products", stepped["off"], plain,
+        F32_LOSS_REL, F32_GRAD_REL)
+    del plain
+    for policy in ("full", "dots"):
+        compare_step(f"MoE train step f32 flagship, remat {policy!r} vs off", stepped[policy],
+                     stepped["off"], F32_LOSS_REL, F32_GRAD_REL)
+    del stepped, params
+    torch.cuda.empty_cache()
+
+    # bf16 a layer at a time on the same routing, and no host sync.
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    results["moe_train_layers"] = moe_train_layerwise(cfg, params, batch)
+    moe_train_no_sync(cfg, params)
+
+    # The trace of one warm bf16 step (remat off, adam).
+    opt = optim.adam(1e-3)
+    state = opt.init(params)
+    step = build_train_step(cfg, opt)
+    params, state, _ = step(params, state, batch)  # warm-up
+    holder = {}
+
+    def one_step():
+        holder["out"] = step(params, state, batch)
+
+    results["moe_train_trace"] = moe_train_trace(
+        one_step, f"MoE train step (B={BATCH}, T={PROMPT}, remat off, adam)")
+    del params, state, holder, step
+    torch.cuda.empty_cache()
+
+    # A small f32 MoE config: the card's step against the CPU's (its launches
+    # count the f32 backward kernels' entries).
+    small = moe_config(vocab_size=128, d_model=64, n_heads=4, n_kv_heads=2, n_layers=2,
+                       d_ff_expert=96, dtype=torch.float32)
+    small_params = init_params(small, torch.Generator().manual_seed(0), "cpu")
+    small_batch = token_batch(128, 4, 64, seed=5, device="cpu")
+    reset_moe_launches()
+    card_step = sgd_step(small, to_device(small_params, "cuda"),
+                         {k: t.cuda() for k, t in small_batch.items()})
+    small_counts = moe_launches_now()
+    check_train_launches("MoE train step small f32 config", small_counts,
+                         [c // LAYERS * small.n_layers for c in MOE_TRAIN_LAUNCHES["off"]],
+                         small.n_layers, True)
+    compare_step("MoE train step small f32 config, card vs CPU plain path", card_step,
+                 sgd_step(small, small_params, small_batch, device="cpu"), F32_LOSS_REL,
+                 F32_GRAD_REL)
+
+    g = results["grouped_backward"]
+
+    def entry(name, which, tag, launches, by_path, variant):
+        rows = [g["by_shape"][f"{tag} {label} balanced"][which] for label in MOE_PRODUCTS]
+
+        def total(key):
+            vals = [r.get(key) for r in rows]
+            return None if any(v is None for v in vals) else sum(vals)
+
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "jobset_tpu_torch/ops/csrc/grouped_matmul.cu",
+            "replaces": "jobset_tpu/models/transformer.py:670",
+            "replaces_is": f"the {which} ragged_dot_general of the VJP of lax.ragged_dot in "
+                           "sorted_ragged_expert_ffn (:670 and :675), an XLA program (no Pallas "
+                           "kernel)",
+            "variant": variant,
+            "launches": launches,
+            "launches_by_path": by_path,
+            "ms": total("ms"),
+            **({"copy_ms": total("copy_ms")} if which == "dgrad" else {}),
+            "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"),
+            "bound_by": rows[0]["bound_by"],
+            **({"bound_fma_ms": total("bound_fma_ms")} if tag == "f32" else {}),
+            "library_ms": total("library_ms"),
+            "library_call": f"torch._grouped_mm ({tag}), where the card's torch runs it",
+            "shape": f"{tag}, the backward of a layer's two products: [{MOE_SLOTS},1024] x "
+                     f"[{MOE_EXPERTS},1024,{MOE_D_FF}] and [{MOE_SLOTS},{MOE_D_FF}] x "
+                     f"[{MOE_EXPERTS},{MOE_D_FF},1024], balanced routing; L2-cold",
+            "max_abs_err": max(g["max_abs_err"][f"{which} {tag} {label} balanced"]
+                               for label in MOE_PRODUCTS),
+            "max_abs_err_by_case": {k: v for k, v in g["max_abs_err"].items()
+                                    if k.startswith(f"{which} {tag}")},
+            "by_shape": {k: v[which] for k, v in g["by_shape"].items() if k.startswith(tag)},
+        }
+
+    bench_counts = results["moe_train_bench_launches"]
+    by_path = {f"f32 flagship train step, remat {p}": v for p, v in launches.items()}
+    return [
+        entry("grouped_matmul_dgrad", "dgrad", "bf16", bench_counts["GROUPED_DGRAD_LAUNCHES"],
+              {"MoE run_model_bench, all steps": bench_counts["GROUPED_DGRAD_LAUNCHES"],
+               **{k: v["GROUPED_DGRAD_LAUNCHES"] for k, v in by_path.items()}},
+              "the forward's TMA kernel with B read K-major (grouped_mm_tma_kernel<true>: wgmma "
+              "fed by TMA, w as it lies, no copy); where TMA cannot take the operands, w copied "
+              "to [E, N, K] and grouped_mm_bf16_kernel"),
+        entry("grouped_matmul_dgrad_f32", "dgrad", "f32", small_counts["GROUPED_DGRAD_F32_LAUNCHES"],
+              {"small f32 config train step": small_counts["GROUPED_DGRAD_F32_LAUNCHES"],
+               **{k: v["GROUPED_DGRAD_F32_LAUNCHES"] for k, v in by_path.items()}},
+              "w copied to [E, N, K], then the forward's f32 kernel (grouped_mm_f32_kernel, "
+              "3xTF32 on mma.sync)"),
+        entry("grouped_matmul_wgrad", "wgrad", "bf16", bench_counts["GROUPED_WGRAD_LAUNCHES"],
+              {"MoE run_model_bench, all steps": bench_counts["GROUPED_WGRAD_LAUNCHES"],
+               **{k: v["GROUPED_WGRAD_LAUNCHES"] for k, v in by_path.items()}},
+              "grouped_wgrad_tma_kernel: one block a (256-column N tile, 128-row K tile, "
+              "expert) walking its segment's rows in steps of 64 loaded by TMA from a producer "
+              "warp, wgmma m64n256k16 with xs^T read M-major and dy N-major, rows past the "
+              "segment zeroed in shared memory; operands TMA cannot take go to "
+              "grouped_wgrad_bf16_kernel (mma.sync, ldmatrix.trans)"),
+        entry("grouped_matmul_wgrad_f32", "wgrad", "f32", small_counts["GROUPED_WGRAD_F32_LAUNCHES"],
+              {"small f32 config train step": small_counts["GROUPED_WGRAD_F32_LAUNCHES"],
+               **{k: v["GROUPED_WGRAD_F32_LAUNCHES"] for k, v in by_path.items()}},
+              "grouped_wgrad_f32_kernel: as the bf16 one in steps of 32 rows, 3xTF32 on "
+              "mma.sync m16n8k8, each step's sums added to the output in f32"),
+    ]
+
+
+def phase_moe_train_apart(results):
+    """Phase 13 in a process of its own (`--moe-train-only`). Returns its
+    `kernels` entries (none if it failed)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "moe_train.json")
+        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--moe-train-only",
+                              "--out", path], capture_output=True, text=True, timeout=900)
+        print(run.stdout, end="", flush=True)
+        if run.returncode != 0:
+            print(run.stderr[-4000:], file=sys.stderr, flush=True)
+        check(run.returncode == 0 and os.path.exists(path),
+              f"phase 13 in a process of its own exits {run.returncode}")
+        if not os.path.exists(path):
+            return []
+        with open(path) as f:
+            train = json.load(f)
+    for key in ("grouped_backward", "moe_model_bench", "moe_model_bench_losses",
+                "moe_train_bench_launches", "moe_train_step_launches",
+                "moe_train_grad_rel_vs_plain", "moe_train_layers", "moe_train_trace"):
+        results[key] = train.get(key)
+    return train.get("moe_train_kernels") or []
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the results as JSON to this file")
@@ -3171,6 +3725,9 @@ def main() -> int:
     only.add_argument("--moe-only", action="store_true",
                       help="build the flash block, int8 and grouped kernels and run phase 12 "
                            "(mixture-of-experts serving and forward) alone (no result line)")
+    only.add_argument("--moe-train-only", action="store_true",
+                      help="build the flash block and grouped kernels and run phase 13 "
+                           "(mixture-of-experts training) alone (no result line)")
     parser.add_argument("--int8-baseline", metavar="DIR",
                         help="another checkout of this repo (the parent commit): phase 11 "
                              "also times its int8 kernel on the same inputs")
@@ -3209,6 +3766,7 @@ def main() -> int:
     sources = (["auction"] if args.solver_only else ["flash_block"] if args.flash_only
                else ["flash_block", "int8_matmul"] if args.serving_only
                else ["flash_block", "int8_matmul", "grouped_matmul"] if args.moe_only
+               else ["flash_block", "grouped_matmul"] if args.moe_train_only
                else ["flash_block", "auction", "int8_matmul", "grouped_matmul"])
     libraries = cuda_build.build_all(sources)
     results["build_s"] = time.perf_counter() - t0
@@ -3221,9 +3779,21 @@ def main() -> int:
         results["int8_ptxas"] = kernel_ptxas(cuda_build.BUILD_LOG["int8_matmul"],
                                               r"int8_matmul_(?:tc|f32)_kernel", "int8 kernel")
     if "grouped_matmul" in cuda_build.BUILD_LOG:
-        results["grouped_ptxas"] = kernel_ptxas(cuda_build.BUILD_LOG["grouped_matmul"],
-                                                 r"grouped_mm_(?:bf16|f32|tma)_kernel",
-                                                 "grouped kernel")
+        results["grouped_ptxas"] = kernel_ptxas(
+            cuda_build.BUILD_LOG["grouped_matmul"],
+            r"grouped_(?:mm|wgrad)_(?:bf16|f32|tma)_kernel", "grouped kernel")
+    if args.moe_train_only:
+        results["moe_train_kernels"] = phase_moe_train(results)
+        attach_grouped_ptxas(results["moe_train_kernels"], results.get("grouped_ptxas"))
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump(results, f, indent=1)
+        print(f"chip_smoke --moe-train-only: {len(FAILURES)} check(s) failed, "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        for what in FAILURES:
+            print(f"  FAILED: {what}", flush=True)
+        return 1 if FAILURES else 0
     if args.moe_only:
         results["grouped_sass"] = grouped_sass(libraries["grouped_matmul"])
         results["moe_kernels"] = phase_moe(results, args.grouped_baseline)
@@ -3315,6 +3885,7 @@ def main() -> int:
     phase_control_apart(results)
     int8_kernel = phase_serving_apart(results, args.int8_baseline)
     grouped_kernels = phase_moe_apart(results, args.grouped_baseline)
+    grouped_kernels += phase_moe_train_apart(results)
     if int8_kernel is not None:
         int8_kernel["ptxas"] = results.get("int8_ptxas")
         # The expert axis (phase 12): its checks and times, and the MoE

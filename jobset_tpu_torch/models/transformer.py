@@ -13,22 +13,24 @@ work here too.
 
 Training (`build_train_step`, `build_eval_step`) is the JAX package's on
 one device: the per-token cross-entropy with label smoothing and z-loss,
-the time-chunked loss (`loss_chunk`), per-layer rematerialization
-(`torch.utils.checkpoint`, policies "full" and "dots"), gradient
-accumulation, and an optimizer from `runtime.optim` applied as
-`(p + u).to(p.dtype)`.
+the MoE balancing aux loss, the time-chunked loss (`loss_chunk`),
+per-layer rematerialization (`torch.utils.checkpoint`, policies "full"
+and "dots"), gradient accumulation, and an optimizer from `runtime.optim`
+applied as `(p + u).to(p.dtype)`.
 
 Mixture-of-experts layers (`n_experts > 0`) run every router of the
 reference at ep = 1: soft dispatch, token-choice top-k with a capacity
 buffer or dropless (the experts' products over sorted ragged row
 segments, `ops.grouped_matmul`), and expert choice. The router's product
 is taken in f64 and rounded to f32 (`_router_logits`), so no TF32 setting
-reaches it. The forward computes each layer's balancing statistics as the
-reference does and drops them; MoE training is not ported yet
-(`build_train_step` and `build_eval_step` raise).
+reaches it. Each layer returns its balancing statistics with its output;
+the loss pools them into the aux loss (`_balancing_aux`), and the
+forward and serving paths drop them. The grouped products differentiate
+through `ops.grouped_matmul`'s autograd Function (hand kernels for the
+backward on the card).
 
-Not ported yet: MoE training, tp/sp/pp/ep > 1, microbatched pipelines and
-Ulysses attention; `TransformerConfig.validate` rejects the settings.
+Not ported yet: tp/sp/pp/ep > 1, microbatched pipelines and Ulysses
+attention; `TransformerConfig.validate` rejects the settings.
 """
 
 from __future__ import annotations
@@ -380,6 +382,33 @@ def _moe_mlp(p, xn, cfg):
     return _all_experts(p, xn, _router_gates(xn.reshape(-1, xn.shape[-1]), p["wg"]), cfg)
 
 
+class _SlotGather(torch.autograd.Function):
+    """rows = src[index // k], for `index` a permutation of the n * k slots
+    and `back` its inverse (k = 1: a permutation of src's rows), with a
+    backward that gathers too: each source row's k slot gradients, found
+    through `back`, added in f32 in slot order. No scatter, so two runs of
+    the backward give the same bits (an accumulating `index_put_`, the
+    backward of a plain gather, adds in no fixed order on the card)."""
+
+    @staticmethod
+    def forward(ctx, src, index, back, k):
+        ctx.save_for_backward(back)
+        ctx.k = k
+        return src[index // k] if k > 1 else src[index]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (back,) = ctx.saved_tensors
+        rows = grad[back]
+        if ctx.k > 1:
+            parts = rows.float().reshape(-1, ctx.k, grad.shape[-1])
+            total = parts[:, 0]
+            for j in range(1, ctx.k):
+                total = total + parts[:, j]
+            rows = total.to(grad.dtype)
+        return rows, None, None, None
+
+
 def sorted_ragged_expert_ffn(p, x_flat, top_w, top_i, cfg):
     """The sorted ragged core of the dropless forward and the serving
     prefill (the reference's `local_experts=None` form, ep = 1).
@@ -390,21 +419,23 @@ def sorted_ragged_expert_ffn(p, x_flat, top_w, top_i, cfg):
     kernel on the card; the segment sizes stay on the device), and each
     token's k gate-weighted results are added in f32 in slot order,
     gathered through the inverse permutation, so two runs give the same
-    bits (an `index_add_` on the card adds in no fixed order). Returns
-    (out [n, d] f32, group_sizes int32 [E])."""
+    bits (an `index_add_` on the card adds in no fixed order); the slot
+    gathers' backward gathers as well (`_SlotGather`). Returns (out [n, d]
+    f32, group_sizes int32 [E])."""
     k = top_i.shape[-1]
     n, d = x_flat.shape
     compute = cfg.dtype
     expert_of = top_i.reshape(n * k)  # slot order: token-major
     order = torch.argsort(expert_of, stable=True)
+    inverse = torch.empty_like(order).scatter_(0, order, torch.arange(n * k, device=order.device))
     # Counted on the device: a bincount on the card reads its length back.
     group_sizes = torch.zeros(cfg.n_experts, dtype=torch.int32, device=x_flat.device)
     group_sizes.scatter_add_(0, expert_of, torch.ones_like(expert_of, dtype=torch.int32))
-    xs = x_flat[order // k].to(compute)  # the slots' tokens, by expert
+    xs = _SlotGather.apply(x_flat, order, inverse, k).to(compute)  # the slots' tokens, by expert
     h = F.silu(grouped_matmul(xs, weight_cast(p["we1"], compute), group_sizes))
     y = grouped_matmul(h, weight_cast(p["we2"], compute), group_sizes)
-    inverse = torch.empty_like(order).scatter_(0, order, torch.arange(n * k, device=order.device))
-    parts = (y[inverse].float() * top_w.reshape(n * k, 1)).reshape(n, k, d)
+    parts = (_SlotGather.apply(y, inverse, order, 1).float()
+             * top_w.reshape(n * k, 1)).reshape(n, k, d)
     out = parts[:, 0]
     for j in range(1, k):
         out = out + parts[:, j]
@@ -497,17 +528,19 @@ def _mlp(p, xn, cfg):
 
 def _layer_out(p, x, attn, cfg: TransformerConfig):
     """The output projection of attn [B, T, H, D] onto the residual x,
-    then the MLP on the residual. The MoE balancing statistics are
-    dropped: only training (not ported for MoE) reads them."""
+    then the MLP on the residual: (x, the MLP's balancing statistics [2,
+    aux_stat_width])."""
     batch, t, heads, dim = attn.shape
     out = matmul(attn.reshape(batch, t, heads * dim), p["wo"], cfg.dtype)
     x = x + out.to(x.dtype)
     xn = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _mlp(p, xn, cfg)[0].to(x.dtype)
+    out, stats = _mlp(p, xn, cfg)
+    return x + out.to(x.dtype), stats
 
 
 def _layer(p, x, cfg: TransformerConfig):
-    """One dense layer: attention block, then the MLP on the residual."""
+    """One layer: attention block, then the MLP on the residual. Returns
+    (x, stats), as the reference's `_layer`."""
     attn = ring_attention(*_attention_inputs(p, x, cfg), causal=True)
     return _layer_out(p, x, attn, cfg)
 
@@ -524,7 +557,11 @@ def _remat_layer(p, x, cfg: TransformerConfig):
     call outside any checkpoint (its output and the saved q, k, v stay;
     selective checkpointing sees aten ops, not the attention's autograd
     Function) and checkpoints the pieces before and after it, saving their
-    GEMM outputs and recomputing norms, rotary and silu."""
+    GEMM outputs and recomputing norms, rotary and silu. The grouped expert
+    products are no GEMM there (`ragged_dot_general` is not a `dot_general`
+    to the reference's `checkpoint_dots` either): their autograd Function
+    runs again in the backward, as the reference recomputes them. Returns
+    (x, stats)."""
     if not (cfg.remat and torch.is_grad_enabled()):
         return _layer(p, x, cfg)
     if cfg.remat_policy == "full":
@@ -597,15 +634,33 @@ def _token_ce(params, xn, targets, cfg: TransformerConfig):
                       for i in range(0, t, chunk)], dim=1)
 
 
+def _balancing_aux(stats, cfg: TransformerConfig):
+    """The GShard balancing loss from the layers' statistics [layers, 2, E]
+    (choice counts, gate-probability sums), as the reference's
+    `_local_loss_fn` forms it at dp = sp = ep = 1: each layer's E * sum_e
+    f_e * P_e (f_e the share of routing choices that picked expert e, P_e
+    its mean gate probability), averaged over the layers."""
+    choices, probs = stats[:, 0], stats[:, 1]
+    total = torch.clamp(choices.sum(dim=-1, keepdim=True), min=1e-9)
+    frac = choices / total
+    pbar = probs / torch.clamp(total / cfg.moe_top_k, min=1e-9)
+    return (cfg.n_experts * frac * pbar).sum() / cfg.n_layers
+
+
 def _local_loss(params, inputs, targets, mask, cfg: TransformerConfig):
     """(loss_sum, token_count, aux) of one batch on one device; aux, the
-    MoE balancing loss, is 0 on the dense model."""
+    MoE balancing loss, is 0 unless routing is token-choice top-k (the
+    reference's condition, moe_top_k > 0)."""
     x = _embed_tokens(params["embed"], inputs, cfg)
+    stats = []
     for p in _layer_views(params):
-        x = _remat_layer(p, x, cfg)
+        x, layer_stats = _remat_layer(p, x, cfg)
+        stats.append(layer_stats)
     xn = rms_norm(x, params["final_norm"], cfg.norm_eps)
     per_token = _token_ce(params, xn, targets, cfg)
-    return (per_token * mask).sum(), mask.sum(), per_token.new_zeros(())
+    aux = (_balancing_aux(torch.stack(stats), cfg) if cfg.moe_top_k > 0
+           else per_token.new_zeros(()))
+    return (per_token * mask).sum(), mask.sum(), aux
 
 
 def _batch_on(batch: dict, device):
@@ -616,14 +671,6 @@ def _batch_on(batch: dict, device):
     mask = (torch.ones(targets.shape, dtype=torch.float32, device=device) if mask is None
             else torch.as_tensor(mask).to(device, torch.float32, non_blocking=True))
     return inputs, targets, mask
-
-
-def _no_moe_training(cfg: TransformerConfig) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "MoE training (the balancing aux loss, the grouped products' backward) "
-            "is not ported yet; build_forward and build_generate serve MoE models"
-        )
 
 
 def build_train_step(config: TransformerConfig, optimizer, accum_steps: int = 1, device=None):
@@ -638,7 +685,6 @@ def build_train_step(config: TransformerConfig, optimizer, accum_steps: int = 1,
     arguments as they were."""
     cfg = config
     cfg.validate()
-    _no_moe_training(cfg)
     device = resolve_device(device)
 
     def loss_and_grads(params, inputs, targets, mask):
@@ -679,7 +725,6 @@ def build_eval_step(config: TransformerConfig, device=None):
     smoothing and z-loss are off, so exp(loss) stays a perplexity."""
     cfg = replace(config, label_smoothing=0.0, z_loss_coef=0.0)
     cfg.validate()
-    _no_moe_training(cfg)
     device = resolve_device(device)
 
     @torch.no_grad()
@@ -701,7 +746,7 @@ def build_forward(config: TransformerConfig, device=None):
     def forward(params, tokens):
         x = _embed_tokens(params["embed"], tokens.to(device), cfg)
         for i in range(n_layers_of(params)):
-            x = _layer(layer_params(params, i), x, cfg)
+            x = _layer(layer_params(params, i), x, cfg)[0]
         xn = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return unembed_logits(params, xn, cfg)
 

@@ -84,6 +84,34 @@
 //   4096.
 // - Each output's sums run in one fixed order, with no split of K across
 //   blocks and no atomics: two launches give the same bits.
+//
+// The product's backward (the two `ragged_dot_general` programs of the
+// VJP of `lax.ragged_dot`):
+// - dgrad, dxs = dy . w[g(r)]^T, is the forward's function with B
+//   transposed: the TMA kernel's BKMajor instantiation reads w [E, K, N]
+//   as it lies (B K-major, the transpose bit off); for the other kernels
+//   `ops/grouped_matmul.py` copies w to [E, N, K] first.
+// - wgrad, dw[e] = xs[seg_e]^T . dy[seg_e] [E, K, N], is ragged on the
+//   contraction: one block a (tile of N, 128-row tile of K, expert), which
+//   finds its segment from the group sizes on the card (the groups before
+//   it, clamped to M) and walks its rows in steps, in order from the
+//   first; rows of a step outside the segment are zeros, so a step that
+//   crosses a group boundary adds nothing of the neighbour's rows. An
+//   empty group's blocks write zeros. No split of the rows across blocks
+//   and no atomics: two launches give the same bits. bf16 where TMA takes
+//   the operands (`grouped_wgrad_tma_kernel`): 256-column tiles, steps of
+//   64 rows loaded by TMA from a producer warp into the forward's 3-stage
+//   ring, wgmma m64n256k16 with A = xs^T read M-major and B = dy N-major
+//   (both through the transpose bit), the rows past the segment zeroed in
+//   shared memory. Other bf16 (`grouped_wgrad_bf16_kernel`): 128-column
+//   tiles, `mma.sync` m16n8k16 on operands read element by element, both
+//   by `ldmatrix.trans`. f32 (`grouped_wgrad_f32_kernel`): 128-column
+//   tiles, steps of 32 rows through a `cp.async` ring (16-byte copies
+//   where K and N allow them), 3xTF32 on m16n8k8 with each step's sums
+//   added to the output in f32 (a segment may hold every row: up to 16384
+//   at the flagship, where one truncating chain would drift further than
+//   the forward's K = 4096 does); rows 136 floats apart, so a warp's
+//   fragment reads (k = c, column g) are free of bank conflicts.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -119,9 +147,21 @@ constexpr int F_AP = F_BK + 8;          // A row pitch (floats): 8 mod 32
 constexpr int F_BP = BN + 4;            // B row pitch (floats): 4 mod 32
 constexpr int F_A_FLOATS = BM * F_AP, F_STAGE_FLOATS = F_A_FLOATS + F_BK * F_BP;
 constexpr int SMEM_F32 = F_STAGES * F_STAGE_FLOATS * 4;
+
+constexpr int W_BR = 64, W_STAGES = 3;           // bf16 wgrad: rows a step, ring depth
+constexpr int W_STAGE = 2 * W_BR * BN * 2;       // xs and dy rows of a step: 32 KB
+constexpr int SMEM_W_BF16 = W_STAGES * W_STAGE;  // 96 KB
+constexpr int WF_BR = 32, WF_STAGES = 4;         // f32 wgrad: rows a step, ring depth
+constexpr int WF_P = BN + 8;                     // row pitch (floats): 8 mod 32
+constexpr int WF_STAGE_FLOATS = 2 * WF_BR * WF_P;
+constexpr int SMEM_W_F32 = WF_STAGES * WF_STAGE_FLOATS * 4;  // 136 KB
 constexpr unsigned FULL = 0xffffffffu;
 
-enum Variant { F32 = 0, TMA = 1, MMA = 2 };
+// TMA_T: bf16 by TMA and wgmma with w given as [E, N, K] (x . w[g]^T).
+enum Variant { F32 = 0, TMA = 1, MMA = 2, TMA_T = 3 };
+// `prepare`'s slots for the other kernels (the variants above take 0-2).
+enum Slot { F32_VEC = 3, WGRAD_MMA = 4, WGRAD_F32 = 5, WGRAD_F32_VEC = 6, TMA_T_SLOT = 7,
+            WGRAD_TMA = 8, SLOTS = 9 };
 
 struct Params {
   const void* x;       // [M, K] in T
@@ -469,16 +509,18 @@ __device__ __forceinline__ void reg_fence(float (&d)[32][4]) {
   "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
   "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
 
-// d (+)= A . B, m64n256k16: A K-major and B N-major (transpose bit) in
-// shared memory; `accumulate` 0 overwrites d.
+// d (+)= A . B, m64n256k16 from shared memory: A K-major (TransA 0) or
+// M-major (TransA 1, the transpose bit), B N-major (TransB 1) or K-major
+// (TransB 0); `accumulate` 0 overwrites d.
+template <int TransA, int TransB>
 __device__ __forceinline__ void wgmma_n256(float (&d)[32][4], uint64_t a, uint64_t b,
                                            int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " WG_R128
-      ", %128, %129, p, 1, 1, 0, 1;\n}\n"
+      ", %128, %129, p, 1, 1, %131, %132;\n}\n"
       : WG_D64(0), WG_D64(8), WG_D64(16), WG_D64(24)
-      : "l"(a), "l"(b), "r"(accumulate));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TransA), "n"(TransB));
 }
 
 // Grid: one block an SM (or one a tile where there are fewer). Warpgroup 0
@@ -486,6 +528,10 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[32][4], uint64_t a, uint64
 // once); warpgroups 1 and 2 are the consumers, rows 0-63 and 64-127 of
 // each tile. Every warp finds each tile itself (find_tile), so the roles
 // share nothing but the ring: the same walk, the same tiles skipped.
+// BKMajor: w is [E, N, K] and the product is x . w[g]^T (the backward's
+// dgrad on the forward's weights as they lie): each B box is 64 columns x
+// 64 k, 128-byte swizzled rows of k as A's, read by wgmma K-major.
+template <bool BKMajor>
 __global__ void __launch_bounds__(TMA_THREADS, 1)
     grouped_mm_tma_kernel(const __grid_constant__ Params p, const __grid_constant__ CUtensorMap tm_x,
                           const __grid_constant__ CUtensorMap tm_w, int col_tiles, int tiles) {
@@ -528,9 +574,13 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
           unsigned char* a_s = ring + stage * TMA_STAGE;
           mbar_expect_tx(&full[stage], TMA_A_BYTES + boxes * TMA_B_BOX);
           tma_load_2d(a_s, &tm_x, &full[stage], ks * TMA_BK, tile.row0);
-          for (int j = 0; j < boxes; ++j)
-            tma_load_3d(a_s + TMA_A_BYTES + j * TMA_B_BOX, &tm_w, &full[stage], col0 + 64 * j,
-                        ks * TMA_BK, tile.group);
+          for (int j = 0; j < boxes; ++j) {
+            unsigned char* b_box = a_s + TMA_A_BYTES + j * TMA_B_BOX;
+            if (BKMajor)
+              tma_load_3d(b_box, &tm_w, &full[stage], ks * TMA_BK, col0 + 64 * j, tile.group);
+            else
+              tma_load_3d(b_box, &tm_w, &full[stage], col0 + 64 * j, ks * TMA_BK, tile.group);
+          }
         }
       }
       __syncwarp();
@@ -566,12 +616,18 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
       reg_fence(d);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < TMA_BK / 16; ++kk)
+      for (int kk = 0; kk < TMA_BK / 16; ++kk) {
         // k16 step kk: 32 bytes into A's 128-byte rows; 16 k rows of B's
         // boxes (1024 bytes an 8-row group, 8 KB from one 64-column box to
-        // the next).
-        wgmma_n256(d, sw128_desc(a_s + 32 * kk, 16, 1024),
-                   sw128_desc(b_s + 2048 * kk, TMA_B_BOX, 1024), ks > 0 || kk > 0);
+        // the next), or with BKMajor 32 bytes into B's 128-byte column rows
+        // (8-row groups 1024 bytes apart, the boxes back to back).
+        const uint64_t a_desc = sw128_desc(a_s + 32 * kk, 16, 1024);
+        if (BKMajor)
+          wgmma_n256<0, 0>(d, a_desc, sw128_desc(b_s + 32 * kk, 16, 1024), ks > 0 || kk > 0);
+        else
+          wgmma_n256<0, 1>(d, a_desc, sw128_desc(b_s + 2048 * kk, TMA_B_BOX, 1024),
+                           ks > 0 || kk > 0);
+      }
       wgmma_commit();
       if (ks > 0) {
         // The step before is done: release its stage.
@@ -790,6 +846,388 @@ __global__ void __launch_bounds__(THREADS, 1) grouped_mm_f32_kernel(const __grid
 }
 
 // ---------------------------------------------------------------------------
+// wgrad: dw[e] = xs[seg_e]^T . dy[seg_e], ragged on the contraction
+// ---------------------------------------------------------------------------
+
+struct WgradParams {
+  const void* x;     // [M, K] in T, rows sorted by expert
+  const void* dy;    // [M, N] in T
+  void* dw;          // [E, K, N] in T
+  const int* sizes;  // [E] int32
+  int M, K, N, E;
+};
+
+// Expert e's rows [start, end): the rows of the groups before it, clamped
+// to M (every thread sums the few sizes itself).
+__device__ __forceinline__ void segment(const WgradParams& p, int e, int& start, int& end) {
+  long long before = 0;
+  for (int i = 0; i < e; ++i) before += max(p.sizes[i], 0);
+  start = (int)min(before, (long long)p.M);
+  end = (int)min(before + max(p.sizes[e], 0), (long long)p.M);
+}
+
+// Zeros into the block's tile of dw[e] (an empty group's gradient).
+template <typename T>
+__device__ void zero_tile(const WgradParams& p, T* dw, int k0, int n0) {
+  const int rows = min(BN, p.K - k0), cols = min(BN, p.N - n0);
+  for (int u = threadIdx.x; u < rows * cols; u += THREADS)
+    dw[(size_t)(k0 + u / cols) * p.N + n0 + u % cols] = static_cast<T>(0.f);
+}
+
+// 8 bf16 values of row r, columns c.. of a [*, width] matrix into shared
+// memory, read element by element: zeros where the row is not live or
+// past width.
+__device__ __forceinline__ void load8(unsigned char* dst, const __nv_bfloat16* src, int r, int c,
+                                      int width, bool live) {
+  __align__(16) __nv_bfloat16 v[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    v[j] = live && c + j < width ? src[(size_t)r * width + c + j] : __float2bfloat16_rn(0.f);
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
+}
+
+// bf16 operands TMA cannot take. Grid: (column tiles of N, row tiles of
+// K, experts). Each stage holds 64 rows of xs (columns k0..) and of dy
+// (columns n0..) as 256-byte swizzled rows (b_off), read element by
+// element. Warp (wm, wn) owns rows 64 wm .. + 63 of the K tile and
+// columns 32 wn .. + 31 of the N tile.
+__global__ void __launch_bounds__(THREADS, 1)
+    grouped_wgrad_bf16_kernel(const __grid_constant__ WgradParams p) {
+  const int n0 = blockIdx.x * BN, k0 = blockIdx.y * BN, e = blockIdx.z;
+  int start, end;
+  segment(p, e, start, end);
+  __nv_bfloat16* dw = static_cast<__nv_bfloat16*>(p.dw) + (size_t)e * p.K * p.N;
+  if (start >= end) {
+    zero_tile(p, dw, k0, n0);
+    return;
+  }
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
+  const __nv_bfloat16* dy = static_cast<const __nv_bfloat16*>(p.dy);
+  const int steps = (end - start + W_BR - 1) / W_BR;
+
+  auto load = [&](int slot, int s) {
+    unsigned char* x_s = smem + slot * W_STAGE;
+    unsigned char* d_s = x_s + W_STAGE / 2;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int u = t + i * THREADS, row = u / 16, ch = u % 16, r = start + s * W_BR + row;
+      load8(x_s + b_off(row, ch), x, r, k0 + 8 * ch, p.K, r < end);
+      load8(d_s + b_off(row, ch), dy, r, n0 + 8 * ch, p.N, r < end);
+    }
+  };
+
+  const int wm = warp / 4, wn = warp % 4;
+  float acc[4][4][4] = {};
+#pragma unroll
+  for (int s = 0; s < W_STAGES - 1; ++s)
+    if (s < steps) load(s, s);
+  for (int s = 0; s < steps; ++s) {
+    __syncthreads();  // step s is in place; the slot of step s - 1 is free
+    if (s + W_STAGES - 1 < steps) load((s + W_STAGES - 1) % W_STAGES, s + W_STAGES - 1);
+    const unsigned char* x_s = smem + (s % W_STAGES) * W_STAGE;
+    const unsigned char* d_s = x_s + W_STAGE / 2;
+#pragma unroll
+    for (int k16 = 0; k16 < W_BR / 16; ++k16) {
+      // B = dy, as the forward kernel reads w.
+      unsigned b[4][2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        unsigned r[4];
+        ldmatrix_x4_trans(r, d_s + b_off(16 * k16 + lane % 16, 4 * wn + 2 * j + lane / 16));
+        b[2 * j][0] = r[0], b[2 * j][1] = r[1], b[2 * j + 1][0] = r[2], b[2 * j + 1][1] = r[3];
+      }
+      // A = xs^T through ldmatrix.trans, an m16 tile at a time (fewer live
+      // registers): matrix q = lane / 8 is stored rows 16 k16 + 8 (q / 2)
+      // .. + 7 (the contraction) at the 8 columns of output rows 8 (q % 2)
+      // .. of the m16 tile, so a lane gets a0..a3 as (row g, k 2c..), (g +
+      // 8, 2c..), (g, 2c + 8..), (g + 8, 2c + 8..).
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        unsigned a[4];
+        ldmatrix_x4_trans(a, x_s + b_off(16 * k16 + lane % 8 + 8 * (lane / 16),
+                                         8 * wm + 2 * mt + (lane / 8) % 2));
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], a, b[nt][0], b[nt][1]);
+      }
+    }
+  }
+
+  // D fragment: d0, d1 row g, columns 2c, 2c + 1; d2, d3 row g + 8.
+  const int g = lane / 4, c = lane % 4;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = k0 + 64 * wm + 16 * mt + g + 8 * h;
+      if (k >= p.K) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int n = n0 + 32 * wn + 8 * nt + 2 * c;
+        __nv_bfloat16* out = dw + (size_t)k * p.N + n;
+        if (n < p.N) out[0] = __float2bfloat16_rn(acc[mt][nt][2 * h]);
+        if (n + 1 < p.N) out[1] = __float2bfloat16_rn(acc[mt][nt][2 * h + 1]);
+      }
+    }
+}
+
+// bf16 where TMA takes the operands (K and N multiples of 8, 16-byte
+// aligned bases): persistent, one block an SM walking the tiles (expert,
+// 128-row tile of K, 256-column tile of N), N tiles fastest, so the blocks
+// in flight share an expert's rows in L2; a producer warpgroup and two
+// consumer warpgroups as the forward's TMA kernel, the ring running on
+// across tiles. Warp 0's lane 0 loads each step of 64 segment rows: xs's
+// columns k0.. as two boxes of 64 rows x 64 columns and dy's columns n0..
+// as four, 128-byte swizzled (boxes wholly past K or N are not loaded:
+// their outputs are not stored). Consumer warpgroup wg owns rows 64 wg ..
+// + 63 of the K tile: wgmma m64n256k16 reads A = xs^T from its xs box
+// M-major (the transpose bit) and B = dy N-major, as the forward reads w.
+// Rows of a step past the segment (the next group's, or TMA's zeros past
+// M) are zeroed in the xs box by the warpgroup before its products, so
+// they add nothing. A tile's outputs are stored from the accumulators
+// (each dw tile is one block's alone) while the producer fills the next
+// tile's stages; an empty expert's tiles are stored as zeros.
+__device__ __forceinline__ void wgrad_tile(const WgradParams& p, int t, int k_tiles, int n_tiles,
+                                           int& e, int& k0, int& n0) {
+  e = t / (k_tiles * n_tiles);
+  k0 = (t / n_tiles) % k_tiles * BM;
+  n0 = t % n_tiles * TMA_BN;
+}
+
+__global__ void __launch_bounds__(TMA_THREADS, 1)
+    grouped_wgrad_tma_kernel(const __grid_constant__ WgradParams p,
+                             const __grid_constant__ CUtensorMap tm_x,
+                             const __grid_constant__ CUtensorMap tm_dy, int k_tiles, int n_tiles,
+                             int tiles) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + TMA_STAGES * TMA_STAGE);
+  uint64_t* empty = full + TMA_STAGES;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TMA_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+    if (warp != 0 || lane != 0) return;
+    int it = 0;  // steps loaded so far
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int e, k0, n0, start, end;
+      wgrad_tile(p, t, k_tiles, n_tiles, e, k0, n0);
+      segment(p, e, start, end);
+      const int x_boxes = min(2, (p.K - k0 + 63) / 64), d_boxes = min(4, (p.N - n0 + 63) / 64);
+      for (int row = start; row < end; row += TMA_BK, ++it) {
+        const int stage = it % TMA_STAGES;
+        if (it >= TMA_STAGES) mbar_wait(&empty[stage], ((it / TMA_STAGES) & 1) ^ 1);
+        unsigned char* x_s = ring + stage * TMA_STAGE;
+        mbar_expect_tx(&full[stage], (x_boxes + d_boxes) * TMA_B_BOX);
+        for (int j = 0; j < x_boxes; ++j)
+          tma_load_2d(x_s + j * TMA_B_BOX, &tm_x, &full[stage], k0 + 64 * j, row);
+        for (int j = 0; j < d_boxes; ++j)
+          tma_load_2d(x_s + TMA_A_BYTES + j * TMA_B_BOX, &tm_dy, &full[stage], n0 + 64 * j, row);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+  const int wg = warp / 4 - 1, t128 = threadIdx.x % 128, g = lane / 4, c = lane % 4;
+  __nv_bfloat16* dw_all = static_cast<__nv_bfloat16*>(p.dw);
+  float d[32][4];
+  int it = 0;  // steps consumed so far
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    int e, k0, n0, start, end;
+    wgrad_tile(p, t, k_tiles, n_tiles, e, k0, n0);
+    segment(p, e, start, end);
+    __nv_bfloat16* dw = dw_all + (size_t)e * p.K * p.N;
+    if (start >= end) {
+      // Zeros: this warpgroup's rows of the tile, 16 bytes a store.
+      const int rows = max(0, min(64, p.K - k0 - 64 * wg)), chunks = min(TMA_BN, p.N - n0) / 8;
+      for (int u = t128; u < rows * chunks; u += 128)
+        *reinterpret_cast<uint4*>(dw + (size_t)(k0 + 64 * wg + u / chunks) * p.N + n0 +
+                                  8 * (u % chunks)) = make_uint4(0, 0, 0, 0);
+      continue;
+    }
+    int prev = 0;
+    for (int row = start; row < end; row += TMA_BK, ++it) {
+      const int stage = it % TMA_STAGES;
+      mbar_wait(&full[stage], (it / TMA_STAGES) & 1);
+      unsigned char* x_box = ring + stage * TMA_STAGE + wg * TMA_B_BOX;
+      const unsigned char* d_s = ring + stage * TMA_STAGE + TMA_A_BYTES;
+      const int live = end - row;  // rows of the step in the segment
+      if (live < TMA_BK) {
+        // A row of the box is 128 bytes whatever the swizzle: zero the rows
+        // past the segment, then hand them to the async proxy.
+        for (int u = t128; u < (TMA_BK - live) * 8; u += 128)
+          *reinterpret_cast<uint4*>(x_box + (live + u / 8) * 128 + 16 * (u % 8)) =
+              make_uint4(0, 0, 0, 0);
+        fence_proxy_async();
+        asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+      }
+      reg_fence(d);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TMA_BK / 16; ++kk)
+        // k16 step kk: 16 rows of each box (1024 bytes an 8-row group); A's
+        // 64 columns are one box, B's 256 four boxes 8 KB apart.
+        wgmma_n256<1, 1>(d, sw128_desc(x_box + 2048 * kk, TMA_B_BOX, 1024),
+                         sw128_desc(d_s + 2048 * kk, TMA_B_BOX, 1024), row > start || kk > 0);
+      wgmma_commit();
+      if (row > start) {
+        // The step before is done: release its stage.
+        wgmma_wait<1>();
+        reg_fence(d);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[prev]);
+      }
+      prev = stage;
+    }
+    wgmma_wait<0>();
+    reg_fence(d);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[prev]);
+
+    // Accumulator of n8 tile j: row g (then g + 8) of the warp's 16,
+    // columns 8j + 2c and + 1.
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = k0 + 64 * wg + 16 * (warp % 4) + g + 8 * h;
+      if (k >= p.K) continue;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int n = n0 + 8 * j + 2 * c;
+        if (n < p.N)
+          *reinterpret_cast<__nv_bfloat162*>(dw + (size_t)k * p.N + n) =
+              __floats2bfloat162_rn(d[j][2 * h], d[j][2 * h + 1]);
+      }
+    }
+  }
+}
+
+// Grid as the bf16 kernel's. Each stage holds 32 rows of xs (columns k0..)
+// and of dy (columns n0..) at pitch WF_P. In the m16n8k8 fragments A(i, k)
+// = xs[k][i] and B(k, n) = dy[k][n], k the step's row: a lane reads A as
+// (k c, row g), (c, g + 8), (c + 4, g), (c + 4, g + 8) and B as (k c,
+// column g), (c + 4, g), each a word of a row 8 mod 32 words from the last.
+template <bool Vec>
+__global__ void __launch_bounds__(THREADS, 1)
+    grouped_wgrad_f32_kernel(const __grid_constant__ WgradParams p) {
+  const int n0 = blockIdx.x * BN, k0 = blockIdx.y * BN, e = blockIdx.z;
+  int start, end;
+  segment(p, e, start, end);
+  float* dw = static_cast<float*>(p.dw) + (size_t)e * p.K * p.N;
+  if (start >= end) {
+    zero_tile(p, dw, k0, n0);
+    return;
+  }
+  extern __shared__ __align__(16) float wsm[];
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const float* x = static_cast<const float*>(p.x);
+  const float* dy = static_cast<const float*>(p.dy);
+  const int K = p.K, N = p.N;
+  const int steps = (end - start + WF_BR - 1) / WF_BR;
+
+  // Vec: a thread's four 16-byte chunks of each operand (K and N multiples
+  // of 4); else 4-byte copies. Zeros outside the segment and past K or N.
+  auto load = [&](int slot, int s) {
+    float* x_s = wsm + slot * WF_STAGE_FLOATS;
+    float* d_s = x_s + WF_BR * WF_P;
+    if (Vec) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int u = t + i * THREADS, row = u / 32, q = 4 * (u % 32), r = start + s * WF_BR + row;
+        const bool in_x = r < end && k0 + q < K, in_d = r < end && n0 + q < N;
+        cp_async16(x_s + row * WF_P + q, in_x ? x + (size_t)r * K + k0 + q : x, in_x ? 16 : 0);
+        cp_async16(d_s + row * WF_P + q, in_d ? dy + (size_t)r * N + n0 + q : dy, in_d ? 16 : 0);
+      }
+    } else {
+#pragma unroll 4
+      for (int i = 0; i < 16; ++i) {
+        const int u = t + i * THREADS, row = u / BN, q = u % BN, r = start + s * WF_BR + row;
+        const bool in_x = r < end && k0 + q < K, in_d = r < end && n0 + q < N;
+        cp_async4(x_s + row * WF_P + q, in_x ? x + (size_t)r * K + k0 + q : x, in_x ? 4 : 0);
+        cp_async4(d_s + row * WF_P + q, in_d ? dy + (size_t)r * N + n0 + q : dy, in_d ? 4 : 0);
+      }
+    }
+  };
+
+  const int wm = warp / 4, wn = warp % 4, g = lane / 4, c = lane % 4;
+  float acc[4][4][4] = {};
+#pragma unroll
+  for (int s = 0; s < WF_STAGES - 1; ++s) {
+    if (s < steps) load(s, s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<WF_STAGES - 2>();
+    __syncthreads();  // step s landed; every warp is done with step s - 1
+    if (s + WF_STAGES - 1 < steps) load((s + WF_STAGES - 1) % WF_STAGES, s + WF_STAGES - 1);
+    cp_async_commit();
+    const float* x_s = wsm + (s % WF_STAGES) * WF_STAGE_FLOATS;
+    const float* d_s = x_s + WF_BR * WF_P;
+
+    // The step's sums start from zero and are then added to acc in f32
+    // (rounded to nearest): the tensor core's own adds truncate.
+    float part[4][4][4] = {};
+#pragma unroll
+    for (int j = 0; j < WF_BR / 8; ++j) {
+      const float* x0 = x_s + (8 * j + c) * WF_P + 64 * wm + g;
+      const float* d0 = d_s + (8 * j + c) * WF_P + 32 * wn + g;
+      uint32_t bb[4][2], bs[4][2];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        split_tf32(d0[8 * nt], bb[nt][0], bs[nt][0]);
+        split_tf32(d0[4 * WF_P + 8 * nt], bb[nt][1], bs[nt][1]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        const float a[4] = {x0[16 * mt], x0[16 * mt + 8], x0[4 * WF_P + 16 * mt],
+                            x0[4 * WF_P + 16 * mt + 8]};
+        uint32_t a_big[4], a_small[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) split_tf32(a[q], a_big[q], a_small[q]);
+        mma_3xtf32<4>(part[mt], a_big, a_small, bb, bs);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mt][nt][q] += part[mt][nt][q];
+  }
+
+  // Accumulator of (m16 tile mt, n8 tile nt): row g, columns 2c, 2c + 1,
+  // then row g + 8.
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = k0 + 64 * wm + 16 * mt + g + 8 * h;
+      if (k >= K) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int n = n0 + 32 * wn + 8 * nt + 2 * c;
+        float* out = dw + (size_t)k * N + n;
+        if (Vec && n < N) {
+          *reinterpret_cast<float2*>(out) = make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+        } else {
+          if (n < N) out[0] = acc[mt][nt][2 * h];
+          if (n + 1 < N) out[1] = acc[mt][nt][2 * h + 1];
+        }
+      }
+    }
+}
+
+// ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 
@@ -833,14 +1271,14 @@ bool make_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dim
 // Once a device and kernel: the shared-memory opt-in; for the TMA kernel
 // also the check that it was built with the registers its setmaxnreg
 // hand-over moves (168 a thread at entry: 128 x (40 + 2 x 232) in all),
-// and the device's SM count. `which` numbers the four kernels.
+// and the device's SM count. `which` is the kernel's Variant or Slot.
 cudaError_t prepare(int which, const void* kernel, int smem, int device, int* sms) {
-  static bool ready[64][4];
+  static bool ready[64][SLOTS];
   static int sm_count[64];
   if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
   if (!ready[device][which]) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err == cudaSuccess && which == TMA) {
+    if (err == cudaSuccess && (which == TMA || which == TMA_T_SLOT || which == WGRAD_TMA)) {
       cudaFuncAttributes attr;
       err = cudaFuncGetAttributes(&attr, kernel);
       if (err == cudaSuccess &&
@@ -860,16 +1298,21 @@ cudaError_t launch(Variant v, const Params& p, int device, cudaStream_t stream) 
   const int row_slots = (p.M + BM - 1) / BM + p.E + 1;
   int sms = 0;
   cudaError_t err;
-  if (v == TMA) {
-    const void* kernel = reinterpret_cast<const void*>(&grouped_mm_tma_kernel);
-    if ((err = prepare(TMA, kernel, TMA_SMEM, device, &sms)) != cudaSuccess) return err;
+  if (v == TMA || v == TMA_T) {
+    const bool k_major = v == TMA_T;
+    auto kernel = k_major ? &grouped_mm_tma_kernel<true> : &grouped_mm_tma_kernel<false>;
+    if ((err = prepare(k_major ? TMA_T_SLOT : TMA, reinterpret_cast<const void*>(kernel), TMA_SMEM,
+                       device, &sms)) != cudaSuccess)
+      return err;
     CUtensorMap tm_x, tm_w;
     const cuuint64_t x_dims[2] = {(cuuint64_t)p.K, (cuuint64_t)p.M};
     const cuuint64_t x_strides[1] = {(cuuint64_t)p.K * 2};
     const cuuint32_t x_box[2] = {TMA_BK, BM};
-    const cuuint64_t w_dims[3] = {(cuuint64_t)p.N, (cuuint64_t)p.K, (cuuint64_t)p.E};
-    const cuuint64_t w_strides[2] = {(cuuint64_t)p.N * 2, (cuuint64_t)p.K * p.N * 2};
-    const cuuint32_t w_box[3] = {64, TMA_BK, 1};
+    // w [E, K, N]: boxes of 64 columns x TMA_BK k; [E, N, K]: TMA_BK k x 64 columns.
+    const cuuint64_t w_dims[3] = {(cuuint64_t)(k_major ? p.K : p.N),
+                                  (cuuint64_t)(k_major ? p.N : p.K), (cuuint64_t)p.E};
+    const cuuint64_t w_strides[2] = {(cuuint64_t)w_dims[0] * 2, (cuuint64_t)p.K * p.N * 2};
+    const cuuint32_t w_box[3] = {64, 64, 1};
     if (!make_map(&tm_x, p.x, 2, x_dims, x_strides, x_box) ||
         !make_map(&tm_w, p.w, 3, w_dims, w_strides, w_box))
       return cudaErrorInvalidValue;
@@ -877,8 +1320,7 @@ cudaError_t launch(Variant v, const Params& p, int device, cudaStream_t stream) 
     const long long tiles = (long long)row_slots * col_tiles;
     if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
     const int grid = (int)(tiles < sms ? tiles : sms);
-    grouped_mm_tma_kernel<<<grid, TMA_THREADS, TMA_SMEM, stream>>>(p, tm_x, tm_w, col_tiles,
-                                                                   (int)tiles);
+    kernel<<<grid, TMA_THREADS, TMA_SMEM, stream>>>(p, tm_x, tm_w, col_tiles, (int)tiles);
     return cudaGetLastError();
   }
   if (row_slots > 65535) return cudaErrorInvalidValue;
@@ -894,11 +1336,71 @@ cudaError_t launch(Variant v, const Params& p, int device, cudaStream_t stream) 
   const bool vec =
       p.K % 4 == 0 && p.N % 4 == 0 && aligned16(p.x) && aligned16(p.w) && aligned16(p.y);
   void (*kernel)(Params) = vec ? &grouped_mm_f32_kernel<true> : &grouped_mm_f32_kernel<false>;
-  if ((err = prepare(vec ? 3 : F32, reinterpret_cast<const void*>(kernel), SMEM_F32, device,
+  if ((err = prepare(vec ? F32_VEC : F32, reinterpret_cast<const void*>(kernel), SMEM_F32, device,
                      &sms)) != cudaSuccess)
     return err;
   kernel<<<grid, THREADS, SMEM_F32, stream>>>(p);
   return cudaGetLastError();
+}
+
+// wgrad: one block a (N tile, K tile, expert). bf16 by TMA and wgmma where
+// K and N are multiples of 8 and the operands 16-byte aligned, else by
+// mma.sync on operands read element by element; f32 with 16-byte copies
+// where K and N are multiples of 4 and the operands 16-byte aligned.
+cudaError_t launch_wgrad(bool f32, const WgradParams& p, int device, cudaStream_t stream) {
+  const int width = f32 ? 4 : 8;
+  const bool vec = p.K % width == 0 && p.N % width == 0 && aligned16(p.x) && aligned16(p.dy) &&
+                   aligned16(p.dw);
+  if (!f32 && vec) {
+    // bf16 by TMA and wgmma: xs [M, K] and dy [M, N] as 2-D maps, boxes of
+    // 64 columns x 64 rows; one block an SM (or a tile).
+    const void* kernel = reinterpret_cast<const void*>(&grouped_wgrad_tma_kernel);
+    int sms = 0;
+    cudaError_t err = prepare(WGRAD_TMA, kernel, TMA_SMEM, device, &sms);
+    if (err != cudaSuccess) return err;
+    const int k_tiles = (p.K + BM - 1) / BM, n_tiles = (p.N + TMA_BN - 1) / TMA_BN;
+    const long long tiles = (long long)p.E * k_tiles * n_tiles;
+    if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
+    const int grid = (int)(tiles < sms ? tiles : sms);
+    CUtensorMap tm_x{}, tm_dy{};  // no map over 0 rows: every tile is then zeros
+    const cuuint64_t x_dims[2] = {(cuuint64_t)p.K, (cuuint64_t)p.M};
+    const cuuint64_t x_strides[1] = {(cuuint64_t)p.K * 2};
+    const cuuint64_t d_dims[2] = {(cuuint64_t)p.N, (cuuint64_t)p.M};
+    const cuuint64_t d_strides[1] = {(cuuint64_t)p.N * 2};
+    const cuuint32_t box[2] = {64, TMA_BK};
+    if (p.M > 0 && (!make_map(&tm_x, p.x, 2, x_dims, x_strides, box) ||
+                    !make_map(&tm_dy, p.dy, 2, d_dims, d_strides, box)))
+      return cudaErrorInvalidValue;
+    grouped_wgrad_tma_kernel<<<grid, TMA_THREADS, TMA_SMEM, stream>>>(p, tm_x, tm_dy, k_tiles,
+                                                                      n_tiles, (int)tiles);
+    return cudaGetLastError();
+  }
+  const dim3 grid((p.N + BN - 1) / BN, (p.K + BN - 1) / BN, p.E);
+  if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
+  void (*kernel)(WgradParams);
+  if (f32)
+    kernel = vec ? &grouped_wgrad_f32_kernel<true> : &grouped_wgrad_f32_kernel<false>;
+  else
+    kernel = &grouped_wgrad_bf16_kernel;
+  const int smem = f32 ? SMEM_W_F32 : SMEM_W_BF16;
+  int sms = 0;
+  const int slot = !f32 ? WGRAD_MMA : vec ? WGRAD_F32_VEC : WGRAD_F32;
+  cudaError_t err = prepare(slot, reinterpret_cast<const void*>(kernel), smem, device, &sms);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// Runs `fn` with CUDA device `device` current, and the previous one restored.
+template <typename Fn>
+int on_device(int device, Fn fn) {
+  int current = device;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = fn();
+  if (current != device) cudaSetDevice(current);
+  return (int)err;
 }
 
 }  // namespace
@@ -912,7 +1414,8 @@ int grouped_matmul_layout(int* out, int cap) {
   const int v[] = {BM,         BN,        THREADS,       BK,           STAGES,
                    TMA_BN,     TMA_BK,    TMA_STAGES,    TMA_THREADS,  PRODUCER_REGS,
                    CONSUMER_REGS, TMA_SMEM, F_BK,        F_STAGES,     F_AP,
-                   F_BP,       SMEM_F32};
+                   F_BP,       SMEM_F32, W_BR,        W_STAGES,     SMEM_W_BF16,
+                   WF_BR,      WF_STAGES, WF_P,       SMEM_W_F32};
   const int count = (int)(sizeof(v) / sizeof(v[0]));
   const int n = cap < count ? cap : count;
   for (int i = 0; i < n; ++i) out[i] = v[i];
@@ -921,28 +1424,40 @@ int grouped_matmul_layout(int* out, int cap) {
 
 // variant: 0 = float32 (3xTF32), 1 = bfloat16 by TMA and wgmma, 2 =
 // bfloat16 by mma.sync (`ops/grouped_matmul.py::variant` chooses, by
-// shape and alignment). x [M, K], w [E, K, N] and y [M, N] contiguous in
-// the variant's dtype; sizes [E] int32; all on CUDA device `device` (made
-// current for the launch, and the previous one restored), on `stream`.
+// shape and alignment), 3 = as 1 with w given as [E, N, K] and y[r] = x[r]
+// . w[g(r)]^T (the backward's dgrad). x [M, K], w [E, K, N] (3: [E, N,
+// K]) and y [M, N] contiguous in the variant's dtype; sizes [E] int32; all
+// on CUDA device `device` (made current for the launch, and the previous
+// one restored), on `stream`.
 // Returns a cudaError_t: cudaErrorInvalidValue for what the variant does
 // not take (nothing is launched), else the launch's error.
 int grouped_matmul_launch(int variant, const void* x, const void* w, const int* sizes, void* y,
                           int M, int K, int N, int E, int device, void* stream) {
-  if (variant < F32 || variant > MMA || M < 1 || K < 0 || N < 1 || E < 1 || !x || !w || !sizes ||
-      !y)
+  if (variant < F32 || variant > TMA_T || M < 1 || K < 0 || N < 1 || E < 1 || !x || !w ||
+      !sizes || !y)
     return (int)cudaErrorInvalidValue;
   // TMA: rows and experts 16-byte strides, 16-byte aligned bases.
-  if (variant == TMA && !(K > 0 && K % 8 == 0 && N % 8 == 0 && aligned16(x) && aligned16(w) &&
-                          aligned16(y)))
+  if ((variant == TMA || variant == TMA_T) &&
+      !(K > 0 && K % 8 == 0 && N % 8 == 0 && aligned16(x) && aligned16(w) && aligned16(y)))
     return (int)cudaErrorInvalidValue;
   const Params p = {x, w, y, sizes, M, K, N, E};
-  int current = device;
-  cudaError_t err = cudaGetDevice(&current);
-  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  err = launch(static_cast<Variant>(variant), p, device, (cudaStream_t)stream);
-  if (current != device) cudaSetDevice(current);
-  return (int)err;
+  return on_device(device, [&] {
+    return launch(static_cast<Variant>(variant), p, device, (cudaStream_t)stream);
+  });
+}
+
+// dw [E, K, N] = xs[seg_e]^T . dy[seg_e] for each expert e (zeros for an
+// empty group): f32 nonzero for float32 (3xTF32), else bfloat16. xs [M,
+// K], dy [M, N] and dw contiguous in that dtype; sizes [E] int32; all on
+// CUDA device `device`, on `stream`. Returns a cudaError_t:
+// cudaErrorInvalidValue for what the kernels do not take (nothing is
+// launched), else the launch's error.
+int grouped_matmul_wgrad_launch(int f32, const void* x, const void* dy, const int* sizes, void* dw,
+                                int M, int K, int N, int E, int device, void* stream) {
+  if (M < 0 || K < 1 || N < 1 || E < 1 || !sizes || !dw || (M > 0 && (!x || !dy)))
+    return (int)cudaErrorInvalidValue;
+  const WgradParams p = {x, dy, dw, sizes, M, K, N, E};
+  return on_device(device, [&] { return launch_wgrad(f32 != 0, p, device, (cudaStream_t)stream); });
 }
 
 }  // extern "C"

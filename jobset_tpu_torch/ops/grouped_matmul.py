@@ -21,9 +21,29 @@ past the last tile are idle, so no size is read back to the host (a loop
 of torch.matmul over the groups would read every size, twice in each MoE
 layer).
 
-`GROUPED_LAUNCHES` counts every launch of the kernels;
+The product is differentiable (`_GroupedMatmul`, an autograd Function)
+while gradients are recorded and an operand needs one; otherwise a call
+goes straight to the forward, as serving's do. The backward is the VJP
+of `lax.ragged_dot`, two more grouped products with the compute dtype's
+result after f32 sums:
+
+    grouped_matmul_dgrad(dy [M, N], w [E, K, N], group_sizes) -> dxs [M, K]
+    grouped_matmul_wgrad(xs [M, K], dy [M, N], group_sizes) -> dw [E, K, N]
+
+dgrad is the forward's function with B transposed: on the card the TMA
+kernel reads w K-major as it lies (its `BKMajor` instantiation), and the
+other kernels run on a copy of w transposed to [E, N, K]. wgrad is ragged
+on the contraction, dw[e] = xs[seg_e]^T @ dy[seg_e] (zeros for an empty
+group), and has kernels of its own in the same source. Their plain
+versions (`grouped_matmul_dgrad_plain`, `grouped_matmul_wgrad_plain`) run
+one torch.matmul a group, for CPU tensors.
+
+`GROUPED_LAUNCHES` counts every launch of the forward's kernels;
 `GROUPED_TMA_LAUNCHES` those of the bf16 TMA/wgmma kernel and
-`GROUPED_F32_LAUNCHES` those of the f32 one.
+`GROUPED_F32_LAUNCHES` those of the f32 one. `GROUPED_DGRAD_LAUNCHES`
+and `GROUPED_WGRAD_LAUNCHES` count the backward's launches,
+`GROUPED_DGRAD_F32_LAUNCHES` and `GROUPED_WGRAD_F32_LAUNCHES` those in
+f32.
 """
 
 from __future__ import annotations
@@ -40,6 +60,12 @@ from . import cuda_build
 GROUPED_LAUNCHES = 0
 GROUPED_TMA_LAUNCHES = 0
 GROUPED_F32_LAUNCHES = 0
+# The backward's launches: dgrad's (the forward's kernels on the transposed
+# weights) and wgrad's, all and those in f32.
+GROUPED_DGRAD_LAUNCHES = 0
+GROUPED_DGRAD_F32_LAUNCHES = 0
+GROUPED_WGRAD_LAUNCHES = 0
+GROUPED_WGRAD_F32_LAUNCHES = 0
 
 # Rows of an output tile (every kernel).
 BM = 128
@@ -60,15 +86,26 @@ TMA_SMEM = (1024 + TMA_STAGES * (BM * TMA_BK * 2 + TMA_BK * TMA_BN * 2) + BM * T
 F_BK, F_STAGES = 32, 4
 F_AP, F_BP = F_BK + 8, BN + 4
 SMEM_F32 = F_STAGES * (BM * F_AP + F_BK * F_BP) * 4
+# wgrad (BN x BN tiles of dw[e], THREADS threads): bf16 rows a step, ring
+# depth and shared memory (xs and dy rows of a step a stage); f32 rows a
+# step, ring depth, row pitch (floats) and shared memory.
+W_BR, W_STAGES = 64, 3
+SMEM_W_BF16 = W_STAGES * 2 * W_BR * BN * 2
+WF_BR, WF_STAGES, WF_P = 32, 4, BN + 8
+SMEM_W_F32 = WF_STAGES * 2 * WF_BR * WF_P * 4
 
+# The launcher's variant codes; 3 is the TMA kernel with w as [E, N, K]
+# (dgrad).
 _VARIANT_CODES = {"f32": 0, "tma": 1, "mma": 2}
+_TMA_B_TRANSPOSED = 3
 
 
 def layout() -> tuple:
     """The constants in the order `grouped_matmul_layout` in the kernel's
     source writes them."""
     return (BM, BN, THREADS, BK, STAGES, TMA_BN, TMA_BK, TMA_STAGES, TMA_THREADS, PRODUCER_REGS,
-            CONSUMER_REGS, TMA_SMEM, F_BK, F_STAGES, F_AP, F_BP, SMEM_F32)
+            CONSUMER_REGS, TMA_SMEM, F_BK, F_STAGES, F_AP, F_BP, SMEM_F32, W_BR, W_STAGES,
+            SMEM_W_BF16, WF_BR, WF_STAGES, WF_P, SMEM_W_F32)
 
 
 def variant(xs: torch.Tensor, w: torch.Tensor, y: torch.Tensor) -> str:
@@ -89,16 +126,41 @@ def row_slots(m: int, experts: int) -> int:
     return -(-m // BM) + experts + 1
 
 
+def _segments(group_sizes: torch.Tensor):
+    """(expert, first row, rows) of each non-empty group, the sizes read on
+    the host."""
+    start = 0
+    for e, size in enumerate(group_sizes.tolist()):
+        if size > 0:
+            yield e, start, size
+        start += max(size, 0)
+
+
 def grouped_matmul_plain(xs: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
     """The product in PyTorch: one torch.matmul a non-empty group (the
     sizes read on the host), zeros past the last group."""
     out = torch.zeros((xs.shape[0], w.shape[-1]), dtype=xs.dtype, device=xs.device)
-    start = 0
-    for e, size in enumerate(group_sizes.tolist()):
-        if size > 0:
-            out[start:start + size] = torch.matmul(xs[start:start + size], w[e])
-        start += max(size, 0)
+    for e, start, size in _segments(group_sizes):
+        out[start:start + size] = torch.matmul(xs[start:start + size], w[e])
     return out
+
+
+def grouped_matmul_dgrad_plain(dy: torch.Tensor, w: torch.Tensor,
+                               group_sizes: torch.Tensor) -> torch.Tensor:
+    """dxs [M, K] = dy [M, N] @ w[g(r)]^T row by row in PyTorch: one
+    torch.matmul a non-empty group, zeros past the last group."""
+    return grouped_matmul_plain(dy, w.transpose(1, 2), group_sizes)
+
+
+def grouped_matmul_wgrad_plain(xs: torch.Tensor, dy: torch.Tensor,
+                               group_sizes: torch.Tensor) -> torch.Tensor:
+    """dw [E, K, N], dw[e] = xs[seg_e]^T @ dy[seg_e], in PyTorch: one
+    torch.matmul a non-empty group, zeros for an empty one."""
+    dw = torch.zeros((group_sizes.shape[0], xs.shape[1], dy.shape[1]), dtype=xs.dtype,
+                     device=xs.device)
+    for e, start, size in _segments(group_sizes):
+        dw[e] = torch.matmul(xs[start:start + size].T, dy[start:start + size])
+    return dw
 
 
 @functools.cache
@@ -107,6 +169,8 @@ def _library():
     lib.grouped_matmul_launch.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     lib.grouped_matmul_launch.restype = ctypes.c_int
+    lib.grouped_matmul_wgrad_launch.argtypes = lib.grouped_matmul_launch.argtypes
+    lib.grouped_matmul_wgrad_launch.restype = ctypes.c_int
     lib.grouped_matmul_layout.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.grouped_matmul_layout.restype = ctypes.c_int
     return lib
@@ -120,41 +184,143 @@ def kernel_layout() -> tuple:
     return tuple(out[:count])
 
 
-def _grouped_matmul_cuda(xs: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
-    global GROUPED_LAUNCHES, GROUPED_TMA_LAUNCHES, GROUPED_F32_LAUNCHES
-    device = xs.device
-    if (xs.dtype not in (torch.float32, torch.bfloat16) or w.dtype != xs.dtype or xs.dim() != 2
-            or w.dim() != 3 or w.shape[1] != xs.shape[1] or group_sizes.dtype != torch.int32
-            or tuple(group_sizes.shape) != (w.shape[0],)
-            or not (xs.is_contiguous() and w.is_contiguous() and group_sizes.is_contiguous())
-            or w.device != device or group_sizes.device != device):
+def _check(name: str, a: torch.Tensor, b: torch.Tensor, group_sizes: torch.Tensor, b_dim: int,
+           shared: int, takes: str) -> None:
+    """Raise unless a [M, *] and b (b_dim dims) share a dtype (float32 or
+    bfloat16), b's dim `shared` matches a's columns (or rows, for wgrad),
+    group_sizes is [E] int32, and all are contiguous on one device."""
+    device = a.device
+    a_dim = 0 if b_dim == 2 else 1
+    if (a.dtype not in (torch.float32, torch.bfloat16) or b.dtype != a.dtype or a.dim() != 2
+            or b.dim() != b_dim or b.shape[shared] != a.shape[a_dim]
+            or group_sizes.dtype != torch.int32 or group_sizes.dim() != 1
+            or (b_dim == 3 and group_sizes.shape[0] != b.shape[0])
+            or not (a.is_contiguous() and b.is_contiguous() and group_sizes.is_contiguous())
+            or b.device != device or group_sizes.device != device):
         raise ValueError(
-            f"grouped_matmul: xs {tuple(xs.shape)} {xs.dtype} on {device}, w {tuple(w.shape)} "
-            f"{w.dtype} on {w.device}, group_sizes {tuple(group_sizes.shape)} {group_sizes.dtype} "
-            f"on {group_sizes.device}: the kernel takes xs [M, K] and w [E, K, N] of one dtype "
-            "(float32 or bfloat16) and group_sizes [E] int32, contiguous, on one device"
+            f"{name}: operands {tuple(a.shape)} {a.dtype} on {device} and {tuple(b.shape)} "
+            f"{b.dtype} on {b.device}, group_sizes {tuple(group_sizes.shape)} "
+            f"{group_sizes.dtype} on {group_sizes.device}: the kernel takes {takes} of one "
+            "dtype (float32 or bfloat16) and group_sizes [E] int32, contiguous, on one device"
         )
-    (m, k_dim), (experts, _, n) = xs.shape, w.shape
+
+
+def _launch(xs: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, name: str,
+            b_transposed: bool = False):
+    """One launch of the forward's kernels: (y, the variant launched or None
+    where there was nothing to compute). b_transposed: w is [E, N, K] and
+    y[r] = xs[r] @ w[g(r)]^T; the TMA kernel reads it so, the others take a
+    copy transposed to [E, K, N]."""
+    device = xs.device
+    m, k_dim = xs.shape
+    experts, n = w.shape[0], w.shape[1] if b_transposed else w.shape[2]
     y = torch.empty((m, n), dtype=xs.dtype, device=device)
     if m == 0 or n == 0:
-        return y
-    kind, index = variant(xs, w, y), device.index
+        return y, None
+    kind, index = variant(xs, w.transpose(1, 2) if b_transposed else w, y), device.index
+    code = _VARIANT_CODES[kind]
+    if b_transposed and kind == "tma":
+        code = _TMA_B_TRANSPOSED
+    elif b_transposed:
+        w = w.transpose(1, 2).contiguous()
     err = _library().grouped_matmul_launch(
-        _VARIANT_CODES[kind], xs.data_ptr(), w.data_ptr(), group_sizes.data_ptr(), y.data_ptr(),
+        code, xs.data_ptr(), w.data_ptr(), group_sizes.data_ptr(), y.data_ptr(),
         m, k_dim, n, experts, index, torch._C._cuda_getCurrentRawStream(index),
     )
     if err:
-        raise RuntimeError(f"grouped_matmul kernel launch failed ({kind}): CUDA error {err}")
-    GROUPED_LAUNCHES += 1
-    GROUPED_TMA_LAUNCHES += kind == "tma"
-    GROUPED_F32_LAUNCHES += kind == "f32"
+        raise RuntimeError(f"{name} kernel launch failed ({kind}): CUDA error {err}")
+    return y, kind
+
+
+def _grouped_matmul_cuda(xs: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    global GROUPED_LAUNCHES, GROUPED_TMA_LAUNCHES, GROUPED_F32_LAUNCHES
+    _check("grouped_matmul", xs, w, group_sizes, 3, 1, "xs [M, K] and w [E, K, N]")
+    y, kind = _launch(xs, w, group_sizes, "grouped_matmul")
+    if kind is not None:
+        GROUPED_LAUNCHES += 1
+        GROUPED_TMA_LAUNCHES += kind == "tma"
+        GROUPED_F32_LAUNCHES += kind == "f32"
     return y
+
+
+def _on_card(name: str, t: torch.Tensor) -> bool:
+    """False for a CPU tensor (the plain version), True for a CUDA one;
+    raise for any other device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: no implementation on device {t.device}")
+    return True
+
+
+def _forward(xs: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    if not _on_card("grouped_matmul", xs):
+        return grouped_matmul_plain(xs, w, group_sizes)
+    return _grouped_matmul_cuda(xs, w, group_sizes)
+
+
+def grouped_matmul_dgrad(dy: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    """dxs [M, K] = dy [M, N] @ w[g(r)]^T row by row (zeros past the last
+    group): on the card, one launch of the forward's kernels, the TMA one
+    reading w as it lies (K-major), the others a copy of w transposed to
+    [E, N, K]."""
+    global GROUPED_DGRAD_LAUNCHES, GROUPED_DGRAD_F32_LAUNCHES
+    if not _on_card("grouped_matmul_dgrad", dy):
+        return grouped_matmul_dgrad_plain(dy, w, group_sizes)
+    _check("grouped_matmul_dgrad", dy, w, group_sizes, 3, 2, "dy [M, N] and w [E, K, N]")
+    dxs, kind = _launch(dy, w, group_sizes, "grouped_matmul_dgrad", b_transposed=True)
+    if kind is not None:
+        GROUPED_DGRAD_LAUNCHES += 1
+        GROUPED_DGRAD_F32_LAUNCHES += kind == "f32"
+    return dxs
+
+
+def grouped_matmul_wgrad(xs: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    """dw [E, K, N], dw[e] = xs[seg_e]^T @ dy[seg_e] (zeros for an empty
+    group): on the card, one launch of a wgrad kernel (bf16 on TMA and
+    wgmma where K and N are multiples of 8 and the operands 16-byte
+    aligned, on mma.sync elsewhere; f32 on 3xTF32)."""
+    global GROUPED_WGRAD_LAUNCHES, GROUPED_WGRAD_F32_LAUNCHES
+    if not _on_card("grouped_matmul_wgrad", xs):
+        return grouped_matmul_wgrad_plain(xs, dy, group_sizes)
+    _check("grouped_matmul_wgrad", xs, dy, group_sizes, 2, 0, "xs [M, K] and dy [M, N]")
+    (m, k_dim), n, experts = xs.shape, dy.shape[1], group_sizes.shape[0]
+    dw = torch.empty((experts, k_dim, n), dtype=xs.dtype, device=xs.device)
+    if k_dim == 0 or n == 0 or experts == 0:
+        return dw
+    index = xs.device.index
+    f32 = xs.dtype == torch.float32
+    err = _library().grouped_matmul_wgrad_launch(
+        int(f32), xs.data_ptr(), dy.data_ptr(), group_sizes.data_ptr(), dw.data_ptr(), m, k_dim, n,
+        experts, index, torch._C._cuda_getCurrentRawStream(index),
+    )
+    if err:
+        raise RuntimeError(f"grouped_matmul_wgrad kernel launch failed: CUDA error {err}")
+    GROUPED_WGRAD_LAUNCHES += 1
+    GROUPED_WGRAD_F32_LAUNCHES += f32
+    return dw
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    """The grouped product with the VJP of `lax.ragged_dot`: dxs by dgrad,
+    dw by wgrad, each only where its operand needs it."""
+
+    @staticmethod
+    def forward(ctx, xs, w, group_sizes):
+        ctx.save_for_backward(xs, w, group_sizes)
+        return _forward(xs, w, group_sizes)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xs, w, group_sizes = ctx.saved_tensors
+        dy = dy.contiguous()
+        dxs = grouped_matmul_dgrad(dy, w, group_sizes) if ctx.needs_input_grad[0] else None
+        dw = grouped_matmul_wgrad(xs, dy, group_sizes) if ctx.needs_input_grad[1] else None
+        return dxs, dw, None
 
 
 def grouped_matmul(xs: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
     """y [M, N] = xs [M, K] @ w[g(r)] row by row (module docstring)."""
-    if xs.device.type == "cpu":
-        return grouped_matmul_plain(xs, w, group_sizes)
-    if xs.device.type != "cuda":
-        raise ValueError(f"grouped_matmul: no implementation on device {xs.device}")
-    return _grouped_matmul_cuda(xs, w, group_sizes)
+    if torch.is_grad_enabled() and (xs.requires_grad or w.requires_grad):
+        return _GroupedMatmul.apply(xs, w, group_sizes)
+    return _forward(xs, w, group_sizes)

@@ -8,7 +8,10 @@ policy MLP and trainer) against the port's CPU path and plain versions,
 the serving path's int8 kernel, launch counts, int8 decoding and
 sampling on the card, and the MoE path: the grouped expert kernel against
 its plain version, the int8 kernel's expert axis against 2-D launches,
-MoE serving and forward against the CPU, with no host sync.
+MoE serving and forward against the CPU, with no host sync; the grouped
+product's backward kernels (dgrad, wgrad) against their plain versions,
+and the MoE train step against the CPU's, with no host sync in a MoE
+layer's forward and backward.
 
 They skip without a CUDA device. This file imports no JAX, so it also runs
 on a machine that has none: `python -m pytest --noconftest -m cuda
@@ -1020,3 +1023,150 @@ def test_moe_router_ignores_tf32(cuda):
     exact = (x.double() @ wg.double()).float()
     assert torch.equal(got, exact)
     assert not torch.equal(x @ wg, exact)  # an f32 matmul here would run in TF32
+
+
+# --- MoE training: the grouped product's backward -----------------------------
+
+
+def _backward_counts():
+    return (gm.GROUPED_DGRAD_LAUNCHES, gm.GROUPED_DGRAD_F32_LAUNCHES, gm.GROUPED_WGRAD_LAUNCHES,
+            gm.GROUPED_WGRAD_F32_LAUNCHES)
+
+
+def _backward_plain(fn, *args):
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        return fn(*args)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+
+
+_BACKWARD_SHAPES = [(1000, 256, 512, 8), (333, 64, 136, 4), (130, 37, 19, 3), (1, 16, 16, 2),
+                    (2048, 128, 128, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("routing", ["balanced", "skewed", "empty", "ragged", "none"])
+@pytest.mark.parametrize("m,k,n,experts", _BACKWARD_SHAPES)
+def test_grouped_wgrad_kernel_matches_plain_version(cuda, dtype, routing, m, k, n, experts):
+    gen = torch.Generator().manual_seed(m + k + n + 1)
+    xs = torch.randn(m, k, generator=gen).to(cuda, dtype)
+    dy = torch.randn(m, n, generator=gen).to(cuda, dtype)
+    sizes = _group_sizes(routing, m, experts).to(cuda)
+    before = _backward_counts()
+    got = gm.grouped_matmul_wgrad(xs, dy, sizes)
+    again = gm.grouped_matmul_wgrad(xs, dy, sizes)
+    torch.cuda.synchronize()
+    f32 = dtype == torch.float32
+    assert tuple(a - b for a, b in zip(_backward_counts(), before)) == (0, 0, 2, 2 * f32)
+    assert got.dtype == dtype and got.shape == (experts, k, n)
+    assert torch.equal(got, again)  # one chain of sums an output: the same bits
+    assert _int8_within(got, _backward_plain(gm.grouped_matmul_wgrad_plain, xs, dy, sizes), dtype)
+    for e in torch.nonzero(sizes.cpu() == 0).flatten().tolist():
+        assert torch.all(got[e] == 0)  # an empty group's gradient is exactly 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("routing", ["balanced", "skewed", "ragged"])
+@pytest.mark.parametrize("m,k,n,experts", _BACKWARD_SHAPES)
+def test_grouped_dgrad_matches_plain_version(cuda, dtype, routing, m, k, n, experts):
+    xs, w = _grouped_operands(m, k, n, experts, dtype, cuda, m + k + n + 2)
+    dy = torch.randn(m, n, generator=torch.Generator().manual_seed(m)).to(cuda, dtype)
+    sizes = _group_sizes(routing, m, experts).to(cuda)
+    before = _backward_counts()
+    got = gm.grouped_matmul_dgrad(dy, w, sizes)
+    torch.cuda.synchronize()
+    f32 = dtype == torch.float32
+    assert tuple(a - b for a, b in zip(_backward_counts(), before)) == (1, f32, 0, 0)
+    assert got.dtype == dtype and got.shape == (m, k)
+    assert _int8_within(got, _backward_plain(gm.grouped_matmul_dgrad_plain, dy, w, sizes), dtype)
+    assert torch.all(got[int(sizes.sum()):] == 0)
+    # The TMA kernel reading w K-major (bf16, K and N multiples of 8): the
+    # forward's launch on a transposed copy of w, bit for bit.
+    if dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0:
+        assert torch.equal(got, gm.grouped_matmul(dy, w.transpose(1, 2).contiguous(), sizes))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_grouped_wgrad_keeps_each_group_to_its_rows_at_a_boundary(cuda, dtype):
+    # Groups ending inside a step of rows beside a full group: a step that
+    # crosses the boundary must add none of the neighbour's rows.
+    sizes = torch.tensor([gm.W_BR * 3 + 17, gm.W_BR - 17 + 5, 1, 300], dtype=torch.int32)
+    m = int(sizes.sum()) + 9
+    gen = torch.Generator().manual_seed(12)
+    xs = torch.randn(m, 256, generator=gen).to(cuda, dtype)
+    dy = torch.randn(m, 384, generator=gen).to(cuda, dtype)
+    got = gm.grouped_matmul_wgrad(xs, dy, sizes.to(cuda))
+    start = 0
+    for e, size in enumerate(sizes.tolist()):
+        want = _backward_plain(torch.matmul, xs[start:start + size].T, dy[start:start + size])
+        assert _int8_within(got[e], want, dtype), e
+        start += size
+
+
+@pytest.mark.cuda
+def test_grouped_backward_rejects_what_it_does_not_take(cuda):
+    xs = torch.randn(8, 16, device=cuda)
+    dy = torch.randn(8, 24, device=cuda)
+    w = torch.randn(2, 16, 24, device=cuda)
+    sizes = torch.tensor([3, 5], dtype=torch.int32, device=cuda)
+    for bad in ((xs.half(), dy.half(), sizes), (xs, dy[:7], sizes), (xs, dy.bfloat16(), sizes),
+                (xs, dy, sizes.long()), (xs, dy.cpu(), sizes), (xs, dy.T, sizes)):
+        with pytest.raises(ValueError, match="the kernel takes"):
+            gm.grouped_matmul_wgrad(*bad)
+    for bad in ((dy, w[:, :, :20].contiguous(), sizes), (dy, w, sizes[:1]), (dy.half(), w, sizes)):
+        with pytest.raises(ValueError, match="the kernel takes"):
+            gm.grouped_matmul_dgrad(*bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat, forward", [("off", 4), ("full", 8), ("dots", 8)])
+def test_moe_train_step_launches_and_matches_cpu(cuda, remat, forward):
+    cfg = _moe_small(remat=remat != "off", remat_policy="full" if remat == "off" else remat)
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.randint(0, 128, (4, 65), generator=torch.Generator().manual_seed(1))
+    batch = {"inputs": tokens[:, :-1], "targets": tokens[:, 1:]}
+    opt = optim.sgd(1.0)
+
+    def step(device, p):
+        return transformer.build_train_step(cfg, opt, device=device)(p, opt.init(p), batch)
+
+    before = (gm.GROUPED_F32_LAUNCHES,) + _backward_counts()
+    got, _, loss = step(None, tree.tree_map(lambda t: t.to(cuda), params))
+    # Two grouped products a layer: forward (again in the backward under a
+    # remat policy), dgrad and wgrad each once, all f32.
+    layers = 2 * cfg.n_layers
+    assert tuple(a - b for a, b in zip((gm.GROUPED_F32_LAUNCHES,) + _backward_counts(),
+                                       before)) == (forward, layers, layers, layers, layers)
+    want, _, want_loss = step("cpu", params)
+    assert abs(loss.item() - want_loss.item()) <= 1e-4 * abs(want_loss.item())
+    for g, w, p in zip(tree.leaves(got), tree.leaves(want), tree.leaves(params)):
+        assert _within((p - g.cpu()), (p - w), 1e-3, 1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_moe_layer_forward_and_backward_make_no_host_sync(cuda, dtype):
+    cfg = replace(_moe_small(), dtype=dtype)
+    params = tree.tree_map(lambda t: t.to(cuda).requires_grad_(), transformer.init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu"))
+    layer = transformer.layer_params(params, 0)
+    x = torch.randn(2, 40, 64, generator=torch.Generator().manual_seed(4)).to(cuda, dtype)
+
+    def run():
+        out, stats = transformer._layer(layer, x.requires_grad_(), cfg)
+        torch.autograd.grad((out.float().sum(), stats[1].sum()), [x, *params["layers"].values()],
+                            allow_unused=True)
+
+    run()  # warm (masks)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()

@@ -24,8 +24,9 @@ kernels report the same):
   written once and each 8-lane phase of its `ldmatrix` reads touches all
   32 banks once; the TMA boxes' 128-byte swizzle and the `wgmma`
   descriptors' address arithmetic (A K-major, B N-major through the
-  transpose bit) name the same element for every (row, k) and (k,
-  column); the TMA kernel's ring and barriers fit an SM's shared memory
+  transpose bit, and the backward's dgrad B K-major from w as it lies)
+  name the same element for every (row, k) and (k, column); the TMA
+  kernel's ring and barriers fit an SM's shared memory
   and its setmaxnreg split fits the register file.
 - The f32 kernel: its `mma.sync.m16n8k8` fragment maps with the permuted
   k and column order give exactly the tile product on integer inputs,
@@ -35,6 +36,28 @@ kernels report the same):
   tensor core's truncating sums started afresh every K step and added to
   the output in f32, keeps the product within the f32 tolerance (where
   one TF32 pass, or one truncating chain over all of K, does not).
+- The backward's wgrad kernels (dw[e] = xs[seg_e]^T dy[seg_e], ragged on
+  the contraction): their grid writes every (expert, K tile, N tile) of dw
+  once, an empty expert's as zeros; each block walks its segment's rows
+  once, in order from the first, in steps whose rows outside the segment
+  are masked (a step across a group boundary would otherwise add the
+  neighbour's rows); the walk gives exactly the per-expert products on
+  integer inputs. The bf16 TMA kernel's persistent walk takes every
+  (expert, K tile, N tile) once over grids of 1, 7 and 132 blocks; its
+  boxes (the next group's rows and
+  zeros past M, stale boxes past K and N), with the rows past the
+  segment zeroed in shared memory, give the per-expert products exactly
+  (and would not unzeroed); zeroing a row's 128 bytes zeroes exactly that
+  row of a swizzled box; its `wgmma` A descriptor (xs^T read M-major
+  through the transpose bit) names the elements TMA wrote. The bf16
+  fallback's `ldmatrix.trans` reads of the
+  transposed xs give `mma.sync` m16n8k16's A fragments (and, with dy's
+  reads, the tile product), free of bank conflicts, and its stage is
+  written once; the f32 kernel's fragment maps at the 136-float pitch give
+  the tile product, its reads and loads are free of bank conflicts, and
+  its sums promoted every step of 32 rows hold the f32 tolerance over a
+  segment of 16384 rows (where one truncating chain does not); both rings
+  fit their blocks an SM.
 """
 
 import numpy as np
@@ -357,6 +380,20 @@ def test_wgmma_descriptors_name_the_elements_tma_wrote(stage):
     assert chunks == list(range(a_s, a_s + TMA_A_BYTES, 16))
 
 
+@pytest.mark.parametrize("stage", range(TMA_STAGES))
+def test_wgmma_k_major_b_descriptors_name_the_elements_tma_wrote(stage):
+    # dgrad's instantiation: w [E, N, K] as it lies, B boxes of 64 columns
+    # x 64 k (128-byte swizzled rows of k, as A's) back to back, read by
+    # wgmma K-major (transpose bit off) with A's strides.
+    b_s = 3 * 1024 + stage * TMA_STAGE + TMA_A_BYTES
+    n, k = np.meshgrid(np.arange(TMA_BN), np.arange(16), indexing="ij")
+    for kk in range(TMA_BK // 16):
+        desc = sw128_desc(b_s + 32 * kk, 16, 1024)
+        got = wgmma_a_address(desc, n, k)  # K-major: (row n, k) as A's (row m, k)
+        want = tma_box_address(b_s + (n // 64) * TMA_B_BOX, n % 64, 2 * (16 * kk + k))
+        np.testing.assert_array_equal(got, want)
+
+
 def test_tma_ring_and_registers_fit_the_sm():
     assert gm.TMA_SMEM == (1024 + TMA_STAGES * TMA_STAGE + BM * gm.TMA_OUT_PITCH
                            + 2 * TMA_STAGES * 8) <= SMEM_OPT_IN
@@ -576,3 +613,362 @@ def test_3xtf32_split_holds_the_f32_tolerance_at_the_prefill_depth(k_dim):
     assert np.abs(_mma_chain([(tf32_rna(a), tf32_rna(b))], k_dim, F_BK) - want).max() > limit
     if k_dim == 4096:
         assert np.abs(_mma_chain(three, k_dim, k_dim) - want).max() > limit
+
+
+# --- the backward's wgrad kernels ---------------------------------------------
+
+W_BR, W_STAGES, WF_BR, WF_P = gm.W_BR, gm.W_STAGES, gm.WF_BR, gm.WF_P
+
+
+def segment(sizes, m, e):
+    """The kernel's `segment`: expert e's rows [start, end), clamped to M."""
+    before = int(np.maximum(np.asarray(sizes[:e], np.int64), 0).sum())
+    return min(before, m), min(before + max(int(sizes[e]), 0), m)
+
+
+def wgrad_walk(sizes, m, step, masked=True):
+    """Each expert's steps as its blocks walk them: the rows each step
+    loads (start + step * s .. + step - 1, those at or past M dropped) and
+    which of them are live (inside the segment; all with masked=False)."""
+    walks = []
+    for e in range(len(sizes)):
+        start, end = segment(sizes, m, e)
+        steps = []
+        for s0 in range(start, end, step):
+            rows = np.arange(s0, min(s0 + step, m))
+            steps.append((rows, rows < end if masked else np.ones(rows.size, bool)))
+        walks.append(steps)
+    return walks
+
+
+def wgrad_product(xs, dy, sizes, step, masked=True):
+    """The launch on the CPU: every (N tile, K tile, expert) block of BN x
+    BN, its segment's steps summed in order, zeros for an empty segment."""
+    m, k_dim = xs.shape
+    n_cols = dy.shape[1]
+    dw = np.full((len(sizes), k_dim, n_cols), np.nan)
+    walks = wgrad_walk(sizes, m, step, masked)
+    for e in range(len(sizes)):
+        for k0 in range(0, k_dim, BN):
+            for n0 in range(0, n_cols, BN):
+                ks, ns = slice(k0, min(k0 + BN, k_dim)), slice(n0, min(n0 + BN, n_cols))
+                acc = np.zeros((ks.stop - k0, ns.stop - n0))
+                for rows, live in walks[e]:
+                    acc += (xs[rows, ks] * live[:, None]).T @ (dy[rows, ns] * live[:, None])
+                assert np.all(np.isnan(dw[e, ks, ns]))  # written once
+                dw[e, ks, ns] = acc
+    return dw
+
+
+def _wgrad_reference(xs, dy, sizes):
+    dw = np.zeros((len(sizes), xs.shape[1], dy.shape[1]))
+    for e in range(len(sizes)):
+        start, end = segment(sizes, xs.shape[0], e)
+        dw[e] = xs[start:end].T @ dy[start:end]
+    return dw
+
+
+@pytest.mark.parametrize("step", [W_BR, WF_BR], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_wgrad_walk_takes_each_segment_row_once_in_order(case, step):
+    sizes, m = CASES[case]
+    for e, steps in enumerate(wgrad_walk(sizes, m, step)):
+        start, end = segment(sizes, m, e)
+        live = np.concatenate([rows[ok] for rows, ok in steps]) if steps else np.zeros(0, int)
+        np.testing.assert_array_equal(live, np.arange(start, end))  # once each, in order
+        if start == end:
+            assert steps == []  # an empty expert's blocks write zeros and walk nothing
+
+
+@pytest.mark.parametrize("step", [W_BR, WF_BR], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", ["ragged", "rows_past_the_groups", "over_full", "one_row",
+                                  "boundary", "empty_groups_small"])
+def test_wgrad_blocks_give_the_per_expert_products(case, step):
+    sizes, m = {"boundary": BOUNDARY,
+                "empty_groups_small": ([70, 0, 0, 30, 100, 0], 200)}.get(case) or CASES[case]
+    rng = np.random.default_rng(len(sizes) + m + step)
+    k_dim, n_cols = 136, 300  # the last K and N tiles ragged
+    xs = rng.integers(-4, 5, (m, k_dim)).astype(np.float64)
+    dy = rng.integers(-4, 5, (m, n_cols)).astype(np.float64)
+    want = _wgrad_reference(xs, dy, sizes)
+    got = wgrad_product(xs, dy, sizes, step)
+    np.testing.assert_array_equal(got, want)
+    for e, size in enumerate(sizes):
+        if segment(sizes, m, e)[0] == segment(sizes, m, e)[1]:
+            assert np.all(got[e] == 0)
+    if case == "boundary":  # unmasked steps add the next group's rows
+        assert not np.array_equal(wgrad_product(xs, dy, sizes, step, masked=False), want)
+
+
+def test_wgrad_grid_writes_every_tile_once():
+    # The grid (N tiles, K tiles, experts) over dw's tiles: one block each
+    # (`wgrad_product` asserts each tile is written once, and NaNs mark any
+    # left unwritten).
+    sizes, m = [3, 0, 5], 8
+    rng = np.random.default_rng(0)
+    dw = wgrad_product(rng.standard_normal((m, 300)), rng.standard_normal((m, 260)), sizes, W_BR)
+    assert not np.isnan(dw).any() and np.all(dw[1] == 0)
+
+
+def ldmatrix(stage, addrs, trans):
+    """ldmatrix.x4 on a stage of bf16 values (indexed by byte offset / 2):
+    matrix q's eight rows are the 8 values at lanes 8q .. 8q + 7's byte
+    addresses; lane T gets, of each matrix, (row T // 4, columns 2 (T % 4)
+    and + 1), or with .trans (rows 2 (T % 4) and + 1, column T // 4).
+    Returns [lane][matrix] pairs."""
+    out = [[None] * 4 for _ in range(32)]
+    for q in range(4):
+        mat = np.array([stage[addrs[8 * q + r] // 2:addrs[8 * q + r] // 2 + 8] for r in range(8)])
+        for lane in range(32):
+            g, c = lane // 4, lane % 4
+            out[lane][q] = ((mat[2 * c, g], mat[2 * c + 1, g]) if trans
+                            else (mat[g, 2 * c], mat[g, 2 * c + 1]))
+    return out
+
+
+def mma_m16n8k16(a_regs, b_regs):
+    """mma.sync.m16n8k16 (PTX ISA maps): A a0 (row g, k 2c, 2c + 1), a1 (g +
+    8, ..), a2 (g, k 2c + 8, ..), a3 (g + 8, k 2c + 8, ..); B b0 (k 2c, 2c +
+    1, column g), b1 (k 2c + 8, ..). Returns D [16, 8]."""
+    a, b = np.zeros((16, 16)), np.zeros((16, 8))
+    for lane in range(32):
+        g, c = lane // 4, lane % 4
+        for reg, (row, k) in enumerate(((g, 2 * c), (g + 8, 2 * c), (g, 2 * c + 8),
+                                        (g + 8, 2 * c + 8))):
+            a[row, k:k + 2] = a_regs[lane][reg]
+        for reg in range(2):
+            b[2 * c + 8 * reg:2 * c + 8 * reg + 2, g] = b_regs[lane][reg]
+    return a @ b
+
+
+def _wgrad_stage(tile):
+    """A bf16 wgrad stage (W_BR rows of 128 values) as the loader writes it:
+    16-byte chunk ch of row r at b_off(r, ch)."""
+    stage = np.full(W_BR * BN, np.nan)
+    for r in range(W_BR):
+        for ch in range(BN // 8):
+            stage[b_off(r, ch) // 2:b_off(r, ch) // 2 + 8] = tile[r, 8 * ch:8 * ch + 8]
+    return stage
+
+
+def test_wgrad_bf16_fragments_give_the_tile_product():
+    rng = np.random.default_rng(9)
+    x_tile = rng.integers(-5, 6, (W_BR, BN)).astype(np.float64)  # rows of xs, K columns
+    d_tile = rng.integers(-5, 6, (W_BR, BN)).astype(np.float64)  # rows of dy, N columns
+    x_s, d_s = _wgrad_stage(x_tile), _wgrad_stage(d_tile)
+    assert not np.isnan(x_s).any()  # the loader fills the stage
+    got = np.full((BN, BN), np.nan)
+    for warp in range(THREADS // 32):
+        wm, wn = warp // 4, warp % 4
+        acc = np.zeros((4, 4, 16, 8))
+        for k16 in range(W_BR // 16):
+            for mt in range(4):
+                a = ldmatrix(x_s, [b_off(16 * k16 + lane % 8 + 8 * (lane // 16),
+                                         8 * wm + 2 * mt + (lane // 8) % 2) for lane in range(32)],
+                             trans=True)
+                for j in range(2):
+                    r = ldmatrix(d_s, [b_off(16 * k16 + lane % 16, 4 * wn + 2 * j + lane // 16)
+                                       for lane in range(32)], trans=True)
+                    for half in range(2):
+                        b = [(r[lane][2 * half], r[lane][2 * half + 1]) for lane in range(32)]
+                        acc[mt, 2 * j + half] += mma_m16n8k16(a, b)
+        for mt in range(4):
+            for nt in range(4):
+                rows = slice(64 * wm + 16 * mt, 64 * wm + 16 * mt + 16)
+                got[rows, 32 * wn + 8 * nt:32 * wn + 8 * nt + 8] = acc[mt, nt]
+    np.testing.assert_array_equal(got, x_tile.T @ d_tile)
+
+
+@pytest.mark.parametrize("warp", range(8))
+def test_wgrad_bf16_transposed_reads_are_free_of_bank_conflicts(warp):
+    wm = warp // 4
+    for k16 in range(W_BR // 16):
+        for mt in range(4):
+            lanes = [b_off(16 * k16 + lane % 8 + 8 * (lane // 16), 8 * wm + 2 * mt + (lane // 8) % 2)
+                     for lane in range(32)]
+            for phase in range(4):
+                assert _banks(lanes[8 * phase:8 * phase + 8]) == list(range(32))
+
+
+def test_wgrad_bf16_stage_is_written_once_and_fits_a_block():
+    chunks = sorted(b_off(u // 16, u % 16) for u in range(4 * THREADS))
+    assert chunks == list(range(0, W_BR * BN * 2, 16))
+    assert gm.SMEM_W_BF16 == W_STAGES * 2 * W_BR * BN * 2 <= SMEM_OPT_IN
+
+
+def wf32_fragments(x_stage, d_stage, warp, lane, j):
+    """The f32 wgrad kernel's reads for k8 step j: A(i, k) = xs row k,
+    column i, as (k c, row g), (c, g + 8), (c + 4, g), (c + 4, g + 8) of
+    each m16 tile; B (k c, column g), (c + 4, g) of each n8 tile."""
+    wm, wn, g, c = warp // 4, warp % 4, lane // 4, lane % 4
+    x0 = (8 * j + c) * WF_P + 64 * wm + g
+    d0 = (8 * j + c) * WF_P + 32 * wn + g
+    a = [[x_stage[x0 + 16 * mt], x_stage[x0 + 16 * mt + 8], x_stage[x0 + 4 * WF_P + 16 * mt],
+          x_stage[x0 + 4 * WF_P + 16 * mt + 8]] for mt in range(4)]
+    b = [[d_stage[d0 + 8 * nt], d_stage[d0 + 4 * WF_P + 8 * nt]] for nt in range(4)]
+    return a, b
+
+
+def test_wgrad_f32_fragments_give_the_tile_product():
+    rng = np.random.default_rng(10)
+    x_tile = rng.integers(-5, 6, (WF_BR, BN)).astype(np.float64)
+    d_tile = rng.integers(-5, 6, (WF_BR, BN)).astype(np.float64)
+    x_s, d_s = np.zeros(WF_BR * WF_P), np.zeros(WF_BR * WF_P)
+    for r in range(WF_BR):
+        x_s[r * WF_P:r * WF_P + BN], d_s[r * WF_P:r * WF_P + BN] = x_tile[r], d_tile[r]
+    got = np.full((BN, BN), np.nan)
+    for warp in range(THREADS // 32):
+        wm, wn = warp // 4, warp % 4
+        acc = np.zeros((4, 4, 16, 8))
+        for j in range(WF_BR // 8):
+            frags = [wf32_fragments(x_s, d_s, warp, lane, j) for lane in range(32)]
+            for mt in range(4):
+                for nt in range(4):
+                    acc[mt, nt] += mma_m16n8k8([f[0][mt] for f in frags], [f[1][nt] for f in frags])
+        # The epilogue: accumulator (row g, columns 2c, 2c + 1), then g + 8.
+        for mt in range(4):
+            for nt in range(4):
+                rows = slice(64 * wm + 16 * mt, 64 * wm + 16 * mt + 16)
+                got[rows, 32 * wn + 8 * nt:32 * wn + 8 * nt + 8] = acc[mt, nt]
+    np.testing.assert_array_equal(got, x_tile.T @ d_tile)
+
+
+@pytest.mark.parametrize("warp", range(F_WARPS))
+def test_wgrad_f32_reads_and_loads_are_free_of_bank_conflicts(warp):
+    wm, wn = warp // 4, warp % 4
+    for j in range(WF_BR // 8):
+        for half in range(2):
+            for mt in range(4):
+                for h in range(2):
+                    words = [(8 * j + lane % 4 + 4 * half) * WF_P + 64 * wm + 16 * mt + lane // 4
+                             + 8 * h for lane in range(32)]
+                    assert _phase_banks(words, 1)
+            for nt in range(4):
+                words = [(8 * j + lane % 4 + 4 * half) * WF_P + 32 * wn + 8 * nt + lane // 4
+                         for lane in range(32)]
+                assert _phase_banks(words, 1)
+    # The loader's 16-byte copies: a stage's rows once, each phase of 8
+    # lanes on distinct banks.
+    if warp == 0:
+        chunks = []
+        for i in range(4):
+            for w in range(THREADS // 32):
+                words = [((32 * w + lane + i * THREADS) // 32) * WF_P
+                         + 4 * ((32 * w + lane + i * THREADS) % 32) for lane in range(32)]
+                assert _phase_banks(words, 4)
+                chunks += words
+        assert sorted(chunks) == [r * WF_P + 4 * q for r in range(WF_BR) for q in range(BN // 4)]
+        assert WF_P % 32 == 8
+        assert gm.SMEM_W_F32 == gm.WF_STAGES * 2 * WF_BR * WF_P * 4 <= SMEM_OPT_IN
+
+
+def test_wgrad_f32_promotion_holds_the_tolerance_over_a_whole_segment():
+    # A skewed routing gives one expert every row: 16384 at the flagship.
+    # Each 32-row step's truncating sums start afresh and are added to the
+    # output in f32 (rounded to nearest); one chain over all the rows
+    # drifts past the card's f32 tolerance, 1e-5 max|want|.
+    rows = 16384
+    rng = np.random.default_rng(rows)
+    xs_t = rng.standard_normal((32, rows)).astype(np.float32)  # A = xs^T
+    dy = rng.standard_normal((rows, 32)).astype(np.float32)
+    want = xs_t.astype(np.float64) @ dy.astype(np.float64)
+    limit = 1e-5 * np.abs(want).max()
+    (ab, as_), (bb, bs) = _split(xs_t), _split(dy)
+    three = [(as_, bb), (ab, bs), (ab, bb)]
+    assert np.abs(_mma_chain(three, rows, WF_BR) - want).max() <= limit / 2
+    assert np.abs(_mma_chain(three, rows, rows) - want).max() > limit
+
+
+# --- the bf16 wgrad TMA kernel (`grouped_wgrad_tma_kernel`) --------------------
+
+
+def _wgrad_tma_product(xs, dy, sizes, zero_rows=True):
+    """The TMA wgrad launch on the CPU: each (256-column N tile, 128-row K
+    tile, expert) block's steps of TMA_BK rows from its segment's start,
+    xs boxes of 64 columns and dy boxes of 64 columns as TMA loads them
+    (the next group's rows, zeros past M; a box wholly past K or N not
+    loaded: stale), xs rows past the segment zeroed (all kept with
+    zero_rows=False); only rows below K and columns below N stored."""
+    m, k_dim = xs.shape
+    n_cols = dy.shape[1]
+    stale = np.random.default_rng(8).integers(-50, 50, (TMA_BK, 64)).astype(np.float64)
+    dw = np.full((len(sizes), k_dim, n_cols), np.nan)
+    for e in range(len(sizes)):
+        start, end = segment(sizes, m, e)
+        for k0 in range(0, k_dim, BM):
+            for n0 in range(0, n_cols, TMA_BN):
+                rows, cols = min(BM, k_dim - k0), min(TMA_BN, n_cols - n0)
+                if start == end:
+                    dw[e, k0:k0 + rows, n0:n0 + cols] = 0
+                    continue
+                acc = np.zeros((BM, TMA_BN))
+                for r0 in range(start, end, TMA_BK):
+                    a = np.concatenate([_box(xs, r0, TMA_BK, k0 + 64 * j, 64) if k0 + 64 * j < k_dim
+                                        else stale for j in range(BM // 64)], axis=1)
+                    b = np.concatenate([_box(dy, r0, TMA_BK, n0 + 64 * j, 64)
+                                        if n0 + 64 * j < n_cols else stale
+                                        for j in range(TMA_BN // 64)], axis=1)
+                    if zero_rows:
+                        a[max(end - r0, 0):] = 0
+                    acc += a.T @ b
+                dw[e, k0:k0 + rows, n0:n0 + cols] = acc[:rows, :cols]
+    return dw
+
+
+@pytest.mark.parametrize("case", ["ragged", "rows_past_the_groups", "over_full", "one_row",
+                                  "boundary", "empty_groups_small"])
+def test_wgrad_tma_blocks_give_the_per_expert_products(case):
+    sizes, m = {"boundary": BOUNDARY,
+                "empty_groups_small": ([70, 0, 0, 30, 100, 0], 200)}.get(case) or CASES[case]
+    rng = np.random.default_rng(len(sizes) + m + 1)
+    k_dim, n_cols = 200, 328  # a K tile with one box past K; an N tile with one box and a part
+    xs = rng.integers(-4, 5, (m, k_dim)).astype(np.float64)
+    dy = rng.integers(-4, 5, (m, n_cols)).astype(np.float64)
+    want = _wgrad_reference(xs, dy, sizes)
+    np.testing.assert_array_equal(_wgrad_tma_product(xs, dy, sizes), want)
+    if case == "boundary":  # the next group's rows would enter the sum
+        assert not np.array_equal(_wgrad_tma_product(xs, dy, sizes, zero_rows=False), want)
+
+
+def test_wgrad_tma_row_zeroing_covers_exactly_the_row():
+    # The consumer zeroes bytes row * 128 .. + 127 of a 128-byte swizzled
+    # box; the swizzle keeps every element of a row inside them.
+    box = 5 * 1024
+    for row in range(TMA_BK):
+        addrs = {tma_box_address(box, row, 2 * col) for col in range(64)}
+        assert min(addrs) >= box + row * 128 and max(addrs) < box + row * 128 + 128
+        assert len(addrs) == 64
+
+
+@pytest.mark.parametrize("stage", range(TMA_STAGES))
+def test_wgrad_tma_a_descriptor_reads_xs_transposed(stage):
+    # A = xs^T (64 K columns x k16 rows of the step) for warpgroup wg:
+    # its xs box of 64 rows x 64 columns read M-major, as the forward
+    # reads B N-major: element (m, k) of A is xs box row 16 kk + k, column m.
+    x_s = 3 * 1024 + stage * TMA_STAGE
+    k, m = np.meshgrid(np.arange(16), np.arange(64), indexing="ij")
+    for wg in range(2):
+        for kk in range(TMA_BK // 16):
+            desc = sw128_desc(x_s + wg * TMA_B_BOX + 2048 * kk, TMA_B_BOX, 1024)
+            got = wgmma_b_address(desc, k, m)
+            want = tma_box_address(x_s + wg * TMA_B_BOX, 16 * kk + k, 2 * m)
+            np.testing.assert_array_equal(got, want)
+    # Two xs boxes and four dy boxes fill the forward's stage.
+    assert 2 * TMA_B_BOX == TMA_A_BYTES and TMA_A_BYTES + 4 * TMA_B_BOX == TMA_STAGE
+
+
+def wgrad_tile(t, k_tiles, n_tiles):
+    """The kernel's `wgrad_tile`: (expert, k0, n0) of tile t, N tiles
+    fastest, then K tiles, then experts."""
+    return t // (k_tiles * n_tiles), (t // n_tiles) % k_tiles * BM, t % n_tiles * TMA_BN
+
+
+@pytest.mark.parametrize("grid", [1, 7, 132])
+@pytest.mark.parametrize("experts,k_dim,n_cols", [(8, 1024, 4096), (8, 4096, 1024), (3, 200, 328)])
+def test_wgrad_tma_persistent_walk_takes_every_tile_once(grid, experts, k_dim, n_cols):
+    k_tiles, n_tiles = -(-k_dim // BM), -(-n_cols // TMA_BN)
+    tiles = experts * k_tiles * n_tiles
+    taken = [wgrad_tile(t, k_tiles, n_tiles) for b in range(min(grid, tiles))
+             for t in range(b, tiles, grid)]
+    assert sorted(taken) == [(e, k0, n0) for e in range(experts) for k0 in range(0, k_dim, BM)
+                             for n0 in range(0, n_cols, TMA_BN)]

@@ -257,18 +257,6 @@ def test_validate_applies_the_reference_moe_rules(bad):
     assert "moe" in str(port.value).lower() or "expert" in str(port.value).lower()
 
 
-@pytest.mark.parametrize("build", ["train", "eval"])
-def test_moe_training_raises(build):
-    _, tcfg = _configs(moe_top_k=2)
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        if build == "train":
-            from jobset_tpu_torch.runtime import optim
-
-            ttf.build_train_step(tcfg, optim.adam(1e-3), device="cpu")
-        else:
-            ttf.build_eval_step(tcfg, device="cpu")
-
-
 def test_param_tree_and_conversion_keep_the_expert_leaves():
     jcfg, tcfg = _configs(moe_top_k=2)
     jparams, tparams = _params(jcfg)
