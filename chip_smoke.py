@@ -157,13 +157,20 @@ non-zero before the result line:
  13. mixture-of-experts training, in a process of its own
      (`--moe-train-only`), on the MoE flagship: the grouped product's
      backward kernels against their plain versions at the two products
-     with the four routings of phase 12, bf16 and f32 (dgrad: w copied to
-     [E, N, K], then the forward's kernels; wgrad: `grouped_wgrad_*_kernel`,
+     with the four routings of phase 12, bf16 and f32 (dgrad: the
+     forward's TMA kernel reading w K-major in bf16, w copied to [E, N, K]
+     for the forward's f32 kernel; wgrad: `grouped_wgrad_*_kernel`,
      ragged on the contraction), one launch counted on the dtype's
      variant, two launches equal bit for bit, empty experts' weight
      gradients exactly 0; their L2-cold times (dgrad with and without its
      copy) beside the bound, the plain version and torch._grouped_mm
-     (`library_ms`, its ragged-K form for wgrad, where it runs); the main
+     (`library_ms`, its ragged-K form for wgrad, where it runs), and the
+     bf16 wgrad kernel's cost a tile change (balanced against skewed time
+     over the busiest block's extra tiles); `--grouped-baseline DIR` also
+     holds each output to that checkout's kernels bit for bit and times
+     them on the same inputs, in turns; the grouped library's SASS (the
+     wgrad TMA kernel's TMA stores, UTMASTG) and `cuobjdump -res-usage`
+     (168 registers, no local memory); the main
      path, `run_model_bench` (B=8, T=1024, remat off, adam, median of 20
      steps; tokens/s, MFU at activated FLOPs, peak memory) with 16
      forward, 16 dgrad and 16 wgrad grouped launches a step, all bf16;
@@ -340,12 +347,13 @@ def check_launches(path, expected, passes):
     return counts
 
 
-SASS_OPS = ("HGMMA", "HMMA", "UTMALDG")
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UTMASTG")
 
 
 def sass_counts(library) -> dict:
-    """Count the tensor-core instructions (HGMMA: wgmma, HMMA: mma.sync) and
-    the TMA loads (UTMALDG) in each kernel of a built library's SASS."""
+    """Count the tensor-core instructions (HGMMA: wgmma, HMMA: mma.sync)
+    and the TMA loads and stores (UTMALDG, UTMASTG) in each kernel of a
+    built library's SASS."""
     from jobset_tpu_torch.ops import cuda_build
 
     cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
@@ -377,6 +385,31 @@ def tensor_core_sass(library) -> dict:
     return counts
 
 
+# Registers a thread of a TMA kernel starts with (65536 / 384 threads,
+# rounded down to 8): setmaxnreg then moves them to 40 / 232.
+WGRAD_TMA_REGS = 168
+
+
+def resource_usage(library) -> dict:
+    """`cuobjdump -res-usage` of a built library: each kernel's registers,
+    stack, shared and local bytes ({"REG": 168, "STACK": 0, ...})."""
+    import re
+
+    from jobset_tpu_torch.ops import cuda_build
+
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-res-usage", str(library)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    usage, name = {}, None
+    for line in text.splitlines():
+        if m := re.search(r"Function (\S+):", line):
+            name = m.group(1)
+        elif name and "REG:" in line:
+            usage[name] = {k: int(v) for k, v in re.findall(r"(\w+):(\d+)", line)}
+            name = None
+    return usage
+
+
 def grouped_sass(library) -> dict:
     """The grouped library's SASS: the TMA kernel (both instantiations)
     loads by TMA (UTMALDG) into wgmma (HGMMA); the f32 and the other bf16
@@ -391,8 +424,18 @@ def grouped_sass(library) -> dict:
     check(len(mma) == 3 and all(c["HMMA"] > 0 for c in mma.values()),
           f"sass: the grouped f32 and mma.sync kernels have HMMA ({len(mma)} found)")
     wgrad = {n: c for n, c in counts.items() if "grouped_wgrad_tma_kernel" in n}
-    check(len(wgrad) == 1 and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in wgrad.values()),
-          f"sass: the bf16 wgrad TMA kernel has HGMMA and UTMALDG ({wgrad})")
+    check(len(wgrad) == 1 and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["UTMASTG"] > 0
+                                  for c in wgrad.values()),
+          f"sass: the bf16 wgrad TMA kernel has HGMMA, UTMALDG and its tiles' TMA stores "
+          f"(UTMASTG) ({wgrad})")
+    usage = resource_usage(library)
+    wgrad_usage = {n: u for n, u in usage.items() if "grouped_wgrad_tma_kernel" in n}
+    check(len(wgrad_usage) == 1 and all(u.get("REG") == WGRAD_TMA_REGS and u.get("LOCAL") == 0
+                                        and u.get("STACK") == 0 for u in wgrad_usage.values()),
+          f"cuobjdump: the bf16 wgrad TMA kernel has {WGRAD_TMA_REGS} registers at entry (the "
+          f"setmaxnreg hand-over's), no local memory and no stack, so no spills ({wgrad_usage})")
+    for n, u in usage.items():
+        print(f"  res-usage {n}: " + ", ".join(f"{k} {v}" for k, v in u.items()), flush=True)
     wgrad = {n: c for n, c in counts.items()
              if "grouped_wgrad_bf16_kernel" in n or "grouped_wgrad_f32_kernel" in n}
     check(len(wgrad) == 3 and all(c["HMMA"] > 0 for c in wgrad.values()),
@@ -3254,11 +3297,12 @@ def backward_operands(dtype, k, n, gen):
     return xs, w, torch.randn((MOE_SLOTS, n), generator=gen, device="cuda").to(dtype)
 
 
-def backward_case(which, name, dtype, k, n, routing, seed):
+def backward_case(which, name, dtype, k, n, routing, seed, baseline=None):
     """dgrad or wgrad against its plain version at one product of the MoE
     flagship: the grouped kernels' tolerance, one launch counted on the
     dtype's variant, two launches equal bit for bit, and wgrad's empty
-    experts exactly 0. Returns max|got - want|."""
+    experts exactly 0; with a baseline wrapper, equal bit for bit to its
+    kernel on the same inputs. Returns max|got - want|."""
     from jobset_tpu_torch.ops import grouped_matmul as gm
 
     xs, w, dy = backward_operands(dtype, k, n, torch.Generator(device="cuda").manual_seed(seed))
@@ -3302,6 +3346,11 @@ def backward_case(which, name, dtype, k, n, routing, seed):
         empty = [e for e, size in enumerate(sizes.tolist()) if size == 0]
         check(all(bool((got[e] == 0).all()) for e in empty),
               f"grouped_matmul_wgrad {name}: the empty experts' {empty} gradients are exactly 0")
+    if baseline is not None:
+        parent = getattr(baseline, f"grouped_matmul_{which}")(*args)
+        check(torch.equal(got, parent),
+              f"grouped_matmul_{which} {name}: equal bit for bit to the parent's kernel on the "
+              f"same inputs (max|d| {(got.float() - parent.float()).abs().max().item():.3e})")
     return worst
 
 
@@ -3327,14 +3376,16 @@ def wgrad_mm_library(xs, dy, sizes):
     return None, "; ".join(errors)
 
 
-def time_backward(dtype, k, n, routing="balanced") -> dict:
+def time_backward(dtype, k, n, routing="balanced", baseline=None) -> dict:
     """L2-cold times of dgrad and wgrad at one product of the MoE flagship
     (two input sets of 224 MB or more alternate): the wrapper's kernels
     (dgrad: bf16 reads w K-major; f32 copies w to [E, N, K] first), the
     copy of w alone (the f32 dgrad's, and what bf16 saves), the plain
     versions, torch._grouped_mm where it runs (`library_ms`) and the bound
     (every routed row once: 2 M K N operations; each operand read and the
-    result written once)."""
+    result written once); with a baseline wrapper, its kernels on the same
+    inputs (`parent_ms`), kernel and parent each twice in turns, the
+    faster of each kept."""
     from jobset_tpu_torch.ops import grouped_matmul as gm
 
     gen = torch.Generator(device="cuda").manual_seed(2 * k + n)
@@ -3359,6 +3410,15 @@ def time_backward(dtype, k, n, routing="balanced") -> dict:
                 ITERS // 4),
         },
     }
+    if baseline is not None:
+        calls = {"dgrad": lambda mod, i: mod.grouped_matmul_dgrad(sets[i][2], sets[i][1], sizes),
+                 "wgrad": lambda mod, i: mod.grouped_matmul_wgrad(sets[i][0], sets[i][2], sizes)}
+        for which, call in calls.items():
+            mine, parent = [out[which]["ms"]], []
+            for runs, mod in ((parent, baseline), (mine, gm), (parent, baseline)):
+                runs.append(rotating_ms(lambda i: call(mod, i), 2, ITERS))
+            out[which].update(ms=min(mine), ms_runs=mine, parent_ms=min(parent),
+                              parent_ms_runs=parent)
     libraries = {"dgrad": [grouped_mm_library(dy, w.transpose(1, 2), sizes) for _, w, dy in sets],
                  "wgrad": [wgrad_mm_library(xs, dy, sizes) for xs, _, dy in sets]}
     bound, bound_by = grouped_bound_ms(MOE_SLOTS, k, n, dtype)
@@ -3377,10 +3437,25 @@ def time_backward(dtype, k, n, routing="balanced") -> dict:
     return out
 
 
-def moe_backward_checks(results):
+def wgrad_busiest_tiles(sizes, k, n) -> int:
+    """The most tiles with rows to walk that one block of the bf16 wgrad
+    kernel's persistent grid takes (one block an SM, each taking tiles b,
+    b + grid, ... of (expert, K tile, N tile), N tiles fastest): a tile
+    change for each but its first."""
+    k_tiles, n_tiles = -(-k // 128), -(-n // 256)
+    tiles = len(sizes) * k_tiles * n_tiles
+    grid = min(tiles, torch.cuda.get_device_properties(0).multi_processor_count)
+    return max(sum(1 for t in range(b, tiles, grid) if sizes[t // (k_tiles * n_tiles)] > 0)
+               for b in range(grid))
+
+
+def moe_backward_checks(results, baseline=None):
     """Phase 13a: dgrad and wgrad at the MoE flagship's two products, four
-    routings, bf16 and f32, against their plain versions; their L2-cold
-    times (bf16 balanced and skewed, f32 balanced)."""
+    routings, bf16 and f32, against their plain versions (and, given a
+    baseline wrapper, against its kernels bit for bit); their L2-cold times
+    (bf16 balanced and skewed, f32 balanced; the baseline's beside them),
+    and the bf16 wgrad kernel's cost a tile change: balanced against
+    skewed time, over the busiest block's extra tiles."""
     card = results["card"]
     errs, seed = {}, 70
     for dtype in (torch.bfloat16, torch.float32):
@@ -3390,14 +3465,14 @@ def moe_backward_checks(results):
                 for which in BACKWARD_OPS:
                     errs[f"{which} {tag} {label} {routing}"] = backward_case(
                         which, f"{tag} {label} [{MOE_SLOTS},{k}]x[{MOE_EXPERTS},{k},{n}] {routing}",
-                        dtype, k, n, routing, seed)
+                        dtype, k, n, routing, seed, baseline)
                     seed += 1
     times = {}
     for dtype in (torch.bfloat16, torch.float32):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
         for label, (k, n) in MOE_PRODUCTS.items():
             for routing in (("balanced", "skewed") if dtype == torch.bfloat16 else ("balanced",)):
-                t = time_backward(dtype, k, n, routing)
+                t = time_backward(dtype, k, n, routing, baseline)
                 times[f"{tag} {label} {routing}"] = t
                 for which in BACKWARD_OPS:
                     r = t[which]
@@ -3406,12 +3481,31 @@ def moe_backward_checks(results):
                     copy = ("" if "copy_ms" not in r else
                             f" (of which the copy of w {r['copy_ms']:.4f} ms)" if tag == "f32" else
                             f" (w read K-major; a copy of w would take {r['copy_ms']:.4f} ms)")
+                    parent = (f" (runs {r['ms_runs']}), parent kernel {r['parent_ms']:.4f} ms "
+                              f"(runs {r['parent_ms_runs']})" if "parent_ms" in r else "")
                     print(f"grouped_matmul_{which} {tag} {label} [{MOE_SLOTS},{k}]x"
                           f"[{MOE_EXPERTS},{k},{n}] {routing}, L2-cold: kernel {r['ms']:.4f} ms"
-                          f"{copy}, plain {r['plain_ms']:.4f} ms, library_ms (torch._grouped_mm) "
-                          f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-                          f"{r['bound_ms'] / r['ms']:.1%} of bound ({card})", flush=True)
-    results["grouped_backward"] = {"max_abs_err": errs, "by_shape": times}
+                          f"{copy}{parent}, plain {r['plain_ms']:.4f} ms, library_ms "
+                          f"(torch._grouped_mm) {lib}, bound {r['bound_ms']:.4f} ms "
+                          f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} of bound ({card})",
+                          flush=True)
+    tile_change = {}
+    for label, (k, n) in MOE_PRODUCTS.items():
+        busiest = {routing: wgrad_busiest_tiles(moe_group_sizes(routing).tolist(), k, n)
+                   for routing in ("balanced", "skewed")}
+        extra = busiest["balanced"] - busiest["skewed"]
+        row = {"busiest_block_tiles": busiest}
+        for key in ("ms", "parent_ms"):
+            bal, skew = (times[f"bf16 {label} {r}"]["wgrad"].get(key) for r in ("balanced", "skewed"))
+            if bal is not None and extra > 0:
+                row[f"{key[:-3] or 'kernel'}_us"] = 1e3 * (bal - skew) / extra
+        tile_change[label] = row
+        print(f"grouped_matmul_wgrad bf16 {label}: per tile change "
+              + ", ".join(f"{key[:-3]} {v:.3f} us" for key, v in row.items() if key.endswith("_us"))
+              + f" ((balanced - skewed) / ({busiest['balanced']} - {busiest['skewed']}) tiles of "
+              f"the busiest block; {card})", flush=True)
+    results["grouped_backward"] = {"max_abs_err": errs, "by_shape": times,
+                                   "wgrad_tile_change": tile_change}
 
 
 def moe_train_layerwise(cfg, params, batch) -> list:
@@ -3515,16 +3609,18 @@ def moe_train_trace(fn, label):
     return trace
 
 
-def phase_moe_train(results):
+def phase_moe_train(results, baseline=None):
     """Phase 13: mixture-of-experts training at the MoE flagship's width and
-    depth. Returns its `kernels` entries."""
+    depth. `baseline`: another checkout, whose backward kernels are held to
+    this one's bit for bit and timed beside them. Returns its `kernels`
+    entries."""
     from dataclasses import replace
 
     from jobset_tpu_torch.models import build_train_step, init_params
     from jobset_tpu_torch.runtime import model_bench, optim
 
     card = results["card"]
-    moe_backward_checks(results)
+    moe_backward_checks(results, load_baseline(baseline, "grouped_matmul") if baseline else None)
 
     # The main path: run_model_bench on the MoE flagship (B=8, T=1024,
     # remat off, adam), counts set to 0 just before and read just after.
@@ -3637,6 +3733,7 @@ def phase_moe_train(results):
             "ms": total("ms"),
             **({"copy_ms": total("copy_ms")} if which == "dgrad" else {}),
             "plain_ms": total("plain_ms"),
+            **({"parent_ms": total("parent_ms")} if baseline else {}),
             "bound_ms": total("bound_ms"),
             "bound_by": rows[0]["bound_by"],
             **({"bound_fma_ms": total("bound_fma_ms")} if tag == "f32" else {}),
@@ -3672,7 +3769,8 @@ def phase_moe_train(results):
               "grouped_wgrad_tma_kernel: one block a (256-column N tile, 128-row K tile, "
               "expert) walking its segment's rows in steps of 64 loaded by TMA from a producer "
               "warp, wgmma m64n256k16 with xs^T read M-major and dy N-major, rows past the "
-              "segment zeroed in shared memory; operands TMA cannot take go to "
+              "segment zeroed in shared memory, the tile staged in shared memory and stored by "
+              "TMA while the next tile's products run; operands TMA cannot take go to "
               "grouped_wgrad_bf16_kernel (mma.sync, ldmatrix.trans)"),
         entry("grouped_matmul_wgrad_f32", "wgrad", "f32", small_counts["GROUPED_WGRAD_F32_LAUNCHES"],
               {"small f32 config train step": small_counts["GROUPED_WGRAD_F32_LAUNCHES"],
@@ -3682,15 +3780,16 @@ def phase_moe_train(results):
     ]
 
 
-def phase_moe_train_apart(results):
+def phase_moe_train_apart(results, baseline=None):
     """Phase 13 in a process of its own (`--moe-train-only`). Returns its
     `kernels` entries (none if it failed)."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "moe_train.json")
+        extra = ["--grouped-baseline", baseline] if baseline else []
         run = subprocess.run([sys.executable, os.path.abspath(__file__), "--moe-train-only",
-                              "--out", path], capture_output=True, text=True, timeout=900)
+                              "--out", path, *extra], capture_output=True, text=True, timeout=900)
         print(run.stdout, end="", flush=True)
         if run.returncode != 0:
             print(run.stderr[-4000:], file=sys.stderr, flush=True)
@@ -3732,8 +3831,10 @@ def main() -> int:
                         help="another checkout of this repo (the parent commit): phase 11 "
                              "also times its int8 kernel on the same inputs")
     parser.add_argument("--grouped-baseline", metavar="DIR",
-                        help="another checkout of this repo (the parent commit): phase 12 "
-                             "also times its grouped kernel on the same inputs")
+                        help="another checkout of this repo (the parent commit): phases 12 "
+                             "and 13 also time its grouped kernels on the same inputs, and "
+                             "phase 13 holds its backward kernels' outputs to this one's bit "
+                             "for bit")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -3783,8 +3884,10 @@ def main() -> int:
             cuda_build.BUILD_LOG["grouped_matmul"],
             r"grouped_(?:mm|wgrad)_(?:bf16|f32|tma)_kernel", "grouped kernel")
     if args.moe_train_only:
-        results["moe_train_kernels"] = phase_moe_train(results)
-        attach_grouped_ptxas(results["moe_train_kernels"], results.get("grouped_ptxas"))
+        results["grouped_sass"] = grouped_sass(libraries["grouped_matmul"])
+        results["moe_train_kernels"] = phase_moe_train(results, args.grouped_baseline)
+        attach_grouped_ptxas(results["moe_train_kernels"], results.get("grouped_ptxas"),
+                             results["grouped_sass"])
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
             with open(args.out, "w") as f:
@@ -3885,7 +3988,7 @@ def main() -> int:
     phase_control_apart(results)
     int8_kernel = phase_serving_apart(results, args.int8_baseline)
     grouped_kernels = phase_moe_apart(results, args.grouped_baseline)
-    grouped_kernels += phase_moe_train_apart(results)
+    grouped_kernels += phase_moe_train_apart(results, args.grouped_baseline)
     if int8_kernel is not None:
         int8_kernel["ptxas"] = results.get("int8_ptxas")
         # The expert axis (phase 12): its checks and times, and the MoE

@@ -103,7 +103,10 @@
 //   64 rows loaded by TMA from a producer warp into the forward's 3-stage
 //   ring, wgmma m64n256k16 with A = xs^T read M-major and B = dy N-major
 //   (both through the transpose bit), the rows past the segment zeroed in
-//   shared memory. Other bf16 (`grouped_wgrad_bf16_kernel`): 128-column
+//   shared memory; the tile's output staged in the forward's staging room
+//   as 128-byte swizzled boxes and stored by TMA (a 3-D map over dw, the
+//   expert a coordinate), which runs on while the next tile's products
+//   do. Other bf16 (`grouped_wgrad_bf16_kernel`): 128-column
 //   tiles, `mma.sync` m16n8k16 on operands read element by element, both
 //   by `ldmatrix.trans`. f32 (`grouped_wgrad_f32_kernel`): 128-column
 //   tiles, steps of 32 rows through a `cp.async` ring (16-byte copies
@@ -141,6 +144,11 @@ constexpr int TMA_OUT_BYTES = BM * TMA_OUT_PITCH;
 // 1024-byte alignment slack, the ring, the staged output, a full and an
 // empty barrier a stage.
 constexpr int TMA_SMEM = 1024 + TMA_STAGES * TMA_STAGE + TMA_OUT_BYTES + 2 * TMA_STAGES * 8;
+// The bf16 wgrad kernel stages its tile in the same room: each consumer
+// warpgroup's 64 x 256 outputs as four TMA store boxes of 64 rows x 64
+// columns, 128-byte swizzled rows.
+constexpr int W_OUT_BYTES = 2 * 4 * TMA_B_BOX;
+static_assert(W_OUT_BYTES <= TMA_OUT_BYTES, "the wgrad staging fits the forward's");
 
 constexpr int F_BK = 32, F_STAGES = 4;  // f32: K step, ring depth
 constexpr int F_AP = F_BK + 8;          // A row pitch (floats): 8 mod 32
@@ -455,6 +463,16 @@ __device__ __forceinline__ void bulk_store(void* dst, const void* src, int bytes
 }
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// One TMA box from shared memory (coordinates innermost first) in this
+// thread's bulk group: only the box's elements inside the tensor are
+// written.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+               :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(c0), "r"(c1),
+                  "r"(c2)
+               : "memory");
 }
 // Wait until this thread's bulk copies have read their shared memory.
 __device__ __forceinline__ void bulk_wait_read() {
@@ -985,9 +1003,19 @@ __global__ void __launch_bounds__(THREADS, 1)
 // M-major (the transpose bit) and B = dy N-major, as the forward reads w.
 // Rows of a step past the segment (the next group's, or TMA's zeros past
 // M) are zeroed in the xs box by the warpgroup before its products, so
-// they add nothing. A tile's outputs are stored from the accumulators
-// (each dw tile is one block's alone) while the producer fills the next
-// tile's stages; an empty expert's tiles are stored as zeros.
+// they add nothing. A tile's outputs go to shared memory as four TMA
+// store boxes a warpgroup (64 rows x 64 columns, 128-byte swizzled), and
+// one thread of the warpgroup stores them to dw by TMA through a 3-D map
+// over [E, K, N] (the expert a coordinate, so a K tile past K is clipped
+// at its own expert's K; each dw tile is one block's alone, so whole
+// boxes are right), which runs on while the warpgroup starts the next
+// tile; the thread waits for its stores to have read the staging only
+// before the next tile's outputs overwrite it. On an H100 the stores
+// straight from the accumulators (4 bytes a thread, the tensor cores
+// idle meanwhile, every block's epilogue at once) cost about 5 us a tile
+// change at the MoE flagship's products, the staged ones under 1 us
+// (`chip_smoke.py` phase 13). An empty expert's tiles are stored as
+// zeros, 16 bytes a store.
 __device__ __forceinline__ void wgrad_tile(const WgradParams& p, int t, int k_tiles, int n_tiles,
                                            int& e, int& k0, int& n0) {
   e = t / (k_tiles * n_tiles);
@@ -998,11 +1026,13 @@ __device__ __forceinline__ void wgrad_tile(const WgradParams& p, int t, int k_ti
 __global__ void __launch_bounds__(TMA_THREADS, 1)
     grouped_wgrad_tma_kernel(const __grid_constant__ WgradParams p,
                              const __grid_constant__ CUtensorMap tm_x,
-                             const __grid_constant__ CUtensorMap tm_dy, int k_tiles, int n_tiles,
+                             const __grid_constant__ CUtensorMap tm_dy,
+                             const __grid_constant__ CUtensorMap tm_dw, int k_tiles, int n_tiles,
                              int tiles) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + TMA_STAGES * TMA_STAGE);
+  unsigned char* staged = ring + TMA_STAGES * TMA_STAGE;  // [2][4 boxes][64 rows][128 bytes]
+  uint64_t* full = reinterpret_cast<uint64_t*>(staged + TMA_OUT_BYTES);
   uint64_t* empty = full + TMA_STAGES;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
@@ -1041,6 +1071,9 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
   const int wg = warp / 4 - 1, t128 = threadIdx.x % 128, g = lane / 4, c = lane % 4;
   __nv_bfloat16* dw_all = static_cast<__nv_bfloat16*>(p.dw);
+  unsigned char* out = staged + wg * (4 * TMA_B_BOX);  // this warpgroup's four boxes
+  if (t128 == 0)
+    asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(&tm_dw)) : "memory");
   float d[32][4];
   int it = 0;  // steps consumed so far
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
@@ -1095,21 +1128,32 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[prev]);
 
-    // Accumulator of n8 tile j: row g (then g + 8) of the warp's 16,
-    // columns 8j + 2c and + 1.
+    // Accumulator of n8 tile j: row r = g (then g + 8) of the warp's 16,
+    // columns 8j + 2c and + 1: box j / 8, bytes 16 (j % 8) + 4c of its
+    // 128-byte row r, whose 16-byte chunk the swizzle moves to j % 8 ^ g
+    // (r % 8 = g): across a warp, 32 distinct banks. Thread 0 of the
+    // warpgroup first waits until its stores of the last tile have read
+    // the boxes, then, once every thread's writes are fenced for the async
+    // proxy, stores the boxes inside K and N.
+    if (t128 == 0) bulk_wait_read();
+    asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int k = k0 + 64 * wg + 16 * (warp % 4) + g + 8 * h;
-      if (k >= p.K) continue;
+      unsigned char* row = out + (16 * (warp % 4) + g + 8 * h) * 128 + 4 * c;
 #pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        const int n = n0 + 8 * j + 2 * c;
-        if (n < p.N)
-          *reinterpret_cast<__nv_bfloat162*>(dw + (size_t)k * p.N + n) =
-              __floats2bfloat162_rn(d[j][2 * h], d[j][2 * h + 1]);
-      }
+      for (int j = 0; j < 32; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(row + (j / 8) * TMA_B_BOX + 16 * ((j % 8) ^ g)) =
+            __floats2bfloat162_rn(d[j][2 * h], d[j][2 * h + 1]);
+    }
+    fence_proxy_async();
+    asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+    if (t128 == 0 && k0 + 64 * wg < p.K) {
+      for (int b = 0; b < 4 && n0 + 64 * b < p.N; ++b)
+        tma_store_3d(&tm_dw, out + b * TMA_B_BOX, n0 + 64 * b, k0 + 64 * wg, e);
+      bulk_commit();
     }
   }
+  if (t128 == 0) bulk_wait_read();  // no store outlives the block's shared memory
 }
 
 // Grid as the bf16 kernel's. Each stage holds 32 rows of xs (columns k0..)
@@ -1352,8 +1396,9 @@ cudaError_t launch_wgrad(bool f32, const WgradParams& p, int device, cudaStream_
   const bool vec = p.K % width == 0 && p.N % width == 0 && aligned16(p.x) && aligned16(p.dy) &&
                    aligned16(p.dw);
   if (!f32 && vec) {
-    // bf16 by TMA and wgmma: xs [M, K] and dy [M, N] as 2-D maps, boxes of
-    // 64 columns x 64 rows; one block an SM (or a tile).
+    // bf16 by TMA and wgmma: xs [M, K] and dy [M, N] as 2-D maps, dw [E,
+    // K, N] as a 3-D one, boxes of 64 columns x 64 rows; one block an SM
+    // (or a tile).
     const void* kernel = reinterpret_cast<const void*>(&grouped_wgrad_tma_kernel);
     int sms = 0;
     cudaError_t err = prepare(WGRAD_TMA, kernel, TMA_SMEM, device, &sms);
@@ -1362,17 +1407,20 @@ cudaError_t launch_wgrad(bool f32, const WgradParams& p, int device, cudaStream_
     const long long tiles = (long long)p.E * k_tiles * n_tiles;
     if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
     const int grid = (int)(tiles < sms ? tiles : sms);
-    CUtensorMap tm_x{}, tm_dy{};  // no map over 0 rows: every tile is then zeros
+    CUtensorMap tm_x{}, tm_dy{}, tm_dw;  // no map over 0 rows: every tile is then zeros
     const cuuint64_t x_dims[2] = {(cuuint64_t)p.K, (cuuint64_t)p.M};
     const cuuint64_t x_strides[1] = {(cuuint64_t)p.K * 2};
     const cuuint64_t d_dims[2] = {(cuuint64_t)p.N, (cuuint64_t)p.M};
     const cuuint64_t d_strides[1] = {(cuuint64_t)p.N * 2};
-    const cuuint32_t box[2] = {64, TMA_BK};
-    if (p.M > 0 && (!make_map(&tm_x, p.x, 2, x_dims, x_strides, box) ||
-                    !make_map(&tm_dy, p.dy, 2, d_dims, d_strides, box)))
+    const cuuint64_t w_dims[3] = {(cuuint64_t)p.N, (cuuint64_t)p.K, (cuuint64_t)p.E};
+    const cuuint64_t w_strides[2] = {(cuuint64_t)p.N * 2, (cuuint64_t)p.K * p.N * 2};
+    const cuuint32_t box[2] = {64, TMA_BK}, w_box[3] = {64, 64, 1};
+    if ((p.M > 0 && (!make_map(&tm_x, p.x, 2, x_dims, x_strides, box) ||
+                     !make_map(&tm_dy, p.dy, 2, d_dims, d_strides, box))) ||
+        !make_map(&tm_dw, p.dw, 3, w_dims, w_strides, w_box))
       return cudaErrorInvalidValue;
-    grouped_wgrad_tma_kernel<<<grid, TMA_THREADS, TMA_SMEM, stream>>>(p, tm_x, tm_dy, k_tiles,
-                                                                      n_tiles, (int)tiles);
+    grouped_wgrad_tma_kernel<<<grid, TMA_THREADS, TMA_SMEM, stream>>>(p, tm_x, tm_dy, tm_dw,
+                                                                      k_tiles, n_tiles, (int)tiles);
     return cudaGetLastError();
   }
   const dim3 grid((p.N + BN - 1) / BN, (p.K + BN - 1) / BN, p.E);

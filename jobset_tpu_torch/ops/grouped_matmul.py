@@ -34,9 +34,12 @@ dgrad is the forward's function with B transposed: on the card the TMA
 kernel reads w K-major as it lies (its `BKMajor` instantiation), and the
 other kernels run on a copy of w transposed to [E, N, K]. wgrad is ragged
 on the contraction, dw[e] = xs[seg_e]^T @ dy[seg_e] (zeros for an empty
-group), and has kernels of its own in the same source. Their plain
-versions (`grouped_matmul_dgrad_plain`, `grouped_matmul_wgrad_plain`) run
-one torch.matmul a group, for CPU tensors.
+group), and has kernels of its own in the same source (in bf16 where TMA
+takes the operands: `wgmma` fed by TMA, each tile's output staged in
+shared memory and stored by TMA while the next tile's products run).
+Their plain versions (`grouped_matmul_dgrad_plain`,
+`grouped_matmul_wgrad_plain`) run one torch.matmul a group, for CPU
+tensors.
 
 `GROUPED_LAUNCHES` counts every launch of the forward's kernels;
 `GROUPED_TMA_LAUNCHES` those of the bf16 TMA/wgmma kernel and

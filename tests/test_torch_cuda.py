@@ -1042,8 +1042,11 @@ def _backward_plain(fn, *args):
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
 
 
+# (3000, 1000, 1000, 8): the TMA path with K a multiple of 8 but not of the
+# 128-row K tile and N not of the 256-column N tile, so a partial K tile's
+# stores would spill into the next expert's dw but for the 3-D map.
 _BACKWARD_SHAPES = [(1000, 256, 512, 8), (333, 64, 136, 4), (130, 37, 19, 3), (1, 16, 16, 2),
-                    (2048, 128, 128, 40)]
+                    (2048, 128, 128, 40), (3000, 1000, 1000, 8)]
 
 
 @pytest.mark.cuda

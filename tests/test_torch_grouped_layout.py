@@ -49,7 +49,15 @@ kernels report the same):
   segment zeroed in shared memory, give the per-expert products exactly
   (and would not unzeroed); zeroing a row's 128 bytes zeroes exactly that
   row of a swizzled box; its `wgmma` A descriptor (xs^T read M-major
-  through the transpose bit) names the elements TMA wrote. The bf16
+  through the transpose bit) names the elements TMA wrote; its epilogue
+  (each consumer warpgroup's 64 x 256 outputs staged as four 128-byte
+  swizzled TMA store boxes, then stored by TMA through a 3-D map over dw)
+  writes each output to its own staging bytes, which are the bytes each
+  store box reads as that element, free of bank conflicts across a warp;
+  the boxes, clipped at the expert's own K and at N, and the empty
+  experts' zero stores write each (e, k, n) of dw once (a 2-D map over E K
+  rows would write a partial K tile into the next expert); the staging
+  and the barriers fit the launch's shared memory. The bf16
   fallback's `ldmatrix.trans` reads of the
   transposed xs give `mma.sync` m16n8k16's A fragments (and, with dy's
   reads, the tile product), free of bank conflicts, and its stage is
@@ -59,6 +67,8 @@ kernels report the same):
   segment of 16384 rows (where one truncating chain does not); both rings
   fit their blocks an SM.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -882,13 +892,88 @@ def test_wgrad_f32_promotion_holds_the_tolerance_over_a_whole_segment():
 # --- the bf16 wgrad TMA kernel (`grouped_wgrad_tma_kernel`) --------------------
 
 
+W_OUT_BOXES = TMA_BN // 64  # a consumer warpgroup's TMA store boxes, 64 x 64 each
+
+
+def wgrad_staged_byte(warp, lane, h, j):
+    """The kernel's staging address (bytes past its warpgroup's first box)
+    of thread `lane` of warp `warp`'s accumulators d[j][2h], d[j][2h + 1]:
+    row 16 warp + g + 8h, columns 8j + 2c and + 1 of the warpgroup's 64 x
+    256 outputs, at chunk j % 8 ^ g of that row of box j / 8."""
+    g, c = lane // 4, lane % 4
+    return (j // 8) * TMA_B_BOX + (16 * warp + g + 8 * h) * 128 + 16 * ((j % 8) ^ g) + 4 * c
+
+
+@functools.cache
+def wgrad_staging_map():
+    """(64, 256) staging byte of each of a warpgroup's outputs, as its 128
+    threads write them (each output written once)."""
+    addr = np.full((64, TMA_BN), -1)
+    for warp in range(4):
+        for lane in range(32):
+            g, c = lane // 4, lane % 4
+            for h in range(2):
+                for j in range(TMA_BN // 8):
+                    row, col = 16 * warp + g + 8 * h, 8 * j + 2 * c
+                    assert addr[row, col] == -1 and addr[row, col + 1] == -1
+                    addr[row, col] = wgrad_staged_byte(warp, lane, h, j)
+                    addr[row, col + 1] = addr[row, col] + 2
+    return addr
+
+
+def wgrad_box_reads():
+    """(boxes, 64, 64) staging byte that TMA store box b reads as its
+    element (row, column): 128-byte swizzled rows, boxes TMA_B_BOX apart
+    from a 1024-byte aligned start."""
+    b, r, q = np.meshgrid(np.arange(W_OUT_BOXES), np.arange(64), np.arange(64), indexing="ij")
+    return tma_box_address(b * TMA_B_BOX, r, 2 * q)
+
+
+def wgrad_tile_stores(e, k0, n0, k_dim, n_cols, computed=True):
+    """The (expert, rows, columns) each warpgroup of a tile writes: with
+    rows to walk, its TMA store boxes inside K and N, each clipped at the
+    3-D map's edges (rows at the expert's own K, columns at N); for an
+    empty expert, its 16-byte zero stores."""
+    for wg in range(2):
+        r0 = k0 + 64 * wg
+        if computed:
+            if r0 >= k_dim:
+                continue
+            for b in range(W_OUT_BOXES):
+                c0 = n0 + 64 * b
+                if c0 >= n_cols:
+                    break
+                yield wg, b, e, slice(r0, min(r0 + 64, k_dim)), slice(c0, min(c0 + 64, n_cols))
+        else:
+            rows, chunks = max(0, min(64, k_dim - r0)), min(TMA_BN, n_cols - n0) // 8
+            if rows:
+                yield wg, None, e, slice(r0, r0 + rows), slice(n0, n0 + 8 * chunks)
+
+
+def _stage_and_store(dw, acc, e, k0, n0):
+    """A computed tile's epilogue on the CPU: each warpgroup's 64 x 256
+    outputs written to its staging as the threads write them, then its
+    boxes stored as TMA reads and clips them; every element of dw written
+    once."""
+    k_dim, n_cols = dw.shape[1:]
+    reads = wgrad_box_reads() // 2
+    staged = np.full((2, W_OUT_BOXES * TMA_B_BOX // 2), np.nan)
+    for wg in range(2):
+        staged[wg, wgrad_staging_map() // 2] = acc[64 * wg:64 * wg + 64]
+    for wg, b, e, rows, cols in wgrad_tile_stores(e, k0, n0, k_dim, n_cols):
+        assert np.all(np.isnan(dw[e, rows, cols]))
+        dw[e, rows, cols] = staged[wg, reads[b]][:rows.stop - rows.start, :cols.stop - cols.start]
+
+
 def _wgrad_tma_product(xs, dy, sizes, zero_rows=True):
     """The TMA wgrad launch on the CPU: each (256-column N tile, 128-row K
     tile, expert) block's steps of TMA_BK rows from its segment's start,
     xs boxes of 64 columns and dy boxes of 64 columns as TMA loads them
     (the next group's rows, zeros past M; a box wholly past K or N not
     loaded: stale), xs rows past the segment zeroed (all kept with
-    zero_rows=False); only rows below K and columns below N stored."""
+    zero_rows=False); the tile staged and stored by TMA boxes clipped at
+    the expert's K and at N (`_stage_and_store`), an empty expert's tiles
+    as zeros."""
     m, k_dim = xs.shape
     n_cols = dy.shape[1]
     stale = np.random.default_rng(8).integers(-50, 50, (TMA_BK, 64)).astype(np.float64)
@@ -897,9 +982,9 @@ def _wgrad_tma_product(xs, dy, sizes, zero_rows=True):
         start, end = segment(sizes, m, e)
         for k0 in range(0, k_dim, BM):
             for n0 in range(0, n_cols, TMA_BN):
-                rows, cols = min(BM, k_dim - k0), min(TMA_BN, n_cols - n0)
                 if start == end:
-                    dw[e, k0:k0 + rows, n0:n0 + cols] = 0
+                    for _, _, _, rows, cols in wgrad_tile_stores(e, k0, n0, k_dim, n_cols, False):
+                        dw[e, rows, cols] = 0
                     continue
                 acc = np.zeros((BM, TMA_BN))
                 for r0 in range(start, end, TMA_BK):
@@ -911,7 +996,7 @@ def _wgrad_tma_product(xs, dy, sizes, zero_rows=True):
                     if zero_rows:
                         a[max(end - r0, 0):] = 0
                     acc += a.T @ b
-                dw[e, k0:k0 + rows, n0:n0 + cols] = acc[:rows, :cols]
+                _stage_and_store(dw, acc, e, k0, n0)
     return dw
 
 
@@ -972,3 +1057,84 @@ def test_wgrad_tma_persistent_walk_takes_every_tile_once(grid, experts, k_dim, n
              for t in range(b, tiles, grid)]
     assert sorted(taken) == [(e, k0, n0) for e in range(experts) for k0 in range(0, k_dim, BM)
                              for n0 in range(0, n_cols, TMA_BN)]
+
+
+def test_wgrad_staging_covers_the_tile_once():
+    # Each of a warpgroup's 64 x 256 outputs has its own 2 bytes, and the
+    # outputs fill the four boxes' 32 KB exactly (`wgrad_staging_map`
+    # asserts no output is written twice).
+    addr = wgrad_staging_map()
+    assert sorted(addr.ravel()) == list(range(0, W_OUT_BOXES * TMA_B_BOX, 2))
+
+
+@pytest.mark.parametrize("wg", range(2))
+def test_wgrad_staging_is_what_the_tma_store_boxes_read(wg):
+    # The staging follows the ring (1024-byte aligned, as the swizzle needs),
+    # the warpgroup's four boxes after the other's; TMA store box b reads its
+    # element (row, column) at the byte where the threads put output (row,
+    # 64 b + column).
+    base = 3 * 1024 + TMA_STAGES * TMA_STAGE + wg * W_OUT_BOXES * TMA_B_BOX
+    assert base % 1024 == 0 and TMA_B_BOX % 1024 == 0
+    row, col = np.meshgrid(np.arange(64), np.arange(TMA_BN), indexing="ij")
+    got = base + wgrad_staging_map()
+    want = tma_box_address(base + (col // 64) * TMA_B_BOX, row, 2 * (col % 64))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(wgrad_box_reads() // 2,
+                                  wgrad_staging_map().reshape(64, W_OUT_BOXES, 64)
+                                  .transpose(1, 0, 2) // 2)
+
+
+@pytest.mark.parametrize("warp", range(4))
+def test_wgrad_staging_writes_are_free_of_bank_conflicts(warp):
+    # One 4-byte store a lane for each (h, j): rows g and g + 8 of the
+    # warp's 16 are 128 bytes apart (one bank cycle), so without the
+    # swizzle the eight rows would hit four banks; with it, 32 banks once.
+    for h in range(2):
+        for j in range(TMA_BN // 8):
+            words = [wgrad_staged_byte(warp, lane, h, j) // 4 for lane in range(32)]
+            assert _phase_banks(words, 1)
+    unswizzled = [((lane // 4) * 128 + 4 * (lane % 4)) // 4 for lane in range(32)]
+    assert not _phase_banks(unswizzled, 1)
+
+
+def _store_counts(sizes, k_dim, n_cols, flat=False):
+    """How often the launch's stores write each (e, k, n) of dw: every tile
+    of the walk, its boxes through the 3-D map (flat=True: a 2-D map over
+    E K rows, which clips rows only at E K) or its zero stores."""
+    experts = len(sizes)
+    k_tiles, n_tiles = -(-k_dim // BM), -(-n_cols // TMA_BN)
+    counts = np.zeros((experts * k_dim, n_cols), np.uint8)
+    for t in range(experts * k_tiles * n_tiles):
+        e, k0, n0 = wgrad_tile(t, k_tiles, n_tiles)
+        computed = sizes[e] > 0
+        for _, _, _, rows, cols in wgrad_tile_stores(e, k0, n0, k_dim, n_cols, computed):
+            stop = e * k_dim + rows.stop
+            if flat and computed:
+                stop = min(e * k_dim + rows.start + 64, experts * k_dim)
+            counts[e * k_dim + rows.start:stop, cols] += 1
+    return counts
+
+
+@pytest.mark.parametrize("sizes,k_dim,n_cols", [([5, 0, 9], 200, 328), ([1, 2, 0, 3], 64, 136),
+                                                ([4, 0, 1, 1, 1, 1, 1, 2], 1000, 1000),
+                                                ([2] * 8, 1024, 4096)])
+def test_wgrad_tma_store_boxes_write_each_element_once(sizes, k_dim, n_cols):
+    # Each (e, k, n) of dw exactly once, nothing past K or N: boxes of 64
+    # rows and columns through the 3-D map, clipped at the expert's own K.
+    assert np.all(_store_counts(sizes, k_dim, n_cols) == 1)
+    if k_dim % 64:
+        # A 2-D map over E K rows would let a K tile's last box write its
+        # rows past K into the next expert's first rows.
+        assert np.any(_store_counts(sizes, k_dim, n_cols, flat=True) > 1)
+
+
+def test_wgrad_staging_and_barriers_fit_the_sm():
+    # Ring, then the staging (the forward's staged-output room, which the
+    # wgrad kernel's eight boxes fit), then a full and an empty barrier a
+    # stage, all inside the launch's TMA_SMEM after the alignment slack.
+    staged = TMA_STAGES * TMA_STAGE
+    barriers = staged + BM * gm.TMA_OUT_PITCH
+    assert staged % 1024 == 0 and barriers % 8 == 0
+    assert 2 * W_OUT_BOXES * TMA_B_BOX <= BM * gm.TMA_OUT_PITCH
+    assert 1024 + barriers + 2 * TMA_STAGES * 8 == gm.TMA_SMEM <= SMEM_OPT_IN
+    assert gm.TMA_SMEM + SMEM_PER_BLOCK_RESERVED <= SMEM_PER_SM
