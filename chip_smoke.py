@@ -160,24 +160,29 @@ non-zero before the result line:
      with the four routings of phase 12, bf16 and f32 (dgrad: the
      forward's TMA kernel reading w K-major in bf16, w copied to [E, N, K]
      for the forward's f32 kernel; wgrad: `grouped_wgrad_*_kernel`,
-     ragged on the contraction), one launch counted on the dtype's
-     variant, two launches equal bit for bit, empty experts' weight
-     gradients exactly 0; their L2-cold times (dgrad with and without its
-     copy) beside the bound, the plain version and torch._grouped_mm
-     (`library_ms`, its ragged-K form for wgrad, where it runs), and the
-     bf16 wgrad kernel's cost a tile change (balanced against skewed time
-     over the busiest block's extra tiles); `--grouped-baseline DIR` also
-     holds each output to that checkout's kernels bit for bit and times
-     them on the same inputs, in turns; the grouped library's SASS (the
-     wgrad TMA kernel's TMA stores, UTMASTG) and `cuobjdump -res-usage`
-     (168 registers, no local memory); the main
+     ragged on the contraction, f32 on `grouped_wgrad_f32_tma_kernel`),
+     one launch counted on the dtype's variant, two launches equal bit for
+     bit, empty experts' weight gradients exactly 0; their L2-cold times,
+     balanced and skewed (dgrad with and without its copy), beside the
+     bound, the plain version and torch._grouped_mm (`library_ms`, its
+     ragged-K form for wgrad, where it runs), and the bf16 wgrad kernel's
+     cost a tile change (balanced against skewed time over the busiest
+     block's extra tiles); `--grouped-baseline DIR` also holds each output
+     to that checkout's kernels bit for bit (f32 wgrad, which adds in
+     another order: both within the tolerance of the plain version) and
+     times them on the same inputs, in turns; the grouped library's SASS
+     (the bf16 wgrad TMA kernel's TMA stores, UTMASTG; HGMMA and UTMALDG
+     in the f32 one) and `cuobjdump -res-usage` (both wgrad TMA kernels:
+     168 registers, no local memory); the main
      path, `run_model_bench` (B=8, T=1024, remat off, adam, median of 20
      steps; tokens/s, MFU at activated FLOPs, peak memory) with 16
      forward, 16 dgrad and 16 wgrad grouped launches a step, all bf16;
      the step in f32 at full width and depth through the kernels against
-     the same step on the plain grouped products, and remat "full" and
-     "dots" (32 forward launches a step: the reference recomputes its
-     ragged products under both) against none; each bf16 layer's forward
+     the same step on the plain grouped products (its 16 wgrad launches
+     all on the f32 TMA kernel), and remat "full" and "dots" (32 forward
+     launches a step: the reference recomputes its ragged products under
+     both) against none; a torch.profiler trace of one warm f32 step with
+     its grouped kernels' device time; each bf16 layer's forward
      and backward against its plain grouped products on the same input;
      a layer's forward and backward under `set_sync_debug_mode("error")`;
      a torch.profiler trace of one warm bf16 step with the forward's,
@@ -412,8 +417,10 @@ def resource_usage(library) -> dict:
 
 def grouped_sass(library) -> dict:
     """The grouped library's SASS: the TMA kernel (both instantiations)
-    loads by TMA (UTMALDG) into wgmma (HGMMA); the f32 and the other bf16
-    kernel, and the wgrad kernels, run mma.sync (HMMA)."""
+    and the wgrad TMA kernels (bf16 and f32) load by TMA (UTMALDG) into
+    wgmma (HGMMA), with no local memory and the setmaxnreg hand-over's
+    registers at entry; the forward's f32 and other bf16 kernels, and the
+    wgrad fallbacks, run mma.sync (HMMA)."""
     counts = sass_counts(library)
     tma = {n: c for n, c in counts.items() if "grouped_mm_tma_kernel" in n}
     check(len(tma) == 2 and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in tma.values()),
@@ -428,18 +435,24 @@ def grouped_sass(library) -> dict:
                                   for c in wgrad.values()),
           f"sass: the bf16 wgrad TMA kernel has HGMMA, UTMALDG and its tiles' TMA stores "
           f"(UTMASTG) ({wgrad})")
+    wgrad = {n: c for n, c in counts.items() if "grouped_wgrad_f32_tma_kernel" in n}
+    check(len(wgrad) == 1 and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in wgrad.values()),
+          f"sass: the f32 wgrad TMA kernel has HGMMA (tf32 wgmma) and UTMALDG ({wgrad})")
     usage = resource_usage(library)
-    wgrad_usage = {n: u for n, u in usage.items() if "grouped_wgrad_tma_kernel" in n}
-    check(len(wgrad_usage) == 1 and all(u.get("REG") == WGRAD_TMA_REGS and u.get("LOCAL") == 0
-                                        and u.get("STACK") == 0 for u in wgrad_usage.values()),
-          f"cuobjdump: the bf16 wgrad TMA kernel has {WGRAD_TMA_REGS} registers at entry (the "
-          f"setmaxnreg hand-over's), no local memory and no stack, so no spills ({wgrad_usage})")
+    for kernel, what in (("grouped_wgrad_tma_kernel", "bf16"), ("grouped_wgrad_f32_tma_kernel", "f32")):
+        wgrad_usage = {n: u for n, u in usage.items() if kernel in n}
+        check(len(wgrad_usage) == 1 and all(u.get("REG") == WGRAD_TMA_REGS and u.get("LOCAL") == 0
+                                            and u.get("STACK") == 0 for u in wgrad_usage.values()),
+              f"cuobjdump: the {what} wgrad TMA kernel has {WGRAD_TMA_REGS} registers at entry "
+              f"(the setmaxnreg hand-over's), no local memory and no stack, so no spills "
+              f"({wgrad_usage})")
     for n, u in usage.items():
         print(f"  res-usage {n}: " + ", ".join(f"{k} {v}" for k, v in u.items()), flush=True)
     wgrad = {n: c for n, c in counts.items()
              if "grouped_wgrad_bf16_kernel" in n or "grouped_wgrad_f32_kernel" in n}
-    check(len(wgrad) == 3 and all(c["HMMA"] > 0 for c in wgrad.values()),
-          f"sass: the mma.sync wgrad kernels have HMMA ({len(wgrad)} found)")
+    check(len(wgrad) == 2 and all(c["HMMA"] > 0 for c in wgrad.values()),
+          f"sass: the mma.sync wgrad kernels (bf16 and f32 where TMA cannot take the operands) "
+          f"have HMMA ({len(wgrad)} found)")
     return counts
 
 
@@ -2904,10 +2917,11 @@ def moe_kernel_checks(results, baseline=None):
 
 
 # The grouped product's counters: the forward's (all, TMA, f32) and the
-# backward's (dgrad and wgrad, all and f32).
+# backward's (dgrad and wgrad, all and f32; f32 wgrad's TMA kernel).
 GROUPED_COUNTERS = ("GROUPED_LAUNCHES", "GROUPED_TMA_LAUNCHES", "GROUPED_F32_LAUNCHES",
                     "GROUPED_DGRAD_LAUNCHES", "GROUPED_DGRAD_F32_LAUNCHES",
-                    "GROUPED_WGRAD_LAUNCHES", "GROUPED_WGRAD_F32_LAUNCHES")
+                    "GROUPED_WGRAD_LAUNCHES", "GROUPED_WGRAD_F32_LAUNCHES",
+                    "GROUPED_WGRAD_F32_TMA_LAUNCHES")
 
 
 def moe_launches_now() -> dict:
@@ -3210,7 +3224,7 @@ GROUPED_ENTRY_KERNELS = {
     "grouped_matmul_dgrad": ("grouped_mm_tma_kernel", "grouped_mm_bf16_kernel"),
     "grouped_matmul_dgrad_f32": ("grouped_mm_f32_kernel",),
     "grouped_matmul_wgrad": ("grouped_wgrad_tma_kernel", "grouped_wgrad_bf16_kernel"),
-    "grouped_matmul_wgrad_f32": ("grouped_wgrad_f32_kernel",),
+    "grouped_matmul_wgrad_f32": ("grouped_wgrad_f32_tma_kernel", "grouped_wgrad_f32_kernel"),
 }
 
 
@@ -3280,15 +3294,18 @@ def train_counts(counts, f32) -> tuple:
 
 def check_train_launches(path, counts, want, flash, f32):
     """Every grouped launch of `path` on the dtype's kernels, in the counts
-    `want` (forward, dgrad, wgrad), and `flash` block launches."""
+    `want` (forward, dgrad, wgrad), f32 wgrad's all on its TMA kernel, and
+    `flash` block launches."""
     total = (counts["GROUPED_LAUNCHES"], counts["GROUPED_DGRAD_LAUNCHES"],
              counts["GROUPED_WGRAD_LAUNCHES"])
     block = counts["F32_LAUNCHES" if f32 else "TENSOR_CORE_LAUNCHES"]
+    wgrad_tma = counts["GROUPED_WGRAD_F32_TMA_LAUNCHES"]
     check(train_counts(counts, f32) == total == tuple(want) and block == flash
-          and counts["KERNEL_LAUNCHES"] == flash,
+          and counts["KERNEL_LAUNCHES"] == flash and wgrad_tma == (want[2] if f32 else 0),
           f"{path}: grouped (forward, dgrad, wgrad) launches {total}, on the "
           f"{'f32' if f32 else 'bf16'} kernels {train_counts(counts, f32)} (expected {tuple(want)}); "
-          f"{block} flash block launches (expected {flash})")
+          f"{wgrad_tma} on the f32 wgrad TMA kernel; {block} flash block launches (expected "
+          f"{flash})")
 
 
 def backward_operands(dtype, k, n, gen):
@@ -3300,9 +3317,12 @@ def backward_operands(dtype, k, n, gen):
 def backward_case(which, name, dtype, k, n, routing, seed, baseline=None):
     """dgrad or wgrad against its plain version at one product of the MoE
     flagship: the grouped kernels' tolerance, one launch counted on the
-    dtype's variant, two launches equal bit for bit, and wgrad's empty
-    experts exactly 0; with a baseline wrapper, equal bit for bit to its
-    kernel on the same inputs. Returns max|got - want|."""
+    dtype's variant (f32 wgrad's on its TMA kernel), two launches equal bit
+    for bit, and wgrad's empty experts exactly 0; with a baseline wrapper,
+    equal bit for bit to its kernel on the same inputs, but for f32 wgrad,
+    whose TMA kernel adds in another order than the parent's: there the
+    parent's output, too, within the tolerance of the plain version, both
+    max|d| printed. Returns max|got - want|."""
     from jobset_tpu_torch.ops import grouped_matmul as gm
 
     xs, w, dy = backward_operands(dtype, k, n, torch.Generator(device="cuda").manual_seed(seed))
@@ -3329,6 +3349,8 @@ def backward_case(which, name, dtype, k, n, routing, seed, baseline=None):
     expect = {counter: 1}
     if dtype == torch.float32:
         expect[counter.replace("_LAUNCHES", "_F32_LAUNCHES")] = 1
+        if which == "wgrad":
+            expect["GROUPED_WGRAD_F32_TMA_LAUNCHES"] = 1
     check(launched == expect and got.dtype == dtype and tuple(got.shape) == shape
           and bool(torch.isfinite(got.float()).all()),
           f"grouped_matmul_{which} {name}: launches {launched} (expected {expect}), {dtype} "
@@ -3348,9 +3370,17 @@ def backward_case(which, name, dtype, k, n, routing, seed, baseline=None):
               f"grouped_matmul_wgrad {name}: the empty experts' {empty} gradients are exactly 0")
     if baseline is not None:
         parent = getattr(baseline, f"grouped_matmul_{which}")(*args)
-        check(torch.equal(got, parent),
-              f"grouped_matmul_{which} {name}: equal bit for bit to the parent's kernel on the "
-              f"same inputs (max|d| {(got.float() - parent.float()).abs().max().item():.3e})")
+        apart = (got.float() - parent.float()).abs().max().item()
+        if which == "wgrad" and dtype == torch.float32:
+            parent_worst = (parent.float() - want.float()).abs().max().item()
+            check(bool(((parent.float() - want.float()).abs() <= limit).all()),
+                  f"grouped_matmul_wgrad {name}: the parent's kernel within tolerance too (max|d| "
+                  f"{parent_worst:.3e}, this kernel {worst:.3e}, limit {limit:.3e}; the two "
+                  f"{apart:.3e} apart: another order of sums)")
+        else:
+            check(torch.equal(got, parent),
+                  f"grouped_matmul_{which} {name}: equal bit for bit to the parent's kernel on "
+                  f"the same inputs (max|d| {apart:.3e})")
     return worst
 
 
@@ -3452,10 +3482,10 @@ def wgrad_busiest_tiles(sizes, k, n) -> int:
 def moe_backward_checks(results, baseline=None):
     """Phase 13a: dgrad and wgrad at the MoE flagship's two products, four
     routings, bf16 and f32, against their plain versions (and, given a
-    baseline wrapper, against its kernels bit for bit); their L2-cold times
-    (bf16 balanced and skewed, f32 balanced; the baseline's beside them),
-    and the bf16 wgrad kernel's cost a tile change: balanced against
-    skewed time, over the busiest block's extra tiles."""
+    baseline wrapper, against its kernels bit for bit, f32 wgrad within
+    tolerance); their L2-cold times (balanced and skewed; the baseline's
+    beside them), and the bf16 wgrad kernel's cost a tile change: balanced
+    against skewed time, over the busiest block's extra tiles."""
     card = results["card"]
     errs, seed = {}, 70
     for dtype in (torch.bfloat16, torch.float32):
@@ -3471,7 +3501,7 @@ def moe_backward_checks(results, baseline=None):
     for dtype in (torch.bfloat16, torch.float32):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
         for label, (k, n) in MOE_PRODUCTS.items():
-            for routing in (("balanced", "skewed") if dtype == torch.bfloat16 else ("balanced",)):
+            for routing in ("balanced", "skewed"):
                 t = time_backward(dtype, k, n, routing, baseline)
                 times[f"{tag} {label} {routing}"] = t
                 for which in BACKWARD_OPS:
@@ -3584,17 +3614,19 @@ def moe_train_no_sync(cfg, params):
               f"(set_sync_debug_mode error){' - ' + why if why else ''}")
 
 
-def moe_train_trace(fn, label):
+def moe_train_trace(fn, label, f32=False):
     """`traced` over one train step (remat off), with the grouped kernels'
-    device time: the TMA kernel's first 2 x LAYERS launches are the
-    forward's (every one precedes the backward), the rest dgrad's; and the
-    top 10 ops' names in full."""
+    device time: the forward kernel's first 2 x LAYERS launches (the TMA
+    kernel's; with f32 the f32 kernel's) are the forward's (every one
+    precedes the backward), the rest dgrad's; and the top 10 ops' names in
+    full."""
     trace = traced(fn, label, keep_events=True)
     if trace is None:
         return None
     events = trace.pop("events")
-    tma = sorted((e for e in events if "grouped_mm_tma_kernel" in e[0]), key=lambda e: e[1])
-    parts = {"forward": tma[:2 * LAYERS], "dgrad": tma[2 * LAYERS:],
+    kernel = "grouped_mm_f32_kernel" if f32 else "grouped_mm_tma_kernel"
+    forward = sorted((e for e in events if kernel in e[0]), key=lambda e: e[1])
+    parts = {"forward": forward[:2 * LAYERS], "dgrad": forward[2 * LAYERS:],
              "wgrad": [e for e in events if "grouped_wgrad_" in e[0]]}
     names = {e[0] for e in events}
     for top in trace["top10"]:
@@ -3670,7 +3702,18 @@ def phase_moe_train(results, baseline=None):
     for policy in ("full", "dots"):
         compare_step(f"MoE train step f32 flagship, remat {policy!r} vs off", stepped[policy],
                      stepped["off"], F32_LOSS_REL, F32_GRAD_REL)
-    del stepped, params
+    del stepped
+    torch.cuda.empty_cache()
+
+    # The trace of one warm f32 step (remat off, sgd): its 16 wgrad
+    # launches' device time and share of busy (information).
+    sgd = optim.sgd(1.0)
+    step32, state32 = build_train_step(cfg32, sgd), sgd.init(params)
+    step32(params, state32, batch)  # warm-up
+    results["moe_train_f32_trace"] = moe_train_trace(
+        lambda: step32(params, state32, batch),
+        f"MoE train step f32 (B={BATCH}, T={PROMPT}, remat off, sgd)", f32=True)
+    del step32, state32, params
     torch.cuda.empty_cache()
 
     # bf16 a layer at a time on the same routing, and no host sync.
@@ -3775,8 +3818,12 @@ def phase_moe_train(results, baseline=None):
         entry("grouped_matmul_wgrad_f32", "wgrad", "f32", small_counts["GROUPED_WGRAD_F32_LAUNCHES"],
               {"small f32 config train step": small_counts["GROUPED_WGRAD_F32_LAUNCHES"],
                **{k: v["GROUPED_WGRAD_F32_LAUNCHES"] for k, v in by_path.items()}},
-              "grouped_wgrad_f32_kernel: as the bf16 one in steps of 32 rows, 3xTF32 on "
-              "mma.sync m16n8k8, each step's sums added to the output in f32"),
+              "grouped_wgrad_f32_tma_kernel: persistent over (expert, 128-row K tile, 128-column "
+              "N tile), steps of 32 rows loaded by TMA from a producer warp, dy split into big "
+              "and small TF32 and written K-major in shared memory by the consumer warps a step "
+              "ahead, xs^T from registers, 3xTF32 on tf32 wgmma m64n128k8, sums promoted "
+              "to f32 every 64 rows; operands TMA cannot take go to grouped_wgrad_f32_kernel "
+              "(3xTF32 on mma.sync m16n8k8, 4-byte copies)"),
     ]
 
 
@@ -3801,7 +3848,8 @@ def phase_moe_train_apart(results, baseline=None):
             train = json.load(f)
     for key in ("grouped_backward", "moe_model_bench", "moe_model_bench_losses",
                 "moe_train_bench_launches", "moe_train_step_launches",
-                "moe_train_grad_rel_vs_plain", "moe_train_layers", "moe_train_trace"):
+                "moe_train_grad_rel_vs_plain", "moe_train_layers", "moe_train_trace",
+                "moe_train_f32_trace"):
         results[key] = train.get(key)
     return train.get("moe_train_kernels") or []
 
@@ -3882,7 +3930,7 @@ def main() -> int:
     if "grouped_matmul" in cuda_build.BUILD_LOG:
         results["grouped_ptxas"] = kernel_ptxas(
             cuda_build.BUILD_LOG["grouped_matmul"],
-            r"grouped_(?:mm|wgrad)_(?:bf16|f32|tma)_kernel", "grouped kernel")
+            r"grouped_(?:mm|wgrad)_(?:bf16|f32|tma|f32_tma)_kernel", "grouped kernel")
     if args.moe_train_only:
         results["grouped_sass"] = grouped_sass(libraries["grouped_matmul"])
         results["moe_train_kernels"] = phase_moe_train(results, args.grouped_baseline)

@@ -108,13 +108,24 @@
 //   expert a coordinate), which runs on while the next tile's products
 //   do. Other bf16 (`grouped_wgrad_bf16_kernel`): 128-column
 //   tiles, `mma.sync` m16n8k16 on operands read element by element, both
-//   by `ldmatrix.trans`. f32 (`grouped_wgrad_f32_kernel`): 128-column
-//   tiles, steps of 32 rows through a `cp.async` ring (16-byte copies
-//   where K and N allow them), 3xTF32 on m16n8k8 with each step's sums
-//   added to the output in f32 (a segment may hold every row: up to 16384
-//   at the flagship, where one truncating chain would drift further than
-//   the forward's K = 4096 does); rows 136 floats apart, so a warp's
-//   fragment reads (k = c, column g) are free of bank conflicts.
+//   by `ldmatrix.trans`. f32 where TMA takes the operands (K and N
+//   multiples of 4, 16-byte aligned bases; `grouped_wgrad_f32_tma_kernel`):
+//   3xTF32 on tf32 wgmma, which takes its shared-memory operands K-major
+//   only, while here both arrive with the contraction (the rows)
+//   outermost. So A = xs^T comes from registers (the RS form), loaded from
+//   the raw xs stage TMA wrote, and only B = dy is made K-major: the
+//   producer warpgroup's idle warps split each landed dy step into big and
+//   small TF32 and write them transposed, [128 columns][32 rows], in the
+//   128-byte swizzle wgmma reads. Persistent over (expert, 128-row K tile,
+//   128-column N tile), as the bf16 TMA kernel; each promotion interval's
+//   sums (64 rows) start from zero and are added to totals in registers
+//   in f32 (a segment may hold every row: up to 16384 at the flagship,
+//   where one truncating chain would drift past the tolerance). Other f32
+//   (`grouped_wgrad_f32_kernel`): 128-column tiles, one block a tile,
+//   steps of 32 rows through a 4-byte `cp.async` ring, 3xTF32 on m16n8k8
+//   with each step's sums added to the output in f32; rows 136 floats
+//   apart, so a warp's fragment reads (k = c, column g) are free of bank
+//   conflicts.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -163,12 +174,23 @@ constexpr int WF_BR = 32, WF_STAGES = 4;         // f32 wgrad: rows a step, ring
 constexpr int WF_P = BN + 8;                     // row pitch (floats): 8 mod 32
 constexpr int WF_STAGE_FLOATS = 2 * WF_BR * WF_P;
 constexpr int SMEM_W_F32 = WF_STAGES * WF_STAGE_FLOATS * 4;  // 136 KB
+// f32 wgrad by TMA and tf32 wgmma: tile columns (the tile's K rows are
+// BM), rows a step (one 128-byte swizzled row of B's tf32 values), ring
+// depth, rows a promotion interval.
+constexpr int WT_BN = 128, WT_BR = 32, WT_STAGES = 4, WT_PROMOTE = 64;
+constexpr int WT_BOX = WT_BR * 32 * 4;          // 4 KB: 32 rows x 32 f32, 128-byte swizzled
+constexpr int WT_STAGE = 2 * 4 * WT_BOX;        // xs's four boxes, then dy's: 32 KB
+constexpr int WT_B_TILE = WT_BN * WT_BR * 4;    // 16 KB: [128 columns][32 rows] tf32, K-major
+constexpr int WT_B_BUF = 2 * WT_B_TILE;         // big, then small
+// 1024-byte alignment slack, the ring, two B buffers, a full and an empty
+// barrier a stage and a B buffer.
+constexpr int WT_SMEM = 1024 + WT_STAGES * WT_STAGE + 2 * WT_B_BUF + 2 * (WT_STAGES + 2) * 8;
 constexpr unsigned FULL = 0xffffffffu;
 
 // TMA_T: bf16 by TMA and wgmma with w given as [E, N, K] (x . w[g]^T).
 enum Variant { F32 = 0, TMA = 1, MMA = 2, TMA_T = 3 };
 // `prepare`'s slots for the other kernels (the variants above take 0-2).
-enum Slot { F32_VEC = 3, WGRAD_MMA = 4, WGRAD_F32 = 5, WGRAD_F32_VEC = 6, TMA_T_SLOT = 7,
+enum Slot { F32_VEC = 3, WGRAD_MMA = 4, WGRAD_F32 = 5, WGRAD_F32_TMA = 6, TMA_T_SLOT = 7,
             WGRAD_TMA = 8, SLOTS = 9 };
 
 struct Params {
@@ -507,9 +529,10 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Keep the compiler from touching an accumulator that a wgmma in flight
 // still writes before wgmma_wait.
-__device__ __forceinline__ void reg_fence(float (&d)[32][4]) {
+template <int J>
+__device__ __forceinline__ void reg_fence(float (&d)[J][4]) {
 #pragma unroll
-  for (int j = 0; j < 32; ++j)
+  for (int j = 0; j < J; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e]) :: "memory");
 }
@@ -539,6 +562,26 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[32][4], uint64_t a, uint64
       ", %128, %129, p, 1, 1, %131, %132;\n}\n"
       : WG_D64(0), WG_D64(8), WG_D64(16), WG_D64(24)
       : "l"(a), "l"(b), "r"(accumulate), "n"(TransA), "n"(TransB));
+}
+
+#define WG_R64 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d (+)= A . B, m64n128k8 in TF32: A from registers (the m16n8k8 A
+// fragment of the warp's 16 rows: (row g, k c), (g + 8, c), (g, c + 4),
+// (g + 8, c + 4)), B K-major from shared memory (tf32 wgmma takes no
+// transpose); `accumulate` 0 overwrites d.
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[16][4], const uint32_t (&a)[4],
+                                                uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " WG_R64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : WG_D64(0), WG_D64(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
 // Grid: one block an SM (or one a tile where there are fewer). Warpgroup 0
@@ -1016,11 +1059,11 @@ __global__ void __launch_bounds__(THREADS, 1)
 // change at the MoE flagship's products, the staged ones under 1 us
 // (`chip_smoke.py` phase 13). An empty expert's tiles are stored as
 // zeros, 16 bytes a store.
-__device__ __forceinline__ void wgrad_tile(const WgradParams& p, int t, int k_tiles, int n_tiles,
-                                           int& e, int& k0, int& n0) {
+__device__ __forceinline__ void wgrad_tile(int t, int k_tiles, int n_tiles, int tile_n, int& e,
+                                           int& k0, int& n0) {
   e = t / (k_tiles * n_tiles);
   k0 = (t / n_tiles) % k_tiles * BM;
-  n0 = t % n_tiles * TMA_BN;
+  n0 = t % n_tiles * tile_n;
 }
 
 __global__ void __launch_bounds__(TMA_THREADS, 1)
@@ -1051,7 +1094,7 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
     int it = 0;  // steps loaded so far
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       int e, k0, n0, start, end;
-      wgrad_tile(p, t, k_tiles, n_tiles, e, k0, n0);
+      wgrad_tile(t, k_tiles, n_tiles, TMA_BN, e, k0, n0);
       segment(p, e, start, end);
       const int x_boxes = min(2, (p.K - k0 + 63) / 64), d_boxes = min(4, (p.N - n0 + 63) / 64);
       for (int row = start; row < end; row += TMA_BK, ++it) {
@@ -1078,7 +1121,7 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
   int it = 0;  // steps consumed so far
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     int e, k0, n0, start, end;
-    wgrad_tile(p, t, k_tiles, n_tiles, e, k0, n0);
+    wgrad_tile(t, k_tiles, n_tiles, TMA_BN, e, k0, n0);
     segment(p, e, start, end);
     __nv_bfloat16* dw = dw_all + (size_t)e * p.K * p.N;
     if (start >= end) {
@@ -1156,12 +1199,13 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
   if (t128 == 0) bulk_wait_read();  // no store outlives the block's shared memory
 }
 
-// Grid as the bf16 kernel's. Each stage holds 32 rows of xs (columns k0..)
-// and of dy (columns n0..) at pitch WF_P. In the m16n8k8 fragments A(i, k)
-// = xs[k][i] and B(k, n) = dy[k][n], k the step's row: a lane reads A as
-// (k c, row g), (c, g + 8), (c + 4, g), (c + 4, g + 8) and B as (k c,
-// column g), (c + 4, g), each a word of a row 8 mod 32 words from the last.
-template <bool Vec>
+// f32 operands TMA cannot take (K or N not a multiple of 4, or a base not
+// 16-byte aligned). Grid as the bf16 fallback's. Each stage holds 32 rows
+// of xs (columns k0..) and of dy (columns n0..) at pitch WF_P, copied 4
+// bytes at a time. In the m16n8k8 fragments A(i, k) = xs[k][i] and B(k,
+// n) = dy[k][n], k the step's row: a lane reads A as (k c, row g), (c, g
+// + 8), (c + 4, g), (c + 4, g + 8) and B as (k c, column g), (c + 4, g),
+// each a word of a row 8 mod 32 words from the last.
 __global__ void __launch_bounds__(THREADS, 1)
     grouped_wgrad_f32_kernel(const __grid_constant__ WgradParams p) {
   const int n0 = blockIdx.x * BN, k0 = blockIdx.y * BN, e = blockIdx.z;
@@ -1179,27 +1223,16 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int K = p.K, N = p.N;
   const int steps = (end - start + WF_BR - 1) / WF_BR;
 
-  // Vec: a thread's four 16-byte chunks of each operand (K and N multiples
-  // of 4); else 4-byte copies. Zeros outside the segment and past K or N.
+  // Zeros outside the segment and past K or N.
   auto load = [&](int slot, int s) {
     float* x_s = wsm + slot * WF_STAGE_FLOATS;
     float* d_s = x_s + WF_BR * WF_P;
-    if (Vec) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int u = t + i * THREADS, row = u / 32, q = 4 * (u % 32), r = start + s * WF_BR + row;
-        const bool in_x = r < end && k0 + q < K, in_d = r < end && n0 + q < N;
-        cp_async16(x_s + row * WF_P + q, in_x ? x + (size_t)r * K + k0 + q : x, in_x ? 16 : 0);
-        cp_async16(d_s + row * WF_P + q, in_d ? dy + (size_t)r * N + n0 + q : dy, in_d ? 16 : 0);
-      }
-    } else {
 #pragma unroll 4
-      for (int i = 0; i < 16; ++i) {
-        const int u = t + i * THREADS, row = u / BN, q = u % BN, r = start + s * WF_BR + row;
-        const bool in_x = r < end && k0 + q < K, in_d = r < end && n0 + q < N;
-        cp_async4(x_s + row * WF_P + q, in_x ? x + (size_t)r * K + k0 + q : x, in_x ? 4 : 0);
-        cp_async4(d_s + row * WF_P + q, in_d ? dy + (size_t)r * N + n0 + q : dy, in_d ? 4 : 0);
-      }
+    for (int i = 0; i < 16; ++i) {
+      const int u = t + i * THREADS, row = u / BN, q = u % BN, r = start + s * WF_BR + row;
+      const bool in_x = r < end && k0 + q < K, in_d = r < end && n0 + q < N;
+      cp_async4(x_s + row * WF_P + q, in_x ? x + (size_t)r * K + k0 + q : x, in_x ? 4 : 0);
+      cp_async4(d_s + row * WF_P + q, in_d ? dy + (size_t)r * N + n0 + q : dy, in_d ? 4 : 0);
     }
   };
 
@@ -1261,14 +1294,255 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int nt = 0; nt < 4; ++nt) {
         const int n = n0 + 32 * wn + 8 * nt + 2 * c;
         float* out = dw + (size_t)k * N + n;
-        if (Vec && n < N) {
-          *reinterpret_cast<float2*>(out) = make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
-        } else {
-          if (n < N) out[0] = acc[mt][nt][2 * h];
-          if (n + 1 < N) out[1] = acc[mt][nt][2 * h + 1];
-        }
+        if (n < N) out[0] = acc[mt][nt][2 * h];
+        if (n + 1 < N) out[1] = acc[mt][nt][2 * h + 1];
       }
     }
+}
+
+// f32 where TMA takes the operands (K and N multiples of 4, 16-byte
+// aligned bases): 3xTF32 on tf32 wgmma, persistent, one block an SM
+// walking the tiles (expert, 128-row K tile, 128-column N tile), N tiles
+// fastest, as the bf16 TMA kernel. Bound: operations (three TF32 products
+// at 495 TFLOP/s); shared memory comes close behind: about 190 KB a
+// 32-row step of a tile (wgmma's B reads 96 KB, TMA's writes 32 KB, the
+// transform 48 KB, the A loads 16 KB) against the SM's 128 bytes a clock.
+//
+// tf32 wgmma reads its shared-memory operands K-major only, and here the
+// contraction runs over the rows, which both xs and dy hold outermost. So:
+// - warp 0's lane 0 loads each step of 32 segment rows by TMA into a ring
+//   of four 32 KB stages: xs's columns k0.. and dy's columns n0.. as four
+//   boxes each of 32 rows x 32 f32 (128-byte swizzled rows; boxes wholly
+//   past K or N are not loaded: their outputs are not stored). The
+//   producer warpgroup's other warps leave at once.
+// - B = dy is made K-major by the consumers themselves, a step ahead: while
+//   step s's wgmmas run, each of the 8 consumer warps splits its share of
+//   step s + 1's dy into big and small TF32 (split_tf32) and writes them
+//   into B buffer (s + 1) % 2 as two K-major tiles [128 columns][32 rows]
+//   in the 128-byte swizzle wgmma reads, rows past the segment as zeros,
+//   then fences them for the async proxy and arrives on the buffer's full
+//   barrier; a buffer is rewritten once both warpgroups' products of two
+//   steps before have read it (its empty barrier). Warp cw's share is
+//   chunk cw (k positions 4 cw .. + 3) of every column's 128-byte row:
+//   lane l reads 4 rows of column 32 box + l of each box (whole 128-byte
+//   rows across the warp) and writes one 16-byte chunk of big and one of
+//   small (8 lanes: 8 rows of one 8-row group at 8 distinct chunks). On an
+//   H100 the producer warpgroup's three idle warps could not keep up with
+//   the products as the transform; the consumers' warps overlap it with
+//   their wgmmas.
+// - consumer warpgroup wg owns rows 64 wg .. + 63 of the K tile. Its A =
+//   xs^T comes from registers (the RS form): lane (g, c) of warp w holds
+//   tile columns 64 wg + 16 w + 2g and + 1 of xs as its rows g and g + 8
+//   (a float2 a read), and of k8 step j the rows 8j + 2c (its k c) and 8j
+//   + 2c + 1 (its k c + 4); the transform writes B's k positions in the
+//   same order (chunk 2j: rows 8j, 8j + 2, 8j + 4, 8j + 6; chunk 2j + 1:
+//   the odd ones). Rows past the segment are zeroed in registers, so with
+//   B's zeros no non-finite value of a neighbouring group's row meets a 0.
+//   The reads are free of bank conflicts (rows 8j + 2c put each half-warp
+//   on 8 distinct chunks). It loads and splits the next step's A while
+//   this step's products run (then releases that raw stage), and issues
+//   wgmma m64n128k8 three times a k8 (small . big, big . small, big . big,
+//   as mma_3xtf32), B's descriptor 32 bytes further a k8.
+// The tensor core's f32 adds truncate: each promotion interval's sums
+// (WT_PROMOTE rows) start from zero and are added to totals in registers
+// in f32, rounded to nearest. The totals go straight to dw, a float2 a
+// store, rows k0 + 64 wg + 16 w + 2g (+ 1): a 128 x 128 tile's 64 KB
+// against ~50 us of products. An empty expert's tiles are stored as zeros.
+// Each output's sums run in one fixed order: two launches give the same
+// bits.
+__global__ void __launch_bounds__(TMA_THREADS, 1)
+    grouped_wgrad_f32_tma_kernel(const __grid_constant__ WgradParams p,
+                                 const __grid_constant__ CUtensorMap tm_x,
+                                 const __grid_constant__ CUtensorMap tm_dy, int k_tiles,
+                                 int n_tiles, int tiles) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* b_bufs = ring + WT_STAGES * WT_STAGE;  // [2][big, small][128 columns][128 bytes]
+  uint64_t* full = reinterpret_cast<uint64_t*>(b_bufs + 2 * WT_B_BUF);
+  uint64_t* empty = full + WT_STAGES;
+  uint64_t* b_full = empty + WT_STAGES;
+  uint64_t* b_empty = b_full + 2;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WT_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&b_full[b], CONSUMER_WARPS);
+      mbar_init(&b_empty[b], CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+    if (warp != 0 || lane != 0) return;
+    asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(&tm_x)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(&tm_dy)) : "memory");
+    int it = 0;  // steps loaded so far
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int e, k0, n0, start, end;
+      wgrad_tile(t, k_tiles, n_tiles, WT_BN, e, k0, n0);
+      segment(p, e, start, end);
+      const int x_boxes = min(4, (p.K - k0 + 31) / 32), d_boxes = min(4, (p.N - n0 + 31) / 32);
+      for (int row = start; row < end; row += WT_BR, ++it) {
+        const int stage = it % WT_STAGES;
+        if (it >= WT_STAGES) mbar_wait(&empty[stage], ((it / WT_STAGES) & 1) ^ 1);
+        unsigned char* x_s = ring + stage * WT_STAGE;
+        mbar_expect_tx(&full[stage], (x_boxes + d_boxes) * WT_BOX);
+        for (int j = 0; j < x_boxes; ++j)
+          tma_load_2d(x_s + j * WT_BOX, &tm_x, &full[stage], k0 + 32 * j, row);
+        for (int j = 0; j < d_boxes; ++j)
+          tma_load_2d(x_s + (4 + j) * WT_BOX, &tm_dy, &full[stage], n0 + 32 * j, row);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+  const int wg = warp / 4 - 1, w = warp % 4, t128 = threadIdx.x % 128, g = lane / 4, c = lane % 4;
+  // This lane's xs columns 64 wg + 16 w + 2g and + 1: box 2 wg + w / 2,
+  // chunk 4 (w % 2) + g / 2 of its 128-byte rows, bytes 8 (g % 2) in it.
+  const int a_box = 2 * wg + w / 2, a_chunk = 4 * (w % 2) + g / 2, a_byte = 8 * (g % 2);
+  // The transform's share of consumer warp cw: chunk cw of every column's
+  // 128-byte row of B (k positions 4 cw .. + 3: the step's rows t_row0 +
+  // 2i), column 32 box + lane of each of dy's four boxes.
+  const int cw = warp - 4, t_row0 = 8 * (cw / 2) + cw % 2;
+  int t_read[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = t_row0 + 2 * i;
+    t_read[i] = r * 128 + 16 * ((lane / 4) ^ (r % 8)) + 4 * (lane % 4);
+  }
+  const int t_write = (lane / 8) * 1024 + (lane % 8) * 128 + 16 * (cw ^ (lane % 8));
+  float* dw_all = static_cast<float*>(p.dw);
+  float part[16][4], total[16][4];
+  int it = 0;  // steps consumed so far
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    int e, k0, n0, start, end;
+    wgrad_tile(t, k_tiles, n_tiles, WT_BN, e, k0, n0);
+    segment(p, e, start, end);
+    float* dw = dw_all + (size_t)e * p.K * p.N;
+    if (start >= end) {
+      // Zeros: this warpgroup's rows of the tile, 16 bytes a store.
+      const int rows = max(0, min(64, p.K - k0 - 64 * wg)), chunks = min(WT_BN, p.N - n0) / 4;
+      for (int u = t128; u < rows * chunks; u += 128)
+        *reinterpret_cast<float4*>(dw + (size_t)(k0 + 64 * wg + u / chunks) * p.N + n0 +
+                                   4 * (u % chunks)) = make_float4(0.f, 0.f, 0.f, 0.f);
+      continue;
+    }
+    // Step `step_it` (segment rows step_row ..) of dy, split and written
+    // into B buffer step_it % 2 once the products of step step_it - 2 have
+    // read it; rows past the segment as zeros.
+    auto transform = [&](int step_it, int step_row) {
+      const int stage = step_it % WT_STAGES, buf = step_it & 1;
+      mbar_wait(&full[stage], (step_it / WT_STAGES) & 1);
+      if (step_it >= 2) mbar_wait(&b_empty[buf], ((step_it >> 1) & 1) ^ 1);
+      const unsigned char* d_s = ring + stage * WT_STAGE + 4 * WT_BOX;
+      unsigned char* b_s = b_bufs + buf * WT_B_BUF;
+      const int live = end - step_row;
+#pragma unroll
+      for (int box = 0; box < 4; ++box) {
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float v = *reinterpret_cast<const float*>(d_s + box * WT_BOX + t_read[i]);
+          split_tf32(t_row0 + 2 * i < live ? v : 0.f, hi[i], lo[i]);
+        }
+        unsigned char* at = b_s + box * (32 * 128) + t_write;  // columns 32 box ..
+        *reinterpret_cast<uint4*>(at) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        *reinterpret_cast<uint4*>(at + WT_B_TILE) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      }
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&b_full[buf]);
+    };
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) total[j][q] = 0.f;
+    // A of step `step_it` (segment rows step_row ..) into ab, as: of k8 step
+    // j, (a0, a1) = xs row 8j + 2c and (a2, a3) = row 8j + 2c + 1, each at
+    // this lane's two columns; zeros past the segment. The stage has
+    // landed: this warp's transform of the step waited for it. Then the
+    // raw stage is released.
+    uint32_t a_big[4][4], a_small[4][4], n_big[4][4], n_small[4][4];
+    auto load_a = [&](int step_it, int step_row, uint32_t (&ab)[4][4], uint32_t (&as)[4][4]) {
+      const int stage = step_it % WT_STAGES;
+      const unsigned char* x_s = ring + stage * WT_STAGE + a_box * WT_BOX;
+      const int live = end - step_row;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 8 * j + 2 * c + h;
+          float2 v = *reinterpret_cast<const float2*>(x_s + r * 128 + 16 * (a_chunk ^ (r % 8)) + a_byte);
+          if (r >= live) v = make_float2(0.f, 0.f);
+          split_tf32(v.x, ab[j][2 * h], as[j][2 * h]);
+          split_tf32(v.y, ab[j][2 * h + 1], as[j][2 * h + 1]);
+        }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+    };
+    transform(it, start);
+    load_a(it, start, a_big, a_small);
+    for (int row = start, s = 0; row < end; row += WT_BR, ++it, ++s) {
+      const int buf = it & 1;
+      mbar_wait(&b_full[buf], (it >> 1) & 1);
+      const unsigned char* b_s = b_bufs + buf * WT_B_BUF;
+      // The interval's first product overwrites the sums.
+      const int fresh = s % (WT_PROMOTE / WT_BR) == 0;
+      reg_fence(part);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // k8 step j: 32 bytes into B's 128-byte rows of 32 tf32 rows (8-row
+        // groups of columns 1024 bytes apart), big then small.
+        const uint64_t bb = sw128_desc(b_s + 32 * j, 16, 1024);
+        const uint64_t bs = sw128_desc(b_s + WT_B_TILE + 32 * j, 16, 1024);
+        wgmma_tf32_n128(part, a_small[j], bb, !(fresh && j == 0));
+        wgmma_tf32_n128(part, a_big[j], bs, 1);
+        wgmma_tf32_n128(part, a_big[j], bb, 1);
+      }
+      wgmma_commit();
+      const bool more = row + WT_BR < end;
+      if (more) {  // the next step's B and A while this step's products run
+        transform(it + 1, row + WT_BR);
+        load_a(it + 1, row + WT_BR, n_big, n_small);
+      }
+      wgmma_wait<0>();
+      reg_fence(part);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&b_empty[buf]);
+      if (s % (WT_PROMOTE / WT_BR) == WT_PROMOTE / WT_BR - 1 || !more) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) total[j][q] += part[j][q];
+      }
+      if (more) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) a_big[j][q] = n_big[j][q], a_small[j][q] = n_small[j][q];
+      }
+    }
+    // total[j]: rows g (this lane's column 2g) and g + 8 (column 2g + 1) of
+    // the warp's 16, columns 8j + 2c and + 1.
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = k0 + 64 * wg + 16 * w + 2 * g + h;
+      if (k >= p.K) continue;
+      float* out = dw + (size_t)k * p.N + n0 + 2 * c;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        if (n0 + 8 * j + 2 * c < p.N)
+          *reinterpret_cast<float2*>(out + 8 * j) = make_float2(total[j][2 * h], total[j][2 * h + 1]);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1299,14 +1573,14 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map, 128-byte swizzled, dims and box innermost first;
-// coordinates past the edges read as zeros.
-bool make_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-              const cuuint64_t* strides, const cuuint32_t* box) {
+// A tensor map of `type` elements, 128-byte swizzled, dims and box
+// innermost first; coordinates past the edges read as zeros.
+bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int rank,
+              const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides,
+  return encode(map, type, rank, const_cast<void*>(ptr), dims, strides,
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -1322,7 +1596,8 @@ cudaError_t prepare(int which, const void* kernel, int smem, int device, int* sm
   if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
   if (!ready[device][which]) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err == cudaSuccess && (which == TMA || which == TMA_T_SLOT || which == WGRAD_TMA)) {
+    if (err == cudaSuccess &&
+        (which == TMA || which == TMA_T_SLOT || which == WGRAD_TMA || which == WGRAD_F32_TMA)) {
       cudaFuncAttributes attr;
       err = cudaFuncGetAttributes(&attr, kernel);
       if (err == cudaSuccess &&
@@ -1357,8 +1632,8 @@ cudaError_t launch(Variant v, const Params& p, int device, cudaStream_t stream) 
                                   (cuuint64_t)(k_major ? p.N : p.K), (cuuint64_t)p.E};
     const cuuint64_t w_strides[2] = {(cuuint64_t)w_dims[0] * 2, (cuuint64_t)p.K * p.N * 2};
     const cuuint32_t w_box[3] = {64, 64, 1};
-    if (!make_map(&tm_x, p.x, 2, x_dims, x_strides, x_box) ||
-        !make_map(&tm_w, p.w, 3, w_dims, w_strides, w_box))
+    if (!make_map(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.x, 2, x_dims, x_strides, x_box) ||
+        !make_map(&tm_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.w, 3, w_dims, w_strides, w_box))
       return cudaErrorInvalidValue;
     const int col_tiles = (p.N + TMA_BN - 1) / TMA_BN;
     const long long tiles = (long long)row_slots * col_tiles;
@@ -1387,10 +1662,12 @@ cudaError_t launch(Variant v, const Params& p, int device, cudaStream_t stream) 
   return cudaGetLastError();
 }
 
-// wgrad: one block a (N tile, K tile, expert). bf16 by TMA and wgmma where
-// K and N are multiples of 8 and the operands 16-byte aligned, else by
-// mma.sync on operands read element by element; f32 with 16-byte copies
-// where K and N are multiples of 4 and the operands 16-byte aligned.
+// wgrad. bf16 by TMA and wgmma where K and N are multiples of 8 and the
+// operands 16-byte aligned, else by mma.sync on operands read element by
+// element; f32 by TMA and tf32 wgmma where K and N are multiples of 4 and
+// the operands 16-byte aligned, else by mma.sync on 4-byte copies. The TMA
+// kernels are persistent (one block an SM, or a tile where there are
+// fewer), the others one block a (N tile, K tile, expert).
 cudaError_t launch_wgrad(bool f32, const WgradParams& p, int device, cudaStream_t stream) {
   const int width = f32 ? 4 : 8;
   const bool vec = p.K % width == 0 && p.N % width == 0 && aligned16(p.x) && aligned16(p.dy) &&
@@ -1415,24 +1692,46 @@ cudaError_t launch_wgrad(bool f32, const WgradParams& p, int device, cudaStream_
     const cuuint64_t w_dims[3] = {(cuuint64_t)p.N, (cuuint64_t)p.K, (cuuint64_t)p.E};
     const cuuint64_t w_strides[2] = {(cuuint64_t)p.N * 2, (cuuint64_t)p.K * p.N * 2};
     const cuuint32_t box[2] = {64, TMA_BK}, w_box[3] = {64, 64, 1};
-    if ((p.M > 0 && (!make_map(&tm_x, p.x, 2, x_dims, x_strides, box) ||
-                     !make_map(&tm_dy, p.dy, 2, d_dims, d_strides, box))) ||
-        !make_map(&tm_dw, p.dw, 3, w_dims, w_strides, w_box))
+    const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    if ((p.M > 0 && (!make_map(&tm_x, bf16, p.x, 2, x_dims, x_strides, box) ||
+                     !make_map(&tm_dy, bf16, p.dy, 2, d_dims, d_strides, box))) ||
+        !make_map(&tm_dw, bf16, p.dw, 3, w_dims, w_strides, w_box))
       return cudaErrorInvalidValue;
     grouped_wgrad_tma_kernel<<<grid, TMA_THREADS, TMA_SMEM, stream>>>(p, tm_x, tm_dy, tm_dw,
                                                                       k_tiles, n_tiles, (int)tiles);
     return cudaGetLastError();
   }
+  if (f32 && vec) {
+    // f32 by TMA and tf32 wgmma: xs [M, K] and dy [M, N] as 2-D maps,
+    // boxes of 32 columns x 32 rows.
+    const void* kernel = reinterpret_cast<const void*>(&grouped_wgrad_f32_tma_kernel);
+    int sms = 0;
+    cudaError_t err = prepare(WGRAD_F32_TMA, kernel, WT_SMEM, device, &sms);
+    if (err != cudaSuccess) return err;
+    const int k_tiles = (p.K + BM - 1) / BM, n_tiles = (p.N + WT_BN - 1) / WT_BN;
+    const long long tiles = (long long)p.E * k_tiles * n_tiles;
+    if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
+    const int grid = (int)(tiles < sms ? tiles : sms);
+    CUtensorMap tm_x{}, tm_dy{};  // no map over 0 rows: every tile is then zeros
+    const cuuint64_t x_dims[2] = {(cuuint64_t)p.K, (cuuint64_t)p.M};
+    const cuuint64_t x_strides[1] = {(cuuint64_t)p.K * 4};
+    const cuuint64_t d_dims[2] = {(cuuint64_t)p.N, (cuuint64_t)p.M};
+    const cuuint64_t d_strides[1] = {(cuuint64_t)p.N * 4};
+    const cuuint32_t box[2] = {32, WT_BR};
+    const CUtensorMapDataType f32_type = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+    if (p.M > 0 && (!make_map(&tm_x, f32_type, p.x, 2, x_dims, x_strides, box) ||
+                    !make_map(&tm_dy, f32_type, p.dy, 2, d_dims, d_strides, box)))
+      return cudaErrorInvalidValue;
+    grouped_wgrad_f32_tma_kernel<<<grid, TMA_THREADS, WT_SMEM, stream>>>(p, tm_x, tm_dy, k_tiles,
+                                                                          n_tiles, (int)tiles);
+    return cudaGetLastError();
+  }
   const dim3 grid((p.N + BN - 1) / BN, (p.K + BN - 1) / BN, p.E);
   if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
-  void (*kernel)(WgradParams);
-  if (f32)
-    kernel = vec ? &grouped_wgrad_f32_kernel<true> : &grouped_wgrad_f32_kernel<false>;
-  else
-    kernel = &grouped_wgrad_bf16_kernel;
+  void (*kernel)(WgradParams) = f32 ? &grouped_wgrad_f32_kernel : &grouped_wgrad_bf16_kernel;
   const int smem = f32 ? SMEM_W_F32 : SMEM_W_BF16;
   int sms = 0;
-  const int slot = !f32 ? WGRAD_MMA : vec ? WGRAD_F32_VEC : WGRAD_F32;
+  const int slot = f32 ? WGRAD_F32 : WGRAD_MMA;
   cudaError_t err = prepare(slot, reinterpret_cast<const void*>(kernel), smem, device, &sms);
   if (err != cudaSuccess) return err;
   kernel<<<grid, THREADS, smem, stream>>>(p);
@@ -1463,7 +1762,8 @@ int grouped_matmul_layout(int* out, int cap) {
                    TMA_BN,     TMA_BK,    TMA_STAGES,    TMA_THREADS,  PRODUCER_REGS,
                    CONSUMER_REGS, TMA_SMEM, F_BK,        F_STAGES,     F_AP,
                    F_BP,       SMEM_F32, W_BR,        W_STAGES,     SMEM_W_BF16,
-                   WF_BR,      WF_STAGES, WF_P,       SMEM_W_F32};
+                   WF_BR,      WF_STAGES, WF_P,       SMEM_W_F32,   WT_BN,
+                   WT_BR,      WT_STAGES, WT_PROMOTE, WT_SMEM};
   const int count = (int)(sizeof(v) / sizeof(v[0]));
   const int n = cap < count ? cap : count;
   for (int i = 0; i < n; ++i) out[i] = v[i];

@@ -34,9 +34,13 @@ dgrad is the forward's function with B transposed: on the card the TMA
 kernel reads w K-major as it lies (its `BKMajor` instantiation), and the
 other kernels run on a copy of w transposed to [E, N, K]. wgrad is ragged
 on the contraction, dw[e] = xs[seg_e]^T @ dy[seg_e] (zeros for an empty
-group), and has kernels of its own in the same source (in bf16 where TMA
-takes the operands: `wgmma` fed by TMA, each tile's output staged in
-shared memory and stored by TMA while the next tile's products run).
+group), and has kernels of its own in the same source, chosen by
+`wgrad_variant` from dtype, shape and alignment alone: where TMA takes
+the operands, bf16 on `wgmma` fed by TMA (each tile's output staged in
+shared memory and stored by TMA while the next tile's products run) and
+f32 as 3xTF32 on tf32 `wgmma` fed by TMA (xs^T from registers, dy split
+and transposed into K-major tiles in shared memory by the consumer warps
+a step ahead); elsewhere `mma.sync`.
 Their plain versions (`grouped_matmul_dgrad_plain`,
 `grouped_matmul_wgrad_plain`) run one torch.matmul a group, for CPU
 tensors.
@@ -46,7 +50,8 @@ tensors.
 `GROUPED_F32_LAUNCHES` those of the f32 one. `GROUPED_DGRAD_LAUNCHES`
 and `GROUPED_WGRAD_LAUNCHES` count the backward's launches,
 `GROUPED_DGRAD_F32_LAUNCHES` and `GROUPED_WGRAD_F32_LAUNCHES` those in
-f32.
+f32, `GROUPED_WGRAD_F32_TMA_LAUNCHES` those of the f32 wgrad kernel on
+TMA and `wgmma`.
 """
 
 from __future__ import annotations
@@ -69,6 +74,7 @@ GROUPED_DGRAD_LAUNCHES = 0
 GROUPED_DGRAD_F32_LAUNCHES = 0
 GROUPED_WGRAD_LAUNCHES = 0
 GROUPED_WGRAD_F32_LAUNCHES = 0
+GROUPED_WGRAD_F32_TMA_LAUNCHES = 0
 
 # Rows of an output tile (every kernel).
 BM = 128
@@ -96,6 +102,13 @@ W_BR, W_STAGES = 64, 3
 SMEM_W_BF16 = W_STAGES * 2 * W_BR * BN * 2
 WF_BR, WF_STAGES, WF_P = 32, 4, BN + 8
 SMEM_W_F32 = WF_STAGES * 2 * WF_BR * WF_P * 4
+# f32 wgrad on TMA and tf32 wgmma (BM x WT_BN tiles, TMA_THREADS threads,
+# persistent): tile columns, rows a step, ring depth, rows a promotion
+# interval; dynamic shared memory (alignment slack, the ring of xs's and
+# dy's four 32 x 32 f32 boxes a stage, two buffers of B's big and small
+# [WT_BN][WT_BR] tiles, two barriers a stage and a buffer).
+WT_BN, WT_BR, WT_STAGES, WT_PROMOTE = 128, 32, 4, 64
+WT_SMEM = 1024 + WT_STAGES * 2 * 4 * WT_BR * 32 * 4 + 2 * 2 * WT_BN * WT_BR * 4 + 2 * (WT_STAGES + 2) * 8
 
 # The launcher's variant codes; 3 is the TMA kernel with w as [E, N, K]
 # (dgrad).
@@ -108,7 +121,8 @@ def layout() -> tuple:
     source writes them."""
     return (BM, BN, THREADS, BK, STAGES, TMA_BN, TMA_BK, TMA_STAGES, TMA_THREADS, PRODUCER_REGS,
             CONSUMER_REGS, TMA_SMEM, F_BK, F_STAGES, F_AP, F_BP, SMEM_F32, W_BR, W_STAGES,
-            SMEM_W_BF16, WF_BR, WF_STAGES, WF_P, SMEM_W_F32)
+            SMEM_W_BF16, WF_BR, WF_STAGES, WF_P, SMEM_W_F32, WT_BN, WT_BR, WT_STAGES, WT_PROMOTE,
+            WT_SMEM)
 
 
 def variant(xs: torch.Tensor, w: torch.Tensor, y: torch.Tensor) -> str:
@@ -120,6 +134,19 @@ def variant(xs: torch.Tensor, w: torch.Tensor, y: torch.Tensor) -> str:
     k, n = xs.shape[1], w.shape[-1]
     aligned = all(t.data_ptr() % 16 == 0 for t in (xs, w, y))
     return "tma" if k > 0 and k % 8 == 0 and n % 8 == 0 and aligned else "mma"
+
+
+def wgrad_variant(xs: torch.Tensor, dy: torch.Tensor, dw: torch.Tensor) -> str:
+    """The wgrad kernel a launch takes, as the launcher picks it: "tma"
+    (bf16) or "f32_tma" where TMA takes the operands (K and N multiples of
+    8 in bf16, of 4 in f32, 16-byte aligned bases), else "mma" (bf16) or
+    "f32" (4-byte copies)."""
+    f32 = xs.dtype == torch.float32
+    width = 4 if f32 else 8
+    k, n = xs.shape[1], dy.shape[1]
+    aligned = all(t.data_ptr() % 16 == 0 for t in (xs, dy, dw))
+    tma = k % width == 0 and n % width == 0 and aligned
+    return ("f32_tma" if tma else "f32") if f32 else ("tma" if tma else "mma")
 
 
 def row_slots(m: int, experts: int) -> int:
@@ -280,10 +307,10 @@ def grouped_matmul_dgrad(dy: torch.Tensor, w: torch.Tensor, group_sizes: torch.T
 
 def grouped_matmul_wgrad(xs: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
     """dw [E, K, N], dw[e] = xs[seg_e]^T @ dy[seg_e] (zeros for an empty
-    group): on the card, one launch of a wgrad kernel (bf16 on TMA and
-    wgmma where K and N are multiples of 8 and the operands 16-byte
-    aligned, on mma.sync elsewhere; f32 on 3xTF32)."""
-    global GROUPED_WGRAD_LAUNCHES, GROUPED_WGRAD_F32_LAUNCHES
+    group): on the card, one launch of the wgrad kernel `wgrad_variant`
+    names (on TMA and wgmma where TMA takes the operands, on mma.sync
+    elsewhere; f32 as 3xTF32)."""
+    global GROUPED_WGRAD_LAUNCHES, GROUPED_WGRAD_F32_LAUNCHES, GROUPED_WGRAD_F32_TMA_LAUNCHES
     if not _on_card("grouped_matmul_wgrad", xs):
         return grouped_matmul_wgrad_plain(xs, dy, group_sizes)
     _check("grouped_matmul_wgrad", xs, dy, group_sizes, 2, 0, "xs [M, K] and dy [M, N]")
@@ -293,14 +320,16 @@ def grouped_matmul_wgrad(xs: torch.Tensor, dy: torch.Tensor, group_sizes: torch.
         return dw
     index = xs.device.index
     f32 = xs.dtype == torch.float32
+    kind = wgrad_variant(xs, dy, dw)
     err = _library().grouped_matmul_wgrad_launch(
         int(f32), xs.data_ptr(), dy.data_ptr(), group_sizes.data_ptr(), dw.data_ptr(), m, k_dim, n,
         experts, index, torch._C._cuda_getCurrentRawStream(index),
     )
     if err:
-        raise RuntimeError(f"grouped_matmul_wgrad kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"grouped_matmul_wgrad kernel launch failed ({kind}): CUDA error {err}")
     GROUPED_WGRAD_LAUNCHES += 1
     GROUPED_WGRAD_F32_LAUNCHES += f32
+    GROUPED_WGRAD_F32_TMA_LAUNCHES += kind == "f32_tma"
     return dw
 
 

@@ -10,8 +10,9 @@ sampling on the card, and the MoE path: the grouped expert kernel against
 its plain version, the int8 kernel's expert axis against 2-D launches,
 MoE serving and forward against the CPU, with no host sync; the grouped
 product's backward kernels (dgrad, wgrad) against their plain versions,
-and the MoE train step against the CPU's, with no host sync in a MoE
-layer's forward and backward.
+the f32 wgrad kernel taken where TMA can take the operands and held to
+the tolerance over a 16384-row segment, and the MoE train step against
+the CPU's, with no host sync in a MoE layer's forward and backward.
 
 They skip without a CUDA device. This file imports no JAX, so it also runs
 on a machine that has none: `python -m pytest --noconftest -m cuda
@@ -1033,6 +1034,13 @@ def _backward_counts():
             gm.GROUPED_WGRAD_F32_LAUNCHES)
 
 
+def _wgrad_f32_tma_launches(fn):
+    """fn's launches of the f32 wgrad kernel on TMA and tf32 wgmma."""
+    before = gm.GROUPED_WGRAD_F32_TMA_LAUNCHES
+    out = fn()
+    return out, gm.GROUPED_WGRAD_F32_TMA_LAUNCHES - before
+
+
 def _backward_plain(fn, *args):
     flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -1059,16 +1067,63 @@ def test_grouped_wgrad_kernel_matches_plain_version(cuda, dtype, routing, m, k, 
     dy = torch.randn(m, n, generator=gen).to(cuda, dtype)
     sizes = _group_sizes(routing, m, experts).to(cuda)
     before = _backward_counts()
-    got = gm.grouped_matmul_wgrad(xs, dy, sizes)
+    got, tma = _wgrad_f32_tma_launches(lambda: gm.grouped_matmul_wgrad(xs, dy, sizes))
     again = gm.grouped_matmul_wgrad(xs, dy, sizes)
     torch.cuda.synchronize()
     f32 = dtype == torch.float32
     assert tuple(a - b for a, b in zip(_backward_counts(), before)) == (0, 0, 2, 2 * f32)
+    # f32 with K and N multiples of 4 (aligned, as torch allocates) runs on
+    # TMA and tf32 wgmma; (130, 37, 19, 3) on the 4-byte mma.sync kernel.
+    assert tma == int(f32 and k % 4 == 0 and n % 4 == 0)
     assert got.dtype == dtype and got.shape == (experts, k, n)
     assert torch.equal(got, again)  # one chain of sums an output: the same bits
     assert _int8_within(got, _backward_plain(gm.grouped_matmul_wgrad_plain, xs, dy, sizes), dtype)
     for e in torch.nonzero(sizes.cpu() == 0).flatten().tolist():
         assert torch.all(got[e] == 0)  # an empty group's gradient is exactly 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,shift,kind", [(256, 512, 0, "f32_tma"), (36, 20, 0, "f32_tma"),
+                                            (37, 512, 0, "f32"), (256, 18, 0, "f32"),
+                                            (256, 512, 1, "f32")],
+                         ids=["aligned", "narrow", "k_odd", "n_not_4", "misaligned"])
+def test_grouped_wgrad_f32_takes_tma_where_it_can(cuda, k, n, shift, kind):
+    # TMA needs K and N multiples of 4 and 16-byte aligned bases; elsewhere
+    # the 4-byte cp.async kernel gives the same function.
+    m, experts = 700, 5
+    gen = torch.Generator().manual_seed(k + n + shift)
+    xs = torch.randn(m * k + shift, generator=gen).to(cuda)[shift:].view(m, k)
+    dy = torch.randn(m, n, generator=gen).to(cuda)
+    sizes = _group_sizes("ragged", m, experts).to(cuda)
+    dw = torch.empty((experts, k, n), device=cuda)
+    assert gm.wgrad_variant(xs, dy, dw) == kind
+    before = _backward_counts()
+    got, tma = _wgrad_f32_tma_launches(lambda: gm.grouped_matmul_wgrad(xs, dy, sizes))
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_backward_counts(), before)) == (0, 0, 1, 1)
+    assert tma == (kind == "f32_tma")
+    assert _int8_within(got, _backward_plain(gm.grouped_matmul_wgrad_plain, xs, dy, sizes),
+                        torch.float32)
+    assert torch.all(got[1] == 0)  # _group_sizes' ragged routing leaves expert 1 empty
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(1024, 512), (512, 1024)])
+def test_grouped_wgrad_f32_holds_the_tolerance_over_a_16384_row_segment(cuda, k, n):
+    # One expert takes every row (the flagship's skewed routing): 512 steps
+    # of 32 rows in one chain, promoted to f32 every WT_PROMOTE rows.
+    m, experts = 16384, 4
+    gen = torch.Generator().manual_seed(k - n)
+    xs = torch.randn(m, k, generator=gen).to(cuda)
+    dy = torch.randn(m, n, generator=gen).to(cuda)
+    sizes = torch.tensor([0, m, 0, 0], dtype=torch.int32, device=cuda)
+    got, tma = _wgrad_f32_tma_launches(lambda: gm.grouped_matmul_wgrad(xs, dy, sizes))
+    want = (xs.double().T @ dy.double()).float()
+    torch.cuda.synchronize()
+    assert tma == 1
+    assert _int8_within(got[1], want, torch.float32)
+    assert torch.all(got[[0, 2, 3]] == 0)
+    assert torch.equal(got, gm.grouped_matmul_wgrad(xs, dy, sizes))
 
 
 @pytest.mark.cuda
@@ -1139,12 +1194,15 @@ def test_moe_train_step_launches_and_matches_cpu(cuda, remat, forward):
         return transformer.build_train_step(cfg, opt, device=device)(p, opt.init(p), batch)
 
     before = (gm.GROUPED_F32_LAUNCHES,) + _backward_counts()
-    got, _, loss = step(None, tree.tree_map(lambda t: t.to(cuda), params))
+    (got, _, loss), tma = _wgrad_f32_tma_launches(
+        lambda: step(None, tree.tree_map(lambda t: t.to(cuda), params)))
     # Two grouped products a layer: forward (again in the backward under a
-    # remat policy), dgrad and wgrad each once, all f32.
+    # remat policy), dgrad and wgrad each once, all f32; wgrad's on TMA and
+    # tf32 wgmma (d_model 64 and d_ff_expert 96 are multiples of 4).
     layers = 2 * cfg.n_layers
     assert tuple(a - b for a, b in zip((gm.GROUPED_F32_LAUNCHES,) + _backward_counts(),
                                        before)) == (forward, layers, layers, layers, layers)
+    assert tma == layers
     want, _, want_loss = step("cpu", params)
     assert abs(loss.item() - want_loss.item()) <= 1e-4 * abs(want_loss.item())
     for g, w, p in zip(tree.leaves(got), tree.leaves(want), tree.leaves(params)):

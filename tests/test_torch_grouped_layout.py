@@ -66,6 +66,21 @@ kernels report the same):
   its sums promoted every step of 32 rows hold the f32 tolerance over a
   segment of 16384 rows (where one truncating chain does not); both rings
   fit their blocks an SM.
+- The f32 wgrad TMA kernel (3xTF32 on tf32 `wgmma`, A = xs^T from
+  registers, B = dy split and written K-major by the consumer warps): the
+  transform's and the A reads name the elements TMA put in the 128-byte
+  swizzled f32 boxes; the transform writes each float of B's tile once, and
+  the K-major tf32 descriptor of each k8 step reads at (k, column) the
+  step's row that A's register fragment (rows 8j + 2c and + 1 for its k c
+  and c + 4) pairs with it, zeros past the segment; so A's fragments and B
+  give each warpgroup's 64 K rows of the step's product exactly; its reads
+  and writes are free of bank conflicts (A in the fragment's own row order
+  would not be); the whole launch (boxes of 32 columns, stale boxes past K
+  and N, rows past the segment zeroed in A and B, sums promoted every
+  WT_PROMOTE rows, stores inside K and N, empty experts' zeros) gives the
+  per-expert products, and a neighbour's non-finite row meets only zeros;
+  its persistent walk takes every tile once; its promotion interval holds
+  the tolerance over 16384 rows; its ring, B buffers and registers fit.
 """
 
 import functools
@@ -349,21 +364,23 @@ def desc_fields(desc):
     return ((desc & 0x3FFF) << 4, (desc >> 16 & 0x3FFF) << 4, (desc >> 32 & 0x3FFF) << 4, desc >> 62)
 
 
-def wgmma_a_address(desc, m, k):
-    """Element (m, k) of a K-major bf16 A operand (64 x 16) in the 128B
-    layout: 8-row groups SBO apart, 128-byte rows, then the swizzle."""
+def wgmma_a_address(desc, m, k, elem=2):
+    """Element (m, k) of a K-major operand (64 x 16 bf16, or with elem 4
+    rows of 8 tf32: a K-major B's column m) in the 128B layout: 8-row
+    groups SBO apart, 128-byte rows, then the swizzle."""
     start, _, sbo, kind = desc_fields(desc)
     assert kind == 1
-    return swizzle128(start + (m // 8) * sbo + (m % 8) * 128 + 2 * k)
+    return swizzle128(start + (m // 8) * sbo + (m % 8) * 128 + elem * k)
 
 
-def wgmma_b_address(desc, k, n):
-    """Element (k, n) of an N-major bf16 B operand (16 x 256, the
-    transpose bit) in the 128B layout: 64-column blocks LBO apart, 8-row k
-    groups SBO apart, 128-byte rows of 64 columns, then the swizzle."""
+def wgmma_b_address(desc, k, n, elem=2):
+    """Element (k, n) of an N-major B operand (16 x 256 bf16, the
+    transpose bit) in the 128B layout: blocks of 128 bytes of columns LBO
+    apart, 8-row k groups SBO apart, 128-byte rows, then the swizzle."""
     start, lbo, sbo, kind = desc_fields(desc)
     assert kind == 1
-    return swizzle128(start + (n // 64) * lbo + (k // 8) * sbo + (k % 8) * 128 + 2 * (n % 64))
+    cols = 128 // elem
+    return swizzle128(start + (n // cols) * lbo + (k // 8) * sbo + (k % 8) * 128 + elem * (n % cols))
 
 
 @pytest.mark.parametrize("stage", range(TMA_STAGES))
@@ -872,11 +889,14 @@ def test_wgrad_f32_reads_and_loads_are_free_of_bank_conflicts(warp):
         assert gm.SMEM_W_F32 == gm.WF_STAGES * 2 * WF_BR * WF_P * 4 <= SMEM_OPT_IN
 
 
-def test_wgrad_f32_promotion_holds_the_tolerance_over_a_whole_segment():
+@pytest.mark.parametrize("interval", [WF_BR, gm.WT_PROMOTE], ids=["mma_sync", "tma"])
+def test_wgrad_f32_promotion_holds_the_tolerance_over_a_whole_segment(interval):
     # A skewed routing gives one expert every row: 16384 at the flagship.
-    # Each 32-row step's truncating sums start afresh and are added to the
-    # output in f32 (rounded to nearest); one chain over all the rows
-    # drifts past the card's f32 tolerance, 1e-5 max|want|.
+    # Each interval's truncating sums (a step of 32 rows in the mma.sync
+    # kernel, WT_PROMOTE rows in the TMA kernel, one rounding a k8
+    # instruction in both) start afresh and are added to the output in f32
+    # (rounded to nearest); one chain over all the rows drifts past the
+    # card's f32 tolerance, 1e-5 max|want|.
     rows = 16384
     rng = np.random.default_rng(rows)
     xs_t = rng.standard_normal((32, rows)).astype(np.float32)  # A = xs^T
@@ -885,7 +905,7 @@ def test_wgrad_f32_promotion_holds_the_tolerance_over_a_whole_segment():
     limit = 1e-5 * np.abs(want).max()
     (ab, as_), (bb, bs) = _split(xs_t), _split(dy)
     three = [(as_, bb), (ab, bs), (ab, bb)]
-    assert np.abs(_mma_chain(three, rows, WF_BR) - want).max() <= limit / 2
+    assert np.abs(_mma_chain(three, rows, interval) - want).max() <= limit / 2
     assert np.abs(_mma_chain(three, rows, rows) - want).max() > limit
 
 
@@ -1042,10 +1062,10 @@ def test_wgrad_tma_a_descriptor_reads_xs_transposed(stage):
     assert 2 * TMA_B_BOX == TMA_A_BYTES and TMA_A_BYTES + 4 * TMA_B_BOX == TMA_STAGE
 
 
-def wgrad_tile(t, k_tiles, n_tiles):
+def wgrad_tile(t, k_tiles, n_tiles, tile_n=TMA_BN):
     """The kernel's `wgrad_tile`: (expert, k0, n0) of tile t, N tiles
     fastest, then K tiles, then experts."""
-    return t // (k_tiles * n_tiles), (t // n_tiles) % k_tiles * BM, t % n_tiles * TMA_BN
+    return t // (k_tiles * n_tiles), (t // n_tiles) % k_tiles * BM, t % n_tiles * tile_n
 
 
 @pytest.mark.parametrize("grid", [1, 7, 132])
@@ -1138,3 +1158,300 @@ def test_wgrad_staging_and_barriers_fit_the_sm():
     assert 2 * W_OUT_BOXES * TMA_B_BOX <= BM * gm.TMA_OUT_PITCH
     assert 1024 + barriers + 2 * TMA_STAGES * 8 == gm.TMA_SMEM <= SMEM_OPT_IN
     assert gm.TMA_SMEM + SMEM_PER_BLOCK_RESERVED <= SMEM_PER_SM
+
+
+# --- the f32 wgrad TMA kernel (`grouped_wgrad_f32_tma_kernel`) ----------------
+
+WT_BN, WT_BR, WT_STAGES, WT_PROMOTE = gm.WT_BN, gm.WT_BR, gm.WT_STAGES, gm.WT_PROMOTE
+WT_BOX = WT_BR * 32 * 4  # 32 rows x 32 f32, 128-byte swizzled rows
+WT_STAGE = 8 * WT_BOX  # xs's four boxes, then dy's four
+WT_B_TILE = WT_BN * WT_BR * 4  # [128 columns][32 rows] of tf32, K-major
+WT_RING = 3 * 1024  # any 1024-byte aligned start of the ring
+WT_B_BUFS = WT_RING + WT_STAGES * WT_STAGE  # two buffers of (big, small)
+
+
+def wt_row_of_position(q):
+    """The step's row that k position q of B's rows holds, and that A's k
+    index of the same k8 step reads: of k8 step j = q // 8, k c < 4 is row
+    8j + 2c and k c + 4 row 8j + 2c + 1."""
+    j, k = q // 8, q % 8
+    return 8 * j + 2 * (k % 4) + k // 4
+
+
+def wt_tma_stage(x_tile, d_tile):
+    """A stage as TMA writes it (floats by byte offset / 4 from the stage's
+    start): x_tile [32 rows, 128 k] and d_tile [32, 128 n] as four 128-byte
+    swizzled boxes of 32 columns each."""
+    stage = np.full(WT_STAGE // 4, np.nan)
+    r, x = np.meshgrid(np.arange(WT_BR), np.arange(32), indexing="ij")
+    for b in range(8):
+        tile = x_tile if b < 4 else d_tile
+        stage[tma_box_address(b * WT_BOX, r, 4 * x) // 4] = tile[r, 32 * (b % 4) + x]
+    return stage
+
+
+def wt_transform_share(cw, lane):
+    """The kernel's transform constants of lane `lane` of consumer warp cw
+    (chunk cw of every column's row of B): the step's rows it reads
+    (t_row0 + 2i), their byte offsets in a dy box (t_read) and its chunk's
+    byte offset in B's first 32 columns (t_write)."""
+    t_row0 = 8 * (cw // 2) + cw % 2
+    rows = [t_row0 + 2 * i for i in range(4)]
+    t_read = [r * 128 + 16 * ((lane // 4) ^ (r % 8)) + 4 * (lane % 4) for r in rows]
+    t_write = (lane // 8) * 1024 + (lane % 8) * 128 + 16 * (cw ^ (lane % 8))
+    return rows, t_read, t_write
+
+
+def wt_transform_unit(u, lane):
+    """Unit u of a step's transform (column box u // 8, chunk u % 8 of B's
+    rows; consumer warp u % 8 takes it) for one lane: the rows it reads,
+    their byte offsets in dy's boxes, its column n and the byte offset of
+    its 16-byte chunk in B's tile."""
+    box, ch = u // 8, u % 8
+    rows, t_read, t_write = wt_transform_share(ch, lane)
+    n = 32 * box + lane
+    off = box * 32 * 128 + t_write
+    assert off == (n // 8) * 1024 + (n % 8) * 128 + 16 * (ch ^ (n % 8))  # row n, chunk ch
+    return rows, [box * WT_BOX + at for at in t_read], n, off
+
+
+def wt_transform(stage, live):
+    """B's tile (floats by byte offset / 4) as the 8 consumer warps write it
+    from a stage's dy boxes, rows at or past `live` as zeros; each float
+    once."""
+    tile = np.full(WT_B_TILE // 4, np.nan)
+    for cw in range(8):
+        for box in range(4):
+            for lane in range(32):
+                rows, reads, _, off = wt_transform_unit(8 * box + cw, lane)
+                for i, (r, at) in enumerate(zip(rows, reads)):
+                    assert np.isnan(tile[off // 4 + i])
+                    tile[off // 4 + i] = stage[(4 * WT_BOX + at) // 4] if r < live else 0.0
+    return tile
+
+
+def wt_a_reads(wg, w, lane, j):
+    """The byte offsets in xs's boxes of lane (g, c) of warp w of consumer
+    warpgroup wg for k8 step j: a float2 at row 8j + 2c (a0, a1) and one at
+    row 8j + 2c + 1 (a2, a3), both at the lane's columns 16w + 2g and + 1
+    of the warpgroup's 64."""
+    g, c = lane // 4, lane % 4
+    box, chunk = 2 * wg + w // 2, 4 * (w % 2) + g // 2
+    rows = [8 * j + 2 * c + h for h in range(2)]
+    return rows, [box * WT_BOX + r * 128 + 16 * (chunk ^ (r % 8)) + 8 * (g % 2) for r in rows]
+
+
+def wt_output_row(wg, i):
+    """The tile's K row of logical accumulator row i of warpgroup wg: row g
+    of warp w's 16 is column 2g of its xs reads, row g + 8 column 2g + 1."""
+    return 64 * wg + 16 * (i // 16) + 2 * (i % 8) + (i % 16) // 8
+
+
+def wt_step_product(stage, b_tile, wg, live, zero_a=True):
+    """One warpgroup's [64, 128] products of a step: for each k8 step j, A
+    (64 x 8) from its four warps' register fragments, B (8 x 128) read by
+    the K-major tf32 descriptor 32 bytes further a k8; rows by
+    `wt_output_row`."""
+    out = np.zeros((64, WT_BN))
+    n, k = np.meshgrid(np.arange(WT_BN), np.arange(8), indexing="ij")
+    for j in range(WT_BR // 8):
+        a = np.full((64, 8), np.nan)
+        for w in range(4):
+            for lane in range(32):
+                g, c = lane // 4, lane % 4
+                rows, reads = wt_a_reads(wg, w, lane, j)
+                for h, (r, at) in enumerate(zip(rows, reads)):
+                    pair = stage[at // 4:at // 4 + 2] * (0 if zero_a and r >= live else 1)
+                    a[16 * w + g, c + 4 * h], a[16 * w + g + 8, c + 4 * h] = pair
+        desc = sw128_desc(WT_B_BUFS + 32 * j, 16, 1024)
+        b = b_tile[(wgmma_a_address(desc, n, k, elem=4) - WT_B_BUFS) // 4].T  # (k, n)
+        out += a @ b
+    rows = [wt_output_row(wg, i) for i in range(64)]
+    assert sorted(rows) == list(range(64 * wg, 64 * wg + 64))
+    tile = np.full((BM, WT_BN), np.nan)
+    tile[rows] = out
+    return tile[64 * wg:64 * wg + 64]
+
+
+def test_wgrad_f32_tma_kernel_reads_the_boxes_tma_wrote():
+    # The transform's and the consumers' addresses name the elements TMA
+    # put there (a f32 box's 128-byte rows of 32 values, swizzled).
+    rng = np.random.default_rng(16)
+    x_tile, d_tile = rng.standard_normal((2, WT_BR, 128))
+    stage = wt_tma_stage(x_tile, d_tile)
+    assert not np.isnan(stage).any()  # eight boxes fill the stage
+    for u in range(32):
+        for lane in range(32):
+            rows, reads, n, _ = wt_transform_unit(u, lane)
+            for r, at in zip(rows, reads):
+                assert stage[(4 * WT_BOX + at) // 4] == d_tile[r, n]
+    for wg in range(2):
+        for w in range(4):
+            for lane in range(32):
+                g = lane // 4
+                for j in range(WT_BR // 8):
+                    for r, at in zip(*wt_a_reads(wg, w, lane, j)):
+                        col = 64 * wg + 16 * w + 2 * g
+                        np.testing.assert_array_equal(stage[at // 4:at // 4 + 2], x_tile[r, col:col + 2])
+
+
+@pytest.mark.parametrize("live", [WT_BR, 19, 1])
+def test_wgrad_f32_tma_b_descriptors_read_the_transposed_rows(live):
+    # The transform writes each float of B's tile once; the K-major tf32
+    # descriptor of k8 step j reads at (k, column n) the step's row
+    # wt_row_of_position(8j + k) of dy's column n, zeros past `live`.
+    rng = np.random.default_rng(live)
+    d_tile = rng.integers(-50, 50, (WT_BR, 128)).astype(np.float64)
+    tile = wt_transform(wt_tma_stage(np.zeros((WT_BR, 128)), d_tile), live)
+    assert not np.isnan(tile).any()
+    n, k = np.meshgrid(np.arange(WT_BN), np.arange(8), indexing="ij")
+    for j in range(WT_BR // 8):
+        desc = sw128_desc(WT_B_BUFS + 32 * j, 16, 1024)
+        got = tile[(wgmma_a_address(desc, n, k, elem=4) - WT_B_BUFS) // 4]
+        rows = np.vectorize(wt_row_of_position)(8 * j + k)
+        np.testing.assert_array_equal(got, np.where(rows < live, d_tile[rows, n], 0))
+    # A 128-byte row of B is one column's 32 rows: one step.
+    assert WT_BR * 4 == 128 and WT_B_TILE == WT_BN * 128
+
+
+@pytest.mark.parametrize("live", [WT_BR, 21])
+def test_wgrad_f32_tma_register_a_gives_the_tile_product(live):
+    # A = xs^T from registers and B from the transform's tile give each
+    # warpgroup's 64 K rows of xs[:live]^T dy[:live], exactly on integers;
+    # rows past `live` are zeroed in A and B alike.
+    rng = np.random.default_rng(live + 1)
+    x_tile = rng.integers(-5, 6, (WT_BR, 128)).astype(np.float64)
+    d_tile = rng.integers(-5, 6, (WT_BR, 128)).astype(np.float64)
+    stage = wt_tma_stage(x_tile, d_tile)
+    b_tile = wt_transform(stage, live)
+    want = x_tile[:live].T @ d_tile[:live]
+    got = np.concatenate([wt_step_product(stage, b_tile, wg, live) for wg in range(2)])
+    np.testing.assert_array_equal(got, want)
+    if live < WT_BR:  # B's zeros alone already drop the rows' products
+        got = np.concatenate([wt_step_product(stage, b_tile, wg, live, zero_a=False)
+                              for wg in range(2)])
+        np.testing.assert_array_equal(got, want)
+
+
+def test_wgrad_f32_tma_reads_and_writes_are_free_of_bank_conflicts():
+    # The consumers' float2 A reads (16 lanes a phase), the transform's
+    # 4-byte reads (whole 128-byte rows) and 16-byte writes (8 lanes a
+    # phase) of every step, by each consumer warp and box.
+    for wg in range(2):
+        for w in range(4):
+            for j in range(WT_BR // 8):
+                for h in range(2):
+                    words = [wt_a_reads(wg, w, lane, j)[1][h] // 4 for lane in range(32)]
+                    assert _phase_banks(words, 2)
+    for u in range(32):
+        units = [wt_transform_unit(u, lane) for lane in range(32)]
+        for i in range(4):
+            assert _phase_banks([unit[1][i] // 4 for unit in units], 1)
+        assert _phase_banks([unit[3] // 4 for unit in units], 4)
+    # Rows 8j + c and 8j + c + 4 for k c and c + 4 (the fragment's own
+    # order) would put each half-warp's A reads on 4 chunks twice over.
+    same_order = [(r * 128 + 16 * ((lane // 8) ^ (r % 8)) + 8 * ((lane // 4) % 2)) // 4
+                  for lane in range(32) for r in [lane % 4]]
+    assert not _phase_banks(same_order, 2)
+
+
+def _wgrad_f32_tma_product(xs, dy, sizes, zero_rows=True):
+    """The f32 TMA wgrad launch on the CPU: each (expert, 128-row K tile,
+    128-column N tile) tile's steps of WT_BR rows from its segment's start,
+    boxes of 32 columns as TMA loads them (the next group's rows, zeros
+    past M; a box wholly past K or N not loaded: stale), rows past the
+    segment zeroed in A and in B's tile (neither with zero_rows=False), the
+    sums of each WT_PROMOTE rows added to the totals, the totals stored
+    inside K and N; an empty expert's tiles as zeros."""
+    m, k_dim = xs.shape
+    n_cols = dy.shape[1]
+    stale = np.random.default_rng(9).integers(-50, 50, (WT_BR, 32)).astype(np.float64)
+    dw = np.full((len(sizes), k_dim, n_cols), np.nan)
+    k_tiles, n_tiles = -(-k_dim // BM), -(-n_cols // WT_BN)
+    for t in range(len(sizes) * k_tiles * n_tiles):
+        e, k0, n0 = wgrad_tile(t, k_tiles, n_tiles, WT_BN)
+        start, end = segment(sizes, m, e)
+        ks, ns = slice(k0, min(k0 + BM, k_dim)), slice(n0, min(n0 + WT_BN, n_cols))
+        assert np.all(np.isnan(dw[e, ks, ns]))
+        if start == end:
+            dw[e, ks, ns] = 0
+            continue
+        total = np.zeros((BM, WT_BN))
+        part = None
+        for s, r0 in enumerate(range(start, end, WT_BR)):
+            a = np.concatenate([_box(xs, r0, WT_BR, k0 + 32 * j, 32) if k0 + 32 * j < k_dim
+                                else stale for j in range(BM // 32)], axis=1)
+            b = np.concatenate([_box(dy, r0, WT_BR, n0 + 32 * j, 32) if n0 + 32 * j < n_cols
+                                else stale for j in range(WT_BN // 32)], axis=1)
+            if zero_rows:
+                a[max(end - r0, 0):] = 0
+                b[max(end - r0, 0):] = 0
+            with np.errstate(invalid="ignore"):
+                step = a.T @ b
+            part = step if s % (WT_PROMOTE // WT_BR) == 0 else part + step
+            if s % (WT_PROMOTE // WT_BR) == WT_PROMOTE // WT_BR - 1 or r0 + WT_BR >= end:
+                total += part
+        dw[e, ks, ns] = total[:ks.stop - k0, :ns.stop - n0]
+    return dw
+
+
+@pytest.mark.parametrize("case", ["ragged", "rows_past_the_groups", "over_full", "one_row",
+                                  "boundary", "empty_groups_small"])
+def test_wgrad_f32_tma_blocks_give_the_per_expert_products(case):
+    sizes, m = {"boundary": BOUNDARY,
+                "empty_groups_small": ([70, 0, 0, 30, 100, 0], 200)}.get(case) or CASES[case]
+    rng = np.random.default_rng(len(sizes) + m + 2)
+    k_dim, n_cols = 196, 300  # a K tile with a box past K, an N tile with a part box
+    xs = rng.integers(-4, 5, (m, k_dim)).astype(np.float64)
+    dy = rng.integers(-4, 5, (m, n_cols)).astype(np.float64)
+    want = _wgrad_reference(xs, dy, sizes)
+    np.testing.assert_array_equal(_wgrad_f32_tma_product(xs, dy, sizes), want)
+    if case == "boundary":  # the next group's rows would enter the sum
+        assert not np.array_equal(_wgrad_f32_tma_product(xs, dy, sizes, zero_rows=False), want)
+        # A neighbour's non-finite row meets only zeros: A's and B's both.
+        xs[BOUNDARY[0][0] + 1, 3] = np.inf
+        dy[BOUNDARY[0][0] + 1, 5] = np.inf
+        with np.errstate(invalid="ignore"):  # the neighbour's own sums
+            want = _wgrad_reference(xs, dy, sizes)
+        got = _wgrad_f32_tma_product(xs, dy, sizes)
+        assert np.isfinite(got[0]).all()
+        np.testing.assert_array_equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("grid", [1, 7, 132])
+@pytest.mark.parametrize("experts,k_dim,n_cols", [(8, 1024, 4096), (8, 4096, 1024), (3, 196, 300)])
+def test_wgrad_f32_tma_persistent_walk_takes_every_tile_once(grid, experts, k_dim, n_cols):
+    k_tiles, n_tiles = -(-k_dim // BM), -(-n_cols // WT_BN)
+    tiles = experts * k_tiles * n_tiles
+    taken = [wgrad_tile(t, k_tiles, n_tiles, WT_BN) for b in range(min(grid, tiles))
+             for t in range(b, tiles, grid)]
+    assert sorted(taken) == [(e, k0, n0) for e in range(experts) for k0 in range(0, k_dim, BM)
+                             for n0 in range(0, n_cols, WT_BN)]
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_wgrad_f32_tma_walk_takes_each_segment_row_once_in_order(case):
+    sizes, m = CASES[case]
+    for e, steps in enumerate(wgrad_walk(sizes, m, WT_BR)):
+        start, end = segment(sizes, m, e)
+        live = np.concatenate([rows[ok] for rows, ok in steps]) if steps else np.zeros(0, int)
+        np.testing.assert_array_equal(live, np.arange(start, end))
+        # Promotion intervals: whole steps, the last one possibly short.
+        assert len(steps) == -(-(end - start) // WT_BR)
+
+
+def test_wgrad_f32_tma_ring_buffers_and_registers_fit_the_sm():
+    assert gm.WT_SMEM == (1024 + WT_STAGES * WT_STAGE + 2 * 2 * WT_B_TILE
+                          + 2 * (WT_STAGES + 2) * 8) <= SMEM_OPT_IN
+    assert gm.WT_SMEM + SMEM_PER_BLOCK_RESERVED <= SMEM_PER_SM
+    # Every box and tile starts 1024-byte aligned (the 128-byte swizzle's
+    # period), and a box's rows are the swizzle's 128 bytes.
+    assert WT_BOX % 1024 == 0 and WT_STAGE % 1024 == 0 and WT_B_TILE % 1024 == 0
+    assert WT_B_BUFS % 1024 == 0 and 32 * 4 == 128
+    # The setmaxnreg split of the bf16 TMA kernels; a consumer thread holds
+    # the interval's m64n128 sums (64 f32), the totals (64) and two steps'
+    # A big and small parts (this step's and the next: 4 k8 steps x 4 x 2
+    # each).
+    assert gm.TMA_THREADS == 3 * 128
+    assert 64 * WT_BN // 128 * 2 + 2 * 4 * 4 * 2 < gm.CONSUMER_REGS
+    assert WT_PROMOTE % WT_BR == 0 and WT_BN == BM
