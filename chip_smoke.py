@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--out RESULTS.json] [--solver-only | --flash-only |
                                                  --control-only | --serving-only |
-                                                 --moe-only | --moe-train-only]
+                                                 --moe-only | --moe-train-only |
+                                                 --workloads-only]
 
 (`--solver-only` builds the auction kernel and runs phase 9 alone,
 `--flash-only` builds the flash block kernels and runs phases 2-3 alone,
@@ -11,7 +12,8 @@
 builds the flash block and int8 kernels and runs phase 11 alone,
 `--moe-only` builds the flash block, int8 and grouped kernels and runs
 phase 12 alone, `--moe-train-only` builds the flash block and grouped
-kernels and runs phase 13 alone; none of them prints the result line.) Phases, in order; any failure exits
+kernels and runs phase 13 alone, `--workloads-only` builds the flash block
+kernels and runs phase 14 alone; none of them prints the result line.) Phases, in order; any failure exits
 non-zero before the result line:
   1. the card's name and power limit (nvidia-smi); TF32 off;
   2. build every CUDA kernel from this checkout (one nvcc per source, all
@@ -189,7 +191,27 @@ non-zero before the result line:
      dgrad's and wgrad's grouped device time; and a small f32 MoE config's
      step on the card against the CPU's (its launches count the f32
      backward kernels' entries);
- 14. one `kernels` JSON line, then the result line
+ 14. the remaining workload kinds, in a process of its own
+     (`--workloads-only`), each on the card against the port's CPU path:
+     `train_workload` of kind mlp (mlp-checkpoint.yaml's widths), and a
+     payload with no kind (the reference's default, mlp); mlp-checkpoint.yaml's
+     payload through the port's `WorkloadRunner` over a stand-in cluster
+     (`StandInCluster`: a failed child job restarts the gang while
+     maxRestarts allows): it fails at step 5, the gang restarts, the rerun
+     resumes from step 4's checkpoint and completes, and its final-loss
+     annotation equals the CPU's; `train_workload` of kind cnn at the
+     runner's default payload (B=8, 32x32, bf16) and a small f32 CNN's
+     step (loss and every gradient leaf, cuDNN's TF32 off); the default
+     CNNConfig on CIFAR-10's shape at B=128 (He et al. 2016, sec. 4.2):
+     median step of 20 after 3, images/s, FLOPs a step from the conv
+     shapes, MFU against 989 TFLOP/s, peak memory and a torch.profiler
+     trace of one warm step; the dense flagship's train step (B=8,
+     T=1024, remat off, phase 7's inputs) under adafactor beside adam:
+     median step, peak memory, the optimizer state's bytes, the update's
+     own device time in a trace, 8 flash launches a step; and a small f32
+     LM's two adafactor steps (factored and unfactored leaves). No flash
+     launch on the mlp and cnn paths;
+ 15. one `kernels` JSON line, then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 The flagship is the repo's training/decode bench config: vocab 32000,
@@ -208,6 +230,7 @@ import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace as NS
 
 import numpy as np
 import torch
@@ -3854,6 +3877,401 @@ def phase_moe_train_apart(results, baseline=None):
     return train.get("moe_train_kernels") or []
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the remaining workload kinds (mlp, cnn), adafactor and the
+# simulator's WorkloadRunner
+# ---------------------------------------------------------------------------
+
+# examples/training/mlp-checkpoint.yaml's payload (its checkpoint_dir is
+# set per run) and failure policy.
+MLP_CHECKPOINT_PAYLOAD = {"kind": "mlp", "steps": 10, "checkpoint_every": 2, "fail_at_step": 5,
+                          "config": {"d_in": 8, "d_hidden": 32, "d_out": 4}}
+MLP_CHECKPOINT_MAX_RESTARTS = 2
+# The card's f32 paths against the CPU's (no TF32 in cuBLAS or cuDNN): the
+# MLP's losses over its steps, rtol 1e-4 (f32 sums in another order, carried
+# through adam's steps); the runner's final-loss annotation (6 decimals) the
+# same. The default CNN payload is bf16: its losses within 2e-2 relative
+# (cuDNN and the CPU round each bf16 convolution's output apart; on the CPU
+# the payload's four losses in bf16 and in f32 differ by at most 4.1e-3).
+# The mlp and cnn kinds draw their parameters on a CPU generator, so both
+# runs start from the same weights.
+WORKLOAD_F32_REL, CNN_BF16_LOSS_REL = 1e-4, 2e-2
+# He et al., "Deep Residual Learning for Image Recognition" (2016), sec.
+# 4.2: CIFAR-10 (32x32x3, 10 classes) at a mini-batch of 128.
+CNN_BATCH, CNN_IMAGE, CNN_WARMUP, CNN_STEPS = 128, 32, 3, 20
+ADAFACTOR_WARMUP, ADAFACTOR_STEPS = 3, 20
+
+
+class StandInCluster:
+    """The control plane as far as `WorkloadRunner` reads it, for one JobSet
+    of one replicated job (the card's machine has no `jobset_tpu`): `pods`,
+    `jobsets`, `jobs_for_jobset`, `fail_job`, `complete_all_jobs` and
+    `run_until_stable`. Its failure policy is the JobSet controller's: a
+    failed child job restarts the gang (every job and pod recreated Running
+    and Ready, `status.restarts` + 1) while restarts < max_restarts, and
+    otherwise fails the JobSet; completing every child job completes it."""
+
+    JOBSET_NAME_KEY = "jobset.sigs.k8s.io/jobset-name"
+
+    def __init__(self, name, payload, replicas=1, parallelism=1, max_restarts=2):
+        pod_spec = NS(workload=payload)
+        job_spec = NS(parallelism=parallelism, template=NS(spec=pod_spec),
+                      pods_expected=lambda: parallelism)
+        self.js = NS(name=name, namespace="default",
+                     metadata=NS(uid=f"uid-{name}", annotations={}, namespace="default",
+                                 name=name),
+                     spec=NS(replicated_jobs=[NS(name="trainer", replicas=replicas,
+                                                 template=NS(spec=job_spec))]),
+                     status=NS(terminal_state="", restarts=0))
+        self.jobsets = {("default", name): self.js}
+        self.replicas, self.parallelism, self.max_restarts = replicas, parallelism, max_restarts
+        self.log: list[str] = []
+        self._create_gang()
+
+    def _create_gang(self):
+        js = self.js
+        self.jobs = [NS(metadata=NS(namespace="default", name=f"{js.name}-trainer-{i}"))
+                     for i in range(self.replicas)]
+        self.pods = {("default", f"{job.metadata.name}-{p}-r{js.status.restarts}"): NS(
+            annotations={self.JOBSET_NAME_KEY: js.name}, metadata=NS(namespace="default"),
+            status=NS(phase="Running", ready=True))
+            for job in self.jobs for p in range(self.parallelism)}
+
+    def jobs_for_jobset(self, js):
+        return list(self.jobs) if js is self.js else []
+
+    def fail_job(self, namespace, name):
+        js = self.js
+        self.log.append(f"job {name} failed at restart {js.status.restarts}")
+        if js.status.restarts < self.max_restarts:
+            js.status.restarts += 1
+            self._create_gang()
+            self.log.append(f"gang restarted (restarts {js.status.restarts})")
+        else:
+            js.status.terminal_state = "Failed"
+            self.pods = {}
+            self.log.append("JobSet Failed")
+
+    def complete_all_jobs(self, js):
+        js.status.terminal_state = "Completed"
+        self.pods = {}
+        self.log.append("JobSet Completed")
+
+    def run_until_stable(self):
+        return 0
+
+
+def mlp_checkpoint_sequence(device, checkpoint_dir) -> dict:
+    """mlp-checkpoint.yaml's payload through the port's `WorkloadRunner` on
+    `device`, over `StandInCluster`: the first incarnation fails at step 5,
+    the gang restarts, the rerun resumes from step 4's checkpoint and the
+    JobSet completes. Returns what each `run_pending` ran, the cluster's
+    log, the final state, the latest checkpoint and the annotations."""
+    from jobset_tpu_torch.runtime import WorkloadRunner
+    from jobset_tpu_torch.runtime.checkpoint import Checkpointer
+
+    payload = dict(MLP_CHECKPOINT_PAYLOAD, checkpoint_dir=checkpoint_dir)
+    cluster = StandInCluster("mlp-checkpoint", payload, max_restarts=MLP_CHECKPOINT_MAX_RESTARTS)
+    runner = WorkloadRunner(cluster, device)
+    ready = runner.gang_ready(cluster.js)
+    first = runner.run_pending()
+    after_first = (cluster.js.status.restarts, cluster.js.status.terminal_state)
+    latest_after_failure = Checkpointer(checkpoint_dir).latest_step()
+    second = runner.run_pending()
+    third = runner.run_pending()  # ran for this incarnation: nothing more
+    return {"gang_ready": ready, "ran": [first, second, third], "after_first": after_first,
+            "checkpoint_after_failure": latest_after_failure,
+            "latest_step": Checkpointer(checkpoint_dir).latest_step(),
+            "restarts": cluster.js.status.restarts,
+            "terminal_state": cluster.js.status.terminal_state,
+            "annotations": dict(cluster.js.metadata.annotations), "log": cluster.log}
+
+
+def cnn_conv_flops(cfg, image: int) -> float:
+    """Forward FLOPs of one image through the CNN, from its conv shapes (2
+    per multiply-add; "SAME" outputs of ceil(size / stride)) and the head;
+    GroupNorm, ReLU, the residual adds and the pooling are left out."""
+    total, size = 2.0 * image * image * 9 * cfg.in_channels * cfg.widths[0], image
+    cin = cfg.widths[0]
+    for s, width in enumerate(cfg.widths):
+        for b in range(cfg.blocks_per_stage):
+            stride = 2 if (b == 0 and s > 0) else 1
+            out = -(-size // stride)
+            c1 = cin if b == 0 else width
+            total += 2.0 * out * out * 9 * c1 * width + 2.0 * out * out * 9 * width * width
+            if b == 0 and (s > 0 or cin != width):
+                total += 2.0 * out * out * cin * width
+            size = out
+        cin = width
+    return total + 2.0 * cfg.widths[-1] * cfg.num_classes
+
+
+def state_bytes(state) -> int:
+    from jobset_tpu_torch import tree
+
+    return sum(t.numel() * t.element_size() for t in tree.leaves(state) if torch.is_tensor(t))
+
+
+def median_step_ms(step, params, state, batch, warmup, steps):
+    """Run warmup + steps train steps, each synchronized; (median ms of the
+    timed ones, their range, losses, params, state)."""
+    times, losses = [], []
+    for i in range(warmup + steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, batch)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    times.sort()
+    return times[len(times) // 2], (times[0], times[-1]), losses, params, state
+
+
+def phase_workloads_mlp(results):
+    import tempfile
+
+    from jobset_tpu_torch.runtime import runner
+
+    payload = dict(MLP_CHECKPOINT_PAYLOAD, steps=20)
+    payload.pop("fail_at_step")
+    payload.pop("checkpoint_every")
+    reset_launches()
+    card = runner.train_workload(payload, "cuda")
+    flash = launches_now()["KERNEL_LAUNCHES"]
+    cpu = runner.train_workload(payload, "cpu")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    check(len(card) == 20 and rel <= WORKLOAD_F32_REL and card[-1] < card[0],
+          f"mlp train_workload (mlp-checkpoint widths, 20 steps): card losses within "
+          f"{WORKLOAD_F32_REL} of the CPU's (worst {rel:.2e}), {card[0]:.4f} -> {card[-1]:.4f}")
+    check(flash == 0, f"mlp train_workload: no flash launch ({flash})")
+    default = runner.train_workload({"steps": 3}, "cuda")  # no kind: the reference's "mlp"
+    check(len(default) == 3 and all(np.isfinite(default)),
+          f"a payload with no kind trains the default mlp: {[round(l, 4) for l in default]}")
+    results["mlp_losses"] = {"card": list(card), "cpu": list(cpu), "worst_rel": rel}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        seq = mlp_checkpoint_sequence("cuda", os.path.join(tmp, "card"))
+        flash = launches_now()["KERNEL_LAUNCHES"]
+        ref = mlp_checkpoint_sequence("cpu", os.path.join(tmp, "cpu"))
+    for line in seq["log"]:
+        print(f"  WorkloadRunner on the card: {line}", flush=True)
+    final = float(seq["annotations"].get("tpu.jobset.x-k8s.io/final-loss", "nan"))
+    want = float(ref["annotations"].get("tpu.jobset.x-k8s.io/final-loss", "nan"))
+    check(seq["gang_ready"] and seq["ran"] == [["mlp-checkpoint"], ["mlp-checkpoint"], []]
+          and seq["after_first"] == (1, "") and seq["checkpoint_after_failure"] == 4
+          and seq["latest_step"] == 10 and seq["terminal_state"] == "Completed",
+          f"WorkloadRunner, mlp-checkpoint.yaml on the card: fails at step 5 with step 4 "
+          f"checkpointed ({seq['checkpoint_after_failure']}), the gang restarts "
+          f"({seq['after_first']}), the rerun resumes and completes (latest step "
+          f"{seq['latest_step']}, {seq['terminal_state']}), one run an incarnation "
+          f"({seq['ran']})")
+    check(abs(final - want) <= WORKLOAD_F32_REL * abs(want) + 1e-6 and ref["terminal_state"]
+          == "Completed", f"WorkloadRunner: final-loss annotation {final} on the card vs "
+          f"{want} on the CPU")
+    check(flash == 0, f"WorkloadRunner mlp: no flash launch ({flash})")
+    results["workload_runner"] = {"card": seq, "cpu": ref}
+
+
+def phase_workloads_cnn(results):
+    from jobset_tpu_torch import tree
+    from jobset_tpu_torch.models import cnn
+    from jobset_tpu_torch.runtime import optim, runner
+
+    card_name = results["card"]
+    # The runner's default cnn payload: the default CNNConfig (bf16 over
+    # f32 params), B=8, 32x32 images.
+    payload = {"kind": "cnn", "steps": 4}
+    reset_launches()
+    card = runner.train_workload(payload, "cuda")
+    flash = launches_now()["KERNEL_LAUNCHES"]
+    cpu = runner.train_workload(payload, "cpu")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    check(len(card) == 4 and all(np.isfinite(card)) and rel <= CNN_BF16_LOSS_REL,
+          f"cnn train_workload, default payload (B=8, 32x32, bf16): card losses within "
+          f"{CNN_BF16_LOSS_REL} of the CPU's (worst {rel:.2e}): {[round(l, 4) for l in card]}")
+    check(flash == 0, f"cnn train_workload: no flash launch ({flash})")
+    results["cnn_default_losses"] = {"card": list(card), "cpu": list(cpu), "worst_rel": rel}
+
+    # A small f32 config's step, card against CPU (cuDNN's TF32 off).
+    small = cnn.CNNConfig(widths=(16, 32), blocks_per_stage=1, groups=4, dtype=torch.float32)
+    params = cnn.init_params(small, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(6)
+    batch = {"images": rng.standard_normal((8, 16, 16, 3)).astype(np.float32),
+             "labels": rng.integers(0, 10, (8,))}
+
+    def sgd_cnn_step(p, device):
+        opt = optim.sgd(1.0)
+        new, _, loss = cnn.build_train_step(small, opt, device)(p, opt.init(p), batch)
+        return float(loss), [a - b for a, b in zip(tree.leaves(p), tree.leaves(new))]
+
+    check(not torch.backends.cudnn.allow_tf32, "cnn f32 check: cuDNN's TF32 is off")
+    compare_step("small f32 cnn train step, card vs CPU",
+                 sgd_cnn_step(tree.tree_map(lambda t: t.cuda(), params), "cuda"),
+                 sgd_cnn_step(params, "cpu"), F32_LOSS_REL, F32_GRAD_REL)
+
+    # At a real size: the default CNNConfig on CIFAR-10's shape at B=128.
+    cfg = cnn.CNNConfig()
+    params = cnn.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    opt = optim.adam(1e-3)
+    step = cnn.build_train_step(cfg, opt, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    batch = {"images": torch.randn((CNN_BATCH, CNN_IMAGE, CNN_IMAGE, cfg.in_channels),
+                                   generator=gen, device="cuda"),
+             "labels": torch.randint(0, cfg.num_classes, (CNN_BATCH,), generator=gen,
+                                     device="cuda")}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    median, (lo, hi), losses, params, state = median_step_ms(
+        step, params, opt.init(params), batch, CNN_WARMUP, CNN_STEPS)
+    flash = launches_now()["KERNEL_LAUNCHES"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    flops = 3.0 * cnn_conv_flops(cfg, CNN_IMAGE) * CNN_BATCH
+    mfu = flops / (median / 1e3) / BF16_FLOPS
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0] and flash == 0,
+          f"cnn B={CNN_BATCH} {CNN_IMAGE}x{CNN_IMAGE}: every loss finite, {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, no flash launch ({flash})")
+    print(f"cnn train step, default CNNConfig (widths 32/64/128, 2 blocks a stage, GroupNorm 8, "
+          f"bf16 over f32) B={CNN_BATCH} {CNN_IMAGE}x{CNN_IMAGE}x3, adam: median of {CNN_STEPS} "
+          f"{median:.3f} ms ({lo:.3f}-{hi:.3f}), {CNN_BATCH / median * 1e3:.1f} images/s, "
+          f"{flops / 1e9:.2f} GFLOP a step ({cnn_conv_flops(cfg, CNN_IMAGE) / 1e9:.4f} GFLOP an "
+          f"image forward, x3 to train), {flops / (median / 1e3) / 1e12:.2f} TFLOP/s, MFU "
+          f"{mfu:.2%} of {BF16_FLOPS / 1e12:.0f} TFLOP/s, peak memory {peak_gb:.3f} GB "
+          f"(information; {card_name})", flush=True)
+    holder = {}
+
+    def one_step():
+        holder["out"] = step(params, state, batch)
+
+    trace = traced(one_step, f"cnn train step (B={CNN_BATCH}, {CNN_IMAGE}x{CNN_IMAGE}, adam)")
+    results["cnn_bench"] = {"batch": CNN_BATCH, "image": CNN_IMAGE, "step_ms_median": median,
+                            "step_ms_range": [lo, hi], "images_per_s": CNN_BATCH / median * 1e3,
+                            "gflop_per_step": flops / 1e9, "mfu": mfu, "peak_memory_gb": peak_gb,
+                            "losses": losses, "flash_launches": flash, "trace": trace}
+    del params, state, holder, step, batch
+    torch.cuda.empty_cache()
+
+
+def phase_workloads_adafactor(results):
+    from jobset_tpu_torch import tree
+    from jobset_tpu_torch.models import TransformerConfig, build_train_step, init_params
+    from jobset_tpu_torch.runtime import optim
+
+    card_name = results["card"]
+    cfg = flagship_config()
+    batch = token_batch(cfg.vocab_size, BATCH, PROMPT, seed=3)  # phase 7's inputs
+    runs = {}
+    for name, opt in (("adam", optim.adam(1e-3)), ("adafactor", optim.adafactor(1e-3))):
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+        state = opt.init(params)
+        nbytes = state_bytes(state)
+        step = build_train_step(cfg, opt)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        median, (lo, hi), losses, params, state = median_step_ms(
+            step, params, state, batch, ADAFACTOR_WARMUP, ADAFACTOR_STEPS)
+        n = ADAFACTOR_WARMUP + ADAFACTOR_STEPS
+        counts = launches_now()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(counts["KERNEL_LAUNCHES"] == LAYERS * n
+              and counts["TENSOR_CORE_LAUNCHES"] == LAYERS * n,
+              f"flagship train step, {name}: {LAYERS} flash launches a step, all on the "
+              f"tensor-core variant ({counts} over {n} steps)")
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"flagship train step, {name}: every loss finite, {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}")
+        print(f"flagship train step B={BATCH} T={PROMPT} (remat off), {name} 1e-3: median of "
+              f"{ADAFACTOR_STEPS} {median:.3f} ms ({lo:.3f}-{hi:.3f}), peak memory "
+              f"{peak_gb:.3f} GB, optimizer state {nbytes / 1e6:.3f} MB (information; "
+              f"{card_name})", flush=True)
+        # The update's own device time: one traced optimizer update on a
+        # step's gradients (sgd at lr 1 gives them as p - p').
+        sgd = optim.sgd(1.0)
+        new, _, _ = build_train_step(cfg, sgd)(params, sgd.init(params), batch)
+        grads = tree.tree_map(lambda p, q: p - q, params, new)
+        del new
+        update = traced(lambda: opt.update(grads, state, params),
+                        f"{name} update alone (flagship, {sum(t.numel() for t in tree.leaves(params)) / 1e6:.1f} M params)")
+        holder = {}
+
+        def one_step():
+            holder["out"] = step(params, state, batch)
+
+        trace = traced(one_step, f"flagship train step, {name}")
+        runs[name] = {"step_ms_median": median, "step_ms_range": [lo, hi],
+                      "peak_memory_gb": peak_gb, "state_bytes": nbytes, "losses": losses,
+                      "launches": counts, "update_trace": update, "step_trace": trace}
+        del params, state, grads, holder, step
+        torch.cuda.empty_cache()
+    results["adafactor_vs_adam"] = runs
+    ratio = runs["adafactor"]["state_bytes"] / runs["adam"]["state_bytes"]
+    check(ratio < 0.01, f"adafactor's state is {ratio:.2e} of adam's "
+          f"({runs['adafactor']['state_bytes']} vs {runs['adam']['state_bytes']} bytes)")
+
+    # A small f32 config with factored and unfactored leaves: two adafactor
+    # steps on the card against the CPU.
+    small = TransformerConfig(vocab_size=256, d_model=128, n_heads=4, d_ff=256, n_layers=2,
+                              dtype=torch.float32, remat=False)
+    params = init_params(small, torch.Generator().manual_seed(0), "cpu")
+    factored = [tuple(p.shape) for p in tree.leaves(params)
+                if optim.factored_dims(p.shape) is not None]
+    batches = [token_batch(256, 4, 32, seed=8 + i, device="cpu") for i in range(2)]
+
+    def two_steps(p, device):
+        opt = optim.adafactor(1e-2)
+        step, state, losses = build_train_step(small, opt, device=device), opt.init(p), []
+        for b in batches:
+            p, state, loss = step(p, state, {k: t.to(device) for k, t in b.items()})
+            losses.append(float(loss))
+        return losses, p
+
+    start = tree.leaves(params)
+    card_losses, card_params = two_steps(tree.tree_map(lambda t: t.cuda(), params), "cuda")
+    cpu_losses, cpu_params = two_steps(params, "cpu")
+    rels = [((c.cpu() - s) - (w - s)).norm().item() / max((w - s).norm().item(), 1e-30)
+            for c, w, s in zip(tree.leaves(card_params), tree.leaves(cpu_params), start)]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+    check(factored and len(factored) < len(start) and loss_rel <= F32_LOSS_REL
+          and max(rels) <= F32_GRAD_REL,
+          f"small f32 LM, two adafactor steps, card vs CPU: losses within {F32_LOSS_REL} "
+          f"(worst {loss_rel:.2e}), each leaf's move within {F32_GRAD_REL} in relative norm "
+          f"(worst {max(rels):.2e}; {len(factored)} of {len(start)} leaves factored)")
+
+
+def phase_workloads(results):
+    """Phase 14: the mlp and cnn workload kinds, adafactor and the
+    simulator's WorkloadRunner on the card, each against the port's CPU
+    path; the CNN at a real size; adafactor beside adam on the flagship."""
+    phase_workloads_mlp(results)
+    phase_workloads_cnn(results)
+    phase_workloads_adafactor(results)
+
+
+def phase_workloads_apart(results):
+    """Phase 14 in a process of its own (`--workloads-only`)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "workloads.json")
+        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--workloads-only",
+                              "--out", path], capture_output=True, text=True, timeout=900)
+        print(run.stdout, end="", flush=True)
+        if run.returncode != 0:
+            print(run.stderr[-4000:], file=sys.stderr, flush=True)
+        check(run.returncode == 0 and os.path.exists(path),
+              f"phase 14 in a process of its own exits {run.returncode}")
+        if not os.path.exists(path):
+            return
+        with open(path) as f:
+            workloads = json.load(f)
+    for key in ("mlp_losses", "workload_runner", "cnn_default_losses", "cnn_bench",
+                "adafactor_vs_adam"):
+        results[key] = workloads.get(key)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the results as JSON to this file")
@@ -3875,6 +4293,9 @@ def main() -> int:
     only.add_argument("--moe-train-only", action="store_true",
                       help="build the flash block and grouped kernels and run phase 13 "
                            "(mixture-of-experts training) alone (no result line)")
+    only.add_argument("--workloads-only", action="store_true",
+                      help="build the flash block kernels and run phase 14 (the mlp and cnn "
+                           "workload kinds, adafactor, WorkloadRunner) alone (no result line)")
     parser.add_argument("--int8-baseline", metavar="DIR",
                         help="another checkout of this repo (the parent commit): phase 11 "
                              "also times its int8 kernel on the same inputs")
@@ -3912,7 +4333,8 @@ def main() -> int:
         return 1 if FAILURES else 0
 
     t0 = time.perf_counter()
-    sources = (["auction"] if args.solver_only else ["flash_block"] if args.flash_only
+    sources = (["auction"] if args.solver_only
+               else ["flash_block"] if args.flash_only or args.workloads_only
                else ["flash_block", "int8_matmul"] if args.serving_only
                else ["flash_block", "int8_matmul", "grouped_matmul"] if args.moe_only
                else ["flash_block", "grouped_matmul"] if args.moe_train_only
@@ -3931,6 +4353,17 @@ def main() -> int:
         results["grouped_ptxas"] = kernel_ptxas(
             cuda_build.BUILD_LOG["grouped_matmul"],
             r"grouped_(?:mm|wgrad)_(?:bf16|f32|tma|f32_tma)_kernel", "grouped kernel")
+    if args.workloads_only:
+        phase_workloads(results)
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump(results, f, indent=1)
+        print(f"chip_smoke --workloads-only: {len(FAILURES)} check(s) failed, "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        for what in FAILURES:
+            print(f"  FAILED: {what}", flush=True)
+        return 1 if FAILURES else 0
     if args.moe_train_only:
         results["grouped_sass"] = grouped_sass(libraries["grouped_matmul"])
         results["moe_train_kernels"] = phase_moe_train(results, args.grouped_baseline)
@@ -4037,6 +4470,13 @@ def main() -> int:
     int8_kernel = phase_serving_apart(results, args.int8_baseline)
     grouped_kernels = phase_moe_apart(results, args.grouped_baseline)
     grouped_kernels += phase_moe_train_apart(results, args.grouped_baseline)
+    phase_workloads_apart(results)
+    adafactor_counts = ((results.get("adafactor_vs_adam") or {}).get("adafactor") or {}).get(
+        "launches") or {}
+    for kernel in kernels:
+        if kernel["name"] in counters:
+            # Phase 14's flagship steps under adafactor (23 steps).
+            kernel["adafactor_train_launches"] = adafactor_counts.get(counters[kernel["name"]])
     if int8_kernel is not None:
         int8_kernel["ptxas"] = results.get("int8_ptxas")
         # The expert axis (phase 12): its checks and times, and the MoE

@@ -1,5 +1,5 @@
-"""Convert a JAX parameter tree, given as nested dicts of numpy arrays,
-into the port's tensors. The caller does the `np.asarray` on the JAX side;
+"""Convert a JAX parameter tree, given as nested dicts and lists of numpy
+arrays, into the port's tensors. The caller does the `np.asarray` on the JAX side;
 this module imports no JAX. A node with `q` and `scale` (the JAX
 package's `QuantizedTensor`, after `jax.tree.map(np.asarray, ...)`)
 becomes the port's `QuantizedTensor`.
@@ -24,6 +24,8 @@ def _leaf(a) -> torch.Tensor:
 def _node(v, device):
     if isinstance(v, dict):
         return params_from_jax(v, device)
+    if isinstance(v, (list, tuple)):
+        return [_node(item, device) for item in v]
     if hasattr(v, "q") and hasattr(v, "scale"):
         return QuantizedTensor(_leaf(v.q).to(device), _leaf(v.scale).to(device))
     return _leaf(v).to(device)

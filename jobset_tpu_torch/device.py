@@ -18,6 +18,17 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def check_one_device(mesh_shape) -> None:
+    """A mesh (axis -> size, as a payload's `mesh` names it) may have only
+    axes of size 1: the port runs on one device so far."""
+    for axis, size in (mesh_shape or {}).items():
+        if int(size) != 1:
+            raise NotImplementedError(
+                f"mesh axis {axis}={size}: the port runs on one device "
+                "(every mesh axis 1) so far"
+            )
+
+
 def backend_label() -> str:
     """The torch backend a health or build-info report names, without
     bringing the card up: "unloaded" while CUDA has not been initialized

@@ -1,5 +1,6 @@
 """The flagship transformer's forward, serving path (greedy or sampled,
-bf16 or int8) and single-device training step in PyTorch."""
+bf16 or int8) and single-device training step in PyTorch; the `mlp` and
+`cnn` workload kinds' models in `models.mlp` and `models.cnn`."""
 
 from .decode import build_generate
 from .quant import quantize_params_for_serving

@@ -45,7 +45,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from .. import tree
-from ..device import resolve_device
+from ..device import check_one_device, resolve_device
 from ..ops.flash_block import MAX_HEAD_DIM
 from ..ops.grouped_matmul import grouped_matmul
 from ..parallel.ring_attention import ring_attention
@@ -111,12 +111,7 @@ class TransformerConfig:
         """Reject what the port cannot run: bad widths and MoE settings (the
         reference's rules at ep = 1), and every setting it has not ported
         (any mesh axis > 1, Ulysses, pipelines)."""
-        for axis, size in (mesh_shape or {}).items():
-            if size != 1:
-                raise NotImplementedError(
-                    f"mesh axis {axis}={size}: the port runs on one device "
-                    "(every mesh axis 1) so far"
-                )
+        check_one_device(mesh_shape)
         if self.d_model % self.n_heads:
             raise ValueError("d_model must divide evenly into heads")
         if self.n_heads % self.kv_heads:
@@ -713,8 +708,7 @@ def build_train_step(config: TransformerConfig, optimizer, accum_steps: int = 1,
         else:
             loss, grads = loss_and_grads(params, inputs, targets, mask)
         updates, opt_state = optimizer.update(tree.rebuild(params, grads), opt_state, params)
-        new_params = tree.tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
-        return new_params, opt_state, loss
+        return tree.apply_updates(params, updates), opt_state, loss
 
     return train_step
 

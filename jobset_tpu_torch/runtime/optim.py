@@ -182,3 +182,104 @@ def sgd(learning_rate: LearningRate, momentum: Optional[float] = None) -> Optimi
         return tree.rebuild(grads, updates), new_state
 
     return Optimizer(init, update)
+
+
+# ---------------------------------------------------------------------------
+# Adafactor (optax.adafactor with its defaults)
+# ---------------------------------------------------------------------------
+
+# optax.adafactor's defaults: second moments factored where the two largest
+# dims are both at least 128, decay 1 - (count + 1)**-0.8, eps added to g^2,
+# updates clipped to block RMS 1, scaled by the parameter's block RMS
+# (at least 1e-3).
+ADAFACTOR_MIN_DIM_TO_FACTOR = 128
+ADAFACTOR_DECAY_EXPONENT = 0.8
+ADAFACTOR_EPS = 1e-30
+ADAFACTOR_CLIP = 1.0
+ADAFACTOR_MIN_PARAM_SCALE = 1e-3
+
+
+def factored_dims(shape) -> Optional[tuple[int, int]]:
+    """optax's `_factored_dims`: (second-largest axis, largest axis) by
+    `np.argsort` (so ties pick the axes optax picks), or None where the
+    leaf has fewer than 2 dims or its second-largest is below 128."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < ADAFACTOR_MIN_DIM_TO_FACTOR:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def _decay(count: int) -> tuple[float, float]:
+    """(d, 1 - d) for d = 1 - (count + 1)**-0.8, evaluated in f32 as optax
+    does."""
+    d = np.float32(1) - np.float32(count + 1) ** np.float32(-ADAFACTOR_DECAY_EXPONENT)
+    return float(d), float(np.float32(1) - d)
+
+
+def _block_rms(x: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.mean(x * x))
+
+
+def adafactor(learning_rate: LearningRate) -> Optimizer:
+    """optax.adafactor(learning_rate) with its defaults: the chain
+    scale_by_factored_rms, clip_by_block_rms(1), the learning rate,
+    scale_by_param_block_rms(1e-3), scale(-1).
+
+    A factored leaf keeps v_row (the mean of g^2 + eps over its largest
+    axis) and v_col (over its second-largest), and v of shape (1,); any
+    other leaf keeps a full v and (1,)-shaped v_row and v_col, as optax's
+    state does. A stacked leaf ([1, layers, ...]) is one block: both block
+    RMSs run over all its layers at once, as optax runs them over the JAX
+    package's stacked tree."""
+
+    def init(params):
+        rows, cols, full = [], [], []
+        for p in tree.leaves(params):
+            one = p.new_zeros(1)
+            dims = factored_dims(p.shape)
+            if dims is None:
+                rows.append(one)
+                cols.append(one.clone())
+                full.append(torch.zeros_like(p))
+            else:
+                d1, d0 = dims
+                rows.append(p.new_zeros([s for i, s in enumerate(p.shape) if i != d0]))
+                cols.append(p.new_zeros([s for i, s in enumerate(p.shape) if i != d1]))
+                full.append(one.clone())
+        return {"count": 0, "v_row": tree.rebuild(params, rows),
+                "v_col": tree.rebuild(params, cols), "v": tree.rebuild(params, full)}
+
+    def update(grads, state, params):
+        count = state["count"]
+        keep, take = _decay(count)
+        lr = _lr(learning_rate, count)
+        new_rows, new_cols, new_full, updates = [], [], [], []
+        for g, p, v_row, v_col, v in zip(tree.leaves(grads), tree.leaves(params),
+                                         tree.leaves(state["v_row"]),
+                                         tree.leaves(state["v_col"]), tree.leaves(state["v"])):
+            g_sq = g * g + ADAFACTOR_EPS
+            dims = factored_dims(p.shape)
+            if dims is None:
+                v = keep * v + take * g_sq
+                u = g * v.rsqrt()
+            else:
+                d1, d0 = dims
+                v_row = keep * v_row + take * g_sq.mean(dim=d0)
+                v_col = keep * v_col + take * g_sq.mean(dim=d1)
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)).rsqrt()
+                u = g * row_factor.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1)
+            u = u / torch.clamp(_block_rms(u) / ADAFACTOR_CLIP, min=1.0)
+            u = u * lr
+            u = u * torch.clamp(_block_rms(p), min=ADAFACTOR_MIN_PARAM_SCALE)
+            new_rows.append(v_row)
+            new_cols.append(v_col)
+            new_full.append(v)
+            updates.append(-u)
+        new_state = {"count": count + 1, "v_row": tree.rebuild(grads, new_rows),
+                     "v_col": tree.rebuild(grads, new_cols), "v": tree.rebuild(grads, new_full)}
+        return tree.rebuild(grads, updates), new_state
+
+    return Optimizer(init, update)

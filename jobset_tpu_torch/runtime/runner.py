@@ -1,29 +1,35 @@
-"""The LM workload's training engine on one device: the counterpart of
-`jobset_tpu/runtime/runner.py::train_workload` and what it runs.
+"""The workload plane's training engine on one device: the counterpart of
+`jobset_tpu/runtime/runner.py` (`train_workload`, what it runs, and the
+simulator's `WorkloadRunner`).
 
 Workload payload (a pod template's `spec.workload`), as the JAX package
 reads it:
-    {"kind": "lm",
-     "steps": 20, "batch_size": 4, "seq_len": 16,
+    {"kind": "lm" | "mlp" | "cnn",  # model family; "mlp" when absent
+     "steps": 20, "batch_size": 4, "seq_len": 16, "image_size": 32,
      "checkpoint_every": 5, "checkpoint_dir": "...",   # 0 = none
      "fail_at_step": 7,            # raise once, on restart attempt 0
      "eval_every": 0, "eval_steps": 2,
      "data": {"path": "...", "val_path": "...", "dtype": "uint16", "seed": 0},
-     "optimizer": "adamw", "learning_rate": 1e-3, "weight_decay": 1e-4,
+     "optimizer": "adamw" | "adam" | "sgd" | "adafactor",
+     "learning_rate": 1e-3, "weight_decay": 1e-4,
      "momentum": null, "lr_schedule": "constant" | "cosine", "warmup_steps": 0,
      "accum_steps": 1,
      "profile_dir": "...",         # a torch.profiler trace of the run
-     "config": {...}}              # TransformerConfig overrides
+     "config": {...}}              # model config overrides
 
-Compute runs in f32 unless the config names another dtype ("float32" or
-"bfloat16" as a JSON string). Synthetic batches (no data.path) come from
-np.random.default_rng((17, step)), eval batches from (29, ...), so a
-resumed run sees what an uninterrupted one would. A restart resumes from
-the latest checkpoint.
+An LM computes in f32 unless the config names another dtype ("float32" or
+"bfloat16" as a JSON string; a CNN config may name one too). LM synthetic
+batches (no data.path) come from np.random.default_rng((17, step)), eval
+batches from (29, ...), so a resumed run sees what an uninterrupted one
+would. The "mlp" and "cnn" streams are the reference's: one
+np.random.default_rng(0) per run, drawn in step order (the MLP draws its
+true weights first), so a resumed run restarts the stream from its start.
+Their parameters (under a million) are drawn from a CPU generator seeded 0
+whatever the device, so a run on the card starts where the CPU's does; an
+LM's are drawn on the device's own generator. A restart resumes from the
+latest checkpoint.
 
-Not ported yet: the "mlp" and "cnn" kinds, ZeRO-1, any mesh axis > 1,
-adafactor, and the simulator's `WorkloadRunner` (it needs the control
-plane's Cluster).
+Not ported yet: ZeRO-1 and any mesh axis > 1.
 """
 
 from __future__ import annotations
@@ -34,7 +40,8 @@ import os
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import check_one_device, resolve_device
+from ..models import cnn, mlp
 from ..models.transformer import (
     TransformerConfig,
     build_eval_step,
@@ -73,7 +80,7 @@ def make_learning_rate(workload: dict, default_lr: float) -> optim.LearningRate:
 
 
 def make_optimizer(workload: dict, default: str, default_lr: float) -> optim.Optimizer:
-    """Optimizer from `optimizer` ("adamw" | "adam" | "sgd"),
+    """Optimizer from `optimizer` ("adamw" | "adam" | "sgd" | "adafactor"),
     `weight_decay` (adamw) and `momentum` (sgd), with the learning rate of
     `make_learning_rate`."""
     lr = make_learning_rate(workload, default_lr)
@@ -86,7 +93,7 @@ def make_optimizer(workload: dict, default: str, default_lr: float) -> optim.Opt
         m = workload.get("momentum")
         return optim.sgd(lr, momentum=float(m) if m is not None else None)
     if name == "adafactor":
-        raise NotImplementedError("optimizer 'adafactor' is not ported yet")
+        return optim.adafactor(lr)
     raise ValueError(f"unknown optimizer {name!r} (expected adamw | adam | sgd | adafactor)")
 
 
@@ -152,20 +159,68 @@ def _run_loop(workload, state, train_step, make_batch, device, restarts: int = 0
     return TrainResult(losses, val_losses)
 
 
+def _with_dtypes(overrides: dict) -> dict:
+    """Config overrides with "float32"/"bfloat16" strings made torch dtypes."""
+    return {k: _DTYPES[v] if k in ("dtype", "param_dtype") and isinstance(v, str) else v
+            for k, v in overrides.items()}
+
+
 def lm_config(workload: dict) -> TransformerConfig:
     """The workload's TransformerConfig: f32 compute unless the payload's
     config names a dtype (a torch dtype, or "float32"/"bfloat16")."""
-    overrides = dict(workload.get("config", {}))
+    overrides = _with_dtypes(dict(workload.get("config", {})))
     overrides.setdefault("dtype", torch.float32)
-    for key in ("dtype", "param_dtype"):
-        if isinstance(overrides.get(key), str):
-            overrides[key] = _DTYPES[overrides[key]]
     return TransformerConfig(**overrides)
+
+
+def cnn_config(workload: dict) -> cnn.CNNConfig:
+    """The workload's CNNConfig: `widths` (a JSON list) as a tuple, dtype
+    strings as torch dtypes."""
+    overrides = _with_dtypes(dict(workload.get("config", {})))
+    if "widths" in overrides:
+        overrides["widths"] = tuple(overrides["widths"])
+    return cnn.CNNConfig(**overrides)
+
+
+def _setup_mlp(workload: dict, device):
+    cfg = mlp.MLPConfig(**workload.get("config", {}))
+    params = mlp.init_params(cfg, torch.Generator().manual_seed(0), device)
+    optimizer = make_optimizer(workload, "adam", 1e-2)
+    train_step = mlp.build_train_step(cfg, optimizer, device)
+    batch_size = int(workload.get("batch_size", 32))
+    rng = np.random.default_rng(0)
+    w_true = rng.standard_normal((cfg.d_in, cfg.d_out))
+
+    def make_batch(step):
+        del step  # the stream is stateful, as the reference's is
+        x = rng.standard_normal((batch_size, cfg.d_in)).astype(np.float32)
+        return {"x": x, "y": (x @ w_true).astype(np.float32)}
+
+    return params, optimizer, train_step, make_batch, None
+
+
+def _setup_cnn(workload: dict, device):
+    """Vision family: ResNet-style training on synthetic images."""
+    cfg = cnn_config(workload)
+    params = cnn.init_params(cfg, torch.Generator().manual_seed(0), device)
+    optimizer = make_optimizer(workload, "adam", 1e-3)
+    train_step = cnn.build_train_step(cfg, optimizer, device)
+    batch_size = int(workload.get("batch_size", 8))
+    image_size = int(workload.get("image_size", 32))
+    rng = np.random.default_rng(0)
+
+    def make_batch(step):
+        del step  # the stream is stateful, as the reference's is
+        images = rng.standard_normal(
+            (batch_size, image_size, image_size, cfg.in_channels)).astype(np.float32)
+        return {"images": images, "labels": rng.integers(0, cfg.num_classes, (batch_size,))}
+
+    return params, optimizer, train_step, make_batch, None
 
 
 def _setup_lm(workload: dict, device):
     cfg = lm_config(workload)
-    cfg.validate(workload.get("mesh"))
+    cfg.validate()
     if workload.get("zero1"):
         raise NotImplementedError("zero1 (optimizer state sharded over dp) is not ported yet")
 
@@ -212,17 +267,120 @@ def _setup_lm(workload: dict, device):
     return params, optimizer, train_step, make_batch, eval_fn
 
 
+_SETUPS = {"mlp": _setup_mlp, "cnn": _setup_cnn, "lm": _setup_lm}
+
+
 def train_workload(workload: dict, device=None, restarts: int = 0) -> TrainResult:
     """Run one workload's training loop on `device` (the card unless the
     caller names another); returns the per-step losses. The engine behind
-    the per-pod entry point (`jobset_tpu_torch.runtime.worker`)."""
+    the simulator's `WorkloadRunner` and the per-pod entry point
+    (`jobset_tpu_torch.runtime.worker`)."""
     kind = workload.get("kind", "mlp")
-    if kind in ("mlp", "cnn"):
-        raise NotImplementedError(f"workload kind {kind!r} is not ported yet (only 'lm')")
-    if kind != "lm":
+    setup = _SETUPS.get(kind)
+    if setup is None:
         raise ValueError(f"unknown workload kind: {kind}")
+    check_one_device(workload.get("mesh"))
     device = resolve_device(device)
-    params, optimizer, train_step, make_batch, eval_fn = _setup_lm(workload, device)
+    params, optimizer, train_step, make_batch, eval_fn = setup(workload, device)
     state = {"params": params, "opt_state": optimizer.init(params)}
     return _run_loop(workload, state, train_step, make_batch, device,
                      restarts=restarts, eval_fn=eval_fn)
+
+
+# ---------------------------------------------------------------------------
+# The simulator's gang runner
+# ---------------------------------------------------------------------------
+
+# The control plane's constants the runner reads (the port's own copies of
+# `jobset_tpu.api.keys.JOBSET_NAME_KEY` and `jobset_tpu.core.objects.POD_RUNNING`).
+JOBSET_NAME_KEY = "jobset.sigs.k8s.io/jobset-name"
+POD_RUNNING = "Running"
+# The loss annotations `_record_losses` writes on a JobSet.
+INITIAL_LOSS_KEY = "tpu.jobset.x-k8s.io/initial-loss"
+FINAL_LOSS_KEY = "tpu.jobset.x-k8s.io/final-loss"
+VAL_LOSS_KEY = "tpu.jobset.x-k8s.io/val-loss"
+
+
+class WorkloadRunner:
+    """Runs a JobSet's training payload in process once every pod of its gang
+    is Running and Ready, standing in for the whole gang on one device. A
+    workload that raises `WorkloadFailure` fails the JobSet's first child
+    job (its failure policy then fails the JobSet or restarts the gang);
+    one that finishes completes every child job. A restarted gang's run
+    resumes from its latest checkpoint.
+
+    `cluster` is taken duck-typed: the runner reads `pods` and `jobsets`
+    (dicts of objects with the control plane's `Pod` and `JobSet` fields)
+    and calls `jobs_for_jobset`, `fail_job`, `complete_all_jobs` and
+    `run_until_stable`. `device` is the card unless the caller names
+    another; without a card and without a named device it raises here."""
+
+    def __init__(self, cluster, device=None):
+        self.cluster = cluster
+        self.device = resolve_device(device)
+        # jobset uid -> restart count at which its workload last ran: one run
+        # per gang incarnation (by uid, so a delete and recreate under the
+        # same name runs again).
+        self._ran_at: dict[str, int] = {}
+
+    def gang_ready(self, js) -> bool:
+        """All expected pods of every replicated job are Running and Ready."""
+        expected = sum(int(rjob.replicas) * rjob.template.spec.pods_expected()
+                       for rjob in js.spec.replicated_jobs)
+        if expected == 0:
+            return False
+        ready = sum(1 for pod in self.cluster.pods.values()
+                    if pod.annotations.get(JOBSET_NAME_KEY) == js.name
+                    and pod.metadata.namespace == js.namespace
+                    and pod.status.phase == POD_RUNNING and pod.status.ready)
+        return ready >= expected
+
+    @staticmethod
+    def _workload_of(js):
+        for rjob in js.spec.replicated_jobs:
+            payload = rjob.template.spec.template.spec.workload
+            if payload:
+                return payload
+        return None
+
+    def run_pending(self) -> list[str]:
+        """Run the workload of every gang-ready JobSet that has not run in
+        its current incarnation; returns the names of those that ran."""
+        ran = []
+        live_uids = {js.metadata.uid for js in self.cluster.jobsets.values()}
+        for uid in list(self._ran_at):
+            if uid not in live_uids:  # deleted (TTL) or recreated JobSets
+                del self._ran_at[uid]
+        for js in list(self.cluster.jobsets.values()):
+            if js.status.terminal_state:
+                continue
+            workload = self._workload_of(js)
+            if workload is None or not self.gang_ready(js):
+                continue
+            if self._ran_at.get(js.metadata.uid) == js.status.restarts:
+                continue  # already ran for this incarnation
+            self._ran_at[js.metadata.uid] = js.status.restarts
+            try:
+                losses = train_workload(workload, self.device, restarts=js.status.restarts)
+            except WorkloadFailure:
+                # A crashed workload surfaces as a failed child job; the
+                # failure policy decides between failing and a gang restart.
+                first_job = next(iter(self.cluster.jobs_for_jobset(js)), None)
+                if first_job is not None:
+                    self.cluster.fail_job(first_job.metadata.namespace, first_job.metadata.name)
+            else:
+                _record_losses(js, losses)
+                self.cluster.complete_all_jobs(js)
+            ran.append(js.name)
+            self.cluster.run_until_stable()
+        return ran
+
+
+def _record_losses(js, losses) -> None:
+    if not losses:
+        return
+    js.metadata.annotations[INITIAL_LOSS_KEY] = f"{losses[0]:.6f}"
+    js.metadata.annotations[FINAL_LOSS_KEY] = f"{losses[-1]:.6f}"
+    val = getattr(losses, "val_losses", None)
+    if val:
+        js.metadata.annotations[VAL_LOSS_KEY] = f"{val[-1][1]:.6f}"

@@ -5,9 +5,10 @@
 It reads the workload payload from `--workload-file` or `$JOBSET_WORKLOAD`
 (JSON), accepts the gang from the rendezvous environment (one process so
 far; without the environment it runs standalone), runs
-`runner.train_workload` on the card (the CPU with `--cpu`) and prints one
+`runner.train_workload` on the card (the CPU with `--cpu`), whatever kind
+the payload names ("lm", "mlp", "cnn"; "mlp" when absent), and prints one
 JSON result line, which also counts the flash block kernels the run
-launched (0 on the CPU). Exit codes: 0 on success, 1 on a WorkloadFailure
+launched (0 on the CPU and on the mlp and cnn kinds). Exit codes: 0 on success, 1 on a WorkloadFailure
 (the JobSet failure policy then decides between failing and a gang
 restart), 2 when there is no workload.
 

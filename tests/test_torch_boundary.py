@@ -72,6 +72,23 @@ def test_worker_without_cpu_flag_raises(tmp_path):
     assert run.returncode != 0 and "no CUDA device" in run.stderr
 
 
+def test_worker_without_cpu_flag_raises_on_the_default_kind(tmp_path):
+    _no_cuda()
+    path = tmp_path / "w.json"
+    path.write_text('{"steps": 1}')  # no kind: "mlp"
+    run = subprocess.run([sys.executable, "-m", "jobset_tpu_torch.runtime.worker",
+                          "--workload-file", str(path)], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert run.returncode != 0 and "no CUDA device" in run.stderr
+
+
+def test_chip_smoke_workloads_only_fails_without_a_card():
+    _no_cuda()
+    run = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--workloads-only"],
+                         cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert run.returncode != 0 and "nothing was run" in run.stderr
+
+
 def test_chip_smoke_fails_without_a_card():
     _no_cuda()
     run = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")], cwd=REPO,
@@ -88,12 +105,16 @@ def test_chip_smoke_fails_without_a_card():
                                          "AssignmentSolver", "solver_service",
                                          "queue_score", "job_counts", "policy_score",
                                          "PolicyMLP", "policy_train",
-                                         "train_bundles_to_checkpoint", "policy_train_main"])
+                                         "train_bundles_to_checkpoint", "policy_train_main",
+                                         "WorkloadRunner", "mlp_init_params",
+                                         "mlp_build_train_step", "cnn_init_params",
+                                         "cnn_build_train_step", "train_workload_mlp",
+                                         "train_workload_cnn"])
 def test_entry_points_without_device_raise(entry_point, tmp_path):
     import numpy as np
 
     from jobset_tpu_torch.core import columnar
-    from jobset_tpu_torch.models import decode, transformer
+    from jobset_tpu_torch.models import cnn, decode, mlp, transformer
     from jobset_tpu_torch.placement import service, solver
     from jobset_tpu_torch.policy import dataset, features, model, train
     from jobset_tpu_torch.queue import scorer
@@ -134,6 +155,14 @@ def test_entry_points_without_device_raise(entry_point, tmp_path):
             str(tmp_path), str(tmp_path / "out.npz")),
         "policy_train_main": lambda: train.main(["--bundles", str(tmp_path),
                                                  "--out", str(tmp_path / "out.npz")]),
+        "WorkloadRunner": lambda: runner.WorkloadRunner(object()),
+        "mlp_init_params": lambda: mlp.init_params(mlp.MLPConfig(), torch.Generator()),
+        "mlp_build_train_step": lambda: mlp.build_train_step(mlp.MLPConfig(), optim.sgd(0.1)),
+        "cnn_init_params": lambda: cnn.init_params(cnn.CNNConfig(), torch.Generator()),
+        "cnn_build_train_step": lambda: cnn.build_train_step(cnn.CNNConfig(),
+                                                             optim.adafactor(0.1)),
+        "train_workload_mlp": lambda: runner.train_workload({"steps": 1}),
+        "train_workload_cnn": lambda: runner.train_workload({"kind": "cnn", "steps": 1}),
     }[entry_point]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()

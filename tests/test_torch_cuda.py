@@ -12,7 +12,10 @@ MoE serving and forward against the CPU, with no host sync; the grouped
 product's backward kernels (dgrad, wgrad) against their plain versions,
 the f32 wgrad kernel taken where TMA can take the operands and held to
 the tolerance over a 16384-row segment, and the MoE train step against
-the CPU's, with no host sync in a MoE layer's forward and backward.
+the CPU's, with no host sync in a MoE layer's forward and backward; the
+workload kinds: the CNN's "SAME" convolutions and train step (f32 and
+bf16, cuDNN's TF32 off), adafactor's updates and the mlp workload's
+losses against the CPU's.
 
 They skip without a CUDA device. This file imports no JAX, so it also runs
 on a machine that has none: `python -m pytest --noconftest -m cuda
@@ -1231,3 +1234,89 @@ def test_moe_layer_forward_and_backward_make_no_host_sync(cuda, dtype):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# The mlp and cnn workload kinds and adafactor on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def no_cudnn_tf32(cuda):
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    torch.backends.cudnn.allow_tf32 = prev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [8, 9], ids=["even", "odd"])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_cnn_conv_same_padding_matches_cpu(no_cudnn_tf32, size, stride):
+    from jobset_tpu_torch.models import cnn
+
+    gen = torch.Generator().manual_seed(size)
+    x, w = torch.randn(2, size, size, 8, generator=gen), torch.randn(3, 3, 8, 16, generator=gen)
+    got = cnn.conv(x.to(no_cudnn_tf32), w.to(no_cudnn_tf32), stride)
+    want = cnn.conv(x, w, stride)
+    assert got.shape == want.shape == (2, -(-size // stride), -(-size // stride), 16)
+    assert _within(got.cpu(), want, 1e-5, 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cnn_train_step_matches_cpu(no_cudnn_tf32, dtype):
+    """One sgd step at lr 1 (p - p' is the gradient): f32 loss rtol 1e-4 and
+    every gradient leaf within 1e-3 of the CPU's; bf16 loss 2e-2 and leaves
+    5e-2 in relative norm (cuDNN and the CPU round each bf16 convolution's
+    output apart)."""
+    from jobset_tpu_torch.models import cnn
+
+    cfg = cnn.CNNConfig(widths=(16, 32), blocks_per_stage=1, groups=4, dtype=dtype)
+    params = cnn.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(1)
+    batch = {"images": torch.randn(8, 16, 16, 3, generator=gen),
+             "labels": torch.randint(0, 10, (8,), generator=gen)}
+    opt = optim.sgd(1.0)
+
+    def step(device, p):
+        return cnn.build_train_step(cfg, opt, device)(p, opt.init(p), batch)
+
+    got, _, loss = step(no_cudnn_tf32, tree.tree_map(lambda t: t.to(no_cudnn_tf32), params))
+    want, _, want_loss = step("cpu", params)
+    loss_rel, grad_rel = (1e-4, 1e-3) if dtype == torch.float32 else (2e-2, 5e-2)
+    assert abs(loss.item() - want_loss.item()) <= loss_rel * abs(want_loss.item())
+    for g, w, p in zip(tree.leaves(got), tree.leaves(want), tree.leaves(params)):
+        d, ref = (p - g.cpu()), (p - w)
+        assert ((d - ref).norm() / ref.norm()).item() <= grad_rel
+
+
+@pytest.mark.cuda
+def test_adafactor_matches_cpu(cuda):
+    """Three updates on factored ([256, 128], the tie [128, 128], stacked
+    [1, 4, 256, 384]) and unfactored ([4, 200], [300]) leaves: each update
+    within 1e-6 of the CPU's, relative to its largest entry."""
+    gen = torch.Generator().manual_seed(2)
+    shapes = [(256, 128), (128, 128), (1, 4, 256, 384), (4, 200), (300,)]
+    params = {f"p{i}": torch.randn(s, generator=gen) * 0.05 for i, s in enumerate(shapes)}
+    opt = optim.adafactor(1e-2)
+    on_card = tree.tree_map(lambda t: t.to(cuda), params)
+    state, card_state = opt.init(params), opt.init(on_card)
+    for _ in range(3):
+        grads = tree.tree_map(lambda t: torch.randn(t.shape, generator=gen), params)
+        want, state = opt.update(grads, state, params)
+        got, card_state = opt.update(tree.tree_map(lambda t: t.to(cuda), grads), card_state,
+                                     on_card)
+        for g, w in zip(tree.leaves(got), tree.leaves(want)):
+            assert _within(g.cpu(), w, 1e-6, 1e-12)
+        params = tree.tree_map(lambda p, u: p + u, params, want)
+        on_card = tree.tree_map(lambda p, u: p + u, on_card, got)
+
+
+@pytest.mark.cuda
+def test_mlp_workload_matches_cpu(cuda):
+    from jobset_tpu_torch.runtime import runner
+
+    payload = {"kind": "mlp", "steps": 8, "config": {"d_in": 8, "d_hidden": 32, "d_out": 4}}
+    got, want = runner.train_workload(payload, cuda), runner.train_workload(payload, "cpu")
+    assert all(abs(g - w) <= 1e-4 * abs(w) for g, w in zip(got, want))

@@ -1,6 +1,7 @@
 """The port's runtime (optimizers, schedules, data, checkpoints, the LM
 workload, the worker and the model bench) against the JAX package's, on
-the CPU.
+the CPU (the mlp and cnn kinds and the gang runner:
+test_torch_workloads.py).
 
 Tolerances: optimizer updates and parameters max|d| <= 1e-6 * max|ref| +
 1e-9 (the same f32 formulas; optax evaluates schedules and bias
@@ -55,6 +56,7 @@ OPTIMIZERS = {
     "adam": {"optimizer": "adam"},
     "sgd": {"optimizer": "sgd"},
     "sgd_momentum": {"optimizer": "sgd", "momentum": 0.9},
+    "adafactor": {"optimizer": "adafactor"},
 }
 SCHEDULES = {
     "constant": {},
@@ -113,7 +115,6 @@ def test_sgd_without_momentum_keeps_no_trace():
 
 
 @pytest.mark.parametrize("bad, error", [
-    ({"optimizer": "adafactor"}, NotImplementedError),
     ({"optimizer": "lion"}, ValueError),
     ({"lr_schedule": "step"}, ValueError),
 ])
@@ -256,13 +257,11 @@ def test_checkpoint_resume_equals_an_uninterrupted_run(tmp_path):
 
 
 @pytest.mark.parametrize("bad, error", [
-    ({"kind": "mlp"}, NotImplementedError),
-    ({"kind": "cnn"}, NotImplementedError),
-    ({}, NotImplementedError),  # the JAX runner's default kind is "mlp"
     ({"kind": "gan"}, ValueError),
     ({"kind": "lm", "zero1": True}, NotImplementedError),
     ({"kind": "lm", "mesh": {"dp": 2}}, NotImplementedError),
-    ({"kind": "lm", "optimizer": "adafactor"}, NotImplementedError),
+    ({"kind": "mlp", "mesh": {"dp": 2}}, NotImplementedError),
+    ({"kind": "cnn", "mesh": {"tp": 2}}, NotImplementedError),
 ])
 def test_train_workload_rejects_what_is_not_ported(bad, error):
     with pytest.raises(error):
