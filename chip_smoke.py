@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--out RESULTS.json] [--solver-only | --flash-only |
                                                  --control-only | --serving-only |
                                                  --moe-only | --moe-train-only |
-                                                 --workloads-only]
+                                                 --workloads-only | --gang-only]
 
 (`--solver-only` builds the auction kernel and runs phase 9 alone,
 `--flash-only` builds the flash block kernels and runs phases 2-3 alone,
@@ -13,7 +13,9 @@ builds the flash block and int8 kernels and runs phase 11 alone,
 `--moe-only` builds the flash block, int8 and grouped kernels and runs
 phase 12 alone, `--moe-train-only` builds the flash block and grouped
 kernels and runs phase 13 alone, `--workloads-only` builds the flash block
-kernels and runs phase 14 alone; none of them prints the result line.) Phases, in order; any failure exits
+kernels and runs phase 14 alone, `--gang-only` builds the flash block and
+grouped kernels and runs phase 15 alone; none of them prints the result
+line.) Phases, in order; any failure exits
 non-zero before the result line:
   1. the card's name and power limit (nvidia-smi); TF32 off;
   2. build every CUDA kernel from this checkout (one nvcc per source, all
@@ -211,7 +213,31 @@ non-zero before the result line:
      own device time in a trace, 8 flash launches a step; and a small f32
      LM's two adafactor steps (factored and unfactored leaves). No flash
      launch on the mlp and cnn paths;
- 15. one `kernels` JSON line, then the result line
+ 15. the gang, in a process of its own (`--gang-only`; the kernels built
+     in the parent before any rank starts, and the grouped forward, dgrad
+     and wgrad kernels held there against their plain versions at a
+     rank's products in (c), bf16 and f32): gangs of processes on
+     `torch.distributed` (`runtime.gang.spawn`), each rank a process on the
+     one card, held against a single-process run on the card with the same
+     parameters and batches (`gang_reference`): (a) NCCL at world 1, the
+     dense flagship's gradient step and 3 adam steps (phase 7's inputs)
+     bit for bit; (b) the dense flagship at tp = 2 (8 heads of 64 a rank)
+     and a small f32 config at tp = 2, two ranks on gloo with CUDA tensors
+     (NCCL refuses two ranks on one device); (c) the MoE flagship at dp =
+     2 x tp = 2, four ranks (we1 [8, 1024, 2048] a rank), held on its
+     losses in bf16 (bf16 routes apart end to end; every bf16 wgrad launch
+     on the TMA kernel) and on its gradients and first adam step by the
+     same gang in f32, where it prints which tokens took other experts
+     and where the moves stray (`--gang-f32-moe-batch B` runs that gang
+     alone at batch B); (d)
+     examples/training/lm-moe-dropless.yaml through `WorkloadRunner` as 4
+     worker processes, to Completed, its final loss against the CPU
+     gang's. Each rank prints its flash and grouped launches of one step,
+     its median step, peak memory, and from a torch.profiler trace of one
+     step the share of the step inside all-reduce ops and the card's busy
+     share (ranks sharing one card: no scaling figure);
+ 16. one `kernels` JSON line (with each kernel's launches on the gang's
+     path), then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 The flagship is the repo's training/decode bench config: vocab 32000,
@@ -2707,14 +2733,15 @@ def grouped_counts() -> tuple:
     return gm.GROUPED_LAUNCHES, gm.GROUPED_TMA_LAUNCHES, gm.GROUPED_F32_LAUNCHES
 
 
-def grouped_case(name, dtype, k, n, routing, seed):
+def grouped_case(name, dtype, k, n, routing, seed, rows=MOE_SLOTS):
     """The kernel against its plain version at one product of a prefill
-    layer: the stated tolerance, one launch counted, two launches equal bit
-    for bit. Returns max|got - want|."""
+    layer (or of a gang rank's layer: `rows`, and its tp-local k or n): the
+    stated tolerance, one launch counted, two launches equal bit for bit.
+    Returns max|got - want|."""
     from jobset_tpu_torch.ops import grouped_matmul as gm
 
-    xs, w = grouped_operands(dtype, k, n, torch.Generator(device="cuda").manual_seed(seed))
-    sizes = moe_group_sizes(routing)
+    xs, w = grouped_operands(dtype, k, n, torch.Generator(device="cuda").manual_seed(seed), rows)
+    sizes = moe_group_sizes(routing, rows)
     before = grouped_counts()
     got = gm.grouped_matmul(xs, w, sizes)
     launched = tuple(a - b for a, b in zip(grouped_counts(), before))
@@ -2728,9 +2755,9 @@ def grouped_case(name, dtype, k, n, routing, seed):
         limit = INT8_REL_BF16 * want.float().abs() + limit
     worst = err.max().item()
     kind, step = GROUPED_VARIANT[dtype]
-    check(launched == step and got.dtype == dtype and tuple(got.shape) == (MOE_SLOTS, n)
+    check(launched == step and got.dtype == dtype and tuple(got.shape) == (rows, n)
           and bool(torch.isfinite(got.float()).all()),
-          f"grouped_matmul {name}: one launch, of the {kind} kernel, {dtype} [{MOE_SLOTS}, {n}], "
+          f"grouped_matmul {name}: one launch, of the {kind} kernel, {dtype} [{rows}, {n}], "
           "finite")
     check(bool((err <= limit).all()), f"grouped_matmul {name}: within tolerance (max|d| {worst:.3e})")
     check(torch.equal(got, again), f"grouped_matmul {name}: two launches equal bit for bit")
@@ -2944,7 +2971,7 @@ def moe_kernel_checks(results, baseline=None):
 GROUPED_COUNTERS = ("GROUPED_LAUNCHES", "GROUPED_TMA_LAUNCHES", "GROUPED_F32_LAUNCHES",
                     "GROUPED_DGRAD_LAUNCHES", "GROUPED_DGRAD_F32_LAUNCHES",
                     "GROUPED_WGRAD_LAUNCHES", "GROUPED_WGRAD_F32_LAUNCHES",
-                    "GROUPED_WGRAD_F32_TMA_LAUNCHES")
+                    "GROUPED_WGRAD_TMA_LAUNCHES", "GROUPED_WGRAD_F32_TMA_LAUNCHES")
 
 
 def moe_launches_now() -> dict:
@@ -3317,27 +3344,27 @@ def train_counts(counts, f32) -> tuple:
 
 def check_train_launches(path, counts, want, flash, f32):
     """Every grouped launch of `path` on the dtype's kernels, in the counts
-    `want` (forward, dgrad, wgrad), f32 wgrad's all on its TMA kernel, and
-    `flash` block launches."""
+    `want` (forward, dgrad, wgrad), wgrad's all on the dtype's TMA kernel,
+    and `flash` block launches."""
     total = (counts["GROUPED_LAUNCHES"], counts["GROUPED_DGRAD_LAUNCHES"],
              counts["GROUPED_WGRAD_LAUNCHES"])
     block = counts["F32_LAUNCHES" if f32 else "TENSOR_CORE_LAUNCHES"]
-    wgrad_tma = counts["GROUPED_WGRAD_F32_TMA_LAUNCHES"]
+    wgrad_tma = counts["GROUPED_WGRAD_F32_TMA_LAUNCHES" if f32 else "GROUPED_WGRAD_TMA_LAUNCHES"]
     check(train_counts(counts, f32) == total == tuple(want) and block == flash
-          and counts["KERNEL_LAUNCHES"] == flash and wgrad_tma == (want[2] if f32 else 0),
+          and counts["KERNEL_LAUNCHES"] == flash and wgrad_tma == want[2],
           f"{path}: grouped (forward, dgrad, wgrad) launches {total}, on the "
           f"{'f32' if f32 else 'bf16'} kernels {train_counts(counts, f32)} (expected {tuple(want)}); "
-          f"{wgrad_tma} on the f32 wgrad TMA kernel; {block} flash block launches (expected "
-          f"{flash})")
+          f"{wgrad_tma} on the {'f32' if f32 else 'bf16'} wgrad TMA kernel; {block} flash block "
+          f"launches (expected {flash})")
 
 
-def backward_operands(dtype, k, n, gen):
+def backward_operands(dtype, k, n, gen, rows=MOE_SLOTS):
     """A prefill-sized product's operands and its output's gradient."""
-    xs, w = grouped_operands(dtype, k, n, gen)
-    return xs, w, torch.randn((MOE_SLOTS, n), generator=gen, device="cuda").to(dtype)
+    xs, w = grouped_operands(dtype, k, n, gen, rows)
+    return xs, w, torch.randn((rows, n), generator=gen, device="cuda").to(dtype)
 
 
-def backward_case(which, name, dtype, k, n, routing, seed, baseline=None):
+def backward_case(which, name, dtype, k, n, routing, seed, baseline=None, rows=MOE_SLOTS):
     """dgrad or wgrad against its plain version at one product of the MoE
     flagship: the grouped kernels' tolerance, one launch counted on the
     dtype's variant (f32 wgrad's on its TMA kernel), two launches equal bit
@@ -3345,14 +3372,16 @@ def backward_case(which, name, dtype, k, n, routing, seed, baseline=None):
     equal bit for bit to its kernel on the same inputs, but for f32 wgrad,
     whose TMA kernel adds in another order than the parent's: there the
     parent's output, too, within the tolerance of the plain version, both
-    max|d| printed. Returns max|got - want|."""
+    max|d| printed. `rows`: a gang rank's product instead. Returns
+    max|got - want|."""
     from jobset_tpu_torch.ops import grouped_matmul as gm
 
-    xs, w, dy = backward_operands(dtype, k, n, torch.Generator(device="cuda").manual_seed(seed))
-    sizes = moe_group_sizes(routing)
+    xs, w, dy = backward_operands(dtype, k, n, torch.Generator(device="cuda").manual_seed(seed),
+                                  rows)
+    sizes = moe_group_sizes(routing, rows)
     if which == "dgrad":
         fn, plain, args, shape = (gm.grouped_matmul_dgrad, gm.grouped_matmul_dgrad_plain,
-                                  (dy, w, sizes), (MOE_SLOTS, k))
+                                  (dy, w, sizes), (rows, k))
     else:
         fn, plain, args, shape = (gm.grouped_matmul_wgrad, gm.grouped_matmul_wgrad_plain,
                                   (xs, dy, sizes), (MOE_EXPERTS, k, n))
@@ -3372,8 +3401,9 @@ def backward_case(which, name, dtype, k, n, routing, seed, baseline=None):
     expect = {counter: 1}
     if dtype == torch.float32:
         expect[counter.replace("_LAUNCHES", "_F32_LAUNCHES")] = 1
-        if which == "wgrad":
-            expect["GROUPED_WGRAD_F32_TMA_LAUNCHES"] = 1
+    if which == "wgrad":
+        expect["GROUPED_WGRAD_F32_TMA_LAUNCHES" if dtype == torch.float32
+               else "GROUPED_WGRAD_TMA_LAUNCHES"] = 1
     check(launched == expect and got.dtype == dtype and tuple(got.shape) == shape
           and bool(torch.isfinite(got.float()).all()),
           f"grouped_matmul_{which} {name}: launches {launched} (expected {expect}), {dtype} "
@@ -3904,24 +3934,26 @@ ADAFACTOR_WARMUP, ADAFACTOR_STEPS = 3, 20
 
 class StandInCluster:
     """The control plane as far as `WorkloadRunner` reads it, for one JobSet
-    of one replicated job (the card's machine has no `jobset_tpu`): `pods`,
-    `jobsets`, `jobs_for_jobset`, `fail_job`, `complete_all_jobs` and
-    `run_until_stable`. Its failure policy is the JobSet controller's: a
-    failed child job restarts the gang (every job and pod recreated Running
-    and Ready, `status.restarts` + 1) while restarts < max_restarts, and
-    otherwise fails the JobSet; completing every child job completes it."""
+    of one replicated job (the card's machine has no `jobset_tpu`): `pods`
+    (with the labels and annotations `distributed.pod_env_for` reads),
+    `jobsets`, `get_jobset`, `jobs_for_jobset`, `fail_job`,
+    `complete_all_jobs` and `run_until_stable`. Its failure policy is the
+    JobSet controller's: a failed child job restarts the gang (every job
+    and pod recreated Running and Ready, `status.restarts` + 1) while
+    restarts < max_restarts, and otherwise fails the JobSet; completing
+    every child job completes it."""
 
     JOBSET_NAME_KEY = "jobset.sigs.k8s.io/jobset-name"
 
     def __init__(self, name, payload, replicas=1, parallelism=1, max_restarts=2):
-        pod_spec = NS(workload=payload)
-        job_spec = NS(parallelism=parallelism, template=NS(spec=pod_spec),
+        self.pod_spec = NS(workload=payload)
+        job_spec = NS(parallelism=parallelism, template=NS(spec=self.pod_spec),
                       pods_expected=lambda: parallelism)
         self.js = NS(name=name, namespace="default",
                      metadata=NS(uid=f"uid-{name}", annotations={}, namespace="default",
                                  name=name),
                      spec=NS(replicated_jobs=[NS(name="trainer", replicas=replicas,
-                                                 template=NS(spec=job_spec))]),
+                                                 template=NS(spec=job_spec))], network=None),
                      status=NS(terminal_state="", restarts=0))
         self.jobsets = {("default", name): self.js}
         self.replicas, self.parallelism, self.max_restarts = replicas, parallelism, max_restarts
@@ -3929,13 +3961,21 @@ class StandInCluster:
         self._create_gang()
 
     def _create_gang(self):
+        from jobset_tpu_torch.runtime import distributed as d
+
         js = self.js
         self.jobs = [NS(metadata=NS(namespace="default", name=f"{js.name}-trainer-{i}"))
                      for i in range(self.replicas)]
         self.pods = {("default", f"{job.metadata.name}-{p}-r{js.status.restarts}"): NS(
-            annotations={self.JOBSET_NAME_KEY: js.name}, metadata=NS(namespace="default"),
+            annotations={self.JOBSET_NAME_KEY: js.name, d.POD_COMPLETION_INDEX_KEY: str(p)},
+            labels={d.REPLICATED_JOB_NAME_KEY: "trainer", d.JOB_INDEX_KEY: str(i),
+                    d.JOB_GLOBAL_INDEX_KEY: str(i), d.RESTARTS_KEY: str(js.status.restarts)},
+            metadata=NS(namespace="default"), spec=self.pod_spec,
             status=NS(phase="Running", ready=True))
-            for job in self.jobs for p in range(self.parallelism)}
+            for i, job in enumerate(self.jobs) for p in range(self.parallelism)}
+
+    def get_jobset(self, namespace, name):
+        return self.jobsets.get((namespace, name))
 
     def jobs_for_jobset(self, js):
         return list(self.jobs) if js is self.js else []
@@ -4272,6 +4312,740 @@ def phase_workloads_apart(results):
         results[key] = workloads.get(key)
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the gang
+# ---------------------------------------------------------------------------
+
+# The gang runs: GANG_STEPS adam steps (lr GANG_LR) after one gradient
+# step, then GANG_WARMUP + GANG_TIMED timed steps and one step with its
+# all-reduces timed, each rank its own process on the one card.
+GANG_STEPS, GANG_LR, GANG_WARMUP, GANG_TIMED = 3, 1e-3, 1, 3
+GANG_TIMEOUT_S = 600
+# Held against the single-process run on the card, same parameters and
+# batches (the ranks' all-reduces add the shards' partial sums in another
+# order than one product does):
+# - bf16 (the dense flagship at tp 2, the MoE flagship at dp 2 x tp 2):
+#   phase 7's bounds, loss within 1e-2 relative and each gradient leaf
+#   within 5e-2 in relative norm (bf16 products rounded at other places:
+#   the tp partial sums are rounded to bf16 before they are added), and
+#   each leaf's move over the adam steps within 0.15 in relative norm
+#   (tests/test_torch_train.py's bf16 Adam bound: the scale-free update
+#   turns every gradient entry within bf16 noise of zero into a move of
+#   about lr in either direction);
+# - f32 with TF32 off (a small config at tp 2): losses and gradient leaves
+#   within 1e-5 relative (norm), and every parameter's move within 0.05 *
+#   lr a step (the CPU tests' f32 Adam bound: the same scale-free update);
+# - NCCL at world 1 (the dense flagship): bit for bit.
+GANG_BF16_LOSS_REL, GANG_BF16_GRAD_REL, GANG_BF16_MOVE_REL = 1e-2, 5e-2, 0.15
+GANG_F32_REL = 1e-5
+# The MoE flagship's gang in bf16 is held on its losses only: end to end
+# bf16 routes apart (phase 13), a token whose top-2 gates lie within the
+# tp partial sums' rounding picking another expert, which moves every
+# leaf's gradient (0.08-0.19 in relative norm on the card); its kernels
+# are held at the rank's shapes (`gang_kernel_checks`). Its gradients and
+# moves are held in f32 (TF32 off), at (c)'s B=8 (the four f32 ranks took
+# 72.6-74.6 GB together on the card): losses within 1e-5, gradient leaves
+# within 1e-4 relative (norm; f32 sums in another order through 8 layers
+# and two grouped products a layer), and the first adam step's moves entry
+# by entry (ADAM_NOISE_GRAD). The moves over all the steps are printed,
+# not bounded: in the card's run rank 0's tokens took one process's
+# experts in steps 1-2 and 21 token-layer picks differed in step 3 (top-2
+# gates within the f32 rounding of parameters one step apart), and the
+# changed gradients of entries near zero move them by up to lr either way
+# under Adam (most in the experts, the embedding and the unembedding).
+GANG_F32_MOE_BATCH, GANG_F32_MOE_GRAD_REL = BATCH, 1e-4
+# Adam's first step moves an entry by lr * g / (|g| + eps), eps = 1e-8
+# (optax's default): where |g| is within a few eps its move is set by the
+# gradient's rounding (~1e-9 absolute on the card's run, sums of f32
+# partials in another order), not by the gradient, so the f32 MoE gang's
+# first-step moves are held entry by entry only where one process's
+# |gradient| exceeds 10 eps; below it the entries past the bound are
+# counted. On the card's run every entry past 0.05 * lr had |g| <= 1.2e-8.
+ADAM_NOISE_GRAD = 1e-7
+# examples/training/lm-moe-dropless.yaml's payload (held to the file by
+# tests/test_torch_workloads.py) and its gang: 2 jobs of 2 pods.
+LM_MOE_DROPLESS_PAYLOAD = {
+    "kind": "lm", "steps": 8, "batch_size": 4, "seq_len": 16,
+    "config": {"vocab_size": 128, "d_model": 64, "n_heads": 4, "d_ff": 128, "n_layers": 2,
+               "max_seq_len": 32, "n_experts": 4, "d_ff_expert": 64, "moe_top_k": 2,
+               "moe_dispatch": "dropless"},
+    "mesh": {"dp": 2, "tp": 2}}
+LM_MOE_DROPLESS_GANG = (2, 2)  # replicas, pods a job
+
+
+# A gang rank's grouped products in (c): a dp rank routes its B/dp rows of
+# the batch (top 2), a tp rank holds d_ff_expert/tp columns of we1 and rows
+# of we2.
+GANG_MOE_ROWS = BATCH // 2 * PROMPT * MOE_TOP_K
+GANG_MOE_PRODUCTS = {"we1": (1024, MOE_D_FF // 2), "we2": (MOE_D_FF // 2, 1024)}
+
+
+def gang_kernel_checks() -> dict:
+    """The grouped forward, dgrad and wgrad kernels at a rank's products in
+    (c), bf16 and f32, four routings each, against their plain versions:
+    phase 12a's and 13a's checks (the kernels' tolerance, one launch on
+    the dtype's TMA kernel, two launches equal bit for bit, bf16 dgrad
+    equal bit for bit to the forward on w transposed, wgrad's empty experts
+    exactly 0). Returns max|got - want| by case."""
+    errs, seed = {}, 400
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        for label, (k, n) in GANG_MOE_PRODUCTS.items():
+            for routing in MOE_CHECK_ROUTINGS:
+                name = (f"gang rank {tag} {label} [{GANG_MOE_ROWS},{k}]x[{MOE_EXPERTS},{k},{n}] "
+                        f"{routing}")
+                errs[f"forward {tag} {label} {routing}"] = grouped_case(
+                    name, dtype, k, n, routing, seed, GANG_MOE_ROWS)
+                for which in BACKWARD_OPS:
+                    errs[f"{which} {tag} {label} {routing}"] = backward_case(
+                        which, name, dtype, k, n, routing, seed + 1, rows=GANG_MOE_ROWS)
+                seed += 2
+    torch.cuda.empty_cache()
+    return errs
+
+
+def gang_small_config():
+    """Phase 7's small f32 GQA config (TF32 off)."""
+    from jobset_tpu_torch.models import TransformerConfig
+
+    return TransformerConfig(vocab_size=128, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+                             n_layers=2, dtype=torch.float32, remat=False)
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def grads_optimizer():
+    """An optimizer that moves nothing and keeps the gradients of its first
+    update as `state["g"]`: one train step's (dp-summed) gradients."""
+    from jobset_tpu_torch import tree
+    from jobset_tpu_torch.runtime.optim import Optimizer
+
+    def init(params):
+        return {"count": 0, "g": tree.tree_map(lambda p: p.new_zeros(p.shape), params)}
+
+    def update(grads, state, params):
+        return (tree.tree_map(lambda g: g.new_zeros(g.shape), grads),
+                {"count": state["count"] + 1, "g": grads if state["count"] == 0 else state["g"]})
+
+    return Optimizer(init, update, lambda specs, shapes: {"count": None, "g": specs})
+
+
+@contextlib.contextmanager
+def recording_routes(into: list):
+    """While active, each top-k pick of the MoE paths (`renormalized_topk`)
+    appends its experts [tokens, k] to `into`, on the host."""
+    from jobset_tpu_torch.models import transformer
+
+    real = transformer.renormalized_topk
+
+    def recording(gates, k):
+        top_w, top_i = real(gates, k)
+        into.append(top_i.detach().to("cpu", torch.int16))
+        return top_w, top_i
+
+    transformer.renormalized_topk = recording
+    try:
+        yield
+    finally:
+        transformer.renormalized_topk = real
+
+
+def route_flips(routes, ref_routes, rows, seq, per_step) -> list:
+    """For each step, the tokens of `rows` (of the global batch) whose
+    set of experts differs from the reference's, summed over the step's
+    `per_step` picks (one a layer)."""
+    tokens = (torch.as_tensor(rows)[:, None] * seq + torch.arange(seq)).flatten()
+    flips = [0] * (len(routes) // per_step)
+    for i, (got, want) in enumerate(zip(routes, ref_routes)):
+        got, want = got.sort(dim=-1).values, want[tokens].sort(dim=-1).values
+        flips[i // per_step] += int((got != want).any(dim=-1).sum())
+    return flips
+
+
+def gang_reference(cfg, batch, seq, path, device="cuda", first_move=False) -> dict:
+    """The single-process run a gang is held to, on the card: the gradients
+    of one step and GANG_STEPS adam steps from the parameters of seed 0 on
+    phase 7's batches (seeds 3, 4, ...); the gradients, each leaf's move
+    (with first_move, also its move after the first adam step and the
+    experts each token took in each adam step) and the losses saved to
+    `path` (CPU tensors). Run in a process of its own
+    (`reference_apart`), so that its memory leaves the card with it."""
+    from jobset_tpu_torch import tree
+    from jobset_tpu_torch.models import build_train_step, init_params
+    from jobset_tpu_torch.runtime import optim
+
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+    batches = [token_batch(cfg.vocab_size, batch, seq, seed=3 + i, device=device)
+               for i in range(GANG_STEPS)]
+    grads_opt = grads_optimizer()
+    same, state, grad_loss = build_train_step(cfg, grads_opt, device=device)(
+        params, grads_opt.init(params), batches[0])
+    grads = tree.tree_map(lambda g: g.cpu(), state["g"])
+    del same, state
+    opt = optim.adam(GANG_LR)
+    step = build_train_step(cfg, opt, device=device)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    moved, opt_state, losses, moves1, routes = params, opt.init(params), [], None, []
+    for b in batches:
+        with recording_routes(routes) if first_move else contextlib.nullcontext():
+            moved, opt_state, loss = step(moved, opt_state, b)
+        losses.append(float(loss))
+        if first_move and moves1 is None:
+            moves1 = tree.tree_map(lambda a, b: (a - b).cpu(), moved, params)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    moves = tree.tree_map(lambda a, b: (a - b).cpu(), moved, params)
+    out = {"grads": grads, "moves": moves, "moves1": moves1, "routes": routes,
+           "losses": losses, "grad_loss": float(grad_loss)}
+    torch.save(out, path)
+    del params, moved, opt_state, batches, grads, moves, out
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"losses": losses, "grad_loss": float(grad_loss), "peak_gb": peak_gb}
+
+
+def reference_apart(cfg, batch, seq, path, first_move=False) -> dict:
+    """`gang_reference` on the card in a process of its own (a gang of one
+    whose process group it does not use)."""
+    from jobset_tpu_torch.runtime import gang
+
+    return gang.spawn(gang_reference, 1, (cfg, batch, seq, path, "cuda", first_move),
+                      backend="gloo", device="cuda", timeout_s=GANG_TIMEOUT_S, threads=0)[0]
+
+
+def gathered_diffs(local, ref, specs, mesh, device, grads=None, bound=0.0) -> list:
+    """Leaf by leaf, the tp shards gathered (every rank takes part) and, on
+    rank 0, (||got - ref|| / ||ref||, max|got - ref|, max|ref|) against the
+    reference tree (CPU, loaded lazily); other ranks get []. With `grads`
+    (the reference's first-step gradients), two more: max|got - ref| over
+    the entries whose |gradient| exceeds ADAM_NOISE_GRAD, and the count of
+    the other entries where |got - ref| exceeds `bound`."""
+    from jobset_tpu_torch import tree
+    from jobset_tpu_torch.parallel import collectives
+
+    out = []
+    refs = tree.leaves(ref) if ref is not None else None
+    for i, (leaf, spec) in enumerate(zip(tree.leaves(local), tree.leaves(specs))):
+        dim = spec.index("tp") if "tp" in spec else None
+        full = collectives.gather(leaf, dim, mesh.group("tp")) if dim is not None else leaf
+        if refs is not None:
+            want = refs[i].to(device).float()
+            d = (full.float() - want).abs()
+            row = (float(d.norm() / want.norm().clamp(min=1e-30)), float(d.max()),
+                   float(want.abs().max()))
+            if grads is not None:
+                held = tree.leaves(grads)[i].to(device).float().abs() > ADAM_NOISE_GRAD
+                row += (float(d[held].max()) if bool(held.any()) else 0.0,
+                        int(((d > bound) & ~held).sum()))
+            out.append(row)
+        del full
+    return out
+
+
+def leaf_names(node, prefix="") -> list:
+    """The leaves' paths, in `tree.leaves` order."""
+    if isinstance(node, dict):
+        return [n for key in sorted(node) for n in leaf_names(node[key], f"{prefix}/{key}")]
+    if isinstance(node, list):
+        return [n for i, item in enumerate(node) for n in leaf_names(item, f"{prefix}[{i}]")]
+    return [prefix.lstrip("/")]
+
+
+def move_outliers(moves, grads, ref_moves, ref_grads, specs, mesh, device, bound,
+                  top=3) -> list:
+    """Where a gang's moves stray from one process's (`ref_moves`, on rank
+    0; None elsewhere) by more than `bound` an entry: leaf by leaf (the tp
+    shards gathered, every rank taking part), on rank 0, the entries over
+    the bound, the largest |ref gradient| among them (the first step's),
+    and the `top` worst entries, each with its index, both moves and both
+    first-step gradients; other ranks get []."""
+    from jobset_tpu_torch import tree
+    from jobset_tpu_torch.parallel import collectives
+
+    def full(leaf, spec):
+        dim = spec.index("tp") if "tp" in spec else None
+        return collectives.gather(leaf, dim, mesh.group("tp")) if dim is not None else leaf
+
+    out = []
+    names = leaf_names(moves)
+    pairs = zip(tree.leaves(moves), tree.leaves(grads), tree.leaves(specs))
+    for i, (move, grad, spec) in enumerate(pairs):
+        move, grad = full(move, spec).float(), full(grad.to(device), spec).float()
+        if ref_moves is None:
+            continue
+        want = tree.leaves(ref_moves)[i].to(device).float()
+        want_g = tree.leaves(ref_grads)[i].to(device).float()
+        d = (move - want).abs()
+        over = d > bound
+        worst = torch.topk(d.flatten(), min(top, d.numel())).indices
+        out.append({
+            "leaf": names[i], "shape": list(move.shape), "over": int(over.sum()),
+            "max_ref_grad_over": float(want_g.abs()[over].max()) if bool(over.any()) else None,
+            "worst": [{"index": [int(x) for x in np.unravel_index(int(j), tuple(move.shape))],
+                       "move": float(move.flatten()[j]), "ref_move": float(want.flatten()[j]),
+                       "grad": float(grad.flatten()[j]), "ref_grad": float(want_g.flatten()[j])}
+                      for j in worst]})
+        del move, grad, want, want_g, d, over
+    return out
+
+
+def gang_rank(spec: dict) -> dict:
+    """One rank of phase 15, in a process of its own (`gang.spawn`): the
+    transformer spec["cfg"] over the mesh spec["mesh"] from the parameters
+    of seed 0 cut to this rank's shards, fed its rows of phase 7's batches:
+    one gradient step (its kernel launches counted), GANG_STEPS adam steps
+    (peak memory), timed steps (median ms) and one step traced
+    (`collective_trace`). Rank 0 holds the gradients and the moves against
+    the saved single-process run spec["reference"]; with spec["diagnose"],
+    where the moves stray (`move_outliers`). spec["device"] is the card
+    unless it names the CPU (a rehearsal)."""
+    import torch.distributed as dist
+
+    from jobset_tpu_torch import tree
+    from jobset_tpu_torch.convert import shard_params
+    from jobset_tpu_torch.models import build_train_step, init_params
+    from jobset_tpu_torch.models.transformer import param_specs
+    from jobset_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from jobset_tpu_torch.runtime import optim
+    from jobset_tpu_torch.runtime.runner import batch_rows
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = spec["cfg"]
+    device = torch.device(spec.get("device") or f"cuda:{torch.cuda.current_device()}")
+    cuda = device.type == "cuda"
+    mesh = build_mesh(MeshConfig(**spec["mesh"]), device)
+    specs = param_specs(cfg)
+    start = shard_params(init_params(cfg, torch.Generator(device=device).manual_seed(0), device),
+                         cfg, mesh)
+    rows = torch.as_tensor(batch_rows(spec["batch"], mesh.size("dp"), mesh.index("dp")),
+                           device=device)
+    batches = [{k: v[rows] for k, v in token_batch(cfg.vocab_size, spec["batch"], spec["seq"],
+                                                   seed=3 + i, device=device).items()}
+               for i in range(GANG_STEPS)]
+    out = {"rank": mesh.rank, "coords": mesh.coords, "backend": dist.get_backend()}
+
+    grads_opt = grads_optimizer()
+    grad_step = build_train_step(cfg, grads_opt, device=device, mesh=mesh)
+    sync(device)
+    reset_moe_launches()
+    same, state, loss = grad_step(start, grads_opt.init(start), batches[0])
+    sync(device)
+    del same
+    out["launches"] = moe_launches_now()
+    out["grad_loss"] = float(loss)
+    ref = (torch.load(spec["reference"], map_location="cpu", mmap=True, weights_only=True)
+           if mesh.rank == 0 else None)
+    out["grads"] = gathered_diffs(state["g"], ref["grads"] if ref else None, specs, mesh, device)
+    # Kept on the host: the card is full with four f32 ranks.
+    grads = tree.tree_map(lambda g: g.cpu(), state["g"]) if spec.get("diagnose") else None
+    del state, grad_step
+
+    opt = optim.adam(GANG_LR)
+    step = build_train_step(cfg, opt, device=device, mesh=mesh)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    params, opt_state, losses, routes = start, opt.init(start), [], []
+    for b in batches:
+        with recording_routes(routes) if spec.get("diagnose") else contextlib.nullcontext():
+            params, opt_state, loss = step(params, opt_state, b)
+        losses.append(float(loss))
+        if spec.get("first_move") and "moves1" not in out:
+            first = tree.tree_map(lambda a, b: a - b, params, start)
+            out["moves1"] = gathered_diffs(first, ref["moves1"] if ref else None, specs, mesh,
+                                           device, ref["grads"] if ref else None,
+                                           0.05 * GANG_LR)
+            if spec.get("diagnose"):
+                out["move1_outliers"] = move_outliers(
+                    first, grads, ref["moves1"] if ref else None, ref["grads"] if ref else None,
+                    specs, mesh, device, 0.05 * GANG_LR)
+            del first
+            if cuda:  # the peak of the steps, not of the gathers
+                torch.cuda.reset_peak_memory_stats()
+    out["losses"] = losses
+    moves = tree.tree_map(lambda a, b: a - b, params, start)
+    del start
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    out["moves"] = gathered_diffs(moves, ref["moves"] if ref else None, specs, mesh, device)
+    if spec.get("diagnose"):
+        out["move_outliers"] = move_outliers(
+            moves, grads, ref["moves"] if ref else None, ref["grads"] if ref else None, specs,
+            mesh, device, 0.05 * GANG_LR * GANG_STEPS)
+        if ref is not None and ref["routes"]:
+            out["route_flips"] = route_flips(routes, ref["routes"], rows.cpu(), spec["seq"],
+                                             len(routes) // GANG_STEPS)
+    del moves, ref, grads
+    if not spec.get("timed", True):
+        return out
+
+    times = []
+    for i in range(GANG_WARMUP + GANG_TIMED):
+        sync(device)
+        t0 = time.perf_counter()
+        params, opt_state, _ = step(params, opt_state, batches[-1])
+        sync(device)
+        if i >= GANG_WARMUP:
+            times.append((time.perf_counter() - t0) * 1e3)
+    out["step_ms"] = float(np.median(times))
+    out["step_ms_range"] = (min(times), max(times))
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    # Two steps under the profiler, the second kept: the first takes the
+    # profiler's start-up, the ranks' included.
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    kept = []
+    sync(device)
+    with profile(activities=activities,
+                 schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: kept.append(list(p.events()))) as prof:
+        for _ in range(2):
+            with record_function(GANG_STEP_RANGE):
+                params, opt_state, _ = step(params, opt_state, batches[-1])
+                sync(device)
+            prof.step()
+    out.update(collective_trace(kept[0]))
+    return out
+
+
+# The range that marks the traced step of a gang rank.
+GANG_STEP_RANGE = "gang train step"
+
+
+def collective_trace(events) -> dict:
+    """From a torch.profiler trace of one gang step (no synchronization in
+    it but the one that closes the step): the step's span (its
+    GANG_STEP_RANGE), the union of the all-reduce ops' host spans within it
+    (c10d's entries on the calling thread and the backend's own ranges,
+    gloo's "gloo:all_reduce" from when its thread takes the op to the op's
+    end, which for CUDA tensors includes waiting for the device to finish
+    the input and the copies through the host), the all-reduce calls, and
+    the union of the device ops' spans within the step (None on the CPU or
+    where the trace holds none)."""
+    from torch.autograd import DeviceType
+
+    events = list(events)
+    (window,) = [e for e in events if e.name == GANG_STEP_RANGE
+                 and e.device_type != DeviceType.CUDA]
+    start, end = window.time_range.start, window.time_range.end
+
+    def clipped(es):
+        return [(max(e.time_range.start, start), min(e.time_range.end, end)) for e in es
+                if e.time_range.end > start and e.time_range.start < end]
+
+    host = [e for e in events if e.device_type != DeviceType.CUDA]
+    reduces = [e for e in host if "all_reduce" in e.name or "allreduce" in e.name]
+    device_ops = [e for e in events if e.device_type == DeviceType.CUDA]
+    span = end - start
+    spent = merged_span_us(clipped(reduces))
+    busy = merged_span_us(clipped(device_ops)) if device_ops else None
+    return {"traced_step_ms": span / 1e3, "collective_ms": spent / 1e3,
+            "collective_calls": sum(1 for e in reduces if e.name.startswith("c10d::")),
+            "collective_share": spent / span,
+            "device_busy_share": None if busy is None else busy / span}
+
+
+def gang_print(label, ranks, card):
+    for r in ranks:
+        if "step_ms" not in r:
+            continue
+        counts = r["launches"]
+        peak = "not measured" if r["peak_gb"] is None else f"{r['peak_gb']:.2f} GB"
+        busy = ("not measured" if r["device_busy_share"] is None
+                else f"{r['device_busy_share']:.1%}")
+        print(f"  {label} rank {r['rank']} {r['coords']} ({r['backend']}): one step launches "
+              f"flash bf16 {counts['TENSOR_CORE_LAUNCHES']}, f32 {counts['F32_LAUNCHES']}, "
+              f"tile-class {counts['TILE_CLASS_LAUNCHES']}; grouped fwd "
+              f"{counts['GROUPED_LAUNCHES']} (TMA {counts['GROUPED_TMA_LAUNCHES']}, f32 "
+              f"{counts['GROUPED_F32_LAUNCHES']}), dgrad {counts['GROUPED_DGRAD_LAUNCHES']}, "
+              f"wgrad {counts['GROUPED_WGRAD_LAUNCHES']} (TMA {counts['GROUPED_WGRAD_TMA_LAUNCHES']}"
+              f", f32 TMA {counts['GROUPED_WGRAD_F32_TMA_LAUNCHES']}); step median "
+              f"{r['step_ms']:.3f} ms ({r['step_ms_range'][0]:.3f}-{r['step_ms_range'][1]:.3f}), "
+              f"peak memory {peak}; traced step {r['traced_step_ms']:.3f} ms: all-reduce ops' "
+              f"host spans {r['collective_ms']:.3f} ms in {r['collective_calls']} all-reduces = "
+              f"{r['collective_share']:.1%} of it, device busy {busy} (torch.profiler; ranks "
+              f"sharing one card; gloo stages CUDA tensors through the host: no scaling "
+              f"figure; {card})", flush=True)
+
+
+def gang_check(label, ranks, ref, loss_rel, grad_rel, move_rel=None, f32_moves=False,
+               first_move=False):
+    """Rank 0's gradients, losses and moves against the single-process run;
+    every rank's losses alike; with first_move, the moves of the first adam
+    step held entry by entry and those of all GANG_STEPS printed. Returns
+    the worst relative differences."""
+    first = ranks[0]
+    loss_d = max([abs(first["grad_loss"] - ref["grad_loss"]) / abs(ref["grad_loss"])]
+                 + [abs(a - b) / abs(b) for a, b in zip(first["losses"], ref["losses"])])
+    grad_d = max(rel for rel, _, _ in first["grads"])
+    check(all(r["losses"] == first["losses"] and r["grad_loss"] == first["grad_loss"]
+              for r in ranks), f"{label}: every rank reports the same global losses")
+    check(loss_d <= loss_rel, f"{label}: losses {first['losses']} vs one process's "
+          f"{ref['losses']} (worst {loss_d:.2e}, bound {loss_rel})")
+    if grad_rel is None:
+        move_d = max(rel for rel, _, _ in first["moves"])
+        print(f"  {label}: gradient leaves {grad_d:.2e} and {GANG_STEPS} adam steps' moves "
+              f"{move_d:.2e} from one process's in relative norm at worst (information: bf16 "
+              "routes apart end to end; the f32 run below holds them)", flush=True)
+        return {"loss_rel": loss_d, "grad_rel": grad_d, "move": move_d}
+    check(grad_d <= grad_rel, f"{label}: each gradient leaf within {grad_rel} of one process's "
+          f"in relative norm (worst {grad_d:.2e} over {len(first['grads'])} leaves)")
+    if first_move:
+        move_d = max(held for _, _, _, held, _ in first["moves1"])
+        noise = sum(n for _, _, _, _, n in first["moves1"])
+        check(move_d <= 0.05 * GANG_LR, f"{label}: the first adam step's move of each parameter "
+              f"whose first-step gradient exceeds {ADAM_NOISE_GRAD:.0e} within 0.05 * lr of one "
+              f"process's (worst {move_d:.2e}; past that bound at or below it, where the move "
+              f"is the gradient's rounding over eps: {noise} entries)")
+        steps_d = max(rel for rel, _, _ in first["moves"])
+        print(f"  {label}: each leaf's move over {GANG_STEPS} adam steps {steps_d:.2e} from one "
+              "process's in relative norm at worst (information: see the entries below)",
+              flush=True)
+    elif f32_moves:
+        ok = all(d <= 0.05 * GANG_LR * GANG_STEPS for _, d, _ in first["moves"])
+        move_d = max(d for _, d, _ in first["moves"])
+        check(ok, f"{label}: each parameter's move within 0.05 * lr a step of one process's "
+              f"(worst {move_d:.2e})")
+    else:
+        move_d = max(rel for rel, _, _ in first["moves"])
+        check(move_d <= move_rel, f"{label}: each leaf's move over {GANG_STEPS} adam steps "
+              f"within {move_rel} of one process's in relative norm (worst {move_d:.2e})")
+    return {"loss_rel": loss_d, "grad_rel": grad_d, "move": move_d}
+
+
+def gang_runner_sequence(device, backend) -> dict:
+    """lm-moe-dropless.yaml's payload through the port's `WorkloadRunner` on
+    `device`, over `StandInCluster` (2 jobs of 2 pods): 4 worker processes
+    on `backend`; the annotations, the terminal state and each rank's
+    result line."""
+    from jobset_tpu_torch.runtime import WorkloadRunner
+
+    replicas, pods = LM_MOE_DROPLESS_GANG
+    cluster = StandInCluster("lm-moe-dropless", dict(LM_MOE_DROPLESS_PAYLOAD), replicas=replicas,
+                             parallelism=pods)
+    runner = WorkloadRunner(cluster, device, backend=backend)
+    t0 = time.perf_counter()
+    ran = runner.run_pending()
+    return {"ran": ran, "seconds": time.perf_counter() - t0,
+            "terminal_state": cluster.js.status.terminal_state,
+            "annotations": dict(cluster.js.metadata.annotations),
+            "results": runner.last_gang_results}
+
+
+def gang_moe_f32(tmp, batch, card) -> dict:
+    """(c)'s gang in f32 (TF32 off), where the first step routes as one
+    process does: its losses, gradients and first adam step held to one
+    process's, and where the moves of all GANG_STEPS stray printed
+    (`move_outliers`); each rank's peak memory beside the single
+    process's; no timing."""
+    from dataclasses import replace
+
+    from jobset_tpu_torch.runtime import gang
+
+    t0 = time.perf_counter()
+    moe32 = replace(moe_config(), dtype=torch.float32)
+    path = os.path.join(tmp, "moe32.pt")
+    ref = reference_apart(moe32, batch, PROMPT, path, first_move=True)
+    spec = {"cfg": moe32, "mesh": {"dp": 2, "tp": 2}, "batch": batch, "seq": PROMPT,
+            "reference": path, "timed": False, "diagnose": True, "first_move": True}
+    ranks = gang.spawn(gang_rank, 4, (spec,), backend="gloo", device="cuda",
+                       timeout_s=GANG_TIMEOUT_S, threads=0)
+    print(f"  gang (c) f32 B={batch}: peak memory by rank "
+          f"{[round(r['peak_gb'], 2) for r in ranks]} GB, {sum(r['peak_gb'] for r in ranks):.2f} "
+          f"GB together; the single process's {ref['peak_gb']:.2f} GB ({card})", flush=True)
+    for key, steps in (("move1_outliers", 1), ("move_outliers", GANG_STEPS)):
+        for row in ranks[0][key]:
+            if row["over"]:
+                print(f"  gang (c) f32 moves over {steps} adam step(s) past "
+                      f"{0.05 * GANG_LR * steps:.1e} an entry: {row['leaf']} {row['shape']}: "
+                      f"{row['over']} entries, largest |first-step gradient| among them "
+                      f"{row['max_ref_grad_over']}; worst {row['worst']}", flush=True)
+    print(f"  gang (c) f32: of rank 0's {batch // 2 * PROMPT} tokens, those that took other "
+          f"experts than in one process's run, summed over the {LAYERS} layers, by adam step: "
+          f"{ranks[0]['route_flips']}", flush=True)
+    worst = gang_check(f"gang (c) MoE flagship dp=2 x tp=2 in f32, B={batch} T={PROMPT}", ranks,
+                       ref, GANG_F32_REL, GANG_F32_MOE_GRAD_REL, first_move=True)
+    check(all(r["launches"]["GROUPED_F32_LAUNCHES"] == 2 * LAYERS for r in ranks),
+          f"gang (c) f32: {2 * LAYERS} f32 grouped forward launches a step on each rank")
+    return {"ranks": ranks, "reference": ref, "worst": worst,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_gang(results):
+    """Phase 15: gangs of processes on the card through `torch.distributed`
+    (each rank a process; the card holds them all)."""
+    import tempfile
+
+    from jobset_tpu_torch.runtime import gang
+
+    card = results["card"]
+    gang_results: dict = {}
+    dense, small, moe = flagship_config(), gang_small_config(), moe_config()
+    # Up to four ranks share the card: their allocators grow segments
+    # instead of caching fragments of each rank's peak (the ranks read it
+    # when they start; this process's allocator is already set).
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    gang_results["local_kernels"] = gang_kernel_checks()
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) NCCL at world 1: the gang path equals phase 7's step.
+        path = os.path.join(tmp, "dense.pt")
+        t0 = time.perf_counter()
+        ref = reference_apart(dense, BATCH, PROMPT, path)
+        spec = {"cfg": dense, "mesh": {}, "batch": BATCH, "seq": PROMPT, "reference": path}
+        (one,) = gang.spawn(gang_rank, 1, (spec,), backend="nccl", device="cuda",
+                            timeout_s=GANG_TIMEOUT_S, threads=0)
+        check(one["backend"] == "nccl" and one["grad_loss"] == ref["grad_loss"]
+              and one["losses"] == ref["losses"]
+              and all(d == 0.0 for _, d, _ in one["grads"] + one["moves"]),
+              f"gang (a) NCCL at world 1, dense flagship B={BATCH} T={PROMPT}: loss, gradients "
+              f"and {GANG_STEPS} adam steps' moves equal the single-process step bit for bit "
+              f"(worst max|d| {max(d for _, d, _ in one['grads'] + one['moves'])})")
+        gang_print("gang (a)", [one], card)
+        gang_results["nccl_world1"] = {"rank": one, "reference": ref,
+                                       "seconds": time.perf_counter() - t0}
+
+        # (b) the dense flagship at tp 2: two ranks share the card; NCCL
+        # refuses two ranks on one device, so they run gloo on CUDA tensors.
+        t0 = time.perf_counter()
+        spec = dict(spec, mesh={"tp": 2})
+        ranks = gang.spawn(gang_rank, 2, (spec,), backend="gloo", device="cuda",
+                           timeout_s=GANG_TIMEOUT_S, threads=0)
+        gang_print("gang (b)", ranks, card)
+        worst = gang_check(f"gang (b) dense flagship tp=2 (8 heads of 64 a rank), B={BATCH} "
+                           f"T={PROMPT} bf16", ranks, ref, GANG_BF16_LOSS_REL,
+                           GANG_BF16_GRAD_REL, GANG_BF16_MOVE_REL)
+        for r in ranks:
+            check(r["launches"]["TENSOR_CORE_LAUNCHES"] == LAYERS
+                  and r["launches"]["KERNEL_LAUNCHES"] == LAYERS
+                  and r["launches"]["F32_LAUNCHES"] == 0,
+                  f"gang (b) rank {r['rank']}: {LAYERS} bf16 flash launches a step, on the "
+                  f"tensor-core variant ({r['launches']['TENSOR_CORE_LAUNCHES']})")
+        gang_results["dense_tp2"] = {"ranks": ranks, "reference": ref, "worst": worst,
+                                     "seconds": time.perf_counter() - t0}
+
+        # A small f32 config at tp 2, TF32 off.
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, "small.pt")
+        ref = reference_apart(small, 4, 64, path)
+        spec = {"cfg": small, "mesh": {"tp": 2}, "batch": 4, "seq": 64, "reference": path}
+        ranks = gang.spawn(gang_rank, 2, (spec,), backend="gloo", device="cuda",
+                           timeout_s=GANG_TIMEOUT_S, threads=0)
+        gang_print("gang small f32", ranks, card)
+        worst = gang_check("gang small f32 config tp=2 (TF32 off)", ranks, ref, GANG_F32_REL,
+                           GANG_F32_REL, f32_moves=True)
+        check(all(r["launches"]["F32_LAUNCHES"] == small.n_layers for r in ranks),
+              f"gang small f32: {small.n_layers} f32 flash launches a step on each rank")
+        gang_results["small_f32_tp2"] = {"ranks": ranks, "reference": ref, "worst": worst,
+                                         "seconds": time.perf_counter() - t0}
+
+        # (c) the MoE flagship at dp 2 x tp 2: four ranks share the card.
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, "moe.pt")
+        ref = reference_apart(moe, BATCH, PROMPT, path)
+        spec = {"cfg": moe, "mesh": {"dp": 2, "tp": 2}, "batch": BATCH, "seq": PROMPT,
+                "reference": path}
+        ranks = gang.spawn(gang_rank, 4, (spec,), backend="gloo", device="cuda",
+                           timeout_s=GANG_TIMEOUT_S, threads=0)
+        gang_print("gang (c)", ranks, card)
+        worst = gang_check(f"gang (c) MoE flagship dp=2 x tp=2 ({MOE_EXPERTS} experts, "
+                           f"we1 [8, 1024, {MOE_D_FF // 2}] a rank), B={BATCH} T={PROMPT} bf16",
+                           ranks, ref, GANG_BF16_LOSS_REL, None)
+        for r in ranks:
+            c = r["launches"]
+            check(c["GROUPED_LAUNCHES"] == c["GROUPED_TMA_LAUNCHES"] == 2 * LAYERS
+                  and c["GROUPED_DGRAD_LAUNCHES"] == 2 * LAYERS
+                  and c["GROUPED_WGRAD_LAUNCHES"] == c["GROUPED_WGRAD_TMA_LAUNCHES"] == 2 * LAYERS
+                  and c["TENSOR_CORE_LAUNCHES"] == LAYERS,
+                  f"gang (c) rank {r['rank']}: a step launches {2 * LAYERS} grouped forward "
+                  f"(all TMA), dgrad and wgrad (all TMA) kernels and {LAYERS} flash kernels ({c})")
+        gang_results["moe_dp2_tp2"] = {"ranks": ranks, "reference": ref, "worst": worst,
+                                       "seconds": time.perf_counter() - t0}
+
+        gang_results["moe_dp2_tp2_f32"] = gang_moe_f32(tmp, GANG_F32_MOE_BATCH, card)
+
+    # (d) lm-moe-dropless.yaml through WorkloadRunner: the card's gang
+    # against the CPU's (f32 payload; rtol WORKLOAD_F32_REL).
+    card_run = gang_runner_sequence("cuda", "gloo")
+    cpu_run = gang_runner_sequence("cpu", "gloo")
+    final = float(card_run["annotations"].get("tpu.jobset.x-k8s.io/final-loss", "nan"))
+    want = float(cpu_run["annotations"].get("tpu.jobset.x-k8s.io/final-loss", "nan"))
+    check(card_run["terminal_state"] == "Completed" == cpu_run["terminal_state"]
+          and len(card_run["results"] or []) == 4
+          and abs(final - want) <= WORKLOAD_F32_REL * abs(want) + 1e-6,
+          f"gang (d) lm-moe-dropless.yaml through WorkloadRunner as 4 processes on the card: "
+          f"{card_run['terminal_state']} in {card_run['seconds']:.1f} s, final loss {final} vs "
+          f"the CPU gang's {want}")
+    for line in card_run["results"] or []:
+        print(f"  gang (d) rank {line['process_id']}: mesh {line['mesh']}, kernel launches "
+              f"{line['kernel_launches']}", flush=True)
+    gang_results["workload_runner"] = {"card": card_run, "cpu": cpu_run}
+    results["gang"] = gang_results
+
+
+def gang_launches(results) -> dict:
+    """The gang path's launches of each kernel entry: rank 0's step in (b)
+    (flash), the small f32 run (f32 flash), (c) (bf16 grouped) and its f32
+    run, and the whole run of (d) (f32 flash and grouped)."""
+    g = results.get("gang") or {}
+
+    def first(key):
+        ranks = (g.get(key) or {}).get("ranks") or [{}]
+        return ranks[0].get("launches") or {}
+
+    runner_lines = ((g.get("workload_runner") or {}).get("card") or {}).get("results") or [{}]
+    whole = runner_lines[0].get("kernel_launches") or {}
+    b, small, c = first("dense_tp2"), first("small_f32_tp2"), first("moe_dp2_tp2")
+    c32 = first("moe_dp2_tp2_f32")
+    return {
+        "flash_block": {"dense tp=2 step": b.get("TENSOR_CORE_LAUNCHES"),
+                        "MoE dp=2 x tp=2 step": c.get("TENSOR_CORE_LAUNCHES")},
+        "flash_block_f32": {"small f32 tp=2 step": small.get("F32_LAUNCHES"),
+                            "lm-moe-dropless.yaml run, rank 0": whole.get("F32_LAUNCHES")},
+        "flash_block_tile_classes": {"dense tp=2 step": b.get("TILE_CLASS_LAUNCHES")},
+        "grouped_matmul": {"MoE dp=2 x tp=2 step": c.get("GROUPED_LAUNCHES")},
+        "grouped_matmul_dgrad": {"MoE dp=2 x tp=2 step": c.get("GROUPED_DGRAD_LAUNCHES")},
+        "grouped_matmul_wgrad": {"MoE dp=2 x tp=2 step": c.get("GROUPED_WGRAD_LAUNCHES")},
+        "grouped_matmul_f32": {"MoE f32 dp=2 x tp=2 step": c32.get("GROUPED_F32_LAUNCHES"),
+                               "lm-moe-dropless.yaml run, rank 0": whole.get(
+                                   "GROUPED_F32_LAUNCHES")},
+        "grouped_matmul_dgrad_f32": {"MoE f32 dp=2 x tp=2 step": c32.get(
+            "GROUPED_DGRAD_F32_LAUNCHES"), "lm-moe-dropless.yaml run, rank 0": whole.get(
+            "GROUPED_DGRAD_LAUNCHES")},
+        "grouped_matmul_wgrad_f32": {"MoE f32 dp=2 x tp=2 step": c32.get(
+            "GROUPED_WGRAD_F32_LAUNCHES"), "lm-moe-dropless.yaml run, rank 0": whole.get(
+            "GROUPED_WGRAD_F32_LAUNCHES")},
+    }
+
+
+def phase_gang_apart(results):
+    """Phase 15 in a process of its own (`--gang-only`), this process's
+    cached blocks handed back to the card first: up to four ranks share it
+    with this process."""
+    import tempfile
+
+    torch.cuda.empty_cache()
+    print(f"phase 15: this process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB of the "
+          f"card ({torch.cuda.memory_reserved() / 1e9:.2f} GB reserved)", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "gang.json")
+        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--gang-only",
+                              "--out", path], capture_output=True, text=True, timeout=1000)
+        print(run.stdout, end="", flush=True)
+        if run.returncode != 0:
+            print(run.stderr[-4000:], file=sys.stderr, flush=True)
+        check(run.returncode == 0 and os.path.exists(path),
+              f"phase 15 in a process of its own exits {run.returncode}")
+        if not os.path.exists(path):
+            return
+        with open(path) as f:
+            results["gang"] = json.load(f).get("gang")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the results as JSON to this file")
@@ -4296,6 +5070,12 @@ def main() -> int:
     only.add_argument("--workloads-only", action="store_true",
                       help="build the flash block kernels and run phase 14 (the mlp and cnn "
                            "workload kinds, adafactor, WorkloadRunner) alone (no result line)")
+    only.add_argument("--gang-only", action="store_true",
+                      help="build the flash block and grouped kernels and run phase 15 (gangs "
+                           "of processes on torch.distributed) alone (no result line)")
+    only.add_argument("--gang-f32-moe-batch", type=int, metavar="B",
+                      help="build the flash block and grouped kernels and run phase 15's f32 "
+                           "MoE gang alone at batch B, for its memory (no result line)")
     parser.add_argument("--int8-baseline", metavar="DIR",
                         help="another checkout of this repo (the parent commit): phase 11 "
                              "also times its int8 kernel on the same inputs")
@@ -4337,7 +5117,8 @@ def main() -> int:
                else ["flash_block"] if args.flash_only or args.workloads_only
                else ["flash_block", "int8_matmul"] if args.serving_only
                else ["flash_block", "int8_matmul", "grouped_matmul"] if args.moe_only
-               else ["flash_block", "grouped_matmul"] if args.moe_train_only
+               else ["flash_block", "grouped_matmul"] if (args.moe_train_only or args.gang_only
+                                                          or args.gang_f32_moe_batch)
                else ["flash_block", "auction", "int8_matmul", "grouped_matmul"])
     libraries = cuda_build.build_all(sources)
     results["build_s"] = time.perf_counter() - t0
@@ -4353,6 +5134,25 @@ def main() -> int:
         results["grouped_ptxas"] = kernel_ptxas(
             cuda_build.BUILD_LOG["grouped_matmul"],
             r"grouped_(?:mm|wgrad)_(?:bf16|f32|tma|f32_tma)_kernel", "grouped kernel")
+    if args.gang_f32_moe_batch:
+        import tempfile
+
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        with tempfile.TemporaryDirectory() as tmp:
+            results["gang_moe_f32"] = gang_moe_f32(tmp, args.gang_f32_moe_batch, card)
+    if args.gang_only:
+        phase_gang(results)
+    if args.gang_only or args.gang_f32_moe_batch:
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump(results, f, indent=1)
+        print(f"chip_smoke {'--gang-only' if args.gang_only else '--gang-f32-moe-batch'}: "
+              f"{len(FAILURES)} check(s) failed, "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        for what in FAILURES:
+            print(f"  FAILED: {what}", flush=True)
+        return 1 if FAILURES else 0
     if args.workloads_only:
         phase_workloads(results)
         if args.out:
@@ -4471,6 +5271,7 @@ def main() -> int:
     grouped_kernels = phase_moe_apart(results, args.grouped_baseline)
     grouped_kernels += phase_moe_train_apart(results, args.grouped_baseline)
     phase_workloads_apart(results)
+    phase_gang_apart(results)
     adafactor_counts = ((results.get("adafactor_vs_adam") or {}).get("adafactor") or {}).get(
         "launches") or {}
     for kernel in kernels:
@@ -4487,6 +5288,9 @@ def main() -> int:
         kernels.append(int8_kernel)
     attach_grouped_ptxas(grouped_kernels, results.get("grouped_ptxas"), results.get("grouped_sass"))
     kernels += grouped_kernels
+    on_gang = gang_launches(results)
+    for kernel in kernels:
+        kernel["gang_launches"] = on_gang.get(kernel["name"], {"not on the gang's path": 0})
     results["kernels"] = kernels
     results["seconds"] = time.perf_counter() - t_start
     if args.out:

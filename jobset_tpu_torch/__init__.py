@@ -15,6 +15,9 @@ kernel): the admission scorer (`queue.scorer.score`), the gang-readiness
 aggregate (`core.columnar.job_counts`), the placement policy's MLP
 (`policy.model.score`) and its trainer (`policy.train.train`,
 `python -m jobset_tpu_torch.policy.train --bundles DIR --out CKPT`).
+Training also runs as a gang of processes on `torch.distributed`, one
+a device, data- and tensor-parallel over the five-axis mesh
+(`runtime.worker`, `runtime.WorkloadRunner`, `parallel.mesh`).
 Entry points run on the card unless the caller asks for the CPU
 (`device="cpu"`, `--cpu`); with no CUDA device and no such request they
 raise. On the card, `python3 chip_smoke.py` drives them all

@@ -1,6 +1,7 @@
 """The flagship transformer's forward, serving path (greedy or sampled,
-bf16 or int8) and single-device training step in PyTorch; the `mlp` and
-`cnn` workload kinds' models in `models.mlp` and `models.cnn`."""
+bf16 or int8) and training step (one device, or dp and tp over a gang's
+mesh) in PyTorch; the `mlp` and `cnn` workload kinds' models in
+`models.mlp` and `models.cnn`."""
 
 from .decode import build_generate
 from .quant import quantize_params_for_serving

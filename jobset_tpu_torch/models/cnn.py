@@ -1,5 +1,5 @@
-"""ResNet-style CNN, the vision family: the port of `jobset_tpu/models/cnn.py`
-on one device.
+"""ResNet-style CNN, the vision family: the port of `jobset_tpu/models/cnn.py`,
+on one device or data-parallel over a gang's dp axis.
 
 The tree keeps the JAX names and shapes: `stem`, `stem_scale`,
 `stem_bias`, `stages` (a list of stages, each a list of block dicts
@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 from .. import tree
 from ..device import resolve_device
+from ..parallel.collectives import all_reduce_, reduce
 
 
 @dataclass(frozen=True)
@@ -160,25 +161,34 @@ def forward(params: dict, images: torch.Tensor, config: CNNConfig) -> torch.Tens
     return x @ params["head"].float() + params["head_bias"]
 
 
-def loss_fn(params: dict, images: torch.Tensor, labels: torch.Tensor, config: CNNConfig):
-    """Mean over the batch of -log_softmax(logits)[label]."""
+def loss_fn(params: dict, images: torch.Tensor, labels: torch.Tensor, config: CNNConfig,
+            dp=None):
+    """Mean over the batch of -log_softmax(logits)[label]; with a dp group,
+    over the group's batch (its ranks hold equal shares)."""
     logits = forward(params, images, config)
-    return -torch.log_softmax(logits, dim=-1).gather(1, labels[:, None].long()).mean()
+    local = -torch.log_softmax(logits, dim=-1).gather(1, labels[:, None].long()).mean()
+    if dp is None:
+        return local
+    return reduce(local, dp) / torch.distributed.get_world_size(dp)
 
 
-def build_train_step(config: CNNConfig, optimizer, device=None):
+def build_train_step(config: CNNConfig, optimizer, device=None, mesh=None):
     """train_step(params, opt_state, {"images", "labels"}) -> (params,
     opt_state, loss) on `device` (the card unless the caller names
     another), with an optimizer from `runtime.optim` applied as
-    (p + u).to(p.dtype). The step returns new tensors and leaves its
-    arguments as they were."""
+    (p + u).to(p.dtype); over `mesh` the batch is the rank's dp slice, the
+    loss the global batch's mean and the gradients averaged over dp (the
+    reference's data-parallel step). The step returns new tensors and
+    leaves its arguments as they were."""
     cfg = config
     cfg.validate()
     device = resolve_device(device)
+    dp = mesh.group("dp") if mesh is not None else None
 
     def train_step(params, opt_state, batch):
         images, labels = (torch.as_tensor(batch[k]).to(device) for k in ("images", "labels"))
-        loss, grads = tree.value_and_grad(loss_fn, params, images, labels, cfg)
+        loss, grads = tree.value_and_grad(loss_fn, params, images, labels, cfg, dp)
+        all_reduce_(tree.leaves(grads), dp)
         updates, opt_state = optimizer.update(grads, opt_state, params)
         return tree.apply_updates(params, updates), opt_state, loss
 

@@ -29,7 +29,20 @@ forward and serving paths drop them. The grouped products differentiate
 through `ops.grouped_matmul`'s autograd Function (hand kernels for the
 backward on the card).
 
-Not ported yet: tp/sp/pp/ep > 1, microbatched pipelines and Ulysses
+Over a gang (`mesh`, a `parallel.mesh.Mesh`) the train and eval steps
+run dp and tp, with the reference's collectives (`parallel.collectives`):
+each rank holds its dp rows of the batch and its tp shards of the
+parameters (`param_specs`: heads, hidden and expert columns, and the
+vocab split over tp, as Megatron's column and row parallel products);
+the row-parallel outputs, the embedding and the loss's vocab sums are
+reduced over tp ("reduce"), a replicated activation entering a sharded
+weight carries the transpose psum ("copy"), the loss's token count and
+sum and the MoE balancing statistics are pooled over dp before the aux
+loss's product, and the gradients are summed over dp once a step, after
+accumulation (a tp-sharded leaf is never reduced over tp). Without a
+mesh, or at size 1, every collective is the identity.
+
+Not ported yet: sp/pp/ep > 1, microbatched pipelines and Ulysses
 attention; `TransformerConfig.validate` rejects the settings.
 """
 
@@ -45,9 +58,11 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from .. import tree
-from ..device import check_one_device, resolve_device
+from ..device import check_axes, resolve_device
 from ..ops.flash_block import MAX_HEAD_DIM
 from ..ops.grouped_matmul import grouped_matmul
+from ..parallel.collectives import all_reduce_, copy, pmax, reduce
+from ..parallel.mesh import MeshConfig
 from ..parallel.ring_attention import ring_attention
 from .quant import QuantizedTensor, matmul, matmul_experts, weight_cast
 
@@ -107,17 +122,28 @@ class TransformerConfig:
     def kv_heads(self) -> int:
         return self.n_kv_heads or self.n_heads
 
-    def validate(self, mesh_shape: Mapping[str, int] | None = None) -> None:
-        """Reject what the port cannot run: bad widths and MoE settings (the
-        reference's rules at ep = 1), and every setting it has not ported
-        (any mesh axis > 1, Ulysses, pipelines)."""
-        check_one_device(mesh_shape)
+    def validate(self, mesh_shape: MeshConfig | Mapping[str, int] | None = None) -> None:
+        """Reject what the port cannot run on the mesh (a MeshConfig or a
+        payload's `mesh` mapping; None: one device): bad widths and MoE
+        settings, widths that tp does not divide (the reference's rules at
+        ep = 1), and every setting it has not ported (sp, pp or ep > 1,
+        Ulysses, pipelines)."""
+        mc = MeshConfig.of(mesh_shape)
+        check_axes(mc)
         if self.d_model % self.n_heads:
             raise ValueError("d_model must divide evenly into heads")
+        if self.n_heads % mc.tp:
+            raise ValueError(f"n_heads {self.n_heads} not divisible by tp {mc.tp}")
         if self.n_heads % self.kv_heads:
             raise ValueError(
                 f"n_heads {self.n_heads} not divisible by n_kv_heads {self.kv_heads}"
             )
+        if self.kv_heads % mc.tp:
+            raise ValueError(f"n_kv_heads {self.kv_heads} not divisible by tp {mc.tp}")
+        if self.d_ff % mc.tp or (self.n_experts and self.d_ff_expert % mc.tp):
+            raise ValueError("feed-forward widths must be divisible by tp")
+        if self.vocab_size % mc.tp:
+            raise ValueError(f"vocab {self.vocab_size} not divisible by tp {mc.tp}")
         if self.head_dim % 2 or self.head_dim > MAX_HEAD_DIM:
             raise ValueError(
                 f"head_dim {self.head_dim} must be even (rotary) and at most "
@@ -177,10 +203,74 @@ class TransformerConfig:
 # ---------------------------------------------------------------------------
 
 
-def param_shapes(config: TransformerConfig) -> dict:
-    """Counterpart of the JAX `param_specs`: the param tree's names, each
-    with (shape, fan_in); fan_in None marks a norm scale (ones). Layer
-    leaves are stacked [pp=1, n_layers, ...]."""
+def param_specs(config: TransformerConfig) -> dict:
+    """The reference's `param_specs`: for each leaf, the mesh axis each of
+    its dims is split over (None: replicated), as a tuple. Layer leaves are
+    stacked [pp, layers, ...]; tensor dims split over tp, expert dims over
+    ep."""
+    specs = {
+        "embed": ("tp", None),  # vocab-sharded
+        "final_norm": (None,),
+        "layers": {
+            "ln1": ("pp", None, None),
+            "ln2": ("pp", None, None),
+            "wq": ("pp", None, None, "tp"),
+            "wk": ("pp", None, None, "tp"),
+            "wv": ("pp", None, None, "tp"),
+            "wo": ("pp", None, "tp", None),
+        },
+    }
+    if not config.tie_embeddings:
+        specs["unembed"] = (None, "tp")
+    if config.n_experts:
+        specs["layers"].update({
+            "wg": ("pp", None, None, None),
+            "we1": ("pp", None, "ep", None, "tp"),
+            "we2": ("pp", None, "ep", "tp", None),
+        })
+    else:
+        specs["layers"].update({
+            "w1": ("pp", None, None, "tp"),
+            "w2": ("pp", None, "tp", None),
+        })
+    return specs
+
+
+def local_shape(shape, spec, mesh_config: MeshConfig | None) -> tuple:
+    """A leaf's shape on one rank: each dim divided by the size of the axis
+    `spec` splits it over."""
+    mc = mesh_config or MeshConfig()
+    return tuple(n // (getattr(mc, axis) if axis else 1) for n, axis in zip(shape, spec))
+
+
+def param_shapes(config: TransformerConfig, mesh_config: MeshConfig | None = None) -> dict:
+    """The param tree's names, each with (shape, fan_in); fan_in None marks
+    a norm scale (ones). Layer leaves are stacked [pp=1, n_layers, ...].
+    With `mesh_config`, the shapes are one rank's shards (`param_specs`);
+    fan_in stays the global one."""
+    shapes = _global_param_shapes(config)
+    if mesh_config is None:
+        return shapes
+    specs = param_specs(config)
+
+    def walk(shape_tree, spec_tree):
+        return {name: walk(v, spec_tree[name]) if isinstance(v, dict)
+                else (local_shape(v[0], spec_tree[name], mesh_config), v[1])
+                for name, v in shape_tree.items()}
+
+    return walk(shapes, specs)
+
+
+def global_shapes(config: TransformerConfig) -> dict:
+    """The param tree's global shapes (tuples), leaf for leaf."""
+    def walk(shape_tree):
+        return {name: walk(v) if isinstance(v, dict) else tuple(v[0])
+                for name, v in shape_tree.items()}
+
+    return walk(_global_param_shapes(config))
+
+
+def _global_param_shapes(config: TransformerConfig) -> dict:
     cfg = config
     d, h, dh, lps = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.n_layers
     shapes = {
@@ -269,26 +359,44 @@ def rotary(x, positions, theta):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def _embed_tokens(embed, tokens, cfg):
-    """Embedding gather (tp = 1). Ids outside the vocab give a zero row,
+def _tp(mesh):
+    """The tp group of `mesh` (None without a mesh or at tp = 1)."""
+    return mesh.group("tp") if mesh is not None else None
+
+
+def _tp_size(mesh) -> int:
+    return mesh.size("tp") if mesh is not None else 1
+
+
+def _tp_index(mesh) -> int:
+    return mesh.index("tp") if mesh is not None else 0
+
+
+def _embed_tokens(embed, tokens, cfg, mesh=None):
+    """Vocab-sharded embedding: a masked gather of this rank's rows, then
+    a reduce over tp. Ids outside the shard (or the vocab) give a zero row,
     as the JAX version's masked gather does."""
-    in_vocab = (tokens >= 0) & (tokens < embed.shape[0])
-    rows = embed[torch.where(in_vocab, tokens, 0)]
-    return rows.to(cfg.dtype) * in_vocab[..., None].to(cfg.dtype)
+    v_local = embed.shape[0]
+    local_ids = tokens - _tp_index(mesh) * v_local
+    in_shard = (local_ids >= 0) & (local_ids < v_local)
+    rows = embed[torch.where(in_shard, local_ids, 0)]
+    return reduce(rows.to(cfg.dtype) * in_shard[..., None].to(cfg.dtype), _tp(mesh))
 
 
-def _attention_inputs(p, x, cfg: TransformerConfig):
-    """Pre-norm, the fused QKV GEMM and rotary: x [B, T, d] -> q [B, T, H,
-    D] and k, v [B, T, H_kv, D]."""
+def _attention_inputs(p, x, cfg: TransformerConfig, mesh=None):
+    """Pre-norm, the fused QKV GEMM (column-parallel over tp) and rotary:
+    x [B, T, d] -> q [B, T, H/tp, D] and k, v [B, T, H_kv/tp, D]."""
     batch, t, _ = x.shape
     compute = cfg.dtype
     positions = torch.arange(t, dtype=torch.float32, device=x.device)
-    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    xn = copy(rms_norm(x, p["ln1"], cfg.norm_eps), _tp(mesh))
+    heads_local = cfg.n_heads // _tp_size(mesh)
+    kv_heads_local = cfg.kv_heads // _tp_size(mesh)
 
     # Fused QKV: one [d, (h + 2*hkv)*dh] GEMM instead of three narrow ones
     # (int8 weights are joined as int8, each column keeping its scale).
-    q_width = cfg.n_heads * cfg.head_dim
-    kv_width = cfg.kv_heads * cfg.head_dim
+    q_width = heads_local * cfg.head_dim
+    kv_width = kv_heads_local * cfg.head_dim
     parts = [p["wq"], p["wk"], p["wv"]]
     if isinstance(parts[0], QuantizedTensor):
         w_qkv = QuantizedTensor.cat(parts)
@@ -300,15 +408,16 @@ def _attention_inputs(p, x, cfg: TransformerConfig):
     def heads(y, n_heads):
         return y.reshape(batch, t, n_heads, cfg.head_dim)
 
-    q = rotary(heads(q, cfg.n_heads), positions, cfg.rope_theta)
-    key = rotary(heads(key, cfg.kv_heads), positions, cfg.rope_theta)
-    return q, key, heads(value, cfg.kv_heads)
+    q = rotary(heads(q, heads_local), positions, cfg.rope_theta)
+    key = rotary(heads(key, kv_heads_local), positions, cfg.rope_theta)
+    return q, key, heads(value, kv_heads_local)
 
 
-def _dense_mlp(p, xn, cfg):
+def _dense_mlp(p, xn, cfg, mesh=None):
+    """w1 column-parallel, w2 row-parallel, the output reduced over tp."""
     compute = cfg.dtype
-    h = F.silu(matmul(xn, p["w1"], compute))
-    return matmul(h, p["w2"], compute)
+    h = F.silu(matmul(copy(xn, _tp(mesh)), p["w1"], compute))
+    return reduce(matmul(h, p["w2"], compute), _tp(mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -364,17 +473,21 @@ def _expert_ffn(p, x, cfg):
     return matmul_experts(F.silu(matmul_experts(x, p["we1"], compute)), p["we2"], compute)
 
 
-def _all_experts(p, xn, weights, cfg):
+def _all_experts(p, xn, weights, cfg, mesh=None):
     """Every expert on every token of xn [B, T, d], the outputs weighted by
-    weights [B*T, E] (f32, cast to the compute dtype) and summed."""
+    weights [B*T, E] (f32, cast to the compute dtype) and summed; over tp
+    each rank's partial sums are reduced."""
     b, t, d = xn.shape
-    y = _expert_ffn(p, xn.reshape(1, b * t, d), cfg)  # [E, n, d]
-    return torch.einsum("end,ne->nd", y, weights.to(cfg.dtype)).reshape(b, t, d)
+    g = _tp(mesh)
+    y = _expert_ffn(p, copy(xn, g).reshape(1, b * t, d), cfg)  # [E, n, d]
+    out = torch.einsum("end,ne->nd", y, copy(weights, g).to(cfg.dtype))
+    return reduce(out, g).reshape(b, t, d)
 
 
-def _moe_mlp(p, xn, cfg):
+def _moe_mlp(p, xn, cfg, mesh=None):
     """Soft dispatch: every expert on every token, gate-weighted."""
-    return _all_experts(p, xn, _router_gates(xn.reshape(-1, xn.shape[-1]), p["wg"]), cfg)
+    return _all_experts(p, xn, _router_gates(xn.reshape(-1, xn.shape[-1]), p["wg"]), cfg,
+                        mesh)
 
 
 class _SlotGather(torch.autograd.Function):
@@ -437,17 +550,20 @@ def sorted_ragged_expert_ffn(p, x_flat, top_w, top_i, cfg):
     return out, group_sizes
 
 
-def _moe_mlp_dropless(p, xn, cfg):
+def _moe_mlp_dropless(p, xn, cfg, mesh=None):
     """Dropless token-choice top-k (ep = 1): exact routed math through the
-    sorted ragged products, no capacity and no drops. Returns (out, stats
-    [2, E]: choice counts and gate-probability sums)."""
+    sorted ragged products, no capacity and no drops; over tp each rank
+    runs its d_ff_expert columns of every expert and the combined partial
+    outputs are reduced. Returns (out, stats [2, E]: choice counts and
+    gate-probability sums)."""
     b, t, d = xn.shape
+    g = _tp(mesh)
     x = xn.reshape(b * t, d)
     gates = _router_gates(x, p["wg"])
     top_w, top_i = renormalized_topk(gates, cfg.moe_top_k)
-    out, group_sizes = sorted_ragged_expert_ffn(p, x, top_w, top_i, cfg)
+    out, group_sizes = sorted_ragged_expert_ffn(p, copy(x, g), copy(top_w, g), top_i, cfg)
     stats = torch.stack([group_sizes.float(), gates.sum(dim=0)])
-    return out.to(cfg.dtype).reshape(b, t, d), stats
+    return reduce(out.to(cfg.dtype), g).reshape(b, t, d), stats
 
 
 def _route_prologue(p, xn, cfg):
@@ -458,18 +574,20 @@ def _route_prologue(p, xn, cfg):
     return x, _router_gates(x, p["wg"]), b * t
 
 
-def _dispatch_combine_experts(p, chunk, dispatch, combine, cfg):
+def _dispatch_combine_experts(p, chunk, dispatch, combine, cfg, mesh=None):
     """Pack the tokens into expert-major [E, C, d] slot buffers per
-    `dispatch` [n, E, C], run the experts' FFNs, and weight the results
-    back into token positions per `combine` [n, E, C]. At ep = 1 the
-    reference's all_to_all and all_gather are identities."""
+    `dispatch` [n, E, C], run the experts' FFNs (their outputs reduced over
+    tp), and weight the results back into token positions per `combine`
+    [n, E, C]. At ep = 1 the reference's all_to_all and all_gather are
+    identities."""
     compute = cfg.dtype
+    g = _tp(mesh)
     send = torch.einsum("nd,nec->ecd", chunk.to(compute), dispatch.to(compute))
-    y = _expert_ffn(p, send, cfg)
+    y = reduce(_expert_ffn(p, copy(send, g), cfg), g)
     return torch.einsum("ecd,nec->nd", y, combine.to(compute))
 
 
-def _moe_mlp_routed(p, xn, cfg):
+def _moe_mlp_routed(p, xn, cfg, mesh=None):
     """Token-choice top-k with a static per-expert capacity C (switch
     style): slot-major positions, so first choices win capacity over
     second ones; overflow drops. Returns (out, stats [2, E])."""
@@ -488,11 +606,11 @@ def _moe_mlp_routed(p, xn, cfg):
     slot = F.one_hot(pos.long().clamp(max=capacity - 1), capacity).float()
     dispatch = (kept[..., None] * slot).reshape(k, n, num_experts, capacity)
     combine = (dispatch * top_w.T[..., None, None]).sum(dim=0)
-    out = _dispatch_combine_experts(p, chunk, dispatch.sum(dim=0), combine, cfg)
+    out = _dispatch_combine_experts(p, chunk, dispatch.sum(dim=0), combine, cfg, mesh)
     return out.reshape(b, t, d), stats
 
 
-def _moe_mlp_expert_choice(p, xn, cfg):
+def _moe_mlp_expert_choice(p, xn, cfg, mesh=None):
     """Expert choice: each expert takes its top-C tokens by gate score
     (ties to the lower token index). Balanced by construction; no
     balancing statistics (zeros)."""
@@ -502,42 +620,42 @@ def _moe_mlp_expert_choice(p, xn, cfg):
     capacity = min(n, max(1, math.ceil(n / num_experts * cfg.moe_capacity_factor)))
     top_w, top_i = _top_k(gates.T, capacity)  # [E, C]
     dispatch = F.one_hot(top_i, n).float().permute(2, 0, 1)  # [n, E, C]
-    out = _dispatch_combine_experts(p, chunk, dispatch, dispatch * top_w[None], cfg)
+    out = _dispatch_combine_experts(p, chunk, dispatch, dispatch * top_w[None], cfg, mesh)
     return out.reshape(b, t, d), _zero_stats(cfg, xn.device)
 
 
-def _mlp(p, xn, cfg):
+def _mlp(p, xn, cfg, mesh=None):
     """The layer's feed-forward: (out [B, T, d] in the compute dtype, stats
     [2, aux_stat_width]), the routed paths' balancing statistics (zeros on
     the dense and soft-dispatch paths)."""
     if "wg" not in p:
-        return _dense_mlp(p, xn, cfg), _zero_stats(cfg, xn.device)
+        return _dense_mlp(p, xn, cfg, mesh), _zero_stats(cfg, xn.device)
     if cfg.moe_router == "expert":
-        return _moe_mlp_expert_choice(p, xn, cfg)
+        return _moe_mlp_expert_choice(p, xn, cfg, mesh)
     if cfg.moe_top_k > 0:
         if cfg.moe_dispatch == "dropless":
-            return _moe_mlp_dropless(p, xn, cfg)
-        return _moe_mlp_routed(p, xn, cfg)
-    return _moe_mlp(p, xn, cfg), _zero_stats(cfg, xn.device)
+            return _moe_mlp_dropless(p, xn, cfg, mesh)
+        return _moe_mlp_routed(p, xn, cfg, mesh)
+    return _moe_mlp(p, xn, cfg, mesh), _zero_stats(cfg, xn.device)
 
 
-def _layer_out(p, x, attn, cfg: TransformerConfig):
-    """The output projection of attn [B, T, H, D] onto the residual x,
-    then the MLP on the residual: (x, the MLP's balancing statistics [2,
-    aux_stat_width])."""
+def _layer_out(p, x, attn, cfg: TransformerConfig, mesh=None):
+    """The output projection of attn [B, T, H/tp, D] (row-parallel, reduced
+    over tp) onto the residual x, then the MLP on the residual: (x, the
+    MLP's balancing statistics [2, aux_stat_width])."""
     batch, t, heads, dim = attn.shape
-    out = matmul(attn.reshape(batch, t, heads * dim), p["wo"], cfg.dtype)
+    out = reduce(matmul(attn.reshape(batch, t, heads * dim), p["wo"], cfg.dtype), _tp(mesh))
     x = x + out.to(x.dtype)
     xn = rms_norm(x, p["ln2"], cfg.norm_eps)
-    out, stats = _mlp(p, xn, cfg)
+    out, stats = _mlp(p, xn, cfg, mesh)
     return x + out.to(x.dtype), stats
 
 
-def _layer(p, x, cfg: TransformerConfig):
+def _layer(p, x, cfg: TransformerConfig, mesh=None):
     """One layer: attention block, then the MLP on the residual. Returns
     (x, stats), as the reference's `_layer`."""
-    attn = ring_attention(*_attention_inputs(p, x, cfg), causal=True)
-    return _layer_out(p, x, attn, cfg)
+    attn = ring_attention(*_attention_inputs(p, x, cfg, mesh), causal=True)
+    return _layer_out(p, x, attn, cfg, mesh)
 
 
 # The GEMMs whose outputs remat_policy="dots" saves (`x @ w` reaches aten
@@ -545,7 +663,7 @@ def _layer(p, x, cfg: TransformerConfig):
 _SAVED_BY_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default]
 
 
-def _remat_layer(p, x, cfg: TransformerConfig):
+def _remat_layer(p, x, cfg: TransformerConfig, mesh=None):
     """`_layer` under the configured rematerialization while gradients are
     recorded. "full" checkpoints the whole layer, so the backward runs its
     forward again, attention kernel included. "dots" keeps the attention
@@ -556,20 +674,23 @@ def _remat_layer(p, x, cfg: TransformerConfig):
     products are no GEMM there (`ragged_dot_general` is not a `dot_general`
     to the reference's `checkpoint_dots` either): their autograd Function
     runs again in the backward, as the reference recomputes them. Returns
-    (x, stats)."""
+    (x, stats). Over tp the recomputed forward runs its collectives
+    again: the same values, at the cost of their traffic."""
     if not (cfg.remat and torch.is_grad_enabled()):
-        return _layer(p, x, cfg)
+        return _layer(p, x, cfg, mesh)
     if cfg.remat_policy == "full":
-        return checkpoint(_layer, p, x, cfg, use_reentrant=False)
+        return checkpoint(_layer, p, x, cfg, mesh, use_reentrant=False)
     dots = partial(create_selective_checkpoint_contexts, _SAVED_BY_DOTS)
-    q, k, v = checkpoint(_attention_inputs, p, x, cfg, use_reentrant=False, context_fn=dots)
+    q, k, v = checkpoint(_attention_inputs, p, x, cfg, mesh, use_reentrant=False,
+                         context_fn=dots)
     attn = ring_attention(q, k, v, causal=True)
-    return checkpoint(_layer_out, p, x, attn, cfg, use_reentrant=False, context_fn=dots)
+    return checkpoint(_layer_out, p, x, attn, cfg, mesh, use_reentrant=False, context_fn=dots)
 
 
-def unembed_logits(params, xn, cfg):
-    """Logits from final hidden states: the unembedding matrix, or the
-    transposed embedding when tied."""
+def unembed_logits(params, xn, cfg, mesh=None):
+    """This rank's vocab shard of the logits from final hidden states: the
+    unembedding matrix, or the transposed embedding when tied."""
+    xn = copy(xn, _tp(mesh))
     if cfg.tie_embeddings:
         return xn.to(cfg.dtype) @ params["embed"].to(cfg.dtype).T
     return matmul(xn, params["unembed"], cfg.dtype)
@@ -587,28 +708,40 @@ def _layer_views(params: dict) -> list:
 # ---------------------------------------------------------------------------
 
 
-def _softmax_xent(logits, targets, cfg: TransformerConfig):
-    """Per-token cross-entropy [B, T] from logits [B, T, V] (tp = 1), in f32,
+def _softmax_xent(logits, targets, cfg: TransformerConfig, mesh=None):
+    """Per-token cross-entropy [B, T] from this rank's vocab shard of the
+    logits [B, T, V/tp], in f32 (the reference's `_sharded_softmax_xent`),
     with label smoothing eps (target (1-eps)*one_hot + eps/V: the loss is
     lse - (1-eps)*tgt - eps*mean_v(logits)) and z-loss (+ coef * lse^2).
-    The max shift is a constant of the log-sum-exp (detached). The target
-    logit is gathered; an id outside the vocab contributes 0 to it."""
+    The max shift is a constant of the log-sum-exp (detached, pmax over
+    tp). The target logit is gathered from the shard that holds it; an id
+    outside the vocab contributes 0. The shards' exp sums, target logits
+    and (with smoothing) logit sums are reduced over tp in one all-reduce."""
+    g = _tp(mesh)
     logits = logits.float()
-    row_max = logits.detach().amax(dim=-1)
-    lse = torch.log(torch.exp(logits - row_max[..., None]).sum(dim=-1)) + row_max
-    in_vocab = (targets >= 0) & (targets < logits.shape[-1])
-    ids = torch.where(in_vocab, targets, 0).long()
-    tgt = logits.gather(-1, ids[..., None])[..., 0] * in_vocab
+    v_local = logits.shape[-1]
+    row_max = pmax(logits.detach().amax(dim=-1), g)
+    sumexp = torch.exp(logits - row_max[..., None]).sum(dim=-1)
+    local_ids = targets - _tp_index(mesh) * v_local
+    in_shard = (local_ids >= 0) & (local_ids < v_local)
+    ids = torch.where(in_shard, local_ids, 0).long()
+    tgt = logits.gather(-1, ids[..., None])[..., 0] * in_shard
     eps = cfg.label_smoothing
+    if g is not None:
+        parts = reduce(torch.stack([sumexp, tgt] + ([logits.sum(dim=-1)] if eps else [])), g)
+        sumexp, tgt, vocab_sum = parts[0], parts[1], parts[2] if eps else None
+    elif eps:
+        vocab_sum = logits.sum(dim=-1)
+    lse = torch.log(sumexp) + row_max
     if eps:
-        tgt = (1.0 - eps) * tgt + eps * (logits.sum(dim=-1) / cfg.vocab_size)
+        tgt = (1.0 - eps) * tgt + eps * (vocab_sum / cfg.vocab_size)
     loss = lse - tgt
     if cfg.z_loss_coef:
         loss = loss + cfg.z_loss_coef * torch.square(lse)
     return loss
 
 
-def _token_ce(params, xn, targets, cfg: TransformerConfig):
+def _token_ce(params, xn, targets, cfg: TransformerConfig, mesh=None):
     """Per-token cross-entropy [B, T] from final hidden states, honoring
     `loss_chunk`: time chunks run under checkpoint, so only [B, chunk, V]
     logits are resident, each recomputed on the backward (exact: the loss
@@ -616,7 +749,7 @@ def _token_ce(params, xn, targets, cfg: TransformerConfig):
     t = xn.shape[1]
 
     def token_losses(xn_c, targets_c):
-        return _softmax_xent(unembed_logits(params, xn_c, cfg), targets_c, cfg)
+        return _softmax_xent(unembed_logits(params, xn_c, cfg, mesh), targets_c, cfg, mesh)
 
     chunk = cfg.loss_chunk
     if not chunk or chunk >= t:
@@ -642,20 +775,27 @@ def _balancing_aux(stats, cfg: TransformerConfig):
     return (cfg.n_experts * frac * pbar).sum() / cfg.n_layers
 
 
-def _local_loss(params, inputs, targets, mask, cfg: TransformerConfig):
-    """(loss_sum, token_count, aux) of one batch on one device; aux, the
-    MoE balancing loss, is 0 unless routing is token-choice top-k (the
-    reference's condition, moe_top_k > 0)."""
-    x = _embed_tokens(params["embed"], inputs, cfg)
+def _local_loss(params, inputs, targets, mask, cfg: TransformerConfig, mesh=None):
+    """(loss_sum, token_count, aux) of the global batch, from this rank's
+    rows: the sum and the count are reduced over dp, and so are the MoE
+    balancing statistics before the aux loss's nonlinear product (each
+    rank then adds the global aux once; the dp sum of the gradients makes
+    its gradient exact). aux is 0 unless routing is token-choice top-k
+    (the reference's condition, moe_top_k > 0)."""
+    dp = mesh.group("dp") if mesh is not None else None
+    x = _embed_tokens(params["embed"], inputs, cfg, mesh)
     stats = []
     for p in _layer_views(params):
-        x, layer_stats = _remat_layer(p, x, cfg)
+        x, layer_stats = _remat_layer(p, x, cfg, mesh)
         stats.append(layer_stats)
     xn = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    per_token = _token_ce(params, xn, targets, cfg)
-    aux = (_balancing_aux(torch.stack(stats), cfg) if cfg.moe_top_k > 0
+    per_token = _token_ce(params, xn, targets, cfg, mesh)
+    aux = (_balancing_aux(reduce(torch.stack(stats), dp), cfg) if cfg.moe_top_k > 0
            else per_token.new_zeros(()))
-    return (per_token * mask).sum(), mask.sum(), aux
+    loss_sum, count = (per_token * mask).sum(), mask.sum()
+    if dp is not None:
+        loss_sum, count = reduce(torch.stack([loss_sum, count]), dp).unbind()
+    return loss_sum, count, aux
 
 
 def _batch_on(batch: dict, device):
@@ -668,23 +808,30 @@ def _batch_on(batch: dict, device):
     return inputs, targets, mask
 
 
-def build_train_step(config: TransformerConfig, optimizer, accum_steps: int = 1, device=None):
+def build_train_step(config: TransformerConfig, optimizer, accum_steps: int = 1, device=None,
+                     mesh=None):
     """train_step(params, opt_state, batch) -> (params, opt_state, loss) on
     `device` (the card unless the caller names another). The loss is
     ce / max(token count, 1) (+ moe_aux_coef * aux); `optimizer` is a
     `runtime.optim.Optimizer` (init/update over param trees).
+
+    mesh: a `parallel.mesh.Mesh` (None: one device). Then params are this
+    rank's shards (`param_shapes(cfg, mesh.config)`), the batch is its dp
+    rows, and the loss is the global batch's on every rank; the gradients
+    are summed over dp once, after accumulation.
 
     accum_steps: the batch splits into that many equal chunks along its
     first axis, run in sequence; their losses and gradients are averaged
     before one update. The step returns new tensors and leaves its
     arguments as they were."""
     cfg = config
-    cfg.validate()
+    cfg.validate(mesh.config if mesh is not None else None)
     device = resolve_device(device)
+    dp = mesh.group("dp") if mesh is not None else None
 
     def loss_and_grads(params, inputs, targets, mask):
         live = tree.tree_map(lambda t: t.detach().requires_grad_(), params)
-        loss_sum, count, aux = _local_loss(live, inputs, targets, mask, cfg)
+        loss_sum, count, aux = _local_loss(live, inputs, targets, mask, cfg, mesh)
         loss = loss_sum / torch.clamp(count, min=1.0) + cfg.moe_aux_coef * aux
         grads = torch.autograd.grad(loss, tree.leaves(live))
         return loss.detach(), list(grads)
@@ -707,23 +854,25 @@ def build_train_step(config: TransformerConfig, optimizer, accum_steps: int = 1,
             torch._foreach_mul_(grads, 1.0 / accum_steps)
         else:
             loss, grads = loss_and_grads(params, inputs, targets, mask)
+        all_reduce_(grads, dp)
         updates, opt_state = optimizer.update(tree.rebuild(params, grads), opt_state, params)
         return tree.apply_updates(params, updates), opt_state, loss
 
     return train_step
 
 
-def build_eval_step(config: TransformerConfig, device=None):
+def build_eval_step(config: TransformerConfig, device=None, mesh=None):
     """eval_step(params, batch) -> mean per-token cross-entropy (a 0-dim f32
-    tensor): the loss half of `build_train_step`, without gradients. Label
-    smoothing and z-loss are off, so exp(loss) stays a perplexity."""
+    tensor): the loss half of `build_train_step`, without gradients, over
+    `mesh` as the train step. Label smoothing and z-loss are off, so
+    exp(loss) stays a perplexity."""
     cfg = replace(config, label_smoothing=0.0, z_loss_coef=0.0)
-    cfg.validate()
+    cfg.validate(mesh.config if mesh is not None else None)
     device = resolve_device(device)
 
     @torch.no_grad()
     def eval_step(params, batch):
-        loss_sum, count, _ = _local_loss(params, *_batch_on(batch, device), cfg)
+        loss_sum, count, _ = _local_loss(params, *_batch_on(batch, device), cfg, mesh)
         return loss_sum / torch.clamp(count, min=1.0)
 
     return eval_step

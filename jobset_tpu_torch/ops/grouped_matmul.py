@@ -50,8 +50,8 @@ tensors.
 `GROUPED_F32_LAUNCHES` those of the f32 one. `GROUPED_DGRAD_LAUNCHES`
 and `GROUPED_WGRAD_LAUNCHES` count the backward's launches,
 `GROUPED_DGRAD_F32_LAUNCHES` and `GROUPED_WGRAD_F32_LAUNCHES` those in
-f32, `GROUPED_WGRAD_F32_TMA_LAUNCHES` those of the f32 wgrad kernel on
-TMA and `wgmma`.
+f32, `GROUPED_WGRAD_TMA_LAUNCHES` and `GROUPED_WGRAD_F32_TMA_LAUNCHES`
+those of the bf16 and the f32 wgrad kernel on TMA and `wgmma`.
 """
 
 from __future__ import annotations
@@ -69,11 +69,13 @@ GROUPED_LAUNCHES = 0
 GROUPED_TMA_LAUNCHES = 0
 GROUPED_F32_LAUNCHES = 0
 # The backward's launches: dgrad's (the forward's kernels on the transposed
-# weights) and wgrad's, all and those in f32.
+# weights) and wgrad's, all and those in f32; wgrad's on TMA and wgmma,
+# bf16 and f32.
 GROUPED_DGRAD_LAUNCHES = 0
 GROUPED_DGRAD_F32_LAUNCHES = 0
 GROUPED_WGRAD_LAUNCHES = 0
 GROUPED_WGRAD_F32_LAUNCHES = 0
+GROUPED_WGRAD_TMA_LAUNCHES = 0
 GROUPED_WGRAD_F32_TMA_LAUNCHES = 0
 
 # Rows of an output tile (every kernel).
@@ -310,7 +312,8 @@ def grouped_matmul_wgrad(xs: torch.Tensor, dy: torch.Tensor, group_sizes: torch.
     group): on the card, one launch of the wgrad kernel `wgrad_variant`
     names (on TMA and wgmma where TMA takes the operands, on mma.sync
     elsewhere; f32 as 3xTF32)."""
-    global GROUPED_WGRAD_LAUNCHES, GROUPED_WGRAD_F32_LAUNCHES, GROUPED_WGRAD_F32_TMA_LAUNCHES
+    global GROUPED_WGRAD_LAUNCHES, GROUPED_WGRAD_F32_LAUNCHES, GROUPED_WGRAD_TMA_LAUNCHES
+    global GROUPED_WGRAD_F32_TMA_LAUNCHES
     if not _on_card("grouped_matmul_wgrad", xs):
         return grouped_matmul_wgrad_plain(xs, dy, group_sizes)
     _check("grouped_matmul_wgrad", xs, dy, group_sizes, 2, 0, "xs [M, K] and dy [M, N]")
@@ -329,6 +332,7 @@ def grouped_matmul_wgrad(xs: torch.Tensor, dy: torch.Tensor, group_sizes: torch.
         raise RuntimeError(f"grouped_matmul_wgrad kernel launch failed ({kind}): CUDA error {err}")
     GROUPED_WGRAD_LAUNCHES += 1
     GROUPED_WGRAD_F32_LAUNCHES += f32
+    GROUPED_WGRAD_TMA_LAUNCHES += kind == "tma"
     GROUPED_WGRAD_F32_TMA_LAUNCHES += kind == "f32_tma"
     return dw
 

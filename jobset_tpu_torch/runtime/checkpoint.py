@@ -6,6 +6,13 @@ directory `<directory>/<step>/state.pt`, written under a temporary name
 and renamed into place, so a reader never sees a half-written step. The
 newest `max_to_keep` steps are kept. Saves are synchronous. Orbax
 checkpoints of the JAX package are not read.
+
+A gang saves the global state, as orbax saves global arrays: given its
+mesh and the state's specs, `save` gathers every tp-sharded tensor over tp
+and the rank at dp 0 and tp 0 writes it, and every rank waits for the
+write; `restore` reads the global state on every rank and cuts each
+tensor to the rank's shard. So a checkpoint written at one mesh restores
+at another.
 """
 
 from __future__ import annotations
@@ -16,14 +23,29 @@ from typing import Any, Optional
 
 import torch
 
+from ..convert import gather_tree, shard_tree
+
 _STATE = "state.pt"
 
 
 class Checkpointer:
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    """`mesh` (a `parallel.mesh.Mesh`) and `specs` (the state's tree of specs,
+    as `param_specs` gives them; None: nothing sharded) make it a gang's
+    checkpointer; without a mesh it is one process's."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3, mesh=None, specs=None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.mesh = mesh
+        self.specs = specs
         os.makedirs(self.directory, exist_ok=True)
+
+    def _writes(self) -> bool:
+        return self.mesh is None or all(i == 0 for i in self.mesh.coords.values())
+
+    def _barrier(self) -> None:
+        if self.mesh is not None and torch.distributed.is_initialized():
+            torch.distributed.barrier()
 
     def _steps(self) -> list[int]:
         return sorted(int(name) for name in os.listdir(self.directory)
@@ -32,7 +54,16 @@ class Checkpointer:
 
     def save(self, step: int, state: Any) -> None:
         """Write `state` (tensors, dicts, numbers) as step `step`, replacing
-        a step of that number, then drop the oldest beyond max_to_keep."""
+        a step of that number, then drop the oldest beyond max_to_keep. A
+        gang's ranks all call it: the global state is gathered and one rank
+        writes it."""
+        if self.mesh is not None:
+            state = gather_tree(state, self.specs, self.mesh)
+        if self._writes():
+            self._write(step, state)
+        self._barrier()
+
+    def _write(self, step: int, state: Any) -> None:
         final = os.path.join(self.directory, str(step))
         tmp = os.path.join(self.directory, f".{step}.tmp.{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)
@@ -57,7 +88,10 @@ class Checkpointer:
         if step is None:
             raise FileNotFoundError(f"no checkpoint found in {self.directory}")
         path = os.path.join(self.directory, str(step), _STATE)
-        return torch.load(path, map_location=map_location, weights_only=True)
+        state = torch.load(path, map_location=map_location, weights_only=True)
+        if self.mesh is not None:
+            state = shard_tree(state, self.specs, self.mesh)
+        return state
 
     def close(self) -> None:
         """Nothing is in flight: saves finish before they return."""

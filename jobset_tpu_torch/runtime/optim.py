@@ -15,6 +15,15 @@ far) and trees of tensors shaped like the params.
 A learning rate is a float or a schedule, `schedule(count) -> float`:
 update n (counted from 0) uses schedule(n), as optax's
 `scale_by_schedule` does; Adam's bias correction uses n + 1.
+
+Over a tp-sharded parameter tree (`models.transformer.param_specs`) adam,
+adamw and sgd need no change: they are elementwise, so a rank's update of
+its shard is the global update's slice. Adafactor is not: its factored
+dims, row and column means and block RMSs are those of the global leaf,
+so it takes the specs and the tp group (`adafactor(lr, specs, group)`).
+`Optimizer.state_specs(param_specs, global_shapes)` names which dim of
+each state leaf is split over tp, for a checkpoint that saves the global
+state.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import numpy as np
 import torch
 
 from .. import tree
+from ..parallel.collectives import all_reduce_
 
 Schedule = Callable[[int], float]
 LearningRate = Union[float, Schedule]
@@ -34,10 +44,14 @@ LearningRate = Union[float, Schedule]
 
 @dataclass(frozen=True)
 class Optimizer:
-    """init(params) -> state; update(grads, state, params) -> (updates, state)."""
+    """init(params) -> state; update(grads, state, params) -> (updates, state);
+    state_specs(param_specs, global_shapes) -> the state's tree of specs
+    (for each tensor leaf the mesh axis each dim is split over, as
+    `param_specs` gives them; None for a number)."""
 
     init: Callable[[dict], dict]
     update: Callable[[dict, dict, dict], tuple]
+    state_specs: Callable[[dict, dict], dict]
 
 
 # ---------------------------------------------------------------------------
@@ -146,22 +160,28 @@ def _adam_like(learning_rate: LearningRate, weight_decay: Optional[float]) -> Op
         new_state = {"count": step, "mu": tree.rebuild(grads, mu), "nu": tree.rebuild(grads, nu)}
         return tree.rebuild(grads, updates), new_state
 
-    return Optimizer(init, update)
+    def state_specs(specs, shapes):
+        return {"count": None, "mu": specs, "nu": specs}
+
+    return Optimizer(init, update, state_specs)
 
 
 def adam(learning_rate: LearningRate) -> Optimizer:
-    """optax.adam with its defaults."""
+    """optax.adam with its defaults. Elementwise: on a rank's tp shards it
+    gives the global update's slice, with no collective."""
     return _adam_like(learning_rate, None)
 
 
 def adamw(learning_rate: LearningRate, weight_decay: float = 1e-4) -> Optimizer:
-    """optax.adamw with its defaults and mask=None: every leaf is decayed."""
+    """optax.adamw with its defaults and mask=None: every leaf is decayed.
+    Elementwise, as adam: no collective over tp shards."""
     return _adam_like(learning_rate, weight_decay)
 
 
 def sgd(learning_rate: LearningRate, momentum: Optional[float] = None) -> Optimizer:
     """optax.sgd without Nesterov: momentum None keeps no trace (0.0 keeps
-    one, multiplied by zero); the trace is g + momentum * trace."""
+    one, multiplied by zero); the trace is g + momentum * trace.
+    Elementwise, as adam: no collective over tp shards."""
 
     def init(params):
         state = {"count": 0}
@@ -181,7 +201,10 @@ def sgd(learning_rate: LearningRate, momentum: Optional[float] = None) -> Optimi
         updates = torch._foreach_mul(updates, -_lr(learning_rate, count))
         return tree.rebuild(grads, updates), new_state
 
-    return Optimizer(init, update)
+    def state_specs(specs, shapes):
+        return {"count": None, **({"trace": specs} if momentum is not None else {})}
+
+    return Optimizer(init, update, state_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -218,11 +241,37 @@ def _decay(count: int) -> tuple[float, float]:
     return float(d), float(np.float32(1) - d)
 
 
-def _block_rms(x: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.mean(x * x))
+def _block_rms(x: torch.Tensor, group=None, parts: int = 1) -> torch.Tensor:
+    """The RMS of a whole leaf; with a group, of the leaf whose `parts`
+    shards the group's ranks hold (the squares summed over the group)."""
+    if group is None:
+        return torch.sqrt(torch.mean(x * x))
+    total = (x * x).sum()
+    all_reduce_([total], group)
+    return torch.sqrt(total / (x.numel() * parts))
 
 
-def adafactor(learning_rate: LearningRate) -> Optimizer:
+def _mean(x: torch.Tensor, dim: int, group=None, parts: int = 1,
+          keepdim: bool = False) -> torch.Tensor:
+    """x's mean over `dim`; with a group, over the dim the group's ranks
+    hold `parts` shards of (the sums added over the group)."""
+    if group is None:
+        return x.mean(dim=dim, keepdim=keepdim)
+    total = x.sum(dim=dim, keepdim=keepdim)
+    all_reduce_([total], group)
+    return total / (x.shape[dim] * parts)
+
+
+def _tp_dim(spec) -> Optional[int]:
+    return spec.index("tp") if spec is not None and "tp" in spec else None
+
+
+def _drop(spec, dim: int) -> tuple:
+    return tuple(axis for i, axis in enumerate(spec) if i != dim)
+
+
+def adafactor(learning_rate: LearningRate, specs: Optional[dict] = None,
+              group=None) -> Optimizer:
     """optax.adafactor(learning_rate) with its defaults: the chain
     scale_by_factored_rms, clip_by_block_rms(1), the learning rate,
     scale_by_param_block_rms(1e-3), scale(-1).
@@ -232,13 +281,32 @@ def adafactor(learning_rate: LearningRate) -> Optimizer:
     other leaf keeps a full v and (1,)-shaped v_row and v_col, as optax's
     state does. A stacked leaf ([1, layers, ...]) is one block: both block
     RMSs run over all its layers at once, as optax runs them over the JAX
-    package's stacked tree."""
+    package's stacked tree.
+
+    specs, group: over a tp-sharded tree, the leaves' specs
+    (`models.transformer.param_specs`) and the tp group. Each leaf is then
+    updated as optax updates the global leaf: its factored dims picked
+    from the global shape, its row and column means and both block RMSs
+    taken over the whole leaf (sums all-reduced over tp). Without them
+    every leaf is whole."""
+    parts = torch.distributed.get_world_size(group) if group is not None else 1
+
+    def split_dim(p, spec):
+        """(the dim of p split over tp or None, p's global shape)."""
+        dim = _tp_dim(spec) if group is not None else None
+        shape = list(p.shape)
+        if dim is not None:
+            shape[dim] *= parts
+        return dim, shape
+
+    def leaf_specs(p):
+        return tree.leaves(specs) if specs is not None else [None] * len(tree.leaves(p))
 
     def init(params):
         rows, cols, full = [], [], []
-        for p in tree.leaves(params):
+        for p, spec in zip(tree.leaves(params), leaf_specs(params)):
             one = p.new_zeros(1)
-            dims = factored_dims(p.shape)
+            dims = factored_dims(split_dim(p, spec)[1])
             if dims is None:
                 rows.append(one)
                 cols.append(one.clone())
@@ -256,24 +324,28 @@ def adafactor(learning_rate: LearningRate) -> Optimizer:
         keep, take = _decay(count)
         lr = _lr(learning_rate, count)
         new_rows, new_cols, new_full, updates = [], [], [], []
-        for g, p, v_row, v_col, v in zip(tree.leaves(grads), tree.leaves(params),
-                                         tree.leaves(state["v_row"]),
-                                         tree.leaves(state["v_col"]), tree.leaves(state["v"])):
+        for g, p, v_row, v_col, v, spec in zip(
+                tree.leaves(grads), tree.leaves(params), tree.leaves(state["v_row"]),
+                tree.leaves(state["v_col"]), tree.leaves(state["v"]), leaf_specs(params)):
+            split, shape = split_dim(p, spec)
+            whole = group if split is not None else None  # the leaf's group
             g_sq = g * g + ADAFACTOR_EPS
-            dims = factored_dims(p.shape)
+            dims = factored_dims(shape)
             if dims is None:
                 v = keep * v + take * g_sq
                 u = g * v.rsqrt()
             else:
                 d1, d0 = dims
-                v_row = keep * v_row + take * g_sq.mean(dim=d0)
-                v_col = keep * v_col + take * g_sq.mean(dim=d1)
+                on = {d: group if split == d else None for d in (d0, d1)}
+                v_row = keep * v_row + take * _mean(g_sq, d0, on[d0], parts)
+                v_col = keep * v_col + take * _mean(g_sq, d1, on[d1], parts)
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)).rsqrt()
+                row_mean = _mean(v_row, reduced_d1, on[d1], parts, keepdim=True)
+                row_factor = (v_row / row_mean).rsqrt()
                 u = g * row_factor.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1)
-            u = u / torch.clamp(_block_rms(u) / ADAFACTOR_CLIP, min=1.0)
+            u = u / torch.clamp(_block_rms(u, whole, parts) / ADAFACTOR_CLIP, min=1.0)
             u = u * lr
-            u = u * torch.clamp(_block_rms(p), min=ADAFACTOR_MIN_PARAM_SCALE)
+            u = u * torch.clamp(_block_rms(p, whole, parts), min=ADAFACTOR_MIN_PARAM_SCALE)
             new_rows.append(v_row)
             new_cols.append(v_col)
             new_full.append(v)
@@ -282,4 +354,21 @@ def adafactor(learning_rate: LearningRate) -> Optimizer:
                      "v_col": tree.rebuild(grads, new_cols), "v": tree.rebuild(grads, new_full)}
         return tree.rebuild(grads, updates), new_state
 
-    return Optimizer(init, update)
+    def state_specs(param_specs_, global_shapes):
+        """v_row drops the largest dim of a factored leaf, v_col the second
+        largest, and v keeps the leaf's spec where it is not factored."""
+        rows, cols, full = [], [], []
+        for spec, shape in zip(tree.leaves(param_specs_), tree.leaves(global_shapes)):
+            dims = factored_dims(shape)
+            if dims is None:
+                rows.append((None,))
+                cols.append((None,))
+                full.append(spec)
+            else:
+                rows.append(_drop(spec, dims[1]))
+                cols.append(_drop(spec, dims[0]))
+                full.append((None,))
+        return {"count": None, "v_row": tree.rebuild(param_specs_, rows),
+                "v_col": tree.rebuild(param_specs_, cols), "v": tree.rebuild(param_specs_, full)}
+
+    return Optimizer(init, update, state_specs)

@@ -1,6 +1,6 @@
-"""The workload plane's training engine on one device: the counterpart of
+"""The workload plane's training engine: the counterpart of
 `jobset_tpu/runtime/runner.py` (`train_workload`, what it runs, and the
-simulator's `WorkloadRunner`).
+simulator's `WorkloadRunner`), on one device or as one rank of a gang.
 
 Workload payload (a pod template's `spec.workload`), as the JAX package
 reads it:
@@ -24,33 +24,49 @@ batches from (29, ...), so a resumed run sees what an uninterrupted one
 would. The "mlp" and "cnn" streams are the reference's: one
 np.random.default_rng(0) per run, drawn in step order (the MLP draws its
 true weights first), so a resumed run restarts the stream from its start.
-Their parameters (under a million) are drawn from a CPU generator seeded 0
-whatever the device, so a run on the card starts where the CPU's does; an
-LM's are drawn on the device's own generator. A restart resumes from the
-latest checkpoint.
+Every kind's parameters are drawn from a CPU generator seeded 0 whatever
+the device, so a run (or a gang) on the card starts where the CPU's does.
+A restart resumes from the latest checkpoint.
 
-Not ported yet: ZeRO-1 and any mesh axis > 1.
+As one rank of a gang (`train_workload(workload, device, mesh)`, the
+mesh over the gang's processes): an LM's full parameters are drawn as
+above and cut to the rank's tp shards; each rank takes the rows of its dp
+coordinate of every batch (its tp peers take the same rows), from the
+same positional stream, so a resumed gang still sees the batches of an
+uninterrupted one; the mlp and cnn kinds split their batch over dp and
+replicate over the other axes; a checkpoint holds the global state.
+
+Not ported yet: ZeRO-1 and the sp, pp and ep axes (`device.check_axes`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
+import subprocess
+import sys
+import tempfile
 
 import numpy as np
 import torch
 
-from ..device import check_one_device, resolve_device
+from ..convert import shard_params
+from ..device import check_axes, resolve_device
 from ..models import cnn, mlp
 from ..models.transformer import (
     TransformerConfig,
     build_eval_step,
     build_train_step,
+    global_shapes,
     init_params,
+    param_specs,
 )
-from . import optim
+from ..parallel.mesh import MeshConfig, single_device_mesh
+from . import distributed, optim
 from .checkpoint import Checkpointer
 from .data import TokenDataset, place_batch, prefetching_fn
+from .gang import wait_or_kill
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -79,10 +95,12 @@ def make_learning_rate(workload: dict, default_lr: float) -> optim.LearningRate:
     return lr
 
 
-def make_optimizer(workload: dict, default: str, default_lr: float) -> optim.Optimizer:
+def make_optimizer(workload: dict, default: str, default_lr: float, specs=None,
+                   group=None) -> optim.Optimizer:
     """Optimizer from `optimizer` ("adamw" | "adam" | "sgd" | "adafactor"),
     `weight_decay` (adamw) and `momentum` (sgd), with the learning rate of
-    `make_learning_rate`."""
+    `make_learning_rate`; adafactor over a tp-sharded tree takes its specs
+    and the tp group."""
     lr = make_learning_rate(workload, default_lr)
     name = workload.get("optimizer", default)
     if name == "adamw":
@@ -93,7 +111,7 @@ def make_optimizer(workload: dict, default: str, default_lr: float) -> optim.Opt
         m = workload.get("momentum")
         return optim.sgd(lr, momentum=float(m) if m is not None else None)
     if name == "adafactor":
-        return optim.adafactor(lr)
+        return optim.adafactor(lr, specs, group)
     raise ValueError(f"unknown optimizer {name!r} (expected adamw | adam | sgd | adafactor)")
 
 
@@ -122,10 +140,13 @@ def profiled(profile_dir, device):
 
 
 def _run_loop(workload, state, train_step, make_batch, device, restarts: int = 0,
-              eval_fn=None) -> TrainResult:
-    """Restore -> steps (eval and checkpoint cadence) -> losses."""
+              eval_fn=None, mesh=None, specs=None) -> TrainResult:
+    """Restore -> steps (eval and checkpoint cadence) -> losses. Over a
+    gang (`mesh`, with the state's `specs`) the checkpoint holds the global
+    state."""
     every = int(workload.get("checkpoint_every", 0))
-    ckpt = Checkpointer(workload["checkpoint_dir"]) if every > 0 else None
+    ckpt = (Checkpointer(workload["checkpoint_dir"], mesh=mesh, specs=specs)
+            if every > 0 else None)
     total_steps = int(workload.get("steps", 10))
     fail_at = workload.get("fail_at_step")
     start = 0
@@ -182,71 +203,101 @@ def cnn_config(workload: dict) -> cnn.CNNConfig:
     return cnn.CNNConfig(**overrides)
 
 
-def _setup_mlp(workload: dict, device):
+def batch_rows(batch_size: int, dp: int, index: int, accum_steps: int = 1) -> np.ndarray:
+    """The global batch's rows that dp rank `index` holds: of each of the
+    `accum_steps` chunks (consecutive row blocks, the reference's
+    accumulation chunks) its dp block, so that chunk k of the rank's rows
+    is its share of the reference's chunk k."""
+    if batch_size % (dp * accum_steps):
+        raise ValueError(f"batch_size {batch_size} not divisible by dp {dp} x accum_steps "
+                         f"{accum_steps}")
+    chunk, share = batch_size // accum_steps, batch_size // (dp * accum_steps)
+    return np.concatenate([np.arange(k * chunk + index * share, k * chunk + (index + 1) * share)
+                           for k in range(accum_steps)])
+
+
+def _dp_rows(batch_size: int, mesh, accum_steps: int = 1) -> np.ndarray:
+    """This rank's rows of a global batch (`batch_rows`)."""
+    return batch_rows(batch_size, mesh.size("dp"), mesh.index("dp"), accum_steps)
+
+
+def _setup_mlp(workload: dict, device, mesh):
     cfg = mlp.MLPConfig(**workload.get("config", {}))
     params = mlp.init_params(cfg, torch.Generator().manual_seed(0), device)
     optimizer = make_optimizer(workload, "adam", 1e-2)
-    train_step = mlp.build_train_step(cfg, optimizer, device)
+    train_step = mlp.build_train_step(cfg, optimizer, device, mesh)
     batch_size = int(workload.get("batch_size", 32))
+    rows = _dp_rows(batch_size, mesh)
     rng = np.random.default_rng(0)
     w_true = rng.standard_normal((cfg.d_in, cfg.d_out))
 
     def make_batch(step):
         del step  # the stream is stateful, as the reference's is
-        x = rng.standard_normal((batch_size, cfg.d_in)).astype(np.float32)
+        x = rng.standard_normal((batch_size, cfg.d_in)).astype(np.float32)[rows]
         return {"x": x, "y": (x @ w_true).astype(np.float32)}
 
-    return params, optimizer, train_step, make_batch, None
+    return params, optimizer, train_step, make_batch, None, None
 
 
-def _setup_cnn(workload: dict, device):
+def _setup_cnn(workload: dict, device, mesh):
     """Vision family: ResNet-style training on synthetic images."""
     cfg = cnn_config(workload)
     params = cnn.init_params(cfg, torch.Generator().manual_seed(0), device)
     optimizer = make_optimizer(workload, "adam", 1e-3)
-    train_step = cnn.build_train_step(cfg, optimizer, device)
+    train_step = cnn.build_train_step(cfg, optimizer, device, mesh)
     batch_size = int(workload.get("batch_size", 8))
     image_size = int(workload.get("image_size", 32))
+    rows = _dp_rows(batch_size, mesh)
     rng = np.random.default_rng(0)
 
     def make_batch(step):
         del step  # the stream is stateful, as the reference's is
         images = rng.standard_normal(
             (batch_size, image_size, image_size, cfg.in_channels)).astype(np.float32)
-        return {"images": images, "labels": rng.integers(0, cfg.num_classes, (batch_size,))}
+        labels = rng.integers(0, cfg.num_classes, (batch_size,))
+        return {"images": images[rows], "labels": labels[rows]}
 
-    return params, optimizer, train_step, make_batch, None
+    return params, optimizer, train_step, make_batch, None, None
 
 
-def _setup_lm(workload: dict, device):
+def _setup_lm(workload: dict, device, mesh):
     cfg = lm_config(workload)
-    cfg.validate()
-    if workload.get("zero1"):
-        raise NotImplementedError("zero1 (optimizer state sharded over dp) is not ported yet")
-
-    params = init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
-    optimizer = make_optimizer(workload, "adamw", 1e-3)
-    train_step = build_train_step(cfg, optimizer, int(workload.get("accum_steps", 1)), device)
+    cfg.validate(mesh.config)
+    specs = param_specs(cfg)
+    params = shard_params(init_params(cfg, torch.Generator().manual_seed(0), device), cfg, mesh)
+    optimizer = make_optimizer(workload, "adamw", 1e-3, specs, mesh.group("tp"))
+    accum = int(workload.get("accum_steps", 1))
+    train_step = build_train_step(cfg, optimizer, accum, device, mesh)
+    state_specs = {"state": {"params": specs,
+                             "opt_state": optimizer.state_specs(specs, global_shapes(cfg))}}
     batch_size = int(workload.get("batch_size", 4))
     seq_len = int(workload.get("seq_len", 16))
     data_cfg = workload.get("data") or {}
+    rows = _dp_rows(batch_size, mesh, accum)
 
     def synthetic_batches(seed: int):
         """Positionally seeded token stream: a resumed run sees the batches
-        of an uninterrupted one."""
+        of an uninterrupted one. A rank keeps its dp rows."""
 
         def make(step):
             rng = np.random.default_rng((seed, step))
-            tokens = rng.integers(0, cfg.vocab_size, (batch_size, seq_len + 1))
+            tokens = rng.integers(0, cfg.vocab_size, (batch_size, seq_len + 1))[rows]
             return {"inputs": np.ascontiguousarray(tokens[:, :-1]),
                     "targets": np.ascontiguousarray(tokens[:, 1:])}
 
         return make
 
     def dataset(path, seed):
-        return TokenDataset(path, seq_len=seq_len, batch_size=batch_size,
+        """The corpus's batches, this rank's rows: read process-locally
+        (only its own windows) where they are one block (no accumulation)."""
+        local = accum == 1
+        data = TokenDataset(path, seq_len=seq_len, batch_size=batch_size,
                             dtype=data_cfg.get("dtype", "uint16"), seed=seed,
-                            vocab_size=cfg.vocab_size).batch
+                            rank=mesh.index("dp") if local else 0,
+                            world=mesh.size("dp") if local else 1, vocab_size=cfg.vocab_size)
+        if local:
+            return data.batch
+        return lambda step: {k: v[rows] for k, v in data.batch(step).items()}
 
     seed = int(data_cfg.get("seed", 0))
     make_batch = (dataset(data_cfg["path"], seed) if data_cfg.get("path")
@@ -254,7 +305,7 @@ def _setup_lm(workload: dict, device):
 
     eval_fn = None
     if int(workload.get("eval_every", 0)) > 0:
-        eval_step = build_eval_step(cfg, device)
+        eval_step = build_eval_step(cfg, device, mesh)
         eval_steps = int(workload.get("eval_steps", 2))
         make_val = (dataset(data_cfg["val_path"], seed + 1) if data_cfg.get("val_path")
                     else synthetic_batches(29))
@@ -264,27 +315,46 @@ def _setup_lm(workload: dict, device):
                     for i in range(eval_steps)]
             return sum(vals) / len(vals)
 
-    return params, optimizer, train_step, make_batch, eval_fn
+    return params, optimizer, train_step, make_batch, eval_fn, state_specs
 
 
 _SETUPS = {"mlp": _setup_mlp, "cnn": _setup_cnn, "lm": _setup_lm}
 
 
-def train_workload(workload: dict, device=None, restarts: int = 0) -> TrainResult:
-    """Run one workload's training loop on `device` (the card unless the
-    caller names another); returns the per-step losses. The engine behind
-    the simulator's `WorkloadRunner` and the per-pod entry point
-    (`jobset_tpu_torch.runtime.worker`)."""
+def check_workload(workload: dict) -> MeshConfig:
+    """The workload's mesh (its `mesh` mapping; every axis 1 without one),
+    once its kind is known and no axis or option it names is one the port
+    has not ported (NotImplementedError naming it)."""
     kind = workload.get("kind", "mlp")
-    setup = _SETUPS.get(kind)
-    if setup is None:
+    if kind not in _SETUPS:
         raise ValueError(f"unknown workload kind: {kind}")
-    check_one_device(workload.get("mesh"))
+    mesh_cfg = MeshConfig.of(workload.get("mesh"))
+    check_axes(mesh_cfg, zero1=kind == "lm" and bool(workload.get("zero1")))
+    return mesh_cfg
+
+
+def train_workload(workload: dict, device=None, mesh=None, restarts: int = 0) -> TrainResult:
+    """Run one workload's training loop on `device` (the card unless the
+    caller names another); returns the per-step losses (the global batch's
+    on every rank). `mesh` is this process's place in a gang
+    (`parallel.mesh.build_mesh` over the process group); without one the
+    run is on one device, and a payload whose `mesh` spans more devices
+    raises. The engine behind the simulator's `WorkloadRunner` and the
+    per-pod entry point (`jobset_tpu_torch.runtime.worker`)."""
+    mesh_cfg = check_workload(workload)
     device = resolve_device(device)
-    params, optimizer, train_step, make_batch, eval_fn = setup(workload, device)
+    if mesh is None:
+        if mesh_cfg.num_devices > 1:
+            raise ValueError(
+                f"the workload's mesh {mesh_cfg.shape} spans {mesh_cfg.num_devices} devices: "
+                "run it as a gang of that many processes (runtime.worker, WorkloadRunner)"
+            )
+        mesh = single_device_mesh()
+    params, optimizer, train_step, make_batch, eval_fn, specs = _SETUPS[
+        workload.get("kind", "mlp")](workload, device, mesh)
     state = {"params": params, "opt_state": optimizer.init(params)}
-    return _run_loop(workload, state, train_step, make_batch, device,
-                     restarts=restarts, eval_fn=eval_fn)
+    return _run_loop(workload, state, train_step, make_batch, device, restarts=restarts,
+                     eval_fn=eval_fn, mesh=mesh if mesh.groups else None, specs=specs)
 
 
 # ---------------------------------------------------------------------------
@@ -301,23 +371,49 @@ FINAL_LOSS_KEY = "tpu.jobset.x-k8s.io/final-loss"
 VAL_LOSS_KEY = "tpu.jobset.x-k8s.io/val-loss"
 
 
+# The longest a spawned gang may run before its processes are killed.
+GANG_TIMEOUT_S = 180.0
+
+
+class GangFailure(RuntimeError):
+    """A rank of a spawned gang exited nonzero without reporting a
+    `WorkloadFailure`, or the gang outlived its time limit."""
+
+
 class WorkloadRunner:
-    """Runs a JobSet's training payload in process once every pod of its gang
-    is Running and Ready, standing in for the whole gang on one device. A
-    workload that raises `WorkloadFailure` fails the JobSet's first child
-    job (its failure policy then fails the JobSet or restarts the gang);
-    one that finishes completes every child job. A restarted gang's run
-    resumes from its latest checkpoint.
+    """Runs a JobSet's training payload once every pod of its gang is
+    Running and Ready. A payload whose `mesh` spans one device runs in
+    process, standing in for the whole gang; one whose mesh spans N > 1
+    devices runs as N processes of the port's worker
+    (`python -m jobset_tpu_torch.runtime.worker`), one per device, with
+    the env `distributed.pod_env_for` gives the gang's first N pods, a
+    loopback coordinator on a free port, and `backend` (default: "gloo" on
+    the CPU, "nccl" on the card; ranks that share one card need "gloo",
+    passed explicitly). One process per device is torch's idiom; it stands
+    in for the reference's one process over its local mesh. Rank 0's
+    result line gives the loss annotations.
+
+    A workload that raises `WorkloadFailure` (on any rank) fails the
+    JobSet's first child job (its failure policy then fails the JobSet or
+    restarts the gang); one that finishes completes every child job. A
+    restarted gang's run resumes from its latest checkpoint. A rank that
+    exits nonzero otherwise, or a gang past GANG_TIMEOUT_S (its processes
+    killed), raises `GangFailure`; an axis the port has not
+    ported raises NotImplementedError before anything is spawned.
 
     `cluster` is taken duck-typed: the runner reads `pods` and `jobsets`
     (dicts of objects with the control plane's `Pod` and `JobSet` fields)
-    and calls `jobs_for_jobset`, `fail_job`, `complete_all_jobs` and
-    `run_until_stable`. `device` is the card unless the caller names
-    another; without a card and without a named device it raises here."""
+    and calls `get_jobset`, `jobs_for_jobset`, `fail_job`,
+    `complete_all_jobs` and `run_until_stable`. `device` is the card unless
+    the caller names another; without a card and without a named device it
+    raises here."""
 
-    def __init__(self, cluster, device=None):
+    def __init__(self, cluster, device=None, backend=None):
         self.cluster = cluster
         self.device = resolve_device(device)
+        self.backend = backend or distributed.default_backend(self.device)
+        # The result lines of the last spawned gang's ranks, by rank.
+        self.last_gang_results: list = []
         # jobset uid -> restart count at which its workload last ran: one run
         # per gang incarnation (by uid, so a delete and recreate under the
         # same name runs again).
@@ -343,6 +439,65 @@ class WorkloadRunner:
                 return payload
         return None
 
+    def _gang_pods(self, js) -> list:
+        """The JobSet's pods, in process-id order."""
+        pods = [pod for pod in self.cluster.pods.values()
+                if pod.annotations.get(JOBSET_NAME_KEY) == js.name
+                and pod.metadata.namespace == js.namespace]
+        envs = [distributed.pod_env_for(self.cluster, pod) for pod in pods]
+        return sorted(envs, key=lambda env: int(env[distributed.ENV_PROCESS_OFFSET])
+                      + int(env[distributed.ENV_POD_INDEX]))
+
+    def _run_gang(self, js, workload, n: int) -> TrainResult:
+        """The workload as n worker processes, one per device; rank 0's
+        losses."""
+        envs = self._gang_pods(js)
+        if len(envs) < n:
+            raise ValueError(f"the workload's mesh spans {n} devices but the gang of "
+                             f"{js.name} has {len(envs)} pods")
+        coordinator = f"127.0.0.1:{distributed.free_port()}"
+        package_root = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        command = [sys.executable, "-m", "jobset_tpu_torch.runtime.worker",
+                   "--backend", self.backend]
+        if self.device.type == "cpu":
+            command.append("--cpu")
+        with tempfile.TemporaryDirectory() as tmp:
+            procs, outputs = [], []
+            for rank, pod_env in enumerate(envs[:n]):
+                env = {**os.environ, **pod_env,
+                       distributed.ENV_TOTAL_PROCESSES: str(n),
+                       distributed.ENV_COORDINATOR: coordinator,
+                       distributed.ENV_WORKLOAD: json.dumps(workload),
+                       "PYTHONPATH": os.pathsep.join(
+                           [package_root] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+                out = open(os.path.join(tmp, f"rank{rank}.out"), "w+")
+                err = open(os.path.join(tmp, f"rank{rank}.err"), "w+")
+                outputs.append((out, err))
+                procs.append(subprocess.Popen(command, env=env, stdout=out, stderr=err))
+            codes = wait_or_kill(procs, GANG_TIMEOUT_S)
+            texts = []
+            for out, err in outputs:
+                out.seek(0)
+                err.seek(0)
+                texts.append((out.read(), err.read()))
+                out.close()
+                err.close()
+        if codes is None:
+            raise GangFailure(f"the gang of {js.name} ran past {GANG_TIMEOUT_S} s; "
+                              "its processes were killed")
+        results = [_result_line(stdout) for stdout, _ in texts]
+        self.last_gang_results = results
+        if any(r is not None and "failed" in r for r in results) and set(codes) <= {0, 1}:
+            raise WorkloadFailure(next(r["failed"] for r in results
+                                       if r is not None and "failed" in r))
+        bad = [rank for rank, code in enumerate(codes) if code != 0]
+        if bad:
+            raise GangFailure(f"rank {bad[0]} of the gang of {js.name} exited {codes[bad[0]]}:\n"
+                              + texts[bad[0]][1][-4000:])
+        first = results[0]
+        return TrainResult(first["losses"], [tuple(v) for v in first["val_losses"]])
+
     def run_pending(self) -> list[str]:
         """Run the workload of every gang-ready JobSet that has not run in
         its current incarnation; returns the names of those that ran."""
@@ -360,8 +515,10 @@ class WorkloadRunner:
             if self._ran_at.get(js.metadata.uid) == js.status.restarts:
                 continue  # already ran for this incarnation
             self._ran_at[js.metadata.uid] = js.status.restarts
+            n = check_workload(workload).num_devices
             try:
-                losses = train_workload(workload, self.device, restarts=js.status.restarts)
+                losses = (self._run_gang(js, workload, n) if n > 1 else
+                          train_workload(workload, self.device, restarts=js.status.restarts))
             except WorkloadFailure:
                 # A crashed workload surfaces as a failed child job; the
                 # failure policy decides between failing and a gang restart.
@@ -374,6 +531,18 @@ class WorkloadRunner:
             ran.append(js.name)
             self.cluster.run_until_stable()
         return ran
+
+
+def _result_line(stdout: str):
+    """The last JSON object line of a worker's output, or None."""
+    for line in reversed(stdout.splitlines()):
+        line = line.strip()
+        if line.startswith("{"):
+            try:
+                return json.loads(line)
+            except ValueError:
+                continue
+    return None
 
 
 def _record_losses(js, losses) -> None:

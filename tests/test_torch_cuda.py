@@ -15,7 +15,9 @@ the tolerance over a 16384-row segment, and the MoE train step against
 the CPU's, with no host sync in a MoE layer's forward and backward; the
 workload kinds: the CNN's "SAME" convolutions and train step (f32 and
 bf16, cuDNN's TF32 off), adafactor's updates and the mlp workload's
-losses against the CPU's.
+losses against the CPU's; gangs on the card: a small f32 config at tp = 2
+(two ranks sharing the card on gloo with CUDA tensors) against one
+process, and NCCL at world 1 against gloo bit for bit.
 
 They skip without a CUDA device. This file imports no JAX, so it also runs
 on a machine that has none: `python -m pytest --noconftest -m cuda
@@ -1320,3 +1322,48 @@ def test_mlp_workload_matches_cpu(cuda):
     payload = {"kind": "mlp", "steps": 8, "config": {"d_in": 8, "d_hidden": 32, "d_out": 4}}
     got, want = runner.train_workload(payload, cuda), runner.train_workload(payload, "cpu")
     assert all(abs(g - w) <= 1e-4 * abs(w) for g, w in zip(got, want))
+
+
+GANG_CONFIG = {"vocab_size": 128, "d_model": 64, "n_heads": 4, "n_kv_heads": 2, "d_ff": 128,
+               "n_layers": 2, "dtype": "float32", "remat": False}
+
+
+def _gang_batches(steps=2, b=4, t=64):
+    rng = np.random.default_rng(9)
+    out = []
+    for _ in range(steps):
+        tokens = rng.integers(0, 128, (b, t + 1))
+        out.append({"inputs": tokens[:, :-1], "targets": tokens[:, 1:]})
+    return out
+
+
+def _gang_run(world, mesh, backend):
+    import torch_gang_bodies as bodies
+    from jobset_tpu_torch.runtime import gang
+
+    return gang.spawn(bodies.train_steps, world, (GANG_CONFIG, mesh, _gang_batches()),
+                      backend=backend, device="cuda", timeout_s=300, threads=0)
+
+
+@pytest.mark.cuda
+def test_gang_at_tp2_on_the_card_matches_one_process(cuda):
+    """Two ranks share the card on gloo with CUDA tensors: losses and the
+    gathered parameters after 2 adamw steps (lr 1e-3) against one rank's
+    run of the same steps, f32 (TF32 off, torch's default in a fresh
+    process): losses within 1e-5 relative,
+    each parameter within 0.05 * lr a step (Adam's scale-free update)."""
+    (one,) = _gang_run(1, {}, "gloo")
+    ranks = _gang_run(2, {"tp": 2}, "gloo")
+    assert ranks[0]["losses"] == ranks[1]["losses"]
+    assert all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(ranks[0]["losses"], one["losses"]))
+    for got, want in zip(tree.leaves(ranks[0]["params"]), tree.leaves(one["params"])):
+        assert np.abs(got - want).max() <= 0.05 * 1e-3 * 2
+
+
+@pytest.mark.cuda
+def test_nccl_at_world_one_matches_gloo_bit_for_bit(cuda):
+    (nccl,) = _gang_run(1, {}, "nccl")
+    (gloo,) = _gang_run(1, {}, "gloo")
+    assert nccl["losses"] == gloo["losses"]
+    for a, b in zip(tree.leaves(nccl["params"]), tree.leaves(gloo["params"])):
+        np.testing.assert_array_equal(a, b)

@@ -256,12 +256,18 @@ def test_checkpoint_resume_equals_an_uninterrupted_run(tmp_path):
     assert resumed == straight[2:]
 
 
+# dp and tp run as a gang of processes: train_workload without a mesh
+# refuses a payload whose mesh spans several devices (ValueError); sp, pp,
+# ep and zero1 are not ported (NotImplementedError).
 @pytest.mark.parametrize("bad, error", [
     ({"kind": "gan"}, ValueError),
     ({"kind": "lm", "zero1": True}, NotImplementedError),
-    ({"kind": "lm", "mesh": {"dp": 2}}, NotImplementedError),
-    ({"kind": "mlp", "mesh": {"dp": 2}}, NotImplementedError),
-    ({"kind": "cnn", "mesh": {"tp": 2}}, NotImplementedError),
+    ({"kind": "lm", "mesh": {"dp": 2}}, ValueError),
+    ({"kind": "mlp", "mesh": {"dp": 2}}, ValueError),
+    ({"kind": "cnn", "mesh": {"tp": 2}}, ValueError),
+    ({"kind": "lm", "mesh": {"sp": 2}}, NotImplementedError),
+    ({"kind": "lm", "mesh": {"pp": 2}}, NotImplementedError),
+    ({"kind": "mlp", "mesh": {"ep": 2}}, NotImplementedError),
 ])
 def test_train_workload_rejects_what_is_not_ported(bad, error):
     with pytest.raises(error):
@@ -329,6 +335,9 @@ def test_worker_module_runs_as_a_program(tmp_path):
 
 
 def test_worker_refuses_a_gang_of_several_processes(tmp_path, monkeypatch):
+    """Gangs of several processes run (tests/test_torch_gang.py); the
+    worker refuses one, before any rendezvous, whose mesh names an axis
+    that is not ported or does not cover the gang (exit 2)."""
     from jobset_tpu_torch.runtime import distributed
 
     env = {distributed.ENV_JOBSET_NAME: "js", distributed.ENV_REPLICATED_JOB: "w",
@@ -337,9 +346,11 @@ def test_worker_refuses_a_gang_of_several_processes(tmp_path, monkeypatch):
            distributed.ENV_COORDINATOR: "js-w-0-0.js"}
     for key, value in env.items():
         monkeypatch.setenv(key, value)
-    workload = {"kind": "lm", "steps": 1, "config": dict(SMALL)}
-    with pytest.raises(NotImplementedError, match="2 processes"):
+    workload = {"kind": "lm", "steps": 1, "config": dict(SMALL), "mesh": {"sp": 2}}
+    with pytest.raises(NotImplementedError, match="sp=2"):
         worker.main(["--workload-file", _write(tmp_path, workload), "--cpu"])
+    workload["mesh"] = {"dp": 4}
+    assert worker.main(["--workload-file", _write(tmp_path, workload), "--cpu"]) == 2
 
 
 def test_rank_from_env_matches_jax():
@@ -356,7 +367,12 @@ def test_rank_from_env_matches_jax():
                                                          want.coordinator_address)
     with pytest.raises(KeyError, match="JOBSET_NAME"):
         distributed.rank_from_env({})
-    assert distributed.initialize(distributed.standalone_rank()).process_id == 0
+    rank = distributed.initialize(distributed.standalone_rank(), backend="gloo")
+    try:
+        assert rank.process_id == 0 and torch.distributed.get_world_size() == 1
+    finally:
+        distributed.shutdown()
+    assert not torch.distributed.is_initialized()
 
 
 def test_model_bench_on_the_cpu():

@@ -129,5 +129,14 @@ def test_validate_rejects_unported_settings(bad, match):
 
 @pytest.mark.parametrize("axis", ["dp", "tp", "sp", "pp", "ep"])
 def test_validate_rejects_mesh_axes(axis):
+    """sp, pp and ep are not ported and raise, naming the axis; dp and tp
+    run (tests/test_torch_tp.py), with tp held to the reference's
+    divisibility rules."""
+    if axis in ("dp", "tp"):
+        ttf.TransformerConfig().validate({axis: 2})
+        if axis == "tp":
+            with pytest.raises(ValueError, match="not divisible by tp 3"):
+                ttf.TransformerConfig().validate({axis: 3})
+        return
     with pytest.raises(NotImplementedError, match=f"{axis}=2"):
         ttf.TransformerConfig().validate({axis: 2})
