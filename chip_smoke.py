@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--out RESULTS.json] [--solver-only | --flash-only |
                                                  --control-only | --serving-only |
                                                  --moe-only | --moe-train-only |
-                                                 --workloads-only | --gang-only]
+                                                 --workloads-only | --gang-only |
+                                                 --sp-only]
 
 (`--solver-only` builds the auction kernel and runs phase 9 alone,
 `--flash-only` builds the flash block kernels and runs phases 2-3 alone,
@@ -14,7 +15,8 @@ builds the flash block and int8 kernels and runs phase 11 alone,
 phase 12 alone, `--moe-train-only` builds the flash block and grouped
 kernels and runs phase 13 alone, `--workloads-only` builds the flash block
 kernels and runs phase 14 alone, `--gang-only` builds the flash block and
-grouped kernels and runs phase 15 alone; none of them prints the result
+grouped kernels and runs phase 15 alone, `--sp-only` builds the flash
+block kernels and runs phase 16 alone; none of them prints the result
 line.) Phases, in order; any failure exits
 non-zero before the result line:
   1. the card's name and power limit (nvidia-smi); TF32 off;
@@ -234,10 +236,33 @@ non-zero before the result line:
      worker processes, to Completed, its final loss against the CPU
      gang's. Each rank prints its flash and grouped launches of one step,
      its median step, peak memory, and from a torch.profiler trace of one
-     step the share of the step inside all-reduce ops and the card's busy
+     step the share of the step inside collective ops and the card's busy
      share (ranks sharing one card: no scaling figure);
- 16. one `kernels` JSON line (with each kernel's launches on the gang's
-     path), then the result line
+ 16. sequence parallelism and ZeRO-1, in a process of its own
+     (`--sp-only`): (a) the flash block kernel at the ring's blocks of
+     the flagship at sp = 2, [8, 512, 16, 64], bf16 and f32, under the
+     causal, zero and fully masked constant masks (classes given, as the
+     ring gives them), against the plain version, each merged into a
+     real accumulator and differentiated (the masked block must leave
+     the accumulator as it was, bit for bit); (b) the dense flagship at
+     sp = 2, ring and Ulysses, two ranks on gloo (B=8, T=1024, remat
+     off): a gradient step and 3 adam steps against one process at
+     phase 15 (b)'s bounds, 16 (ring) and 24 (Ulysses) flash launches
+     and 2 tile-class passes on a rank's first step, the median step,
+     peak memory, the bytes saved for the backward, and the collective
+     share from a traced step; a small f32 config at sp = 2 against the
+     port's CPU gang (1e-5); (c) ZeRO-1 at dp = 2: adam's parameters
+     after 3 steps equal the run without it bit for bit, adafactor's
+     within 1e-6, the state's bytes and peak memory a rank; (d) the
+     dense flagship at one 8192-token sequence in one process and as a
+     ring at sp = 2 (losses and gradients at (b)'s bounds, peak memory);
+     (e) lm-adafactor.yaml (2 processes) and lm-long-context.yaml (4)
+     through `WorkloadRunner` on the card, to Completed, final losses
+     within 1e-4 of the CPU gangs'; (f) the port's gather, rotate and
+     all_to_all of CUDA tensors on gloo, f32 and bf16, bit for bit, and
+     gloo's send/recv of them (information: the port does not use it);
+ 17. one `kernels` JSON line (with each kernel's launches on the gang's
+     and the sp paths), then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 The flagship is the repo's training/decode bench config: vocab 32000,
@@ -251,6 +276,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -4465,9 +4491,10 @@ def route_flips(routes, ref_routes, rows, seq, per_step) -> list:
     return flips
 
 
-def gang_reference(cfg, batch, seq, path, device="cuda", first_move=False) -> dict:
+def gang_reference(cfg, batch, seq, path, device="cuda", first_move=False,
+                   steps=GANG_STEPS) -> dict:
     """The single-process run a gang is held to, on the card: the gradients
-    of one step and GANG_STEPS adam steps from the parameters of seed 0 on
+    of one step and `steps` adam steps from the parameters of seed 0 on
     phase 7's batches (seeds 3, 4, ...); the gradients, each leaf's move
     (with first_move, also its move after the first adam step and the
     experts each token took in each adam step) and the losses saved to
@@ -4479,7 +4506,7 @@ def gang_reference(cfg, batch, seq, path, device="cuda", first_move=False) -> di
 
     params = init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
     batches = [token_batch(cfg.vocab_size, batch, seq, seed=3 + i, device=device)
-               for i in range(GANG_STEPS)]
+               for i in range(steps)]
     grads_opt = grads_optimizer()
     same, state, grad_loss = build_train_step(cfg, grads_opt, device=device)(
         params, grads_opt.init(params), batches[0])
@@ -4515,6 +4542,11 @@ def reference_apart(cfg, batch, seq, path, first_move=False) -> dict:
 
     return gang.spawn(gang_reference, 1, (cfg, batch, seq, path, "cuda", first_move),
                       backend="gloo", device="cuda", timeout_s=GANG_TIMEOUT_S, threads=0)[0]
+
+
+def gang_references(jobs: list) -> list:
+    """`gang_reference(**job)` for each job in turn, in one process."""
+    return [gang_reference(**job) for job in jobs]
 
 
 def gathered_diffs(local, ref, specs, mesh, device, grads=None, bound=0.0) -> list:
@@ -4602,7 +4634,12 @@ def gang_rank(spec: dict) -> dict:
     (`collective_trace`). Rank 0 holds the gradients and the moves against
     the saved single-process run spec["reference"]; with spec["diagnose"],
     where the moves stray (`move_outliers`). spec["device"] is the card
-    unless it names the CPU (a rehearsal)."""
+    unless it names the CPU (a rehearsal). Each rank takes its dp rows and
+    its sp chunk of positions of every batch. spec["steps"] (default
+    GANG_STEPS) adam steps; with spec["draw_on_cpu"] the parameters and
+    batches are drawn on CPU generators, so the card's run and the CPU's
+    start alike. The constant-mask cache starts empty, so the first step
+    counts the run's tile-class passes."""
     import torch.distributed as dist
 
     from jobset_tpu_torch import tree
@@ -4611,35 +4648,46 @@ def gang_rank(spec: dict) -> dict:
     from jobset_tpu_torch.models.transformer import param_specs
     from jobset_tpu_torch.parallel.mesh import MeshConfig, build_mesh
     from jobset_tpu_torch.runtime import optim
+    from jobset_tpu_torch.runtime.data import sequence_shard
     from jobset_tpu_torch.runtime.runner import batch_rows
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    empty_mask_cache()
     cfg = spec["cfg"]
     device = torch.device(spec.get("device") or f"cuda:{torch.cuda.current_device()}")
     cuda = device.type == "cuda"
+    draw = "cpu" if spec.get("draw_on_cpu") else device
+    steps = spec.get("steps", GANG_STEPS)
     mesh = build_mesh(MeshConfig(**spec["mesh"]), device)
     specs = param_specs(cfg)
-    start = shard_params(init_params(cfg, torch.Generator(device=device).manual_seed(0), device),
+    start = shard_params(init_params(cfg, torch.Generator(device=draw).manual_seed(0), device),
                          cfg, mesh)
     rows = torch.as_tensor(batch_rows(spec["batch"], mesh.size("dp"), mesh.index("dp")),
                            device=device)
-    batches = [{k: v[rows] for k, v in token_batch(cfg.vocab_size, spec["batch"], spec["seq"],
-                                                   seed=3 + i, device=device).items()}
-               for i in range(GANG_STEPS)]
+    columns = sequence_shard(spec["seq"], mesh.size("sp"), mesh.index("sp"))
+    batches = [{k: v.to(device)[rows][:, columns]
+                for k, v in token_batch(cfg.vocab_size, spec["batch"], spec["seq"], seed=3 + i,
+                                        device=draw).items()}
+               for i in range(steps)]
     out = {"rank": mesh.rank, "coords": mesh.coords, "backend": dist.get_backend()}
 
     grads_opt = grads_optimizer()
     grad_step = build_train_step(cfg, grads_opt, device=device, mesh=mesh)
     sync(device)
+    if cuda:
+        out["first_held_gb"] = settled_gb()
     reset_moe_launches()
-    same, state, loss = grad_step(start, grads_opt.init(start), batches[0])
+    with counting_saved() as saved:
+        same, state, loss = grad_step(start, grads_opt.init(start), batches[0])
     sync(device)
+    out["saved_gb"] = saved["bytes"] / 1e9
+    out["first_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
     del same
     out["launches"] = moe_launches_now()
     out["grad_loss"] = float(loss)
     ref = (torch.load(spec["reference"], map_location="cpu", mmap=True, weights_only=True)
-           if mesh.rank == 0 else None)
+           if mesh.rank == 0 and spec.get("reference") else None)
     out["grads"] = gathered_diffs(state["g"], ref["grads"] if ref else None, specs, mesh, device)
     # Kept on the host: the card is full with four f32 ranks.
     grads = tree.tree_map(lambda g: g.cpu(), state["g"]) if spec.get("diagnose") else None
@@ -4648,7 +4696,7 @@ def gang_rank(spec: dict) -> dict:
     opt = optim.adam(GANG_LR)
     step = build_train_step(cfg, opt, device=device, mesh=mesh)
     if cuda:
-        torch.cuda.reset_peak_memory_stats()
+        out["held_gb"] = settled_gb()
     params, opt_state, losses, routes = start, opt.init(start), [], []
     for b in batches:
         with recording_routes(routes) if spec.get("diagnose") else contextlib.nullcontext():
@@ -4712,18 +4760,40 @@ def gang_rank(spec: dict) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def counting_saved():
+    """While active, the bytes of the distinct storages autograd saves for
+    the backward (`saved_tensors_hooks`), under "bytes"."""
+    seen, count = set(), {"bytes": 0}
+
+    def pack(t):
+        storage = t.untyped_storage()
+        if storage.data_ptr() not in seen:
+            seen.add(storage.data_ptr())
+            count["bytes"] += storage.nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        yield count
+
+
 # The range that marks the traced step of a gang rank.
 GANG_STEP_RANGE = "gang train step"
+
+
+# The collectives' names in a trace: c10d's entries and gloo's own ranges.
+COLLECTIVE_OPS = ("all_reduce", "allreduce", "all_to_all", "alltoall")
 
 
 def collective_trace(events) -> dict:
     """From a torch.profiler trace of one gang step (no synchronization in
     it but the one that closes the step): the step's span (its
-    GANG_STEP_RANGE), the union of the all-reduce ops' host spans within it
-    (c10d's entries on the calling thread and the backend's own ranges,
-    gloo's "gloo:all_reduce" from when its thread takes the op to the op's
-    end, which for CUDA tensors includes waiting for the device to finish
-    the input and the copies through the host), the all-reduce calls, and
+    GANG_STEP_RANGE), the union of the collective ops' host spans within
+    it (all-reduce and all-to-all: c10d's entries on the calling thread and
+    the backend's own ranges, gloo's "gloo:all_reduce" from when its
+    thread takes the op to the op's end, which for CUDA tensors includes
+    waiting for the device to finish the input and the copies through the
+    host), the collective calls, and
     the union of the device ops' spans within the step (None on the CPU or
     where the trace holds none)."""
     from torch.autograd import DeviceType
@@ -4738,7 +4808,7 @@ def collective_trace(events) -> dict:
                 if e.time_range.end > start and e.time_range.start < end]
 
     host = [e for e in events if e.device_type != DeviceType.CUDA]
-    reduces = [e for e in host if "all_reduce" in e.name or "allreduce" in e.name]
+    reduces = [e for e in host if any(op in e.name for op in COLLECTIVE_OPS)]
     device_ops = [e for e in events if e.device_type == DeviceType.CUDA]
     span = end - start
     spent = merged_span_us(clipped(reduces))
@@ -4754,7 +4824,9 @@ def gang_print(label, ranks, card):
         if "step_ms" not in r:
             continue
         counts = r["launches"]
-        peak = "not measured" if r["peak_gb"] is None else f"{r['peak_gb']:.2f} GB"
+        peak = ("not measured" if r["peak_gb"] is None else
+                f"{r['peak_gb']:.2f} GB ({r['peak_gb'] - r['held_gb']:.2f} over the "
+                f"{r['held_gb']:.2f} GB it held before the steps)")
         busy = ("not measured" if r["device_busy_share"] is None
                 else f"{r['device_busy_share']:.1%}")
         print(f"  {label} rank {r['rank']} {r['coords']} ({r['backend']}): one step launches "
@@ -4765,8 +4837,9 @@ def gang_print(label, ranks, card):
               f"wgrad {counts['GROUPED_WGRAD_LAUNCHES']} (TMA {counts['GROUPED_WGRAD_TMA_LAUNCHES']}"
               f", f32 TMA {counts['GROUPED_WGRAD_F32_TMA_LAUNCHES']}); step median "
               f"{r['step_ms']:.3f} ms ({r['step_ms_range'][0]:.3f}-{r['step_ms_range'][1]:.3f}), "
-              f"peak memory {peak}; traced step {r['traced_step_ms']:.3f} ms: all-reduce ops' "
-              f"host spans {r['collective_ms']:.3f} ms in {r['collective_calls']} all-reduces = "
+              f"peak memory {peak}; first step: saved for the backward {r['saved_gb']:.2f} GB, "
+              f"peak {r['first_peak_gb'] - r['first_held_gb']:.2f} GB over what it held; traced step {r['traced_step_ms']:.3f} ms: collective ops' "
+              f"host spans {r['collective_ms']:.3f} ms in {r['collective_calls']} collectives = "
               f"{r['collective_share']:.1%} of it, device busy {busy} (torch.profiler; ranks "
               f"sharing one card; gloo stages CUDA tensors through the host: no scaling "
               f"figure; {card})", flush=True)
@@ -4879,6 +4952,7 @@ def phase_gang(results):
     """Phase 15: gangs of processes on the card through `torch.distributed`
     (each rank a process; the card holds them all)."""
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     from jobset_tpu_torch.runtime import gang
 
@@ -4891,10 +4965,20 @@ def phase_gang(results):
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     gang_results["local_kernels"] = gang_kernel_checks()
     with tempfile.TemporaryDirectory() as tmp:
-        # (a) NCCL at world 1: the gang path equals phase 7's step.
-        path = os.path.join(tmp, "dense.pt")
+        # The single-process runs (a)-(c) are held to, in one process.
         t0 = time.perf_counter()
-        ref = reference_apart(dense, BATCH, PROMPT, path)
+        paths = {key: os.path.join(tmp, f"{key}.pt") for key in ("dense", "small", "moe")}
+        jobs = [dict(cfg=dense, batch=BATCH, seq=PROMPT, path=paths["dense"]),
+                dict(cfg=small, batch=4, seq=64, path=paths["small"]),
+                dict(cfg=moe, batch=BATCH, seq=PROMPT, path=paths["moe"])]
+        refs = dict(zip(paths, gang.spawn(gang_references, 1, (jobs,), backend="gloo",
+                                          device="cuda", timeout_s=GANG_TIMEOUT_S,
+                                          threads=0)[0]))
+        gang_results["references_s"] = time.perf_counter() - t0
+
+        # (a) NCCL at world 1: the gang path equals phase 7's step.
+        path, ref = paths["dense"], refs["dense"]
+        t0 = time.perf_counter()
         spec = {"cfg": dense, "mesh": {}, "batch": BATCH, "seq": PROMPT, "reference": path}
         (one,) = gang.spawn(gang_rank, 1, (spec,), backend="nccl", device="cuda",
                             timeout_s=GANG_TIMEOUT_S, threads=0)
@@ -4929,8 +5013,7 @@ def phase_gang(results):
 
         # A small f32 config at tp 2, TF32 off.
         t0 = time.perf_counter()
-        path = os.path.join(tmp, "small.pt")
-        ref = reference_apart(small, 4, 64, path)
+        path, ref = paths["small"], refs["small"]
         spec = {"cfg": small, "mesh": {"tp": 2}, "batch": 4, "seq": 64, "reference": path}
         ranks = gang.spawn(gang_rank, 2, (spec,), backend="gloo", device="cuda",
                            timeout_s=GANG_TIMEOUT_S, threads=0)
@@ -4944,8 +5027,7 @@ def phase_gang(results):
 
         # (c) the MoE flagship at dp 2 x tp 2: four ranks share the card.
         t0 = time.perf_counter()
-        path = os.path.join(tmp, "moe.pt")
-        ref = reference_apart(moe, BATCH, PROMPT, path)
+        path, ref = paths["moe"], refs["moe"]
         spec = {"cfg": moe, "mesh": {"dp": 2, "tp": 2}, "batch": BATCH, "seq": PROMPT,
                 "reference": path}
         ranks = gang.spawn(gang_rank, 4, (spec,), backend="gloo", device="cuda",
@@ -4968,9 +5050,10 @@ def phase_gang(results):
         gang_results["moe_dp2_tp2_f32"] = gang_moe_f32(tmp, GANG_F32_MOE_BATCH, card)
 
     # (d) lm-moe-dropless.yaml through WorkloadRunner: the card's gang
-    # against the CPU's (f32 payload; rtol WORKLOAD_F32_REL).
-    card_run = gang_runner_sequence("cuda", "gloo")
-    cpu_run = gang_runner_sequence("cpu", "gloo")
+    # against the CPU's (f32 payload; rtol WORKLOAD_F32_REL), at once.
+    with ThreadPoolExecutor(2) as pool:
+        card_run, cpu_run = pool.map(lambda device: gang_runner_sequence(device, "gloo"),
+                                     ("cuda", "cpu"))
     final = float(card_run["annotations"].get("tpu.jobset.x-k8s.io/final-loss", "nan"))
     want = float(cpu_run["annotations"].get("tpu.jobset.x-k8s.io/final-loss", "nan"))
     check(card_run["terminal_state"] == "Completed" == cpu_run["terminal_state"]
@@ -5045,6 +5128,526 @@ def phase_gang_apart(results):
         with open(path) as f:
             results["gang"] = json.load(f).get("gang")
 
+# ---------------------------------------------------------------------------
+# Phase 16: sequence parallelism (ring and Ulysses) and ZeRO-1
+# ---------------------------------------------------------------------------
+
+# A rank's ring block of the flagship at sp = 2: [B, T/sp, H, D].
+SP, SP_BLOCK = 2, (BATCH, PROMPT // 2, 16, 64)
+# Flash launches of a rank's step at sp = 2, remat off: the ring folds sp
+# blocks a layer (the diagonal, then the block of the other chunk: zeros
+# on rank 1, fully masked on rank 0); Ulysses folds the causal chunk pairs
+# of the whole sequence on H/sp heads, sp(sp+1)/2 a layer. On the first
+# step each builds two constant masks at [T/sp, T/sp] (the diagonal, and
+# the masked or zero block), each with its one tile-class pass.
+SP_RING_LAUNCHES, SP_ULYSSES_LAUNCHES, SP_FIRST_PASSES = SP * LAYERS, 3 * LAYERS, 2
+# A block merged into an accumulator and differentiated, kernel against
+# plain version: gradient leaves in relative norm, bf16 at phase 7's
+# bound (p rounded to bf16 against another max), f32 (3xTF32 forward, f32
+# backward with TF32 off) at 1e-4.
+SP_BLOCK_GRAD_REL = {torch.bfloat16: TRAIN_GRAD_REL, torch.float32: 1e-4}
+# (d): the dense flagship at one sequence of 8192 tokens, 2 adam steps.
+LONG_SEQ, LONG_STEPS = 8192, 2
+# ZeRO-1's adafactor against the run without it: each leaf within 1e-6 of
+# its largest entry (block RMSs summed over dp in another order).
+ZERO_ADAFACTOR_REL = 1e-6
+# examples/training/lm-adafactor.yaml and lm-long-context.yaml's payloads
+# (held to the files by tests/test_torch_gang_runner.py) and their gangs
+# (replicas, pods a job); each runs as one worker process a device of its
+# mesh.
+LM_ADAFACTOR_PAYLOAD = {
+    "kind": "lm", "steps": 8, "batch_size": 4, "seq_len": 16, "optimizer": "adafactor",
+    "zero1": True, "lr_schedule": "cosine", "warmup_steps": 2,
+    "config": {"vocab_size": 128, "d_model": 64, "n_heads": 4, "d_ff": 128, "n_layers": 2,
+               "max_seq_len": 32, "remat": True, "remat_policy": "dots"},
+    "mesh": {"dp": 2}}
+LM_LONG_CONTEXT_PAYLOAD = {
+    "kind": "lm", "steps": 8, "batch_size": 4, "seq_len": 32, "eval_every": 4,
+    "mesh": {"sp": 2, "tp": 2},
+    "config": {"vocab_size": 128, "d_model": 64, "n_heads": 8, "n_kv_heads": 4, "d_ff": 128,
+               "n_layers": 2, "max_seq_len": 64, "attn_impl": "ulysses"}}
+SP_EXAMPLES = {"lm-adafactor": (LM_ADAFACTOR_PAYLOAD, (2, 2)),
+               "lm-long-context": (LM_LONG_CONTEXT_PAYLOAD, (4, 1))}
+
+
+def rel_norm(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def sp_block_case(dtype, kind, seed) -> dict:
+    """A ring step's block at [8, 512, 16, 64] under the constant mask
+    `kind` ("causal", "zero", "masked"), as the ring hands it to the kernel
+    (classes given), against the plain version on the same inputs: the
+    raw outputs (not for "masked", whose block the merge drops), then the
+    block merged into a real accumulator (the diagonal block of the same q
+    against other keys, as a rank's ring folds it first), normalized, and
+    the gradients of sum(out * w) for q, k and v. The masked block must
+    leave the accumulator as it was, bit for bit, and give k and v zero
+    gradients."""
+    from jobset_tpu_torch.ops import flash_block as fb
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    inputs = [torch.randn(SP_BLOCK, generator=gen, device="cuda").to(dtype) for _ in range(5)]
+    w = torch.randn(SP_BLOCK, generator=gen, device="cuda")
+    t = SP_BLOCK[1]
+    bias, classes = fb.constant_mask(kind, t, t, inputs[0].device)
+    diag, diag_classes = fb.constant_mask("causal", t, t, inputs[0].device)
+    name = f"ring block {'bf16' if dtype == torch.bfloat16 else 'f32'} {kind} {list(SP_BLOCK)}"
+    check(torch.equal(classes, fb.tile_classes_reference(bias)),
+          f"{name}: the mask's tile classes equal the plain version's")
+
+    def run(block):
+        q, k, v, k0, v0 = (x.detach().requires_grad_() for x in inputs)
+        acc = block(q, k0, v0, diag, diag_classes)
+        blk = block(q, k, v, bias, classes)
+        merged = fb.merge_block_stats(acc, blk)
+        out = fb.normalize_block_stats(merged[1], merged[2])
+        (out * w).sum().backward()
+        alone = fb.normalize_block_stats(acc[1], acc[2])
+        return [x.detach() for x in blk], out.detach(), alone.detach(), [q.grad, k.grad, v.grad]
+
+    counter = "TENSOR_CORE_LAUNCHES" if dtype == torch.bfloat16 else "F32_LAUNCHES"
+    before = launches_now()[counter]
+    blk, out, alone, grads = run(lambda q, k, v, b, c: fb.block_attention(q, k, v, b, classes=c))
+    torch.cuda.synchronize()
+    launches = launches_now()[counter] - before
+    check(launches == 2, f"{name}: the diagonal and the block each launch the {counter} variant "
+          f"once ({launches})")
+    if dtype == torch.float32:
+        plain_is_f32(name)
+    with plain_attention():
+        p_blk, p_out, _, p_grads = run(
+            lambda q, k, v, b, c: fb.block_attention(q, k, v, b, classes=c))
+    errs = {}
+    if kind == "masked":
+        check(bool((blk[1] == 0).all() and (blk[2] == 0).all()
+                   and (blk[0] <= fb.NEG_INF / 2).all()),
+              f"{name}: the kernel skips every tile: max ~NEG_INF, sum 0, weighted 0")
+        check(torch.equal(out, alone) and all(bool((g == 0).all()) for g in grads[1:]),
+              f"{name}: merged into the accumulator it leaves it as it was, bit for bit, and "
+              f"gives k and v zero gradients")
+    else:
+        for label, g, want in zip(("max", "sum", "weighted"), blk, p_blk):
+            rtol, atol = KERNEL_TOL[dtype][label]
+            errs[label] = max_abs(g, want)
+            limit = atol + rtol * want.abs().max().item()
+            check(errs[label] <= limit, f"{name}: {label} max|d|={errs[label]:.3e} <= "
+                  f"{limit:.3e}")
+    rtol, atol = KERNEL_TOL[dtype]["weighted"]
+    errs["merged"] = max_abs(out, p_out)
+    limit = atol + rtol * p_out.abs().max().item()
+    check(bool(torch.isfinite(out).all()) and errs["merged"] <= limit,
+          f"{name}: merged and normalized, max|d|={errs['merged']:.3e} <= {limit:.3e}")
+    grad_rels = [rel_norm(g, want) for g, want in zip(grads, p_grads) if want.norm() > 0]
+    errs["grad_rel"] = max(grad_rels)
+    check(errs["grad_rel"] <= SP_BLOCK_GRAD_REL[dtype],
+          f"{name}: dq, dk, dv through the merge within {SP_BLOCK_GRAD_REL[dtype]} of the plain "
+          f"version's in relative norm (worst {errs['grad_rel']:.3e})")
+    print(f"{name}: {errs}", flush=True)
+    return {"launches": launches, "errs": errs}
+
+
+def sp_kernel_checks() -> dict:
+    """(a): the kernel at the ring's blocks, bf16 and f32, each mask kind."""
+    out, seed = {}, 700
+    for dtype in (torch.bfloat16, torch.float32):
+        for kind in ("causal", "zero", "masked"):
+            tag = "bf16" if dtype == torch.bfloat16 else "f32"
+            out[f"{tag} {kind}"] = sp_block_case(dtype, kind, seed)
+            seed += 1
+    torch.cuda.empty_cache()
+    return out
+
+
+def gang_ranks(specs: list) -> list:
+    """`gang_rank` of each spec in turn on this rank, the card's cached
+    blocks handed back between them."""
+    out = []
+    for spec in specs:
+        out.append(gang_rank(spec))
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    return out
+
+
+def settled_gb() -> float:
+    """What this process holds on the card once its garbage is collected
+    and its streams are done (GB), the peak counter reset to it: the
+    baseline a run's peak memory is read against."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 1e9
+
+
+def state_bytes_of(state) -> int:
+    from jobset_tpu_torch import tree
+
+    return sum(t.numel() * t.element_size() for t in tree.leaves(state) if torch.is_tensor(t))
+
+
+def zero_rank(cfg, batch, seq) -> dict:
+    """One rank of (c), in a process of its own: the dense flagship at dp 2
+    from the parameters of seed 0 on phase 7's batches (this rank's rows),
+    GANG_STEPS steps under adam and under adafactor, each with and without
+    ZeRO-1 (`optim.zero1`): the losses, the parameters' largest
+    difference a leaf (adam: whether every leaf is equal bit for bit), the
+    optimizer state's bytes on this rank, and its peak memory."""
+    from jobset_tpu_torch import tree
+    from jobset_tpu_torch.models import build_train_step, init_params
+    from jobset_tpu_torch.models.transformer import param_specs
+    from jobset_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from jobset_tpu_torch.runtime import optim
+    from jobset_tpu_torch.runtime.runner import batch_rows
+
+    device = torch.device(f"cuda:{torch.cuda.current_device()}")
+    mesh = build_mesh(MeshConfig(dp=2), device)
+    specs = param_specs(cfg)
+    start = init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+    rows = torch.as_tensor(batch_rows(batch, 2, mesh.index("dp")), device=device)
+    batches = [{k: v[rows] for k, v in token_batch(cfg.vocab_size, batch, seq, seed=3 + i,
+                                                   device=device).items()}
+               for i in range(GANG_STEPS)]
+    makers = {"adam": lambda: optim.adam(GANG_LR),
+              "adafactor": lambda: optim.adafactor(GANG_LR, specs, None)}
+    out = {"rank": mesh.rank}
+    for name, make in makers.items():
+        finals = {}
+        for zero1 in (False, True):
+            opt = optim.zero1(make(), specs, mesh) if zero1 else make()
+            held = settled_gb() * 1e9
+            state = opt.init(start)
+            step = build_train_step(cfg, opt, device=device, mesh=mesh)
+            params, losses = start, []
+            for b in batches:
+                params, state, loss = step(params, state, b)
+                losses.append(float(loss))
+            torch.cuda.synchronize()
+            out[f"{name} {'zero1' if zero1 else 'plain'}"] = {
+                "losses": losses, "state_bytes": state_bytes_of(state),
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "peak_over_held_gb": (torch.cuda.max_memory_allocated() - held) / 1e9}
+            finals[zero1] = params
+            del state, step, params
+        pairs = list(zip(tree.leaves(finals[True]), tree.leaves(finals[False])))
+        out[f"{name} equal"] = all(torch.equal(a, b) for a, b in pairs)
+        out[f"{name} worst_rel"] = max(float((a - b).abs().max() / b.abs().max()) for a, b in pairs)
+        del finals, pairs
+        torch.cuda.empty_cache()
+    return out
+
+
+def gloo_cuda_probe(which: str) -> dict:
+    """On each rank of a gang of 2 on gloo, CUDA tensors: `which`
+    "collectives" runs the port's `gather` (dim 1), `rotate` and
+    `all_to_all` (split dim 2, concat dim 1), built on gloo's
+    `all_to_all_single`, in f32 and bf16, each result held bit for bit
+    against the one this rank builds from every rank's known input;
+    "send_recv" a pair (its wait bounded by 20 s), which the port does not
+    use. For each, "ran, right", "ran, wrong result" or the error it
+    raised."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from jobset_tpu_torch.parallel import collectives
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    device = torch.device(f"cuda:{torch.cuda.current_device()}")
+    group = dist.group.WORLD
+    out = {}
+
+    def attempt(name, fn):
+        try:
+            out[name] = "ran, right" if fn() else "ran, wrong result"
+        except Exception as exc:  # the probe's finding is the refusal
+            out[name] = f"raised {type(exc).__name__}: {str(exc).splitlines()[0][:160]}"
+
+    def of(r, dtype):
+        base = torch.arange(2 * 8 * 4 * 64, dtype=torch.float32).reshape(2, 8, 4, 64)
+        return (base % 251 + 256 * r).to(dtype)
+
+    def moved(dtype):
+        x = of(rank, dtype).to(device)
+        want = {"gather": torch.cat([of(r, dtype) for r in range(world)], dim=1),
+                "rotate": of((rank - 1) % world, dtype),
+                "all_to_all": torch.cat([of(r, dtype).chunk(world, 2)[rank]
+                                         for r in range(world)], dim=1)}
+        got = {"gather": collectives.gather(x, 1, group),
+               "rotate": collectives.rotate(x, group),
+               "all_to_all": collectives.all_to_all(x, 2, 1, group)}
+        return all(got[k].is_cuda and got[k].dtype == dtype
+                   and torch.equal(got[k].cpu(), want[k]) for k in want)
+
+    def send_recv():
+        x = torch.arange(4, dtype=torch.float32, device=device)
+        if rank == 0:
+            dist.isend(x, 1).wait(timeout=timedelta(seconds=20))
+            return True
+        got = torch.empty_like(x)
+        dist.irecv(got, 0).wait(timeout=timedelta(seconds=20))
+        return torch.equal(got.cpu(), torch.arange(4.0))
+
+    if which == "collectives":
+        for dtype in (torch.float32, torch.bfloat16):
+            attempt(f"gather, rotate, all_to_all {str(dtype)[6:]}", lambda: moved(dtype))
+    else:
+        attempt("send_recv", send_recv)
+    return out
+
+
+def sp_workload_sequence(name, device, backend) -> dict:
+    """An SP_EXAMPLES payload through the port's `WorkloadRunner` on
+    `device`, over `StandInCluster`: one worker process a device of its
+    mesh, on `backend`; the annotations, the terminal state and each rank's
+    result line."""
+    from jobset_tpu_torch.runtime import WorkloadRunner
+
+    payload, (replicas, pods) = SP_EXAMPLES[name]
+    cluster = StandInCluster(name, json.loads(json.dumps(payload)), replicas=replicas,
+                             parallelism=pods)
+    runner = WorkloadRunner(cluster, device, backend=backend)
+    t0 = time.perf_counter()
+    ran = runner.run_pending()
+    return {"ran": ran, "seconds": time.perf_counter() - t0,
+            "terminal_state": cluster.js.status.terminal_state,
+            "annotations": dict(cluster.js.metadata.annotations),
+            "results": runner.last_gang_results}
+
+
+def gloo_probe(which) -> object:
+    """(f)'s probe gang for `which`; a gang that fails (a rank aborted) is
+    the probe's finding, reported as such."""
+    from jobset_tpu_torch.runtime import gang
+
+    try:
+        return gang.spawn(gloo_cuda_probe, 2, (which,), backend="gloo", device="cuda",
+                          timeout_s=90, threads=0)
+    except RuntimeError as exc:
+        return f"the probe's gang failed: {str(exc).splitlines()[0][:200]}"
+
+
+def phase_sp(results):
+    """Phase 16: sequence parallelism and ZeRO-1 at the flagship's width,
+    gangs of ranks sharing the card on gloo with CUDA tensors. The timed
+    gang (b, d) runs alone; the single-process references run beside the
+    block checks (a), and the untimed gangs (c), (e), (f) and the CPU gang
+    together, in threads, each in processes of its own."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from dataclasses import replace
+
+    from jobset_tpu_torch.runtime import gang
+
+    card = results["card"]
+    t_phase = time.perf_counter()
+    out: dict = {}
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    dense = replace(flagship_config(), remat=False)
+    ulysses = replace(dense, attn_impl="ulysses")
+    small = gang_small_config()
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(8) as pool:
+        # The single-process runs the gangs are held to, in one process,
+        # while (a) runs here.
+        t0 = time.perf_counter()
+        paths = {key: os.path.join(tmp, f"{key}.pt") for key in ("dense", "long")}
+        jobs = [dict(cfg=dense, batch=BATCH, seq=PROMPT, path=paths["dense"]),
+                dict(cfg=dense, batch=1, seq=LONG_SEQ, path=paths["long"], steps=LONG_STEPS)]
+        pending_refs = pool.submit(gang.spawn, gang_references, 1, (jobs,), backend="gloo",
+                                   device="cuda", timeout_s=GANG_TIMEOUT_S, threads=0)
+        out["blocks"] = sp_kernel_checks()
+        refs = dict(zip(paths, pending_refs.result()[0]))
+        out["references_s"] = time.perf_counter() - t0
+
+        # (b) and (d): sp = 2, two ranks, every timed run in one gang.
+        t0 = time.perf_counter()
+        specs = [
+            {"cfg": dense, "mesh": {"sp": SP}, "batch": BATCH, "seq": PROMPT,
+             "reference": paths["dense"]},
+            {"cfg": ulysses, "mesh": {"sp": SP}, "batch": BATCH, "seq": PROMPT,
+             "reference": paths["dense"]},
+            {"cfg": dense, "mesh": {"sp": SP}, "batch": 1, "seq": LONG_SEQ,
+             "reference": paths["long"], "steps": LONG_STEPS, "timed": False},
+            {"cfg": small, "mesh": {"sp": SP}, "batch": 4, "seq": 64, "draw_on_cpu": True,
+             "timed": False},
+            {"cfg": replace(small, attn_impl="ulysses"), "mesh": {"sp": SP}, "batch": 4,
+             "seq": 64, "draw_on_cpu": True, "timed": False},
+        ]
+        by_rank = gang.spawn(gang_ranks, SP, (specs,), backend="gloo", device="cuda",
+                             timeout_s=GANG_TIMEOUT_S, threads=0)
+        ring, uly, long_, small_ring, small_uly = ([r[i] for r in by_rank] for i in range(5))
+        out["sp_gang_s"] = time.perf_counter() - t0
+
+        # Untimed, at once: (c) ZeRO-1 at dp = 2, the small f32 config's CPU
+        # gang, (e) the two examples through WorkloadRunner on the card and
+        # on the CPU, and (f) the gloo probes.
+        t0 = time.perf_counter()
+        zero = pool.submit(gang.spawn, zero_rank, 2, (dense, BATCH, PROMPT), backend="gloo",
+                           device="cuda", timeout_s=GANG_TIMEOUT_S, threads=0)
+        cpu = pool.submit(gang.spawn, gang_ranks, SP,
+                          ([dict(spec, device="cpu") for spec in specs[3:]],), backend="gloo",
+                          device="cpu", timeout_s=GANG_TIMEOUT_S, threads=0)
+        examples = {(name, device): pool.submit(sp_workload_sequence, name, device, "gloo")
+                    for name in SP_EXAMPLES for device in ("cuda", "cpu")}
+        probes = {which: pool.submit(gloo_probe, which) for which in ("collectives", "send_recv")}
+        zero, cpu = zero.result(), cpu.result()
+        runs = {key: job.result() for key, job in examples.items()}
+        out["gloo_probe"] = {which: job.result() for which, job in probes.items()}
+        out["untimed_s"] = time.perf_counter() - t0
+
+    for label, ranks, want, passes in (("ring", ring, SP_RING_LAUNCHES, SP_FIRST_PASSES),
+                                       ("ulysses", uly, SP_ULYSSES_LAUNCHES, SP_FIRST_PASSES)):
+        gang_print(f"sp (b) {label}", ranks, card)
+        out[label] = {"ranks": ranks, "worst": gang_check(
+            f"sp (b) dense flagship sp=2 {label}, B={BATCH} T={PROMPT} bf16", ranks,
+            refs["dense"], GANG_BF16_LOSS_REL, GANG_BF16_GRAD_REL, GANG_BF16_MOVE_REL)}
+        for r in ranks:
+            c = r["launches"]
+            check(c["TENSOR_CORE_LAUNCHES"] == c["KERNEL_LAUNCHES"] == want
+                  and c["F32_LAUNCHES"] == 0 and c["TILE_CLASS_LAUNCHES"] == passes,
+                  f"sp (b) {label} rank {r['rank']}: {want} bf16 flash launches and "
+                  f"{passes} tile-class passes on the first step ({c['KERNEL_LAUNCHES']}, "
+                  f"{c['TILE_CLASS_LAUNCHES']})")
+
+    # The small f32 config at sp = 2 against the port's CPU gang.
+    for i, (label, ranks) in enumerate((("ring", small_ring), ("ulysses", small_uly))):
+        want, got = cpu[0][i], ranks[0]
+        worst = max(abs(a - b) / abs(b) for a, b in zip([got["grad_loss"]] + got["losses"],
+                                                       [want["grad_loss"]] + want["losses"]))
+        check(worst <= GANG_F32_REL and all(r["launches"]["F32_LAUNCHES"] == (
+                  SP if label == "ring" else 3) * small.n_layers for r in ranks),
+              f"sp small f32 {label} sp=2 (TF32 off): losses {got['losses']} against the "
+              f"CPU gang's {want['losses']} (worst {worst:.2e}, bound {GANG_F32_REL}); "
+              f"f32 flash launches {[r['launches']['F32_LAUNCHES'] for r in ranks]}")
+        out[f"small_f32_{label}"] = {"card": ranks, "cpu": [c[i] for c in cpu], "worst": worst}
+
+    # (d) long context: one process against the ring at sp = 2.
+    one = refs["long"]
+    out["long"] = {"ranks": long_, "reference": one, "worst": gang_check(
+        f"sp (d) dense flagship B=1 T={LONG_SEQ} ring sp=2 ({LONG_STEPS} adam steps)",
+        long_, one, GANG_BF16_LOSS_REL, GANG_BF16_GRAD_REL, GANG_BF16_MOVE_REL)}
+    print(f"  sp (d) peak memory: one process {one['peak_gb']:.2f} GB; ring sp=2 by rank "
+          f"{[round(r['peak_gb'], 2) for r in long_]} GB ({card})", flush=True)
+    for r in long_:
+        check(r["launches"]["TENSOR_CORE_LAUNCHES"] == SP_RING_LAUNCHES,
+              f"sp (d) rank {r['rank']}: {SP_RING_LAUNCHES} bf16 flash launches a step "
+              f"at [1, {LONG_SEQ // SP}, 16, 64] ({r['launches']['TENSOR_CORE_LAUNCHES']})")
+
+    # (c) ZeRO-1 at dp = 2.
+    for r in zero:
+        for name in ("adam", "adafactor"):
+            z, plain = r[f"{name} zero1"], r[f"{name} plain"]
+            print(f"  zero (c) rank {r['rank']} {name}: state {z['state_bytes'] / 1e6:.3f} MB a "
+                  f"rank with zero1 against {plain['state_bytes'] / 1e6:.3f} MB without; peak "
+                  f"{z['peak_gb']:.2f} against {plain['peak_gb']:.2f} GB "
+                  f"({z['peak_over_held_gb']:.2f} against {plain['peak_over_held_gb']:.2f} GB "
+                  f"over what the rank held before the run); losses {z['losses']} and "
+                  f"{plain['losses']} ({card})", flush=True)
+        check(r["adam equal"] and r["adam zero1"]["losses"] == r["adam plain"]["losses"],
+              f"zero (c) rank {r['rank']}: adam at dp=2 with zero1 equals the run without it "
+              f"bit for bit after {GANG_STEPS} steps (worst {r['adam worst_rel']:.2e})")
+        check(r["adafactor worst_rel"] <= ZERO_ADAFACTOR_REL,
+              f"zero (c) rank {r['rank']}: adafactor with zero1 within {ZERO_ADAFACTOR_REL} of "
+              f"the run without it (worst leaf {r['adafactor worst_rel']:.2e})")
+        check(r["adam zero1"]["state_bytes"] <= 0.51 * r["adam plain"]["state_bytes"],
+              f"zero (c) rank {r['rank']}: adam's state halves with zero1")
+    out["zero"] = zero
+
+    # (e) the two examples, the card's gangs against the CPU's.
+    for name, (payload, _) in SP_EXAMPLES.items():
+        card_run, cpu_run = runs[(name, "cuda")], runs[(name, "cpu")]
+        final = float(card_run["annotations"].get(FINAL_LOSS, "nan"))
+        want = float(cpu_run["annotations"].get(FINAL_LOSS, "nan"))
+        n = int(np.prod(list(payload["mesh"].values())))
+        check(card_run["terminal_state"] == "Completed" == cpu_run["terminal_state"]
+              and len(card_run["results"] or []) == n and abs(final - want) <= 1e-4,
+              f"sp (e) {name}.yaml through WorkloadRunner as {n} processes on the card: "
+              f"{card_run['terminal_state']} in {card_run['seconds']:.1f} s, final loss {final} "
+              f"vs the CPU gang's {want}")
+        for line in card_run["results"] or []:
+            print(f"  sp (e) {name} rank {line['process_id']}: mesh {line['mesh']}, kernel "
+                  f"launches {line['kernel_launches']}", flush=True)
+        out[f"example {name}"] = {"card": card_run, "cpu": cpu_run}
+    # (f) the port's moving collectives on gloo with CUDA tensors, held
+    # bit for bit; send/recv, which the port does not use, as information.
+    for which, found in out["gloo_probe"].items():
+        print(f"  sp (f) gloo with CUDA tensors, {which}, by rank: {found}", flush=True)
+    found = out["gloo_probe"]["collectives"]
+    check(isinstance(found, list) and all(v == "ran, right" for r in found for v in r.values()),
+          "sp (f) gather, rotate and all_to_all of CUDA tensors on gloo (all_to_all_single), "
+          "f32 and bf16, bit for bit on both ranks")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 16: {out['seconds']:.1f} s (block checks beside the references "
+          f"{out['references_s']:.1f}, sp gang {out['sp_gang_s']:.1f}, zero1, CPU gang, "
+          f"examples and probes at once {out['untimed_s']:.1f})", flush=True)
+    results["sp"] = out
+
+
+FINAL_LOSS = "tpu.jobset.x-k8s.io/final-loss"
+
+
+def sp_launches(results) -> dict:
+    """Phase 16's launches of the flash kernels: rank 0's first step of
+    each sp path, (a)'s block checks, and rank 0's whole run of
+    lm-long-context.yaml (f32, Ulysses)."""
+    sp = results.get("sp") or {}
+
+    def first(key, counter):
+        ranks = (sp.get(key) or {}).get("ranks") or [{}]
+        return (ranks[0].get("launches") or {}).get(counter)
+
+    lines = ((sp.get("example lm-long-context") or {}).get("card") or {}).get("results") or [{}]
+    whole = lines[0].get("kernel_launches") or {}
+    blocks = sp.get("blocks") or {}
+
+    def checks(tag):
+        return sum(v["launches"] for k, v in blocks.items() if k.startswith(tag))
+
+    return {
+        "flash_block": {"ring sp=2 step": first("ring", "TENSOR_CORE_LAUNCHES"),
+                        "Ulysses sp=2 step": first("ulysses", "TENSOR_CORE_LAUNCHES"),
+                        f"ring sp=2 T={LONG_SEQ} step": first("long", "TENSOR_CORE_LAUNCHES"),
+                        "ring block checks": checks("bf16")},
+        "flash_block_f32": {"ring block checks": checks("f32"),
+                            "lm-long-context.yaml run, rank 0": whole.get("F32_LAUNCHES")},
+        "flash_block_tile_classes": {"ring sp=2 first step": first("ring", "TILE_CLASS_LAUNCHES"),
+                                     "Ulysses sp=2 first step": first("ulysses",
+                                                                      "TILE_CLASS_LAUNCHES")},
+    }
+
+
+def phase_sp_apart(results):
+    """Phase 16 in a process of its own (`--sp-only`), this process's cached
+    blocks handed back to the card first."""
+    import tempfile
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sp.json")
+        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--sp-only",
+                              "--out", path], capture_output=True, text=True, timeout=900)
+        print(run.stdout, end="", flush=True)
+        if run.returncode != 0:
+            print(run.stderr[-4000:], file=sys.stderr, flush=True)
+        check(run.returncode == 0 and os.path.exists(path),
+              f"phase 16 in a process of its own exits {run.returncode}")
+        if not os.path.exists(path):
+            return
+        with open(path) as f:
+            results["sp"] = json.load(f).get("sp")
+
+
+def timed(results, label, fn, *args):
+    """fn(*args), its wall seconds kept in results["phase_seconds"] and
+    printed."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    seconds = results.setdefault("phase_seconds", {})[label] = time.perf_counter() - t0
+    print(f"{label}: {seconds:.1f} s by the script's clock", flush=True)
+    return out
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5073,6 +5676,9 @@ def main() -> int:
     only.add_argument("--gang-only", action="store_true",
                       help="build the flash block and grouped kernels and run phase 15 (gangs "
                            "of processes on torch.distributed) alone (no result line)")
+    only.add_argument("--sp-only", action="store_true",
+                      help="build the flash block kernels and run phase 16 (sequence "
+                           "parallelism and ZeRO-1) alone (no result line)")
     only.add_argument("--gang-f32-moe-batch", type=int, metavar="B",
                       help="build the flash block and grouped kernels and run phase 15's f32 "
                            "MoE gang alone at batch B, for its memory (no result line)")
@@ -5114,7 +5720,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     sources = (["auction"] if args.solver_only
-               else ["flash_block"] if args.flash_only or args.workloads_only
+               else ["flash_block"] if args.flash_only or args.workloads_only or args.sp_only
                else ["flash_block", "int8_matmul"] if args.serving_only
                else ["flash_block", "int8_matmul", "grouped_matmul"] if args.moe_only
                else ["flash_block", "grouped_matmul"] if (args.moe_train_only or args.gang_only
@@ -5142,12 +5748,16 @@ def main() -> int:
             results["gang_moe_f32"] = gang_moe_f32(tmp, args.gang_f32_moe_batch, card)
     if args.gang_only:
         phase_gang(results)
-    if args.gang_only or args.gang_f32_moe_batch:
+    if args.sp_only:
+        phase_sp(results)
+    if args.gang_only or args.gang_f32_moe_batch or args.sp_only:
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
             with open(args.out, "w") as f:
                 json.dump(results, f, indent=1)
-        print(f"chip_smoke {'--gang-only' if args.gang_only else '--gang-f32-moe-batch'}: "
+        flag = ("--gang-only" if args.gang_only else "--sp-only" if args.sp_only
+                else "--gang-f32-moe-batch")
+        print(f"chip_smoke {flag}: "
               f"{len(FAILURES)} check(s) failed, "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
         for what in FAILURES:
@@ -5215,7 +5825,7 @@ def main() -> int:
                                            "flash_block_f32_kernel")
     results["sass"] = tensor_core_sass(libraries["flash_block"])
 
-    kernels = phase_kernels(results)
+    kernels = timed(results, "phases 2-3", phase_kernels, results)
     if args.flash_only:
         print(json.dumps({"kernels": kernels}))
         print(f"chip_smoke --flash-only: {len(FAILURES)} check(s) failed, "
@@ -5229,13 +5839,13 @@ def main() -> int:
     n_params = sum(t.numel() for d in (params, params["layers"]) for t in d.values()
                    if torch.is_tensor(t))
     print(f"flagship params: {n_params / 1e6:.1f} M", flush=True)
-    phase_forward(params, results)
-    phase_generate(params, results)
-    phase_trace(params, results)
+    timed(results, "phase 4", phase_forward, params, results)
+    timed(results, "phase 5", phase_generate, params, results)
+    timed(results, "phase 6", phase_trace, params, results)
     del params
     torch.cuda.empty_cache()
-    phase_train(results)
-    phase_worker(results)
+    timed(results, "phase 7", phase_train, results)
+    timed(results, "phase 8", phase_worker, results)
 
     counters = {"flash_block": "TENSOR_CORE_LAUNCHES", "flash_block_f32": "F32_LAUNCHES",
                 "flash_block_tile_classes": "TILE_CLASS_LAUNCHES"}
@@ -5265,13 +5875,15 @@ def main() -> int:
                 "worker, uninterrupted run": worker_launches.get(counter),
                 "worker, resumed run": resumed.get(counter),
             }
-    kernels += phase_solver(results)
-    phase_control_apart(results)
-    int8_kernel = phase_serving_apart(results, args.int8_baseline)
-    grouped_kernels = phase_moe_apart(results, args.grouped_baseline)
-    grouped_kernels += phase_moe_train_apart(results, args.grouped_baseline)
-    phase_workloads_apart(results)
-    phase_gang_apart(results)
+    kernels += timed(results, "phase 9", phase_solver, results)
+    timed(results, "phase 10", phase_control_apart, results)
+    int8_kernel = timed(results, "phase 11", phase_serving_apart, results, args.int8_baseline)
+    grouped_kernels = timed(results, "phase 12", phase_moe_apart, results, args.grouped_baseline)
+    grouped_kernels += timed(results, "phase 13", phase_moe_train_apart, results,
+                             args.grouped_baseline)
+    timed(results, "phase 14", phase_workloads_apart, results)
+    timed(results, "phase 15", phase_gang_apart, results)
+    timed(results, "phase 16", phase_sp_apart, results)
     adafactor_counts = ((results.get("adafactor_vs_adam") or {}).get("adafactor") or {}).get(
         "launches") or {}
     for kernel in kernels:
@@ -5288,9 +5900,10 @@ def main() -> int:
         kernels.append(int8_kernel)
     attach_grouped_ptxas(grouped_kernels, results.get("grouped_ptxas"), results.get("grouped_sass"))
     kernels += grouped_kernels
-    on_gang = gang_launches(results)
+    on_gang, on_sp = gang_launches(results), sp_launches(results)
     for kernel in kernels:
         kernel["gang_launches"] = on_gang.get(kernel["name"], {"not on the gang's path": 0})
+        kernel["sp_launches"] = on_sp.get(kernel["name"], {"not on the sp path": 0})
     results["kernels"] = kernels
     results["seconds"] = time.perf_counter() - t_start
     if args.out:

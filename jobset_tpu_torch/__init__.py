@@ -16,8 +16,10 @@ aggregate (`core.columnar.job_counts`), the placement policy's MLP
 (`policy.model.score`) and its trainer (`policy.train.train`,
 `python -m jobset_tpu_torch.policy.train --bundles DIR --out CKPT`).
 Training also runs as a gang of processes on `torch.distributed`, one
-a device, data- and tensor-parallel over the five-axis mesh
-(`runtime.worker`, `runtime.WorkloadRunner`, `parallel.mesh`).
+a device, data-, sequence- (ring or Ulysses attention) and
+tensor-parallel over the five-axis mesh, with ZeRO-1's optimizer state
+split over dp (`runtime.worker`, `runtime.WorkloadRunner`,
+`parallel.mesh`, `parallel.zero`).
 Entry points run on the card unless the caller asks for the CPU
 (`device="cpu"`, `--cpu`); with no CUDA device and no such request they
 raise. On the card, `python3 chip_smoke.py` drives them all

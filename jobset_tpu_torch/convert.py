@@ -7,7 +7,9 @@ becomes the port's `QuantizedTensor`.
 `shard_params` cuts a full tree to one rank's tp shards by the
 transformer's `param_specs`, and `gather_params` puts a gang's shards back
 together; `shard_tree` and `gather_tree` do the same for any tree with a
-tree of specs (a training state, for a checkpoint of global tensors).
+tree of specs (a training state, for a checkpoint of global tensors),
+over every mesh axis a spec names (tp, and dp for a ZeRO-1 optimizer
+state), or over the axes the caller names.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 
 from .models.quant import QuantizedTensor
 from .parallel.collectives import gather
+from .parallel.mesh import AXIS_NAMES
 
 
 def _leaf(a) -> torch.Tensor:
@@ -42,44 +45,46 @@ def params_from_jax(tree: dict, device="cpu") -> dict:
     return {name: _node(v, device) for name, v in tree.items()}
 
 
-def _tp_dim(spec):
-    return spec.index("tp") if spec is not None and "tp" in spec else None
+def _split_dims(spec, mesh, axes):
+    """[(dim, axis), ...] for the dims `spec` splits over an axis of `axes`
+    that has more than one rank on `mesh`."""
+    if spec is None:
+        return []
+    return [(dim, axis) for dim, axis in enumerate(spec)
+            if axis in axes and mesh.size(axis) > 1]
 
 
-def _walk(fn, tree, specs):
-    """fn(tensor, dim) on each tensor whose spec splits a dim over tp; a
-    node the specs do not reach (None, or a key they lack) is whole."""
+def _walk(fn, tree, specs, mesh, axes):
+    """fn(tensor, dim, axis) on each tensor, for each dim its spec splits
+    over one of `axes`; a node the specs do not reach (None, or a key they
+    lack) is whole."""
     if isinstance(tree, dict):
-        return {k: _walk(fn, v, specs.get(k) if isinstance(specs, dict) else None)
+        return {k: _walk(fn, v, specs.get(k) if isinstance(specs, dict) else None, mesh, axes)
                 for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_walk(fn, v, specs[i] if isinstance(specs, list) else None)
+        return [_walk(fn, v, specs[i] if isinstance(specs, list) else None, mesh, axes)
                 for i, v in enumerate(tree)]
     if torch.is_tensor(tree):
-        dim = _tp_dim(specs)
-        return tree if dim is None else fn(tree, dim)
+        for dim, axis in _split_dims(specs, mesh, axes):
+            tree = fn(tree, dim, axis)
     return tree
 
 
-def shard_tree(full, specs, mesh):
-    """Each tensor of `full` cut to `mesh`'s rank's tp shard along the dim
-    its spec splits over tp (an own copy, so the full tree can be freed);
-    other leaves as they are. `mesh` is a `parallel.mesh.Mesh` (groups not
-    needed: `Mesh.at(config, rank)` will do)."""
-    tp, index = mesh.size("tp"), mesh.index("tp")
-    if tp == 1:
-        return full
-    return _walk(lambda t, dim: t.chunk(tp, dim)[index].clone(
-        memory_format=torch.contiguous_format), full, specs)
+def shard_tree(full, specs, mesh, axes=AXIS_NAMES):
+    """Each tensor of `full` cut to `mesh`'s rank's shard along each dim its
+    spec splits over one of `axes` (an own copy, so the full tree can be
+    freed); other leaves as they are. `mesh` is a `parallel.mesh.Mesh`
+    (groups not needed: `Mesh.at(config, rank)` will do)."""
+    return _walk(lambda t, dim, axis: t.chunk(mesh.size(axis), dim)[mesh.index(axis)].clone(
+        memory_format=torch.contiguous_format), full, specs, mesh, axes)
 
 
-def gather_tree(local, specs, mesh):
-    """The global tree from a gang's tp shards: every tensor split over tp
-    gathered along its dim over `mesh`'s tp group (every rank of the group
-    takes part, and each gets the whole tree)."""
-    if mesh.size("tp") == 1:
-        return local
-    return _walk(lambda t, dim: gather(t, dim, mesh.group("tp")), local, specs)
+def gather_tree(local, specs, mesh, axes=AXIS_NAMES):
+    """The global tree from a gang's shards: every tensor split over one of
+    `axes` gathered along its dim over that axis's group (every rank of the
+    group takes part, and each gets the whole tree)."""
+    return _walk(lambda t, dim, axis: gather(t, dim, mesh.group(axis)), local, specs, mesh,
+                 axes)
 
 
 def shard_params(full, cfg, mesh):

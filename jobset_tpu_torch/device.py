@@ -18,30 +18,24 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
-# The mesh axes and options the port does not run yet, each with the
-# ROADMAP item (A6's step) that ports it.
-UNPORTED_AXES = {"pp": "A6 step 5 (pipelines)", "ep": "A6 step 6 (expert parallelism)",
-                 "sp": "A6 step 4 (ring and Ulysses attention)"}
-ZERO1_ITEM = "A6 step 3 (ZeRO-1)"
+# The mesh axes the port does not run yet, each with the ROADMAP item (A6's
+# step) that ports it.
+UNPORTED_AXES = {"pp": "A6 step 5 (pipelines)", "ep": "A6 step 6 (expert parallelism)"}
 
 
-def check_axes(mesh_shape, zero1: bool = False) -> None:
+def check_axes(mesh_shape) -> None:
     """Raise NotImplementedError, naming the axis, where a mesh (a payload's
-    `mesh` mapping or a MeshConfig) has sp, pp or ep above 1, and on
-    `zero1`: the port runs dp and tp so far."""
+    `mesh` mapping or a MeshConfig) has pp or ep above 1: the port runs dp,
+    sp and tp so far."""
     shape = (dict(zip(("dp", "pp", "ep", "sp", "tp"), mesh_shape.shape))
              if hasattr(mesh_shape, "shape") else dict(mesh_shape or {}))
     for axis, item in UNPORTED_AXES.items():
         size = int(shape.get(axis, 1))
         if size != 1:
             raise NotImplementedError(
-                f"mesh axis {axis}={size}: the port runs dp and tp so far; {axis} comes "
+                f"mesh axis {axis}={size}: the port runs dp, sp and tp so far; {axis} comes "
                 f"with ROADMAP {item}"
             )
-    if zero1:
-        raise NotImplementedError(
-            f"zero1 (optimizer state sharded over dp) is not ported yet: ROADMAP {ZERO1_ITEM}"
-        )
 
 
 def backend_label() -> str:

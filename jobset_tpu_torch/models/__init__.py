@@ -1,6 +1,6 @@
 """The flagship transformer's forward, serving path (greedy or sampled,
-bf16 or int8) and training step (one device, or dp and tp over a gang's
-mesh) in PyTorch; the `mlp` and `cnn` workload kinds' models in
+bf16 or int8) and training step (one device, or dp, sp and tp over a
+gang's mesh; `param_specs` names each leaf's split) in PyTorch; the `mlp` and `cnn` workload kinds' models in
 `models.mlp` and `models.cnn`."""
 
 from .decode import build_generate
@@ -11,6 +11,7 @@ from .transformer import (
     build_forward,
     build_train_step,
     init_params,
+    param_specs,
 )
 
 __all__ = [
@@ -20,5 +21,6 @@ __all__ = [
     "build_generate",
     "build_train_step",
     "init_params",
+    "param_specs",
     "quantize_params_for_serving",
 ]

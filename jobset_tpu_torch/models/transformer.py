@@ -5,8 +5,9 @@ Parameters are a plain dict that keeps the JAX tree's names and stacked
 `[pp=1, layers, ...]` shapes, so a JAX param tree converts leaf for leaf
 (`jobset_tpu_torch.convert.params_from_jax`). Compute runs in `cfg.dtype`
 (bf16 by default) over f32 parameters, with f32 norm and softmax
-statistics. Attention goes through `ring_attention` at sp = 1, that is one
-flash block step (`ops.flash_block`) per layer. The GEMMs stay
+statistics. Attention goes through `ring_attention` (or, with `attn_impl`
+"ulysses", `ulysses_attention`): on one device one flash block step
+(`ops.flash_block`) per layer. The GEMMs stay
 `torch.matmul`, as the JAX package leaves them to XLA; every matmul site
 goes through `quant.matmul`, so int8 serving weights (`QuantizedTensor`)
 work here too.
@@ -30,20 +31,23 @@ through `ops.grouped_matmul`'s autograd Function (hand kernels for the
 backward on the card).
 
 Over a gang (`mesh`, a `parallel.mesh.Mesh`) the train and eval steps
-run dp and tp, with the reference's collectives (`parallel.collectives`):
-each rank holds its dp rows of the batch and its tp shards of the
-parameters (`param_specs`: heads, hidden and expert columns, and the
-vocab split over tp, as Megatron's column and row parallel products);
-the row-parallel outputs, the embedding and the loss's vocab sums are
-reduced over tp ("reduce"), a replicated activation entering a sharded
-weight carries the transpose psum ("copy"), the loss's token count and
-sum and the MoE balancing statistics are pooled over dp before the aux
-loss's product, and the gradients are summed over dp once a step, after
-accumulation (a tp-sharded leaf is never reduced over tp). Without a
-mesh, or at size 1, every collective is the identity.
+run dp, sp and tp, with the reference's collectives
+(`parallel.collectives`): each rank holds its dp rows and its sp chunk of
+positions of the batch and its tp shards of the parameters
+(`param_specs`: heads, hidden and expert columns, and the vocab split
+over tp, as Megatron's column and row parallel products); the
+row-parallel outputs, the embedding and the loss's vocab sums are reduced
+over tp ("reduce"), a replicated activation entering a sharded weight
+carries the transpose psum ("copy"), attention spans the sp chunks (the
+ring rotates K/V, Ulysses moves the split onto the heads; rotary
+positions are global), the loss's token count and sum and the MoE
+balancing statistics are pooled over (dp, sp) before the aux loss's
+product, and the gradients are summed over (dp, sp) once a step, after
+accumulation, in one all-reduce (a tp-sharded leaf is never reduced over
+tp). Without a mesh, or at size 1, every collective is the identity.
 
-Not ported yet: sp/pp/ep > 1, microbatched pipelines and Ulysses
-attention; `TransformerConfig.validate` rejects the settings.
+Not ported yet: pp/ep > 1 and microbatched pipelines;
+`TransformerConfig.validate` rejects the settings.
 """
 
 from __future__ import annotations
@@ -62,8 +66,9 @@ from ..device import check_axes, resolve_device
 from ..ops.flash_block import MAX_HEAD_DIM
 from ..ops.grouped_matmul import grouped_matmul
 from ..parallel.collectives import all_reduce_, copy, pmax, reduce
-from ..parallel.mesh import MeshConfig
+from ..parallel.mesh import DATA_AXES, MeshConfig
 from ..parallel.ring_attention import ring_attention
+from ..parallel.ulysses_attention import ulysses_attention
 from .quant import QuantizedTensor, matmul, matmul_experts, weight_cast
 
 
@@ -95,7 +100,9 @@ class TransformerConfig:
     param_dtype: torch.dtype = torch.float32
     # Logits = x @ embed^T instead of a separate unembedding.
     tie_embeddings: bool = False
-    # Sequence-parallel attention strategy; only "ring" (at sp = 1) is ported.
+    # Sequence-parallel attention over sp: "ring" rotates K/V around the
+    # ring (any head count); "ulysses" re-splits the heads with two
+    # all-to-alls (needs n_heads / (tp * sp) whole). Both are exact.
     attn_impl: str = "ring"
     # Training knobs, with the JAX package's defaults.
     # Per-layer rematerialization on the backward: "full" saves the layer
@@ -125,9 +132,9 @@ class TransformerConfig:
     def validate(self, mesh_shape: MeshConfig | Mapping[str, int] | None = None) -> None:
         """Reject what the port cannot run on the mesh (a MeshConfig or a
         payload's `mesh` mapping; None: one device): bad widths and MoE
-        settings, widths that tp does not divide (the reference's rules at
-        ep = 1), and every setting it has not ported (sp, pp or ep > 1,
-        Ulysses, pipelines)."""
+        settings, widths that tp does not divide and Ulysses' head split
+        (the reference's rules at ep = 1), and every setting it has not
+        ported (pp or ep > 1, pipelines)."""
         mc = MeshConfig.of(mesh_shape)
         check_axes(mc)
         if self.d_model % self.n_heads:
@@ -170,10 +177,8 @@ class TransformerConfig:
             raise ValueError(
                 f"MoE routing: moe_top_k {self.moe_top_k} exceeds n_experts {self.n_experts}"
             )
-        if self.attn_impl != "ring":
-            raise NotImplementedError(
-                f"attn_impl={self.attn_impl!r}: only 'ring' (sp=1) is ported"
-            )
+        if self.attn_impl not in ("ring", "ulysses"):
+            raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
         if self.dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute dtype {self.dtype} is not float32 or bfloat16")
         if self.loss_chunk < 0:
@@ -195,6 +200,11 @@ class TransformerConfig:
         if self.n_microbatches > 1:
             raise NotImplementedError(
                 f"n_microbatches={self.n_microbatches}: the port runs one microbatch (pp=1)"
+            )
+        if self.attn_impl == "ulysses" and (self.n_heads // mc.tp) % mc.sp:
+            raise ValueError(
+                f"ulysses attention requires heads-per-tp-rank "
+                f"({self.n_heads // mc.tp}) divisible by sp ({mc.sp})"
             )
 
 
@@ -372,6 +382,16 @@ def _tp_index(mesh) -> int:
     return mesh.index("tp") if mesh is not None else 0
 
 
+def _sp(mesh):
+    """The sp group of `mesh` (None without a mesh or at sp = 1)."""
+    return mesh.group("sp") if mesh is not None else None
+
+
+def _data(mesh):
+    """The (dp, sp) group the batch is split over (None: one rank)."""
+    return mesh.group(DATA_AXES) if mesh is not None else None
+
+
 def _embed_tokens(embed, tokens, cfg, mesh=None):
     """Vocab-sharded embedding: a masked gather of this rank's rows, then
     a reduce over tp. Ids outside the shard (or the vocab) give a zero row,
@@ -384,11 +404,13 @@ def _embed_tokens(embed, tokens, cfg, mesh=None):
 
 
 def _attention_inputs(p, x, cfg: TransformerConfig, mesh=None):
-    """Pre-norm, the fused QKV GEMM (column-parallel over tp) and rotary:
-    x [B, T, d] -> q [B, T, H/tp, D] and k, v [B, T, H_kv/tp, D]."""
+    """Pre-norm, the fused QKV GEMM (column-parallel over tp) and rotary at
+    the chunk's global positions (sp index * T + arange(T)): x [B, T, d] ->
+    q [B, T, H/tp, D] and k, v [B, T, H_kv/tp, D]."""
     batch, t, _ = x.shape
     compute = cfg.dtype
-    positions = torch.arange(t, dtype=torch.float32, device=x.device)
+    start = mesh.index("sp") * t if mesh is not None else 0
+    positions = start + torch.arange(t, dtype=torch.float32, device=x.device)
     xn = copy(rms_norm(x, p["ln1"], cfg.norm_eps), _tp(mesh))
     heads_local = cfg.n_heads // _tp_size(mesh)
     kv_heads_local = cfg.kv_heads // _tp_size(mesh)
@@ -651,10 +673,21 @@ def _layer_out(p, x, attn, cfg: TransformerConfig, mesh=None):
     return x + out.to(x.dtype), stats
 
 
+def _attend(q, k, v, cfg: TransformerConfig, mesh=None):
+    """Causal attention over the sp chunks: the ring, or Ulysses, which
+    broadcasts K/V to q's heads first where sp does not divide the kv heads
+    (so that each rank's q heads keep their kv heads)."""
+    if cfg.attn_impl == "ulysses":
+        if k.shape[2] % (mesh.size("sp") if mesh is not None else 1):
+            k, v = (x.repeat_interleave(q.shape[2] // k.shape[2], dim=2) for x in (k, v))
+        return ulysses_attention(q, k, v, _sp(mesh), causal=True)
+    return ring_attention(q, k, v, _sp(mesh), causal=True)
+
+
 def _layer(p, x, cfg: TransformerConfig, mesh=None):
     """One layer: attention block, then the MLP on the residual. Returns
     (x, stats), as the reference's `_layer`."""
-    attn = ring_attention(*_attention_inputs(p, x, cfg, mesh), causal=True)
+    attn = _attend(*_attention_inputs(p, x, cfg, mesh), cfg, mesh)
     return _layer_out(p, x, attn, cfg, mesh)
 
 
@@ -683,7 +716,7 @@ def _remat_layer(p, x, cfg: TransformerConfig, mesh=None):
     dots = partial(create_selective_checkpoint_contexts, _SAVED_BY_DOTS)
     q, k, v = checkpoint(_attention_inputs, p, x, cfg, mesh, use_reentrant=False,
                          context_fn=dots)
-    attn = ring_attention(q, k, v, causal=True)
+    attn = _attend(q, k, v, cfg, mesh)
     return checkpoint(_layer_out, p, x, attn, cfg, mesh, use_reentrant=False, context_fn=dots)
 
 
@@ -777,12 +810,13 @@ def _balancing_aux(stats, cfg: TransformerConfig):
 
 def _local_loss(params, inputs, targets, mask, cfg: TransformerConfig, mesh=None):
     """(loss_sum, token_count, aux) of the global batch, from this rank's
-    rows: the sum and the count are reduced over dp, and so are the MoE
-    balancing statistics before the aux loss's nonlinear product (each
-    rank then adds the global aux once; the dp sum of the gradients makes
-    its gradient exact). aux is 0 unless routing is token-choice top-k
-    (the reference's condition, moe_top_k > 0)."""
-    dp = mesh.group("dp") if mesh is not None else None
+    rows and positions: the sum and the count are reduced over (dp, sp),
+    and so are the MoE balancing statistics before the aux loss's
+    nonlinear product (each rank then adds the global aux once; the (dp,
+    sp) sum of the gradients makes its gradient exact). aux is 0 unless
+    routing is token-choice top-k (the reference's condition, moe_top_k >
+    0)."""
+    data = _data(mesh)
     x = _embed_tokens(params["embed"], inputs, cfg, mesh)
     stats = []
     for p in _layer_views(params):
@@ -790,11 +824,11 @@ def _local_loss(params, inputs, targets, mask, cfg: TransformerConfig, mesh=None
         stats.append(layer_stats)
     xn = rms_norm(x, params["final_norm"], cfg.norm_eps)
     per_token = _token_ce(params, xn, targets, cfg, mesh)
-    aux = (_balancing_aux(reduce(torch.stack(stats), dp), cfg) if cfg.moe_top_k > 0
+    aux = (_balancing_aux(reduce(torch.stack(stats), data), cfg) if cfg.moe_top_k > 0
            else per_token.new_zeros(()))
     loss_sum, count = (per_token * mask).sum(), mask.sum()
-    if dp is not None:
-        loss_sum, count = reduce(torch.stack([loss_sum, count]), dp).unbind()
+    if data is not None:
+        loss_sum, count = reduce(torch.stack([loss_sum, count]), data).unbind()
     return loss_sum, count, aux
 
 
@@ -817,8 +851,9 @@ def build_train_step(config: TransformerConfig, optimizer, accum_steps: int = 1,
 
     mesh: a `parallel.mesh.Mesh` (None: one device). Then params are this
     rank's shards (`param_shapes(cfg, mesh.config)`), the batch is its dp
-    rows, and the loss is the global batch's on every rank; the gradients
-    are summed over dp once, after accumulation.
+    rows and its sp chunk of positions, and the loss is the global batch's
+    on every rank; the gradients are summed over (dp, sp) once, after
+    accumulation.
 
     accum_steps: the batch splits into that many equal chunks along its
     first axis, run in sequence; their losses and gradients are averaged
@@ -827,7 +862,7 @@ def build_train_step(config: TransformerConfig, optimizer, accum_steps: int = 1,
     cfg = config
     cfg.validate(mesh.config if mesh is not None else None)
     device = resolve_device(device)
-    dp = mesh.group("dp") if mesh is not None else None
+    data = _data(mesh)
 
     def loss_and_grads(params, inputs, targets, mask):
         live = tree.tree_map(lambda t: t.detach().requires_grad_(), params)
@@ -854,7 +889,7 @@ def build_train_step(config: TransformerConfig, optimizer, accum_steps: int = 1,
             torch._foreach_mul_(grads, 1.0 / accum_steps)
         else:
             loss, grads = loss_and_grads(params, inputs, targets, mask)
-        all_reduce_(grads, dp)
+        all_reduce_(grads, data)
         updates, opt_state = optimizer.update(tree.rebuild(params, grads), opt_state, params)
         return tree.apply_updates(params, updates), opt_state, loss
 

@@ -416,13 +416,15 @@ def causal_bias(n: int, device) -> torch.Tensor:
 @functools.lru_cache(maxsize=MASK_CACHE_SIZE)
 def constant_mask(kind: str, tq: int, tk: int, device: torch.device):
     """(bias, classes) of one of the main path's constant masks: "causal"
-    (`causal_bias(tq)`, square) or "zero" (a [tq, tk] f32 zero bias), with
-    its tile classes (`tile_classes`: the pass kernel on the card, the plain
+    (`causal_bias(tq)`, square), "zero" (a [tq, tk] f32 zero bias) or
+    "masked" (every entry NEG_INF: a ring step's block of later positions,
+    every tile of it MASKED, so the kernel skips them all), with its tile
+    classes (`tile_classes`: the pass kernel on the card, the plain
     version on the CPU). Built once per (kind, shape, device), the device as
     a tensor's `.device` gives it, and kept in a bounded LRU cache
     (`constant_mask.cache_clear()` empties it). The tensors are shared by
     every caller and must never be written."""
-    if kind not in ("causal", "zero") or (kind == "causal" and tq != tk):
+    if kind not in ("causal", "zero", "masked") or (kind == "causal" and tq != tk):
         raise ValueError(f"constant_mask: no {kind!r} mask of shape [{tq}, {tk}]")
     # Ordinary tensors even under inference_mode, so that a later training
     # step may save them for its backward.
@@ -430,7 +432,8 @@ def constant_mask(kind: str, tq: int, tk: int, device: torch.device):
         if kind == "causal":
             bias = causal_bias(tq, device)
         else:
-            bias = torch.zeros((tq, tk), dtype=torch.float32, device=device)
+            bias = torch.full((tq, tk), 0.0 if kind == "zero" else NEG_INF,
+                              dtype=torch.float32, device=device)
         return bias, tile_classes(bias)
 
 

@@ -16,10 +16,26 @@
 `torch.distributed.nn.functional.all_reduce` is neither: its backward
 all-reduces again, which would multiply gradients by the group size.
 
+Sequence parallelism adds two more, with their own transposes:
+
+- `rotate`: the ring's `lax.ppermute` by +1 (rank i's tensor goes to rank
+  i + 1); its backward rotates the cotangent by -1.
+- `all_to_all`: `lax.all_to_all(tiled=True)`, each rank's tensor split in
+  group-size chunks along one dim, chunk j sent to rank j, the chunks a
+  rank receives concatenated along another dim in group-rank order; its
+  backward is the all-to-all with the two dims swapped.
+
 A group of None (an axis of size 1, or no process group) makes every
-function here the identity. All of them work on CPU tensors under gloo
-and on CUDA tensors under NCCL or gloo, so they use all-reduce only
-(gloo has no all-gather of CUDA tensors).
+function here the identity, and every output is contiguous. All of them
+work on CPU tensors under gloo and on CUDA tensors under NCCL or gloo
+(ranks that share one card run gloo). The sums use all-reduce; `gather`,
+`rotate` and `all_to_all` move values with one primitive,
+`all_to_all_single`, which gloo runs on CUDA tensors where its send/recv
+does not (gloo's send of a CUDA tensor hands the device pointer to the
+socket as host memory and aborts; `chip_smoke.py` phase 16 probes both).
+Each moves the bytes of the collective it stands for: `rotate` sends
+this rank's tensor to one peer (split sizes of zero for the others),
+`gather` sends it to every rank.
 """
 
 from __future__ import annotations
@@ -90,17 +106,76 @@ def all_reduce_(tensors: list, group) -> None:
             offset += t.numel()
 
 
+def _exchange(rows: torch.Tensor, group, send=None, recv=None) -> torch.Tensor:
+    """`all_to_all_single` over the group: row j of `rows` (dim 0, or the
+    `send` split sizes) goes to group rank j, and the result holds what
+    each rank sent this one, in group-rank order (no gradient)."""
+    rows = rows.detach().contiguous()
+    out = rows.new_empty((sum(recv), *rows.shape[1:]) if recv else rows.shape)
+    dist.all_to_all_single(out, rows, recv, send, group=group)
+    return out
+
+
 def gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The group's shards of x along `dim`, concatenated in group-rank
-    order (no gradient). Each rank writes its shard into zeros and the
-    group sums them, so it runs wherever all-reduce does."""
+    order (no gradient)."""
     if group is None:
         return x
+    rows = _exchange(x.expand(dist.get_world_size(group), *x.shape), group)
+    return torch.cat(rows.unbind(0), dim=dim)
+
+
+def _rotated(x: torch.Tensor, shift: int, group) -> torch.Tensor:
+    """The x of the rank `shift` places before this one."""
     size, me = dist.get_world_size(group), dist.get_rank(group)
-    shape = list(x.shape)
-    width = shape[dim]
-    shape[dim] = width * size
-    full = x.new_zeros(shape)
-    full.narrow(dim, me * width, width).copy_(x.detach())
-    dist.all_reduce(full, group=group)
-    return full
+    n = x.numel()
+    send = [n if j == (me + shift) % size else 0 for j in range(size)]
+    recv = [n if j == (me - shift) % size else 0 for j in range(size)]
+    return _exchange(x.reshape(-1), group, send, recv).view(x.shape)
+
+
+class _Rotate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _rotated(x, 1, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _rotated(grad, -1, ctx.group), None
+
+
+def rotate(x: torch.Tensor, group) -> torch.Tensor:
+    """The ring's step: rank i's x arrives at rank i + 1 (mod the group),
+    so this rank gets rank i - 1's. Backward: the rotation by -1."""
+    return x if group is None else _Rotate.apply(x, group)
+
+
+def _all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int, group) -> torch.Tensor:
+    size = dist.get_world_size(group)
+    if x.shape[split_dim] % size:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} is not divisible "
+                         f"by the group's {size} ranks")
+    rows = _exchange(torch.stack(x.chunk(size, dim=split_dim)), group)
+    return torch.cat(rows.unbind(0), dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group):
+        ctx.dims, ctx.group = (split_dim, concat_dim), group
+        return _all_to_all(x, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        split_dim, concat_dim = ctx.dims
+        return _all_to_all(grad, concat_dim, split_dim, ctx.group), None, None, None
+
+
+def all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int, group) -> torch.Tensor:
+    """`lax.all_to_all(x, split_axis=split_dim, concat_axis=concat_dim,
+    tiled=True)` over the group: x cut into group-size chunks along
+    split_dim, chunk j to group rank j, the received chunks concatenated
+    along concat_dim in group-rank order. Backward: the all-to-all with the
+    dims swapped."""
+    return x if group is None else _AllToAll.apply(x, split_dim, concat_dim, group)

@@ -14,8 +14,11 @@ device `r` (`rank_grid`), so dp is outermost and process-major and tp
 varies fastest. `build_mesh` makes a `DeviceMesh` over the ranks with
 `mesh_dim_names=AXIS_NAMES` and exposes one process group per axis
 (`Mesh.group`); an axis of size 1 has no group, and every collective over
-it is the identity, as in the reference. `single_device_mesh()` is the
-mesh of a run with no process group at all.
+it is the identity, as in the reference. One more group joins the dp and
+sp axes (`DATA_AXES`): the batch is split over both, so the loss's sums
+and the gradients reduce over the pair, in one all-reduce where the
+reference names both axes in one psum. `single_device_mesh()` is the mesh
+of a run with no process group at all.
 
 The reference's varying-axes helpers (`vma_union`, `pvary_like`,
 `pvary_to`) have no counterpart: torch has no varying-axes typing, and
@@ -33,6 +36,9 @@ from typing import Optional
 import numpy as np
 
 AXIS_NAMES = ("dp", "pp", "ep", "sp", "tp")
+# The axes the batch is split over (rows over dp, positions over sp): the
+# loss's sums and the gradients reduce over both at once.
+DATA_AXES = ("dp", "sp")
 
 
 @dataclass(frozen=True)
@@ -127,16 +133,25 @@ class Mesh:
     def shape(self) -> dict:
         return dict(zip(AXIS_NAMES, self.config.shape))
 
-    def size(self, axis: str) -> int:
+    def size(self, axis) -> int:
+        """An axis's size; of a tuple of axes, their product."""
+        if isinstance(axis, tuple):
+            return int(np.prod([self.size(a) for a in axis]))
         return getattr(self.config, axis)
 
     def index(self, axis: str) -> int:
         return self.coords[axis]
 
-    def group(self, axis: str):
-        """The axis's process group; None where the axis has size 1."""
+    def group(self, axis):
+        """The axis's process group; None where the axis has size 1. A tuple
+        of axes (`DATA_AXES`) names their joint group, which is one axis's
+        group where the other has size 1."""
         if self.size(axis) == 1:
             return None
+        if isinstance(axis, tuple):
+            wide = [a for a in axis if self.size(a) > 1]
+            if len(wide) == 1:
+                return self.group(wide[0])
         if axis not in self.groups:
             raise RuntimeError(f"mesh axis {axis} has no process group: build the mesh with "
                                "build_mesh after runtime.distributed.initialize")
@@ -156,6 +171,27 @@ def _world() -> int:
     return dist.get_world_size()
 
 
+def _joint_group(grid: np.ndarray):
+    """This rank's group of the (dp, sp) pair where both axes are above 1,
+    else None. torch asks every rank of the gang to make every group, in
+    one order, so every rank (one past a submesh too) makes one for each
+    place on the other axes and keeps its own."""
+    import torch.distributed as dist
+
+    data = [AXIS_NAMES.index(axis) for axis in DATA_AXES]
+    if not all(grid.shape[i] > 1 for i in data):
+        return None
+    rest = [i for i in range(grid.ndim) if i not in data]
+    by_place = np.moveaxis(grid, data, [grid.ndim - 2, grid.ndim - 1])
+    mine = None
+    for place in np.ndindex(*[grid.shape[i] for i in rest]):
+        ranks = sorted(int(r) for r in by_place[place].flatten())
+        group = dist.new_group(ranks)
+        if dist.get_rank() in ranks:
+            mine = group
+    return mine
+
+
 def _device_mesh(grid: np.ndarray, device) -> Optional[Mesh]:
     import torch
     import torch.distributed as dist
@@ -165,10 +201,13 @@ def _device_mesh(grid: np.ndarray, device) -> Optional[Mesh]:
 
     dm = DeviceMesh(resolve_device(device).type, torch.as_tensor(grid),
                     mesh_dim_names=AXIS_NAMES)
+    joint = _joint_group(grid)
     if dm.get_coordinate() is None:  # a rank past a submesh
         return None
     groups = {axis: dm.get_group(axis) for axis, size in zip(AXIS_NAMES, grid.shape)
               if size > 1}
+    if joint is not None:
+        groups[DATA_AXES] = joint
     return Mesh(MeshConfig(*grid.shape), grid, dist.get_rank(), groups)
 
 

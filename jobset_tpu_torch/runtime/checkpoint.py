@@ -8,11 +8,12 @@ newest `max_to_keep` steps are kept. Saves are synchronous. Orbax
 checkpoints of the JAX package are not read.
 
 A gang saves the global state, as orbax saves global arrays: given its
-mesh and the state's specs, `save` gathers every tp-sharded tensor over tp
-and the rank at dp 0 and tp 0 writes it, and every rank waits for the
-write; `restore` reads the global state on every rank and cuts each
-tensor to the rank's shard. So a checkpoint written at one mesh restores
-at another.
+mesh and the state's specs, `save` gathers every tensor over each axis
+its spec splits (tp, and dp for a ZeRO-1 optimizer state) and the rank at
+every axis's 0 writes it, and every rank waits for the write; `restore`
+reads the global state on every rank and cuts each tensor to the rank's
+shard. So a checkpoint written at one mesh restores at another, and one
+written with ZeRO-1 restores without it and the other way round.
 """
 
 from __future__ import annotations

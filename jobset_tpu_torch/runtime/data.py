@@ -73,6 +73,15 @@ def prefetching_fn(make_batch: Callable[[int], Any], device, prefetch: int = 2,
     return fetch
 
 
+def sequence_shard(seq_len: int, sp: int, index: int) -> slice:
+    """The positions of a [B, seq_len] batch that sp rank `index` holds: the
+    index-th of sp contiguous chunks (the ring's layout)."""
+    if seq_len % sp:
+        raise ValueError(f"seq_len {seq_len} not divisible by sp {sp}")
+    chunk = seq_len // sp
+    return slice(index * chunk, (index + 1) * chunk)
+
+
 class TokenDataset:
     """Memory-mapped flat file of token ids -> deterministic [B, seq_len+1]
     windows. batch(step) seeds a fresh generator from (seed, step), so a run

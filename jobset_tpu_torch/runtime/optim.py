@@ -22,8 +22,17 @@ its shard is the global update's slice. Adafactor is not: its factored
 dims, row and column means and block RMSs are those of the global leaf,
 so it takes the specs and the tp group (`adafactor(lr, specs, group)`).
 `Optimizer.state_specs(param_specs, global_shapes)` names which dim of
-each state leaf is split over tp, for a checkpoint that saves the global
-state.
+each state leaf is split over tp (and, under ZeRO-1, dp), for a
+checkpoint that saves the global state.
+
+`zero1(optimizer, specs, mesh)` is ZeRO-1 over the mesh's dp axis: the
+parameter-shaped state leaves split over dp (`parallel.zero`), each rank
+updating its slice of those leaves from the summed gradient's slice, and
+the updates gathered back over dp, so the parameters stay replicated.
+An update takes `shards`, for each leaf the cuts the caller made beyond
+the optimizer's own specs; the elementwise optimizers ignore them, and
+adafactor adds the sliced leaves' sums over dp to its means and block
+RMSs.
 """
 
 from __future__ import annotations
@@ -44,10 +53,13 @@ LearningRate = Union[float, Schedule]
 
 @dataclass(frozen=True)
 class Optimizer:
-    """init(params) -> state; update(grads, state, params) -> (updates, state);
-    state_specs(param_specs, global_shapes) -> the state's tree of specs
-    (for each tensor leaf the mesh axis each dim is split over, as
-    `param_specs` gives them; None for a number)."""
+    """init(params) -> state; update(grads, state, params, shards=None) ->
+    (updates, state); state_specs(param_specs, global_shapes) -> the
+    state's tree of specs (for each tensor leaf the mesh axis each dim is
+    split over, as `param_specs` gives them; None for a number). `shards`:
+    for each leaf, the (dim, group, parts) cuts of the leaf the caller
+    made (ZeRO-1's dp slices); an update that reduces over a leaf adds the
+    cut parts' sums over the group."""
 
     init: Callable[[dict], dict]
     update: Callable[[dict, dict, dict], tuple]
@@ -141,7 +153,8 @@ def _adam_like(learning_rate: LearningRate, weight_decay: Optional[float]) -> Op
     def init(params):
         return {"count": 0, "mu": _zeros(params), "nu": _zeros(params)}
 
-    def update(grads, state, params):
+    def update(grads, state, params, shards=None):
+        del shards  # elementwise
         g = tree.leaves(grads)
         count = state["count"]
         mu = torch._foreach_mul(tree.leaves(state["mu"]), b1)
@@ -189,8 +202,8 @@ def sgd(learning_rate: LearningRate, momentum: Optional[float] = None) -> Optimi
             state["trace"] = _zeros(params)
         return state
 
-    def update(grads, state, params):
-        del params
+    def update(grads, state, params, shards=None):
+        del params, shards  # elementwise
         count = state["count"]
         new_state = {"count": count + 1}
         updates = tree.leaves(grads)
@@ -241,22 +254,25 @@ def _decay(count: int) -> tuple[float, float]:
     return float(d), float(np.float32(1) - d)
 
 
-def _block_rms(x: torch.Tensor, group=None, parts: int = 1) -> torch.Tensor:
-    """The RMS of a whole leaf; with a group, of the leaf whose `parts`
-    shards the group's ranks hold (the squares summed over the group)."""
-    if group is None:
+def _block_rms(x: torch.Tensor, cuts=()) -> torch.Tensor:
+    """The RMS of a whole leaf; with `cuts` ((group, parts) for each dim x
+    is cut along over a group), of the leaf the groups' ranks hold
+    together (the squares summed over each group)."""
+    if not cuts:
         return torch.sqrt(torch.mean(x * x))
-    total = (x * x).sum()
-    all_reduce_([total], group)
+    total, parts = (x * x).sum(), 1
+    for group, n in cuts:
+        all_reduce_([total], group)
+        parts *= n
     return torch.sqrt(total / (x.numel() * parts))
 
 
-def _mean(x: torch.Tensor, dim: int, group=None, parts: int = 1,
-          keepdim: bool = False) -> torch.Tensor:
-    """x's mean over `dim`; with a group, over the dim the group's ranks
-    hold `parts` shards of (the sums added over the group)."""
-    if group is None:
+def _mean(x: torch.Tensor, dim: int, cut=None, keepdim: bool = False) -> torch.Tensor:
+    """x's mean over `dim`; with `cut` (group, parts), over the dim the
+    group's ranks hold `parts` pieces of (the sums added over the group)."""
+    if cut is None:
         return x.mean(dim=dim, keepdim=keepdim)
+    group, parts = cut
     total = x.sum(dim=dim, keepdim=keepdim)
     all_reduce_([total], group)
     return total / (x.shape[dim] * parts)
@@ -287,17 +303,21 @@ def adafactor(learning_rate: LearningRate, specs: Optional[dict] = None,
     (`models.transformer.param_specs`) and the tp group. Each leaf is then
     updated as optax updates the global leaf: its factored dims picked
     from the global shape, its row and column means and both block RMSs
-    taken over the whole leaf (sums all-reduced over tp). Without them
-    every leaf is whole."""
+    taken over the whole leaf (sums all-reduced over tp, and over dp where
+    an update's `shards` slice a leaf, as ZeRO-1 does). Without them every
+    leaf is whole."""
     parts = torch.distributed.get_world_size(group) if group is not None else 1
 
-    def split_dim(p, spec):
-        """(the dim of p split over tp or None, p's global shape)."""
+    def cuts_of(p, spec, shard=()):
+        """({dim: (group, parts)} for each dim of p cut over a group, p's
+        global shape)."""
         dim = _tp_dim(spec) if group is not None else None
+        cuts = {} if dim is None else {dim: (group, parts)}
+        cuts.update({d: (g, n) for d, g, n in shard})
         shape = list(p.shape)
-        if dim is not None:
-            shape[dim] *= parts
-        return dim, shape
+        for d, (_, n) in cuts.items():
+            shape[d] *= n
+        return cuts, shape
 
     def leaf_specs(p):
         return tree.leaves(specs) if specs is not None else [None] * len(tree.leaves(p))
@@ -306,7 +326,7 @@ def adafactor(learning_rate: LearningRate, specs: Optional[dict] = None,
         rows, cols, full = [], [], []
         for p, spec in zip(tree.leaves(params), leaf_specs(params)):
             one = p.new_zeros(1)
-            dims = factored_dims(split_dim(p, spec)[1])
+            dims = factored_dims(cuts_of(p, spec)[1])
             if dims is None:
                 rows.append(one)
                 cols.append(one.clone())
@@ -319,16 +339,16 @@ def adafactor(learning_rate: LearningRate, specs: Optional[dict] = None,
         return {"count": 0, "v_row": tree.rebuild(params, rows),
                 "v_col": tree.rebuild(params, cols), "v": tree.rebuild(params, full)}
 
-    def update(grads, state, params):
+    def update(grads, state, params, shards=None):
         count = state["count"]
         keep, take = _decay(count)
         lr = _lr(learning_rate, count)
         new_rows, new_cols, new_full, updates = [], [], [], []
-        for g, p, v_row, v_col, v, spec in zip(
+        for i, (g, p, v_row, v_col, v, spec) in enumerate(zip(
                 tree.leaves(grads), tree.leaves(params), tree.leaves(state["v_row"]),
-                tree.leaves(state["v_col"]), tree.leaves(state["v"]), leaf_specs(params)):
-            split, shape = split_dim(p, spec)
-            whole = group if split is not None else None  # the leaf's group
+                tree.leaves(state["v_col"]), tree.leaves(state["v"]), leaf_specs(params))):
+            cuts, shape = cuts_of(p, spec, shards[i] if shards else ())
+            whole = list(cuts.values())  # the groups the leaf is cut over
             g_sq = g * g + ADAFACTOR_EPS
             dims = factored_dims(shape)
             if dims is None:
@@ -336,16 +356,15 @@ def adafactor(learning_rate: LearningRate, specs: Optional[dict] = None,
                 u = g * v.rsqrt()
             else:
                 d1, d0 = dims
-                on = {d: group if split == d else None for d in (d0, d1)}
-                v_row = keep * v_row + take * _mean(g_sq, d0, on[d0], parts)
-                v_col = keep * v_col + take * _mean(g_sq, d1, on[d1], parts)
+                v_row = keep * v_row + take * _mean(g_sq, d0, cuts.get(d0))
+                v_col = keep * v_col + take * _mean(g_sq, d1, cuts.get(d1))
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_mean = _mean(v_row, reduced_d1, on[d1], parts, keepdim=True)
+                row_mean = _mean(v_row, reduced_d1, cuts.get(d1), keepdim=True)
                 row_factor = (v_row / row_mean).rsqrt()
                 u = g * row_factor.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1)
-            u = u / torch.clamp(_block_rms(u, whole, parts) / ADAFACTOR_CLIP, min=1.0)
+            u = u / torch.clamp(_block_rms(u, whole) / ADAFACTOR_CLIP, min=1.0)
             u = u * lr
-            u = u * torch.clamp(_block_rms(p, whole, parts), min=ADAFACTOR_MIN_PARAM_SCALE)
+            u = u * torch.clamp(_block_rms(p, whole), min=ADAFACTOR_MIN_PARAM_SCALE)
             new_rows.append(v_row)
             new_cols.append(v_col)
             new_full.append(v)
@@ -370,5 +389,80 @@ def adafactor(learning_rate: LearningRate, specs: Optional[dict] = None,
                 full.append((None,))
         return {"count": None, "v_row": tree.rebuild(param_specs_, rows),
                 "v_col": tree.rebuild(param_specs_, cols), "v": tree.rebuild(param_specs_, full)}
+
+    return Optimizer(init, update, state_specs)
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1
+# ---------------------------------------------------------------------------
+
+
+def zero1(optimizer: Optimizer, specs: dict, mesh) -> Optimizer:
+    """`optimizer` with its state split over the mesh's dp axis (ZeRO-1, the
+    reference's `init_zero1_opt_state`): each parameter-shaped state leaf
+    holds this rank's dp slice along the dim `parallel.zero.widen_spec`
+    gives its parameter, in memory of its own. An update cuts the summed
+    gradient and the parameter of each such leaf to the same slice, runs
+    `optimizer`'s update on the slices (adafactor's means and block RMSs
+    summing over dp too), and gathers the updates back over dp
+    (`collectives.gather`), so the parameters stay replicated. Adam, adamw
+    and sgd are elementwise, so their updates equal the unsplit ones bit
+    for bit. `specs` are the parameters' (`param_specs`); the state's
+    (`state_specs`) name dp where it is split. At dp = 1 it is
+    `optimizer`."""
+    from ..parallel import zero
+    from ..parallel.collectives import gather
+
+    dp = mesh.size("dp")
+    if dp == 1:
+        return optimizer
+    group, index = mesh.group("dp"), mesh.index("dp")
+
+    def on_meta(shapes):
+        return tree.tree_map(lambda s: torch.empty(s, device="meta"), shapes)
+
+    def plan(meta, global_shapes):
+        """(the state's specs, split over dp, and each parameter leaf's dp
+        dim or None) from a state initialized on meta tensors."""
+        return zero.zero1_plan(optimizer.init(meta), meta,
+                               optimizer.state_specs(specs, global_shapes), specs, dp)
+
+    plans: dict = {}
+
+    def local_plan(params):
+        """`plan` for parameters of these local shapes, made once."""
+        key = tuple(tuple(p.shape) for p in tree.leaves(params))
+        if key not in plans:
+            shapes = tree.tree_map(lambda p: tuple(p.shape), params)
+            globals_ = tree.tree_map(
+                lambda shape, spec: tuple(n * (mesh.size(a) if a else 1)
+                                          for n, a in zip(shape, spec)), shapes, specs)
+            plans[key] = plan(on_meta(shapes), globals_)
+        return plans[key]
+
+    def cut(t, dim):
+        return t if dim is None else t.chunk(dp, dim)[index].contiguous()
+
+    def init(params):
+        state_specs_, _ = local_plan(params)
+        return zero.shard_state(optimizer.init(params), state_specs_, mesh)
+
+    def update(grads, state, params, shards=None):
+        del shards  # the dp slices are this wrapper's own
+        _, dims = local_plan(params)
+        sliced = [[(d, group, dp)] if d is not None else [] for d in dims]
+        updates, state = optimizer.update(
+            tree.rebuild(grads, [cut(t, d) for t, d in zip(tree.leaves(grads), dims)]), state,
+            tree.rebuild(params, [cut(t, d) for t, d in zip(tree.leaves(params), dims)]),
+            shards=sliced)
+        return tree.rebuild(grads, [t if d is None else gather(t, d, group)
+                                    for t, d in zip(tree.leaves(updates), dims)]), state
+
+    def state_specs(param_specs_, global_shapes):
+        local = tree.tree_map(
+            lambda shape, spec: tuple(n // (mesh.size(a) if a else 1) for n, a in zip(shape, spec)),
+            global_shapes, param_specs_)
+        return plan(on_meta(local), global_shapes)[0]
 
     return Optimizer(init, update, state_specs)

@@ -31,12 +31,14 @@ A restart resumes from the latest checkpoint.
 As one rank of a gang (`train_workload(workload, device, mesh)`, the
 mesh over the gang's processes): an LM's full parameters are drawn as
 above and cut to the rank's tp shards; each rank takes the rows of its dp
-coordinate of every batch (its tp peers take the same rows), from the
-same positional stream, so a resumed gang still sees the batches of an
-uninterrupted one; the mlp and cnn kinds split their batch over dp and
-replicate over the other axes; a checkpoint holds the global state.
+coordinate and the positions of its sp coordinate of every batch (its tp
+peers take the same), from the same positional stream, so a resumed gang
+still sees the batches of an uninterrupted one; `"zero1": true` splits an
+LM's optimizer state over dp (`optim.zero1`); the mlp and cnn kinds split
+their batch over dp and replicate over the other axes; a checkpoint holds
+the global state, so it restores with or without zero1.
 
-Not ported yet: ZeRO-1 and the sp, pp and ep axes (`device.check_axes`).
+Not ported yet: the pp and ep axes (`device.check_axes`).
 """
 
 from __future__ import annotations
@@ -65,7 +67,7 @@ from ..models.transformer import (
 from ..parallel.mesh import MeshConfig, single_device_mesh
 from . import distributed, optim
 from .checkpoint import Checkpointer
-from .data import TokenDataset, place_batch, prefetching_fn
+from .data import TokenDataset, place_batch, prefetching_fn, sequence_shard
 from .gang import wait_or_kill
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -266,6 +268,8 @@ def _setup_lm(workload: dict, device, mesh):
     specs = param_specs(cfg)
     params = shard_params(init_params(cfg, torch.Generator().manual_seed(0), device), cfg, mesh)
     optimizer = make_optimizer(workload, "adamw", 1e-3, specs, mesh.group("tp"))
+    if workload.get("zero1"):
+        optimizer = optim.zero1(optimizer, specs, mesh)
     accum = int(workload.get("accum_steps", 1))
     train_step = build_train_step(cfg, optimizer, accum, device, mesh)
     state_specs = {"state": {"params": specs,
@@ -274,30 +278,32 @@ def _setup_lm(workload: dict, device, mesh):
     seq_len = int(workload.get("seq_len", 16))
     data_cfg = workload.get("data") or {}
     rows = _dp_rows(batch_size, mesh, accum)
+    columns = sequence_shard(seq_len, mesh.size("sp"), mesh.index("sp"))
 
     def synthetic_batches(seed: int):
         """Positionally seeded token stream: a resumed run sees the batches
-        of an uninterrupted one. A rank keeps its dp rows."""
+        of an uninterrupted one. A rank keeps its dp rows and sp positions."""
 
         def make(step):
             rng = np.random.default_rng((seed, step))
             tokens = rng.integers(0, cfg.vocab_size, (batch_size, seq_len + 1))[rows]
-            return {"inputs": np.ascontiguousarray(tokens[:, :-1]),
-                    "targets": np.ascontiguousarray(tokens[:, 1:])}
+            return {"inputs": np.ascontiguousarray(tokens[:, :-1][:, columns]),
+                    "targets": np.ascontiguousarray(tokens[:, 1:][:, columns])}
 
         return make
 
     def dataset(path, seed):
-        """The corpus's batches, this rank's rows: read process-locally
-        (only its own windows) where they are one block (no accumulation)."""
+        """The corpus's batches, this rank's rows and positions: the rows
+        read process-locally (only its own windows) where they are one
+        block (no accumulation)."""
         local = accum == 1
         data = TokenDataset(path, seq_len=seq_len, batch_size=batch_size,
                             dtype=data_cfg.get("dtype", "uint16"), seed=seed,
                             rank=mesh.index("dp") if local else 0,
                             world=mesh.size("dp") if local else 1, vocab_size=cfg.vocab_size)
-        if local:
-            return data.batch
-        return lambda step: {k: v[rows] for k, v in data.batch(step).items()}
+        mine = slice(None) if local else rows
+        return lambda step: {k: np.ascontiguousarray(v[mine][:, columns])
+                             for k, v in data.batch(step).items()}
 
     seed = int(data_cfg.get("seed", 0))
     make_batch = (dataset(data_cfg["path"], seed) if data_cfg.get("path")
@@ -323,13 +329,13 @@ _SETUPS = {"mlp": _setup_mlp, "cnn": _setup_cnn, "lm": _setup_lm}
 
 def check_workload(workload: dict) -> MeshConfig:
     """The workload's mesh (its `mesh` mapping; every axis 1 without one),
-    once its kind is known and no axis or option it names is one the port
-    has not ported (NotImplementedError naming it)."""
+    once its kind is known and no axis it names is one the port has not
+    ported (NotImplementedError naming it)."""
     kind = workload.get("kind", "mlp")
     if kind not in _SETUPS:
         raise ValueError(f"unknown workload kind: {kind}")
     mesh_cfg = MeshConfig.of(workload.get("mesh"))
-    check_axes(mesh_cfg, zero1=kind == "lm" and bool(workload.get("zero1")))
+    check_axes(mesh_cfg)
     return mesh_cfg
 
 
@@ -389,9 +395,10 @@ class WorkloadRunner:
     the env `distributed.pod_env_for` gives the gang's first N pods, a
     loopback coordinator on a free port, and `backend` (default: "gloo" on
     the CPU, "nccl" on the card; ranks that share one card need "gloo",
-    passed explicitly). One process per device is torch's idiom; it stands
-    in for the reference's one process over its local mesh. Rank 0's
-    result line gives the loss annotations.
+    passed explicitly; on the CPU each process gets its share of the
+    host's cores as its torch threads). One process per device is torch's
+    idiom; it stands in for the reference's one process over its local
+    mesh. Rank 0's result line gives the loss annotations.
 
     A workload that raises `WorkloadFailure` (on any rank) fails the
     JobSet's first child job (its failure policy then fails the JobSet or
@@ -471,6 +478,8 @@ class WorkloadRunner:
                        distributed.ENV_WORKLOAD: json.dumps(workload),
                        "PYTHONPATH": os.pathsep.join(
                            [package_root] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+                if self.device.type == "cpu":  # each rank its share of the host's cores
+                    env["OMP_NUM_THREADS"] = str(max(1, (os.cpu_count() or 1) // n))
                 out = open(os.path.join(tmp, f"rank{rank}.out"), "w+")
                 err = open(os.path.join(tmp, f"rank{rank}.err"), "w+")
                 outputs.append((out, err))

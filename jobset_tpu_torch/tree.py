@@ -23,20 +23,22 @@ def leaves(tree) -> list:
     return [tree]
 
 
+def _rebuild(node, it):
+    if isinstance(node, dict):
+        return {k: _rebuild(node[k], it) for k in sorted(node)}
+    if isinstance(node, list):
+        return [_rebuild(item, it) for item in node]
+    if isinstance(node, QuantizedTensor):
+        return QuantizedTensor(next(it), next(it))
+    return next(it)
+
+
 def rebuild(tree, new_leaves):
-    """A tree of `tree`'s structure holding `new_leaves` (in `leaves` order)."""
-    it = iter(new_leaves)
-
-    def walk(node):
-        if isinstance(node, dict):
-            return {k: walk(node[k]) for k in sorted(node)}
-        if isinstance(node, list):
-            return [walk(item) for item in node]
-        if isinstance(node, QuantizedTensor):
-            return QuantizedTensor(next(it), next(it))
-        return next(it)
-
-    return walk(tree)
+    """A tree of `tree`'s structure holding `new_leaves` (in `leaves` order).
+    No closure: a recursive inner function would make a reference cycle
+    that keeps `new_leaves` (a step's gradients, say) alive until the
+    garbage collector runs."""
+    return _rebuild(tree, iter(new_leaves))
 
 
 def tree_map(fn, tree, *rest):

@@ -109,7 +109,8 @@ def test_chip_smoke_fails_without_a_card():
                                          "WorkloadRunner", "mlp_init_params",
                                          "mlp_build_train_step", "cnn_init_params",
                                          "cnn_build_train_step", "train_workload_mlp",
-                                         "train_workload_cnn"])
+                                         "train_workload_cnn", "train_workload_zero1",
+                                         "train_workload_sp"])
 def test_entry_points_without_device_raise(entry_point, tmp_path):
     import numpy as np
 
@@ -163,6 +164,10 @@ def test_entry_points_without_device_raise(entry_point, tmp_path):
                                                              optim.adafactor(0.1)),
         "train_workload_mlp": lambda: runner.train_workload({"steps": 1}),
         "train_workload_cnn": lambda: runner.train_workload({"kind": "cnn", "steps": 1}),
+        "train_workload_zero1": lambda: runner.train_workload(
+            {"kind": "lm", "steps": 1, "zero1": True}),
+        "train_workload_sp": lambda: runner.train_workload(
+            {"kind": "lm", "steps": 1, "mesh": {"sp": 2}, "config": {"attn_impl": "ulysses"}}),
     }[entry_point]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()

@@ -259,6 +259,28 @@ def test_constant_mask_on_card(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_masked_ring_block_on_card_is_skipped(cuda, dtype):
+    """The ring's fully masked block: its classes all MASKED from the pass
+    kernel; the block kernel skips every tile (max ~NEG_INF, sum and
+    weighted 0), so merged into an accumulator it changes nothing."""
+    fb.constant_mask.cache_clear()
+    device = torch.ones(1, device=cuda).device
+    bias, classes = fb.constant_mask("masked", 512, 512, device)
+    assert bool((classes == fb.MASKED).all())
+    gen = torch.Generator(device=device).manual_seed(0)
+    q, k, v, k0, v0 = (torch.randn((2, 512, 4, 64), generator=gen, device=device).to(dtype)
+                       for _ in range(5))
+    blk = fb.block_attention(q, k, v, bias, classes=classes)
+    assert bool((blk[1] == 0).all() and (blk[2] == 0).all() and (blk[0] <= fb.NEG_INF / 2).all())
+    diag, diag_classes = fb.constant_mask("causal", 512, 512, device)
+    acc = fb.block_attention(q, k0, v0, diag, classes=diag_classes)
+    merged = fb.merge_block_stats(acc, blk)
+    assert torch.equal(fb.normalize_block_stats(merged[1], merged[2]),
+                       fb.normalize_block_stats(acc[1], acc[2]))
+
+
+@pytest.mark.cuda
 def test_second_generate_at_one_shape_launches_no_class_pass(cuda):
     cfg = transformer.TransformerConfig(vocab_size=128, d_model=64, n_heads=4, n_kv_heads=2,
                                         d_ff=128, n_layers=2, dtype=torch.bfloat16)

@@ -234,14 +234,19 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(case):
 
 
 def test_ring_attention_runs_sp1_only():
-    from jobset_tpu_torch.parallel import ring_attention
+    """Without an sp group both sequence-parallel attentions are one fold
+    over the local sequence (the sp > 1 rings are
+    tests/test_torch_sp_attention.py's); Ulysses raises on head counts sp
+    does not divide, before any collective."""
+    from jobset_tpu_torch.models import TransformerConfig
+    from jobset_tpu_torch.parallel import ring_attention, ulysses_attention
 
     q, k, v = (torch.from_numpy(x) for x in _qkv(1, 6, 6, 2, 8))
-    with pytest.raises(NotImplementedError, match="sp=2"):
-        ring_attention(q, k, v, sp=2)
-    out = ring_attention(q, k, v)
     want = tfb.blockwise_causal_attention(q, k, v)
-    _close(out.numpy(), want.numpy(), F32_TOL)
+    _close(ring_attention(q, k, v).numpy(), want.numpy(), F32_TOL)
+    _close(ulysses_attention(q, k, v).numpy(), want.numpy(), F32_TOL)
+    with pytest.raises(ValueError, match="ulysses attention requires heads-per-tp-rank"):
+        TransformerConfig(n_heads=2, d_model=16, attn_impl="ulysses").validate({"sp": 4})
 
 
 def test_kernel_library_path_tracks_source(tmp_path, monkeypatch):

@@ -49,17 +49,28 @@ def test_chip_smokes_gang_runner_drives_the_example():
                                _single(_payload())[-1], rtol=LOSS_RTOL, atol=1e-6)
 
 
-def test_mesh_layouts_over_a_gang_of_four():
-    """build_mesh over every rank, on a prefix (allow_submesh: the ranks
-    past it get None, and a too-small config without it raises), and
-    build_multislice_mesh: each rank's coordinates are its place in the
-    rank grid, and each axis's group all-reduces over the ranks that share
-    the rank's other coordinates."""
-    layouts = [("mesh", {"dp": 2, "tp": 2}, False), ("mesh", {"tp": 2}, True),
-               ("multislice", {"tp": 2}, {"dp": 2})]
-    got = gang.spawn(bodies.mesh_layouts, 4, (layouts, "cpu"), device="cpu", timeout_s=JOIN_S)
-    grids = [mesh.rank_grid(mesh.MeshConfig(dp=2, tp=2)), mesh.rank_grid(mesh.MeshConfig(tp=2)),
-             mesh.multislice_rank_grid(mesh.MeshConfig(tp=2), mesh.MeshConfig(dp=2))]
+@pytest.mark.parametrize("name", ["lm-adafactor", "lm-long-context"])
+def test_chip_smokes_sp_examples_are_the_files(name):
+    """Phase 16 (e) runs lm-adafactor.yaml and lm-long-context.yaml through
+    the port's runner over chip_smoke's stand-in cluster: their payloads
+    and gangs are the files' (tests/test_torch_workloads.py runs them)."""
+    from jobset_tpu import api
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    js = api.load_all((REPO / "examples" / "training" / f"{name}.yaml").read_text())[0]
+    rjob = js.spec.replicated_jobs[0]
+    payload, gang_shape = cs.SP_EXAMPLES[name]
+    assert payload == rjob.template.spec.template.spec.workload
+    assert gang_shape == (rjob.replicas, rjob.template.spec.parallelism)
+
+
+def _check_layouts(got, grids):
+    """Each rank's coordinates (None past a submesh) are its place in the
+    grid, and each axis's group all-reduces over the ranks that share the
+    rank's other coordinates; with dp and sp both above 1, so does the
+    joint (dp, sp) group."""
     for rank, layouts_ in enumerate(got):
         for grid, layout in zip(grids, layouts_):
             where = np.argwhere(grid == rank)
@@ -69,12 +80,38 @@ def test_mesh_layouts_over_a_gang_of_four():
             coords = dict(zip(mesh.AXIS_NAMES, where[0].tolist()))
             assert layout["coords"] == coords
             for axis, total in layout["sums"].items():
-                line = [slice(None) if a == axis else coords[a] for a in mesh.AXIS_NAMES]
+                axes = axis if isinstance(axis, tuple) else (axis,)
+                line = [slice(None) if a in axes else coords[a] for a in mesh.AXIS_NAMES]
                 assert total == float(grid[tuple(line)].sum())
-            assert set(layout["sums"]) == {a for a, n in zip(mesh.AXIS_NAMES, grid.shape) if n > 1}
+            wide = {a for a, n in zip(mesh.AXIS_NAMES, grid.shape) if n > 1}
+            assert set(layout["sums"]) == wide | (
+                {mesh.DATA_AXES} if set(mesh.DATA_AXES) <= wide else set())
+
+
+def test_mesh_layouts_over_a_gang_of_four():
+    """build_mesh over every rank, on a prefix (allow_submesh: the ranks
+    past it get None, and a too-small config without it raises), and
+    build_multislice_mesh, as `_check_layouts` holds them."""
+    layouts = [("mesh", {"dp": 2, "tp": 2}, False), ("mesh", {"tp": 2}, True),
+               ("multislice", {"tp": 2}, {"dp": 2}), ("mesh", {"dp": 2, "sp": 2}, False)]
+    got = gang.spawn(bodies.mesh_layouts, 4, (layouts, "cpu"), device="cpu", timeout_s=JOIN_S)
+    _check_layouts(got, [
+        mesh.rank_grid(mesh.MeshConfig(dp=2, tp=2)), mesh.rank_grid(mesh.MeshConfig(tp=2)),
+        mesh.multislice_rank_grid(mesh.MeshConfig(tp=2), mesh.MeshConfig(dp=2)),
+        mesh.rank_grid(mesh.MeshConfig(dp=2, sp=2))])
     with pytest.raises(RuntimeError, match="needs 2 devices, got 4"):
         gang.spawn(bodies.mesh_layouts, 4, ([("mesh", {"tp": 2}, False)], "cpu"), device="cpu",
                    timeout_s=JOIN_S)
+
+
+def test_joint_group_on_a_submesh_keeps_the_gang_in_step():
+    """A (dp 2, sp 2) submesh on a gang of 6: the two ranks past it make
+    the joint group's process groups with the others, so the meshes built
+    after it, over all six ranks, still agree on every group."""
+    layouts = [("mesh", {"dp": 2, "sp": 2}, True), ("mesh", {"dp": 3, "sp": 2}, False),
+               ("mesh", {"sp": 2, "tp": 3}, False)]
+    got = gang.spawn(bodies.mesh_layouts, 6, (layouts, "cpu"), device="cpu", timeout_s=JOIN_S)
+    _check_layouts(got, [mesh.rank_grid(mesh.MeshConfig(**shape)) for _, shape, _ in layouts])
 
 
 def test_a_failing_rank_fails_the_gang_without_waiting_for_its_peers():

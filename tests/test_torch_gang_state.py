@@ -120,6 +120,6 @@ def test_checkpoint_saved_at_tp2_restores_at_tp1(tmp_path):
 
 def test_worker_raises_on_an_axis_that_is_not_ported():
     workload = dict(_example().spec.replicated_jobs[0].template.spec.template.spec.workload,
-                    mesh={"sp": 2})
+                    mesh={"ep": 2})
     codes, _, errs = _run_workers(_pod_envs(2, workload))
-    assert codes == [1, 1] and all("sp=2" in err and "NotImplementedError" in err for err in errs)
+    assert codes == [1, 1] and all("ep=2" in err and "NotImplementedError" in err for err in errs)

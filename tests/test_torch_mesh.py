@@ -94,19 +94,27 @@ def test_mesh_config_rules():
         tmesh.build_mesh(tmesh.MeshConfig())
 
 
-@pytest.mark.parametrize("axis, item", [("sp", "A6 step 4"), ("pp", "A6 step 5"),
-                                        ("ep", "A6 step 6")])
-def test_unported_axes_raise_naming_the_axis(axis, item):
+# sp is ported (ring and Ulysses): pp and ep still raise, beside sp too.
+@pytest.mark.parametrize("axis, item, beside", [("pp", "A6 step 5", "dp"),
+                                                ("ep", "A6 step 6", "dp"),
+                                                ("pp", "A6 step 5", "sp")])
+def test_unported_axes_raise_naming_the_axis(axis, item, beside):
     with pytest.raises(NotImplementedError, match=f"{axis}=2.*{item}"):
-        check_axes({"dp": 2, axis: 2})
+        check_axes({beside: 2, axis: 2})
     with pytest.raises(NotImplementedError, match=f"{axis}=2"):
-        ttf.TransformerConfig(n_heads=4, d_model=32).validate({axis: 2})
-    check_axes({"dp": 2, "tp": 4})
+        ttf.TransformerConfig(n_heads=4, d_model=32).validate({beside: 2, axis: 2})
+    check_axes({"dp": 2, "sp": 2, "tp": 4})
 
 
 def test_zero1_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="zero1.*A6 step 3"):
-        check_axes({"dp": 2}, zero1=True)
+    """zero1 is ported: a zero1 payload's mesh passes unless it names an
+    axis that is not, which raises naming that axis's item."""
+    from jobset_tpu_torch.runtime.runner import check_workload
+
+    assert check_workload({"kind": "lm", "zero1": True, "mesh": {"dp": 2}}) == \
+        tmesh.MeshConfig(dp=2)
+    with pytest.raises(NotImplementedError, match="pp=2.*A6 step 5"):
+        check_workload({"kind": "lm", "zero1": True, "mesh": {"dp": 2, "pp": 2}})
 
 
 # ---------------------------------------------------------------------------

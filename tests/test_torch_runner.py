@@ -256,16 +256,16 @@ def test_checkpoint_resume_equals_an_uninterrupted_run(tmp_path):
     assert resumed == straight[2:]
 
 
-# dp and tp run as a gang of processes: train_workload without a mesh
-# refuses a payload whose mesh spans several devices (ValueError); sp, pp,
-# ep and zero1 are not ported (NotImplementedError).
+# dp, sp and tp run as a gang of processes: train_workload without a mesh
+# refuses a payload whose mesh spans several devices (ValueError); pp and
+# ep are not ported (NotImplementedError), with zero1 too.
 @pytest.mark.parametrize("bad, error", [
     ({"kind": "gan"}, ValueError),
-    ({"kind": "lm", "zero1": True}, NotImplementedError),
+    ({"kind": "lm", "zero1": True, "mesh": {"ep": 2}}, NotImplementedError),
     ({"kind": "lm", "mesh": {"dp": 2}}, ValueError),
     ({"kind": "mlp", "mesh": {"dp": 2}}, ValueError),
     ({"kind": "cnn", "mesh": {"tp": 2}}, ValueError),
-    ({"kind": "lm", "mesh": {"sp": 2}}, NotImplementedError),
+    ({"kind": "lm", "mesh": {"sp": 2}}, ValueError),
     ({"kind": "lm", "mesh": {"pp": 2}}, NotImplementedError),
     ({"kind": "mlp", "mesh": {"ep": 2}}, NotImplementedError),
 ])
@@ -346,8 +346,8 @@ def test_worker_refuses_a_gang_of_several_processes(tmp_path, monkeypatch):
            distributed.ENV_COORDINATOR: "js-w-0-0.js"}
     for key, value in env.items():
         monkeypatch.setenv(key, value)
-    workload = {"kind": "lm", "steps": 1, "config": dict(SMALL), "mesh": {"sp": 2}}
-    with pytest.raises(NotImplementedError, match="sp=2"):
+    workload = {"kind": "lm", "steps": 1, "config": dict(SMALL), "mesh": {"ep": 2}}
+    with pytest.raises(NotImplementedError, match="ep=2"):
         worker.main(["--workload-file", _write(tmp_path, workload), "--cpu"])
     workload["mesh"] = {"dp": 4}
     assert worker.main(["--workload-file", _write(tmp_path, workload), "--cpu"]) == 2

@@ -116,7 +116,7 @@ def test_entry_config_matches_jax_entry():
 
 @pytest.mark.parametrize("bad, match", [
     (dict(n_experts=4, moe_top_k=8), "MoE"),
-    (dict(attn_impl="ulysses"), "ring"),
+    (dict(attn_impl="striped"), "attn_impl"),
     (dict(n_heads=3), "divide"),
     (dict(d_model=512, n_heads=2), "head_dim"),
     (dict(n_kv_heads=3), "n_kv_heads"),
@@ -129,14 +129,18 @@ def test_validate_rejects_unported_settings(bad, match):
 
 @pytest.mark.parametrize("axis", ["dp", "tp", "sp", "pp", "ep"])
 def test_validate_rejects_mesh_axes(axis):
-    """sp, pp and ep are not ported and raise, naming the axis; dp and tp
-    run (tests/test_torch_tp.py), with tp held to the reference's
-    divisibility rules."""
-    if axis in ("dp", "tp"):
+    """pp and ep are not ported and raise, naming the axis; dp, sp and tp
+    run (tests/test_torch_tp.py, tests/test_torch_sp_train.py), with tp
+    and Ulysses' sp held to the reference's divisibility rules."""
+    if axis in ("dp", "tp", "sp"):
         ttf.TransformerConfig().validate({axis: 2})
         if axis == "tp":
             with pytest.raises(ValueError, match="not divisible by tp 3"):
                 ttf.TransformerConfig().validate({axis: 3})
+        if axis == "sp":
+            ttf.TransformerConfig(attn_impl="ulysses").validate({axis: 2})
+            with pytest.raises(ValueError, match="ulysses attention requires heads-per-tp-rank"):
+                ttf.TransformerConfig(attn_impl="ulysses").validate({axis: 16})
         return
     with pytest.raises(NotImplementedError, match=f"{axis}=2"):
         ttf.TransformerConfig().validate({axis: 2})

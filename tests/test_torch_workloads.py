@@ -449,16 +449,18 @@ def test_worker_runs_the_kind_on_the_cpu(tmp_path, capsys, monkeypatch, workload
 # Every example workload through the port's gang runner: those whose
 # payload names no mesh axis above 1 run to Completed in process (the
 # runner stands in for the whole gang, as the JAX runner does over its
-# mesh), lm-moe-dropless.yaml ({dp: 2, tp: 2}) as a gang of 4 worker
-# processes on gloo; the others raise, naming the axis or option that is
-# not ported yet.
+# mesh), the others as a gang of one worker process a device of the
+# payload's mesh, on gloo: lm-moe-dropless.yaml ({dp: 2, tp: 2}) and
+# lm-long-context.yaml ({sp: 2, tp: 2}, Ulysses) as 4, lm-adafactor.yaml
+# ({dp: 2}, zero1) as 2; lm-pp-interleaved.yaml raises, naming pp's A6
+# step.
 EXAMPLE_OUTCOMES = {
     "mlp-checkpoint.yaml": "Completed", "cnn-ddp.yaml": "Completed",
     "ddp-exclusive.yaml": "Completed", "lm-dp.yaml": "Completed",
     "multislice.yaml": "Completed", "ps-heterogeneous.yaml": "Completed",
     "lm-moe-dropless.yaml": "Completed",
-    "lm-adafactor.yaml": "zero1", "lm-long-context.yaml": "sp=2",
-    "lm-pp-interleaved.yaml": "pp=2",
+    "lm-adafactor.yaml": "Completed", "lm-long-context.yaml": "Completed",
+    "lm-pp-interleaved.yaml": "pp=2.*A6 step 5",
 }
 
 

@@ -6,9 +6,12 @@ its parent's `sys.path`) starts without them.
 
 `train_steps`: a transformer's train steps over the gang's mesh, from full
 parameters (given, or drawn from a seed on the device) and global
-batches, returning the losses and the gathered parameters, and the
+batches (each rank its dp rows and sp positions), returning the losses,
+the eval loss of held-out batches, and the gathered parameters, and the
 gathered gradients of a step with `optimizer="grads"` (an optimizer that
-keeps the gradients as its state and moves nothing).
+keeps the gradients as its state and moves nothing); `zero1` splits the
+optimizer state over dp. `sp_attention`: ring and Ulysses attention on
+the rank's chunks, with their gradients.
 """
 
 from __future__ import annotations
@@ -26,13 +29,16 @@ from jobset_tpu_torch.convert import (
 from jobset_tpu_torch.device import resolve_device
 from jobset_tpu_torch.models.transformer import (
     TransformerConfig,
+    build_eval_step,
     build_train_step,
     global_shapes,
     init_params,
     param_specs,
 )
+from jobset_tpu_torch.parallel import ring_attention, ulysses_attention
 from jobset_tpu_torch.parallel.mesh import MeshConfig, build_mesh, build_multislice_mesh
 from jobset_tpu_torch.runtime import optim
+from jobset_tpu_torch.runtime.data import sequence_shard
 from jobset_tpu_torch.runtime.runner import _with_dtypes, batch_rows, train_workload
 
 
@@ -54,11 +60,11 @@ def grads_optimizer(inner=None):
         return {"count": 0, "g": tree.tree_map(lambda p: p.new_zeros(p.shape), params),
                 "inner": inner.init(params) if inner else None}
 
-    def update(grads, state, params):
+    def update(grads, state, params, shards=None):
         if inner is None:
             updates, inner_state = tree.tree_map(lambda g: g.new_zeros(g.shape), grads), None
         else:
-            updates, inner_state = inner.update(grads, state["inner"], params)
+            updates, inner_state = inner.update(grads, state["inner"], params, shards=shards)
         return updates, {"count": state["count"] + 1,
                          "g": grads if state["count"] == 0 else state["g"], "inner": inner_state}
 
@@ -71,7 +77,8 @@ def grads_optimizer(inner=None):
 
 def train_steps(config: dict, mesh_shape: dict, batches: list, optimizer: str = "adamw",
                 learning_rate: float = 1e-3, accum_steps: int = 1, params=None, seed: int = 0,
-                device=None, keep_grads: bool = False) -> dict:
+                device=None, keep_grads: bool = False, zero1: bool = False,
+                eval_batches=()) -> dict:
     """`len(batches)` train steps of the transformer `config`
     (TransformerConfig's fields; "dtype" and "param_dtype" as
     "float32"/"bfloat16") over the mesh `mesh_shape` laid over the gang,
@@ -79,9 +86,11 @@ def train_steps(config: dict, mesh_shape: dict, batches: list, optimizer: str = 
     `params` (a full numpy tree, as `params_from_jax` takes it) or
     `init_params` from a generator on the device seeded `seed`. optimizer:
     "adamw", "adam", "sgd", "adafactor" or "grads"; `keep_grads` keeps the
-    first step's gradients in the optimizer state (`grads_optimizer`).
-    Returns the losses, the gathered parameters and optimizer state as
-    numpy, and this rank's mesh coordinates."""
+    first step's gradients in the optimizer state (`grads_optimizer`);
+    `zero1` wraps the optimizer in `optim.zero1`. Returns the losses, the
+    eval step's loss on each of `eval_batches` after the steps, the
+    gathered parameters and optimizer state as numpy, the bytes of this
+    rank's optimizer state, and this rank's mesh coordinates."""
     device = resolve_device(device)
     cfg = TransformerConfig(**_with_dtypes(config))
     mesh = build_mesh(MeshConfig(**mesh_shape), device)
@@ -96,15 +105,26 @@ def train_steps(config: dict, mesh_shape: dict, batches: list, optimizer: str = 
            "grads": grads_optimizer}[optimizer]()
     if keep_grads:
         opt = grads_optimizer(opt)
+    if zero1:
+        opt = optim.zero1(opt, specs, mesh)
     state = opt.init(local)
     step = build_train_step(cfg, opt, accum_steps, device, mesh)
     rows = batch_rows(len(batches[0]["inputs"]), mesh.size("dp"), mesh.index("dp"), accum_steps)
+    columns = sequence_shard(batches[0]["inputs"].shape[1], mesh.size("sp"), mesh.index("sp"))
+
+    def mine(batch):
+        return {k: v[rows][:, columns] for k, v in batch.items()}
+
     losses = []
     for batch in batches:
-        local, state, loss = step(local, state, {k: v[rows] for k, v in batch.items()})
+        local, state, loss = step(local, state, mine(batch))
         losses.append(float(loss))
+    eval_step = build_eval_step(cfg, device, mesh)
+    eval_losses = [float(eval_step(local, mine(b))) for b in eval_batches]
     state_specs = opt.state_specs(specs, global_shapes(cfg))
-    return {"losses": losses, "coords": mesh.coords,
+    return {"losses": losses, "eval_losses": eval_losses, "coords": mesh.coords,
+            "state_bytes": sum(t.numel() * t.element_size() for t in tree.leaves(state)
+                               if torch.is_tensor(t)),
             "params": _numpy_tree(gather_params(local, cfg, mesh)),
             "opt_state": _numpy_tree(gather_tree(state, state_specs, mesh))}
 
@@ -167,6 +187,93 @@ def mesh_layouts(layouts: list, device=None) -> list:
             dist.all_reduce(t, group=group)
             sums[axis] = float(t)
         out.append({"coords": mesh.coords, "sums": sums})
+    return out
+
+
+def sp_attention(cases: dict, sp: int, device=None) -> dict:
+    """Each case {key: (impl "ring" | "ulysses", causal, q, k, v, w)} on a
+    gang of sp ranks (the sp axis): this rank's chunk of q, k, v (numpy
+    [B, T, H, D], k/v maybe fewer heads) through the attention, and the
+    gradients of sum(out * w's chunk). Returns {key: (out, dq, dk, dv)} of
+    the rank's chunk, numpy."""
+    device = resolve_device(device)
+    mesh = build_mesh(MeshConfig(sp=sp), device)
+    out = {}
+    for key, (impl, causal, *arrays) in cases.items():
+        chunk = sequence_shard(arrays[0].shape[1], sp, mesh.index("sp"))
+        q, k, v, w = (torch.from_numpy(a[:, chunk]).to(device) for a in arrays)
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        fn = ring_attention if impl == "ring" else ulysses_attention
+        got = fn(q, k, v, mesh.group("sp"), causal=causal)
+        (got * w).sum().backward()
+        out[key] = tuple(x.detach().cpu().numpy() for x in (got, q.grad, k.grad, v.grad))
+    return out
+
+
+def sp_collectives(x, w, sp: int, dtypes=("float32",), device=None) -> dict:
+    """`collectives.rotate`, `collectives.all_to_all` (split dim 2, concat
+    dim 1) and `collectives.gather` (dim 1) of this rank's chunk of x
+    (numpy [B, T, H, D], split along T over the sp ranks), in each of
+    `dtypes`, and for the first two the gradient of sum(out * w's block) for the chunk,
+    w's block taken where the rank's output lies in the global [B, T, H, D]
+    (rotate: its chunk of T; all_to_all: its chunk of H). Returns {dtype:
+    {name: (out, grad)}}, numpy f32 (gather's grad None); every output
+    contiguous."""
+    from jobset_tpu_torch.parallel import collectives
+
+    device = resolve_device(device)
+    mesh = build_mesh(MeshConfig(sp=sp), device)
+    index, group = mesh.index("sp"), mesh.group("sp")
+    times = sequence_shard(x.shape[1], sp, index)
+    heads = sequence_shard(x.shape[2], sp, index)
+    out = {}
+    for name in dtypes:
+        dtype, moved = getattr(torch, name), {}
+        for op, fn, block in (("rotate", lambda t: collectives.rotate(t, group), w[:, times]),
+                              ("all_to_all", lambda t: collectives.all_to_all(t, 2, 1, group),
+                               w[:, :, heads])):
+            t = torch.from_numpy(x[:, times]).to(device, dtype).requires_grad_()
+            got = fn(t)
+            assert got.is_contiguous() and got.dtype == dtype
+            (got * torch.from_numpy(block).to(device, dtype)).sum().backward()
+            moved[op] = (got.detach().float().cpu().numpy(), t.grad.float().cpu().numpy())
+        got = collectives.gather(torch.from_numpy(x[:, times]).to(device, dtype), 1, group)
+        assert got.is_contiguous() and got.dtype == dtype
+        moved["gather"] = (got.float().cpu().numpy(), None)
+        out[name] = moved
+    return out
+
+
+def zero_state_round_trip(config: dict, mesh_shape: dict, device=None) -> dict:
+    """Adam's and adafactor's states of the transformer `config` (seeded
+    parameters, cut to the rank's tp shards) split over dp by
+    `parallel.zero` and gathered back: for each optimizer, the widened
+    state specs, whether each leaf came back equal, and the bytes this
+    rank holds split and whole."""
+    from jobset_tpu_torch.parallel import zero
+
+    device = resolve_device(device)
+    cfg = TransformerConfig(**_with_dtypes(config))
+    mesh = build_mesh(MeshConfig(**mesh_shape), device)
+    specs = param_specs(cfg)
+    local = shard_params(init_params(cfg, torch.Generator().manual_seed(0), device), cfg, mesh)
+    out = {}
+    for name, opt in (("adam", optim.adam(1e-3)),
+                      ("adafactor", optim.adafactor(1e-3, specs, mesh.group("tp")))):
+        state = opt.init(local)
+        state = tree.rebuild(state, [  # distinct entries, alike on every dp rank
+            torch.arange(t.numel(), dtype=t.dtype, device=t.device).reshape(t.shape)
+            if torch.is_tensor(t) else t for t in tree.leaves(state)])
+        state_specs, _ = zero.zero1_plan(state, local, opt.state_specs(
+            specs, global_shapes(cfg)), specs, mesh.size("dp"))
+        split = zero.shard_state(state, state_specs, mesh)
+        back = gather_tree(split, state_specs, mesh, axes=("dp",))
+        out[name] = {"specs": state_specs,
+                     "equal": [bool(torch.equal(a, b)) for a, b in zip(tree.leaves(back),
+                                                                      tree.leaves(state))
+                               if torch.is_tensor(a)],
+                     "bytes": [sum(t.numel() * t.element_size() for t in tree.leaves(x)
+                                   if torch.is_tensor(t)) for x in (split, state)]}
     return out
 
 
