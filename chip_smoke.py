@@ -5,7 +5,7 @@
                                                  --control-only | --serving-only |
                                                  --moe-only | --moe-train-only |
                                                  --workloads-only | --gang-only |
-                                                 --sp-only]
+                                                 --sp-only | --pp-only]
 
 (`--solver-only` builds the auction kernel and runs phase 9 alone,
 `--flash-only` builds the flash block kernels and runs phases 2-3 alone,
@@ -16,7 +16,8 @@ phase 12 alone, `--moe-train-only` builds the flash block and grouped
 kernels and runs phase 13 alone, `--workloads-only` builds the flash block
 kernels and runs phase 14 alone, `--gang-only` builds the flash block and
 grouped kernels and runs phase 15 alone, `--sp-only` builds the flash
-block kernels and runs phase 16 alone; none of them prints the result
+block kernels and runs phase 16 alone, `--pp-only` builds the flash block
+and grouped kernels and runs phase 17 alone; none of them prints the result
 line.) Phases, in order; any failure exits
 non-zero before the result line:
   1. the card's name and power limit (nvidia-smi); TF32 off;
@@ -226,7 +227,8 @@ non-zero before the result line:
      bit for bit; (b) the dense flagship at tp = 2 (8 heads of 64 a rank)
      and a small f32 config at tp = 2, two ranks on gloo with CUDA tensors
      (NCCL refuses two ranks on one device); (c) the MoE flagship at dp =
-     2 x tp = 2, four ranks (we1 [8, 1024, 2048] a rank), held on its
+     2 x tp = 2 at 4 of its 8 layers, four ranks (we1 [8, 1024, 2048] a
+     rank), held on its
      losses in bf16 (bf16 routes apart end to end; every bf16 wgrad launch
      on the TMA kernel) and on its gradients and first adam step by the
      same gang in f32, where it prints which tokens took other experts
@@ -245,9 +247,10 @@ non-zero before the result line:
      ring gives them), against the plain version, each merged into a
      real accumulator and differentiated (the masked block must leave
      the accumulator as it was, bit for bit); (b) the dense flagship at
-     sp = 2, ring and Ulysses, two ranks on gloo (B=8, T=1024, remat
+     sp = 2 at 4 of its 8 layers, ring and Ulysses, two ranks on gloo
+     (B=8, T=1024, remat
      off): a gradient step and 3 adam steps against one process at
-     phase 15 (b)'s bounds, 16 (ring) and 24 (Ulysses) flash launches
+     phase 15 (b)'s bounds, 8 (ring) and 12 (Ulysses) flash launches
      and 2 tile-class passes on a rank's first step, the median step,
      peak memory, the bytes saved for the backward, and the collective
      share from a traced step; a small f32 config at sp = 2 against the
@@ -261,8 +264,23 @@ non-zero before the result line:
      within 1e-4 of the CPU gangs'; (f) the port's gather, rotate and
      all_to_all of CUDA tensors on gloo, f32 and bf16, bit for bit, and
      gloo's send/recv of them (information: the port does not use it);
- 17. one `kernels` JSON line (with each kernel's launches on the gang's
-     and the sp paths), then the result line
+ 17. pipeline parallelism, in a process of its own (`--pp-only`): (a) the
+     dense flagship at pp = 2 (4 layers a rank), B=8, T=1024, 4
+     microbatches, remat off, two ranks on gloo, under gpipe, the
+     interleave (pipeline_virtual 2, on the permuted tree) and 1f1b: a
+     gradient step and 3 adam steps against one process at phase 15
+     (b)'s bounds, 16 bf16 flash launches a rank's step, the median step,
+     peak memory, and from a traced step the shares in the shifts
+     (all-to-all) and the all-reduces; (b) at 8 microbatches of one row,
+     each rank's peak over what it held before its step under gpipe and
+     under 1f1b; (c) the small f32 configs at 4 layers, dense under each
+     schedule and MoE dropless top-2 under gpipe and the interleave,
+     against the port's CPU gang (1e-5), with the grouped launches a
+     rank's step; (d) lm-pp-interleaved.yaml through `WorkloadRunner` as 4
+     processes on the card, to Completed, its final loss within 1e-4 of
+     the CPU gang's;
+ 18. one `kernels` JSON line (with each kernel's launches on the gang's,
+     the sp and the pp paths), then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 The flagship is the repo's training/decode bench config: vocab 32000,
@@ -4347,6 +4365,10 @@ def phase_workloads_apart(results):
 # all-reduces timed, each rank its own process on the one card.
 GANG_STEPS, GANG_LR, GANG_WARMUP, GANG_TIMED = 3, 1e-3, 1, 3
 GANG_TIMEOUT_S = 600
+# (c)'s MoE gangs (bf16 and f32) run 4 of the MoE flagship's 8 layers,
+# and phase 16's dense flagship 4 of its 8: full width, cut in depth, so
+# that the whole run with phase 17 stays well inside its time limit.
+GANG_MOE_LAYERS, SP_LAYERS = 4, 4
 # Held against the single-process run on the card, same parameters and
 # batches (the ranks' all-reduces add the shards' partial sums in another
 # order than one product does):
@@ -4549,21 +4571,48 @@ def gang_references(jobs: list) -> list:
     return [gang_reference(**job) for job in jobs]
 
 
-def gathered_diffs(local, ref, specs, mesh, device, grads=None, bound=0.0) -> list:
-    """Leaf by leaf, the tp shards gathered (every rank takes part) and, on
-    rank 0, (||got - ref|| / ||ref||, max|got - ref|, max|ref|) against the
-    reference tree (CPU, loaded lazily); other ranks get []. With `grads`
-    (the reference's first-step gradients), two more: max|got - ref| over
-    the entries whose |gradient| exceeds ADAM_NOISE_GRAD, and the count of
-    the other entries where |got - ref| exceeds `bound`."""
-    from jobset_tpu_torch import tree
+def gathered(leaf, spec, mesh):
+    """A leaf's shards gathered over each axis its spec splits it over (tp,
+    pp); every rank of each group takes part."""
     from jobset_tpu_torch.parallel import collectives
+
+    for dim, axis in enumerate(spec):
+        if axis is not None and mesh.size(axis) > 1:
+            leaf = collectives.gather(leaf, dim, mesh.group(axis))
+    return leaf
+
+
+def pp_view(pp: int, virtual: int):
+    """A single-process tree (layer leaves [1, n_layers, ...]) as a pp gang
+    holds it globally: the layer leaves restacked [pp, n_layers / pp, ...]
+    and, for the interleave, permuted (`interleave_stage_params`)."""
+    from jobset_tpu_torch.parallel.pipeline import interleave_stage_params
+
+    def view(t):
+        if pp == 1 or t is None:
+            return t
+        layers = {k: v.reshape(pp, -1, *v.shape[2:]) for k, v in t["layers"].items()}
+        if virtual > 1:
+            layers = interleave_stage_params(layers, pp, virtual)
+        return dict(t, layers=layers)
+
+    return view
+
+
+def gathered_diffs(local, ref, specs, mesh, device, grads=None, bound=0.0) -> list:
+    """Leaf by leaf, the shards gathered over tp and pp (every rank takes
+    part) and, on rank 0, (||got - ref|| / ||ref||, max|got - ref|,
+    max|ref|) against the reference tree (CPU, loaded lazily, in the gang's
+    layout); other ranks get []. With `grads` (the reference's first-step
+    gradients), two more: max|got - ref| over the entries whose |gradient|
+    exceeds ADAM_NOISE_GRAD, and the count of the other entries where
+    |got - ref| exceeds `bound`."""
+    from jobset_tpu_torch import tree
 
     out = []
     refs = tree.leaves(ref) if ref is not None else None
     for i, (leaf, spec) in enumerate(zip(tree.leaves(local), tree.leaves(specs))):
-        dim = spec.index("tp") if "tp" in spec else None
-        full = collectives.gather(leaf, dim, mesh.group("tp")) if dim is not None else leaf
+        full = gathered(leaf, spec, mesh)
         if refs is not None:
             want = refs[i].to(device).float()
             d = (full.float() - want).abs()
@@ -4632,14 +4681,18 @@ def gang_rank(spec: dict) -> dict:
     one gradient step (its kernel launches counted), GANG_STEPS adam steps
     (peak memory), timed steps (median ms) and one step traced
     (`collective_trace`). Rank 0 holds the gradients and the moves against
-    the saved single-process run spec["reference"]; with spec["diagnose"],
+    the saved single-process run spec["reference"] (in the gang's layout,
+    `pp_view`); with spec["diagnose"],
     where the moves stray (`move_outliers`). spec["device"] is the card
     unless it names the CPU (a rehearsal). Each rank takes its dp rows and
     its sp chunk of positions of every batch. spec["steps"] (default
     GANG_STEPS) adam steps; with spec["draw_on_cpu"] the parameters and
     batches are drawn on CPU generators, so the card's run and the CPU's
     start alike. The constant-mask cache starts empty, so the first step
-    counts the run's tile-class passes."""
+    counts the run's tile-class passes. Over pp the parameters are drawn
+    stacked [pp, n_layers / pp, ...] (the same numbers), and with
+    spec["interleave"] = v permuted for the interleave
+    (`interleave_stage_params`)."""
     import torch.distributed as dist
 
     from jobset_tpu_torch import tree
@@ -4647,6 +4700,7 @@ def gang_rank(spec: dict) -> dict:
     from jobset_tpu_torch.models import build_train_step, init_params
     from jobset_tpu_torch.models.transformer import param_specs
     from jobset_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from jobset_tpu_torch.parallel.pipeline import interleave_stage_params
     from jobset_tpu_torch.runtime import optim
     from jobset_tpu_torch.runtime.data import sequence_shard
     from jobset_tpu_torch.runtime.runner import batch_rows
@@ -4661,8 +4715,12 @@ def gang_rank(spec: dict) -> dict:
     steps = spec.get("steps", GANG_STEPS)
     mesh = build_mesh(MeshConfig(**spec["mesh"]), device)
     specs = param_specs(cfg)
-    start = shard_params(init_params(cfg, torch.Generator(device=draw).manual_seed(0), device),
-                         cfg, mesh)
+    full = init_params(cfg, torch.Generator(device=draw).manual_seed(0), device, mesh.config)
+    virtual = spec.get("interleave", 1)
+    if virtual > 1:
+        full["layers"] = interleave_stage_params(full["layers"], mesh.size("pp"), virtual)
+    start = shard_params(full, cfg, mesh)
+    del full
     rows = torch.as_tensor(batch_rows(spec["batch"], mesh.size("dp"), mesh.index("dp")),
                            device=device)
     columns = sequence_shard(spec["seq"], mesh.size("sp"), mesh.index("sp"))
@@ -4688,6 +4746,9 @@ def gang_rank(spec: dict) -> dict:
     out["grad_loss"] = float(loss)
     ref = (torch.load(spec["reference"], map_location="cpu", mmap=True, weights_only=True)
            if mesh.rank == 0 and spec.get("reference") else None)
+    if ref is not None and mesh.size("pp") > 1:
+        view = pp_view(mesh.size("pp"), virtual)
+        ref = dict(ref, **{k: view(ref[k]) for k in ("grads", "moves", "moves1")})
     out["grads"] = gathered_diffs(state["g"], ref["grads"] if ref else None, specs, mesh, device)
     # Kept on the host: the card is full with four f32 ranks.
     grads = tree.tree_map(lambda g: g.cpu(), state["g"]) if spec.get("diagnose") else None
@@ -4813,10 +4874,19 @@ def collective_trace(events) -> dict:
     span = end - start
     spent = merged_span_us(clipped(reduces))
     busy = merged_span_us(clipped(device_ops)) if device_ops else None
-    return {"traced_step_ms": span / 1e3, "collective_ms": spent / 1e3,
-            "collective_calls": sum(1 for e in reduces if e.name.startswith("c10d::")),
-            "collective_share": spent / span,
-            "device_busy_share": None if busy is None else busy / span}
+    out = {"traced_step_ms": span / 1e3, "collective_ms": spent / 1e3,
+           "collective_calls": sum(1 for e in reduces if e.name.startswith("c10d::")),
+           "collective_share": spent / span,
+           "device_busy_share": None if busy is None else busy / span}
+    # By kind: the all-to-alls (the pipeline's shifts, the ring's rotations,
+    # Ulysses' re-splits, the gathers) and the all-reduces.
+    for kind, ops in (("all_to_all", ("all_to_all", "alltoall")),
+                      ("all_reduce", ("all_reduce", "allreduce"))):
+        mine = [e for e in reduces if any(op in e.name for op in ops)]
+        ms = merged_span_us(clipped(mine)) / 1e3
+        out[f"{kind}_ms"], out[f"{kind}_share"] = ms, ms * 1e3 / span
+        out[f"{kind}_calls"] = sum(1 for e in mine if e.name.startswith("c10d::"))
+    return out
 
 
 def gang_print(label, ranks, card):
@@ -4920,7 +4990,7 @@ def gang_moe_f32(tmp, batch, card) -> dict:
     from jobset_tpu_torch.runtime import gang
 
     t0 = time.perf_counter()
-    moe32 = replace(moe_config(), dtype=torch.float32)
+    moe32 = replace(moe_config(), dtype=torch.float32, n_layers=GANG_MOE_LAYERS)
     path = os.path.join(tmp, "moe32.pt")
     ref = reference_apart(moe32, batch, PROMPT, path, first_move=True)
     spec = {"cfg": moe32, "mesh": {"dp": 2, "tp": 2}, "batch": batch, "seq": PROMPT,
@@ -4938,12 +5008,13 @@ def gang_moe_f32(tmp, batch, card) -> dict:
                       f"{row['over']} entries, largest |first-step gradient| among them "
                       f"{row['max_ref_grad_over']}; worst {row['worst']}", flush=True)
     print(f"  gang (c) f32: of rank 0's {batch // 2 * PROMPT} tokens, those that took other "
-          f"experts than in one process's run, summed over the {LAYERS} layers, by adam step: "
+          f"experts than in one process's run, summed over the {GANG_MOE_LAYERS} layers, by adam "
+          f"step: "
           f"{ranks[0]['route_flips']}", flush=True)
     worst = gang_check(f"gang (c) MoE flagship dp=2 x tp=2 in f32, B={batch} T={PROMPT}", ranks,
                        ref, GANG_F32_REL, GANG_F32_MOE_GRAD_REL, first_move=True)
-    check(all(r["launches"]["GROUPED_F32_LAUNCHES"] == 2 * LAYERS for r in ranks),
-          f"gang (c) f32: {2 * LAYERS} f32 grouped forward launches a step on each rank")
+    check(all(r["launches"]["GROUPED_F32_LAUNCHES"] == 2 * GANG_MOE_LAYERS for r in ranks),
+          f"gang (c) f32: {2 * GANG_MOE_LAYERS} f32 grouped forward launches a step on each rank")
     return {"ranks": ranks, "reference": ref, "worst": worst,
             "seconds": time.perf_counter() - t0}
 
@@ -4953,12 +5024,14 @@ def phase_gang(results):
     (each rank a process; the card holds them all)."""
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
+    from dataclasses import replace
 
     from jobset_tpu_torch.runtime import gang
 
     card = results["card"]
     gang_results: dict = {}
-    dense, small, moe = flagship_config(), gang_small_config(), moe_config()
+    dense, small = flagship_config(), gang_small_config()
+    moe = replace(moe_config(), n_layers=GANG_MOE_LAYERS)
     # Up to four ranks share the card: their allocators grow segments
     # instead of caching fragments of each rank's peak (the ranks read it
     # when they start; this process's allocator is already set).
@@ -5038,12 +5111,13 @@ def phase_gang(results):
                            ranks, ref, GANG_BF16_LOSS_REL, None)
         for r in ranks:
             c = r["launches"]
-            check(c["GROUPED_LAUNCHES"] == c["GROUPED_TMA_LAUNCHES"] == 2 * LAYERS
-                  and c["GROUPED_DGRAD_LAUNCHES"] == 2 * LAYERS
-                  and c["GROUPED_WGRAD_LAUNCHES"] == c["GROUPED_WGRAD_TMA_LAUNCHES"] == 2 * LAYERS
-                  and c["TENSOR_CORE_LAUNCHES"] == LAYERS,
-                  f"gang (c) rank {r['rank']}: a step launches {2 * LAYERS} grouped forward "
-                  f"(all TMA), dgrad and wgrad (all TMA) kernels and {LAYERS} flash kernels ({c})")
+            n = GANG_MOE_LAYERS
+            check(c["GROUPED_LAUNCHES"] == c["GROUPED_TMA_LAUNCHES"] == 2 * n
+                  and c["GROUPED_DGRAD_LAUNCHES"] == 2 * n
+                  and c["GROUPED_WGRAD_LAUNCHES"] == c["GROUPED_WGRAD_TMA_LAUNCHES"] == 2 * n
+                  and c["TENSOR_CORE_LAUNCHES"] == n,
+                  f"gang (c) rank {r['rank']}: a step launches {2 * n} grouped forward "
+                  f"(all TMA), dgrad and wgrad (all TMA) kernels and {n} flash kernels ({c})")
         gang_results["moe_dp2_tp2"] = {"ranks": ranks, "reference": ref, "worst": worst,
                                        "seconds": time.perf_counter() - t0}
 
@@ -5140,7 +5214,7 @@ SP, SP_BLOCK = 2, (BATCH, PROMPT // 2, 16, 64)
 # of the whole sequence on H/sp heads, sp(sp+1)/2 a layer. On the first
 # step each builds two constant masks at [T/sp, T/sp] (the diagonal, and
 # the masked or zero block), each with its one tile-class pass.
-SP_RING_LAUNCHES, SP_ULYSSES_LAUNCHES, SP_FIRST_PASSES = SP * LAYERS, 3 * LAYERS, 2
+SP_RING_LAUNCHES, SP_ULYSSES_LAUNCHES, SP_FIRST_PASSES = SP * SP_LAYERS, 3 * SP_LAYERS, 2
 # A block merged into an accumulator and differentiated, kernel against
 # plain version: gradient leaves in relative norm, bf16 at phase 7's
 # bound (p rounded to bf16 against another max), f32 (3xTF32 forward, f32
@@ -5399,13 +5473,13 @@ def gloo_cuda_probe(which: str) -> dict:
 
 
 def sp_workload_sequence(name, device, backend) -> dict:
-    """An SP_EXAMPLES payload through the port's `WorkloadRunner` on
+    """An SP_EXAMPLES or PP_EXAMPLES payload through the port's `WorkloadRunner` on
     `device`, over `StandInCluster`: one worker process a device of its
     mesh, on `backend`; the annotations, the terminal state and each rank's
     result line."""
     from jobset_tpu_torch.runtime import WorkloadRunner
 
-    payload, (replicas, pods) = SP_EXAMPLES[name]
+    payload, (replicas, pods) = {**SP_EXAMPLES, **PP_EXAMPLES}[name]
     cluster = StandInCluster(name, json.loads(json.dumps(payload)), replicas=replicas,
                              parallelism=pods)
     runner = WorkloadRunner(cluster, device, backend=backend)
@@ -5445,7 +5519,7 @@ def phase_sp(results):
     t_phase = time.perf_counter()
     out: dict = {}
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-    dense = replace(flagship_config(), remat=False)
+    dense = replace(flagship_config(), remat=False, n_layers=SP_LAYERS)
     ulysses = replace(dense, attn_impl="ulysses")
     small = gang_small_config()
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(8) as pool:
@@ -5639,6 +5713,258 @@ def phase_sp_apart(results):
             results["sp"] = json.load(f).get("sp")
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: pipeline parallelism (gpipe, interleaved, 1f1b)
+# ---------------------------------------------------------------------------
+
+# The flagship at pp = 2 (4 layers a rank), B = 8, T = 1024, 4 microbatches
+# of 2 rows; (b) at 8 microbatches of one row. Each rank launches the bf16
+# flash kernel once a layer a microbatch under every schedule (remat off):
+# 16 a step.
+PP, PP_MICRO, PP_MEMORY_MICRO = 2, 4, 8
+PP_LAUNCHES = PP_MICRO * LAYERS // PP
+PP_SCHEDULES = {"gpipe": {}, "interleaved": {"pipeline_virtual": 2}, "1f1b": {}}
+# (c): the small f32 configs at pp = 2 (4 layers, 4 microbatches), each
+# schedule the reference allows (1f1b refuses token-choice top-k).
+PP_SMALL_SCHEDULES = {"dense": ("gpipe", "interleaved", "1f1b"),
+                      "dropless": ("gpipe", "interleaved")}
+# examples/training/lm-pp-interleaved.yaml's payload (held to the file by
+# tests/test_torch_gang_runner.py) and its gang (replicas, pods a job).
+LM_PP_INTERLEAVED_PAYLOAD = {
+    "kind": "lm", "steps": 8, "batch_size": 4, "seq_len": 16, "mesh": {"pp": 2, "tp": 2},
+    "config": {"vocab_size": 128, "d_model": 64, "n_heads": 4, "d_ff": 128, "n_layers": 4,
+               "max_seq_len": 32, "n_microbatches": 4, "pipeline_schedule": "interleaved",
+               "pipeline_virtual": 2}}
+PP_EXAMPLES = {"lm-pp-interleaved": (LM_PP_INTERLEAVED_PAYLOAD, (2, 2))}
+
+
+def pp_config(base, schedule: str, n_micro: int):
+    from dataclasses import replace
+
+    return replace(base, n_microbatches=n_micro, pipeline_schedule=schedule,
+                   **PP_SCHEDULES[schedule])
+
+
+def pp_small_configs() -> dict:
+    """(c)'s configs by label: phase 15's small f32 GQA config at 4 layers,
+    dense and MoE dropless top-2, under each schedule it allows."""
+    from dataclasses import replace
+
+    dense = replace(gang_small_config(), n_layers=4)
+    bases = {"dense": dense, "dropless": replace(dense, n_experts=4, d_ff_expert=64,
+                                                 moe_top_k=2, moe_dispatch="dropless")}
+    return {f"{kind} {schedule}": pp_config(bases[kind], schedule, PP_MICRO)
+            for kind, schedules in PP_SMALL_SCHEDULES.items() for schedule in schedules}
+
+
+def pp_print(label, ranks, card):
+    for r in ranks:
+        if "step_ms" not in r:
+            continue
+        print(f"  {label} rank {r['rank']} {r['coords']}: pipeline shifts (all-to-all) "
+              f"{r['all_to_all_ms']:.3f} ms in {r['all_to_all_calls']} calls = "
+              f"{r['all_to_all_share']:.1%} of the traced step, all-reduces "
+              f"{r['all_reduce_ms']:.3f} ms in {r['all_reduce_calls']} calls = "
+              f"{r['all_reduce_share']:.1%} (torch.profiler host spans; ranks sharing one "
+              f"card on gloo; {card})", flush=True)
+    gang_print(label, ranks, card)
+
+
+def phase_pp(results):
+    """Phase 17: pipeline parallelism at the flagship's width, gangs of two
+    ranks sharing the card on gloo with CUDA tensors. The single-process
+    reference and the CPU gangs run first, at once; then the timed gang
+    (a) alone; then (b), (c) and (d) on the card at once."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from dataclasses import replace
+
+    from jobset_tpu_torch.runtime import gang
+
+    card = results["card"]
+    t_phase = time.perf_counter()
+    out: dict = {}
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    dense = replace(flagship_config(), remat=False)
+    small = pp_small_configs()
+    small_specs = [{"cfg": cfg, "mesh": {"pp": PP}, "batch": 4, "seq": 64, "draw_on_cpu": True,
+                    "timed": False, "label": label} for label, cfg in small.items()]
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(8) as pool:
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, "dense.pt")
+        pending_ref = pool.submit(gang.spawn, gang_references, 1,
+                                  ([dict(cfg=dense, batch=BATCH, seq=PROMPT, path=path)],),
+                                  backend="gloo", device="cuda", timeout_s=GANG_TIMEOUT_S,
+                                  threads=0)
+        cpu = pool.submit(gang.spawn, gang_ranks, PP,
+                          ([dict(spec, device="cpu") for spec in small_specs],), backend="gloo",
+                          device="cpu", timeout_s=GANG_TIMEOUT_S, threads=0)
+        example_cpu = pool.submit(sp_workload_sequence, "lm-pp-interleaved", "cpu", "gloo")
+        ref = pending_ref.result()[0][0]
+        cpu, example_cpu = cpu.result(), example_cpu.result()
+        out["references_s"] = time.perf_counter() - t0
+
+        # (a): each schedule at pp = 2, 4 microbatches, timed, one gang.
+        t0 = time.perf_counter()
+        specs = [{"cfg": pp_config(dense, schedule, PP_MICRO), "mesh": {"pp": PP},
+                  "batch": BATCH, "seq": PROMPT, "reference": path,
+                  "interleave": PP_SCHEDULES[schedule].get("pipeline_virtual", 1)}
+                 for schedule in PP_SCHEDULES]
+        by_rank = gang.spawn(gang_ranks, PP, (specs,), backend="gloo", device="cuda",
+                             timeout_s=GANG_TIMEOUT_S, threads=0)
+        timed_runs = {s: [r[i] for r in by_rank] for i, s in enumerate(PP_SCHEDULES)}
+        out["timed_gang_s"] = time.perf_counter() - t0
+
+        # (b), (c) and (d) on the card at once, untimed.
+        t0 = time.perf_counter()
+        memory = pool.submit(gang.spawn, gang_ranks, PP, (
+            [{"cfg": pp_config(dense, schedule, PP_MEMORY_MICRO), "mesh": {"pp": PP},
+              "batch": BATCH, "seq": PROMPT, "steps": 1, "timed": False}
+             for schedule in ("gpipe", "1f1b")],), backend="gloo", device="cuda",
+            timeout_s=GANG_TIMEOUT_S, threads=0)
+        card_small = pool.submit(gang.spawn, gang_ranks, PP, (small_specs,), backend="gloo",
+                                 device="cuda", timeout_s=GANG_TIMEOUT_S, threads=0)
+        example_card = pool.submit(sp_workload_sequence, "lm-pp-interleaved", "cuda", "gloo")
+        memory, card_small, example_card = (memory.result(), card_small.result(),
+                                            example_card.result())
+        out["untimed_s"] = time.perf_counter() - t0
+
+    # (a) each schedule against one process.
+    out["reference"] = ref
+    for schedule, ranks in timed_runs.items():
+        label = f"pp (a) dense flagship pp=2 {schedule}"
+        pp_print(label, ranks, card)
+        out[schedule] = {"ranks": ranks, "worst": gang_check(
+            f"{label}, {PP_MICRO} microbatches, B={BATCH} T={PROMPT} bf16", ranks, ref,
+            GANG_BF16_LOSS_REL, GANG_BF16_GRAD_REL, GANG_BF16_MOVE_REL)}
+        for r in ranks:
+            c = r["launches"]
+            check(c["TENSOR_CORE_LAUNCHES"] == c["KERNEL_LAUNCHES"] == PP_LAUNCHES
+                  and c["F32_LAUNCHES"] == 0,
+                  f"{label} rank {r['rank']}: {PP_LAUNCHES} bf16 flash launches a step "
+                  f"({PP_MICRO} microbatches x {LAYERS // PP} layers; "
+                  f"{c['KERNEL_LAUNCHES']})")
+
+    # (b) what 1f1b is for: the peak over what a rank held before its step.
+    for i, schedule in enumerate(("gpipe", "1f1b")):
+        for r in (rank[i] for rank in memory):
+            over = r["first_peak_gb"] - r["first_held_gb"]
+            print(f"  pp (b) {PP_MEMORY_MICRO} microbatches of one row, {schedule}, rank "
+                  f"{r['rank']}: one step's peak {over:.3f} GB over the {r['first_held_gb']:.3f} "
+                  f"GB it held before it ({r['first_peak_gb']:.3f} GB in all); loss "
+                  f"{r['grad_loss']:.6f} ({card})", flush=True)
+            check(np.isfinite(r["grad_loss"]) and r["launches"]["TENSOR_CORE_LAUNCHES"]
+                  == PP_MEMORY_MICRO * LAYERS // PP,
+                  f"pp (b) {schedule} rank {r['rank']}: a finite loss and "
+                  f"{PP_MEMORY_MICRO * LAYERS // PP} flash launches")
+    gpipe_b, f1b_b = ([rank[i] for rank in memory] for i in range(2))
+    check(all(abs(a["grad_loss"] - b["grad_loss"]) <= GANG_BF16_LOSS_REL * abs(a["grad_loss"])
+              for a, b in zip(gpipe_b, f1b_b)),
+          f"pp (b): 1f1b's loss is gpipe's within {GANG_BF16_LOSS_REL} "
+          f"({[r['grad_loss'] for r in f1b_b]}, {[r['grad_loss'] for r in gpipe_b]})")
+    out["memory"] = {"gpipe": gpipe_b, "1f1b": f1b_b}
+
+    # (c) the small f32 configs, the card's gang against the CPU's.
+    for i, label in enumerate(small):
+        want, got = cpu[0][i], card_small[0][i]
+        worst = max(abs(a - b) / abs(b) for a, b in zip([got["grad_loss"]] + got["losses"],
+                                                       [want["grad_loss"]] + want["losses"]))
+        grads = [r["launches"]["GROUPED_F32_LAUNCHES"] for r in (rank[i] for rank in card_small)]
+        flash = [r["launches"]["F32_LAUNCHES"] for r in (rank[i] for rank in card_small)]
+        check(worst <= GANG_F32_REL and all(n == PP_MICRO * 2 for n in flash),
+              f"pp (c) small f32 {label} pp=2 (TF32 off): losses {got['losses']} against the "
+              f"CPU gang's {want['losses']} (worst {worst:.2e}, bound {GANG_F32_REL}); f32 "
+              f"flash launches a rank's step {flash}")
+        if "dropless" in label:
+            check(all(n == PP_MICRO * 2 * 2 for n in grads),
+                  f"pp (c) small f32 {label}: {PP_MICRO * 2 * 2} f32 grouped forward launches a "
+                  f"rank's step (2 products x 2 layers x {PP_MICRO} microbatches; {grads})")
+            for r in (rank[i] for rank in card_small):
+                c = r["launches"]
+                print(f"  pp (c) {label} rank {r['rank']}: grouped launches a step: forward "
+                      f"{c['GROUPED_LAUNCHES']} (f32 {c['GROUPED_F32_LAUNCHES']}), dgrad "
+                      f"{c['GROUPED_DGRAD_LAUNCHES']}, wgrad {c['GROUPED_WGRAD_LAUNCHES']} (f32 "
+                      f"TMA {c['GROUPED_WGRAD_F32_TMA_LAUNCHES']})", flush=True)
+        out[f"small {label}"] = {"card": [rank[i] for rank in card_small],
+                                 "cpu": [rank[i] for rank in cpu], "worst": worst}
+
+    # (d) the example, the card's gang against the CPU's.
+    payload, _ = PP_EXAMPLES["lm-pp-interleaved"]
+    final = float(example_card["annotations"].get(FINAL_LOSS, "nan"))
+    want = float(example_cpu["annotations"].get(FINAL_LOSS, "nan"))
+    n = int(np.prod(list(payload["mesh"].values())))
+    check(example_card["terminal_state"] == "Completed" == example_cpu["terminal_state"]
+          and len(example_card["results"] or []) == n and abs(final - want) <= 1e-4,
+          f"pp (d) lm-pp-interleaved.yaml through WorkloadRunner as {n} processes on the card: "
+          f"{example_card['terminal_state']} in {example_card['seconds']:.1f} s, final loss "
+          f"{final} vs the CPU gang's {want}")
+    for line in example_card["results"] or []:
+        print(f"  pp (d) lm-pp-interleaved rank {line['process_id']}: mesh {line['mesh']}, "
+              f"kernel launches {line['kernel_launches']}", flush=True)
+    out["example lm-pp-interleaved"] = {"card": example_card, "cpu": example_cpu}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 17: {out['seconds']:.1f} s (reference and CPU gangs at once "
+          f"{out['references_s']:.1f}, timed gang {out['timed_gang_s']:.1f}, memory, small f32 "
+          f"and example gangs at once {out['untimed_s']:.1f})", flush=True)
+    results["pp"] = out
+
+
+def pp_launches(results) -> dict:
+    """Phase 17's launches of each kernel entry: rank 0's first step under
+    each schedule in (a) (bf16 flash), the small f32 configs' (c) (f32
+    flash, f32 grouped), and rank 0's whole run of lm-pp-interleaved.yaml
+    (f32 flash)."""
+    pp = results.get("pp") or {}
+
+    def first(key):
+        runs = pp.get(key) or {}
+        ranks = runs.get("ranks") or runs.get("card") or [{}]
+        return ranks[0].get("launches") or {}
+
+    lines = ((pp.get("example lm-pp-interleaved") or {}).get("card") or {}).get("results") or [{}]
+    whole = lines[0].get("kernel_launches") or {}
+    flash = {f"{s} pp=2 step": first(s).get("TENSOR_CORE_LAUNCHES") for s in PP_SCHEDULES}
+    dropless = {f"small f32 dropless {s} pp=2 step": first(f"small dropless {s}")
+                for s in PP_SMALL_SCHEDULES["dropless"]}
+    not_run = {"not on the pp runs (the MoE pp run is f32)": 0}
+    return {
+        "flash_block": flash,
+        "flash_block_f32": {**{f"small f32 {label} pp=2 step": first(f"small {label}").get(
+            "F32_LAUNCHES") for label in pp_small_configs()},
+            "lm-pp-interleaved.yaml run, rank 0": whole.get("F32_LAUNCHES")},
+        "flash_block_tile_classes": {f"{s} pp=2 first step": first(s).get("TILE_CLASS_LAUNCHES")
+                                     for s in PP_SCHEDULES},
+        "grouped_matmul": not_run, "grouped_matmul_dgrad": not_run,
+        "grouped_matmul_wgrad": not_run,
+        "grouped_matmul_f32": {k: v.get("GROUPED_F32_LAUNCHES") for k, v in dropless.items()},
+        "grouped_matmul_dgrad_f32": {k: v.get("GROUPED_DGRAD_F32_LAUNCHES")
+                                     for k, v in dropless.items()},
+        "grouped_matmul_wgrad_f32": {k: v.get("GROUPED_WGRAD_F32_LAUNCHES")
+                                     for k, v in dropless.items()},
+    }
+
+
+def phase_pp_apart(results):
+    """Phase 17 in a process of its own (`--pp-only`), this process's cached
+    blocks handed back to the card first."""
+    import tempfile
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pp.json")
+        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--pp-only",
+                              "--out", path], capture_output=True, text=True, timeout=600)
+        print(run.stdout, end="", flush=True)
+        if run.returncode != 0:
+            print(run.stderr[-4000:], file=sys.stderr, flush=True)
+        check(run.returncode == 0 and os.path.exists(path),
+              f"phase 17 in a process of its own exits {run.returncode}")
+        if not os.path.exists(path):
+            return
+        with open(path) as f:
+            results["pp"] = json.load(f).get("pp")
+
+
 def timed(results, label, fn, *args):
     """fn(*args), its wall seconds kept in results["phase_seconds"] and
     printed."""
@@ -5679,6 +6005,9 @@ def main() -> int:
     only.add_argument("--sp-only", action="store_true",
                       help="build the flash block kernels and run phase 16 (sequence "
                            "parallelism and ZeRO-1) alone (no result line)")
+    only.add_argument("--pp-only", action="store_true",
+                      help="build the flash block and grouped kernels and run phase 17 "
+                           "(pipeline parallelism) alone (no result line)")
     only.add_argument("--gang-f32-moe-batch", type=int, metavar="B",
                       help="build the flash block and grouped kernels and run phase 15's f32 "
                            "MoE gang alone at batch B, for its memory (no result line)")
@@ -5724,7 +6053,8 @@ def main() -> int:
                else ["flash_block", "int8_matmul"] if args.serving_only
                else ["flash_block", "int8_matmul", "grouped_matmul"] if args.moe_only
                else ["flash_block", "grouped_matmul"] if (args.moe_train_only or args.gang_only
-                                                          or args.gang_f32_moe_batch)
+                                                          or args.gang_f32_moe_batch
+                                                          or args.pp_only)
                else ["flash_block", "auction", "int8_matmul", "grouped_matmul"])
     libraries = cuda_build.build_all(sources)
     results["build_s"] = time.perf_counter() - t0
@@ -5750,13 +6080,15 @@ def main() -> int:
         phase_gang(results)
     if args.sp_only:
         phase_sp(results)
-    if args.gang_only or args.gang_f32_moe_batch or args.sp_only:
+    if args.pp_only:
+        phase_pp(results)
+    if args.gang_only or args.gang_f32_moe_batch or args.sp_only or args.pp_only:
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
             with open(args.out, "w") as f:
                 json.dump(results, f, indent=1)
         flag = ("--gang-only" if args.gang_only else "--sp-only" if args.sp_only
-                else "--gang-f32-moe-batch")
+                else "--pp-only" if args.pp_only else "--gang-f32-moe-batch")
         print(f"chip_smoke {flag}: "
               f"{len(FAILURES)} check(s) failed, "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
@@ -5884,6 +6216,7 @@ def main() -> int:
     timed(results, "phase 14", phase_workloads_apart, results)
     timed(results, "phase 15", phase_gang_apart, results)
     timed(results, "phase 16", phase_sp_apart, results)
+    timed(results, "phase 17", phase_pp_apart, results)
     adafactor_counts = ((results.get("adafactor_vs_adam") or {}).get("adafactor") or {}).get(
         "launches") or {}
     for kernel in kernels:
@@ -5900,10 +6233,11 @@ def main() -> int:
         kernels.append(int8_kernel)
     attach_grouped_ptxas(grouped_kernels, results.get("grouped_ptxas"), results.get("grouped_sass"))
     kernels += grouped_kernels
-    on_gang, on_sp = gang_launches(results), sp_launches(results)
+    on_gang, on_sp, on_pp = gang_launches(results), sp_launches(results), pp_launches(results)
     for kernel in kernels:
         kernel["gang_launches"] = on_gang.get(kernel["name"], {"not on the gang's path": 0})
         kernel["sp_launches"] = on_sp.get(kernel["name"], {"not on the sp path": 0})
+        kernel["pp_launches"] = on_pp.get(kernel["name"], {"not on the pp path": 0})
     results["kernels"] = kernels
     results["seconds"] = time.perf_counter() - t_start
     if args.out:

@@ -4,12 +4,12 @@ this module imports no JAX. A node with `q` and `scale` (the JAX
 package's `QuantizedTensor`, after `jax.tree.map(np.asarray, ...)`)
 becomes the port's `QuantizedTensor`.
 
-`shard_params` cuts a full tree to one rank's tp shards by the
-transformer's `param_specs`, and `gather_params` puts a gang's shards back
-together; `shard_tree` and `gather_tree` do the same for any tree with a
-tree of specs (a training state, for a checkpoint of global tensors),
-over every mesh axis a spec names (tp, and dp for a ZeRO-1 optimizer
-state), or over the axes the caller names.
+`shard_params` cuts a full tree to one rank's tp shards of its pp stage
+by the transformer's `param_specs`, and `gather_params` puts a gang's
+shards back together; `shard_tree` and `gather_tree` do the same for any
+tree with a tree of specs (a training state, for a checkpoint of global
+tensors), over every mesh axis a spec names (tp, pp, and dp for a ZeRO-1
+optimizer state), or over the axes the caller names.
 """
 
 from __future__ import annotations
@@ -88,16 +88,22 @@ def gather_tree(local, specs, mesh, axes=AXIS_NAMES):
 
 
 def shard_params(full, cfg, mesh):
-    """A full transformer tree (as `params_from_jax` gives it) cut to this
+    """A full transformer tree (as `params_from_jax` gives it, its layer
+    leaves stacked [pp, n_layers / pp, ...] for the mesh's pp) cut to this
     rank's shards by `param_specs(cfg)`."""
     from .models.transformer import param_specs
 
+    stages = {a.shape[0] for a in full["layers"].values()}
+    if stages != {mesh.size("pp")}:
+        raise ValueError(f"layer leaves stacked over {sorted(stages)} stages, the mesh has pp "
+                         f"{mesh.size('pp')}: stack them [pp, n_layers / pp, ...] "
+                         "(init_params(..., mesh_config=...))")
     return shard_tree(full, param_specs(cfg), mesh)
 
 
 def gather_params(local, cfg, mesh):
     """The full transformer tree from the gang's shards (all-gathered over
-    tp)."""
+    tp and pp)."""
     from .models.transformer import param_specs
 
     return gather_tree(local, param_specs(cfg), mesh)

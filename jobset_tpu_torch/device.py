@@ -20,12 +20,12 @@ def resolve_device(device=None) -> torch.device:
 
 # The mesh axes the port does not run yet, each with the ROADMAP item (A6's
 # step) that ports it.
-UNPORTED_AXES = {"pp": "A6 step 5 (pipelines)", "ep": "A6 step 6 (expert parallelism)"}
+UNPORTED_AXES = {"ep": "A6 step 6 (expert parallelism)"}
 
 
 def check_axes(mesh_shape) -> None:
     """Raise NotImplementedError, naming the axis, where a mesh (a payload's
-    `mesh` mapping or a MeshConfig) has pp or ep above 1: the port runs dp,
+    `mesh` mapping or a MeshConfig) has ep above 1: the port runs dp, pp,
     sp and tp so far."""
     shape = (dict(zip(("dp", "pp", "ep", "sp", "tp"), mesh_shape.shape))
              if hasattr(mesh_shape, "shape") else dict(mesh_shape or {}))
@@ -33,7 +33,7 @@ def check_axes(mesh_shape) -> None:
         size = int(shape.get(axis, 1))
         if size != 1:
             raise NotImplementedError(
-                f"mesh axis {axis}={size}: the port runs dp, sp and tp so far; {axis} comes "
+                f"mesh axis {axis}={size}: the port runs dp, pp, sp and tp so far; {axis} comes "
                 f"with ROADMAP {item}"
             )
 

@@ -1,6 +1,7 @@
 """The flagship transformer's forward, serving path (greedy or sampled,
-bf16 or int8) and training step (one device, or dp, sp and tp over a
-gang's mesh; `param_specs` names each leaf's split) in PyTorch; the `mlp` and `cnn` workload kinds' models in
+bf16 or int8) and training step (one device, or dp, pp, sp and tp over a
+gang's mesh; `param_specs` names each leaf's split, `global_shapes` the
+whole tree's shapes for a mesh) in PyTorch; the `mlp` and `cnn` workload kinds' models in
 `models.mlp` and `models.cnn`."""
 
 from .decode import build_generate
@@ -10,6 +11,7 @@ from .transformer import (
     build_eval_step,
     build_forward,
     build_train_step,
+    global_shapes,
     init_params,
     param_specs,
 )
@@ -20,6 +22,7 @@ __all__ = [
     "build_forward",
     "build_generate",
     "build_train_step",
+    "global_shapes",
     "init_params",
     "param_specs",
     "quantize_params_for_serving",

@@ -2,7 +2,7 @@
 of `jobset_tpu/models/transformer.py`, dense or mixture-of-experts.
 
 Parameters are a plain dict that keeps the JAX tree's names and stacked
-`[pp=1, layers, ...]` shapes, so a JAX param tree converts leaf for leaf
+`[pp, layers / pp, ...]` layer shapes, so a JAX param tree converts leaf for leaf
 (`jobset_tpu_torch.convert.params_from_jax`). Compute runs in `cfg.dtype`
 (bf16 by default) over f32 parameters, with f32 norm and softmax
 statistics. Attention goes through `ring_attention` (or, with `attn_impl`
@@ -31,7 +31,7 @@ through `ops.grouped_matmul`'s autograd Function (hand kernels for the
 backward on the card).
 
 Over a gang (`mesh`, a `parallel.mesh.Mesh`) the train and eval steps
-run dp, sp and tp, with the reference's collectives
+run dp, pp, sp and tp, with the reference's collectives
 (`parallel.collectives`): each rank holds its dp rows and its sp chunk of
 positions of the batch and its tp shards of the parameters
 (`param_specs`: heads, hidden and expert columns, and the vocab split
@@ -46,8 +46,18 @@ product, and the gradients are summed over (dp, sp) once a step, after
 accumulation, in one all-reduce (a tp-sharded leaf is never reduced over
 tp). Without a mesh, or at size 1, every collective is the identity.
 
-Not ported yet: pp/ep > 1 and microbatched pipelines;
-`TransformerConfig.validate` rejects the settings.
+Pipeline parallelism (pp > 1, or more than one microbatch) splits the
+layer stack over pp: a rank holds its stage's [1, n_layers / pp, ...]
+slice of each layer leaf, and the microbatches run through the stages on
+`parallel.pipeline.drive` under the configured schedule ("gpipe",
+"interleaved" with `pipeline_virtual` chunks a rank, or "1f1b"). The
+embedding runs on pp rank 0 and the loss head on the last; the loss's
+sum and count reduce over (dp, sp, pp), the MoE statistics pool over a
+rank's microbatches and then (dp, sp) before each layer's product, and
+the gradients of the layer leaves sum over (dp, sp), those of the
+embedding, final norm and unembedding over (dp, sp, pp).
+
+Not ported yet: ep > 1; `TransformerConfig.validate` rejects it.
 """
 
 from __future__ import annotations
@@ -66,7 +76,8 @@ from ..device import check_axes, resolve_device
 from ..ops.flash_block import MAX_HEAD_DIM
 from ..ops.grouped_matmul import grouped_matmul
 from ..parallel.collectives import all_reduce_, copy, pmax, reduce
-from ..parallel.mesh import DATA_AXES, MeshConfig
+from ..parallel.mesh import DATA_AXES, LOSS_AXES, MeshConfig
+from ..parallel.pipeline import drive, timetable
 from ..parallel.ring_attention import ring_attention
 from ..parallel.ulysses_attention import ulysses_attention
 from .quant import QuantizedTensor, matmul, matmul_experts, weight_cast
@@ -115,11 +126,15 @@ class TransformerConfig:
     loss_chunk: int = 0
     label_smoothing: float = 0.0
     z_loss_coef: float = 0.0
-    # Pipeline microbatches (0 = the pp size); only one is ported.
+    # Pipeline microbatches (0 = the pp size).
     n_microbatches: int = 0
     max_seq_len: int = 2048
     moe_aux_coef: float = 0.01
+    # "gpipe", "interleaved" (pipeline_virtual chunks a rank, the bubble
+    # ~pipeline_virtual-fold smaller) or "1f1b" (at most 2 * (pp - r) - 1
+    # microbatches in flight on rank r).
     pipeline_schedule: str = "gpipe"
+    pipeline_virtual: int = 1  # chunks a rank (interleaved only)
 
     @property
     def head_dim(self) -> int:
@@ -132,13 +147,15 @@ class TransformerConfig:
     def validate(self, mesh_shape: MeshConfig | Mapping[str, int] | None = None) -> None:
         """Reject what the port cannot run on the mesh (a MeshConfig or a
         payload's `mesh` mapping; None: one device): bad widths and MoE
-        settings, widths that tp does not divide and Ulysses' head split
-        (the reference's rules at ep = 1), and every setting it has not
-        ported (pp or ep > 1, pipelines)."""
+        settings, widths that tp does not divide, Ulysses' head split and
+        the pipeline's rules (the reference's rules at ep = 1), and ep > 1,
+        which it has not ported."""
         mc = MeshConfig.of(mesh_shape)
         check_axes(mc)
         if self.d_model % self.n_heads:
             raise ValueError("d_model must divide evenly into heads")
+        if self.n_layers % mc.pp:
+            raise ValueError(f"n_layers {self.n_layers} not divisible by pp {mc.pp}")
         if self.n_heads % mc.tp:
             raise ValueError(f"n_heads {self.n_heads} not divisible by tp {mc.tp}")
         if self.n_heads % self.kv_heads:
@@ -192,15 +209,29 @@ class TransformerConfig:
                 f"unknown remat_policy {self.remat_policy!r} (expected 'full' or 'dots')"
             )
         if self.pipeline_schedule not in ("gpipe", "interleaved", "1f1b"):
-            raise ValueError(f"unknown pipeline_schedule {self.pipeline_schedule!r}")
-        if self.pipeline_schedule != "gpipe":
-            raise NotImplementedError(
-                f"pipeline_schedule={self.pipeline_schedule!r}: only 'gpipe' at pp=1 is ported"
+            raise ValueError(
+                f"unknown pipeline_schedule {self.pipeline_schedule!r} "
+                "(expected 'gpipe', 'interleaved' or '1f1b')"
             )
-        if self.n_microbatches > 1:
-            raise NotImplementedError(
-                f"n_microbatches={self.n_microbatches}: the port runs one microbatch (pp=1)"
+        if self.pipeline_virtual < 1:
+            raise ValueError("pipeline_virtual must be >= 1")
+        if self.pipeline_schedule != "interleaved" and self.pipeline_virtual != 1:
+            raise ValueError("pipeline_virtual > 1 requires 'interleaved'")
+        if self.pipeline_schedule == "1f1b" and self.moe_top_k > 0 and self.moe_router == "token":
+            raise ValueError(
+                "pipeline_schedule='1f1b' does not support token-choice top-k routing "
+                "(moe_top_k > 0): its balancing aux is normalized over the global batch, which "
+                "a schedule that starts backwards before all forwards finish cannot see. "
+                "Dense, soft-dispatch and expert-choice MoE models work (none carries a "
+                "batch-global aux)."
             )
+        if self.pipeline_schedule == "interleaved":
+            lps = self.n_layers // max(mc.pp, 1)
+            if lps % self.pipeline_virtual:
+                raise ValueError(
+                    f"layers per stage ({lps}) not divisible by "
+                    f"pipeline_virtual ({self.pipeline_virtual})"
+                )
         if self.attn_impl == "ulysses" and (self.n_heads // mc.tp) % mc.sp:
             raise ValueError(
                 f"ulysses attention requires heads-per-tp-rank "
@@ -255,10 +286,10 @@ def local_shape(shape, spec, mesh_config: MeshConfig | None) -> tuple:
 
 def param_shapes(config: TransformerConfig, mesh_config: MeshConfig | None = None) -> dict:
     """The param tree's names, each with (shape, fan_in); fan_in None marks
-    a norm scale (ones). Layer leaves are stacked [pp=1, n_layers, ...].
-    With `mesh_config`, the shapes are one rank's shards (`param_specs`);
-    fan_in stays the global one."""
-    shapes = _global_param_shapes(config)
+    a norm scale (ones). Layer leaves are stacked [1, n_layers, ...]. With
+    `mesh_config`, the shapes are one rank's shards (`param_specs`), its
+    stage [1, n_layers / pp, ...]; fan_in stays the global one."""
+    shapes = _global_param_shapes(config, mesh_config.pp if mesh_config else 1)
     if mesh_config is None:
         return shapes
     specs = param_specs(config)
@@ -271,51 +302,56 @@ def param_shapes(config: TransformerConfig, mesh_config: MeshConfig | None = Non
     return walk(shapes, specs)
 
 
-def global_shapes(config: TransformerConfig) -> dict:
-    """The param tree's global shapes (tuples), leaf for leaf."""
+def global_shapes(config: TransformerConfig, mesh_config: MeshConfig | None = None) -> dict:
+    """The param tree's global shapes (tuples), leaf for leaf, the layer
+    leaves stacked [pp, n_layers / pp, ...] for `mesh_config`'s pp."""
     def walk(shape_tree):
         return {name: walk(v) if isinstance(v, dict) else tuple(v[0])
                 for name, v in shape_tree.items()}
 
-    return walk(_global_param_shapes(config))
+    return walk(_global_param_shapes(config, mesh_config.pp if mesh_config else 1))
 
 
-def _global_param_shapes(config: TransformerConfig) -> dict:
+def _global_param_shapes(config: TransformerConfig, pp: int = 1) -> dict:
     cfg = config
-    d, h, dh, lps = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.n_layers
+    d, h, dh, lps = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.n_layers // pp
     shapes = {
         "embed": ((cfg.vocab_size, d), d),
         "final_norm": ((d,), None),
         "layers": {
-            "ln1": ((1, lps, d), None),
-            "ln2": ((1, lps, d), None),
-            "wq": ((1, lps, d, h * dh), d),
-            "wk": ((1, lps, d, cfg.kv_heads * dh), d),
-            "wv": ((1, lps, d, cfg.kv_heads * dh), d),
-            "wo": ((1, lps, h * dh, d), h * dh),
+            "ln1": ((pp, lps, d), None),
+            "ln2": ((pp, lps, d), None),
+            "wq": ((pp, lps, d, h * dh), d),
+            "wk": ((pp, lps, d, cfg.kv_heads * dh), d),
+            "wv": ((pp, lps, d, cfg.kv_heads * dh), d),
+            "wo": ((pp, lps, h * dh, d), h * dh),
         },
     }
     if cfg.n_experts:
         e, f = cfg.n_experts, cfg.d_ff_expert
         shapes["layers"].update({
-            "wg": ((1, lps, d, e), d),
-            "we1": ((1, lps, e, d, f), d),
-            "we2": ((1, lps, e, f, d), f),
+            "wg": ((pp, lps, d, e), d),
+            "we1": ((pp, lps, e, d, f), d),
+            "we2": ((pp, lps, e, f, d), f),
         })
     else:
         shapes["layers"].update({
-            "w1": ((1, lps, d, cfg.d_ff), d),
-            "w2": ((1, lps, cfg.d_ff, d), cfg.d_ff),
+            "w1": ((pp, lps, d, cfg.d_ff), d),
+            "w2": ((pp, lps, cfg.d_ff, d), cfg.d_ff),
         })
     if not cfg.tie_embeddings:
         shapes["unembed"] = ((d, cfg.vocab_size), d)
     return shapes
 
 
-def init_params(config: TransformerConfig, generator: torch.Generator, device=None) -> dict:
+def init_params(config: TransformerConfig, generator: torch.Generator, device=None,
+                mesh_config: MeshConfig | None = None) -> dict:
     """Random parameters: normal / sqrt(fan_in) for matrices, ones for norm
-    scales, drawn on the generator's device and placed on `device`. The
-    numbers differ from the JAX `init_params` for the same seed."""
+    scales, drawn on the generator's device and placed on `device`; the
+    whole tree, its layer leaves stacked [pp, n_layers / pp, ...] for
+    `mesh_config`'s pp (drawn in one order, so the numbers are pp = 1's,
+    reshaped). The numbers differ from the JAX `init_params` for the same
+    seed."""
     cfg = config
     device = resolve_device(device)
 
@@ -333,11 +369,12 @@ def init_params(config: TransformerConfig, generator: torch.Generator, device=No
             for name, v in tree.items()
         }
 
-    return walk(param_shapes(cfg))
+    return walk(_global_param_shapes(cfg, mesh_config.pp if mesh_config else 1))
 
 
 def layer_params(params: dict, i: int) -> dict:
-    """Layer i's slice of the stacked [pp=1, layers, ...] leaves (views)."""
+    """Layer i's slice of the stacked [1, layers, ...] leaves (views): of a
+    tree of one stage (pp = 1, or a rank's shard)."""
     return {name: a[0, i] for name, a in params["layers"].items()}
 
 
@@ -390,6 +427,10 @@ def _sp(mesh):
 def _data(mesh):
     """The (dp, sp) group the batch is split over (None: one rank)."""
     return mesh.group(DATA_AXES) if mesh is not None else None
+
+
+def _pp_size(mesh) -> int:
+    return mesh.size("pp") if mesh is not None else 1
 
 
 def _embed_tokens(embed, tokens, cfg, mesh=None):
@@ -832,6 +873,176 @@ def _local_loss(params, inputs, targets, mask, cfg: TransformerConfig, mesh=None
     return loss_sum, count, aux
 
 
+# ---------------------------------------------------------------------------
+# Pipeline parallelism
+# ---------------------------------------------------------------------------
+
+
+def _n_micro(cfg: TransformerConfig, mesh) -> int:
+    """The microbatches of a step: `n_microbatches`, or the pp size."""
+    return cfg.n_microbatches or _pp_size(mesh)
+
+
+def _pipelined(cfg: TransformerConfig, mesh) -> bool:
+    """Whether a step runs on the pipeline loop (`drive`): over pp stages or in
+    several microbatches. One stage and one microbatch is `_local_loss`'s
+    single pass (`drive`'s one F and one B)."""
+    return _pp_size(mesh) > 1 or _n_micro(cfg, mesh) > 1
+
+
+def _stage(slots: list, x, cfg: TransformerConfig, mesh=None):
+    """One chunk of a stage: its layers (`slots`, each a layer's parameter
+    dict) in order on microbatch x, under the configured remat. Returns (y,
+    per-layer stats [len(slots), 2, aux_stat_width])."""
+    stats = []
+    for p in slots:
+        x, layer_stats = _remat_layer(p, x, cfg, mesh)
+        stats.append(layer_stats)
+    return x, torch.stack(stats)
+
+
+class _Pipeline:
+    """A step's pieces on this rank: the timetable, the parameters as
+    detached leaves that require grad under training (`live`, and `slots`,
+    one dict a layer of this rank's stage, so that every B event adds into
+    its slots' gradients), the microbatches of the batch, the token count
+    over (dp, sp), and the loss head."""
+
+    def __init__(self, params, inputs, targets, mask, cfg: TransformerConfig, mesh, train: bool):
+        self.cfg, self.mesh = cfg, mesh
+        n_micro = _n_micro(cfg, mesh)
+        b_local = inputs.shape[0]
+        if b_local % n_micro:
+            raise ValueError(
+                f"per-device batch {b_local} must be divisible by n_microbatches {n_micro} "
+                f"(global batch % (dp * n_microbatches) == 0)")
+        self.n_micro, self.mb = n_micro, b_local // n_micro
+        self.pp = _pp_size(mesh)
+        self.rank = mesh.index("pp") if mesh is not None else 0
+        self.group = mesh.group("pp") if mesh is not None else None
+        self.table = timetable(cfg.pipeline_schedule, n_micro, self.pp, cfg.pipeline_virtual)
+        self.live = {k: v.detach().requires_grad_(train) for k, v in params.items()
+                     if k != "layers"}
+        lps = n_layers_of(params)
+        self.slots = [{name: a[0, i].detach().requires_grad_(train)
+                       for name, a in params["layers"].items()} for i in range(lps)]
+        self.lpc = lps // self.table.n_virtual
+        self.targets, self.mask = targets, mask
+        count = mask.sum()
+        self.count = reduce(count, _data(mesh)) if mesh is not None else count
+        self.like = torch.empty((self.mb, inputs.shape[1], cfg.d_model), dtype=cfg.dtype,
+                                device=inputs.device)
+        # The embedding runs on the first stage only (its tp reduce among
+        # the first stage's tp peers).
+        self.x = (_embed_tokens(self.live["embed"], inputs, cfg, mesh)
+                  if self.rank == 0 else None)
+
+    def stage(self, b, c, x):
+        return _stage(self.slots[c * self.lpc:(c + 1) * self.lpc], x, self.cfg, self.mesh)
+
+    def feed(self, b):
+        return self.x.detach()[self.rows(b)]
+
+    def head_sum(self, y, rows: slice):
+        """The masked per-token cross-entropy summed over `rows` of this
+        rank's batch, from the last stage's output y."""
+        xn = rms_norm(y, self.live["final_norm"], self.cfg.norm_eps)
+        per_token = _token_ce(self.live, xn, self.targets[rows], self.cfg, self.mesh)
+        return (per_token * self.mask[rows]).sum()
+
+    def rows(self, b) -> slice:
+        return slice(b * self.mb, (b + 1) * self.mb)
+
+    def outputs_sum(self, outputs: dict):
+        """head_sum over the whole batch from the last stage's outputs by
+        microbatch (0 on a rank that holds none)."""
+        if not outputs:
+            return self.like.new_zeros((), dtype=torch.float32)
+        y = torch.cat([outputs[b] for b in range(self.n_micro)])
+        return self.head_sum(y, slice(None))
+
+
+def _pipeline_loss_and_grads(params, inputs, targets, mask, cfg: TransformerConfig, mesh=None):
+    """(loss, gradient tree) of one pass over the pipeline, the gradients
+    this rank's, before any reduction: the layer slots' in its stage's
+    leaves, the embedding's on the first stage, the head's on the last.
+    The loss is the global batch's on every rank."""
+    pipe = _Pipeline(params, inputs, targets, mask, cfg, mesh, train=True)
+    scale = 1.0 / torch.clamp(pipe.count, min=1.0)
+    values = {"sum": pipe.like.new_zeros((), dtype=torch.float32),
+              "aux": pipe.like.new_zeros((), dtype=torch.float32)}
+
+    def finish(outputs, extras):
+        """gpipe, interleaved: the last stage's loss head over every
+        microbatch, and each rank's layers' aux term from the pooled
+        statistics of its units, pooled again over (dp, sp)."""
+        loss_sum = pipe.outputs_sum(outputs)
+        values["sum"] = loss_sum.detach()
+        objective = loss_sum * scale if outputs else None
+        if cfg.moe_top_k > 0:
+            width = aux_stat_width(cfg)
+            per_slot = [pipe.like.new_zeros((2, width), dtype=torch.float32)
+                        for _ in pipe.slots]
+            for (b, c), stats in sorted(extras.items()):
+                for i in range(pipe.lpc):
+                    per_slot[c * pipe.lpc + i] = per_slot[c * pipe.lpc + i] + stats[i]
+            aux = _balancing_aux(reduce(torch.stack(per_slot), _data(mesh)), cfg)
+            values["aux"] = aux.detach()
+            term = cfg.moe_aux_coef * aux
+            objective = term if objective is None else objective + term
+        return objective
+
+    def head(b, y):
+        """1f1b: microbatch b's loss head on the last stage, the global 1 /
+        token count folded in."""
+        return pipe.head_sum(y, pipe.rows(b)) * scale
+
+    result = drive(pipe.table, pipe.rank, pipe.group, pipe.stage, pipe.feed, pipe.like,
+                   finish=finish, head=head)
+    if pipe.x is not None:
+        torch.autograd.backward(pipe.x, torch.cat([result.feed_grads[b]
+                                                   for b in range(pipe.n_micro)]))
+    loss_group = mesh.group(LOSS_AXES) if mesh is not None else None
+    if pipe.table.fused:
+        loss = reduce(sum(result.head_values, values["sum"]), loss_group)
+    else:
+        loss = reduce(values["sum"], loss_group) * scale
+        if cfg.moe_top_k > 0:
+            loss = loss + cfg.moe_aux_coef * reduce(values["aux"], pipe.group)
+
+    def grad(t):
+        return t.grad if t.grad is not None else torch.zeros_like(t)
+
+    grads = {k: grad(v) for k, v in pipe.live.items()}
+    grads["layers"] = {name: torch.stack([grad(s[name]) for s in pipe.slots]).unsqueeze(0)
+                       for name in params["layers"]}
+    return loss.detach(), grads
+
+
+def _pipeline_eval_sum(params, inputs, targets, mask, cfg: TransformerConfig, mesh=None):
+    """(loss sum, token count) of the global batch: the schedule's F events
+    alone (1f1b's are gpipe's), the loss head on the last stage."""
+    pipe = _Pipeline(params, inputs, targets, mask, cfg, mesh, train=False)
+    result = drive(pipe.table, pipe.rank, pipe.group, pipe.stage, pipe.feed, pipe.like,
+                   train=False)
+    loss_sum = pipe.outputs_sum(result.outputs)
+    return reduce(loss_sum, mesh.group(LOSS_AXES) if mesh is not None else None), pipe.count
+
+
+def _all_reduce_grads(grads: dict, mesh) -> None:
+    """Sum a step's gradients in place: the layer leaves over (dp, sp), the
+    others over (dp, sp, pp); one all-reduce a group (one in all at pp =
+    1)."""
+    if mesh is None:
+        return
+    if mesh.size("pp") == 1:
+        all_reduce_(tree.leaves(grads), mesh.group(DATA_AXES))
+        return
+    all_reduce_(tree.leaves(grads["layers"]), mesh.group(DATA_AXES))
+    all_reduce_([g for k, g in sorted(grads.items()) if k != "layers"],
+                mesh.group(LOSS_AXES))
+
+
 def _batch_on(batch: dict, device):
     """(inputs, targets, mask) on `device`; the mask defaults to ones, f32."""
     inputs = torch.as_tensor(batch["inputs"]).to(device, non_blocking=True)
@@ -850,10 +1061,13 @@ def build_train_step(config: TransformerConfig, optimizer, accum_steps: int = 1,
     `runtime.optim.Optimizer` (init/update over param trees).
 
     mesh: a `parallel.mesh.Mesh` (None: one device). Then params are this
-    rank's shards (`param_shapes(cfg, mesh.config)`), the batch is its dp
-    rows and its sp chunk of positions, and the loss is the global batch's
-    on every rank; the gradients are summed over (dp, sp) once, after
-    accumulation.
+    rank's shards (`param_shapes(cfg, mesh.config)`: its tp shards of its
+    pp stage), the batch is its dp rows and its sp chunk of positions, and
+    the loss is the global batch's on every rank; the gradients are summed
+    over (dp, sp), and those outside the layers over pp as well, once,
+    after accumulation. Over pp stages, or with more than one microbatch
+    (`n_microbatches`, default the pp size), each pass runs on the
+    pipeline loop (`parallel.pipeline.drive`) under `pipeline_schedule`.
 
     accum_steps: the batch splits into that many equal chunks along its
     first axis, run in sequence; their losses and gradients are averaged
@@ -862,9 +1076,11 @@ def build_train_step(config: TransformerConfig, optimizer, accum_steps: int = 1,
     cfg = config
     cfg.validate(mesh.config if mesh is not None else None)
     device = resolve_device(device)
-    data = _data(mesh)
 
     def loss_and_grads(params, inputs, targets, mask):
+        if _pipelined(cfg, mesh):
+            loss, grads = _pipeline_loss_and_grads(params, inputs, targets, mask, cfg, mesh)
+            return loss, tree.leaves(grads)
         live = tree.tree_map(lambda t: t.detach().requires_grad_(), params)
         loss_sum, count, aux = _local_loss(live, inputs, targets, mask, cfg, mesh)
         loss = loss_sum / torch.clamp(count, min=1.0) + cfg.moe_aux_coef * aux
@@ -889,8 +1105,9 @@ def build_train_step(config: TransformerConfig, optimizer, accum_steps: int = 1,
             torch._foreach_mul_(grads, 1.0 / accum_steps)
         else:
             loss, grads = loss_and_grads(params, inputs, targets, mask)
-        all_reduce_(grads, data)
-        updates, opt_state = optimizer.update(tree.rebuild(params, grads), opt_state, params)
+        grads = tree.rebuild(params, grads)
+        _all_reduce_grads(grads, mesh)
+        updates, opt_state = optimizer.update(grads, opt_state, params)
         return tree.apply_updates(params, updates), opt_state, loss
 
     return train_step
@@ -899,15 +1116,19 @@ def build_train_step(config: TransformerConfig, optimizer, accum_steps: int = 1,
 def build_eval_step(config: TransformerConfig, device=None, mesh=None):
     """eval_step(params, batch) -> mean per-token cross-entropy (a 0-dim f32
     tensor): the loss half of `build_train_step`, without gradients, over
-    `mesh` as the train step. Label smoothing and z-loss are off, so
-    exp(loss) stays a perplexity."""
+    `mesh` as the train step (over pp, the schedule's forward events: 1f1b
+    evaluates on gpipe's wavefront, as the reference does). Label
+    smoothing and z-loss are off, so exp(loss) stays a perplexity."""
     cfg = replace(config, label_smoothing=0.0, z_loss_coef=0.0)
     cfg.validate(mesh.config if mesh is not None else None)
     device = resolve_device(device)
 
     @torch.no_grad()
     def eval_step(params, batch):
-        loss_sum, count, _ = _local_loss(params, *_batch_on(batch, device), cfg, mesh)
+        if _pipelined(cfg, mesh):
+            loss_sum, count = _pipeline_eval_sum(params, *_batch_on(batch, device), cfg, mesh)
+        else:
+            loss_sum, count, _ = _local_loss(params, *_batch_on(batch, device), cfg, mesh)
         return loss_sum / torch.clamp(count, min=1.0)
 
     return eval_step
@@ -915,16 +1136,26 @@ def build_eval_step(config: TransformerConfig, device=None, mesh=None):
 
 def build_forward(config: TransformerConfig, device=None):
     """forward(params, tokens [B, T]) -> logits [B, T, vocab] in the compute
-    dtype, on `device` (the card unless the caller names another)."""
+    dtype, on `device` (the card unless the caller names another). One
+    device: with `n_microbatches`, the batch runs in the largest count of
+    equal microbatches at most that many, as the reference's forward cuts
+    it (MoE routing sees a microbatch's tokens)."""
     cfg = config
     cfg.validate()
     device = resolve_device(device)
 
     @torch.no_grad()
     def forward(params, tokens):
-        x = _embed_tokens(params["embed"], tokens.to(device), cfg)
-        for i in range(n_layers_of(params)):
-            x = _layer(layer_params(params, i), x, cfg)[0]
+        tokens = tokens.to(device)
+        b = tokens.shape[0]
+        count = next(m for m in range(min(max(cfg.n_microbatches, 1), b), 0, -1) if b % m == 0)
+        outs = []
+        for part in tokens.chunk(count):
+            x = _embed_tokens(params["embed"], part, cfg)
+            for i in range(n_layers_of(params)):
+                x = _layer(layer_params(params, i), x, cfg)[0]
+            outs.append(x)
+        x = outs[0] if count == 1 else torch.cat(outs)
         xn = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return unembed_logits(params, xn, cfg)
 

@@ -25,6 +25,11 @@ Sequence parallelism adds two more, with their own transposes:
   rank receives concatenated along another dim in group-rank order; its
   backward is the all-to-all with the two dims swapped.
 
+Pipeline parallelism adds `shift`, the pipeline's `lax.ppermute` by a
+step, cyclic or not, with no gradient: the pipeline loop
+(`parallel.pipeline.drive`) moves activations and cotangents itself, so
+that every rank of the pp group makes every call.
+
 A group of None (an axis of size 1, or no process group) makes every
 function here the identity, and every output is contiguous. All of them
 work on CPU tensors under gloo and on CUDA tensors under NCCL or gloo
@@ -33,9 +38,9 @@ work on CPU tensors under gloo and on CUDA tensors under NCCL or gloo
 `all_to_all_single`, which gloo runs on CUDA tensors where its send/recv
 does not (gloo's send of a CUDA tensor hands the device pointer to the
 socket as host memory and aborts; `chip_smoke.py` phase 16 probes both).
-Each moves the bytes of the collective it stands for: `rotate` sends
-this rank's tensor to one peer (split sizes of zero for the others),
-`gather` sends it to every rank.
+Each moves the bytes of the collective it stands for: `rotate` and
+`shift` send this rank's tensor to one peer (split sizes of zero for the
+others), `gather` sends it to every rank.
 """
 
 from __future__ import annotations
@@ -132,6 +137,25 @@ def _rotated(x: torch.Tensor, shift: int, group) -> torch.Tensor:
     send = [n if j == (me + shift) % size else 0 for j in range(size)]
     recv = [n if j == (me - shift) % size else 0 for j in range(size)]
     return _exchange(x.reshape(-1), group, send, recv).view(x.shape)
+
+
+def shift(x: torch.Tensor, group, step: int = 1, cyclic: bool = False) -> torch.Tensor:
+    """`lax.ppermute` by `step` over the group, without a gradient: rank i's
+    x goes to rank i + step. Cyclic, the ranks wrap around; not cyclic, the
+    ranks past the edge send nothing and those with no source get zeros
+    (the reference's `shift_perm`; its `cyclic_perm` when cyclic). A group
+    of None is the identity."""
+    if group is None:
+        return x.contiguous()
+    size, me = dist.get_world_size(group), dist.get_rank(group)
+    dest, src = me + step, me - step
+    if cyclic:
+        dest, src = dest % size, src % size
+    n = x.numel()
+    send = [n if j == dest else 0 for j in range(size)]
+    recv = [n if j == src else 0 for j in range(size)]
+    got = _exchange(x.reshape(-1)[:sum(send)], group, send, recv)
+    return got.view(x.shape) if 0 <= src < size else x.new_zeros(x.shape)
 
 
 class _Rotate(torch.autograd.Function):

@@ -14,11 +14,14 @@ device `r` (`rank_grid`), so dp is outermost and process-major and tp
 varies fastest. `build_mesh` makes a `DeviceMesh` over the ranks with
 `mesh_dim_names=AXIS_NAMES` and exposes one process group per axis
 (`Mesh.group`); an axis of size 1 has no group, and every collective over
-it is the identity, as in the reference. One more group joins the dp and
-sp axes (`DATA_AXES`): the batch is split over both, so the loss's sums
-and the gradients reduce over the pair, in one all-reduce where the
-reference names both axes in one psum. `single_device_mesh()` is the mesh
-of a run with no process group at all.
+it is the identity, as in the reference. Two more groups join axes
+(`JOINT_AXES`): the batch is split over dp and sp (`DATA_AXES`), so the
+layers' gradients reduce over the pair, in one all-reduce where the
+reference names both axes in one psum; the loss's sums and the gradients
+of the leaves every pipeline stage shares (the embedding, the final norm,
+the unembedding) reduce over dp, sp and pp (`LOSS_AXES`).
+`single_device_mesh()` is the mesh of a run with no process group at
+all.
 
 The reference's varying-axes helpers (`vma_union`, `pvary_like`,
 `pvary_to`) have no counterpart: torch has no varying-axes typing, and
@@ -37,8 +40,14 @@ import numpy as np
 
 AXIS_NAMES = ("dp", "pp", "ep", "sp", "tp")
 # The axes the batch is split over (rows over dp, positions over sp): the
-# loss's sums and the gradients reduce over both at once.
+# layers' gradients reduce over both at once.
 DATA_AXES = ("dp", "sp")
+# The batch's axes and the pipeline's: the loss's sums, and the gradients of
+# the leaves outside the stacked layers, reduce over all three.
+LOSS_AXES = ("dp", "sp", "pp")
+# The joint groups every mesh makes, each where two or more of its axes
+# are above 1.
+JOINT_AXES = (DATA_AXES, LOSS_AXES)
 
 
 @dataclass(frozen=True)
@@ -144,8 +153,8 @@ class Mesh:
 
     def group(self, axis):
         """The axis's process group; None where the axis has size 1. A tuple
-        of axes (`DATA_AXES`) names their joint group, which is one axis's
-        group where the other has size 1."""
+        of axes (one of `JOINT_AXES`) names their joint group, which is one
+        axis's group where the others have size 1."""
         if self.size(axis) == 1:
             return None
         if isinstance(axis, tuple):
@@ -171,18 +180,18 @@ def _world() -> int:
     return dist.get_world_size()
 
 
-def _joint_group(grid: np.ndarray):
-    """This rank's group of the (dp, sp) pair where both axes are above 1,
-    else None. torch asks every rank of the gang to make every group, in
-    one order, so every rank (one past a submesh too) makes one for each
-    place on the other axes and keeps its own."""
+def _joint_group(grid: np.ndarray, axes: tuple):
+    """This rank's group of the axes of `axes` that are above 1, where two
+    or more are, else None. torch asks every rank of the gang to make every
+    group, in one order, so every rank (one past a submesh too) makes one
+    for each place on the other axes and keeps its own."""
     import torch.distributed as dist
 
-    data = [AXIS_NAMES.index(axis) for axis in DATA_AXES]
-    if not all(grid.shape[i] > 1 for i in data):
+    wide = [AXIS_NAMES.index(axis) for axis in axes if grid.shape[AXIS_NAMES.index(axis)] > 1]
+    if len(wide) < 2:
         return None
-    rest = [i for i in range(grid.ndim) if i not in data]
-    by_place = np.moveaxis(grid, data, [grid.ndim - 2, grid.ndim - 1])
+    rest = [i for i in range(grid.ndim) if i not in wide]
+    by_place = np.moveaxis(grid, wide, list(range(grid.ndim - len(wide), grid.ndim)))
     mine = None
     for place in np.ndindex(*[grid.shape[i] for i in rest]):
         ranks = sorted(int(r) for r in by_place[place].flatten())
@@ -201,13 +210,12 @@ def _device_mesh(grid: np.ndarray, device) -> Optional[Mesh]:
 
     dm = DeviceMesh(resolve_device(device).type, torch.as_tensor(grid),
                     mesh_dim_names=AXIS_NAMES)
-    joint = _joint_group(grid)
+    joint = {axes: _joint_group(grid, axes) for axes in JOINT_AXES}
     if dm.get_coordinate() is None:  # a rank past a submesh
         return None
     groups = {axis: dm.get_group(axis) for axis, size in zip(AXIS_NAMES, grid.shape)
               if size > 1}
-    if joint is not None:
-        groups[DATA_AXES] = joint
+    groups.update({axes: group for axes, group in joint.items() if group is not None})
     return Mesh(MeshConfig(*grid.shape), grid, dist.get_rank(), groups)
 
 

@@ -9,11 +9,13 @@ checkpoints of the JAX package are not read.
 
 A gang saves the global state, as orbax saves global arrays: given its
 mesh and the state's specs, `save` gathers every tensor over each axis
-its spec splits (tp, and dp for a ZeRO-1 optimizer state) and the rank at
+its spec splits (tp, pp, and dp for a ZeRO-1 optimizer state) and the rank at
 every axis's 0 writes it, and every rank waits for the write; `restore`
 reads the global state on every rank and cuts each tensor to the rank's
-shard. So a checkpoint written at one mesh restores at another, and one
-written with ZeRO-1 restores without it and the other way round.
+shard. So a checkpoint written at one mesh restores at another (a layer
+leaf is stacked [pp, n_layers / pp, ...]: `restack_layers` moves a
+checkpoint between pp sizes), and one written with ZeRO-1 restores
+without it and the other way round.
 """
 
 from __future__ import annotations
@@ -29,10 +31,28 @@ from ..convert import gather_tree, shard_tree
 _STATE = "state.pt"
 
 
+def restack_layers(state: Any, specs: Any, pp: int) -> Any:
+    """`state` with each tensor whose spec puts pp on its first dim (a
+    layer leaf, or its optimizer state) restacked [pp, n / pp, ...], n the
+    product of its first two dims: the layers keep their global order, so
+    a global state saved at one pp size reads at another."""
+    if isinstance(state, dict):
+        return {k: restack_layers(v, specs.get(k) if isinstance(specs, dict) else None, pp)
+                for k, v in state.items()}
+    if isinstance(state, list):
+        return [restack_layers(v, specs[i] if isinstance(specs, list) else None, pp)
+                for i, v in enumerate(state)]
+    if (torch.is_tensor(state) and isinstance(specs, tuple) and specs and specs[0] == "pp"
+            and state.shape[0] != pp):
+        return state.reshape(pp, -1, *state.shape[2:])
+    return state
+
+
 class Checkpointer:
     """`mesh` (a `parallel.mesh.Mesh`) and `specs` (the state's tree of specs,
     as `param_specs` gives them; None: nothing sharded) make it a gang's
-    checkpointer; without a mesh it is one process's."""
+    checkpointer; without a mesh it is one process's (with `specs`, its
+    layer leaves restacked to one stage on restore)."""
 
     def __init__(self, directory: str, max_to_keep: int = 3, mesh=None, specs=None):
         self.directory = os.path.abspath(directory)
@@ -90,6 +110,9 @@ class Checkpointer:
             raise FileNotFoundError(f"no checkpoint found in {self.directory}")
         path = os.path.join(self.directory, str(step), _STATE)
         state = torch.load(path, map_location=map_location, weights_only=True)
+        if self.specs is not None:
+            state = restack_layers(state, self.specs,
+                                   self.mesh.size("pp") if self.mesh is not None else 1)
         if self.mesh is not None:
             state = shard_tree(state, self.specs, self.mesh)
         return state

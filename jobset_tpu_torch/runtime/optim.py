@@ -16,13 +16,14 @@ A learning rate is a float or a schedule, `schedule(count) -> float`:
 update n (counted from 0) uses schedule(n), as optax's
 `scale_by_schedule` does; Adam's bias correction uses n + 1.
 
-Over a tp-sharded parameter tree (`models.transformer.param_specs`) adam,
-adamw and sgd need no change: they are elementwise, so a rank's update of
-its shard is the global update's slice. Adafactor is not: its factored
-dims, row and column means and block RMSs are those of the global leaf,
-so it takes the specs and the tp group (`adafactor(lr, specs, group)`).
+Over a sharded parameter tree (`models.transformer.param_specs`: tp
+shards, pp stages) adam, adamw and sgd need no change: they are
+elementwise, so a rank's update of its shard is the global update's
+slice. Adafactor is not: its factored dims, row and column means and
+block RMSs are those of the global leaf, so it takes the specs and the
+mesh (`adafactor(lr, specs, mesh)`).
 `Optimizer.state_specs(param_specs, global_shapes)` names which dim of
-each state leaf is split over tp (and, under ZeRO-1, dp), for a
+each state leaf is split over tp or pp (and, under ZeRO-1, dp), for a
 checkpoint that saves the global state.
 
 `zero1(optimizer, specs, mesh)` is ZeRO-1 over the mesh's dp axis: the
@@ -278,16 +279,12 @@ def _mean(x: torch.Tensor, dim: int, cut=None, keepdim: bool = False) -> torch.T
     return total / (x.shape[dim] * parts)
 
 
-def _tp_dim(spec) -> Optional[int]:
-    return spec.index("tp") if spec is not None and "tp" in spec else None
-
-
 def _drop(spec, dim: int) -> tuple:
     return tuple(axis for i, axis in enumerate(spec) if i != dim)
 
 
 def adafactor(learning_rate: LearningRate, specs: Optional[dict] = None,
-              group=None) -> Optimizer:
+              mesh=None) -> Optimizer:
     """optax.adafactor(learning_rate) with its defaults: the chain
     scale_by_factored_rms, clip_by_block_rms(1), the learning rate,
     scale_by_param_block_rms(1e-3), scale(-1).
@@ -295,24 +292,24 @@ def adafactor(learning_rate: LearningRate, specs: Optional[dict] = None,
     A factored leaf keeps v_row (the mean of g^2 + eps over its largest
     axis) and v_col (over its second-largest), and v of shape (1,); any
     other leaf keeps a full v and (1,)-shaped v_row and v_col, as optax's
-    state does. A stacked leaf ([1, layers, ...]) is one block: both block
-    RMSs run over all its layers at once, as optax runs them over the JAX
-    package's stacked tree.
+    state does. A stacked leaf ([pp, layers / pp, ...]) is one block: both
+    block RMSs run over all its layers at once, as optax runs them over the
+    JAX package's stacked tree.
 
-    specs, group: over a tp-sharded tree, the leaves' specs
-    (`models.transformer.param_specs`) and the tp group. Each leaf is then
-    updated as optax updates the global leaf: its factored dims picked
-    from the global shape, its row and column means and both block RMSs
-    taken over the whole leaf (sums all-reduced over tp, and over dp where
-    an update's `shards` slice a leaf, as ZeRO-1 does). Without them every
-    leaf is whole."""
-    parts = torch.distributed.get_world_size(group) if group is not None else 1
+    specs, mesh: over a sharded tree, the leaves' specs
+    (`models.transformer.param_specs`) and the `parallel.mesh.Mesh`. Each
+    leaf is then updated as optax updates the global leaf: its factored
+    dims picked from the global shape, its row and column means and both
+    block RMSs taken over the whole leaf (sums all-reduced over each axis
+    its spec splits it over, tp and pp, and over dp where an update's
+    `shards` slice a leaf, as ZeRO-1 does). Without them every leaf is
+    whole."""
 
     def cuts_of(p, spec, shard=()):
         """({dim: (group, parts)} for each dim of p cut over a group, p's
         global shape)."""
-        dim = _tp_dim(spec) if group is not None else None
-        cuts = {} if dim is None else {dim: (group, parts)}
+        cuts = {d: (mesh.group(axis), mesh.size(axis)) for d, axis in enumerate(spec or ())
+                if mesh is not None and axis is not None and mesh.size(axis) > 1}
         cuts.update({d: (g, n) for d, g, n in shard})
         shape = list(p.shape)
         for d, (_, n) in cuts.items():

@@ -30,15 +30,17 @@ A restart resumes from the latest checkpoint.
 
 As one rank of a gang (`train_workload(workload, device, mesh)`, the
 mesh over the gang's processes): an LM's full parameters are drawn as
-above and cut to the rank's tp shards; each rank takes the rows of its dp
-coordinate and the positions of its sp coordinate of every batch (its tp
-peers take the same), from the same positional stream, so a resumed gang
+above and cut to the rank's tp shards of its pp stage; each rank takes
+the rows of its dp coordinate and the positions of its sp coordinate of
+every batch (its tp and pp peers take the same: the batch is replicated
+over pp, as the reference's P("dp", "sp") is), from the same positional
+stream, so a resumed gang
 still sees the batches of an uninterrupted one; `"zero1": true` splits an
 LM's optimizer state over dp (`optim.zero1`); the mlp and cnn kinds split
 their batch over dp and replicate over the other axes; a checkpoint holds
 the global state, so it restores with or without zero1.
 
-Not ported yet: the pp and ep axes (`device.check_axes`).
+Not ported yet: the ep axis (`device.check_axes`).
 """
 
 from __future__ import annotations
@@ -98,11 +100,11 @@ def make_learning_rate(workload: dict, default_lr: float) -> optim.LearningRate:
 
 
 def make_optimizer(workload: dict, default: str, default_lr: float, specs=None,
-                   group=None) -> optim.Optimizer:
+                   mesh=None) -> optim.Optimizer:
     """Optimizer from `optimizer` ("adamw" | "adam" | "sgd" | "adafactor"),
     `weight_decay` (adamw) and `momentum` (sgd), with the learning rate of
-    `make_learning_rate`; adafactor over a tp-sharded tree takes its specs
-    and the tp group."""
+    `make_learning_rate`; adafactor over a sharded tree takes its specs
+    and the mesh."""
     lr = make_learning_rate(workload, default_lr)
     name = workload.get("optimizer", default)
     if name == "adamw":
@@ -113,7 +115,7 @@ def make_optimizer(workload: dict, default: str, default_lr: float, specs=None,
         m = workload.get("momentum")
         return optim.sgd(lr, momentum=float(m) if m is not None else None)
     if name == "adafactor":
-        return optim.adafactor(lr, specs, group)
+        return optim.adafactor(lr, specs, mesh)
     raise ValueError(f"unknown optimizer {name!r} (expected adamw | adam | sgd | adafactor)")
 
 
@@ -266,14 +268,16 @@ def _setup_lm(workload: dict, device, mesh):
     cfg = lm_config(workload)
     cfg.validate(mesh.config)
     specs = param_specs(cfg)
-    params = shard_params(init_params(cfg, torch.Generator().manual_seed(0), device), cfg, mesh)
-    optimizer = make_optimizer(workload, "adamw", 1e-3, specs, mesh.group("tp"))
+    params = shard_params(init_params(cfg, torch.Generator().manual_seed(0), device,
+                                      mesh.config), cfg, mesh)
+    optimizer = make_optimizer(workload, "adamw", 1e-3, specs, mesh)
     if workload.get("zero1"):
         optimizer = optim.zero1(optimizer, specs, mesh)
     accum = int(workload.get("accum_steps", 1))
     train_step = build_train_step(cfg, optimizer, accum, device, mesh)
     state_specs = {"state": {"params": specs,
-                             "opt_state": optimizer.state_specs(specs, global_shapes(cfg))}}
+                             "opt_state": optimizer.state_specs(
+                                 specs, global_shapes(cfg, mesh.config))}}
     batch_size = int(workload.get("batch_size", 4))
     seq_len = int(workload.get("seq_len", 16))
     data_cfg = workload.get("data") or {}

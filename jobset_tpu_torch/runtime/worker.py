@@ -11,7 +11,7 @@ gang of one) on `torch.distributed` (`--backend`: "nccl" on the card,
 five-axis mesh over the gang's ranks (the payload's `mesh`, or
 `default_mesh_config` of the gang's size, tp first), runs
 `runner.train_workload` on the card (the CPU with `--cpu`), whatever kind
-the payload names ("lm", "mlp", "cnn"; "mlp" when absent; an lm over dp,
+the payload names ("lm", "mlp", "cnn"; "mlp" when absent; an lm over dp, pp,
 sp and tp, with `"zero1": true` its optimizer state split over dp), and
 prints one
 JSON result line: the gang's `world`, its `devices` (one a process),

@@ -110,11 +110,16 @@ def test_chip_smoke_fails_without_a_card():
                                          "mlp_build_train_step", "cnn_init_params",
                                          "cnn_build_train_step", "train_workload_mlp",
                                          "train_workload_cnn", "train_workload_zero1",
-                                         "train_workload_sp"])
+                                         "train_workload_sp", "train_workload_pp",
+                                         "init_params_pp", "build_train_step_1f1b",
+                                         "build_eval_step_interleaved"])
 def test_entry_points_without_device_raise(entry_point, tmp_path):
+    from dataclasses import replace
+
     import numpy as np
 
     from jobset_tpu_torch.core import columnar
+    from jobset_tpu_torch.parallel.mesh import MeshConfig
     from jobset_tpu_torch.models import cnn, decode, mlp, transformer
     from jobset_tpu_torch.placement import service, solver
     from jobset_tpu_torch.policy import dataset, features, model, train
@@ -124,6 +129,8 @@ def test_entry_points_without_device_raise(entry_point, tmp_path):
     _no_cuda()
     cfg = transformer.TransformerConfig(vocab_size=16, d_model=16, n_heads=2, d_ff=16,
                                         n_layers=1)
+    piped = transformer.TransformerConfig(vocab_size=16, d_model=16, n_heads=2, d_ff=16,
+                                          n_layers=2, n_microbatches=2)
     n_candidates = 0  # even a snapshot with nothing to score names its device
     policy_model = model.PolicyModel(model.init_params(0), np.zeros(16, np.float32),
                                      np.ones(16, np.float32), 0.0, 1.0)
@@ -168,6 +175,15 @@ def test_entry_points_without_device_raise(entry_point, tmp_path):
             {"kind": "lm", "steps": 1, "zero1": True}),
         "train_workload_sp": lambda: runner.train_workload(
             {"kind": "lm", "steps": 1, "mesh": {"sp": 2}, "config": {"attn_impl": "ulysses"}}),
+        "train_workload_pp": lambda: runner.train_workload(
+            {"kind": "lm", "steps": 1, "mesh": {"pp": 2},
+             "config": {"n_microbatches": 4, "pipeline_schedule": "1f1b"}}),
+        "init_params_pp": lambda: transformer.init_params(
+            piped, torch.Generator(), mesh_config=MeshConfig(pp=2)),
+        "build_train_step_1f1b": lambda: transformer.build_train_step(
+            replace(piped, pipeline_schedule="1f1b"), optim.sgd(0.1)),
+        "build_eval_step_interleaved": lambda: transformer.build_eval_step(
+            replace(piped, pipeline_schedule="interleaved", pipeline_virtual=2)),
     }[entry_point]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()

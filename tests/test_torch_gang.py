@@ -140,9 +140,9 @@ def test_runner_raises_before_spawning_on_what_is_not_ported():
     js = _example()
     payload = js.spec.replicated_jobs[0].template.spec.template.spec.workload
     payload["zero1"] = True
-    payload["mesh"] = {"dp": 2, "pp": 2}
+    payload["mesh"] = {"dp": 2, "ep": 2}
     runner_ = WorkloadRunner(_cluster_with(js), device="cpu")
-    with pytest.raises(NotImplementedError, match="pp=2"):
+    with pytest.raises(NotImplementedError, match="ep=2"):
         runner_.run_pending()
 
 

@@ -49,11 +49,12 @@ def test_chip_smokes_gang_runner_drives_the_example():
                                _single(_payload())[-1], rtol=LOSS_RTOL, atol=1e-6)
 
 
-@pytest.mark.parametrize("name", ["lm-adafactor", "lm-long-context"])
+@pytest.mark.parametrize("name", ["lm-adafactor", "lm-long-context", "lm-pp-interleaved"])
 def test_chip_smokes_sp_examples_are_the_files(name):
-    """Phase 16 (e) runs lm-adafactor.yaml and lm-long-context.yaml through
-    the port's runner over chip_smoke's stand-in cluster: their payloads
-    and gangs are the files' (tests/test_torch_workloads.py runs them)."""
+    """Phase 16 (e) runs lm-adafactor.yaml and lm-long-context.yaml, and
+    phase 17 (d) lm-pp-interleaved.yaml, through the port's runner over
+    chip_smoke's stand-in cluster: their payloads and gangs are the files'
+    (tests/test_torch_workloads.py runs them)."""
     from jobset_tpu import api
 
     spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
@@ -61,7 +62,7 @@ def test_chip_smokes_sp_examples_are_the_files(name):
     spec.loader.exec_module(cs)
     js = api.load_all((REPO / "examples" / "training" / f"{name}.yaml").read_text())[0]
     rjob = js.spec.replicated_jobs[0]
-    payload, gang_shape = cs.SP_EXAMPLES[name]
+    payload, gang_shape = {**cs.SP_EXAMPLES, **cs.PP_EXAMPLES}[name]
     assert payload == rjob.template.spec.template.spec.workload
     assert gang_shape == (rjob.replicas, rjob.template.spec.parallelism)
 
@@ -70,7 +71,8 @@ def _check_layouts(got, grids):
     """Each rank's coordinates (None past a submesh) are its place in the
     grid, and each axis's group all-reduces over the ranks that share the
     rank's other coordinates; with dp and sp both above 1, so does the
-    joint (dp, sp) group."""
+    joint (dp, sp) group, and with two of dp, sp and pp above 1 the
+    (dp, sp, pp) group."""
     for rank, layouts_ in enumerate(got):
         for grid, layout in zip(grids, layouts_):
             where = np.argwhere(grid == rank)
@@ -84,8 +86,8 @@ def _check_layouts(got, grids):
                 line = [slice(None) if a in axes else coords[a] for a in mesh.AXIS_NAMES]
                 assert total == float(grid[tuple(line)].sum())
             wide = {a for a, n in zip(mesh.AXIS_NAMES, grid.shape) if n > 1}
-            assert set(layout["sums"]) == wide | (
-                {mesh.DATA_AXES} if set(mesh.DATA_AXES) <= wide else set())
+            assert set(layout["sums"]) == wide | {
+                axes for axes in mesh.JOINT_AXES if len(set(axes) & wide) >= 2}
 
 
 def test_mesh_layouts_over_a_gang_of_four():

@@ -94,16 +94,19 @@ def test_mesh_config_rules():
         tmesh.build_mesh(tmesh.MeshConfig())
 
 
-# sp is ported (ring and Ulysses): pp and ep still raise, beside sp too.
-@pytest.mark.parametrize("axis, item, beside", [("pp", "A6 step 5", "dp"),
+# sp and pp are ported: ep still raises, beside dp, sp and pp too; pp
+# passes beside every other ported axis.
+@pytest.mark.parametrize("axis, item, beside", [("ep", "A6 step 6", "pp"),
                                                 ("ep", "A6 step 6", "dp"),
-                                                ("pp", "A6 step 5", "sp")])
+                                                ("ep", "A6 step 6", "sp")])
 def test_unported_axes_raise_naming_the_axis(axis, item, beside):
     with pytest.raises(NotImplementedError, match=f"{axis}=2.*{item}"):
         check_axes({beside: 2, axis: 2})
     with pytest.raises(NotImplementedError, match=f"{axis}=2"):
         ttf.TransformerConfig(n_heads=4, d_model=32).validate({beside: 2, axis: 2})
     check_axes({"dp": 2, "sp": 2, "tp": 4})
+    check_axes({"dp": 2, "pp": 2, "sp": 2, "tp": 2})
+    ttf.TransformerConfig(n_heads=4, d_model=32).validate({beside: 2, "pp": 2})
 
 
 def test_zero1_raises_naming_its_item():
@@ -113,8 +116,10 @@ def test_zero1_raises_naming_its_item():
 
     assert check_workload({"kind": "lm", "zero1": True, "mesh": {"dp": 2}}) == \
         tmesh.MeshConfig(dp=2)
-    with pytest.raises(NotImplementedError, match="pp=2.*A6 step 5"):
-        check_workload({"kind": "lm", "zero1": True, "mesh": {"dp": 2, "pp": 2}})
+    assert check_workload({"kind": "lm", "zero1": True, "mesh": {"dp": 2, "pp": 2}}) == \
+        tmesh.MeshConfig(dp=2, pp=2)
+    with pytest.raises(NotImplementedError, match="ep=2.*A6 step 6"):
+        check_workload({"kind": "lm", "zero1": True, "mesh": {"dp": 2, "ep": 2}})
 
 
 # ---------------------------------------------------------------------------

@@ -206,7 +206,8 @@ def jrunner_config(workload):
 def _use_jax_params(monkeypatch, workload):
     params = _jax_params(workload)
     monkeypatch.setattr(runner, "init_params",
-                        lambda cfg, generator, device: params_from_jax(params, device))
+                        lambda cfg, generator, device, mesh_config=None:
+                        params_from_jax(params, device))
 
 
 @pytest.mark.parametrize("payload", [
@@ -256,9 +257,9 @@ def test_checkpoint_resume_equals_an_uninterrupted_run(tmp_path):
     assert resumed == straight[2:]
 
 
-# dp, sp and tp run as a gang of processes: train_workload without a mesh
-# refuses a payload whose mesh spans several devices (ValueError); pp and
-# ep are not ported (NotImplementedError), with zero1 too.
+# dp, pp, sp and tp run as a gang of processes: train_workload without a
+# mesh refuses a payload whose mesh spans several devices (ValueError); ep
+# is not ported (NotImplementedError), with zero1 too.
 @pytest.mark.parametrize("bad, error", [
     ({"kind": "gan"}, ValueError),
     ({"kind": "lm", "zero1": True, "mesh": {"ep": 2}}, NotImplementedError),
@@ -266,7 +267,7 @@ def test_checkpoint_resume_equals_an_uninterrupted_run(tmp_path):
     ({"kind": "mlp", "mesh": {"dp": 2}}, ValueError),
     ({"kind": "cnn", "mesh": {"tp": 2}}, ValueError),
     ({"kind": "lm", "mesh": {"sp": 2}}, ValueError),
-    ({"kind": "lm", "mesh": {"pp": 2}}, NotImplementedError),
+    ({"kind": "lm", "mesh": {"pp": 2}}, ValueError),
     ({"kind": "mlp", "mesh": {"ep": 2}}, NotImplementedError),
 ])
 def test_train_workload_rejects_what_is_not_ported(bad, error):

@@ -337,8 +337,8 @@ def test_accum_steps_must_divide_the_batch():
 
 
 @pytest.mark.parametrize("bad, error, match", [
-    (dict(n_microbatches=2), NotImplementedError, "n_microbatches"),
-    (dict(pipeline_schedule="1f1b"), NotImplementedError, "gpipe"),
+    (dict(pipeline_virtual=2), ValueError, "pipeline_virtual"),
+    (dict(pipeline_schedule="1f1b", n_experts=4, moe_top_k=2), ValueError, "top-k routing"),
     (dict(pipeline_schedule="bogus"), ValueError, "pipeline_schedule"),
     (dict(remat_policy="everything"), ValueError, "remat_policy"),
     (dict(loss_chunk=-1), ValueError, "loss_chunk"),
@@ -355,6 +355,7 @@ def test_validate_rejects_unported_training_settings(bad, error, match):
 
 def test_training_defaults_match_jax():
     names = ("remat", "remat_policy", "loss_chunk", "label_smoothing", "z_loss_coef",
-             "n_microbatches", "max_seq_len", "moe_aux_coef", "pipeline_schedule")
+             "n_microbatches", "max_seq_len", "moe_aux_coef", "pipeline_schedule",
+             "pipeline_virtual")
     jcfg, tcfg = JaxConfig(), ttf.TransformerConfig()
     assert {n: getattr(tcfg, n) for n in names} == {n: getattr(jcfg, n) for n in names}

@@ -129,11 +129,18 @@ def test_validate_rejects_unported_settings(bad, match):
 
 @pytest.mark.parametrize("axis", ["dp", "tp", "sp", "pp", "ep"])
 def test_validate_rejects_mesh_axes(axis):
-    """pp and ep are not ported and raise, naming the axis; dp, sp and tp
-    run (tests/test_torch_tp.py, tests/test_torch_sp_train.py), with tp
-    and Ulysses' sp held to the reference's divisibility rules."""
-    if axis in ("dp", "tp", "sp"):
+    """ep is not ported and raises, naming the axis; dp, pp, sp and tp run
+    (tests/test_torch_tp.py, tests/test_torch_pp_train.py,
+    tests/test_torch_sp_train.py), with tp, pp and Ulysses' sp held to the
+    reference's divisibility rules."""
+    if axis in ("dp", "tp", "sp", "pp"):
         ttf.TransformerConfig().validate({axis: 2})
+        if axis == "pp":
+            with pytest.raises(ValueError, match="not divisible by pp 2"):
+                ttf.TransformerConfig(n_layers=3).validate({axis: 2})
+            with pytest.raises(ValueError, match="pipeline_virtual"):
+                ttf.TransformerConfig(pipeline_schedule="interleaved", pipeline_virtual=3,
+                                      n_layers=4).validate({axis: 2})
         if axis == "tp":
             with pytest.raises(ValueError, match="not divisible by tp 3"):
                 ttf.TransformerConfig().validate({axis: 3})

@@ -11,11 +11,13 @@ the eval loss of held-out batches, and the gathered parameters, and the
 gathered gradients of a step with `optimizer="grads"` (an optimizer that
 keeps the gradients as its state and moves nothing); `zero1` splits the
 optimizer state over dp. `sp_attention`: ring and Ulysses attention on
-the rank's chunks, with their gradients.
+the rank's chunks, with their gradients. `toy_pipeline`: the pipeline
+loop on a toy stage, with its gradients.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from jobset_tpu_torch import tree
@@ -96,12 +98,13 @@ def train_steps(config: dict, mesh_shape: dict, batches: list, optimizer: str = 
     mesh = build_mesh(MeshConfig(**mesh_shape), device)
     specs = param_specs(cfg)
     full = (params_from_jax(params, device) if params is not None
-            else init_params(cfg, torch.Generator(device=device).manual_seed(seed), device))
+            else init_params(cfg, torch.Generator(device=device).manual_seed(seed), device,
+                             mesh.config))
     local = shard_params(full, cfg, mesh)
     del full
     opt = {"adamw": lambda: optim.adamw(learning_rate), "adam": lambda: optim.adam(learning_rate),
            "sgd": lambda: optim.sgd(learning_rate),
-           "adafactor": lambda: optim.adafactor(learning_rate, specs, mesh.group("tp")),
+           "adafactor": lambda: optim.adafactor(learning_rate, specs, mesh),
            "grads": grads_optimizer}[optimizer]()
     if keep_grads:
         opt = grads_optimizer(opt)
@@ -121,7 +124,7 @@ def train_steps(config: dict, mesh_shape: dict, batches: list, optimizer: str = 
         losses.append(float(loss))
     eval_step = build_eval_step(cfg, device, mesh)
     eval_losses = [float(eval_step(local, mine(b))) for b in eval_batches]
-    state_specs = opt.state_specs(specs, global_shapes(cfg))
+    state_specs = opt.state_specs(specs, global_shapes(cfg, mesh.config))
     return {"losses": losses, "eval_losses": eval_losses, "coords": mesh.coords,
             "state_bytes": sum(t.numel() * t.element_size() for t in tree.leaves(state)
                                if torch.is_tensor(t)),
@@ -142,6 +145,16 @@ def workload_runs(workloads: list, mesh_shape: dict, device=None) -> list:
     return [list(train_workload(w, device, mesh)) for w in workloads]
 
 
+def workload_sequence(runs: list, device=None) -> list:
+    """`runner.train_workload` of each (workload, mesh_shape) of `runs` in
+    turn, each over its own mesh laid over the gang; their losses."""
+    out = []
+    for workload, mesh_shape in runs:
+        mesh = build_mesh(MeshConfig(**mesh_shape), device)
+        out.append(list(train_workload(workload, device, mesh)))
+    return out
+
+
 def optimizer_updates(name: str, learning_rate: float, params: dict, grads: list, specs: dict,
                       mesh_shape: dict, device=None) -> list:
     """The updates of `optim.<name>` (over the tp group where it takes one)
@@ -150,7 +163,7 @@ def optimizer_updates(name: str, learning_rate: float, params: dict, grads: list
     gathered back to the full tree (numpy)."""
     device = resolve_device(device)
     mesh = build_mesh(MeshConfig(**mesh_shape), device)
-    opt = (optim.adafactor(learning_rate, specs, mesh.group("tp")) if name == "adafactor"
+    opt = (optim.adafactor(learning_rate, specs, mesh) if name == "adafactor"
            else getattr(optim, name)(learning_rate))
     local = shard_tree(params_from_jax(params, device), specs, mesh)
     state = opt.init(local)
@@ -259,13 +272,13 @@ def zero_state_round_trip(config: dict, mesh_shape: dict, device=None) -> dict:
     local = shard_params(init_params(cfg, torch.Generator().manual_seed(0), device), cfg, mesh)
     out = {}
     for name, opt in (("adam", optim.adam(1e-3)),
-                      ("adafactor", optim.adafactor(1e-3, specs, mesh.group("tp")))):
+                      ("adafactor", optim.adafactor(1e-3, specs, mesh))):
         state = opt.init(local)
         state = tree.rebuild(state, [  # distinct entries, alike on every dp rank
             torch.arange(t.numel(), dtype=t.dtype, device=t.device).reshape(t.shape)
             if torch.is_tensor(t) else t for t in tree.leaves(state)])
         state_specs, _ = zero.zero1_plan(state, local, opt.state_specs(
-            specs, global_shapes(cfg)), specs, mesh.size("dp"))
+            specs, global_shapes(cfg, mesh.config)), specs, mesh.size("dp"))
         split = zero.shard_state(state, state_specs, mesh)
         back = gather_tree(split, state_specs, mesh, axes=("dp",))
         out[name] = {"specs": state_specs,
@@ -274,6 +287,58 @@ def zero_state_round_trip(config: dict, mesh_shape: dict, device=None) -> dict:
                                if torch.is_tensor(a)],
                      "bytes": [sum(t.numel() * t.element_size() for t in tree.leaves(x)
                                    if torch.is_tensor(t)) for x in (split, state)]}
+    return out
+
+
+def toy_pipeline(cases: dict, pp: int, device=None) -> dict:
+    """The pipeline loop (`parallel.pipeline.drive`) on a gang of pp ranks
+    (the pp axis), for each case {key: (schedule, n_virtual, w, hw, mbs)}:
+    w [pp, v, D, D] the stage weights (rank r's chunk c is w[r, c]; a
+    stage is tanh(x @ w)), hw [D, D] the head's weight, mbs [M, rows, D]
+    the microbatches (numpy, f32). The objective is the sum over
+    microbatches of 0.01 * sum((y @ hw - 1)^2) of the last stage's output
+    y. Returns {key: (objective on the last rank, this rank's w gradient
+    [v, D, D], hw's gradient, the microbatches' cotangents (rank 0's; else
+    None), the last stage's outputs of an eval run (the last rank's; else
+    None), the most saved graphs this rank held)}."""
+    from jobset_tpu_torch.parallel.pipeline import drive, timetable
+
+    device = resolve_device(device)
+    mesh = build_mesh(MeshConfig(pp=pp), device)
+    rank, group = mesh.index("pp"), mesh.group("pp")
+    out = {}
+    for key, (schedule, v, w, hw, mbs) in cases.items():
+        table = timetable(schedule, mbs.shape[0], pp, v)
+        w_leaf = torch.from_numpy(w[rank]).to(device).requires_grad_()
+        hw_leaf = torch.from_numpy(hw).to(device).requires_grad_()
+        feed_mbs = torch.from_numpy(mbs).to(device)
+
+        def stage(b, c, x):
+            return torch.tanh(x @ w_leaf[c]), None
+
+        def head(b, y):
+            return 0.01 * ((y @ hw_leaf - 1.0) ** 2).sum()
+
+        def finish(outputs, extras):
+            return sum(head(b, y) for b, y in sorted(outputs.items())) if outputs else None
+
+        ran = drive(table, rank, group, stage, lambda b: feed_mbs[b], feed_mbs[0],
+                    finish=finish, head=head)
+        last = rank == pp - 1
+        with torch.no_grad():
+            evaluated = drive(table, rank, group, stage, lambda b: feed_mbs[b], feed_mbs[0],
+                              train=False).outputs
+            objective = None
+            if last:
+                objective = float(sum(ran.head_values) if table.fused
+                                  else sum(head(b, y) for b, y in sorted(evaluated.items())))
+        out[key] = (objective, w_leaf.grad.cpu().numpy(),
+                    hw_leaf.grad.cpu().numpy() if hw_leaf.grad is not None else None,
+                    np.stack([ran.feed_grads[b].cpu().numpy() for b in range(len(mbs))])
+                    if rank == 0 else None,
+                    np.stack([evaluated[b].cpu().numpy() for b in range(len(mbs))])
+                    if last else None,
+                    ran.peak_saved)
     return out
 
 
