@@ -5,7 +5,7 @@
                                                  --control-only | --serving-only |
                                                  --moe-only | --moe-train-only |
                                                  --workloads-only | --gang-only |
-                                                 --sp-only | --pp-only]
+                                                 --sp-only | --pp-only | --ep-only]
 
 (`--solver-only` builds the auction kernel and runs phase 9 alone,
 `--flash-only` builds the flash block kernels and runs phases 2-3 alone,
@@ -17,8 +17,8 @@ kernels and runs phase 13 alone, `--workloads-only` builds the flash block
 kernels and runs phase 14 alone, `--gang-only` builds the flash block and
 grouped kernels and runs phase 15 alone, `--sp-only` builds the flash
 block kernels and runs phase 16 alone, `--pp-only` builds the flash block
-and grouped kernels and runs phase 17 alone; none of them prints the result
-line.) Phases, in order; any failure exits
+and grouped kernels and runs phase 17 alone, `--ep-only` builds the same
+and runs phase 18 alone; none of them prints the result line.) Phases, in order; any failure exits
 non-zero before the result line:
   1. the card's name and power limit (nvidia-smi); TF32 off;
   2. build every CUDA kernel from this checkout (one nvcc per source, all
@@ -223,11 +223,12 @@ non-zero before the result line:
      `torch.distributed` (`runtime.gang.spawn`), each rank a process on the
      one card, held against a single-process run on the card with the same
      parameters and batches (`gang_reference`): (a) NCCL at world 1, the
-     dense flagship's gradient step and 3 adam steps (phase 7's inputs)
-     bit for bit; (b) the dense flagship at tp = 2 (8 heads of 64 a rank)
+     dense flagship's gradient step and 3 adam steps (phase 7's inputs, 4
+     of its 8 layers) bit for bit; (b) the dense flagship (4 layers) at
+     tp = 2 (8 heads of 64 a rank)
      and a small f32 config at tp = 2, two ranks on gloo with CUDA tensors
      (NCCL refuses two ranks on one device); (c) the MoE flagship at dp =
-     2 x tp = 2 at 4 of its 8 layers, four ranks (we1 [8, 1024, 2048] a
+     2 x tp = 2 at 2 of its 8 layers, four ranks (we1 [8, 1024, 2048] a
      rank), held on its
      losses in bf16 (bf16 routes apart end to end; every bf16 wgrad launch
      on the TMA kernel) and on its gradients and first adam step by the
@@ -265,11 +266,12 @@ non-zero before the result line:
      all_to_all of CUDA tensors on gloo, f32 and bf16, bit for bit, and
      gloo's send/recv of them (information: the port does not use it);
  17. pipeline parallelism, in a process of its own (`--pp-only`): (a) the
-     dense flagship at pp = 2 (4 layers a rank), B=8, T=1024, 4
-     microbatches, remat off, two ranks on gloo, under gpipe, the
-     interleave (pipeline_virtual 2, on the permuted tree) and 1f1b: a
-     gradient step and 3 adam steps against one process at phase 15
-     (b)'s bounds, 16 bf16 flash launches a rank's step, the median step,
+     dense flagship at 4 of its 8 layers at pp = 2 (2 layers a rank),
+     B=8, T=1024, 4 microbatches, remat off, two ranks on gloo, under
+     gpipe, the interleave (pipeline_virtual 2, on the
+     permuted tree) and 1f1b: a gradient step and 3 adam steps against
+     one process at phase 15 (b)'s bounds, 8 bf16 flash launches a rank's
+     step, the median step,
      peak memory, and from a traced step the shares in the shifts
      (all-to-all) and the all-reduces; (b) at 8 microbatches of one row,
      each rank's peak over what it held before its step under gpipe and
@@ -279,8 +281,29 @@ non-zero before the result line:
      rank's step; (d) lm-pp-interleaved.yaml through `WorkloadRunner` as 4
      processes on the card, to Completed, its final loss within 1e-4 of
      the CPU gang's;
- 18. one `kernels` JSON line (with each kernel's launches on the gang's,
-     the sp and the pp paths), then the result line
+ 18. expert parallelism, in a process of its own (`--ep-only`): (a) the
+     grouped forward, dgrad and wgrad kernels, bf16 (TMA) and f32, at an
+     ep = 2 rank's products of the MoE flagship (xs [16384, 1024] and
+     [16384, 4096] against 4 experts' we1 and we2), rank 0's group sizes
+     from a router's top-2 picks (about half the rows in the foreign
+     tail) and with every row foreign: against their plain versions, the
+     tail's rows of forward and dgrad exactly 0, and another fill of the
+     tail moving no covered output and no bit of dw; each timed beside
+     the same call at ep = 1; (b) the MoE flagship at ep = 2 (4 of 8
+     experts a rank, dropless top-2, 8 layers), B=8, T=1024, remat off,
+     two ranks on gloo: a gradient step and 3 adam steps against one
+     process (held on its losses, as 15 (c)), a rank's flash and grouped
+     launches of one step, the median step, peak memory, and from a traced
+     step the share in the all-reduces and the card's busy share; (c) a
+     small f32 MoE config under every router at ep = 2 and dropless at
+     (pp 2, ep 2) under gpipe, against the port's CPU gang (1e-5), with
+     the grouped launches a rank's step; (d) lm-moe-dropless.yaml's
+     payload at mesh {ep: 2} through `WorkloadRunner` as 2 worker
+     processes on the card, to Completed, its final loss within 1e-4 of
+     the CPU gang's;
+ 19. one `kernels` JSON line (with each kernel's launches on the gang's,
+     the sp, the pp and the ep paths, and the grouped kernels' times at an
+     ep rank's products), then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 The flagship is the repo's training/decode bench config: vocab 32000,
@@ -4365,10 +4388,11 @@ def phase_workloads_apart(results):
 # all-reduces timed, each rank its own process on the one card.
 GANG_STEPS, GANG_LR, GANG_WARMUP, GANG_TIMED = 3, 1e-3, 1, 3
 GANG_TIMEOUT_S = 600
-# (c)'s MoE gangs (bf16 and f32) run 4 of the MoE flagship's 8 layers,
-# and phase 16's dense flagship 4 of its 8: full width, cut in depth, so
-# that the whole run with phase 17 stays well inside its time limit.
-GANG_MOE_LAYERS, SP_LAYERS = 4, 4
+# (c)'s MoE gangs (bf16 and f32) run 2 of the MoE flagship's 8 layers,
+# (a) and (b) 4 of the dense flagship's 8, phase 16's and phase 17's
+# dense flagship 4 of its 8: full width, cut in depth, so that the whole
+# run with phase 18 stays well inside its time limit.
+GANG_MOE_LAYERS, GANG_DENSE_LAYERS, SP_LAYERS, PP_LAYERS = 2, 4, 4, 4
 # Held against the single-process run on the card, same parameters and
 # batches (the ranks' all-reduces add the shards' partial sums in another
 # order than one product does):
@@ -5030,7 +5054,7 @@ def phase_gang(results):
 
     card = results["card"]
     gang_results: dict = {}
-    dense, small = flagship_config(), gang_small_config()
+    dense, small = replace(flagship_config(), n_layers=GANG_DENSE_LAYERS), gang_small_config()
     moe = replace(moe_config(), n_layers=GANG_MOE_LAYERS)
     # Up to four ranks share the card: their allocators grow segments
     # instead of caching fragments of each rank's peak (the ranks read it
@@ -5058,7 +5082,7 @@ def phase_gang(results):
         check(one["backend"] == "nccl" and one["grad_loss"] == ref["grad_loss"]
               and one["losses"] == ref["losses"]
               and all(d == 0.0 for _, d, _ in one["grads"] + one["moves"]),
-              f"gang (a) NCCL at world 1, dense flagship B={BATCH} T={PROMPT}: loss, gradients "
+              f"gang (a) NCCL at world 1, dense flagship ({GANG_DENSE_LAYERS} layers) B={BATCH} T={PROMPT}: loss, gradients "
               f"and {GANG_STEPS} adam steps' moves equal the single-process step bit for bit "
               f"(worst max|d| {max(d for _, d, _ in one['grads'] + one['moves'])})")
         gang_print("gang (a)", [one], card)
@@ -5072,14 +5096,14 @@ def phase_gang(results):
         ranks = gang.spawn(gang_rank, 2, (spec,), backend="gloo", device="cuda",
                            timeout_s=GANG_TIMEOUT_S, threads=0)
         gang_print("gang (b)", ranks, card)
-        worst = gang_check(f"gang (b) dense flagship tp=2 (8 heads of 64 a rank), B={BATCH} "
+        worst = gang_check(f"gang (b) dense flagship ({GANG_DENSE_LAYERS} layers) tp=2 (8 heads of 64 a rank), B={BATCH} "
                            f"T={PROMPT} bf16", ranks, ref, GANG_BF16_LOSS_REL,
                            GANG_BF16_GRAD_REL, GANG_BF16_MOVE_REL)
         for r in ranks:
-            check(r["launches"]["TENSOR_CORE_LAUNCHES"] == LAYERS
-                  and r["launches"]["KERNEL_LAUNCHES"] == LAYERS
+            check(r["launches"]["TENSOR_CORE_LAUNCHES"] == GANG_DENSE_LAYERS
+                  and r["launches"]["KERNEL_LAUNCHES"] == GANG_DENSE_LAYERS
                   and r["launches"]["F32_LAUNCHES"] == 0,
-                  f"gang (b) rank {r['rank']}: {LAYERS} bf16 flash launches a step, on the "
+                  f"gang (b) rank {r['rank']}: {GANG_DENSE_LAYERS} bf16 flash launches a step, on the "
                   f"tensor-core variant ({r['launches']['TENSOR_CORE_LAUNCHES']})")
         gang_results["dense_tp2"] = {"ranks": ranks, "reference": ref, "worst": worst,
                                      "seconds": time.perf_counter() - t0}
@@ -5473,13 +5497,13 @@ def gloo_cuda_probe(which: str) -> dict:
 
 
 def sp_workload_sequence(name, device, backend) -> dict:
-    """An SP_EXAMPLES or PP_EXAMPLES payload through the port's `WorkloadRunner` on
-    `device`, over `StandInCluster`: one worker process a device of its
-    mesh, on `backend`; the annotations, the terminal state and each rank's
-    result line."""
+    """An SP_EXAMPLES, PP_EXAMPLES or EP_EXAMPLES payload through the
+    port's `WorkloadRunner` on `device`, over `StandInCluster`: one worker
+    process a device of its mesh, on `backend`; the annotations, the
+    terminal state and each rank's result line."""
     from jobset_tpu_torch.runtime import WorkloadRunner
 
-    payload, (replicas, pods) = {**SP_EXAMPLES, **PP_EXAMPLES}[name]
+    payload, (replicas, pods) = {**SP_EXAMPLES, **PP_EXAMPLES, **EP_EXAMPLES}[name]
     cluster = StandInCluster(name, json.loads(json.dumps(payload)), replicas=replicas,
                              parallelism=pods)
     runner = WorkloadRunner(cluster, device, backend=backend)
@@ -5717,12 +5741,12 @@ def phase_sp_apart(results):
 # Phase 17: pipeline parallelism (gpipe, interleaved, 1f1b)
 # ---------------------------------------------------------------------------
 
-# The flagship at pp = 2 (4 layers a rank), B = 8, T = 1024, 4 microbatches
-# of 2 rows; (b) at 8 microbatches of one row. Each rank launches the bf16
-# flash kernel once a layer a microbatch under every schedule (remat off):
-# 16 a step.
+# The flagship at PP_LAYERS of its layers at pp = 2 (2 a rank), B = 8,
+# T = 1024, 4 microbatches of 2 rows; (b) at 8 microbatches of one row.
+# Each rank launches the bf16 flash kernel once a layer a microbatch under
+# every schedule (remat off): 8 a step.
 PP, PP_MICRO, PP_MEMORY_MICRO = 2, 4, 8
-PP_LAUNCHES = PP_MICRO * LAYERS // PP
+PP_LAUNCHES = PP_MICRO * PP_LAYERS // PP
 PP_SCHEDULES = {"gpipe": {}, "interleaved": {"pipeline_virtual": 2}, "1f1b": {}}
 # (c): the small f32 configs at pp = 2 (4 layers, 4 microbatches), each
 # schedule the reference allows (1f1b refuses token-choice top-k).
@@ -5785,7 +5809,7 @@ def phase_pp(results):
     t_phase = time.perf_counter()
     out: dict = {}
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-    dense = replace(flagship_config(), remat=False)
+    dense = replace(flagship_config(), remat=False, n_layers=PP_LAYERS)
     small = pp_small_configs()
     small_specs = [{"cfg": cfg, "mesh": {"pp": PP}, "batch": 4, "seq": 64, "draw_on_cpu": True,
                     "timed": False, "label": label} for label, cfg in small.items()]
@@ -5832,7 +5856,7 @@ def phase_pp(results):
     # (a) each schedule against one process.
     out["reference"] = ref
     for schedule, ranks in timed_runs.items():
-        label = f"pp (a) dense flagship pp=2 {schedule}"
+        label = f"pp (a) dense flagship ({PP_LAYERS} layers) pp=2 {schedule}"
         pp_print(label, ranks, card)
         out[schedule] = {"ranks": ranks, "worst": gang_check(
             f"{label}, {PP_MICRO} microbatches, B={BATCH} T={PROMPT} bf16", ranks, ref,
@@ -5842,7 +5866,7 @@ def phase_pp(results):
             check(c["TENSOR_CORE_LAUNCHES"] == c["KERNEL_LAUNCHES"] == PP_LAUNCHES
                   and c["F32_LAUNCHES"] == 0,
                   f"{label} rank {r['rank']}: {PP_LAUNCHES} bf16 flash launches a step "
-                  f"({PP_MICRO} microbatches x {LAYERS // PP} layers; "
+                  f"({PP_MICRO} microbatches x {PP_LAYERS // PP} layers; "
                   f"{c['KERNEL_LAUNCHES']})")
 
     # (b) what 1f1b is for: the peak over what a rank held before its step.
@@ -5854,9 +5878,9 @@ def phase_pp(results):
                   f"GB it held before it ({r['first_peak_gb']:.3f} GB in all); loss "
                   f"{r['grad_loss']:.6f} ({card})", flush=True)
             check(np.isfinite(r["grad_loss"]) and r["launches"]["TENSOR_CORE_LAUNCHES"]
-                  == PP_MEMORY_MICRO * LAYERS // PP,
+                  == PP_MEMORY_MICRO * PP_LAYERS // PP,
                   f"pp (b) {schedule} rank {r['rank']}: a finite loss and "
-                  f"{PP_MEMORY_MICRO * LAYERS // PP} flash launches")
+                  f"{PP_MEMORY_MICRO * PP_LAYERS // PP} flash launches")
     gpipe_b, f1b_b = ([rank[i] for rank in memory] for i in range(2))
     check(all(abs(a["grad_loss"] - b["grad_loss"]) <= GANG_BF16_LOSS_REL * abs(a["grad_loss"])
               for a, b in zip(gpipe_b, f1b_b)),
@@ -5965,6 +5989,400 @@ def phase_pp_apart(results):
             results["pp"] = json.load(f).get("pp")
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: expert parallelism (ep > 1)
+# ---------------------------------------------------------------------------
+
+# The MoE flagship at ep = 2: a rank holds 4 of the 8 experts and routes
+# the whole token set (the batch is replicated over ep), so its grouped
+# products run on every slot of B=8, T=1024, top 2 (16,384 rows), about
+# half of them in the foreign tail past its 4 groups.
+EP, EP_MOE_LAYERS = 2, 8
+EP_LOCAL = MOE_EXPERTS // EP
+# (a)'s routings of an ep rank's slots: the router of a random layer on
+# random hidden states (rank 0's groups, ~half the rows foreign), and
+# every slot on the other rank's experts (no group has a row).
+EP_ROUTINGS = ("routed", "all-foreign")
+# A finite fill of the foreign tail that must move no covered output.
+EP_TAIL_FILL = 3.0
+# (c)'s small f32 configs at ep = 2: phase 15's small config with 4
+# experts of d_ff_expert 64 under each router (aux coef 0.1), and
+# dropless at (pp 2, ep 2) under gpipe (4 layers, 4 microbatches).
+EP_ROUTERS = {"soft": {}, "capacity": {"moe_top_k": 2, "moe_capacity_factor": 1.0},
+              "dropless": {"moe_top_k": 2, "moe_dispatch": "dropless"},
+              "expert choice": {"moe_router": "expert"}}
+# (d): lm-moe-dropless.yaml's payload at mesh {ep: 2}, a gang of 2 (one
+# job of two pods).
+EP_EXAMPLES = {"lm-moe-dropless-ep": (dict(LM_MOE_DROPLESS_PAYLOAD, mesh={"ep": EP}), (1, EP))}
+
+
+def ep_small_configs() -> dict:
+    from dataclasses import replace
+
+    base = replace(gang_small_config(), n_experts=4, d_ff_expert=64, moe_aux_coef=0.1)
+    configs = {f"{router} ep=2": replace(base, **extra) for router, extra in EP_ROUTERS.items()}
+    configs["dropless pp=2 x ep=2 gpipe"] = pp_config(
+        replace(configs["dropless ep=2"], n_layers=4), "gpipe", PP_MICRO)
+    return configs
+
+
+def ep_group_sizes(routing) -> torch.Tensor:
+    """An ep rank's [EP_LOCAL] group sizes over MOE_SLOTS slots: rank 0's
+    under a router's top-2 picks of random hidden states (the sort key of
+    `sorted_ragged_expert_ffn`'s local form), or none at all."""
+    from jobset_tpu_torch.models import transformer
+
+    if routing == "all-foreign":
+        return torch.zeros(EP_LOCAL, dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    x = torch.randn((MOE_SLOTS // MOE_TOP_K, 1024), generator=gen, device="cuda")
+    wg = torch.randn((1024, MOE_EXPERTS), generator=gen, device="cuda") / 32
+    _, top_i = transformer.renormalized_topk(transformer._router_gates(x, wg), MOE_TOP_K)
+    expert_of = top_i.reshape(-1)
+    key = torch.where(expert_of // EP_LOCAL == 0, expert_of, EP_LOCAL)
+    return torch.bincount(key, minlength=EP_LOCAL + 1)[:EP_LOCAL].to(torch.int32)
+
+
+def ep_bound_ms(which, covered, k, n, dtype) -> tuple[float, str]:
+    """The least time of one ep rank's product with `covered` rows in its
+    groups: the covered rows of each input read once, the weights (or, for
+    wgrad, dw) once, the output written once (forward and dgrad: every
+    row, the tail's zeros too), and 2 covered k n products at the dtype's
+    rate (`PRODUCT_RATE`); the larger."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    weights = EP_LOCAL * k * n
+    elems = {"forward": covered * k + weights + MOE_SLOTS * n,
+             "dgrad": covered * n + weights + MOE_SLOTS * k,
+             "wgrad": covered * (k + n) + weights}[which]
+    t_bytes = size * elems / HBM_BYTES_PER_S
+    peak, passes = PRODUCT_RATE[dtype]
+    t_ops = passes * 2 * covered * k * n / peak
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def ep_kernel_case(which, dtype, k, n, routing, seed) -> dict:
+    """One grouped kernel at an ep rank's product against its plain
+    version: the grouped kernels' tolerance, one launch on the dtype's
+    kernel (TMA for bf16, and for f32 wgrad), the foreign tail's rows of
+    forward and dgrad exactly 0, and another finite fill of the tail
+    (xs's, and dy's) leaving every covered output and wgrad's dw the same
+    bit for bit. Returns its error and the covered rows."""
+    from jobset_tpu_torch.ops import grouped_matmul as gm
+
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    name = f"ep rank {which} {tag} [{MOE_SLOTS},{k}]x[{EP_LOCAL},{k},{n}] {routing}"
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    xs = torch.randn((MOE_SLOTS, k), generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((EP_LOCAL, k, n), generator=gen, device="cuda") / k ** 0.5).to(dtype)
+    dy = torch.randn((MOE_SLOTS, n), generator=gen, device="cuda").to(dtype)
+    sizes = ep_group_sizes(routing)
+    covered = int(sizes.sum())
+    fn, plain = {"forward": (gm.grouped_matmul, gm.grouped_matmul_plain),
+                 "dgrad": (gm.grouped_matmul_dgrad, gm.grouped_matmul_dgrad_plain),
+                 "wgrad": (gm.grouped_matmul_wgrad, gm.grouped_matmul_wgrad_plain)}[which]
+    args = {"forward": (xs, w), "dgrad": (dy, w), "wgrad": (xs, dy)}[which]
+    before = moe_launches_now()
+    got = fn(*args, sizes)
+    launched = {key: v - before[key] for key, v in moe_launches_now().items() if v != before[key]}
+    filled = [a.clone() if a.shape[0] == MOE_SLOTS else a for a in args]
+    for a in filled:
+        if a.shape[0] == MOE_SLOTS:
+            a[covered:] = EP_TAIL_FILL
+    again = fn(*filled, sizes)
+    torch.cuda.synchronize()
+    with f32_accumulating_plain():
+        want = plain(*args, sizes)
+    err = (got.float() - want.float()).abs()
+    limit = INT8_ABS[dtype] * want.float().abs().max().item()
+    if dtype == torch.bfloat16:
+        limit = INT8_REL_BF16 * want.float().abs() + limit
+    worst = err.max().item()
+    counter = {"forward": "GROUPED_LAUNCHES", "dgrad": "GROUPED_DGRAD_LAUNCHES",
+               "wgrad": "GROUPED_WGRAD_LAUNCHES"}[which]
+    expect = {counter: 1}
+    if dtype == torch.float32 and which != "forward":
+        expect[counter.replace("_LAUNCHES", "_F32_LAUNCHES")] = 1
+    if which == "forward":
+        expect["GROUPED_TMA_LAUNCHES" if dtype == torch.bfloat16 else "GROUPED_F32_LAUNCHES"] = 1
+    if which == "wgrad":
+        expect["GROUPED_WGRAD_F32_TMA_LAUNCHES" if dtype == torch.float32
+               else "GROUPED_WGRAD_TMA_LAUNCHES"] = 1
+    check(launched == expect and got.dtype == dtype and bool(torch.isfinite(got.float()).all()),
+          f"grouped {name}: launches {launched} (expected {expect}), {dtype}, finite")
+    check(bool((err <= limit).all()), f"grouped {name}: within tolerance of the plain version "
+                                      f"(max|d| {worst:.3e})")
+    if which == "wgrad":
+        check(torch.equal(got, again), f"grouped {name}: the foreign tail refilled with "
+                                       f"{EP_TAIL_FILL}, dw equal bit for bit (no tail row read)")
+    else:
+        check(bool((got[covered:] == 0).all()) and bool((again[covered:] == 0).all())
+              and torch.equal(got[:covered], again[:covered]),
+              f"grouped {name}: the {MOE_SLOTS - covered} foreign rows exactly 0, and the "
+              f"{covered} covered rows equal bit for bit with the tail refilled")
+    return {"max_abs_err": worst, "covered": covered}
+
+
+def ep_time_case(which, dtype, k, n) -> dict:
+    """L2-cold times (two input sets alternating) of one kernel at an ep
+    rank's product (4 experts, the routed sizes: about half the rows
+    foreign) and the same call at ep = 1 (8 experts, every row in a group),
+    with the ep rank's bound."""
+    from jobset_tpu_torch.ops import grouped_matmul as gm
+
+    fn = {"forward": gm.grouped_matmul, "dgrad": gm.grouped_matmul_dgrad,
+          "wgrad": gm.grouped_matmul_wgrad}[which]
+    gen = torch.Generator(device="cuda").manual_seed(k + n)
+    out = {}
+    for label, experts, sizes in (("ep2", EP_LOCAL, ep_group_sizes("routed")),
+                                  ("ep1", MOE_EXPERTS, moe_group_sizes("balanced"))):
+        sets = []
+        for _ in range(2):
+            xs = torch.randn((MOE_SLOTS, k), generator=gen, device="cuda").to(dtype)
+            w = (torch.randn((experts, k, n), generator=gen, device="cuda") / k ** 0.5).to(dtype)
+            dy = torch.randn((MOE_SLOTS, n), generator=gen, device="cuda").to(dtype)
+            sets.append({"forward": (xs, w), "dgrad": (dy, w), "wgrad": (xs, dy)}[which])
+        out[f"{label}_ms"] = rotating_ms(lambda i: fn(*sets[i], sizes), 2, ITERS // 2)
+        del sets
+    covered = int(ep_group_sizes("routed").sum())
+    out["covered_rows"] = covered
+    out["bound_ms"], out["bound_by"] = ep_bound_ms(which, covered, k, n, dtype)
+    torch.cuda.empty_cache()
+    return out
+
+
+def ep_kernel_checks(card) -> dict:
+    """(a): every grouped kernel at an ep rank's two products, bf16 and f32,
+    each routing (checks), then timed beside ep = 1."""
+    errs, times, seed = {}, {}, 1800
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        if dtype == torch.float32:
+            plain_is_f32("ep grouped checks")
+        for label, (k, n) in MOE_PRODUCTS.items():
+            for which in ("forward", "dgrad", "wgrad"):
+                for routing in EP_ROUTINGS:
+                    errs[f"{which} {tag} {label} {routing}"] = ep_kernel_case(
+                        which, dtype, k, n, routing, seed)
+                    seed += 1
+                times[f"{which} {tag} {label}"] = t = ep_time_case(which, dtype, k, n)
+                print(f"  ep (a) {which} {tag} {label} [{MOE_SLOTS},{k}]x[{EP_LOCAL},{k},{n}], "
+                      f"{t['covered_rows']} rows in rank 0's groups: {t['ep2_ms']:.4f} ms; the "
+                      f"same call at ep = 1 ([{MOE_EXPERTS},{k},{n}], every row routed) "
+                      f"{t['ep1_ms']:.4f} ms; the rank's bound {t['bound_ms']:.4f} ms "
+                      f"({t['bound_by']}) ({card})", flush=True)
+    return {"errors": errs, "times": times}
+
+
+def phase_ep(results):
+    """Phase 18: expert parallelism. (a) the grouped kernels at an ep rank's
+    products; (b) the MoE flagship at ep = 2, two ranks sharing the card on
+    gloo, against one process; (c) every router of a small f32 config at
+    ep = 2, and dropless at (pp 2, ep 2), against the port's CPU gang; (d)
+    lm-moe-dropless.yaml's payload at {ep: 2} through the worker, on the
+    card and on the CPU. The reference and the CPU gangs run first, at
+    once; then (b) alone; then (c) and (d) on the card at once."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from dataclasses import replace
+
+    from jobset_tpu_torch.runtime import gang
+
+    card = results["card"]
+    t_phase = time.perf_counter()
+    out: dict = {}
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    out["kernels"] = ep_kernel_checks(card)
+    out["kernels_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    moe = replace(moe_config(), n_layers=EP_MOE_LAYERS)
+    small = ep_small_configs()
+    small_specs = [{"cfg": cfg, "mesh": {"pp": 2, "ep": EP} if "pp=2" in label else {"ep": EP},
+                    "batch": 4, "seq": 64, "draw_on_cpu": True, "timed": False,
+                    "label": label} for label, cfg in small.items()]
+    cpu_specs = [dict(spec, device="cpu") for spec in small_specs]
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(8) as pool:
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, "moe.pt")
+        pending_ref = pool.submit(gang.spawn, gang_references, 1,
+                                  ([dict(cfg=moe, batch=BATCH, seq=PROMPT, path=path)],),
+                                  backend="gloo", device="cuda", timeout_s=GANG_TIMEOUT_S,
+                                  threads=0)
+        cpu_ep = pool.submit(gang.spawn, gang_ranks, EP, ([s for s in cpu_specs
+                                                           if s["mesh"] == {"ep": EP}],),
+                             backend="gloo", device="cpu", timeout_s=GANG_TIMEOUT_S, threads=0)
+        cpu_pp = pool.submit(gang.spawn, gang_ranks, 2 * EP, ([s for s in cpu_specs
+                                                               if "pp" in s["mesh"]],),
+                             backend="gloo", device="cpu", timeout_s=GANG_TIMEOUT_S, threads=0)
+        worker_cpu = pool.submit(sp_workload_sequence, "lm-moe-dropless-ep", "cpu", "gloo")
+        ref = pending_ref.result()[0][0]
+        cpu, cpu_pp = cpu_ep.result(), cpu_pp.result()
+        worker_cpu = worker_cpu.result()
+        out["references_s"] = time.perf_counter() - t0
+
+        # (b) the MoE flagship at ep 2, timed, alone on the card.
+        t0 = time.perf_counter()
+        spec = {"cfg": moe, "mesh": {"ep": EP}, "batch": BATCH, "seq": PROMPT,
+                "reference": path}
+        ranks = gang.spawn(gang_rank, EP, (spec,), backend="gloo", device="cuda",
+                           timeout_s=GANG_TIMEOUT_S, threads=0)
+        out["timed_gang_s"] = time.perf_counter() - t0
+
+        # (c) and (d) on the card at once.
+        t0 = time.perf_counter()
+        card_ep = pool.submit(gang.spawn, gang_ranks, EP, ([s for s in small_specs
+                                                            if s["mesh"] == {"ep": EP}],),
+                              backend="gloo", device="cuda", timeout_s=GANG_TIMEOUT_S, threads=0)
+        card_pp = pool.submit(gang.spawn, gang_ranks, 2 * EP, ([s for s in small_specs
+                                                                if "pp" in s["mesh"]],),
+                              backend="gloo", device="cuda", timeout_s=GANG_TIMEOUT_S,
+                              threads=0)
+        worker_card = pool.submit(sp_workload_sequence, "lm-moe-dropless-ep", "cuda", "gloo")
+        card_ep, card_pp, worker_card = card_ep.result(), card_pp.result(), worker_card.result()
+        out["untimed_s"] = time.perf_counter() - t0
+
+    # (b) against one process.
+    n = EP_MOE_LAYERS
+    label = (f"ep (b) MoE flagship ep=2 ({EP_LOCAL} experts, we1 [{EP_LOCAL}, 1024, {MOE_D_FF}] "
+             f"a rank), dropless top-2, B={BATCH} T={PROMPT} bf16, {n} layers")
+    gang_print("ep (b)", ranks, card)
+    for r in ranks:
+        if "step_ms" in r:
+            print(f"  ep (b) rank {r['rank']}: all-reduces {r['all_reduce_ms']:.3f} ms in "
+                  f"{r['all_reduce_calls']} calls = {r['all_reduce_share']:.1%} of the traced "
+                  f"step ({r['traced_step_ms']:.3f} ms), all-to-alls {r['all_to_all_calls']} "
+                  f"(torch.profiler host spans; ranks sharing one card on gloo: no scaling "
+                  f"figure; {card})", flush=True)
+    out["moe_ep2"] = {"ranks": ranks, "reference": ref, "worst": gang_check(
+        label, ranks, ref, GANG_BF16_LOSS_REL, None)}
+    for r in ranks:
+        c = r["launches"]
+        check(c["GROUPED_LAUNCHES"] == c["GROUPED_TMA_LAUNCHES"] == 2 * n
+              and c["GROUPED_DGRAD_LAUNCHES"] == 2 * n
+              and c["GROUPED_WGRAD_LAUNCHES"] == c["GROUPED_WGRAD_TMA_LAUNCHES"] == 2 * n
+              and c["TENSOR_CORE_LAUNCHES"] == n and c["F32_LAUNCHES"] == 0,
+              f"ep (b) rank {r['rank']}: a step launches {n} flash and {2 * n} grouped forward "
+              f"(all TMA), dgrad and wgrad (all TMA) kernels ({c})")
+
+    # (c) the small f32 configs, the card's gangs against the CPU's.
+    for runs_card, runs_cpu, labels in ((card_ep, cpu, [s["label"] for s in small_specs
+                                                        if s["mesh"] == {"ep": EP}]),
+                                        (card_pp, cpu_pp, [s["label"] for s in small_specs
+                                                           if "pp" in s["mesh"]])):
+        for i, label in enumerate(labels):
+            got, want = runs_card[0][i], runs_cpu[0][i]
+            worst = max(abs(a - b) / abs(b) for a, b in zip([got["grad_loss"]] + got["losses"],
+                                                           [want["grad_loss"]] + want["losses"]))
+            ok = all(r[i]["losses"] == got["losses"] for r in runs_card)
+            check(worst <= GANG_F32_REL and ok,
+                  f"ep (c) small f32 {label} (TF32 off): losses {got['losses']} against the CPU "
+                  f"gang's {want['losses']} (worst {worst:.2e}, bound {GANG_F32_REL}); every "
+                  "rank the same")
+            counts = [r[i]["launches"] for r in runs_card]
+            if "dropless" in label:
+                micro = PP_MICRO if "pp=2" in label else 1
+                layers = small[label].n_layers // (2 if "pp=2" in label else 1)
+                want_n = 2 * layers * micro
+                check(all(c["GROUPED_F32_LAUNCHES"] == c["GROUPED_DGRAD_F32_LAUNCHES"]
+                          == c["GROUPED_WGRAD_F32_TMA_LAUNCHES"] == want_n for c in counts),
+                      f"ep (c) {label}: {want_n} f32 grouped forward, dgrad and wgrad (TMA) "
+                      f"launches a rank's step ({[c['GROUPED_F32_LAUNCHES'] for c in counts]})")
+            print(f"  ep (c) {label}: a rank's step launches f32 flash "
+                  f"{[c['F32_LAUNCHES'] for c in counts]}, f32 grouped forward "
+                  f"{[c['GROUPED_F32_LAUNCHES'] for c in counts]}, dgrad "
+                  f"{[c['GROUPED_DGRAD_F32_LAUNCHES'] for c in counts]}, wgrad "
+                  f"{[c['GROUPED_WGRAD_F32_LAUNCHES'] for c in counts]}", flush=True)
+            out[f"small {label}"] = {"card": [r[i] for r in runs_card],
+                                     "cpu": [r[i] for r in runs_cpu], "worst": worst}
+
+    # (d) the worker with an ep payload, the card's gang against the CPU's.
+    final = float(worker_card["annotations"].get(FINAL_LOSS, "nan"))
+    want = float(worker_cpu["annotations"].get(FINAL_LOSS, "nan"))
+    check(worker_card["terminal_state"] == "Completed" == worker_cpu["terminal_state"]
+          and len(worker_card["results"] or []) == EP and abs(final - want) <= 1e-4,
+          f"ep (d) lm-moe-dropless.yaml's payload at mesh {{ep: 2}} through WorkloadRunner as "
+          f"{EP} worker processes on the card: {worker_card['terminal_state']} in "
+          f"{worker_card['seconds']:.1f} s, final loss {final} vs the CPU gang's {want}")
+    for line in worker_card["results"] or []:
+        print(f"  ep (d) rank {line['process_id']}: mesh {line['mesh']}, kernel launches "
+              f"{line['kernel_launches']}", flush=True)
+    out["workload"] = {"card": worker_card, "cpu": worker_cpu}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 18: {out['seconds']:.1f} s (kernel checks {out['kernels_s']:.1f}, reference "
+          f"and CPU gangs at once {out['references_s']:.1f}, timed gang "
+          f"{out['timed_gang_s']:.1f}, small f32 and worker gangs at once "
+          f"{out['untimed_s']:.1f})", flush=True)
+    results["ep"] = out
+
+
+def ep_launches(results) -> dict:
+    """Phase 18's launches of each kernel entry: rank 0's first step of (b)
+    (bf16 flash and grouped), the small f32 configs' (c) (f32 flash and
+    grouped), and rank 0's whole run of (d)."""
+    ep = results.get("ep") or {}
+
+    def first(key):
+        runs = ep.get(key) or {}
+        ranks = runs.get("ranks") or runs.get("card") or [{}]
+        return ranks[0].get("launches") or {}
+
+    lines = ((ep.get("workload") or {}).get("card") or {}).get("results") or [{}]
+    whole = lines[0].get("kernel_launches") or {}
+    b = first("moe_ep2")
+    labels = list(ep_small_configs())
+    dropless = [label for label in labels if "dropless" in label]
+    run_d = "lm-moe-dropless.yaml at {ep: 2}, rank 0's run"
+    return {
+        "flash_block": {"MoE ep=2 step": b.get("TENSOR_CORE_LAUNCHES")},
+        "flash_block_f32": {**{f"small f32 {label} step": first(f"small {label}").get(
+            "F32_LAUNCHES") for label in labels}, run_d: whole.get("F32_LAUNCHES")},
+        "flash_block_tile_classes": {"MoE ep=2 first step": b.get("TILE_CLASS_LAUNCHES")},
+        "grouped_matmul": {"MoE ep=2 step": b.get("GROUPED_LAUNCHES")},
+        "grouped_matmul_dgrad": {"MoE ep=2 step": b.get("GROUPED_DGRAD_LAUNCHES")},
+        "grouped_matmul_wgrad": {"MoE ep=2 step": b.get("GROUPED_WGRAD_LAUNCHES")},
+        **{name: {**{f"small f32 {label} step": first(f"small {label}").get(counter)
+                     for label in dropless}, run_d: whole.get(counter)}
+           for name, counter in (("grouped_matmul_f32", "GROUPED_F32_LAUNCHES"),
+                                 ("grouped_matmul_dgrad_f32", "GROUPED_DGRAD_F32_LAUNCHES"),
+                                 ("grouped_matmul_wgrad_f32", "GROUPED_WGRAD_F32_LAUNCHES"))},
+    }
+
+
+def ep_rank_times(results) -> dict:
+    """(a)'s times by kernel entry: each product at an ep rank's shapes
+    beside ep = 1."""
+    times = ((results.get("ep") or {}).get("kernels") or {}).get("times") or {}
+    names = {("forward", "bf16"): "grouped_matmul", ("forward", "f32"): "grouped_matmul_f32",
+             ("dgrad", "bf16"): "grouped_matmul_dgrad", ("dgrad", "f32"): "grouped_matmul_dgrad_f32",
+             ("wgrad", "bf16"): "grouped_matmul_wgrad", ("wgrad", "f32"): "grouped_matmul_wgrad_f32"}
+    out: dict = {}
+    for key, t in times.items():
+        which, tag, product = key.split()
+        out.setdefault(names[(which, tag)], {})[product] = t
+    return out
+
+
+def phase_ep_apart(results):
+    """Phase 18 in a process of its own (`--ep-only`), this process's cached
+    blocks handed back to the card first."""
+    import tempfile
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ep.json")
+        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--ep-only",
+                              "--out", path], capture_output=True, text=True, timeout=600)
+        print(run.stdout, end="", flush=True)
+        if run.returncode != 0:
+            print(run.stderr[-4000:], file=sys.stderr, flush=True)
+        check(run.returncode == 0 and os.path.exists(path),
+              f"phase 18 in a process of its own exits {run.returncode}")
+        if not os.path.exists(path):
+            return
+        with open(path) as f:
+            results["ep"] = json.load(f).get("ep")
+
+
 def timed(results, label, fn, *args):
     """fn(*args), its wall seconds kept in results["phase_seconds"] and
     printed."""
@@ -6008,6 +6426,9 @@ def main() -> int:
     only.add_argument("--pp-only", action="store_true",
                       help="build the flash block and grouped kernels and run phase 17 "
                            "(pipeline parallelism) alone (no result line)")
+    only.add_argument("--ep-only", action="store_true",
+                      help="build the flash block and grouped kernels and run phase 18 "
+                           "(expert parallelism) alone (no result line)")
     only.add_argument("--gang-f32-moe-batch", type=int, metavar="B",
                       help="build the flash block and grouped kernels and run phase 15's f32 "
                            "MoE gang alone at batch B, for its memory (no result line)")
@@ -6054,7 +6475,7 @@ def main() -> int:
                else ["flash_block", "int8_matmul", "grouped_matmul"] if args.moe_only
                else ["flash_block", "grouped_matmul"] if (args.moe_train_only or args.gang_only
                                                           or args.gang_f32_moe_batch
-                                                          or args.pp_only)
+                                                          or args.pp_only or args.ep_only)
                else ["flash_block", "auction", "int8_matmul", "grouped_matmul"])
     libraries = cuda_build.build_all(sources)
     results["build_s"] = time.perf_counter() - t0
@@ -6082,13 +6503,17 @@ def main() -> int:
         phase_sp(results)
     if args.pp_only:
         phase_pp(results)
-    if args.gang_only or args.gang_f32_moe_batch or args.sp_only or args.pp_only:
+    if args.ep_only:
+        phase_ep(results)
+    if (args.gang_only or args.gang_f32_moe_batch or args.sp_only or args.pp_only
+            or args.ep_only):
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
             with open(args.out, "w") as f:
                 json.dump(results, f, indent=1)
         flag = ("--gang-only" if args.gang_only else "--sp-only" if args.sp_only
-                else "--pp-only" if args.pp_only else "--gang-f32-moe-batch")
+                else "--pp-only" if args.pp_only else "--ep-only" if args.ep_only
+                else "--gang-f32-moe-batch")
         print(f"chip_smoke {flag}: "
               f"{len(FAILURES)} check(s) failed, "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
@@ -6217,6 +6642,7 @@ def main() -> int:
     timed(results, "phase 15", phase_gang_apart, results)
     timed(results, "phase 16", phase_sp_apart, results)
     timed(results, "phase 17", phase_pp_apart, results)
+    timed(results, "phase 18", phase_ep_apart, results)
     adafactor_counts = ((results.get("adafactor_vs_adam") or {}).get("adafactor") or {}).get(
         "launches") or {}
     for kernel in kernels:
@@ -6234,10 +6660,14 @@ def main() -> int:
     attach_grouped_ptxas(grouped_kernels, results.get("grouped_ptxas"), results.get("grouped_sass"))
     kernels += grouped_kernels
     on_gang, on_sp, on_pp = gang_launches(results), sp_launches(results), pp_launches(results)
+    on_ep, ep_times = ep_launches(results), ep_rank_times(results)
     for kernel in kernels:
         kernel["gang_launches"] = on_gang.get(kernel["name"], {"not on the gang's path": 0})
         kernel["sp_launches"] = on_sp.get(kernel["name"], {"not on the sp path": 0})
         kernel["pp_launches"] = on_pp.get(kernel["name"], {"not on the pp path": 0})
+        kernel["ep_launches"] = on_ep.get(kernel["name"], {"not on the ep path": 0})
+        if kernel["name"] in ep_times:
+            kernel["ep_rank_times"] = ep_times[kernel["name"]]
     results["kernels"] = kernels
     results["seconds"] = time.perf_counter() - t_start
     if args.out:

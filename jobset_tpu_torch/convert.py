@@ -4,12 +4,12 @@ this module imports no JAX. A node with `q` and `scale` (the JAX
 package's `QuantizedTensor`, after `jax.tree.map(np.asarray, ...)`)
 becomes the port's `QuantizedTensor`.
 
-`shard_params` cuts a full tree to one rank's tp shards of its pp stage
-by the transformer's `param_specs`, and `gather_params` puts a gang's
-shards back together; `shard_tree` and `gather_tree` do the same for any
-tree with a tree of specs (a training state, for a checkpoint of global
-tensors), over every mesh axis a spec names (tp, pp, and dp for a ZeRO-1
-optimizer state), or over the axes the caller names.
+`shard_params` cuts a full tree to one rank's tp and ep shards of its pp
+stage by the transformer's `param_specs`, and `gather_params` puts a
+gang's shards back together; `shard_tree` and `gather_tree` do the same
+for any tree with a tree of specs (a training state, for a checkpoint of
+global tensors), over every mesh axis a spec names (tp, ep, pp, and dp
+for a ZeRO-1 optimizer state), or over the axes the caller names.
 """
 
 from __future__ import annotations
@@ -103,7 +103,7 @@ def shard_params(full, cfg, mesh):
 
 def gather_params(local, cfg, mesh):
     """The full transformer tree from the gang's shards (all-gathered over
-    tp and pp)."""
+    tp, ep and pp)."""
     from .models.transformer import param_specs
 
     return gather_tree(local, param_specs(cfg), mesh)

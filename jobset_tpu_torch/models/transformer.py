@@ -20,7 +20,7 @@ and "dots"), gradient accumulation, and an optimizer from `runtime.optim`
 applied as `(p + u).to(p.dtype)`.
 
 Mixture-of-experts layers (`n_experts > 0`) run every router of the
-reference at ep = 1: soft dispatch, token-choice top-k with a capacity
+reference: soft dispatch, token-choice top-k with a capacity
 buffer or dropless (the experts' products over sorted ragged row
 segments, `ops.grouped_matmul`), and expert choice. The router's product
 is taken in f64 and rounded to f32 (`_router_logits`), so no TF32 setting
@@ -31,7 +31,7 @@ through `ops.grouped_matmul`'s autograd Function (hand kernels for the
 backward on the card).
 
 Over a gang (`mesh`, a `parallel.mesh.Mesh`) the train and eval steps
-run dp, pp, sp and tp, with the reference's collectives
+run dp, pp, ep, sp and tp, with the reference's collectives
 (`parallel.collectives`): each rank holds its dp rows and its sp chunk of
 positions of the batch and its tp shards of the parameters
 (`param_specs`: heads, hidden and expert columns, and the vocab split
@@ -40,11 +40,27 @@ row-parallel outputs, the embedding and the loss's vocab sums are reduced
 over tp ("reduce"), a replicated activation entering a sharded weight
 carries the transpose psum ("copy"), attention spans the sp chunks (the
 ring rotates K/V, Ulysses moves the split onto the heads; rotary
-positions are global), the loss's token count and sum and the MoE
-balancing statistics are pooled over (dp, sp) before the aux loss's
-product, and the gradients are summed over (dp, sp) once a step, after
-accumulation, in one all-reduce (a tp-sharded leaf is never reduced over
-tp). Without a mesh, or at size 1, every collective is the identity.
+positions are global), the loss's token count and sum are pooled over
+(dp, sp) and the MoE balancing statistics over (dp, sp, ep) before the
+aux loss's product, and the gradients are summed over (dp, sp) once a
+step, after accumulation, in one all-reduce (a tp- or ep-sharded leaf is
+never reduced over its axis). Without a mesh, or at size 1, every
+collective is the identity.
+
+Expert parallelism (ep > 1) shards the experts: a rank holds its
+E / ep experts' `we1` and `we2`, and the batch is replicated over ep.
+Soft dispatch runs the rank's experts on every token and dropless its
+experts' slots of every token (the others sorted into a trailing group no
+weight covers, their combine weights zeroed), each summing the partial
+outputs over (ep, tp); the capacity and expert-choice routers each take
+their rank's chunk of the tokens, send every slot to the rank that holds
+its expert (`all_to_all`), and gather the chunks' outputs back over ep.
+Every value replicated over ep keeps its whole cotangent on every rank,
+as over tp: where ranks see parts of it (an expert's share of the gates
+and slot weights, a chunk of the tokens and the router that routes it,
+dropless' statistics, which every rank counts whole and divides by ep)
+the backward sums over ep (`copy`), so no leaf's gradient is summed over
+ep after the step.
 
 Pipeline parallelism (pp > 1, or more than one microbatch) splits the
 layer stack over pp: a rank holds its stage's [1, n_layers / pp, ...]
@@ -53,11 +69,9 @@ slice of each layer leaf, and the microbatches run through the stages on
 "interleaved" with `pipeline_virtual` chunks a rank, or "1f1b"). The
 embedding runs on pp rank 0 and the loss head on the last; the loss's
 sum and count reduce over (dp, sp, pp), the MoE statistics pool over a
-rank's microbatches and then (dp, sp) before each layer's product, and
+rank's microbatches and then (dp, sp, ep) before each layer's product, and
 the gradients of the layer leaves sum over (dp, sp), those of the
 embedding, final norm and unembedding over (dp, sp, pp).
-
-Not ported yet: ep > 1; `TransformerConfig.validate` rejects it.
 """
 
 from __future__ import annotations
@@ -72,11 +86,11 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from .. import tree
-from ..device import check_axes, resolve_device
+from ..device import resolve_device
 from ..ops.flash_block import MAX_HEAD_DIM
 from ..ops.grouped_matmul import grouped_matmul
-from ..parallel.collectives import all_reduce_, copy, pmax, reduce
-from ..parallel.mesh import DATA_AXES, LOSS_AXES, MeshConfig
+from ..parallel.collectives import all_reduce_, all_to_all, copy, gather, pmax, reduce
+from ..parallel.mesh import DATA_AXES, EXPERT_AXES, LOSS_AXES, STATS_AXES, MeshConfig
 from ..parallel.pipeline import drive, timetable
 from ..parallel.ring_attention import ring_attention
 from ..parallel.ulysses_attention import ulysses_attention
@@ -147,11 +161,10 @@ class TransformerConfig:
     def validate(self, mesh_shape: MeshConfig | Mapping[str, int] | None = None) -> None:
         """Reject what the port cannot run on the mesh (a MeshConfig or a
         payload's `mesh` mapping; None: one device): bad widths and MoE
-        settings, widths that tp does not divide, Ulysses' head split and
-        the pipeline's rules (the reference's rules at ep = 1), and ep > 1,
-        which it has not ported."""
+        settings, widths that tp does not divide, experts that ep does not
+        divide, Ulysses' head split and the pipeline's rules (the
+        reference's rules)."""
         mc = MeshConfig.of(mesh_shape)
-        check_axes(mc)
         if self.d_model % self.n_heads:
             raise ValueError("d_model must divide evenly into heads")
         if self.n_layers % mc.pp:
@@ -168,6 +181,8 @@ class TransformerConfig:
             raise ValueError("feed-forward widths must be divisible by tp")
         if self.vocab_size % mc.tp:
             raise ValueError(f"vocab {self.vocab_size} not divisible by tp {mc.tp}")
+        if self.n_experts % mc.ep:
+            raise ValueError(f"n_experts {self.n_experts} must be divisible by ep {mc.ep}")
         if self.head_dim % 2 or self.head_dim > MAX_HEAD_DIM:
             raise ValueError(
                 f"head_dim {self.head_dim} must be even (rotary) and at most "
@@ -429,6 +444,29 @@ def _data(mesh):
     return mesh.group(DATA_AXES) if mesh is not None else None
 
 
+def _ep(mesh):
+    """The ep group of `mesh` (None without a mesh or at ep = 1)."""
+    return mesh.group("ep") if mesh is not None else None
+
+
+def _ep_size(mesh) -> int:
+    return mesh.size("ep") if mesh is not None else 1
+
+
+def _ep_index(mesh) -> int:
+    return mesh.index("ep") if mesh is not None else 0
+
+
+def _experts(mesh):
+    """The (ep, tp) group an MoE layer's partial outputs sum over."""
+    return mesh.group(EXPERT_AXES) if mesh is not None else None
+
+
+def _stats(mesh):
+    """The (dp, sp, ep) group the balancing statistics pool over."""
+    return mesh.group(STATS_AXES) if mesh is not None else None
+
+
 def _pp_size(mesh) -> int:
     return mesh.size("pp") if mesh is not None else 1
 
@@ -484,7 +522,7 @@ def _dense_mlp(p, xn, cfg, mesh=None):
 
 
 # ---------------------------------------------------------------------------
-# Mixture of experts (ep = 1)
+# Mixture of experts
 # ---------------------------------------------------------------------------
 
 
@@ -537,18 +575,23 @@ def _expert_ffn(p, x, cfg):
 
 
 def _all_experts(p, xn, weights, cfg, mesh=None):
-    """Every expert on every token of xn [B, T, d], the outputs weighted by
-    weights [B*T, E] (f32, cast to the compute dtype) and summed; over tp
-    each rank's partial sums are reduced."""
+    """Every expert of this rank on every token of xn [B, T, d], the
+    outputs weighted by its experts' columns of weights [B*T, E] (f32,
+    cast to the compute dtype) and summed; the ranks' partial sums are
+    reduced over (ep, tp)."""
     b, t, d = xn.shape
-    g = _tp(mesh)
-    y = _expert_ffn(p, copy(xn, g).reshape(1, b * t, d), cfg)  # [E, n, d]
-    out = torch.einsum("end,ne->nd", y, copy(weights, g).to(cfg.dtype))
+    g = _experts(mesh)
+    e_local = p["we1"].shape[0]
+    start = _ep_index(mesh) * e_local
+    y = _expert_ffn(p, copy(xn, g).reshape(1, b * t, d), cfg)  # [E / ep, n, d]
+    mine = copy(weights, g)[:, start:start + e_local]
+    out = torch.einsum("end,ne->nd", y, mine.to(cfg.dtype))
     return reduce(out, g).reshape(b, t, d)
 
 
 def _moe_mlp(p, xn, cfg, mesh=None):
-    """Soft dispatch: every expert on every token, gate-weighted."""
+    """Soft dispatch: every expert on every token, gate-weighted (gates
+    over all E experts; each ep rank runs its own)."""
     return _all_experts(p, xn, _router_gates(xn.reshape(-1, xn.shape[-1]), p["wg"]), cfg,
                         mesh)
 
@@ -580,9 +623,9 @@ class _SlotGather(torch.autograd.Function):
         return rows, None, None, None
 
 
-def sorted_ragged_expert_ffn(p, x_flat, top_w, top_i, cfg):
+def sorted_ragged_expert_ffn(p, x_flat, top_w, top_i, cfg, local_experts=None):
     """The sorted ragged core of the dropless forward and the serving
-    prefill (the reference's `local_experts=None` form, ep = 1).
+    prefill.
 
     x_flat [n, d]; top_w/top_i [n, k]. Each token's k slots are sorted by
     expert (stable, as `jnp.argsort`), the experts' FFNs run as two grouped
@@ -592,21 +635,36 @@ def sorted_ragged_expert_ffn(p, x_flat, top_w, top_i, cfg):
     gathered through the inverse permutation, so two runs give the same
     bits (an `index_add_` on the card adds in no fixed order); the slot
     gathers' backward gathers as well (`_SlotGather`). Returns (out [n, d]
-    f32, group_sizes int32 [E])."""
+    f32, group_sizes int32 [E]).
+
+    local_experts=(ep_idx, e_local): the expert-parallel form, p["we1"] and
+    p["we2"] this rank's e_local experts. The sort key puts the slots of
+    its experts first, by local expert, and every other slot in a trailing
+    group e_local that no weight covers (the grouped products write zeros
+    there); those slots' combine weights are zeroed, so `out` is this
+    rank's experts' part, and group_sizes is [e_local]."""
     k = top_i.shape[-1]
     n, d = x_flat.shape
     compute = cfg.dtype
     expert_of = top_i.reshape(n * k)  # slot order: token-major
-    order = torch.argsort(expert_of, stable=True)
+    weights = top_w.reshape(n * k)
+    key, n_groups = expert_of, cfg.n_experts
+    if local_experts is not None:
+        ep_idx, n_groups = local_experts
+        mine = expert_of // n_groups == ep_idx
+        key = torch.where(mine, expert_of - ep_idx * n_groups, n_groups)
+        weights = torch.where(mine, weights, 0.0)
+    order = torch.argsort(key, stable=True)
     inverse = torch.empty_like(order).scatter_(0, order, torch.arange(n * k, device=order.device))
     # Counted on the device: a bincount on the card reads its length back.
-    group_sizes = torch.zeros(cfg.n_experts, dtype=torch.int32, device=x_flat.device)
-    group_sizes.scatter_add_(0, expert_of, torch.ones_like(expert_of, dtype=torch.int32))
+    counts = torch.zeros(n_groups + 1, dtype=torch.int32, device=x_flat.device)
+    counts.scatter_add_(0, key, torch.ones_like(key, dtype=torch.int32))
+    group_sizes = counts[:n_groups]
     xs = _SlotGather.apply(x_flat, order, inverse, k).to(compute)  # the slots' tokens, by expert
     h = F.silu(grouped_matmul(xs, weight_cast(p["we1"], compute), group_sizes))
     y = grouped_matmul(h, weight_cast(p["we2"], compute), group_sizes)
     parts = (_SlotGather.apply(y, inverse, order, 1).float()
-             * top_w.reshape(n * k, 1)).reshape(n, k, d)
+             * weights.reshape(n * k, 1)).reshape(n, k, d)
     out = parts[:, 0]
     for j in range(1, k):
         out = out + parts[:, j]
@@ -614,49 +672,74 @@ def sorted_ragged_expert_ffn(p, x_flat, top_w, top_i, cfg):
 
 
 def _moe_mlp_dropless(p, xn, cfg, mesh=None):
-    """Dropless token-choice top-k (ep = 1): exact routed math through the
-    sorted ragged products, no capacity and no drops; over tp each rank
-    runs its d_ff_expert columns of every expert and the combined partial
-    outputs are reduced. Returns (out, stats [2, E]: choice counts and
-    gate-probability sums)."""
+    """Dropless token-choice top-k: exact routed math through the sorted
+    ragged products, no capacity and no drops; over tp each rank runs its
+    d_ff_expert columns, over ep its experts' slots of every token (each
+    rank routes the whole token set, replicated over ep), and the partial
+    outputs are reduced over (ep, tp). Returns (out, stats [2, E]: choice
+    counts and gate-probability sums). Over ep the statistics are the
+    whole set's divided by ep, so that their pool over (dp, sp, ep) is the
+    global batch's; their backward sums over ep, so that the router's
+    gradient keeps the whole aux term on every rank."""
     b, t, d = xn.shape
-    g = _tp(mesh)
+    g, ep = _experts(mesh), _ep_size(mesh)
     x = xn.reshape(b * t, d)
     gates = _router_gates(x, p["wg"])
     top_w, top_i = renormalized_topk(gates, cfg.moe_top_k)
-    out, group_sizes = sorted_ragged_expert_ffn(p, copy(x, g), copy(top_w, g), top_i, cfg)
-    stats = torch.stack([group_sizes.float(), gates.sum(dim=0)])
+    local = (_ep_index(mesh), p["we1"].shape[0])
+    out, _ = sorted_ragged_expert_ffn(p, copy(x, g), copy(top_w, g), top_i, cfg, local)
+    chosen = top_i.reshape(-1)
+    counts = torch.zeros(cfg.n_experts, dtype=torch.int32, device=x.device)
+    counts.scatter_add_(0, chosen, torch.ones_like(chosen, dtype=torch.int32))
+    stats = copy(torch.stack([counts.float(), gates.sum(dim=0)]) / ep, _ep(mesh))
     return reduce(out.to(cfg.dtype), g).reshape(b, t, d), stats
 
 
-def _route_prologue(p, xn, cfg):
-    """The routers' head at ep = 1 (the reference's chunk is the whole
-    token set): (tokens [n, d], gates [n, E] f32, n)."""
+def _route_prologue(p, xn, cfg, mesh=None):
+    """The routers' head: this ep rank's chunk of the token set (replicated
+    over ep; the ep-th part in rank order) and its f32 gates: (chunk
+    [n / ep, d], gates [n / ep, E], n / ep). Over ep the tokens and the
+    router enter with `copy`: each rank's cotangents reach its own chunk's
+    part, and the backward sums them."""
     b, t, d = xn.shape
-    x = xn.reshape(b * t, d)
-    return x, _router_gates(x, p["wg"]), b * t
+    n_tok, ep = b * t, _ep_size(mesh)
+    if n_tok % ep:
+        raise ValueError(f"routed MoE needs local tokens ({n_tok}) divisible by ep ({ep})")
+    n_chunk, start = n_tok // ep, _ep_index(mesh) * (n_tok // ep)
+    x = copy(xn.reshape(n_tok, d), _ep(mesh))[start:start + n_chunk]
+    return x, _router_gates(x, copy(p["wg"], _ep(mesh))), n_chunk
 
 
 def _dispatch_combine_experts(p, chunk, dispatch, combine, cfg, mesh=None):
-    """Pack the tokens into expert-major [E, C, d] slot buffers per
-    `dispatch` [n, E, C], run the experts' FFNs (their outputs reduced over
-    tp), and weight the results back into token positions per `combine`
-    [n, E, C]. At ep = 1 the reference's all_to_all and all_gather are
-    identities."""
+    """Pack this ep rank's chunk into expert-major [E, C, d] slot buffers
+    per `dispatch` [n, E, C], send each expert's slots to the rank that
+    holds it (`all_to_all` over ep: [ep, E / ep, C, d]), run the experts'
+    FFNs on [E / ep, ep * C, d] (their outputs reduced over tp), send the
+    results back, weight them into token positions per `combine` [n, E, C],
+    and gather the chunks over ep in rank order: the whole token set's
+    [n * ep, d]. At ep = 1 the all-to-alls and the gather are identities."""
     compute = cfg.dtype
-    g = _tp(mesh)
+    g, ep, e_local = _tp(mesh), _ep_size(mesh), p["we1"].shape[0]
+    capacity, d = dispatch.shape[-1], chunk.shape[-1]
     send = torch.einsum("nd,nec->ecd", chunk.to(compute), dispatch.to(compute))
-    y = reduce(_expert_ffn(p, copy(send, g), cfg), g)
-    return torch.einsum("ecd,nec->nd", y, combine.to(compute))
+    recv = all_to_all(send.reshape(ep, e_local, capacity, d), 0, 0, _ep(mesh))
+    # recv[s, e] holds source rank s's slots for this rank's expert e.
+    tokens = recv.transpose(0, 1).reshape(e_local, ep * capacity, d)
+    y = reduce(_expert_ffn(p, copy(tokens, g), cfg), g)
+    back = y.reshape(e_local, ep, capacity, d).transpose(0, 1)
+    y = all_to_all(back, 0, 0, _ep(mesh)).reshape(ep * e_local, capacity, d)
+    return gather(torch.einsum("ecd,nec->nd", y, combine.to(compute)), 0, _ep(mesh))
 
 
 def _moe_mlp_routed(p, xn, cfg, mesh=None):
     """Token-choice top-k with a static per-expert capacity C (switch
     style): slot-major positions, so first choices win capacity over
-    second ones; overflow drops. Returns (out, stats [2, E])."""
+    second ones; overflow drops. Over ep each rank routes its chunk of the
+    tokens (the capacity is the chunk's). Returns (out, stats [2, E]: the
+    chunk's)."""
     num_experts, k = cfg.n_experts, cfg.moe_top_k
     b, t, d = xn.shape
-    chunk, gates, n = _route_prologue(p, xn, cfg)
+    chunk, gates, n = _route_prologue(p, xn, cfg, mesh)
     top_w, top_i = renormalized_topk(gates, k)
     choice = F.one_hot(top_i, num_experts).float()  # [n, k, E]
     stats = torch.stack([choice.sum(dim=(0, 1)), gates.sum(dim=0)])
@@ -675,11 +758,12 @@ def _moe_mlp_routed(p, xn, cfg, mesh=None):
 
 def _moe_mlp_expert_choice(p, xn, cfg, mesh=None):
     """Expert choice: each expert takes its top-C tokens by gate score
-    (ties to the lower token index). Balanced by construction; no
-    balancing statistics (zeros)."""
+    (ties to the lower token index) among this ep rank's chunk, so the
+    routing depends on ep, as the reference's does. Balanced by
+    construction; no balancing statistics (zeros)."""
     num_experts = cfg.n_experts
     b, t, d = xn.shape
-    chunk, gates, n = _route_prologue(p, xn, cfg)
+    chunk, gates, n = _route_prologue(p, xn, cfg, mesh)
     capacity = min(n, max(1, math.ceil(n / num_experts * cfg.moe_capacity_factor)))
     top_w, top_i = _top_k(gates.T, capacity)  # [E, C]
     dispatch = F.one_hot(top_i, n).float().permute(2, 0, 1)  # [n, E, C]
@@ -838,8 +922,8 @@ def _token_ce(params, xn, targets, cfg: TransformerConfig, mesh=None):
 
 def _balancing_aux(stats, cfg: TransformerConfig):
     """The GShard balancing loss from the layers' statistics [layers, 2, E]
-    (choice counts, gate-probability sums), as the reference's
-    `_local_loss_fn` forms it at dp = sp = ep = 1: each layer's E * sum_e
+    (choice counts, gate-probability sums, pooled over the mesh), as the
+    reference's `_local_loss_fn` forms it: each layer's E * sum_e
     f_e * P_e (f_e the share of routing choices that picked expert e, P_e
     its mean gate probability), averaged over the layers."""
     choices, probs = stats[:, 0], stats[:, 1]
@@ -852,11 +936,11 @@ def _balancing_aux(stats, cfg: TransformerConfig):
 def _local_loss(params, inputs, targets, mask, cfg: TransformerConfig, mesh=None):
     """(loss_sum, token_count, aux) of the global batch, from this rank's
     rows and positions: the sum and the count are reduced over (dp, sp),
-    and so are the MoE balancing statistics before the aux loss's
-    nonlinear product (each rank then adds the global aux once; the (dp,
-    sp) sum of the gradients makes its gradient exact). aux is 0 unless
-    routing is token-choice top-k (the reference's condition, moe_top_k >
-    0)."""
+    and the MoE balancing statistics over (dp, sp, ep) before the aux
+    loss's nonlinear product (each rank then adds the global aux once; the
+    (dp, sp) sum of the gradients makes its gradient exact). aux is 0
+    unless routing is token-choice top-k (the reference's condition,
+    moe_top_k > 0)."""
     data = _data(mesh)
     x = _embed_tokens(params["embed"], inputs, cfg, mesh)
     stats = []
@@ -865,7 +949,7 @@ def _local_loss(params, inputs, targets, mask, cfg: TransformerConfig, mesh=None
         stats.append(layer_stats)
     xn = rms_norm(x, params["final_norm"], cfg.norm_eps)
     per_token = _token_ce(params, xn, targets, cfg, mesh)
-    aux = (_balancing_aux(reduce(torch.stack(stats), data), cfg) if cfg.moe_top_k > 0
+    aux = (_balancing_aux(reduce(torch.stack(stats), _stats(mesh)), cfg) if cfg.moe_top_k > 0
            else per_token.new_zeros(()))
     loss_sum, count = (per_token * mask).sum(), mask.sum()
     if data is not None:
@@ -975,7 +1059,7 @@ def _pipeline_loss_and_grads(params, inputs, targets, mask, cfg: TransformerConf
     def finish(outputs, extras):
         """gpipe, interleaved: the last stage's loss head over every
         microbatch, and each rank's layers' aux term from the pooled
-        statistics of its units, pooled again over (dp, sp)."""
+        statistics of its units, pooled again over (dp, sp, ep)."""
         loss_sum = pipe.outputs_sum(outputs)
         values["sum"] = loss_sum.detach()
         objective = loss_sum * scale if outputs else None
@@ -986,7 +1070,7 @@ def _pipeline_loss_and_grads(params, inputs, targets, mask, cfg: TransformerConf
             for (b, c), stats in sorted(extras.items()):
                 for i in range(pipe.lpc):
                     per_slot[c * pipe.lpc + i] = per_slot[c * pipe.lpc + i] + stats[i]
-            aux = _balancing_aux(reduce(torch.stack(per_slot), _data(mesh)), cfg)
+            aux = _balancing_aux(reduce(torch.stack(per_slot), _stats(mesh)), cfg)
             values["aux"] = aux.detach()
             term = cfg.moe_aux_coef * aux
             objective = term if objective is None else objective + term
@@ -1032,7 +1116,9 @@ def _pipeline_eval_sum(params, inputs, targets, mask, cfg: TransformerConfig, me
 def _all_reduce_grads(grads: dict, mesh) -> None:
     """Sum a step's gradients in place: the layer leaves over (dp, sp), the
     others over (dp, sp, pp); one all-reduce a group (one in all at pp =
-    1)."""
+    1). Never over tp or ep: a leaf replicated over them has its whole
+    gradient on every rank (the `copy` transposes sum its partial parts),
+    one sharded over them its own shard's."""
     if mesh is None:
         return
     if mesh.size("pp") == 1:
@@ -1061,8 +1147,9 @@ def build_train_step(config: TransformerConfig, optimizer, accum_steps: int = 1,
     `runtime.optim.Optimizer` (init/update over param trees).
 
     mesh: a `parallel.mesh.Mesh` (None: one device). Then params are this
-    rank's shards (`param_shapes(cfg, mesh.config)`: its tp shards of its
-    pp stage), the batch is its dp rows and its sp chunk of positions, and
+    rank's shards (`param_shapes(cfg, mesh.config)`: its tp and ep shards
+    of its pp stage), the batch is its dp rows and its sp chunk of
+    positions (the same on every ep, tp and pp rank), and
     the loss is the global batch's on every rank; the gradients are summed
     over (dp, sp), and those outside the layers over pp as well, once,
     after accumulation. Over pp stages, or with more than one microbatch

@@ -25,6 +25,13 @@ Sequence parallelism adds two more, with their own transposes:
   rank receives concatenated along another dim in group-rank order; its
   backward is the all-to-all with the two dims swapped.
 
+Expert parallelism adds `gather` with a gradient: the reference's tiled
+`lax.all_gather` of the routed layers' disjoint token chunks, whose
+result is replicated over the group. A replicated value's cotangent is
+whole on every rank here (`reduce`'s identity backward), so the
+transpose keeps this rank's slice of it (a reduce-scatter would count it
+once a rank).
+
 Pipeline parallelism adds `shift`, the pipeline's `lax.ppermute` by a
 step, cyclic or not, with no gradient: the pipeline loop
 (`parallel.pipeline.drive`) moves activations and cotangents itself, so
@@ -121,13 +128,25 @@ def _exchange(rows: torch.Tensor, group, send=None, recv=None) -> torch.Tensor:
     return out
 
 
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group, ctx.size = dim, group, x.shape[dim]
+        rows = _exchange(x.expand(dist.get_world_size(group), *x.shape), group)
+        return torch.cat(rows.unbind(0), dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        start = dist.get_rank(ctx.group) * ctx.size
+        return grad.narrow(ctx.dim, start, ctx.size).contiguous(), None, None
+
+
 def gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """The group's shards of x along `dim`, concatenated in group-rank
-    order (no gradient)."""
-    if group is None:
-        return x
-    rows = _exchange(x.expand(dist.get_world_size(group), *x.shape), group)
-    return torch.cat(rows.unbind(0), dim=dim)
+    """`lax.all_gather(x, axis_name, axis=dim, tiled=True)` over the group:
+    the group's shards of x along `dim`, concatenated in group-rank order.
+    Backward: this rank's slice of the cotangent (the gathered value is
+    replicated, so its cotangent is whole on every rank)."""
+    return x if group is None else _Gather.apply(x, dim, group)
 
 
 def _rotated(x: torch.Tensor, shift: int, group) -> torch.Tensor:

@@ -14,12 +14,15 @@ device `r` (`rank_grid`), so dp is outermost and process-major and tp
 varies fastest. `build_mesh` makes a `DeviceMesh` over the ranks with
 `mesh_dim_names=AXIS_NAMES` and exposes one process group per axis
 (`Mesh.group`); an axis of size 1 has no group, and every collective over
-it is the identity, as in the reference. Two more groups join axes
-(`JOINT_AXES`): the batch is split over dp and sp (`DATA_AXES`), so the
-layers' gradients reduce over the pair, in one all-reduce where the
-reference names both axes in one psum; the loss's sums and the gradients
+it is the identity, as in the reference. More groups join axes
+(`JOINT_AXES`), one all-reduce where the reference names several axes in
+one psum: the batch is split over dp and sp (`DATA_AXES`), so the
+layers' gradients reduce over the pair; the loss's sums and the gradients
 of the leaves every pipeline stage shares (the embedding, the final norm,
-the unembedding) reduce over dp, sp and pp (`LOSS_AXES`).
+the unembedding) reduce over dp, sp and pp (`LOSS_AXES`); a mixture-of-
+experts layer sums its experts' partial outputs over ep and tp
+(`EXPERT_AXES`) and pools its balancing statistics over dp, sp and ep
+(`STATS_AXES`).
 `single_device_mesh()` is the mesh of a run with no process group at
 all.
 
@@ -45,9 +48,13 @@ DATA_AXES = ("dp", "sp")
 # The batch's axes and the pipeline's: the loss's sums, and the gradients of
 # the leaves outside the stacked layers, reduce over all three.
 LOSS_AXES = ("dp", "sp", "pp")
+# The expert-sharded layer's axes: its experts' partial outputs sum over
+# ep and tp; its balancing statistics pool over the batch's axes and ep.
+EXPERT_AXES = ("ep", "tp")
+STATS_AXES = ("dp", "sp", "ep")
 # The joint groups every mesh makes, each where two or more of its axes
-# are above 1.
-JOINT_AXES = (DATA_AXES, LOSS_AXES)
+# are above 1, in this order on every rank.
+JOINT_AXES = (DATA_AXES, LOSS_AXES, EXPERT_AXES, STATS_AXES)
 
 
 @dataclass(frozen=True)

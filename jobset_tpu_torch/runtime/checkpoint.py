@@ -9,7 +9,7 @@ checkpoints of the JAX package are not read.
 
 A gang saves the global state, as orbax saves global arrays: given its
 mesh and the state's specs, `save` gathers every tensor over each axis
-its spec splits (tp, pp, and dp for a ZeRO-1 optimizer state) and the rank at
+its spec splits (tp, ep, pp, and dp for a ZeRO-1 optimizer state) and the rank at
 every axis's 0 writes it, and every rank waits for the write; `restore`
 reads the global state on every rank and cuts each tensor to the rank's
 shard. So a checkpoint written at one mesh restores at another (a layer

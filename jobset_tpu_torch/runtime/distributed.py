@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import json
 import os
+import random
 import socket
 from dataclasses import dataclass
 from datetime import timedelta
@@ -161,11 +162,30 @@ def pod_env_for(cluster, pod) -> dict:
     return env
 
 
+# Rendezvous ports are drawn from below the ephemeral ranges (Linux's
+# default 32768-60999, IANA's 49152-65535). The kernel hands ports of
+# those ranges to every `bind(0)` (gloo's own listeners) and to the source
+# end of every `connect` (a store client retrying while its server starts),
+# and one of them taking a port between `free_port` and the store's listen
+# failed a gang with EADDRINUSE. A port below them is taken only by an
+# explicit bind.
+RENDEZVOUS_PORTS = range(16384, 32768)
+
+
 def free_port() -> int:
-    """A free TCP port on the loopback interface (bound to port 0, released)."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A free TCP port on the loopback interface from RENDEZVOUS_PORTS,
+    drawn at random and checked by binding it (no SO_REUSEADDR, so a port
+    still in TIME_WAIT is passed over too), then released."""
+    draw = random.SystemRandom()
+    for _ in range(256):
+        port = draw.choice(RENDEZVOUS_PORTS)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError(f"no free loopback port in {RENDEZVOUS_PORTS}")
 
 
 def default_backend(device) -> str:

@@ -16,14 +16,14 @@ A learning rate is a float or a schedule, `schedule(count) -> float`:
 update n (counted from 0) uses schedule(n), as optax's
 `scale_by_schedule` does; Adam's bias correction uses n + 1.
 
-Over a sharded parameter tree (`models.transformer.param_specs`: tp
-shards, pp stages) adam, adamw and sgd need no change: they are
+Over a sharded parameter tree (`models.transformer.param_specs`: tp and
+ep shards, pp stages) adam, adamw and sgd need no change: they are
 elementwise, so a rank's update of its shard is the global update's
 slice. Adafactor is not: its factored dims, row and column means and
 block RMSs are those of the global leaf, so it takes the specs and the
 mesh (`adafactor(lr, specs, mesh)`).
 `Optimizer.state_specs(param_specs, global_shapes)` names which dim of
-each state leaf is split over tp or pp (and, under ZeRO-1, dp), for a
+each state leaf is split over tp, ep or pp (and, under ZeRO-1, dp), for a
 checkpoint that saves the global state.
 
 `zero1(optimizer, specs, mesh)` is ZeRO-1 over the mesh's dp axis: the
@@ -301,7 +301,7 @@ def adafactor(learning_rate: LearningRate, specs: Optional[dict] = None,
     leaf is then updated as optax updates the global leaf: its factored
     dims picked from the global shape, its row and column means and both
     block RMSs taken over the whole leaf (sums all-reduced over each axis
-    its spec splits it over, tp and pp, and over dp where an update's
+    its spec splits it over, tp, ep and pp, and over dp where an update's
     `shards` slice a leaf, as ZeRO-1 does). Without them every leaf is
     whole."""
 

@@ -30,17 +30,15 @@ A restart resumes from the latest checkpoint.
 
 As one rank of a gang (`train_workload(workload, device, mesh)`, the
 mesh over the gang's processes): an LM's full parameters are drawn as
-above and cut to the rank's tp shards of its pp stage; each rank takes
-the rows of its dp coordinate and the positions of its sp coordinate of
-every batch (its tp and pp peers take the same: the batch is replicated
-over pp, as the reference's P("dp", "sp") is), from the same positional
-stream, so a resumed gang
+above and cut to the rank's tp and ep shards of its pp stage; each rank
+takes the rows of its dp coordinate and the positions of its sp
+coordinate of every batch (its ep, tp and pp peers take the same: the
+batch is replicated over them, as the reference's P("dp", "sp") is),
+from the same positional stream, so a resumed gang
 still sees the batches of an uninterrupted one; `"zero1": true` splits an
 LM's optimizer state over dp (`optim.zero1`); the mlp and cnn kinds split
 their batch over dp and replicate over the other axes; a checkpoint holds
 the global state, so it restores with or without zero1.
-
-Not ported yet: the ep axis (`device.check_axes`).
 """
 
 from __future__ import annotations
@@ -56,7 +54,7 @@ import numpy as np
 import torch
 
 from ..convert import shard_params
-from ..device import check_axes, resolve_device
+from ..device import resolve_device
 from ..models import cnn, mlp
 from ..models.transformer import (
     TransformerConfig,
@@ -333,14 +331,12 @@ _SETUPS = {"mlp": _setup_mlp, "cnn": _setup_cnn, "lm": _setup_lm}
 
 def check_workload(workload: dict) -> MeshConfig:
     """The workload's mesh (its `mesh` mapping; every axis 1 without one),
-    once its kind is known and no axis it names is one the port has not
-    ported (NotImplementedError naming it)."""
+    once its kind is known (an unknown kind raises ValueError, an unknown
+    mesh axis TypeError)."""
     kind = workload.get("kind", "mlp")
     if kind not in _SETUPS:
         raise ValueError(f"unknown workload kind: {kind}")
-    mesh_cfg = MeshConfig.of(workload.get("mesh"))
-    check_axes(mesh_cfg)
-    return mesh_cfg
+    return MeshConfig.of(workload.get("mesh"))
 
 
 def train_workload(workload: dict, device=None, mesh=None, restarts: int = 0) -> TrainResult:
@@ -409,8 +405,8 @@ class WorkloadRunner:
     restarts the gang); one that finishes completes every child job. A
     restarted gang's run resumes from its latest checkpoint. A rank that
     exits nonzero otherwise, or a gang past GANG_TIMEOUT_S (its processes
-    killed), raises `GangFailure`; an axis the port has not
-    ported raises NotImplementedError before anything is spawned.
+    killed), raises `GangFailure`; an unknown kind or mesh axis raises
+    (`check_workload`) before anything is spawned.
 
     `cluster` is taken duck-typed: the runner reads `pods` and `jobsets`
     (dicts of objects with the control plane's `Pod` and `JobSet` fields)

@@ -12,7 +12,7 @@ five-axis mesh over the gang's ranks (the payload's `mesh`, or
 `default_mesh_config` of the gang's size, tp first), runs
 `runner.train_workload` on the card (the CPU with `--cpu`), whatever kind
 the payload names ("lm", "mlp", "cnn"; "mlp" when absent; an lm over dp, pp,
-sp and tp, with `"zero1": true` its optimizer state split over dp), and
+ep, sp and tp, with `"zero1": true` its optimizer state split over dp), and
 prints one
 JSON result line: the gang's `world`, its `devices` (one a process),
 the `mesh`, the losses, and the flash block and grouped kernels this
@@ -90,7 +90,7 @@ def main(argv=None) -> int:
     from .runner import WorkloadFailure, check_workload, train_workload
 
     device = resolve_device("cpu" if args.cpu else None)
-    check_workload(workload)  # an axis or option not ported raises before the rendezvous
+    check_workload(workload)  # an unknown kind or axis raises before the rendezvous
     try:
         rank = rank_from_env()
     except KeyError:

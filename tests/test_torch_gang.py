@@ -3,8 +3,8 @@ the CPU (gloo): the per-pod worker (`python -m
 jobset_tpu_torch.runtime.worker --cpu`) as 2 and 4 processes on
 `examples/training/lm-moe-dropless.yaml`'s payload, with the rendezvous
 environment of `pod_env_for` and a loopback coordinator; a mesh that
-does not cover the gang exiting 2; an axis that is not ported raising
-before anything starts. (tests/test_torch_gang_restart.py holds crashed
+does not cover the gang exiting 2; a mesh axis the reference does not
+have raising before anything starts. (tests/test_torch_gang_restart.py holds crashed
 gangs, tests/test_torch_gang_state.py their state, and
 tests/test_torch_gang_runner.py `WorkloadRunner` running the example as 4
 processes to Completed, and the launcher's mesh layouts and failures; test_torch_workloads.py runs every example.)
@@ -140,9 +140,9 @@ def test_runner_raises_before_spawning_on_what_is_not_ported():
     js = _example()
     payload = js.spec.replicated_jobs[0].template.spec.template.spec.workload
     payload["zero1"] = True
-    payload["mesh"] = {"dp": 2, "ep": 2}
+    payload["mesh"] = {"dp": 2, "xp": 2}
     runner_ = WorkloadRunner(_cluster_with(js), device="cpu")
-    with pytest.raises(NotImplementedError, match="ep=2"):
+    with pytest.raises(TypeError, match="unexpected keyword argument 'xp'"):
         runner_.run_pending()
 
 

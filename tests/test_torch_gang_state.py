@@ -2,8 +2,8 @@
 workloads against their single-process runs; adafactor at tp = 2 against
 `optax.adafactor` on the global leaves; an LM checkpoint written by a
 tp = 2 gang (the global state, adafactor's factored moments included)
-restored by one process at tp = 1; and the worker raising on an axis that
-is not ported.
+restored by one process at tp = 1; and the worker raising on a mesh axis
+the reference does not have.
 
 Tolerances, f32: losses at rtol 1e-5 (the same arithmetic, its sums split
 over ranks and added in another order); adafactor's updates at max|d| <=
@@ -120,6 +120,7 @@ def test_checkpoint_saved_at_tp2_restores_at_tp1(tmp_path):
 
 def test_worker_raises_on_an_axis_that_is_not_ported():
     workload = dict(_example().spec.replicated_jobs[0].template.spec.template.spec.workload,
-                    mesh={"ep": 2})
+                    mesh={"xp": 2})
     codes, _, errs = _run_workers(_pod_envs(2, workload))
-    assert codes == [1, 1] and all("ep=2" in err and "NotImplementedError" in err for err in errs)
+    assert codes == [1, 1] and all("unexpected keyword argument 'xp'" in err
+                                   and "TypeError" in err for err in errs)

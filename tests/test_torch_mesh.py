@@ -4,7 +4,8 @@ rank sits on the five-axis mesh (`rank_grid`, `multislice_rank_grid`)
 against the device ids of the reference's `build_mesh` and
 `build_multislice_mesh` on the virtual CPU devices, for every MeshConfig
 of up to 8 devices; `default_mesh_config` for 1-8 devices; `pod_env_for`
-against the reference's on the same simulated JobSets; `param_specs`
+against the reference's on the same simulated JobSets; `free_port`
+below the ephemeral port ranges; `param_specs`
 against the reference's; and `shard_params` cutting a tree into shards
 that put back together give it bit for bit. All comparisons are exact."""
 
@@ -24,7 +25,6 @@ from jobset_tpu.parallel import mesh as jmesh
 from jobset_tpu.runtime import distributed as jdist
 from jobset_tpu.testing import make_jobset, make_replicated_job
 from jobset_tpu_torch.convert import shard_params
-from jobset_tpu_torch.device import check_axes
 from jobset_tpu_torch.models import transformer as ttf
 from jobset_tpu_torch.parallel import mesh as tmesh
 from jobset_tpu_torch.runtime import distributed as tdist
@@ -94,32 +94,20 @@ def test_mesh_config_rules():
         tmesh.build_mesh(tmesh.MeshConfig())
 
 
-# sp and pp are ported: ep still raises, beside dp, sp and pp too; pp
-# passes beside every other ported axis.
-@pytest.mark.parametrize("axis, item, beside", [("ep", "A6 step 6", "pp"),
-                                                ("ep", "A6 step 6", "dp"),
-                                                ("ep", "A6 step 6", "sp")])
-def test_unported_axes_raise_naming_the_axis(axis, item, beside):
-    with pytest.raises(NotImplementedError, match=f"{axis}=2.*{item}"):
-        check_axes({beside: 2, axis: 2})
-    with pytest.raises(NotImplementedError, match=f"{axis}=2"):
-        ttf.TransformerConfig(n_heads=4, d_model=32).validate({beside: 2, axis: 2})
-    check_axes({"dp": 2, "sp": 2, "tp": 4})
-    check_axes({"dp": 2, "pp": 2, "sp": 2, "tp": 2})
-    ttf.TransformerConfig(n_heads=4, d_model=32).validate({beside: 2, "pp": 2})
-
-
 def test_zero1_raises_naming_its_item():
-    """zero1 is ported: a zero1 payload's mesh passes unless it names an
-    axis that is not, which raises naming that axis's item."""
+    """zero1 is ported, and every axis of the reference with it: a zero1
+    payload's mesh passes, ep too; a mesh axis the reference does not have
+    raises naming it."""
     from jobset_tpu_torch.runtime.runner import check_workload
 
     assert check_workload({"kind": "lm", "zero1": True, "mesh": {"dp": 2}}) == \
         tmesh.MeshConfig(dp=2)
     assert check_workload({"kind": "lm", "zero1": True, "mesh": {"dp": 2, "pp": 2}}) == \
         tmesh.MeshConfig(dp=2, pp=2)
-    with pytest.raises(NotImplementedError, match="ep=2.*A6 step 6"):
-        check_workload({"kind": "lm", "zero1": True, "mesh": {"dp": 2, "ep": 2}})
+    assert check_workload({"kind": "lm", "zero1": True, "mesh": {"dp": 2, "ep": 2}}) == \
+        tmesh.MeshConfig(dp=2, ep=2)
+    with pytest.raises(TypeError, match="unexpected keyword argument 'xp'"):
+        check_workload({"kind": "lm", "zero1": True, "mesh": {"dp": 2, "xp": 2}})
 
 
 # ---------------------------------------------------------------------------
@@ -168,6 +156,44 @@ def test_pod_env_for_matches_the_reference():
     # Each gang's process ids are 0..N-1, one a pod.
     for name, ids in ranks.items():
         assert sorted(ids) == list(range(len(ids))), name
+
+
+def test_free_port_is_below_the_ephemeral_ranges_and_listenable():
+    import socket
+
+    for _ in range(16):
+        port = tdist.free_port()
+        assert port in tdist.RENDEZVOUS_PORTS and port < 32768
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", port))
+            s.listen()
+
+
+def test_free_port_passes_over_a_port_in_use(monkeypatch):
+    import socket
+
+    with socket.socket() as busy:
+        for port in tdist.RENDEZVOUS_PORTS:
+            try:
+                busy.bind(("127.0.0.1", port))
+                break
+            except OSError:
+                continue
+        busy.listen()
+        taken = busy.getsockname()[1]
+        draws = []
+        real = tdist.random.SystemRandom
+
+        class Draw:
+            """The port in use twice, then random draws."""
+            def choice(self, ports):
+                draws.append(taken if len(draws) < 2 else real().choice(ports))
+                return draws[-1]
+
+        monkeypatch.setattr(tdist.random, "SystemRandom", Draw)
+        port = tdist.free_port()
+        assert draws[:2] == [taken, taken] and len(draws) >= 3
+        assert port != taken and port in tdist.RENDEZVOUS_PORTS
 
 
 # ---------------------------------------------------------------------------

@@ -257,18 +257,18 @@ def test_checkpoint_resume_equals_an_uninterrupted_run(tmp_path):
     assert resumed == straight[2:]
 
 
-# dp, pp, sp and tp run as a gang of processes: train_workload without a
-# mesh refuses a payload whose mesh spans several devices (ValueError); ep
-# is not ported (NotImplementedError), with zero1 too.
+# Every mesh axis runs as a gang of processes: train_workload without a
+# mesh refuses a payload whose mesh spans several devices (ValueError),
+# with zero1 too.
 @pytest.mark.parametrize("bad, error", [
     ({"kind": "gan"}, ValueError),
-    ({"kind": "lm", "zero1": True, "mesh": {"ep": 2}}, NotImplementedError),
+    ({"kind": "lm", "zero1": True, "mesh": {"ep": 2}}, ValueError),
     ({"kind": "lm", "mesh": {"dp": 2}}, ValueError),
     ({"kind": "mlp", "mesh": {"dp": 2}}, ValueError),
     ({"kind": "cnn", "mesh": {"tp": 2}}, ValueError),
     ({"kind": "lm", "mesh": {"sp": 2}}, ValueError),
     ({"kind": "lm", "mesh": {"pp": 2}}, ValueError),
-    ({"kind": "mlp", "mesh": {"ep": 2}}, NotImplementedError),
+    ({"kind": "mlp", "mesh": {"ep": 2}}, ValueError),
 ])
 def test_train_workload_rejects_what_is_not_ported(bad, error):
     with pytest.raises(error):
@@ -338,7 +338,8 @@ def test_worker_module_runs_as_a_program(tmp_path):
 def test_worker_refuses_a_gang_of_several_processes(tmp_path, monkeypatch):
     """Gangs of several processes run (tests/test_torch_gang.py); the
     worker refuses one, before any rendezvous, whose mesh names an axis
-    that is not ported or does not cover the gang (exit 2)."""
+    the mesh does not have (TypeError) or does not cover the gang (exit
+    2)."""
     from jobset_tpu_torch.runtime import distributed
 
     env = {distributed.ENV_JOBSET_NAME: "js", distributed.ENV_REPLICATED_JOB: "w",
@@ -347,8 +348,8 @@ def test_worker_refuses_a_gang_of_several_processes(tmp_path, monkeypatch):
            distributed.ENV_COORDINATOR: "js-w-0-0.js"}
     for key, value in env.items():
         monkeypatch.setenv(key, value)
-    workload = {"kind": "lm", "steps": 1, "config": dict(SMALL), "mesh": {"ep": 2}}
-    with pytest.raises(NotImplementedError, match="ep=2"):
+    workload = {"kind": "lm", "steps": 1, "config": dict(SMALL), "mesh": {"xp": 2}}
+    with pytest.raises(TypeError, match="unexpected keyword argument 'xp'"):
         worker.main(["--workload-file", _write(tmp_path, workload), "--cpu"])
     workload["mesh"] = {"dp": 4}
     assert worker.main(["--workload-file", _write(tmp_path, workload), "--cpu"]) == 2

@@ -129,12 +129,11 @@ def test_validate_rejects_unported_settings(bad, match):
 
 @pytest.mark.parametrize("axis", ["dp", "tp", "sp", "pp", "ep"])
 def test_validate_rejects_mesh_axes(axis):
-    """ep is not ported and raises, naming the axis; dp, pp, sp and tp run
-    (tests/test_torch_tp.py, tests/test_torch_pp_train.py,
-    tests/test_torch_sp_train.py), with tp, pp and Ulysses' sp held to the
-    reference's divisibility rules."""
+    """Every axis runs (tests/test_torch_tp.py, tests/test_torch_pp_train.py,
+    tests/test_torch_sp_train.py, tests/test_torch_ep_train.py), with tp,
+    pp, ep and Ulysses' sp held to the reference's divisibility rules."""
+    ttf.TransformerConfig().validate({axis: 2})
     if axis in ("dp", "tp", "sp", "pp"):
-        ttf.TransformerConfig().validate({axis: 2})
         if axis == "pp":
             with pytest.raises(ValueError, match="not divisible by pp 2"):
                 ttf.TransformerConfig(n_layers=3).validate({axis: 2})
@@ -149,5 +148,7 @@ def test_validate_rejects_mesh_axes(axis):
             with pytest.raises(ValueError, match="ulysses attention requires heads-per-tp-rank"):
                 ttf.TransformerConfig(attn_impl="ulysses").validate({axis: 16})
         return
-    with pytest.raises(NotImplementedError, match=f"{axis}=2"):
-        ttf.TransformerConfig().validate({axis: 2})
+    moe = ttf.TransformerConfig(n_experts=4, moe_top_k=2)
+    moe.validate({axis: 4})
+    with pytest.raises(ValueError, match="n_experts 4 must be divisible by ep 8"):
+        moe.validate({axis: 8})

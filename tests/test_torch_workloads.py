@@ -334,10 +334,10 @@ def test_runner_trains_an_lm_with_held_out_eval():
 
 
 def test_runner_rejects_a_mesh_of_several_devices():
-    # dp and tp run as a gang (tests/test_torch_gang.py); an axis the port
-    # has not ported raises before any process starts.
-    cluster, js, runner_ = _build({"kind": "mlp", "steps": 2, "mesh": {"ep": 2}})
-    with pytest.raises(NotImplementedError, match="ep=2"):
+    # Every axis runs as a gang (tests/test_torch_gang.py); a mesh axis the
+    # reference does not have raises before any process starts.
+    cluster, js, runner_ = _build({"kind": "mlp", "steps": 2, "mesh": {"xp": 2}})
+    with pytest.raises(TypeError, match="unexpected keyword argument 'xp'"):
         runner_.run_pending()
 
 

@@ -12,7 +12,8 @@ gathered gradients of a step with `optimizer="grads"` (an optimizer that
 keeps the gradients as its state and moves nothing); `zero1` splits the
 optimizer state over dp. `sp_attention`: ring and Ulysses attention on
 the rank's chunks, with their gradients. `toy_pipeline`: the pipeline
-loop on a toy stage, with its gradients.
+loop on a toy stage, with its gradients. `ep_collectives`: the gather
+(with its backward) and the all-to-all over ep.
 """
 
 from __future__ import annotations
@@ -201,6 +202,25 @@ def mesh_layouts(layouts: list, device=None) -> list:
             sums[axis] = float(t)
         out.append({"coords": mesh.coords, "sums": sums})
     return out
+
+
+def ep_collectives(chunks, sends, cot, dtype: str = "float32", device=None) -> dict:
+    """At ep = the gang's size (numpy inputs, one row a rank): `gather` of
+    this rank's chunk over ep and its backward from `cot`, the cotangent of
+    the gathered value, and the `all_to_all` of its [ep, ...] send buffer
+    (split and concatenated along dim 0)."""
+    from jobset_tpu_torch.parallel import collectives
+
+    device = resolve_device(device)
+    dt = getattr(torch, dtype)
+    mesh = build_mesh(MeshConfig(ep=len(chunks)), device)
+    me, group = mesh.index("ep"), mesh.group("ep")
+    x = torch.as_tensor(chunks[me]).to(device, dt).requires_grad_()
+    gathered = collectives.gather(x, 0, group)
+    gathered.backward(torch.as_tensor(cot).to(device, dt))
+    moved = collectives.all_to_all(torch.as_tensor(sends[me]).to(device, dt), 0, 0, group)
+    return {"gathered": _numpy_tree(gathered), "gather_grad": _numpy_tree(x.grad),
+            "moved": _numpy_tree(moved)}
 
 
 def sp_attention(cases: dict, sp: int, device=None) -> dict:
