@@ -5,7 +5,8 @@
                                                  --control-only | --serving-only |
                                                  --moe-only | --moe-train-only |
                                                  --workloads-only | --gang-only |
-                                                 --sp-only | --pp-only | --ep-only]
+                                                 --sp-only | --pp-only | --ep-only |
+                                                 --mesh-serving-only]
 
 (`--solver-only` builds the auction kernel and runs phase 9 alone,
 `--flash-only` builds the flash block kernels and runs phases 2-3 alone,
@@ -18,7 +19,9 @@ kernels and runs phase 14 alone, `--gang-only` builds the flash block and
 grouped kernels and runs phase 15 alone, `--sp-only` builds the flash
 block kernels and runs phase 16 alone, `--pp-only` builds the flash block
 and grouped kernels and runs phase 17 alone, `--ep-only` builds the same
-and runs phase 18 alone; none of them prints the result line.) Phases, in order; any failure exits
+and runs phase 18 alone, `--mesh-serving-only` builds the flash block,
+int8 and grouped kernels and runs phase 19 alone; none of them prints the
+result line.) Phases, in order; any failure exits
 non-zero before the result line:
   1. the card's name and power limit (nvidia-smi); TF32 off;
   2. build every CUDA kernel from this checkout (one nvcc per source, all
@@ -223,12 +226,12 @@ non-zero before the result line:
      `torch.distributed` (`runtime.gang.spawn`), each rank a process on the
      one card, held against a single-process run on the card with the same
      parameters and batches (`gang_reference`): (a) NCCL at world 1, the
-     dense flagship's gradient step and 3 adam steps (phase 7's inputs, 4
-     of its 8 layers) bit for bit; (b) the dense flagship (4 layers) at
+     dense flagship's gradient step and 3 adam steps (phase 7's inputs, 2
+     of its 8 layers) bit for bit; (b) the dense flagship (2 layers) at
      tp = 2 (8 heads of 64 a rank)
      and a small f32 config at tp = 2, two ranks on gloo with CUDA tensors
      (NCCL refuses two ranks on one device); (c) the MoE flagship at dp =
-     2 x tp = 2 at 2 of its 8 layers, four ranks (we1 [8, 1024, 2048] a
+     2 x tp = 2 at 1 of its 8 layers, four ranks (we1 [8, 1024, 2048] a
      rank), held on its
      losses in bf16 (bf16 routes apart end to end; every bf16 wgrad launch
      on the TMA kernel) and on its gradients and first adam step by the
@@ -238,9 +241,13 @@ non-zero before the result line:
      examples/training/lm-moe-dropless.yaml through `WorkloadRunner` as 4
      worker processes, to Completed, its final loss against the CPU
      gang's. Each rank prints its flash and grouped launches of one step,
-     its median step, peak memory, and from a torch.profiler trace of one
+     its step time, peak memory, and from a torch.profiler trace of one
      step the share of the step inside collective ops and the card's busy
-     share (ranks sharing one card: no scaling figure);
+     share (ranks sharing one card: no scaling figure). (b), (c) and its
+     f32 run are one gang of four (tp 2 on ranks 0 and 1), (a) runs in
+     the process that takes the single-process references, and in phases
+     15-18 the untimed gangs run beside the timed ones, so that the whole
+     run fits its limit on a slow host: their step times are information;
  16. sequence parallelism and ZeRO-1, in a process of its own
      (`--sp-only`): (a) the flash block kernel at the ring's blocks of
      the flagship at sp = 2, [8, 512, 16, 64], bf16 and f32, under the
@@ -248,7 +255,7 @@ non-zero before the result line:
      ring gives them), against the plain version, each merged into a
      real accumulator and differentiated (the masked block must leave
      the accumulator as it was, bit for bit); (b) the dense flagship at
-     sp = 2 at 4 of its 8 layers, ring and Ulysses, two ranks on gloo
+     sp = 2 at 2 of its 8 layers, ring and Ulysses, two ranks on gloo
      (B=8, T=1024, remat
      off): a gradient step and 3 adam steps against one process at
      phase 15 (b)'s bounds, 8 (ring) and 12 (Ulysses) flash launches
@@ -290,7 +297,8 @@ non-zero before the result line:
      tail's rows of forward and dgrad exactly 0, and another fill of the
      tail moving no covered output and no bit of dw; each timed beside
      the same call at ep = 1; (b) the MoE flagship at ep = 2 (4 of 8
-     experts a rank, dropless top-2, 8 layers), B=8, T=1024, remat off,
+     experts a rank, dropless top-2, 4 of its 8 layers), B=8, T=1024,
+     remat off,
      two ranks on gloo: a gradient step and 3 adam steps against one
      process (held on its losses, as 15 (c)), a rank's flash and grouped
      launches of one step, the median step, peak memory, and from a traced
@@ -301,9 +309,35 @@ non-zero before the result line:
      payload at mesh {ep: 2} through `WorkloadRunner` as 2 worker
      processes on the card, to Completed, its final loss within 1e-4 of
      the CPU gang's;
- 19. one `kernels` JSON line (with each kernel's launches on the gang's,
-     the sp, the pp and the ep paths, and the grouped kernels' times at an
-     ep rank's products), then the result line
+ 19. serving and the forward over a mesh, in a process of its own
+     (`--mesh-serving-only`): (a) the int8 kernel at a tp = 2 rank's
+     decode products of the dense and MoE flagships, bf16 (Q/K/V a group
+     of [1024, 3 x 512], wo [512, 1024], w1 [1024, 2048], w2 [2048, 1024],
+     the unembedding [1024, 16000], the expert stacks [8, 1024, 2048] and
+     [8, 2048, 1024]; each the rank's shard of a weight quantized whole)
+     against its plain version, the two ranks' row-parallel products
+     summed against the whole weight's, and each timed L2-cold beside
+     the same call at tp = 1, with its bound; (b) the dense flagship at tp
+     = 2, 8 layers, B=8, prompt 1024, 32 new, greedy in bf16 and with int8
+     weights and the int8 cache, two ranks on gloo, against one process:
+     the prefill's last-position logits gathered over tp within phase 4's
+     bounds, the tokens equal up to each row's first position whose top-2
+     margin is under that bound, a sampled run (temperature 0.9, top_k 4)
+     alike on both ranks and top_k 1 equal to greedy; (c) the MoE
+     flagship at dp 2 x tp 2, 2 of its 8 layers, int8 weights, four ranks,
+     held as (b); (d) `build_forward` of the dense flagship at pp = 2, 4
+     of its layers, 4 microbatches, against one process's logits, and a
+     small f32 config's at sp = 2 (ring) and its MoE at ep = 2 (dropless);
+     (e) a small f32 config's tokens at tp 2 and dp 2 x tp 2 (f32, and
+     int8 weights with the int8 cache) equal to the port's CPU gang's.
+     Each rank prints its flash, tile-class, int8 and grouped launches of
+     one `generate` call, its TTFT and new tokens/s (ranks sharing one
+     card: no scaling figure), and from a trace of one call the share in
+     collective ops and the card's busy share;
+ 20. one `kernels` JSON line (with each kernel's launches on the gang's,
+     the sp, the pp, the ep and the mesh-serving paths, the grouped
+     kernels' times at an ep rank's products and the int8 kernel's at a
+     tp rank's), then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 The flagship is the repo's training/decode bench config: vocab 32000,
@@ -1357,6 +1391,7 @@ def run_worker(workload_file, restart_attempt):
 
 def phase_worker(results):
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     small = {"vocab_size": 256, "d_model": 128, "n_heads": 4, "d_ff": 256, "n_layers": 2}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1366,7 +1401,14 @@ def phase_worker(results):
                 json.dump({"kind": "lm", "steps": 6, "config": small, **kw}, f)
             return path
 
-        rc, straight = run_worker(workload("straight"), 0)
+        crashing = workload("crashing", checkpoint_every=2,
+                            checkpoint_dir=os.path.join(tmp, "ckpt"), fail_at_step=3)
+        # The uninterrupted run and the crashing one at once (each its own
+        # process; the resume waits for the crash).
+        with ThreadPoolExecutor(1) as pool:
+            pending = pool.submit(run_worker, workload("straight"), 0)
+            rc_fail, failed = run_worker(crashing, 0)
+            rc, straight = pending.result()
         check(rc == 0 and straight is not None and straight["steps"] == 6,
               f"worker: uninterrupted run exits {rc} with its result line")
         launches = (straight or {}).get("kernel_launches", {})
@@ -1376,9 +1418,6 @@ def phase_worker(results):
         # One mask (the [16, 16] triangle) classified once per process.
         check(launches.get("TILE_CLASS_LAUNCHES") == 1,
               f"worker: the uninterrupted run ran the tile-class pass once ({launches})")
-        crashing = workload("crashing", checkpoint_every=2,
-                            checkpoint_dir=os.path.join(tmp, "ckpt"), fail_at_step=3)
-        rc_fail, failed = run_worker(crashing, 0)
         check(rc_fail == 1 and failed is not None and "step 3" in failed.get("failed", ""),
               f"worker: the run with fail_at_step=3 exits {rc_fail} and says where it failed")
         rc_resume, resumed = run_worker(crashing, 1)
@@ -2939,9 +2978,10 @@ def int8_experts_case(name, dtype, k, n, shared, seed) -> float:
     return err.max().item()
 
 
-def time_int8_experts(dtype, k, n, shared) -> dict:
+def time_int8_experts(dtype, k, n, shared, rows=BATCH) -> dict:
     """L2-cold times of one expert-stack launch at a decode step's shape
-    (four stacks of 32 MB of int8 alternate): the kernel; eight 2-D
+    (x [E or 1, rows, k]; stacks of int8 alternate, four or more, 128 MB
+    or more in all: four of 32 MB at the flagship): the kernel; eight 2-D
     launches; the plain version (dequantize, batched matmul); torch.matmul
     on the stack dequantized to dtype beforehand (`library_ms`, the product
     at twice the weight bytes); the bound (bytes)."""
@@ -2949,24 +2989,25 @@ def time_int8_experts(dtype, k, n, shared) -> dict:
     from jobset_tpu_torch.ops import int8_matmul as i8
 
     gen = torch.Generator(device="cuda").manual_seed(k * 3 + n)
+    n_sets = max(4, -(-(128 << 20) // (MOE_EXPERTS * k * n)))
     sets = [quant.quantize_int8(torch.randn((MOE_EXPERTS, k, n), generator=gen, device="cuda")
-                                / k ** 0.5) for _ in range(4)]
+                                / k ** 0.5) for _ in range(n_sets)]
     parts = [[quant.QuantizedTensor(qt.q[e], qt.scale[e]) for e in range(MOE_EXPERTS)]
              for qt in sets]
     dense = [quant.weight_cast(qt, dtype) for qt in sets]
-    x = torch.randn((1 if shared else MOE_EXPERTS, BATCH, k), generator=gen,
+    x = torch.randn((1 if shared else MOE_EXPERTS, rows, k), generator=gen,
                     device="cuda").to(dtype)
     if dtype == torch.float32:
         plain_is_f32("int8 expert timing")
     size = torch.tensor([], dtype=dtype).element_size()
-    moved = MOE_EXPERTS * (k * n + 4 * n + size * BATCH * n) + size * x.numel()
+    moved = MOE_EXPERTS * (k * n + 4 * n + size * rows * n) + size * x.numel()
     out = {
-        "ms": rotating_ms(lambda i: i8.int8_matmul_experts(x, sets[i], dtype), 4, ITERS),
+        "ms": rotating_ms(lambda i: i8.int8_matmul_experts(x, sets[i], dtype), n_sets, ITERS),
         "apart_ms": rotating_ms(lambda i: [i8.int8_matmul(x[0 if shared else e], parts[i][e], dtype)
-                                           for e in range(MOE_EXPERTS)], 4, ITERS),
-        "plain_ms": rotating_ms(lambda i: i8.int8_matmul_experts_plain(x, sets[i], dtype), 4,
+                                           for e in range(MOE_EXPERTS)], n_sets, ITERS),
+        "plain_ms": rotating_ms(lambda i: i8.int8_matmul_experts_plain(x, sets[i], dtype), n_sets,
                                 ITERS),
-        "library_ms": rotating_ms(lambda i: torch.matmul(x, dense[i]), 4, ITERS),
+        "library_ms": rotating_ms(lambda i: torch.matmul(x, dense[i]), n_sets, ITERS),
         "bound_ms": 1e3 * moved / HBM_BYTES_PER_S,
         "bound_by": "bytes",
     }
@@ -4384,15 +4425,17 @@ def phase_workloads_apart(results):
 # ---------------------------------------------------------------------------
 
 # The gang runs: GANG_STEPS adam steps (lr GANG_LR) after one gradient
-# step, then GANG_WARMUP + GANG_TIMED timed steps and one step with its
-# all-reduces timed, each rank its own process on the one card.
-GANG_STEPS, GANG_LR, GANG_WARMUP, GANG_TIMED = 3, 1e-3, 1, 3
+# step, then GANG_WARMUP + GANG_TIMED timed steps (the adam steps warm the
+# path) and one step with its all-reduces timed, each rank its own process
+# on the one card.
+GANG_STEPS, GANG_LR, GANG_WARMUP, GANG_TIMED = 3, 1e-3, 0, 1
 GANG_TIMEOUT_S = 600
-# (c)'s MoE gangs (bf16 and f32) run 2 of the MoE flagship's 8 layers,
-# (a) and (b) 4 of the dense flagship's 8, phase 16's and phase 17's
-# dense flagship 4 of its 8: full width, cut in depth, so that the whole
-# run with phase 18 stays well inside its time limit.
-GANG_MOE_LAYERS, GANG_DENSE_LAYERS, SP_LAYERS, PP_LAYERS = 2, 4, 4, 4
+# (c)'s MoE gangs (bf16 and f32) run 1 of the MoE flagship's 8 layers,
+# (a) and (b) 2 of the dense flagship's 8, phase 16's dense flagship 2 of
+# its 8 and phase 17's 4 (the interleave takes 2 chunks of a stage's
+# layers): full width, cut in depth, so that the whole run with phase 19
+# stays well inside its time limit on a slow host.
+GANG_MOE_LAYERS, GANG_DENSE_LAYERS, SP_LAYERS, PP_LAYERS = 1, 2, 2, 4
 # Held against the single-process run on the card, same parameters and
 # batches (the ranks' all-reduces add the shards' partial sums in another
 # order than one product does):
@@ -4595,6 +4638,13 @@ def gang_references(jobs: list) -> list:
     return [gang_reference(**job) for job in jobs]
 
 
+def references_and_rank(jobs: list, spec: dict) -> tuple:
+    """`gang_references(jobs)`, then `gang_rank(spec)` in the same process
+    (a gang of one on its process group): phase 15's single-process runs,
+    then (a)."""
+    return gang_references(jobs), gang_rank(spec)
+
+
 def gathered(leaf, spec, mesh):
     """A leaf's shards gathered over each axis its spec splits it over (tp,
     pp); every rank of each group takes part."""
@@ -4737,7 +4787,9 @@ def gang_rank(spec: dict) -> dict:
     cuda = device.type == "cuda"
     draw = "cpu" if spec.get("draw_on_cpu") else device
     steps = spec.get("steps", GANG_STEPS)
-    mesh = build_mesh(MeshConfig(**spec["mesh"]), device)
+    mesh = build_mesh(MeshConfig(**spec["mesh"]), device, allow_submesh=True)
+    if mesh is None:  # a rank past the spec's mesh
+        return None
     specs = param_specs(cfg)
     full = init_params(cfg, torch.Generator(device=draw).manual_seed(0), device, mesh.config)
     virtual = spec.get("interleave", 1)
@@ -4870,7 +4922,7 @@ GANG_STEP_RANGE = "gang train step"
 COLLECTIVE_OPS = ("all_reduce", "allreduce", "all_to_all", "alltoall")
 
 
-def collective_trace(events) -> dict:
+def collective_trace(events, range_name=GANG_STEP_RANGE) -> dict:
     """From a torch.profiler trace of one gang step (no synchronization in
     it but the one that closes the step): the step's span (its
     GANG_STEP_RANGE), the union of the collective ops' host spans within
@@ -4884,7 +4936,7 @@ def collective_trace(events) -> dict:
     from torch.autograd import DeviceType
 
     events = list(events)
-    (window,) = [e for e in events if e.name == GANG_STEP_RANGE
+    (window,) = [e for e in events if e.name == range_name
                  and e.device_type != DeviceType.CUDA]
     start, end = window.time_range.start, window.time_range.end
 
@@ -5003,24 +5055,32 @@ def gang_runner_sequence(device, backend) -> dict:
             "results": runner.last_gang_results}
 
 
-def gang_moe_f32(tmp, batch, card) -> dict:
+def gang_moe_f32_spec(batch, path) -> dict:
+    """The `gang_rank` spec of (c)'s gang in f32 at `batch`, held to the
+    single-process run saved at `path`."""
+    from dataclasses import replace
+
+    moe32 = replace(moe_config(), dtype=torch.float32, n_layers=GANG_MOE_LAYERS)
+    return {"cfg": moe32, "mesh": {"dp": 2, "tp": 2}, "batch": batch, "seq": PROMPT,
+            "reference": path, "timed": False, "diagnose": True, "first_move": True}
+
+
+def gang_moe_f32(tmp, batch, card, ranks=None, ref=None) -> dict:
     """(c)'s gang in f32 (TF32 off), where the first step routes as one
     process does: its losses, gradients and first adam step held to one
     process's, and where the moves of all GANG_STEPS stray printed
     (`move_outliers`); each rank's peak memory beside the single
-    process's; no timing."""
-    from dataclasses import replace
-
+    process's; no timing. `ranks` and `ref`: the gang's results and the
+    single-process run (saved at tmp/moe32.pt), both taken here when not
+    given."""
     from jobset_tpu_torch.runtime import gang
 
     t0 = time.perf_counter()
-    moe32 = replace(moe_config(), dtype=torch.float32, n_layers=GANG_MOE_LAYERS)
-    path = os.path.join(tmp, "moe32.pt")
-    ref = reference_apart(moe32, batch, PROMPT, path, first_move=True)
-    spec = {"cfg": moe32, "mesh": {"dp": 2, "tp": 2}, "batch": batch, "seq": PROMPT,
-            "reference": path, "timed": False, "diagnose": True, "first_move": True}
-    ranks = gang.spawn(gang_rank, 4, (spec,), backend="gloo", device="cuda",
-                       timeout_s=GANG_TIMEOUT_S, threads=0)
+    spec = gang_moe_f32_spec(batch, os.path.join(tmp, "moe32.pt"))
+    if ranks is None:
+        ref = reference_apart(spec["cfg"], batch, PROMPT, spec["reference"], first_move=True)
+        ranks = gang.spawn(gang_rank, 4, (spec,), backend="gloo", device="cuda",
+                           timeout_s=GANG_TIMEOUT_S, threads=0)
     print(f"  gang (c) f32 B={batch}: peak memory by rank "
           f"{[round(r['peak_gb'], 2) for r in ranks]} GB, {sum(r['peak_gb'] for r in ranks):.2f} "
           f"GB together; the single process's {ref['peak_gb']:.2f} GB ({card})", flush=True)
@@ -5064,21 +5124,22 @@ def phase_gang(results):
     with tempfile.TemporaryDirectory() as tmp:
         # The single-process runs (a)-(c) are held to, in one process.
         t0 = time.perf_counter()
-        paths = {key: os.path.join(tmp, f"{key}.pt") for key in ("dense", "small", "moe")}
+        paths = {key: os.path.join(tmp, f"{key}.pt")
+                 for key in ("dense", "small", "moe", "moe32")}
         jobs = [dict(cfg=dense, batch=BATCH, seq=PROMPT, path=paths["dense"]),
                 dict(cfg=small, batch=4, seq=64, path=paths["small"]),
-                dict(cfg=moe, batch=BATCH, seq=PROMPT, path=paths["moe"])]
-        refs = dict(zip(paths, gang.spawn(gang_references, 1, (jobs,), backend="gloo",
-                                          device="cuda", timeout_s=GANG_TIMEOUT_S,
-                                          threads=0)[0]))
+                dict(cfg=moe, batch=BATCH, seq=PROMPT, path=paths["moe"]),
+                dict(cfg=replace(moe, dtype=torch.float32), batch=GANG_F32_MOE_BATCH,
+                     seq=PROMPT, path=paths["moe32"], first_move=True)]
+        # (a) NCCL at world 1, in the same process after the references:
+        # the gang path equals phase 7's step.
+        spec = {"cfg": dense, "mesh": {}, "batch": BATCH, "seq": PROMPT,
+                "reference": paths["dense"]}
+        ((ref_list, one),) = gang.spawn(references_and_rank, 1, (jobs, spec), backend="nccl",
+                                        device="cuda", timeout_s=GANG_TIMEOUT_S, threads=0)
+        refs = dict(zip(paths, ref_list))
         gang_results["references_s"] = time.perf_counter() - t0
-
-        # (a) NCCL at world 1: the gang path equals phase 7's step.
-        path, ref = paths["dense"], refs["dense"]
-        t0 = time.perf_counter()
-        spec = {"cfg": dense, "mesh": {}, "batch": BATCH, "seq": PROMPT, "reference": path}
-        (one,) = gang.spawn(gang_rank, 1, (spec,), backend="nccl", device="cuda",
-                            timeout_s=GANG_TIMEOUT_S, threads=0)
+        ref = refs["dense"]
         check(one["backend"] == "nccl" and one["grad_loss"] == ref["grad_loss"]
               and one["losses"] == ref["losses"]
               and all(d == 0.0 for _, d, _ in one["grads"] + one["moves"]),
@@ -5086,15 +5147,34 @@ def phase_gang(results):
               f"and {GANG_STEPS} adam steps' moves equal the single-process step bit for bit "
               f"(worst max|d| {max(d for _, d, _ in one['grads'] + one['moves'])})")
         gang_print("gang (a)", [one], card)
-        gang_results["nccl_world1"] = {"rank": one, "reference": ref,
-                                       "seconds": time.perf_counter() - t0}
+        gang_results["nccl_world1"] = {"rank": one, "reference": ref}
 
-        # (b) the dense flagship at tp 2: two ranks share the card; NCCL
-        # refuses two ranks on one device, so they run gloo on CUDA tensors.
+        # (b) the dense flagship at tp 2 (ranks 0 and 1), (c) the MoE
+        # flagship at dp 2 x tp 2 and its f32 run, one gang of four on the
+        # card (NCCL refuses two ranks on one device, so they run gloo on
+        # CUDA tensors), beside a small f32 config at tp 2 (TF32 off) and
+        # (d) lm-moe-dropless.yaml through WorkloadRunner, the card's gang
+        # against the CPU's (f32 payload; rtol WORKLOAD_F32_REL): the step
+        # times beside theirs, no scaling figure either way.
         t0 = time.perf_counter()
-        spec = dict(spec, mesh={"tp": 2})
-        ranks = gang.spawn(gang_rank, 2, (spec,), backend="gloo", device="cuda",
-                           timeout_s=GANG_TIMEOUT_S, threads=0)
+        specs = [dict(spec, mesh={"tp": 2}),
+                 {"cfg": moe, "mesh": {"dp": 2, "tp": 2}, "batch": BATCH, "seq": PROMPT,
+                  "reference": paths["moe"]},
+                 gang_moe_f32_spec(GANG_F32_MOE_BATCH, paths["moe32"])]
+        small_spec = {"cfg": small, "mesh": {"tp": 2}, "batch": 4, "seq": 64,
+                      "reference": paths["small"]}
+        with ThreadPoolExecutor(3) as pool:
+            small_ranks = pool.submit(gang.spawn, gang_rank, 2, (small_spec,), backend="gloo",
+                                      device="cuda", timeout_s=GANG_TIMEOUT_S, threads=0)
+            runs = [pool.submit(gang_runner_sequence, device, "gloo")
+                    for device in ("cuda", "cpu")]
+            by_rank = gang.spawn(gang_ranks, 4, (specs,), backend="gloo", device="cuda",
+                                 timeout_s=GANG_TIMEOUT_S, threads=0)
+            gang_results["gang_s"] = time.perf_counter() - t0
+            small_ranks = small_ranks.result()
+            card_run, cpu_run = (run.result() for run in runs)
+        gang_results["beside_s"] = time.perf_counter() - t0
+        ranks = [r[0] for r in by_rank[:2]]
         gang_print("gang (b)", ranks, card)
         worst = gang_check(f"gang (b) dense flagship ({GANG_DENSE_LAYERS} layers) tp=2 (8 heads of 64 a rank), B={BATCH} "
                            f"T={PROMPT} bf16", ranks, ref, GANG_BF16_LOSS_REL,
@@ -5105,30 +5185,10 @@ def phase_gang(results):
                   and r["launches"]["F32_LAUNCHES"] == 0,
                   f"gang (b) rank {r['rank']}: {GANG_DENSE_LAYERS} bf16 flash launches a step, on the "
                   f"tensor-core variant ({r['launches']['TENSOR_CORE_LAUNCHES']})")
-        gang_results["dense_tp2"] = {"ranks": ranks, "reference": ref, "worst": worst,
-                                     "seconds": time.perf_counter() - t0}
+        gang_results["dense_tp2"] = {"ranks": ranks, "reference": ref, "worst": worst}
 
-        # A small f32 config at tp 2, TF32 off.
-        t0 = time.perf_counter()
-        path, ref = paths["small"], refs["small"]
-        spec = {"cfg": small, "mesh": {"tp": 2}, "batch": 4, "seq": 64, "reference": path}
-        ranks = gang.spawn(gang_rank, 2, (spec,), backend="gloo", device="cuda",
-                           timeout_s=GANG_TIMEOUT_S, threads=0)
-        gang_print("gang small f32", ranks, card)
-        worst = gang_check("gang small f32 config tp=2 (TF32 off)", ranks, ref, GANG_F32_REL,
-                           GANG_F32_REL, f32_moves=True)
-        check(all(r["launches"]["F32_LAUNCHES"] == small.n_layers for r in ranks),
-              f"gang small f32: {small.n_layers} f32 flash launches a step on each rank")
-        gang_results["small_f32_tp2"] = {"ranks": ranks, "reference": ref, "worst": worst,
-                                         "seconds": time.perf_counter() - t0}
-
-        # (c) the MoE flagship at dp 2 x tp 2: four ranks share the card.
-        t0 = time.perf_counter()
-        path, ref = paths["moe"], refs["moe"]
-        spec = {"cfg": moe, "mesh": {"dp": 2, "tp": 2}, "batch": BATCH, "seq": PROMPT,
-                "reference": path}
-        ranks = gang.spawn(gang_rank, 4, (spec,), backend="gloo", device="cuda",
-                           timeout_s=GANG_TIMEOUT_S, threads=0)
+        ref = refs["moe"]
+        ranks = [r[1] for r in by_rank]
         gang_print("gang (c)", ranks, card)
         worst = gang_check(f"gang (c) MoE flagship dp=2 x tp=2 ({MOE_EXPERTS} experts, "
                            f"we1 [8, 1024, {MOE_D_FF // 2}] a rank), B={BATCH} T={PROMPT} bf16",
@@ -5142,16 +5202,20 @@ def phase_gang(results):
                   and c["TENSOR_CORE_LAUNCHES"] == n,
                   f"gang (c) rank {r['rank']}: a step launches {2 * n} grouped forward "
                   f"(all TMA), dgrad and wgrad (all TMA) kernels and {n} flash kernels ({c})")
-        gang_results["moe_dp2_tp2"] = {"ranks": ranks, "reference": ref, "worst": worst,
-                                       "seconds": time.perf_counter() - t0}
+        gang_results["moe_dp2_tp2"] = {"ranks": ranks, "reference": ref, "worst": worst}
 
-        gang_results["moe_dp2_tp2_f32"] = gang_moe_f32(tmp, GANG_F32_MOE_BATCH, card)
+        gang_results["moe_dp2_tp2_f32"] = gang_moe_f32(
+            tmp, GANG_F32_MOE_BATCH, card, [r[2] for r in by_rank], refs["moe32"])
 
-    # (d) lm-moe-dropless.yaml through WorkloadRunner: the card's gang
-    # against the CPU's (f32 payload; rtol WORKLOAD_F32_REL), at once.
-    with ThreadPoolExecutor(2) as pool:
-        card_run, cpu_run = pool.map(lambda device: gang_runner_sequence(device, "gloo"),
-                                     ("cuda", "cpu"))
+        ref, ranks = refs["small"], small_ranks
+        gang_print("gang small f32", ranks, card)
+        worst = gang_check("gang small f32 config tp=2 (TF32 off)", ranks, ref, GANG_F32_REL,
+                           GANG_F32_REL, f32_moves=True)
+        check(all(r["launches"]["F32_LAUNCHES"] == small.n_layers for r in ranks),
+              f"gang small f32: {small.n_layers} f32 flash launches a step on each rank")
+        gang_results["small_f32_tp2"] = {"ranks": ranks, "reference": ref, "worst": worst}
+
+    # (d) against the CPU gang.
     final = float(card_run["annotations"].get("tpu.jobset.x-k8s.io/final-loss", "nan"))
     want = float(cpu_run["annotations"].get("tpu.jobset.x-k8s.io/final-loss", "nan"))
     check(card_run["terminal_state"] == "Completed" == cpu_run["terminal_state"]
@@ -5529,10 +5593,11 @@ def gloo_probe(which) -> object:
 
 def phase_sp(results):
     """Phase 16: sequence parallelism and ZeRO-1 at the flagship's width,
-    gangs of ranks sharing the card on gloo with CUDA tensors. The timed
-    gang (b, d) runs alone; the single-process references run beside the
-    block checks (a), and the untimed gangs (c), (e), (f) and the CPU gang
-    together, in threads, each in processes of its own."""
+    gangs of ranks sharing the card on gloo with CUDA tensors. The
+    single-process references run beside the block checks (a), then the
+    timed gang (b, d) beside the untimed gangs (c), (e), (f) and the CPU
+    gang, in threads, each in processes of its own (the step times beside
+    theirs: no scaling figure either way)."""
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
     from dataclasses import replace
@@ -5573,15 +5638,9 @@ def phase_sp(results):
             {"cfg": replace(small, attn_impl="ulysses"), "mesh": {"sp": SP}, "batch": 4,
              "seq": 64, "draw_on_cpu": True, "timed": False},
         ]
-        by_rank = gang.spawn(gang_ranks, SP, (specs,), backend="gloo", device="cuda",
-                             timeout_s=GANG_TIMEOUT_S, threads=0)
-        ring, uly, long_, small_ring, small_uly = ([r[i] for r in by_rank] for i in range(5))
-        out["sp_gang_s"] = time.perf_counter() - t0
-
-        # Untimed, at once: (c) ZeRO-1 at dp = 2, the small f32 config's CPU
-        # gang, (e) the two examples through WorkloadRunner on the card and
-        # on the CPU, and (f) the gloo probes.
-        t0 = time.perf_counter()
+        # Untimed, beside the sp gang: (c) ZeRO-1 at dp = 2, the small f32
+        # config's CPU gang, (e) the two examples through WorkloadRunner on
+        # the card and on the CPU, and (f) the gloo probes.
         zero = pool.submit(gang.spawn, zero_rank, 2, (dense, BATCH, PROMPT), backend="gloo",
                            device="cuda", timeout_s=GANG_TIMEOUT_S, threads=0)
         cpu = pool.submit(gang.spawn, gang_ranks, SP,
@@ -5590,6 +5649,10 @@ def phase_sp(results):
         examples = {(name, device): pool.submit(sp_workload_sequence, name, device, "gloo")
                     for name in SP_EXAMPLES for device in ("cuda", "cpu")}
         probes = {which: pool.submit(gloo_probe, which) for which in ("collectives", "send_recv")}
+        by_rank = gang.spawn(gang_ranks, SP, (specs,), backend="gloo", device="cuda",
+                             timeout_s=GANG_TIMEOUT_S, threads=0)
+        ring, uly, long_, small_ring, small_uly = ([r[i] for r in by_rank] for i in range(5))
+        out["sp_gang_s"] = time.perf_counter() - t0
         zero, cpu = zero.result(), cpu.result()
         runs = {key: job.result() for key, job in examples.items()}
         out["gloo_probe"] = {which: job.result() for which, job in probes.items()}
@@ -5678,8 +5741,8 @@ def phase_sp(results):
           "f32 and bf16, bit for bit on both ranks")
     out["seconds"] = time.perf_counter() - t_phase
     print(f"phase 16: {out['seconds']:.1f} s (block checks beside the references "
-          f"{out['references_s']:.1f}, sp gang {out['sp_gang_s']:.1f}, zero1, CPU gang, "
-          f"examples and probes at once {out['untimed_s']:.1f})", flush=True)
+          f"{out['references_s']:.1f}, sp gang {out['sp_gang_s']:.1f}, and beside it zero1, "
+          f"the CPU gang, examples and probes {out['untimed_s']:.1f})", flush=True)
     results["sp"] = out
 
 
@@ -5798,7 +5861,8 @@ def phase_pp(results):
     """Phase 17: pipeline parallelism at the flagship's width, gangs of two
     ranks sharing the card on gloo with CUDA tensors. The single-process
     reference and the CPU gangs run first, at once; then the timed gang
-    (a) alone; then (b), (c) and (d) on the card at once."""
+    (a) beside (b), (c) and (d) on the card (its step times beside
+    theirs: no scaling figure either way)."""
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
     from dataclasses import replace
@@ -5828,18 +5892,7 @@ def phase_pp(results):
         cpu, example_cpu = cpu.result(), example_cpu.result()
         out["references_s"] = time.perf_counter() - t0
 
-        # (a): each schedule at pp = 2, 4 microbatches, timed, one gang.
-        t0 = time.perf_counter()
-        specs = [{"cfg": pp_config(dense, schedule, PP_MICRO), "mesh": {"pp": PP},
-                  "batch": BATCH, "seq": PROMPT, "reference": path,
-                  "interleave": PP_SCHEDULES[schedule].get("pipeline_virtual", 1)}
-                 for schedule in PP_SCHEDULES]
-        by_rank = gang.spawn(gang_ranks, PP, (specs,), backend="gloo", device="cuda",
-                             timeout_s=GANG_TIMEOUT_S, threads=0)
-        timed_runs = {s: [r[i] for r in by_rank] for i, s in enumerate(PP_SCHEDULES)}
-        out["timed_gang_s"] = time.perf_counter() - t0
-
-        # (b), (c) and (d) on the card at once, untimed.
+        # (b), (c) and (d) on the card, untimed, beside (a).
         t0 = time.perf_counter()
         memory = pool.submit(gang.spawn, gang_ranks, PP, (
             [{"cfg": pp_config(dense, schedule, PP_MEMORY_MICRO), "mesh": {"pp": PP},
@@ -5849,6 +5902,16 @@ def phase_pp(results):
         card_small = pool.submit(gang.spawn, gang_ranks, PP, (small_specs,), backend="gloo",
                                  device="cuda", timeout_s=GANG_TIMEOUT_S, threads=0)
         example_card = pool.submit(sp_workload_sequence, "lm-pp-interleaved", "cuda", "gloo")
+
+        # (a): each schedule at pp = 2, 4 microbatches, timed, one gang.
+        specs = [{"cfg": pp_config(dense, schedule, PP_MICRO), "mesh": {"pp": PP},
+                  "batch": BATCH, "seq": PROMPT, "reference": path,
+                  "interleave": PP_SCHEDULES[schedule].get("pipeline_virtual", 1)}
+                 for schedule in PP_SCHEDULES]
+        by_rank = gang.spawn(gang_ranks, PP, (specs,), backend="gloo", device="cuda",
+                             timeout_s=GANG_TIMEOUT_S, threads=0)
+        timed_runs = {s: [r[i] for r in by_rank] for i, s in enumerate(PP_SCHEDULES)}
+        out["timed_gang_s"] = time.perf_counter() - t0
         memory, card_small, example_card = (memory.result(), card_small.result(),
                                             example_card.result())
         out["untimed_s"] = time.perf_counter() - t0
@@ -5928,8 +5991,8 @@ def phase_pp(results):
     out["example lm-pp-interleaved"] = {"card": example_card, "cpu": example_cpu}
     out["seconds"] = time.perf_counter() - t_phase
     print(f"phase 17: {out['seconds']:.1f} s (reference and CPU gangs at once "
-          f"{out['references_s']:.1f}, timed gang {out['timed_gang_s']:.1f}, memory, small f32 "
-          f"and example gangs at once {out['untimed_s']:.1f})", flush=True)
+          f"{out['references_s']:.1f}, timed gang {out['timed_gang_s']:.1f}, and beside it the "
+          f"memory, small f32 and example gangs {out['untimed_s']:.1f})", flush=True)
     results["pp"] = out
 
 
@@ -5997,7 +6060,7 @@ def phase_pp_apart(results):
 # the whole token set (the batch is replicated over ep), so its grouped
 # products run on every slot of B=8, T=1024, top 2 (16,384 rows), about
 # half of them in the foreign tail past its 4 groups.
-EP, EP_MOE_LAYERS = 2, 8
+EP, EP_MOE_LAYERS = 2, 4  # 4 of the MoE flagship's 8 layers
 EP_LOCAL = MOE_EXPERTS // EP
 # (a)'s routings of an ep rank's slots: the router of a random layer on
 # random hidden states (rank 0's groups, ~half the rows foreign), and
@@ -6180,7 +6243,7 @@ def phase_ep(results):
     ep = 2, and dropless at (pp 2, ep 2), against the port's CPU gang; (d)
     lm-moe-dropless.yaml's payload at {ep: 2} through the worker, on the
     card and on the CPU. The reference and the CPU gangs run first, at
-    once; then (b) alone; then (c) and (d) on the card at once."""
+    once; then (b) beside (c) and (d) on the card."""
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
     from dataclasses import replace
@@ -6220,15 +6283,7 @@ def phase_ep(results):
         worker_cpu = worker_cpu.result()
         out["references_s"] = time.perf_counter() - t0
 
-        # (b) the MoE flagship at ep 2, timed, alone on the card.
-        t0 = time.perf_counter()
-        spec = {"cfg": moe, "mesh": {"ep": EP}, "batch": BATCH, "seq": PROMPT,
-                "reference": path}
-        ranks = gang.spawn(gang_rank, EP, (spec,), backend="gloo", device="cuda",
-                           timeout_s=GANG_TIMEOUT_S, threads=0)
-        out["timed_gang_s"] = time.perf_counter() - t0
-
-        # (c) and (d) on the card at once.
+        # (c) and (d) on the card, beside (b).
         t0 = time.perf_counter()
         card_ep = pool.submit(gang.spawn, gang_ranks, EP, ([s for s in small_specs
                                                             if s["mesh"] == {"ep": EP}],),
@@ -6238,6 +6293,13 @@ def phase_ep(results):
                               backend="gloo", device="cuda", timeout_s=GANG_TIMEOUT_S,
                               threads=0)
         worker_card = pool.submit(sp_workload_sequence, "lm-moe-dropless-ep", "cuda", "gloo")
+
+        # (b) the MoE flagship at ep 2, timed.
+        spec = {"cfg": moe, "mesh": {"ep": EP}, "batch": BATCH, "seq": PROMPT,
+                "reference": path}
+        ranks = gang.spawn(gang_rank, EP, (spec,), backend="gloo", device="cuda",
+                           timeout_s=GANG_TIMEOUT_S, threads=0)
+        out["timed_gang_s"] = time.perf_counter() - t0
         card_ep, card_pp, worker_card = card_ep.result(), card_pp.result(), worker_card.result()
         out["untimed_s"] = time.perf_counter() - t0
 
@@ -6310,7 +6372,7 @@ def phase_ep(results):
     out["seconds"] = time.perf_counter() - t_phase
     print(f"phase 18: {out['seconds']:.1f} s (kernel checks {out['kernels_s']:.1f}, reference "
           f"and CPU gangs at once {out['references_s']:.1f}, timed gang "
-          f"{out['timed_gang_s']:.1f}, small f32 and worker gangs at once "
+          f"{out['timed_gang_s']:.1f}, and beside it the small f32 and worker gangs "
           f"{out['untimed_s']:.1f})", flush=True)
     results["ep"] = out
 
@@ -6383,6 +6445,698 @@ def phase_ep_apart(results):
             results["ep"] = json.load(f).get("ep")
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: serving over a mesh
+# ---------------------------------------------------------------------------
+
+# (b) the dense flagship at tp = 2, all 8 layers; (c) the MoE flagship at
+# dp 2 x tp 2, 2 of its 8 layers (full width, cut in depth); (d) the dense
+# flagship's forward at pp = 2, 4 of its 8 layers in 4 microbatches.
+MS_TP, MS_MOE_LAYERS, MS_PP_LAYERS, MS_PP_MICRO = 2, 2, 4, 4
+MS_TEMPERATURE, MS_TOP_K = 0.9, 4
+MS_TTFT_REPEATS = 3
+# (a): a tp = 2 rank's int8 decode products, name -> (rows, K, the widths
+# that share x, the split of the whole weight over tp, experts (0: a 2-D
+# weight), x shared by the experts). The dense flagship serves B = 8 rows
+# at dp = 1, the MoE flagship B / dp = 4 a rank.
+MS_INT8 = {
+    "wqkv": (BATCH, 1024, (512, 512, 512), "column", 0, False),
+    "wo": (BATCH, 512, (1024,), "row", 0, False),
+    "w1": (BATCH, 1024, (2048,), "column", 0, False),
+    "w2": (BATCH, 2048, (1024,), "row", 0, False),
+    "unembed": (BATCH, 1024, (16000,), "column", 0, False),
+    "we1": (BATCH // 2, 1024, (MOE_D_FF // MS_TP,), "column", MOE_EXPERTS, True),
+    "we2": (BATCH // 2, MOE_D_FF // MS_TP, (1024,), "row", MOE_EXPERTS, False),
+}
+# A row-parallel product's tp partial sums, each rounded to bf16, added in
+# f32, against the whole weight's product (one bf16 rounding): per element
+# |p0 + p1 - full| <= 2^-7 (|p0| + |p1| + |full|) + 1e-4 max|full| (three
+# roundings of at most half a bf16 ulp, an ulp at most 2^-7 of the value,
+# and f32 sums in another order).
+MS_ROW_REL, MS_ROW_ABS = 2.0 ** -7, 1e-4
+# (e) and (d)'s small f32 configs: phase 15's small GQA config (TF32 off),
+# B=4, prompt 40, 6 new tokens; its forward at B=4, T=64.
+MS_SMALL_BATCH, MS_SMALL_PROMPT, MS_SMALL_NEW, MS_SMALL_SEQ = 4, 40, 6, 64
+# The f32 forward at sp 2 and ep 2 against one process on the card: the
+# f32 kernels' tolerance (phase 3), max|d| <= 1e-4 max|ref|.
+MS_F32_REL = 1e-4
+# The range that marks a rank's traced TTFT call.
+MS_CALL_RANGE = "mesh generate call"
+
+
+def ms_shard(qt, split, rank):
+    """A tp rank's contiguous shard of an int8 weight quantized whole: its
+    rows ("row", the scales whole) or its columns ("column")."""
+    from jobset_tpu_torch.models import quant
+
+    if split == "row":
+        k = qt.q.shape[-2] // MS_TP
+        return quant.QuantizedTensor(qt.q[..., rank * k:(rank + 1) * k, :].contiguous(),
+                                     qt.scale.contiguous())
+    n = qt.q.shape[-1] // MS_TP
+    return quant.QuantizedTensor(qt.q[..., rank * n:(rank + 1) * n].contiguous(),
+                                 qt.scale[..., rank * n:(rank + 1) * n].contiguous())
+
+
+def ms_int8_case(name, dtype=torch.bfloat16) -> dict:
+    """(a): one product of MS_INT8 at both tp = 2 ranks, each weight the
+    rank's shard of a weight quantized whole, against the plain version
+    (the int8 tolerance, one launch a rank); a row-parallel product's two
+    partial sums against the whole weight's product (MS_ROW_REL). Returns
+    the worst errors."""
+    from jobset_tpu_torch.models import quant
+    from jobset_tpu_torch.ops import int8_matmul as i8
+
+    rows, k, ns, split, experts, shared = MS_INT8[name]
+    gen = torch.Generator(device="cuda").manual_seed(1900 + k + sum(ns))
+    lead = (experts,) if experts else ()
+    whole_k = k * MS_TP if split == "row" else k
+    whole_ns = ns if split == "row" else [n * MS_TP for n in ns]
+    wholes = [quant.quantize_int8(torch.randn((*lead, whole_k, n), generator=gen, device="cuda")
+                                  / whole_k ** 0.5) for n in whole_ns]
+    x_lead = ((1 if shared else experts),) if experts else ()
+    x = torch.randn((*x_lead, rows, whole_k), generator=gen, device="cuda").to(dtype)
+    worst, parts = 0.0, []
+    for rank in range(MS_TP):
+        local = [ms_shard(qt, split, rank) for qt in wholes]
+        xr = x[..., rank * k:(rank + 1) * k].contiguous() if split == "row" else x
+        before = i8.INT8_LAUNCHES
+        if experts:
+            got = [i8.int8_matmul_experts(xr, local[0], dtype)]
+        else:
+            got = i8.int8_matmul_group(xr, local, dtype)
+        launched = i8.INT8_LAUNCHES - before
+        torch.cuda.synchronize()
+        with f32_accumulating_plain():
+            wants = ([i8.int8_matmul_experts_plain(xr, local[0], dtype)] if experts
+                     else i8.int8_matmul_group_plain(xr, local, dtype))
+        within = True
+        for y, want in zip(got, wants):
+            err = (y.float() - want.float()).abs()
+            limit = INT8_REL_BF16 * want.float().abs() + INT8_ABS[dtype] * want.float().abs().max()
+            within = within and bool((err <= limit).all())
+            worst = max(worst, err.max().item())
+        check(launched == 1 and all(bool(torch.isfinite(y.float()).all()) for y in got),
+              f"mesh (a) int8 {name} tp rank {rank}: one launch, finite")
+        check(within, f"mesh (a) int8 {name} tp rank {rank} ({list(xr.shape)} x "
+                      f"{list(local[0].shape)}): within the int8 tolerance of the plain version "
+                      f"(max|d| {worst:.3e})")
+        parts.append(got[0].float())
+    out = {"max_abs_err": worst}
+    if split == "row":
+        whole = (i8.int8_matmul_experts(x, wholes[0], dtype) if experts
+                 else i8.int8_matmul(x, wholes[0], dtype)).float()
+        d = (parts[0] + parts[1] - whole).abs()
+        limit = MS_ROW_REL * (parts[0].abs() + parts[1].abs() + whole.abs()) + \
+            MS_ROW_ABS * whole.abs().max()
+        out["row_sum_err"] = d.max().item()
+        check(bool((d <= limit).all()),
+              f"mesh (a) int8 {name}: the tp ranks' row-parallel products summed equal the "
+              f"whole weight's within 2^-7 (|p0| + |p1| + |full|) + 1e-4 max|full| "
+              f"(max|d| {out['row_sum_err']:.3e})")
+    return out
+
+
+def ms_int8_times(name, dtype=torch.bfloat16) -> dict:
+    """(a)'s L2-cold times of one product of MS_INT8 at a tp = 2 rank's
+    shape and at tp = 1's (the whole weight), with the rank's bound
+    (bytes) and its plain version's and library call's times."""
+    rows, k, ns, split, experts, shared = MS_INT8[name]
+    whole = (k * MS_TP, ns) if split == "row" else (k, tuple(n * MS_TP for n in ns))
+    if experts:
+        rank = time_int8_experts(dtype, k, ns[0], shared, rows)
+        one = time_int8_experts(dtype, whole[0], whole[1][0], shared, rows)
+    else:
+        rank, one = time_int8(rows, k, ns, dtype), time_int8(rows, *whole, dtype)
+    return {"rows": rows, "k": k, "ns": list(ns), "experts": experts, "ms": rank["ms"],
+            "plain_ms": rank["plain_ms"], "library_ms": rank["library_ms"],
+            "bound_ms": rank["bound_ms"], "bound_by": "bytes", "tp1_ms": one["ms"],
+            "tp1_bound_ms": one["bound_ms"]}
+
+
+def ms_kernel_checks(card) -> dict:
+    """(a): every product of MS_INT8 checked, then timed beside tp = 1."""
+    errs, times = {}, {}
+    for name in MS_INT8:
+        errs[name] = ms_int8_case(name)
+    for name in MS_INT8:
+        times[name] = t = ms_int8_times(name)
+        rows, k, ns, _, experts, _ = MS_INT8[name]
+        shape = f"[{experts}, {k}, {sum(ns)}]" if experts else f"[{k}, {sum(ns)}]"
+        print(f"  mesh (a) int8 {name} at a tp=2 rank, x [{rows}, {k}] x int8 {shape}: "
+              f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (bytes, "
+              f"{t['bound_ms'] / t['ms']:.1%}), plain {t['plain_ms']:.4f}, torch.matmul on the "
+              f"bf16 weight {t['library_ms']:.4f}; the same call at tp = 1 {t['tp1_ms']:.4f} ms "
+              f"(bound {t['tp1_bound_ms']:.4f}) ({card})", flush=True)
+    return {"errors": errs, "times": times}
+
+
+def ms_margins(logits) -> torch.Tensor:
+    """Each row's top-2 margin of logits [B, V] (f32, CPU)."""
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    return (top[:, 0] - top[:, 1]).cpu()
+
+
+def ms_reference(cfg, params, prompt, new, quantized=False, quantized_kv=False,
+                 device="cuda") -> dict:
+    """One process's `generate` on the card, greedy, and what the gangs are
+    held to: its tokens, the prefill's last-position logits, and each new
+    position's top-2 margin and largest |logit| (the same steps again on
+    its own tokens: `_prefill_logits`, then `_token_logits`)."""
+    from jobset_tpu_torch.models import build_generate, decode
+
+    tokens = build_generate(cfg, new, device, quantized=quantized, quantized_kv=quantized_kv)(
+        params, prompt)
+    cast = decode.cast_params(params, cfg.dtype)
+    t = prompt.shape[1]
+    cache = decode.init_kv_cache(cfg, prompt.shape[0], t + new, device, quantized_kv=quantized_kv)
+    logits = decode._prefill_logits(cast, prompt, cache, cfg)
+    prefill = logits.cpu()
+    margins, peaks = [ms_margins(logits)], [logits.abs().amax(dim=-1).cpu()]
+    for pos in range(t, t + new - 1):
+        logits = decode._token_logits(cast, tokens[:, pos], cache, pos, cfg)
+        margins.append(ms_margins(logits))
+        peaks.append(logits.abs().amax(dim=-1).cpu())
+    return {"tokens": tokens.cpu(), "prefill": prefill, "margins": torch.stack(margins, 1),
+            "peaks": torch.stack(peaks, 1)}
+
+
+def ms_serve_job(job, mesh, device) -> dict:
+    """One serving job of a phase 19 rank: `build_generate` over the mesh
+    from the parameters of job["seed"] (drawn whole, int8 quantized whole,
+    then cut to the rank's shards), the rank's dp rows of the prompt. For
+    each variant (name, quantized, quantized_kv, temperature, top_k): its
+    tokens, and its launches of one call (counts set to 0 just before,
+    read just after; the mask cache emptied first); for greedy variants
+    with job["prefill"], the prefill's last-position logits gathered over
+    tp (tp rank 0 keeps them). With job["timed"]: TTFT and generate medians
+    and a generate call of the first variant, and one of its TTFT calls
+    traced."""
+    from jobset_tpu_torch.convert import shard_params
+    from jobset_tpu_torch.models import build_generate, decode, init_params
+    from jobset_tpu_torch.models import quantize_params_for_serving
+    from jobset_tpu_torch.parallel.collectives import gather
+    from jobset_tpu_torch.runtime.runner import batch_rows
+
+    cfg = job["cfg"]
+    t0 = time.perf_counter()
+    draw = "cpu" if job.get("draw_on_cpu") else device
+    full = init_params(cfg, torch.Generator(device=draw).manual_seed(job["seed"]), device)
+    trees = {False: shard_params(full, cfg, mesh)}
+    if any(v[1] for v in job["variants"]):
+        trees[True] = shard_params(quantize_params_for_serving(full), cfg, mesh)
+    del full
+    prompt = token_prompt(cfg.vocab_size, job["batch"], job["prompt"], job["prompt_seed"])
+    rows = batch_rows(job["batch"], mesh.size("dp"), mesh.index("dp"))
+    mine = prompt[rows].to(device)
+    sync(device)
+    out = {"rank": mesh.rank, "coords": mesh.coords, "variants": {},
+           "seconds": {"parameters": time.perf_counter() - t0}}
+    for name, quantized, quantized_kv, temperature, top_k in job["variants"]:
+        t0 = time.perf_counter()
+        flags = dict(quantized=quantized, quantized_kv=quantized_kv, mesh=mesh)
+        generate = build_generate(cfg, job["new"], device, temperature=temperature,
+                                  top_k=top_k, **flags)
+        params = trees[quantized]
+        empty_mask_cache()
+        sync(device)
+        reset_moe_launches()
+        generator = torch.Generator(device=device).manual_seed(7) if temperature else None
+        tokens = generate(params, mine, generator)
+        sync(device)
+        got = {"tokens": tokens.cpu(), "launches": moe_launches_now()}
+        if job.get("prefill") and not temperature:
+            cast = decode.cast_params(params, cfg.dtype)
+            cache = decode.init_kv_cache(cfg, len(rows), job["prompt"] + 1, device,
+                                         quantized_kv=quantized_kv, mesh=mesh)
+            logits = gather(decode._prefill_logits(cast, mine, cache, cfg, mesh), -1,
+                            mesh.group("tp"))
+            if mesh.index("tp") == 0:
+                got["prefill"] = logits.cpu()
+            del cast, cache, logits
+        sync(device)
+        out["variants"][name] = got
+        out["seconds"][name] = time.perf_counter() - t0
+    if job.get("timed"):
+        t0 = time.perf_counter()
+        name, quantized, quantized_kv, _, _ = job["variants"][0]
+        flags = dict(quantized=quantized, quantized_kv=quantized_kv, mesh=mesh)
+        generate = build_generate(cfg, job["new"], device, **flags)
+        first = build_generate(cfg, 1, device, **flags)
+        params = trees[quantized]
+
+        def wall(fn):
+            sync(device)
+            t0 = time.perf_counter()
+            fn(params, mine)
+            sync(device)
+            return time.perf_counter() - t0
+
+        ttft = sorted(wall(first) for _ in range(MS_TTFT_REPEATS))
+        gen_s = wall(generate)  # the counted calls above warmed the path
+        out["timed"] = {"variant": name, "ttft_s": ttft[len(ttft) // 2], "ttft_s_runs": ttft,
+                        "generate_s": gen_s, "tokens_per_s": len(rows) * job["new"] / gen_s}
+        from torch.profiler import ProfilerActivity, profile, record_function
+
+        sync(device)
+        activities = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+        # Two TTFT calls under the profiler, the second kept: the first
+        # takes the profiler's start-up, the ranks' included.
+        kept = []
+        with profile(activities=activities,
+                     schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: kept.append(list(p.events()))) as prof:
+            for _ in range(2):
+                with record_function(MS_CALL_RANGE):
+                    first(params, mine)
+                    sync(device)
+                prof.step()
+        out["timed"].update(collective_trace(kept[0], MS_CALL_RANGE))
+        out["seconds"]["timed"] = time.perf_counter() - t0
+    return out
+
+
+def ms_forward_job(job, mesh, device) -> dict:
+    """One forward job of a phase 19 rank: `build_forward` over the mesh
+    from the parameters of job["seed"] (stacked for the mesh's pp, cut to
+    the rank's shards) on its dp rows and sp chunk of job["batch"] x
+    job["seq"] tokens; its launches (counts set to 0 just before, read just
+    after), and its block against one process's logits (job["reference"]:
+    a file, or the array), as max|d| and mean|d| beside max|ref| and
+    mean|ref| over the block."""
+    from jobset_tpu_torch.convert import shard_params
+    from jobset_tpu_torch.models import build_forward, init_params
+    from jobset_tpu_torch.runtime.data import sequence_shard
+    from jobset_tpu_torch.runtime.runner import batch_rows
+
+    cfg = job["cfg"]
+    draw = "cpu" if job.get("draw_on_cpu") else device
+    full = init_params(cfg, torch.Generator(device=draw).manual_seed(job["seed"]), device,
+                       mesh.config)
+    local = shard_params(full, cfg, mesh)
+    del full
+    tokens = token_prompt(cfg.vocab_size, job["batch"], job["seq"], job["prompt_seed"])
+    rows = batch_rows(job["batch"], mesh.size("dp"), mesh.index("dp"))
+    cols = sequence_shard(job["seq"], mesh.size("sp"), mesh.index("sp"))
+    forward = build_forward(cfg, device, mesh)
+    empty_mask_cache()
+    sync(device)
+    reset_moe_launches()
+    logits = forward(local, tokens[rows][:, cols].to(device))
+    sync(device)
+    out = {"rank": mesh.rank, "coords": mesh.coords, "launches": moe_launches_now(),
+           "shape": list(logits.shape)}
+    ref = job["reference"]
+    if isinstance(ref, str):
+        ref = torch.load(ref, map_location="cpu", mmap=True, weights_only=True)
+    v = logits.shape[-1]
+    want = torch.as_tensor(ref)[rows][:, cols][..., mesh.index("tp") * v:(mesh.index("tp") + 1) * v]
+    want = want.to(device).float()
+    d = (logits.float() - want).abs()
+    out.update(finite=bool(torch.isfinite(logits.float()).all()), max_d=d.max().item(),
+               mean_d=d.mean().item(), ref_max=want.abs().max().item(),
+               ref_mean=want.abs().mean().item())
+    return out
+
+
+def ms_rank(jobs: list, device=None) -> dict:
+    """One rank of phase 19, in a process of its own (`gang.spawn`): each
+    job ("serve" or "forward") over its mesh, laid over the gang's first
+    ranks (a rank past a job's mesh returns None for it; jobs with one mesh
+    shape share it), in turn, the card's cached blocks handed back between
+    them; `device` the card unless it names the CPU (the CPU gang).
+    Returns {"jobs": the results, "started": the wall clock when the body
+    started, "job_s": each job's seconds}."""
+    from jobset_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+    started = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device or f"cuda:{torch.cuda.current_device()}")
+    meshes, out, seconds = {}, [], []
+    for job in jobs:
+        t0 = time.perf_counter()
+        key = tuple(sorted(job["mesh"].items()))
+        if key not in meshes:
+            meshes[key] = build_mesh(MeshConfig(**job["mesh"]), device, allow_submesh=True)
+        run = ms_serve_job if job["kind"] == "serve" else ms_forward_job
+        out.append(run(job, meshes[key], device) if meshes[key] is not None else None)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        seconds.append(time.perf_counter() - t0)
+    return {"jobs": out, "started": started, "job_s": seconds}
+
+
+def token_prompt(vocab, batch, seq, seed) -> torch.Tensor:
+    """[batch, seq] int32 token ids from a CPU generator of `seed`, alike in
+    every process."""
+    return torch.randint(0, vocab, (batch, seq), generator=torch.Generator().manual_seed(seed),
+                         dtype=torch.int32)
+
+
+def ms_hold_tokens(label, ranks, ref, variant, dp) -> dict:
+    """A greedy variant of a gang against one process: the prefill's
+    last-position logits (gathered over tp) within phase 4's bf16 bounds,
+    the tokens equal on every tp rank of a dp row and equal to one
+    process's up to, in each row, the first new position where one
+    process's top-2 margin is under that bound (LOGITS_MAX_REL of its
+    largest |logit| there). Returns that position and the first where the
+    tokens part, by row."""
+    rows_of = {}
+    for r in ranks:
+        got = r["variants"][variant]
+        rows_of.setdefault(r["coords"]["dp"], []).append(got)
+    check(all(torch.equal(g["tokens"], gs[0]["tokens"]) for gs in rows_of.values() for g in gs),
+          f"{label}: every tp rank of a dp row returns the same tokens")
+    tokens = torch.cat([rows_of[i][0]["tokens"] for i in range(dp)])
+    prefill = torch.cat([next(g["prefill"] for g in rows_of[i] if "prefill" in g)
+                         for i in range(dp)])
+    d = (prefill.float() - ref["prefill"].float()).abs()
+    want = ref["prefill"].float().abs()
+    peak, mean = want.max().item(), want.mean().item()
+    max_d = d.max().item()
+    check(bool(torch.isfinite(prefill).all()) and max_d <= LOGITS_MAX_REL * peak
+          and d.mean().item() <= LOGITS_MEAN_REL * mean,
+          f"{label}: prefill last-position logits gathered over tp against one process's: "
+          f"max|d| {max_d:.4g}, mean|d| {d.mean().item():.4g} (bounds {LOGITS_MAX_REL} of max|ref| "
+          f"{peak:.4g}, {LOGITS_MEAN_REL} of mean|ref| {mean:.4g})")
+    t = ref["tokens"].shape[1] - ref["margins"].shape[1]
+    low = ref["margins"] < LOGITS_MAX_REL * ref["peaks"]
+    new = ref["margins"].shape[1]
+    first_low = [int(row.nonzero()[0]) if row.any() else new for row in low]
+    parted = (tokens[:, t:] != ref["tokens"][:, t:])
+    first_part = [int(row.nonzero()[0]) if row.any() else new for row in parted]
+    check(tokens.shape == ref["tokens"].shape and torch.equal(tokens[:, :t], ref["tokens"][:, :t])
+          and all(p >= q for p, q in zip(first_part, first_low)),
+          f"{label}: tokens equal one process's in each row up to its first new position whose "
+          f"top-2 margin is under {LOGITS_MAX_REL} of its largest |logit| (rows' such "
+          f"positions {first_low}; rows part at {first_part}, {new} = never)")
+    print(f"  {label}: prefill max|d| {max_d:.4g}; first new position with a top-2 margin under "
+          f"the bound, by row: {first_low}; first position where the tokens part: {first_part}",
+          flush=True)
+    return {"prefill_max_abs_diff": max_d, "first_low_margin": first_low,
+            "first_parted": first_part}
+
+
+def ms_plain(tree):
+    """A rank's result without its tensors (tokens, logits), for the JSON
+    results."""
+    if isinstance(tree, dict):
+        return {k: ms_plain(v) for k, v in tree.items() if not torch.is_tensor(v)}
+    if isinstance(tree, list):
+        return [ms_plain(v) for v in tree]
+    return tree
+
+
+def ms_print_rank(label, r, card, dp_rows) -> None:
+    print(f"  {label} rank {r['rank']}: seconds by part "
+          f"{ {k: round(v, 1) for k, v in r['seconds'].items()} }", flush=True)
+    t = r.get("timed")
+    counts = next(iter(r["variants"].values()))["launches"]
+    line = (f"  {label} rank {r['rank']} {r['coords']}: one generate call launches flash bf16 "
+            f"{counts['TENSOR_CORE_LAUNCHES']}, f32 {counts['F32_LAUNCHES']}, tile-class "
+            f"{counts['TILE_CLASS_LAUNCHES']}, int8 {counts['INT8_LAUNCHES']}, grouped "
+            f"{counts['GROUPED_LAUNCHES']} (TMA {counts['GROUPED_TMA_LAUNCHES']})")
+    if t:
+        busy = ("not measured" if t["device_busy_share"] is None
+                else f"{t['device_busy_share']:.1%}")
+        line += (f"; {t['variant']}: TTFT median {t['ttft_s'] * 1e3:.1f} ms "
+                 f"({t['ttft_s_runs'][0] * 1e3:.1f}-{t['ttft_s_runs'][-1] * 1e3:.1f}), a generate "
+                 f"call {t['generate_s']:.3f} s, {t['tokens_per_s']:.1f} new tokens/s for its "
+                 f"{dp_rows} rows; a traced TTFT call {t['traced_step_ms']:.1f} ms: collectives' host "
+                 f"spans {t['collective_share']:.1%} ({t['collective_calls']} calls), card busy "
+                 f"{busy} (ranks sharing one card on gloo: no scaling figure; {card})")
+    print(line, flush=True)
+
+
+def ms_check_launches(label, counts, flash, tile, int8, grouped=0, f32=False) -> None:
+    key = "F32_LAUNCHES" if f32 else "TENSOR_CORE_LAUNCHES"
+    want = {key: flash, "TILE_CLASS_LAUNCHES": tile, "INT8_LAUNCHES": int8,
+            "GROUPED_LAUNCHES": grouped}
+    if not f32:
+        want["GROUPED_TMA_LAUNCHES"] = grouped
+    got = {k: counts[k] for k in want}
+    check(got == want, f"{label}: one call's launches {got} (expected {want})")
+
+
+def phase_mesh_serving(results):
+    """Phase 19: serving and the forward over a mesh. (a) the int8 kernel
+    at a tp = 2 rank's products; (b) the dense flagship at tp = 2, 8
+    layers, bf16 and int8 (weights and cache), against one process; (c)
+    the MoE flagship at dp 2 x tp 2, 2 layers, int8 weights, against one
+    process; (d) the dense flagship's forward at pp = 2 (4 layers, 4
+    microbatches) against one process, and a small f32 config's at sp = 2
+    (ring) and ep = 2 (dropless); (e) small f32 configs' tokens at tp 2
+    and dp 2 x tp 2 against the port's CPU gang. The CPU gang runs while
+    this process takes the references on the card; then one gang of 4 on
+    the card runs every job (those over 2 ranks on ranks 0 and 1)."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from dataclasses import replace
+
+    from jobset_tpu_torch.models import build_forward, init_params, quantize_params_for_serving
+    from jobset_tpu_torch.runtime import gang
+
+    card = results["card"]
+    t_phase = time.perf_counter()
+    out: dict = {}
+    t0 = time.perf_counter()
+    out["kernels"] = ms_kernel_checks(card)
+    out["kernels_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    dense = flagship_config()
+    moe = replace(moe_config(), n_layers=MS_MOE_LAYERS)
+    pp_cfg = replace(flagship_config(), n_layers=MS_PP_LAYERS, n_microbatches=MS_PP_MICRO)
+    small = gang_small_config()
+    small_moe = replace(small, n_experts=4, d_ff_expert=64, moe_top_k=2, moe_dispatch="dropless")
+    greedy = ("bf16", False, False, 0.0, 0)
+    int8_both = ("int8 weights + int8 cache", True, True, 0.0, 0)
+    dense_job = {"kind": "serve", "cfg": dense, "mesh": {"tp": MS_TP}, "seed": 0,
+                 "batch": BATCH, "prompt": PROMPT, "new": NEW_TOKENS, "prompt_seed": 19,
+                 "prefill": True, "timed": True,
+                 "variants": [greedy, int8_both, ("top_k 1", False, False, MS_TEMPERATURE, 1),
+                              ("sampled", False, False, MS_TEMPERATURE, MS_TOP_K)]}
+    moe_job = {"kind": "serve", "cfg": moe, "mesh": {"dp": 2, "tp": MS_TP}, "seed": 0,
+               "batch": BATCH, "prompt": PROMPT, "new": NEW_TOKENS, "prompt_seed": 20,
+               "prefill": True, "timed": True,
+               "variants": [("int8 weights", True, False, 0.0, 0),
+                            ("int8 sampled", True, False, MS_TEMPERATURE, MS_TOP_K)]}
+    small_variants = [greedy, int8_both]
+
+    def small_job(mesh):
+        return {"kind": "serve", "cfg": small, "mesh": mesh, "seed": 0, "draw_on_cpu": True,
+                "batch": MS_SMALL_BATCH, "prompt": MS_SMALL_PROMPT, "new": MS_SMALL_NEW,
+                "prompt_seed": 21, "variants": small_variants}
+
+    small_jobs = [small_job({"tp": MS_TP}), small_job({"dp": 2, "tp": MS_TP})]
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(4) as pool:
+        t0 = time.perf_counter()
+        cpu = pool.submit(gang.spawn, ms_rank, 4, (small_jobs, "cpu"), backend="gloo",
+                          device="cpu", timeout_s=GANG_TIMEOUT_S, threads=0)
+        # The references, one process on the card (this one).
+        refs = {}
+        params = init_params(dense, torch.Generator(device="cuda").manual_seed(0))
+        prompt = token_prompt(dense.vocab_size, BATCH, PROMPT, 19).cuda()
+        refs["dense bf16"] = ms_reference(dense, params, prompt, NEW_TOKENS)
+        refs["dense int8"] = ms_reference(dense, quantize_params_for_serving(params), prompt,
+                                          NEW_TOKENS, quantized=True, quantized_kv=True)
+        del params
+        params = init_params(moe, torch.Generator(device="cuda").manual_seed(0))
+        prompt = token_prompt(moe.vocab_size, BATCH, PROMPT, 20).cuda()
+        refs["moe int8"] = ms_reference(moe, quantize_params_for_serving(params), prompt,
+                                        NEW_TOKENS, quantized=True)
+        del params
+        params = init_params(pp_cfg, torch.Generator(device="cuda").manual_seed(0))
+        pp_path = os.path.join(tmp, "pp_logits.pt")
+        torch.save(build_forward(pp_cfg)(params, token_prompt(pp_cfg.vocab_size, BATCH, PROMPT,
+                                                               22).cuda()).cpu(), pp_path)
+        del params
+        small_refs = {}
+        for label, cfg in (("sp", small), ("ep", small_moe)):
+            p = init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+            small_refs[label] = build_forward(cfg)(p, token_prompt(
+                cfg.vocab_size, MS_SMALL_BATCH, MS_SMALL_SEQ, 23).cuda()).cpu()
+        torch.cuda.empty_cache()
+        cpu = [r["jobs"] for r in cpu.result()]
+        out["references_s"] = time.perf_counter() - t0
+
+        # One gang of 4 on the card: the jobs over 2 ranks run on ranks 0
+        # and 1 while ranks 2 and 3 wait (a spawn costs more than the jobs).
+        t0 = time.perf_counter()
+        forward_jobs = [
+            {"kind": "forward", "cfg": pp_cfg, "mesh": {"pp": 2}, "seed": 0, "batch": BATCH,
+             "seq": PROMPT, "prompt_seed": 22, "reference": pp_path},
+            {"kind": "forward", "cfg": small, "mesh": {"sp": 2}, "seed": 0, "draw_on_cpu": True,
+             "batch": MS_SMALL_BATCH, "seq": MS_SMALL_SEQ, "prompt_seed": 23,
+             "reference": small_refs["sp"]},
+            {"kind": "forward", "cfg": small_moe, "mesh": {"ep": 2}, "seed": 0,
+             "draw_on_cpu": True, "batch": MS_SMALL_BATCH, "seq": MS_SMALL_SEQ,
+             "prompt_seed": 23, "reference": small_refs["ep"]}]
+        ranks = gang.spawn(ms_rank, 4, ([dense_job] + forward_jobs + [moe_job] + small_jobs,),
+                           backend="gloo", device="cuda", timeout_s=GANG_TIMEOUT_S, threads=0)
+        out["gang_s"] = time.perf_counter() - t0
+        out["gang_start_s"] = min(r["started"] for r in ranks) - (time.time() - out["gang_s"])
+        out["job_s"] = ranks[0]["job_s"]
+        print(f"  mesh gang of 4: its first rank's body began {out['gang_start_s']:.1f} s "
+              f"after the spawn; rank 0's jobs took {[round(t, 1) for t in out['job_s']]} s "
+              "(dense tp 2, forward pp 2, sp 2, ep 2, MoE dp 2 x tp 2, small tp 2, small "
+              "dp 2 x tp 2)", flush=True)
+    jobs = [r["jobs"] for r in ranks]
+    two = [r[:4] + [r[5]] for r in jobs[:2]]  # dense tp 2, the forwards, small tp 2
+    four = [[r[4], r[6]] for r in jobs]  # MoE and small at dp 2 x tp 2
+
+    # (b) the dense flagship at tp 2.
+    dense_ranks = [r[0] for r in two]
+    label = (f"mesh (b) dense flagship tp=2 (8 heads of 64 a rank), {LAYERS} layers, B={BATCH} "
+             f"prompt {PROMPT} new {NEW_TOKENS}")
+    out["dense_tp2"] = {"bf16": ms_hold_tokens(f"{label} bf16", dense_ranks, refs["dense bf16"],
+                                               "bf16", 1),
+                        "int8": ms_hold_tokens(f"{label} int8 weights + int8 cache", dense_ranks,
+                                               refs["dense int8"], "int8 weights + int8 cache", 1)}
+    for r in dense_ranks:
+        v = r["variants"]
+        check(torch.equal(v["top_k 1"]["tokens"], v["bf16"]["tokens"]),
+              f"{label} rank {r['rank']}: top_k 1 at temperature {MS_TEMPERATURE} equals greedy")
+        s = v["sampled"]["tokens"]
+        check(tuple(s.shape) == (BATCH, PROMPT + NEW_TOKENS)
+              and torch.equal(s[:, :PROMPT], refs["dense bf16"]["tokens"][:, :PROMPT])
+              and bool(((s >= 0) & (s < dense.vocab_size)).all())
+              and torch.equal(s, dense_ranks[0]["variants"]["sampled"]["tokens"])
+              and not torch.equal(s, v["bf16"]["tokens"]),
+              f"{label} rank {r['rank']}: sampled (temperature {MS_TEMPERATURE}, top_k "
+              f"{MS_TOP_K}) tokens in the vocab, the same on both tp ranks, off the greedy path")
+        ms_check_launches(f"{label} bf16 rank {r['rank']}", v["bf16"]["launches"],
+                          GENERATE_LAUNCHES, 2, 0)
+        ms_check_launches(f"{label} int8 rank {r['rank']}",
+                          v["int8 weights + int8 cache"]["launches"], GENERATE_LAUNCHES, 2,
+                          INT8_GENERATE_LAUNCHES)
+        ms_print_rank("mesh (b)", r, card, BATCH)
+    out["dense_tp2"]["ranks"] = ms_plain(dense_ranks)
+
+    # (c) the MoE flagship at dp 2 x tp 2.
+    moe_ranks = [r[0] for r in four]
+    label = (f"mesh (c) MoE flagship dp=2 x tp=2 (we1 [{MOE_EXPERTS}, 1024, "
+             f"{MOE_D_FF // MS_TP}] a rank), {MS_MOE_LAYERS} layers, int8 weights, B={BATCH}")
+    out["moe_dp2_tp2"] = {"int8": ms_hold_tokens(label, moe_ranks, refs["moe int8"],
+                                                 "int8 weights", 2), "ranks": ms_plain(moe_ranks)}
+    moe_int8 = 1 + (NEW_TOKENS - 1) * (4 * MS_MOE_LAYERS + 1)
+    for r in moe_ranks:
+        ms_check_launches(f"{label} rank {r['rank']}", r["variants"]["int8 weights"]["launches"],
+                          3 * MS_MOE_LAYERS, 2, moe_int8, 2 * MS_MOE_LAYERS)
+        s = r["variants"]["int8 sampled"]["tokens"]
+        peers = [o for o in moe_ranks if o["coords"]["dp"] == r["coords"]["dp"]]
+        check(bool(((s >= 0) & (s < moe.vocab_size)).all())
+              and torch.equal(s, peers[0]["variants"]["int8 sampled"]["tokens"]),
+              f"{label} rank {r['rank']}: sampled tokens in the vocab, the same on its tp peer")
+        ms_print_rank("mesh (c)", r, card, BATCH // 2)
+
+    # (d) the forward over pp, sp and ep.
+    for i, (label, bound) in enumerate(((f"mesh (d) dense flagship forward pp=2, {MS_PP_LAYERS} "
+                                         f"layers, {MS_PP_MICRO} microbatches, B={BATCH} "
+                                         f"T={PROMPT} bf16", None),
+                                        ("mesh (d) small f32 forward sp=2 (ring)", MS_F32_REL),
+                                        ("mesh (d) small f32 MoE forward ep=2 (dropless)",
+                                         MS_F32_REL)), start=1):
+        for r in (x[i] for x in two):
+            ok = (r["max_d"] <= LOGITS_MAX_REL * r["ref_max"]
+                  and r["mean_d"] <= LOGITS_MEAN_REL * r["ref_mean"] if bound is None
+                  else r["max_d"] <= bound * r["ref_max"])
+            check(r["finite"] and ok, f"{label} rank {r['rank']} {r['coords']}: its block "
+                  f"{r['shape']} against one process's: max|d| {r['max_d']:.4g} mean|d| "
+                  f"{r['mean_d']:.4g} (ref max {r['ref_max']:.4g}, mean {r['ref_mean']:.4g})")
+        out[label] = ms_plain([x[i] for x in two])
+    for r in (x[1] for x in two):
+        ms_check_launches(f"mesh (d) pp=2 rank {r['rank']}", r["launches"],
+                          MS_PP_LAYERS // 2 * MS_PP_MICRO, 1, 0)
+    counts = [[x[i]["launches"][key] for x in two] for i, key in (
+        (1, "TENSOR_CORE_LAUNCHES"), (2, "F32_LAUNCHES"), (3, "GROUPED_F32_LAUNCHES"))]
+    print(f"  mesh (d) launches a rank's forward: pp=2 {counts[0]} bf16 flash; sp=2 "
+          f"{counts[1]} f32 flash; ep=2 {counts[2]} f32 grouped", flush=True)
+
+    # (e) the small f32 configs, the card's gangs against the CPU's.
+    for label, card_ranks, cpu_ranks in (("tp=2", [x[-1] for x in two], [x[0] for x in cpu[:2]]),
+                                         ("dp=2 x tp=2", [x[-1] for x in four],
+                                          [x[1] for x in cpu])):
+        for variant in ("bf16", "int8 weights + int8 cache"):
+            got = [r["variants"][variant]["tokens"] for r in card_ranks]
+            want = [r["variants"][variant]["tokens"] for r in cpu_ranks]
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"mesh (e) small f32 {label} {'f32' if variant == 'bf16' else variant}: every "
+                  "rank's tokens on the card equal the CPU gang's")
+        out[f"small {label}"] = ms_plain({"card": card_ranks, "cpu": cpu_ranks})
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 19: {out['seconds']:.1f} s (kernel checks {out['kernels_s']:.1f}, references "
+          f"and the CPU gang at once {out['references_s']:.1f}, the card's gang "
+          f"{out['gang_s']:.1f})", flush=True)
+    results["mesh_serving"] = out
+
+
+def ms_launches(results) -> dict:
+    """Phase 19's launches of each kernel entry: rank 0's one call of each
+    path."""
+    ms = results.get("mesh_serving") or {}
+
+    def variant(key, name):
+        ranks = (ms.get(key) or {}).get("ranks") or [{}]
+        return ((ranks[0].get("variants") or {}).get(name) or {}).get("launches") or {}
+
+    def forward(label):
+        return ((ms.get(label) or [{}])[0]).get("launches") or {}
+
+    def small(label, name):
+        ranks = (ms.get(f"small {label}") or {}).get("card") or [{}]
+        return ((ranks[0].get("variants") or {}).get(name) or {}).get("launches") or {}
+
+    b, b8 = variant("dense_tp2", "bf16"), variant("dense_tp2", "int8 weights + int8 cache")
+    c = variant("moe_dp2_tp2", "int8 weights")
+    pp = forward(f"mesh (d) dense flagship forward pp=2, {MS_PP_LAYERS} layers, {MS_PP_MICRO} "
+                 f"microbatches, B={BATCH} T={PROMPT} bf16")
+    sp = forward("mesh (d) small f32 forward sp=2 (ring)")
+    ep = forward("mesh (d) small f32 MoE forward ep=2 (dropless)")
+    s2, s4 = (small(label, "int8 weights + int8 cache") for label in ("tp=2", "dp=2 x tp=2"))
+    return {
+        "flash_block": {"dense tp=2 generate": b.get("TENSOR_CORE_LAUNCHES"),
+                        "MoE dp=2 x tp=2 int8 generate": c.get("TENSOR_CORE_LAUNCHES"),
+                        "dense pp=2 forward": pp.get("TENSOR_CORE_LAUNCHES")},
+        "flash_block_f32": {"small f32 tp=2 int8 generate": s2.get("F32_LAUNCHES"),
+                            "small f32 dp=2 x tp=2 int8 generate": s4.get("F32_LAUNCHES"),
+                            "small f32 sp=2 forward": sp.get("F32_LAUNCHES"),
+                            "small f32 MoE ep=2 forward": ep.get("F32_LAUNCHES")},
+        "flash_block_tile_classes": {"dense tp=2 generate, first at its shape":
+                                     b.get("TILE_CLASS_LAUNCHES"),
+                                     "dense pp=2 forward": pp.get("TILE_CLASS_LAUNCHES")},
+        "int8_matmul": {"dense tp=2 int8 generate": b8.get("INT8_LAUNCHES"),
+                        "MoE dp=2 x tp=2 int8 generate": c.get("INT8_LAUNCHES"),
+                        "small f32 tp=2 int8 generate": s2.get("INT8_LAUNCHES"),
+                        "small f32 dp=2 x tp=2 int8 generate": s4.get("INT8_LAUNCHES")},
+        "grouped_matmul": {"MoE dp=2 x tp=2 int8 generate": c.get("GROUPED_LAUNCHES")},
+        "grouped_matmul_f32": {"small f32 MoE ep=2 forward": ep.get("GROUPED_F32_LAUNCHES")},
+    }
+
+
+def phase_mesh_serving_apart(results):
+    """Phase 19 in a process of its own (`--mesh-serving-only`), this
+    process's cached blocks handed back to the card first."""
+    import tempfile
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mesh_serving.json")
+        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--mesh-serving-only",
+                              "--out", path], capture_output=True, text=True, timeout=600)
+        print(run.stdout, end="", flush=True)
+        if run.returncode != 0:
+            print(run.stderr[-4000:], file=sys.stderr, flush=True)
+        check(run.returncode == 0 and os.path.exists(path),
+              f"phase 19 in a process of its own exits {run.returncode}")
+        if not os.path.exists(path):
+            return
+        with open(path) as f:
+            results["mesh_serving"] = json.load(f).get("mesh_serving")
+
+
 def timed(results, label, fn, *args):
     """fn(*args), its wall seconds kept in results["phase_seconds"] and
     printed."""
@@ -6429,6 +7183,9 @@ def main() -> int:
     only.add_argument("--ep-only", action="store_true",
                       help="build the flash block and grouped kernels and run phase 18 "
                            "(expert parallelism) alone (no result line)")
+    only.add_argument("--mesh-serving-only", action="store_true",
+                      help="build the flash block, int8 and grouped kernels and run phase 19 "
+                           "(serving and the forward over a mesh) alone (no result line)")
     only.add_argument("--gang-f32-moe-batch", type=int, metavar="B",
                       help="build the flash block and grouped kernels and run phase 15's f32 "
                            "MoE gang alone at batch B, for its memory (no result line)")
@@ -6472,7 +7229,8 @@ def main() -> int:
     sources = (["auction"] if args.solver_only
                else ["flash_block"] if args.flash_only or args.workloads_only or args.sp_only
                else ["flash_block", "int8_matmul"] if args.serving_only
-               else ["flash_block", "int8_matmul", "grouped_matmul"] if args.moe_only
+               else ["flash_block", "int8_matmul", "grouped_matmul"] if (args.moe_only
+                                                                         or args.mesh_serving_only)
                else ["flash_block", "grouped_matmul"] if (args.moe_train_only or args.gang_only
                                                           or args.gang_f32_moe_batch
                                                           or args.pp_only or args.ep_only)
@@ -6505,14 +7263,17 @@ def main() -> int:
         phase_pp(results)
     if args.ep_only:
         phase_ep(results)
+    if args.mesh_serving_only:
+        phase_mesh_serving(results)
     if (args.gang_only or args.gang_f32_moe_batch or args.sp_only or args.pp_only
-            or args.ep_only):
+            or args.ep_only or args.mesh_serving_only):
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
             with open(args.out, "w") as f:
                 json.dump(results, f, indent=1)
         flag = ("--gang-only" if args.gang_only else "--sp-only" if args.sp_only
                 else "--pp-only" if args.pp_only else "--ep-only" if args.ep_only
+                else "--mesh-serving-only" if args.mesh_serving_only
                 else "--gang-f32-moe-batch")
         print(f"chip_smoke {flag}: "
               f"{len(FAILURES)} check(s) failed, "
@@ -6643,6 +7404,7 @@ def main() -> int:
     timed(results, "phase 16", phase_sp_apart, results)
     timed(results, "phase 17", phase_pp_apart, results)
     timed(results, "phase 18", phase_ep_apart, results)
+    timed(results, "phase 19", phase_mesh_serving_apart, results)
     adafactor_counts = ((results.get("adafactor_vs_adam") or {}).get("adafactor") or {}).get(
         "launches") or {}
     for kernel in kernels:
@@ -6661,7 +7423,13 @@ def main() -> int:
     kernels += grouped_kernels
     on_gang, on_sp, on_pp = gang_launches(results), sp_launches(results), pp_launches(results)
     on_ep, ep_times = ep_launches(results), ep_rank_times(results)
+    on_mesh = ms_launches(results)
+    tp_times = ((results.get("mesh_serving") or {}).get("kernels") or {}).get("times")
     for kernel in kernels:
+        kernel["mesh_serving_launches"] = on_mesh.get(kernel["name"],
+                                                      {"not on the mesh-serving paths": 0})
+        if kernel["name"] == "int8_matmul":
+            kernel["tp_rank_times"] = tp_times
         kernel["gang_launches"] = on_gang.get(kernel["name"], {"not on the gang's path": 0})
         kernel["sp_launches"] = on_sp.get(kernel["name"], {"not on the sp path": 0})
         kernel["pp_launches"] = on_pp.get(kernel["name"], {"not on the pp path": 0})

@@ -5,11 +5,13 @@ package's `QuantizedTensor`, after `jax.tree.map(np.asarray, ...)`)
 becomes the port's `QuantizedTensor`.
 
 `shard_params` cuts a full tree to one rank's tp and ep shards of its pp
-stage by the transformer's `param_specs`, and `gather_params` puts a
-gang's shards back together; `shard_tree` and `gather_tree` do the same
-for any tree with a tree of specs (a training state, for a checkpoint of
-global tensors), over every mesh axis a spec names (tp, ep, pp, and dp
-for a ZeRO-1 optimizer state), or over the axes the caller names.
+stage by the transformer's `param_specs` (an int8 serving tree by
+`quantize_specs`: its `q` and `scale` each cut as contiguous shards),
+and `gather_params` puts a gang's shards back together; `shard_tree` and
+`gather_tree` do the same for any tree with a tree of specs (a training
+state, for a checkpoint of global tensors), over every mesh axis a spec
+names (tp, ep, pp, and dp for a ZeRO-1 optimizer state), or over the
+axes the caller names.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.quant import QuantizedTensor
+from .models.quant import QuantizedTensor, quantize_specs
 from .parallel.collectives import gather
 from .parallel.mesh import AXIS_NAMES
 
@@ -57,7 +59,13 @@ def _split_dims(spec, mesh, axes):
 def _walk(fn, tree, specs, mesh, axes):
     """fn(tensor, dim, axis) on each tensor, for each dim its spec splits
     over one of `axes`; a node the specs do not reach (None, or a key they
-    lack) is whole."""
+    lack) is whole. A QuantizedTensor's q and scale go by the fields of a
+    QuantizedTensor of specs (`quantize_specs`)."""
+    if isinstance(tree, QuantizedTensor):
+        if not isinstance(specs, QuantizedTensor):
+            return tree
+        return QuantizedTensor(_walk(fn, tree.q, specs.q, mesh, axes),
+                               _walk(fn, tree.scale, specs.scale, mesh, axes))
     if isinstance(tree, dict):
         return {k: _walk(fn, v, specs.get(k) if isinstance(specs, dict) else None, mesh, axes)
                 for k, v in tree.items()}
@@ -87,23 +95,32 @@ def gather_tree(local, specs, mesh, axes=AXIS_NAMES):
                  axes)
 
 
+def _specs_of(tree, cfg):
+    """`param_specs(cfg)`, through `quantize_specs` for a tree that holds
+    int8 weights."""
+    from .models.transformer import param_specs
+
+    specs = param_specs(cfg)
+    quantized = any(isinstance(v, QuantizedTensor)
+                    for d in (tree, tree["layers"]) for v in d.values())
+    return quantize_specs(specs) if quantized else specs
+
+
 def shard_params(full, cfg, mesh):
     """A full transformer tree (as `params_from_jax` gives it, its layer
     leaves stacked [pp, n_layers / pp, ...] for the mesh's pp) cut to this
-    rank's shards by `param_specs(cfg)`."""
-    from .models.transformer import param_specs
-
+    rank's shards by `param_specs(cfg)`. An int8 tree is cut by
+    `quantize_specs`: quantize the full tree, then cut it (the scales of
+    the row-parallel weights span every rank's rows)."""
     stages = {a.shape[0] for a in full["layers"].values()}
     if stages != {mesh.size("pp")}:
         raise ValueError(f"layer leaves stacked over {sorted(stages)} stages, the mesh has pp "
                          f"{mesh.size('pp')}: stack them [pp, n_layers / pp, ...] "
                          "(init_params(..., mesh_config=...))")
-    return shard_tree(full, param_specs(cfg), mesh)
+    return shard_tree(full, _specs_of(full, cfg), mesh)
 
 
 def gather_params(local, cfg, mesh):
     """The full transformer tree from the gang's shards (all-gathered over
-    tp, ep and pp)."""
-    from .models.transformer import param_specs
-
-    return gather_tree(local, param_specs(cfg), mesh)
+    tp, ep and pp), int8 trees too."""
+    return gather_tree(local, _specs_of(local, cfg), mesh)

@@ -1,5 +1,5 @@
 """Autoregressive decoding for the flagship transformer: the serving path
-of `jobset_tpu/models/decode.py`, on one device.
+of `jobset_tpu/models/decode.py`, on one device or over a dp x tp mesh.
 
 A prompt is prefilled in one batched causal pass per layer through
 `blockwise_causal_attention` (the flash block kernel on the card), which
@@ -21,7 +21,17 @@ through soft dispatch. Weights may be int8
 on the card, a layer's Q, K and V in one launch), and the KV cache may
 be int8 with one scale per cached vector.
 
-Not ported yet: dp/tp meshes.
+Over a mesh (`mesh`, a `parallel.mesh.Mesh` with pp, sp and ep at 1, as
+the reference's) each rank serves its dp rows of the prompt with its tp
+shards of the parameters (`param_specs`; an int8 tree cut by
+`quant.quantize_specs`): its query and kv heads, hidden and expert
+columns, and vocab rows. Its cache is [layers, B / dp, max_len,
+H_kv / tp, D]. The row-parallel products (wo, w2, the experts' outputs)
+and the embedding are reduced over tp, and tokens are picked over the
+tp-sharded vocab without gathering the logits: the greedy pick takes the
+max over tp, then the lowest index among the shards that hold it; the
+top-k mask gathers each shard's k best (value, index) pairs. Each rank
+draws its own sampling noise.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.flash_block import NEG_INF, blockwise_causal_attention
+from ..parallel.collectives import gather, pmax, pmin, reduce
 from .quant import (
     QUANTIZED_WEIGHTS,
     QuantizedTensor,
@@ -45,6 +56,10 @@ from .transformer import (
     _embed_tokens,
     _moe_mlp,
     _router_gates,
+    _top_k,
+    _tp,
+    _tp_index,
+    _tp_size,
     layer_params,
     n_layers_of,
     renormalized_topk,
@@ -54,17 +69,22 @@ from .transformer import (
     unembed_logits,
 )
 
+# The mesh axes serving runs over; the others must be 1 (the reference's).
+SERVING_AXES = ("dp", "tp")
+
 
 def init_kv_cache(config: TransformerConfig, batch: int, max_len: int, device,
-                  quantized_kv: bool = False) -> dict:
-    """Zeroed K/V caches [layers, B, max_len, H_kv, D] in the compute dtype.
-    With GQA the cache holds only the n_kv_heads heads.
+                  quantized_kv: bool = False, mesh=None) -> dict:
+    """Zeroed K/V caches [layers, batch, max_len, H_kv / tp, D] in the
+    compute dtype: `batch` the rows this rank serves (its dp rows), its tp
+    share of the kv heads (the reference's cache split P(None, "dp", None,
+    "tp", None)). With GQA the cache holds only the n_kv_heads heads.
 
     quantized_kv: each cache is a QuantizedTensor, int8 values with one
     f32 scale per [layer, batch, position, head] vector. Unwritten
     positions read as exactly 0 (q = 0, scale = 1)."""
     cfg = config
-    shape = (cfg.n_layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, batch, max_len, cfg.kv_heads // _tp_size(mesh), cfg.head_dim)
     if quantized_kv:
         def part():
             return QuantizedTensor(
@@ -100,16 +120,18 @@ def _cache_read(cache_part, dtype):
     return weight_cast(cache_part, dtype)
 
 
-def _layer_qkv(p, xn, base: int, cfg: TransformerConfig):
+def _layer_qkv(p, xn, base: int, cfg: TransformerConfig, mesh=None):
     """q/k/v for the tokens of xn at positions base..base+T-1, rotary
-    applied; k/v with the kv head count, as the cache stores them. The
-    three products share xn: with int8 weights a decode step's are one
-    kernel launch (`quant.matmul_group`)."""
+    applied, with this rank's heads (its tp share); k/v with the kv head
+    count, as the cache stores them. The three products share xn: with
+    int8 weights a decode step's are one kernel launch
+    (`quant.matmul_group`)."""
     positions = base + torch.arange(xn.shape[1], dtype=torch.float32, device=xn.device)
+    tp = _tp_size(mesh)
     q, k, v = (
         y.reshape(*y.shape[:-1], n_heads, cfg.head_dim)
         for y, n_heads in zip(matmul_group(xn, [p["wq"], p["wk"], p["wv"]], cfg.dtype),
-                              (cfg.n_heads, cfg.kv_heads, cfg.kv_heads))
+                              (cfg.n_heads // tp, cfg.kv_heads // tp, cfg.kv_heads // tp))
     )
     q = rotary(q, positions, cfg.rope_theta)
     return q, rotary(k, positions, cfg.rope_theta), v
@@ -121,11 +143,12 @@ def _topk_gates(p, xn, cfg: TransformerConfig):
     return renormalized_topk(_router_gates(xn, p["wg"]), cfg.moe_top_k)
 
 
-def _moe_mlp_topk_decode(p, xn, cfg: TransformerConfig):
+def _moe_mlp_topk_decode(p, xn, cfg: TransformerConfig, mesh=None):
     """Token-choice top-k, all experts on every token, weighted by the
     top-k gates (zero elsewhere): the decode step's formulation. Its time
     is every expert's weights streaming from memory either way; with int8
-    weights each expert stack is one `int8_matmul` launch."""
+    weights each expert stack is one `int8_matmul` launch. Over tp each
+    rank runs its expert columns, the outputs reduced over tp."""
     n = xn.shape[0] * xn.shape[1]
     top_w, top_i = _topk_gates(p, xn, cfg)
     # [B*T, E]: each token's k gate weights at its experts, 0 elsewhere (a
@@ -133,51 +156,55 @@ def _moe_mlp_topk_decode(p, xn, cfg: TransformerConfig):
     # reference's one-hot sum adds to 0).
     weights = torch.zeros((n, cfg.n_experts), dtype=torch.float32, device=xn.device)
     weights.scatter_(-1, top_i.reshape(n, -1), top_w.reshape(n, -1))
-    return _all_experts(p, xn, weights, cfg)
+    return _all_experts(p, xn, weights, cfg, mesh)
 
 
-def _moe_mlp_topk_sorted(p, xn, cfg: TransformerConfig):
+def _moe_mlp_topk_sorted(p, xn, cfg: TransformerConfig, mesh=None):
     """Token-choice top-k for the prefill: the sorted ragged dispatch at
     activated FLOPs (`transformer.sorted_ragged_expert_ffn`); int8 expert
-    stacks are dequantized once for the grouped products."""
+    stacks are dequantized once for the grouped products. Over tp each
+    rank runs its expert columns, the outputs reduced over tp."""
     b, t, d = xn.shape
     k = cfg.moe_top_k
     top_w, top_i = _topk_gates(p, xn, cfg)
     out, _ = sorted_ragged_expert_ffn(p, xn.reshape(b * t, d), top_w.reshape(b * t, k),
                                       top_i.reshape(b * t, k), cfg)
-    return out.reshape(b, t, d).to(cfg.dtype)
+    return reduce(out.reshape(b, t, d).to(cfg.dtype), _tp(mesh))
 
 
-def _decode_mlp(p, xn, cfg: TransformerConfig):
+def _decode_mlp(p, xn, cfg: TransformerConfig, mesh=None):
     """Serving's feed-forward: dense; top-k MoE, sorted ragged for the
     prefill (T > 1) and all experts for the decode step; soft dispatch for
     soft-dispatch models and for expert choice (not causal: served at its
-    full-capacity limit, as the reference does)."""
+    full-capacity limit, as the reference does). Each reduces its output
+    over tp."""
     if "wg" not in p:
-        return _dense_mlp(p, xn, cfg)
+        return _dense_mlp(p, xn, cfg, mesh)
     if cfg.moe_router == "token" and cfg.moe_top_k > 0:
         if xn.shape[1] > 1:
-            return _moe_mlp_topk_sorted(p, xn, cfg)
-        return _moe_mlp_topk_decode(p, xn, cfg)
-    return _moe_mlp(p, xn, cfg)
+            return _moe_mlp_topk_sorted(p, xn, cfg, mesh)
+        return _moe_mlp_topk_decode(p, xn, cfg, mesh)
+    return _moe_mlp(p, xn, cfg, mesh)
 
 
-def _layer_tail(p, x, attn, cfg: TransformerConfig):
-    """Output projection and MLP: attn [B, T, H, D]."""
+def _layer_tail(p, x, attn, cfg: TransformerConfig, mesh=None):
+    """Output projection (row-parallel, reduced over tp) and MLP: attn
+    [B, T, H / tp, D]."""
     compute = cfg.dtype
     attn = attn.reshape(*attn.shape[:-2], attn.shape[-2] * attn.shape[-1])
-    x = x + matmul(attn, p["wo"], compute).to(x.dtype)
+    x = x + reduce(matmul(attn, p["wo"], compute), _tp(mesh)).to(x.dtype)
     xn2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _decode_mlp(p, xn2, cfg).to(x.dtype)
+    return x + _decode_mlp(p, xn2, cfg, mesh).to(x.dtype)
 
 
-def _decode_layer(p, x, cache_k, cache_v, pos: int, cfg: TransformerConfig):
-    """One layer, one token: x [B, 1, d]; cache_k/v [B, T_max, H_kv, D],
-    written at `pos` in place. Returns x."""
+def _decode_layer(p, x, cache_k, cache_v, pos: int, cfg: TransformerConfig, mesh=None):
+    """One layer, one token: x [B, 1, d]; cache_k/v [B, T_max, H_kv / tp,
+    D], written at `pos` in place. Returns x."""
     batch = x.shape[0]
     group = cfg.n_heads // cfg.kv_heads
+    kv_heads, heads = cfg.kv_heads // _tp_size(mesh), cfg.n_heads // _tp_size(mesh)
     xn = rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = _layer_qkv(p, xn, pos, cfg)
+    q, k, v = _layer_qkv(p, xn, pos, cfg, mesh)
     _cache_write(cache_k, k, pos)
     _cache_write(cache_v, v, pos)
 
@@ -186,61 +213,76 @@ def _decode_layer(p, x, cache_k, cache_v, pos: int, cfg: TransformerConfig):
     # to f32 for the product; softmax statistics in f32.
     full_k = _cache_read(cache_k, cfg.dtype)
     full_v = _cache_read(cache_v, cfg.dtype)
-    q5 = q.reshape(batch, 1, cfg.kv_heads, group, cfg.head_dim)
+    q5 = q.reshape(batch, 1, kv_heads, group, cfg.head_dim)
     logits = torch.einsum("bqngd,bknd->bngqk", q5.float(), full_k.float())
-    logits = logits.reshape(batch, cfg.n_heads, 1, -1) * cfg.head_dim ** -0.5
+    logits = logits.reshape(batch, heads, 1, -1) * cfg.head_dim ** -0.5
     visible = torch.arange(logits.shape[-1], device=x.device) <= pos
     logits = torch.where(visible, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
-    probs5 = probs.reshape(batch, cfg.kv_heads, group, 1, -1)
+    probs5 = probs.reshape(batch, kv_heads, group, 1, -1)
     attn = torch.einsum(
         "bngqk,bknd->bqngd", probs5.to(full_v.dtype).float(), full_v.float()
-    ).reshape(batch, 1, cfg.n_heads, cfg.head_dim)
-    return _layer_tail(p, x, attn, cfg)
+    ).reshape(batch, 1, heads, cfg.head_dim)
+    return _layer_tail(p, x, attn, cfg, mesh)
 
 
-def _prefill_layer(p, x, cache_k, cache_v, cfg: TransformerConfig):
+def _prefill_layer(p, x, cache_k, cache_v, cfg: TransformerConfig, mesh=None):
     """One layer over the whole prompt: x [B, Tp, d]. Writes K/V for
     positions 0..Tp-1 and folds attention blockwise over the flash step."""
     xn = rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = _layer_qkv(p, xn, 0, cfg)
+    q, k, v = _layer_qkv(p, xn, 0, cfg, mesh)
     _cache_write(cache_k, k, 0)
     _cache_write(cache_v, v, 0)
     attn = blockwise_causal_attention(q, k, v)  # GQA broadcast inside
-    return _layer_tail(p, x, attn, cfg)
+    return _layer_tail(p, x, attn, cfg, mesh)
 
 
-def _run_stack(params, x, cache, cfg, layer_fn):
+def _run_stack(params, x, cache, cfg, layer_fn, mesh=None):
     """Run layer_fn over the layers (cache slices per layer), final-norm
-    the last position and unembed it. Returns logits [B, vocab] f32."""
+    the last position and unembed it. Returns this rank's vocab shard of
+    the logits [B, vocab / tp], f32."""
     for i in range(n_layers_of(params)):
         x = layer_fn(layer_params(params, i), x, cache["k"][i], cache["v"][i])
     xn = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    return unembed_logits(params, xn, cfg)[:, 0].float()
+    return unembed_logits(params, xn, cfg, mesh)[:, 0].float()
 
 
-def _prefill_logits(params, prompt, cache, cfg):
-    """prompt [B, Tp] -> last-position logits [B, vocab]; fills the cache."""
-    x = _embed_tokens(params["embed"], prompt, cfg)
+def _prefill_logits(params, prompt, cache, cfg, mesh=None):
+    """prompt [B, Tp] -> last-position logits [B, vocab / tp]; fills the
+    cache."""
+    x = _embed_tokens(params["embed"], prompt, cfg, mesh)
     return _run_stack(
         params, x, cache, cfg,
-        lambda p, x, ck, cv: _prefill_layer(p, x, ck, cv, cfg),
+        lambda p, x, ck, cv: _prefill_layer(p, x, ck, cv, cfg, mesh), mesh,
     )
 
 
-def _token_logits(params, token, cache, pos: int, cfg):
-    """token [B] at position pos -> logits [B, vocab]; writes the cache."""
-    x = _embed_tokens(params["embed"], token[:, None], cfg)
+def _token_logits(params, token, cache, pos: int, cfg, mesh=None):
+    """token [B] at position pos -> logits [B, vocab / tp]; writes the
+    cache."""
+    x = _embed_tokens(params["embed"], token[:, None], cfg, mesh)
     return _run_stack(
         params, x, cache, cfg,
-        lambda p, x, ck, cv: _decode_layer(p, x, ck, cv, pos, cfg),
+        lambda p, x, ck, cv: _decode_layer(p, x, ck, cv, pos, cfg, mesh), mesh,
     )
 
 
-def _global_argmax(logits):
-    """Greedy pick over the whole vocab (tp = 1); the lowest index wins a
-    tie, as torch.argmax returns the first maximum."""
-    return torch.argmax(logits, dim=-1)
+def _global_argmax(logits, mesh=None):
+    """Greedy pick over the vocab, sharded over tp: logits [B, V / tp] ->
+    global token ids [B], the same on every tp rank. Each shard's max and
+    its first index, the max of the values over tp, then the least global
+    index among the shards that hold it (`collectives.pmin`), so the lowest index
+    wins a tie, as torch.argmax returns the first maximum (at tp = 1, that
+    argmax itself)."""
+    group = _tp(mesh)
+    if group is None:
+        return torch.argmax(logits, dim=-1)
+    local_val, local_idx = torch.max(logits, dim=-1)
+    global_val = pmax(local_val, group)
+    start = _tp_index(mesh) * logits.shape[-1]
+    candidate = torch.where(local_val >= global_val, start + local_idx,
+                            torch.iinfo(torch.int64).max)
+    return pmin(candidate, group)
 
 
 def _gumbel(generator, shape, device):
@@ -252,34 +294,68 @@ def _gumbel(generator, shape, device):
     return -torch.log(-torch.log(u.clamp_(min=torch.finfo(torch.float32).tiny)))
 
 
-def _top_k_mask(logits, top_k: int):
-    """Keep exactly the top_k largest logits [B, V], ties broken by the
-    lowest vocab index: a stable descending sort picks the k winners, and a
-    logit tied with the k-th is kept only up to the highest index among
-    the winners that share its value. A top_k above the vocab keeps all."""
-    k = min(top_k, logits.shape[-1])
-    sel_vals, sel_idx = torch.sort(logits, dim=-1, descending=True, stable=True)
-    sel_vals, sel_idx = sel_vals[..., :k], sel_idx[..., :k]
+def _top_k_mask(logits, top_k: int, mesh=None):
+    """Keep exactly the top_k largest logits of the vocab, sharded over tp
+    (this rank's shard [B, V / tp]), ties broken by the lowest vocab index.
+    Each shard's k best values and their global indices (a stable
+    descending sort: lower indices first among equals) are gathered over
+    tp in rank order, so among equal values the gathered order is the
+    index order; a stable descending sort of those picks the k winners,
+    and a logit tied with the k-th is kept only up to the highest index
+    among the winners that share its value. Each rank masks its own shard.
+    A top_k above the vocab keeps all."""
+    group, v_local = _tp(mesh), logits.shape[-1]
+    start = _tp_index(mesh) * v_local
+    local_vals, local_idx = _top_k(logits, min(top_k, v_local))
+    all_vals = gather(local_vals, -1, group)
+    all_idx = gather(start + local_idx, -1, group)
+    sel_vals, order = torch.sort(all_vals, dim=-1, descending=True, stable=True)
+    k = min(top_k, all_vals.shape[-1])
+    sel_vals, sel_idx = sel_vals[..., :k], all_idx.gather(-1, order[..., :k])
     thresh = sel_vals[..., -1:]
     idx_cut = torch.where(sel_vals == thresh, sel_idx, -1).amax(dim=-1, keepdim=True)
-    idx = torch.arange(logits.shape[-1], device=logits.device)
+    idx = start + torch.arange(v_local, device=logits.device)
     return (logits > thresh) | ((logits == thresh) & (idx <= idx_cut))
 
 
-def _pick_token(logits, generator=None, temperature: float = 0.0, top_k: int = 0):
-    """Greedy (temperature 0) or sampled pick from logits [B, V] f32.
+def _pick_token(logits, generator=None, temperature: float = 0.0, top_k: int = 0, mesh=None):
+    """Greedy (temperature 0) or sampled pick from this rank's vocab shard
+    of the logits [B, V / tp] f32: global token ids [B], the same on every
+    tp rank.
 
     Sampling is Gumbel-max: argmax(logits / T + G) is an exact draw from
-    softmax(logits / T). top_k > 0 restricts it to exactly the k largest
-    logits (`_top_k_mask`), as the reference's `_pick_token` does at
-    tp = 1."""
+    softmax(logits / T), and that argmax is the greedy path's pick over
+    tp, so no logits are gathered; each rank adds its own noise to its
+    shard (`generator` is the rank's). top_k > 0 restricts it to exactly
+    the k largest logits (`_top_k_mask`), as the reference's `_pick_token`
+    does."""
     if temperature <= 0.0:
-        return _global_argmax(logits)
+        return _global_argmax(logits, mesh)
     # True division on the card too (see quant.quantize_int8), as on the CPU.
     z = logits.float() / torch.full((), temperature, device=logits.device)
     if top_k > 0:
-        z = torch.where(_top_k_mask(logits, top_k), z, NEG_INF)
-    return _global_argmax(z + _gumbel(generator, z.shape, z.device))
+        z = torch.where(_top_k_mask(logits, top_k, mesh), z, NEG_INF)
+    return _global_argmax(z + _gumbel(generator, z.shape, z.device), mesh)
+
+
+def rank_generator(generator, device, mesh=None):
+    """The generator a rank draws its sampling noise from. At one rank (no
+    mesh, or dp = tp = 1): the caller's generator, or a new one on the
+    device seeded 0. Over dp or tp each rank needs noise of its own (tp
+    ranks hold other vocab slices of the same rows, dp ranks other rows:
+    alike noise would tie their draws), as the reference folds the dp and
+    tp index into its key: a new generator on the device, seeded from one
+    draw of the caller's generator (0 without one) and the rank's place
+    on the (dp, tp) grid."""
+    shards = 1 if mesh is None else mesh.size(SERVING_AXES)
+    if shards == 1:
+        return generator or torch.Generator(device=device).manual_seed(0)
+    base = 0 if generator is None else int(torch.randint(
+        0, 2 ** 62, (), generator=generator, device=generator.device))
+    place = mesh.index("dp") * mesh.size("tp") + mesh.index("tp")
+    # SplitMix64's increment spreads the places over the seeds (mod 2^63).
+    return torch.Generator(device=device).manual_seed(
+        (base + (place + 1) * 0x9E3779B97F4A7C15) % 2 ** 63)
 
 
 def cast_params(params: dict, dtype: torch.dtype) -> dict:
@@ -318,7 +394,7 @@ def _check_quantized(params: dict, quantized: bool) -> None:
 
 def build_generate(config: TransformerConfig, max_new_tokens: int, device=None,
                    temperature: float = 0.0, top_k: int = 0, quantized: bool = False,
-                   quantized_kv: bool = False):
+                   quantized_kv: bool = False, mesh=None):
     """generate(params, prompt [B, Tp], generator=None) -> tokens
     [B, Tp + max_new_tokens], on `device` (the card unless the caller names
     another).
@@ -327,16 +403,27 @@ def build_generate(config: TransformerConfig, max_new_tokens: int, device=None,
     softmax(logits / temperature), optionally over the top_k logits only
     (`_pick_token`). `generator` (a torch.Generator on the device) seeds
     the sampling; without one, a generator seeded with 0 is made on the
-    device for each call. Greedy decoding ignores it.
+    device for each call (over a mesh, each rank's from it:
+    `rank_generator`). Greedy decoding ignores it.
 
     quantized: the parameters came through `quantize_params_for_serving`
     (int8 matmul weights); parameters that do not match the flag raise.
     quantized_kv: the KV cache is int8, one scale per cached vector.
 
+    mesh: a `parallel.mesh.Mesh` over dp and tp (None: one device); pp, sp
+    or ep above 1 raises ValueError, as the reference's. Then params are
+    this rank's shards (`convert.shard_params`) and the prompt its dp rows;
+    generate returns those rows' tokens, the same on every tp rank.
+
     The prompt is prefilled in one batched pass, then new tokens decode
     through the cached step. max_new_tokens == 0 returns the prompt."""
     cfg = config
-    cfg.validate()
+    if mesh is not None:
+        for axis in ("pp", "sp", "ep"):
+            if mesh.size(axis) != 1:
+                raise ValueError(f"build_generate needs {axis}=1 (got {mesh.size(axis)}); "
+                                 "use a dp/tp serving mesh")
+    cfg.validate(mesh.config if mesh is not None else None)
     device = resolve_device(device)
 
     @torch.no_grad()
@@ -345,20 +432,20 @@ def build_generate(config: TransformerConfig, max_new_tokens: int, device=None,
         prompt = prompt.to(device)
         if max_new_tokens == 0:
             return prompt
-        if generator is None and temperature > 0.0:
-            generator = torch.Generator(device=device).manual_seed(0)
+        if temperature > 0.0:
+            generator = rank_generator(generator, device, mesh)
 
         def pick(logits):
-            return _pick_token(logits, generator, temperature, top_k).to(prompt.dtype)
+            return _pick_token(logits, generator, temperature, top_k, mesh).to(prompt.dtype)
 
         params = cast_params(params, cfg.dtype)
         t_prompt = prompt.shape[1]
         cache = init_kv_cache(cfg, prompt.shape[0], t_prompt + max_new_tokens, device,
-                              quantized_kv=quantized_kv)
-        token = pick(_prefill_logits(params, prompt, cache, cfg))
+                              quantized_kv=quantized_kv, mesh=mesh)
+        token = pick(_prefill_logits(params, prompt, cache, cfg, mesh))
         parts = [prompt, token[:, None]]
         for pos in range(t_prompt, t_prompt + max_new_tokens - 1):
-            token = pick(_token_logits(params, token, cache, pos, cfg))
+            token = pick(_token_logits(params, token, cache, pos, cfg, mesh))
             parts.append(token[:, None])
         return torch.cat(parts, dim=1)
 

@@ -18,8 +18,11 @@ weight bytes. The scheme is the reference's:
 The int8 KV cache (`models/decode.py`) uses the same recipe with one
 scale per cached vector (axis -1).
 
-Not ported yet: `quantize_specs` (the PartitionSpec mirror), which waits
-for the multi-device meshes.
+Over a mesh, a quantized tree is cut by `quantize_specs`: each `q` as its
+weight, each scale with the contraction axis unsplit. Quantize the full
+tree first, then cut it (`convert.shard_params`): the row-parallel
+weights (wo, w2, we2) split their contraction axis over tp, so a scale
+taken from one rank's rows would not be the reference's.
 """
 
 from __future__ import annotations
@@ -128,4 +131,22 @@ def quantize_params_for_serving(params: dict) -> dict:
         else quantize_int8(value) if name in QUANTIZED_WEIGHTS
         else value
         for name, value in params.items()
+    }
+
+
+def quantize_specs(specs: dict) -> dict:
+    """`quantize_params_for_serving` on a spec tree (`param_specs`): each
+    quantized weight's spec becomes QuantizedTensor(q=its spec, scale=its
+    spec with the contraction axis -2 unsplit, where the scale has size 1).
+    Walks nested dicts."""
+    def scale_spec(spec):
+        entries = list(spec)
+        entries[-2] = None
+        return tuple(entries)
+
+    return {
+        name: quantize_specs(value) if isinstance(value, dict)
+        else QuantizedTensor(q=value, scale=scale_spec(value)) if name in QUANTIZED_WEIGHTS
+        else value
+        for name, value in specs.items()
     }

@@ -1,5 +1,6 @@
-"""Flagship decoder-only transformer in PyTorch: the single-device subset
-of `jobset_tpu/models/transformer.py`, dense or mixture-of-experts.
+"""Flagship decoder-only transformer in PyTorch: the port of
+`jobset_tpu/models/transformer.py`, dense or mixture-of-experts, on one
+device or over a gang's mesh.
 
 Parameters are a plain dict that keeps the JAX tree's names and stacked
 `[pp, layers / pp, ...]` layer shapes, so a JAX param tree converts leaf for leaf
@@ -31,8 +32,8 @@ through `ops.grouped_matmul`'s autograd Function (hand kernels for the
 backward on the card).
 
 Over a gang (`mesh`, a `parallel.mesh.Mesh`) the train and eval steps
-run dp, pp, ep, sp and tp, with the reference's collectives
-(`parallel.collectives`): each rank holds its dp rows and its sp chunk of
+and the forward (`build_forward`) run dp, pp, ep, sp and tp, with the
+reference's collectives (`parallel.collectives`): each rank holds its dp rows and its sp chunk of
 positions of the batch and its tp shards of the parameters
 (`param_specs`: heads, hidden and expert columns, and the vocab split
 over tp, as Megatron's column and row parallel products); the
@@ -1221,29 +1222,64 @@ def build_eval_step(config: TransformerConfig, device=None, mesh=None):
     return eval_step
 
 
-def build_forward(config: TransformerConfig, device=None):
+def _forward_pipelined(params, tokens, mb_count: int, cfg: TransformerConfig, mesh):
+    """The forward's layers over pp stages: the embedding on pp rank 0,
+    the schedule's F events (1f1b's are gpipe's) on
+    `parallel.pipeline.drive` in mb_count microbatches, and the last
+    stage's outputs broadcast over pp (the reference's psum of
+    where(is_last, out, 0)). Returns [B, T, d] on every rank."""
+    rank, group = mesh.index("pp"), mesh.group("pp")
+    table = timetable(cfg.pipeline_schedule, mb_count, mesh.size("pp"), cfg.pipeline_virtual)
+    slots = [layer_params(params, i) for i in range(n_layers_of(params))]
+    lpc = len(slots) // table.n_virtual
+    b, t = tokens.shape
+    mb = b // mb_count
+    x = _embed_tokens(params["embed"], tokens, cfg, mesh) if rank == 0 else None
+    like = torch.empty((mb, t, cfg.d_model), dtype=cfg.dtype, device=tokens.device)
+    result = drive(table, rank, group,
+                   lambda _, c, h: _stage(slots[c * lpc:(c + 1) * lpc], h, cfg, mesh),
+                   lambda i: x[i * mb:(i + 1) * mb], like, train=False)
+    out = (torch.cat([result.outputs[i] for i in range(mb_count)]) if result.outputs
+           else like.new_zeros((b, t, cfg.d_model)))
+    return reduce(out, group)
+
+
+def build_forward(config: TransformerConfig, device=None, mesh=None):
     """forward(params, tokens [B, T]) -> logits [B, T, vocab] in the compute
-    dtype, on `device` (the card unless the caller names another). One
-    device: with `n_microbatches`, the batch runs in the largest count of
-    equal microbatches at most that many, as the reference's forward cuts
-    it (MoE routing sees a microbatch's tokens)."""
+    dtype, on `device` (the card unless the caller names another). The
+    batch runs in the largest count of equal microbatches at most
+    `n_microbatches` (over pp: default the pp size) that divides it, as
+    the reference's forward cuts it (MoE routing sees a microbatch's
+    tokens); the MoE statistics are dropped.
+
+    mesh: a `parallel.mesh.Mesh` (None: one device), any axis. Then params
+    are this rank's shards (`convert.shard_params`), tokens its dp rows
+    and sp chunk of positions, and forward returns its block of the global
+    logits, [B / dp, T / sp, vocab / tp] (the reference's out_spec
+    P("dp", "sp", "tp")): the layers run as in training (sp through the
+    ring or Ulysses, ep through every router), over pp the schedule's F
+    events on the pipeline loop, the last stage's output broadcast over
+    pp, and every rank unembeds its vocab shard."""
     cfg = config
-    cfg.validate()
+    cfg.validate(mesh.config if mesh is not None else None)
     device = resolve_device(device)
 
     @torch.no_grad()
     def forward(params, tokens):
         tokens = tokens.to(device)
         b = tokens.shape[0]
-        count = next(m for m in range(min(max(cfg.n_microbatches, 1), b), 0, -1) if b % m == 0)
-        outs = []
-        for part in tokens.chunk(count):
-            x = _embed_tokens(params["embed"], part, cfg)
-            for i in range(n_layers_of(params)):
-                x = _layer(layer_params(params, i), x, cfg)[0]
-            outs.append(x)
-        x = outs[0] if count == 1 else torch.cat(outs)
+        count = next(m for m in range(min(_n_micro(cfg, mesh), b), 0, -1) if b % m == 0)
+        if _pp_size(mesh) > 1:
+            x = _forward_pipelined(params, tokens, count, cfg, mesh)
+        else:
+            outs = []
+            for part in tokens.chunk(count):
+                x = _embed_tokens(params["embed"], part, cfg, mesh)
+                for i in range(n_layers_of(params)):
+                    x = _layer(layer_params(params, i), x, cfg, mesh)[0]
+                outs.append(x)
+            x = outs[0] if count == 1 else torch.cat(outs)
         xn = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return unembed_logits(params, xn, cfg)
+        return unembed_logits(params, xn, cfg, mesh)
 
     return forward

@@ -101,6 +101,13 @@ def pmax(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _all_reduce(x, group, dist.ReduceOp.MAX)
 
 
+def pmin(x: torch.Tensor, group) -> torch.Tensor:
+    """Elementwise min over the group, without a gradient (the greedy
+    pick's `lax.pmin` of the winning vocab index)."""
+    x = x.detach()
+    return x if group is None else _all_reduce(x, group, dist.ReduceOp.MIN)
+
+
 def all_reduce_(tensors: list, group) -> None:
     """Sum each tensor over the group in place, one all-reduce for each
     dtype (the tensors flattened into one buffer)."""

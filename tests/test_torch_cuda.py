@@ -979,6 +979,59 @@ def test_int8_expert_launch_equals_2d_launches_bit_for_bit(cuda, dtype, shared, 
     assert _int8_within(got, i8.int8_matmul_experts_plain(x, qt, dtype), dtype)
 
 
+# A tp = 2 rank's int8 decode products (rows, K, N) of the flagship (d
+# 1024, 16 heads of 64, d_ff 4096, vocab 32000) and the MoE flagship (8
+# experts of d_ff_expert 4096); "row" marks the row-parallel products,
+# whose K is split over tp.
+TP_LOCAL_INT8 = {"wq": (8, 1024, 512, None), "wo": (8, 512, 1024, "row"),
+                 "w1": (8, 1024, 2048, None), "w2": (8, 2048, 1024, "row"),
+                 "unembed": (8, 1024, 16000, None)}
+TP_LOCAL_EXPERTS = {"we1": (8, 1024, 2048, 8, None), "we2": (8, 2048, 1024, 8, "row")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(TP_LOCAL_INT8) + list(TP_LOCAL_EXPERTS))
+def test_int8_kernel_at_a_tp_rank_shapes_matches_plain_version(cuda, dtype, name):
+    """The int8 kernel on a tp = 2 rank's shard of a weight quantized whole
+    (`convert.shard_params`' order), against its plain version; for a
+    row-parallel weight, the two ranks' products summed equal the product
+    of the whole weight within each product's rounding: |d| <= 2^-7 (|p0|
+    + |p1| + |full|) + 1e-4 max|full| in bf16 (three outputs rounded to
+    bf16), 1e-5 max|full| in f32."""
+    rows, k, n, *experts = TP_LOCAL_INT8.get(name) or TP_LOCAL_EXPERTS[name]
+    lead = experts[:1] if name in TP_LOCAL_EXPERTS else []
+    split = experts[-1] if lead else TP_LOCAL_INT8[name][3]
+    gen = torch.Generator().manual_seed(k + n)
+    whole_k = 2 * k if split == "row" else k
+    whole_n = n if split == "row" else 2 * n
+    full = quant.quantize_int8(torch.randn(*lead, whole_k, whole_n, generator=gen)
+                               / whole_k ** 0.5).to(cuda)
+    x = torch.randn(1 if lead else rows, *([rows] if lead else []), whole_k,
+                    generator=gen).to(cuda, dtype)
+    fn, plain = ((i8.int8_matmul_experts, i8.int8_matmul_experts_plain) if lead
+                 else (i8.int8_matmul, i8.int8_matmul_plain))
+    parts = []
+    for rank in range(2):
+        cut = (slice(rank * k, (rank + 1) * k), slice(None)) if split == "row" else (
+            slice(None), slice(rank * n, (rank + 1) * n))
+        local = quant.QuantizedTensor(full.q[..., cut[0], cut[1]].contiguous(),
+                                      full.scale[..., :, cut[1]].contiguous())
+        xr = x[..., cut[0]].contiguous()
+        before = i8.INT8_LAUNCHES
+        got = fn(xr, local, dtype)
+        assert i8.INT8_LAUNCHES == before + 1
+        assert got.dtype == dtype and got.shape[-2:] == (rows, n)
+        assert _int8_within(got, plain(xr, local, dtype), dtype)
+        parts.append(got.float())
+    if split == "row":
+        whole = fn(x, full, dtype).float()
+        peak = whole.abs().max().item()
+        limit = (2.0 ** -7 * (parts[0].abs() + parts[1].abs() + whole.abs()) + 1e-4 * peak
+                 if dtype == torch.bfloat16 else torch.full_like(whole, 1e-5 * peak))
+        assert bool(((parts[0] + parts[1] - whole).abs() <= limit).all())
+
+
 def _moe_small(**kw):
     return transformer.TransformerConfig(vocab_size=128, d_model=64, n_heads=4, n_kv_heads=2,
                                          n_layers=2, n_experts=4, d_ff_expert=96, moe_top_k=2,

@@ -10,8 +10,12 @@ batches (each rank its dp rows and sp positions), returning the losses,
 the eval loss of held-out batches, and the gathered parameters, and the
 gathered gradients of a step with `optimizer="grads"` (an optimizer that
 keeps the gradients as its state and moves nothing); `zero1` splits the
-optimizer state over dp. `sp_attention`: ring and Ulysses attention on
-the rank's chunks, with their gradients. `toy_pipeline`: the pipeline
+optimizer state over dp. `serve_runs`: `build_generate` over a dp x tp
+mesh, each rank its dp rows of a prompt and its shards of full (maybe
+int8) parameters. `pick_draws`: the sampled pick over a tp-sharded
+vocab. `forward_runs`: `build_forward` over any mesh, each rank its dp
+rows and sp chunk of the tokens. `sp_attention`: ring and Ulysses
+attention on the rank's chunks, with their gradients. `toy_pipeline`: the pipeline
 loop on a toy stage, with its gradients. `ep_collectives`: the gather
 (with its backward) and the all-to-all over ep.
 """
@@ -30,9 +34,12 @@ from jobset_tpu_torch.convert import (
     shard_tree,
 )
 from jobset_tpu_torch.device import resolve_device
+from jobset_tpu_torch.models import decode
+from jobset_tpu_torch.models.quant import quantize_params_for_serving
 from jobset_tpu_torch.models.transformer import (
     TransformerConfig,
     build_eval_step,
+    build_forward,
     build_train_step,
     global_shapes,
     init_params,
@@ -131,6 +138,105 @@ def train_steps(config: dict, mesh_shape: dict, batches: list, optimizer: str = 
                                if torch.is_tensor(t)),
             "params": _numpy_tree(gather_params(local, cfg, mesh)),
             "opt_state": _numpy_tree(gather_tree(state, state_specs, mesh))}
+
+
+def _rank_rows(n: int, mesh) -> np.ndarray:
+    return batch_rows(n, mesh.size("dp"), mesh.index("dp"))
+
+
+def serve_runs(runs: dict, device=None) -> dict:
+    """For each run {key: dict(config, mesh, params, prompt, max_new, and
+    optionally temperature, top_k, quantized, quantized_kv, seed, noise,
+    record_noise)}: `build_generate` over the mesh (a dict of axis sizes,
+    laid over the gang; runs with one mesh shape share it), the full
+    numpy `params` converted, quantized whole when `quantized`, then cut to
+    this rank's shards; the rank serves its dp rows of the numpy `prompt`.
+    `seed` makes the caller's generator (a torch.Generator on the device);
+    `noise` (numpy, the rank's [B / dp, V / tp] shape) replaces every draw
+    of `decode._gumbel`; `record_noise` keeps the rank's first draw.
+    Returns {key: {"tokens", "coords", and "noise" when recorded}}."""
+    device = resolve_device(device)
+    meshes: dict = {}
+    out = {}
+    real_gumbel = decode._gumbel
+    for key, run in runs.items():
+        shape = tuple(sorted(run["mesh"].items()))
+        if shape not in meshes:
+            meshes[shape] = build_mesh(MeshConfig(**run["mesh"]), device)
+        mesh = meshes[shape]
+        cfg = TransformerConfig(**_with_dtypes(run["config"]))
+        full = params_from_jax(run["params"], device)
+        if run.get("quantized"):
+            full = quantize_params_for_serving(full)
+        local = shard_params(full, cfg, mesh)
+        del full
+        drawn = []
+
+        def gumbel(generator, shape_, dev, noise=run.get("noise")):
+            g = (torch.from_numpy(noise).to(dev) if noise is not None
+                 else real_gumbel(generator, shape_, dev))
+            drawn.append(g.cpu().numpy())
+            return g
+
+        decode._gumbel = gumbel
+        try:
+            generate = decode.build_generate(
+                cfg, run["max_new"], device, temperature=run.get("temperature", 0.0),
+                top_k=run.get("top_k", 0), quantized=run.get("quantized", False),
+                quantized_kv=run.get("quantized_kv", False), mesh=mesh)
+            generator = (torch.Generator(device=device).manual_seed(run["seed"])
+                         if "seed" in run else None)
+            prompt = torch.from_numpy(run["prompt"][_rank_rows(len(run["prompt"]), mesh)])
+            tokens = generate(local, prompt, generator)
+        finally:
+            decode._gumbel = real_gumbel
+        out[key] = {"tokens": tokens.cpu().numpy(), "coords": mesh.coords}
+        if run.get("record_noise"):
+            out[key]["noise"] = drawn[0]
+    return out
+
+
+def pick_draws(logits, top_k: int, temperature: float, seeds, device=None) -> list:
+    """At tp = the gang's size: `decode._pick_token` of this rank's vocab
+    shard of the numpy `logits` [B, V], sampled at `temperature` over
+    `top_k`, once with each generator seed (each rank's generator from
+    `decode.rank_generator`). Returns the picked ids of every draw."""
+    device = resolve_device(device)
+    import torch.distributed as dist
+
+    mesh = build_mesh(MeshConfig(tp=dist.get_world_size()), device)
+    v_local = logits.shape[-1] // mesh.size("tp")
+    shard = torch.from_numpy(logits[:, mesh.index("tp") * v_local:][:, :v_local]).to(device)
+    picks = []
+    for seed in seeds:
+        generator = decode.rank_generator(torch.Generator(device=device).manual_seed(seed),
+                                          device, mesh)
+        picks.append(decode._pick_token(shard, generator, temperature, top_k, mesh).tolist())
+    return picks
+
+
+def forward_runs(runs: dict, device=None) -> dict:
+    """For each run {key: dict(config, mesh, params, tokens)}:
+    `build_forward` over the mesh (laid over the gang; runs with one mesh
+    shape share it), the full numpy `params` cut to this rank's shards,
+    the rank fed its dp rows and sp chunk of the numpy `tokens`. Returns
+    {key: {"logits": its block of the global logits (numpy f32), "coords"}}."""
+    device = resolve_device(device)
+    meshes: dict = {}
+    out = {}
+    for key, run in runs.items():
+        shape = tuple(sorted(run["mesh"].items()))
+        if shape not in meshes:
+            meshes[shape] = build_mesh(MeshConfig(**run["mesh"]), device)
+        mesh = meshes[shape]
+        cfg = TransformerConfig(**_with_dtypes(run["config"]))
+        local = shard_params(params_from_jax(run["params"], device), cfg, mesh)
+        tokens = run["tokens"]
+        columns = sequence_shard(tokens.shape[1], mesh.size("sp"), mesh.index("sp"))
+        mine = torch.from_numpy(tokens[_rank_rows(len(tokens), mesh)][:, columns])
+        logits = build_forward(cfg, device, mesh)(local, mine)
+        out[key] = {"logits": logits.float().cpu().numpy(), "coords": mesh.coords}
+    return out
 
 
 def train_runs(runs: dict) -> dict:
