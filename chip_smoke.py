@@ -88,7 +88,21 @@ non-zero before the result line:
      answered and the bytes the kernel read against the bound's;
      solve wall p50/p99 through `AssignmentSolver`;
      `solve_async` shown not to block; the sidecar's handlers on packed
-     frames against direct solves; launch counts per path;
+     frames against direct solves; launch counts per path. The obs hooks,
+     the tracer's duration log and the solve-time histogram's raw samples
+     on from an empty registry: each path's trace holds the reference's
+     spans and parent links, the histogram counts every solve made, each
+     distinct compile key misses once (`jobset_jit_compiles_total` per
+     kernel equal), the h2d bytes per kernel equal the copies' nbytes;
+     p50/p99 of the phase spans (host_transfer, dispatch, solve_loop,
+     readback) per path, `jobset_jit_compile_seconds` per kernel, and one
+     span's cost (10,000 empty `span()` blocks, 10,000 `record_span`
+     calls) beside the solves' wall p50; the hooks' host cost in place:
+     structured and dense solves in turns with the hooks live (the
+     duration log and raw samples on, then off) and with every hook a
+     no-op, wall p50 of each, and each hook's part alone
+     (`jit_shape_call`'s signature, the gauge sets, `Histogram.observe`,
+     an `activate=True` span, `record_span`, `note_transfer`);
  10. the control plane's device programs, torch code with no hand kernel,
      each held on the card to the port's CPU path and plain versions: the
      admission scorer (queue/scorer.py) at the queue bench's shape (64
@@ -105,9 +119,13 @@ non-zero before the result line:
      For each: wall p50/p99 (host clock to the result on the host), the
      device program's time by CUDA events, the CUDA kernels a call
      launches and their device busy time (torch.profiler), the plain
-     path's time and a bound at 3.35 TB/s. The phase runs in a process
-     of its own (`--control-only`), where the profiler has not traced
-     before;
+     path's time and a bound at 3.35 TB/s. First, from an empty registry
+     and empty factory caches, a known call sequence through each program
+     (a bucket shape repeated): compiles, cache hits and misses equal what
+     it implies, transfer bytes equal the copies' nbytes; at the end, one
+     miss per bucket shape over the whole phase, and `render_prometheus()`
+     of the eight families. The phase runs in a process of its own
+     (`--control-only`), where the profiler has not traced before;
  11. the serving path with int8 weights, the int8 KV cache and sampling,
      in a process of its own (`--serving-only`): the int8 decode kernel
      (`ops/csrc/int8_matmul.cu`) against its plain version at the flagship
@@ -1648,7 +1666,7 @@ def scipy_ms(cost, feasible=None):
     if feasible is None:
         feasible = np.ones(cost.shape, bool)
     t0 = time.perf_counter()
-    AssignmentSolver._hungarian_solve(cost, feasible, t0)
+    AssignmentSolver._hungarian_solve(cost, feasible, *cost.shape, t0)
     return 1e3 * (time.perf_counter() - t0)
 
 
@@ -1687,10 +1705,260 @@ def time_auction(name, launch, plain, jobs_p, domains_p, scipy, clock_mhz):
     return t
 
 
+# The solver's spans as the reference records them, name -> parent's name:
+# a dispatch's three, and the two its first result() adds (none for the
+# dense batch, which reads back inside its dispatch).
+SOLVE_SPANS = {"solver.solve": None, "solver.host_transfer": "solver.solve",
+               "solver.dispatch": "solver.solve"}
+RESULT_SPANS = {"solver.solve_loop": "solver.solve", "solver.readback": "solver.solve"}
+PATH_KINDS = {"structured": "structured", "dense": "dense", "structured_batch": "structured_batch",
+              "dense_batch": "dense_batch", "structured_100k": "structured"}
+PHASE_SPANS = ("solver.host_transfer", "solver.dispatch", "solver.solve_loop", "solver.readback")
+SPAN_COST_N = 10_000  # empty spans, then record_span calls, behind one span's cost
+
+
+def span_links(record) -> list:
+    """(name, parent's name) of each span of a finished trace, sorted."""
+    names = {s["span_id"]: s["name"] for s in record["spans"]}
+    return sorted((s["name"], names.get(s["parent_span_id"])) for s in record["spans"])
+
+
+def check_solve_spans(path) -> None:
+    """The last finished trace is `path`'s solve: the reference's span set,
+    parent links and `kind`."""
+    from jobset_tpu_torch.obs import trace as obs_trace
+
+    record = obs_trace.TRACER.finished_traces(limit=1)[0]
+    want = dict(SOLVE_SPANS, **({} if path == "dense_batch" else RESULT_SPANS))
+    got = span_links(record)
+    attrs = {s["name"]: s["attributes"] for s in record["spans"]}
+    check(got == sorted(want.items())
+          and attrs["solver.solve"].get("kind") == PATH_KINDS[path],
+          f"solver path {path}: spans and parents as the reference's ({got}; kind "
+          f"{attrs.get('solver.solve', {}).get('kind')})")
+
+
+def duration_lengths() -> dict:
+    from jobset_tpu_torch.obs import trace as obs_trace
+
+    return {k: len(v) for k, v in obs_trace.TRACER.span_durations_s().items()}
+
+
+def phase_percentiles(since: dict) -> dict:
+    """p50 / p99 ms of each solver phase span ended since `since` (the
+    duration log's lengths then), with the sample count."""
+    from jobset_tpu_torch.obs import trace as obs_trace
+
+    out = {}
+    for name, samples in obs_trace.TRACER.span_durations_s().items():
+        fresh = [1e3 * x for x in samples[since.get(name, 0):]]
+        if name in PHASE_SPANS and fresh:
+            out[name] = {"p50_ms": pct(fresh, 0.5), "p99_ms": pct(fresh, 0.99), "n": len(fresh)}
+    return out
+
+
+SOLVER_KERNELS = ("solver_auction", "solver_auction_structured",
+                  "solver_auction_structured_batch", "solver_auction_batch")
+
+
+def compile_keys() -> dict:
+    """The signatures each auction kernel has been called at in-process
+    (`jit_shape_call`'s record), by kernel."""
+    from jobset_tpu_torch.obs import profile
+
+    return {k: set(profile._SEEN_SHAPES.get(k, ())) for k in SOLVER_KERNELS}
+
+
+def solver_obs_checks(calls, keys_before, grad, big, storm, hetero, hetero8, shapes) -> dict:
+    """After the main paths: the histogram counted every solve, each
+    signature first met on them missed once and `jobset_jit_compiles_total`
+    per kernel equals those signatures, the h2d bytes per kernel equal the
+    copies' nbytes; compile seconds per kernel."""
+    from jobset_tpu_torch.core import metrics
+    from jobset_tpu_torch.obs import trace as obs_trace
+    from jobset_tpu_torch.placement import solver as S
+
+    hist = metrics.solver_solve_time_seconds
+    solves = sum(calls.values())
+    check(hist.n == solves == len(hist.raw),
+          f"solver obs: the solve-time histogram counted {hist.n} solves, {len(hist.raw)} raw "
+          f"samples; {solves} made ({calls})")
+    caches = [s["attributes"]["compile_cache"] for r in obs_trace.TRACER.finished_traces()
+              for s in r["spans"] if s["name"] == "solver.dispatch"]
+    keys = {k: sorted(map(repr, v - keys_before[k])) for k, v in compile_keys().items()}
+    per_kernel = {k: len(v) for k, v in keys.items()}
+    compiles = {k: (metrics.jit_compiles_total.value(k), metrics.jit_compile_seconds.count(k))
+                for k in per_kernel}
+    check(len(caches) == solves and caches.count("miss") == sum(per_kernel.values())
+          and all(compiles[k] == (float(n), n) for k, n in per_kernel.items()),
+          f"solver obs: compile_cache 'miss' once per new signature ({caches.count('miss')} "
+          f"misses in {len(caches)} dispatches, signatures per kernel {per_kernel}); "
+          f"jobset_jit_compiles_total and the compile-seconds count per kernel {compiles} "
+          f"equal them")
+    (jobs_p, domains_p), big_p = shapes
+
+    def structured_bytes(problem, dp):
+        stacked = S._stack_structured([problem], jobs_p, dp)
+        return sum(stacked[name][0].nbytes for name in S._STRUCTURED)
+
+    want = {"solver_auction_structured": (calls["structured"] * structured_bytes(grad, domains_p)
+                                          + calls["structured_100k"] * structured_bytes(big, big_p)),
+            "solver_auction": calls["dense"] * (hetero.nbytes + hetero.size),
+            "solver_auction_batch": calls["dense_batch"] * (hetero8.nbytes + hetero8.size),
+            # The storm's rounds repeat one problem set: its first round
+            # copies every operand and the rest find them resident.
+            "solver_auction_structured_batch": sum(
+                a.nbytes for a in S._stack_structured(storm, jobs_p, domains_p).values())}
+    got = {k: metrics.jit_transfer_bytes_total.value(k, "h2d") for k in want}
+    check(got == {k: float(v) for k, v in want.items()}
+          and metrics.jit_transfer_bytes_total.total() == sum(got.values()),
+          f"solver obs: h2d bytes per kernel equal the copies' nbytes ({got})")
+    seconds = {labels[0]: {"n": h.n, "mean_s": h.sum / h.n}
+               for labels, h in metrics.jit_compile_seconds.children()}
+    for kernel, v in seconds.items():
+        print(f"jobset_jit_compile_seconds {kernel}: {v['n']} first calls, mean "
+              f"{1e3 * v['mean_s']:.3f} ms (the first launch at a shape, to the device's end)",
+              flush=True)
+    return {"solves": solves, "histogram_count": hist.n,
+            "solve_time_exact_ms": {q: 1e3 * hist.exact_percentile(q) for q in (0.5, 0.99)},
+            "compile_keys": keys, "compiles": compiles,
+            "h2d_bytes": got, "compile_seconds": seconds}
+
+
+HOOK_AB_ROUNDS = 6  # rounds of the in-place A/B, each variant once a round
+HOOK_AB_SOLVES = {"structured": 5, "dense": 40}  # solves of a path a variant a round
+
+
+class _NoSpan:
+    """A span that records nothing: the A/B's stand-in for every hook."""
+
+    context = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set_attribute(self, key, value):
+        return self
+
+
+class _NoMetric:
+    def set(self, *args):
+        pass
+
+    def observe(self, *args, **kwargs):
+        pass
+
+
+def hook_cost_ab(paths) -> dict:
+    """The hooks' host cost in place: rounds in turn, each running every
+    variant on each of `paths` — the hooks live with the tracer's duration
+    log and the histogram's raw samples on, live with both off, and every
+    hook a no-op (spans, `record_span`, the solver's three metric
+    families, `jit_shape_call` straight to its kernel, `note_transfer`).
+    The variants' order turns each round. -> {path: {variant: wall p50 ms
+    and samples}}."""
+    from jobset_tpu_torch.core import metrics
+    from jobset_tpu_torch.obs import profile
+    from jobset_tpu_torch.obs import trace as obs_trace
+
+    tracer, hist = obs_trace.TRACER, metrics.solver_solve_time_seconds
+    live = (obs_trace.span, profile.jit_shape_call, profile.note_transfer,
+            metrics.solver_batch_occupancy, metrics.solver_batch_problems, hist)
+    log, raw = tracer._duration_log, hist.raw
+    nop, nometric = _NoSpan(), _NoMetric()
+
+    def use(variant):
+        hooks = variant != "no hooks"
+        (obs_trace.span, profile.jit_shape_call, profile.note_transfer,
+         metrics.solver_batch_occupancy, metrics.solver_batch_problems,
+         metrics.solver_solve_time_seconds) = live if hooks else (
+            lambda *a, **k: nop, lambda kernel, fn, *a, **k: (fn(*a, **k), False),
+            lambda *a: None, nometric, nometric, nometric)
+        if hooks:
+            tracer.__dict__.pop("record_span", None)
+        else:
+            tracer.record_span = lambda *a, **k: None
+        tracer._duration_log = log if variant == "hooks, log on" else None
+        hist.raw = raw if variant == "hooks, log on" else None
+
+    variants = ["hooks, log on", "hooks, log off", "no hooks"]
+    samples = {path: {v: [] for v in variants} for path in paths}
+    try:
+        for r in range(HOOK_AB_ROUNDS):
+            for variant in variants[r % 3:] + variants[:r % 3]:
+                use(variant)
+                for path, fn in paths.items():
+                    samples[path][variant] += wall_ms(fn, HOOK_AB_SOLVES[path])[2]
+    finally:
+        use("hooks, log on")
+    return {path: {v: {"p50_ms": pct(x, 0.5), "samples": x} for v, x in by.items()}
+            for path, by in samples.items()}
+
+
+def hook_part_costs_us(operands, max_iters: int, n: int = SPAN_COST_N) -> dict:
+    """Host µs of each hook's part alone, the mean of n in a row, as a
+    dense solve makes them (the duration log and raw samples as they
+    are): `jit_shape_call`'s signature on the structured solve's seven
+    operands (a hit, its kernel a no-op), the two gauge sets,
+    `Histogram.observe` (on a histogram of its own), an `activate=True`
+    span with the dense `solver.solve` attributes, a `record_span` with the
+    `solver.solve_loop` ones, and `note_transfer` of two arrays (on a
+    kernel name of its own)."""
+    from jobset_tpu_torch.core import metrics
+    from jobset_tpu_torch.obs import profile
+    from jobset_tpu_torch.obs import trace as obs_trace
+
+    hist = metrics.Histogram("cost_observe_seconds")
+    hist.raw = [] if metrics.solver_solve_time_seconds.raw is not None else None
+    cost, mask = np.zeros((1, 512, 960), np.float32), np.ones((1, 512, 960), bool)
+    attrs = {"algorithm": "auction", "jobs": 512, "domains": 960, "iterations": 28}
+    parts = {
+        "jit_shape_call signature (hit)": lambda: profile.jit_shape_call(
+            "solver_auction_structured", lambda *a, **k: None, *operands,
+            max_iters=max_iters, batched=False),
+        "two gauge sets": lambda: (metrics.solver_batch_occupancy.set(0.9375),
+                                   metrics.solver_batch_problems.set(1)),
+        "Histogram.observe": lambda: hist.observe(0.00125),
+        "span, activate=True": lambda: obs_trace.span(
+            "cost.solve", {"kind": "dense", "jobs": 512, "domains": 960},
+            activate=True).__exit__(None, None, None),
+        "record_span": lambda: obs_trace.TRACER.record_span("cost.solve_loop", 0.001, attrs),
+        "note_transfer": lambda: profile.note_transfer("cost.transfer", "h2d", cost, mask),
+    }
+    out = {}
+    for name, fn in parts.items():
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out[name] = 1e6 * (time.perf_counter() - t0) / n
+    return out
+
+
+def span_cost_us(n: int = SPAN_COST_N) -> tuple[float, float]:
+    """Host µs of one empty `span()` block and of one `record_span` call, each
+    the mean of n in a row (the duration log on, as in the solves)."""
+    from jobset_tpu_torch.obs import trace as obs_trace
+
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with obs_trace.span("cost.empty"):
+            pass
+    t1 = time.perf_counter()
+    for _ in range(n):
+        obs_trace.TRACER.record_span("cost.recorded", 0.0)
+    t2 = time.perf_counter()
+    return 1e6 * (t1 - t0) / n, 1e6 * (t2 - t1) / n
+
+
 def phase_solver(results):
     """The solver plane: kernel checks, times, the main paths' launches."""
     from scipy.optimize import linear_sum_assignment
 
+    from jobset_tpu_torch.core import metrics
+    from jobset_tpu_torch.obs import trace as obs_trace
     from jobset_tpu_torch.ops import auction as ops
     from jobset_tpu_torch.placement import solver as S
     from jobset_tpu_torch.placement.service import (SolverService, pack_problem,
@@ -1780,10 +2048,18 @@ def phase_solver(results):
     del grad_ops, storm_ops, big_ops, hetero_b, hetero8_b
 
     # -- the main paths, through the surface a user calls (auto routing,
-    #    the card); counts reset just before each path and read just after
+    #    the card); counts reset just before each path and read just after.
+    #    The obs hooks from an empty registry: the tracer's duration log
+    #    and the histogram's raw samples on before the first solve
+    metrics.reset()
+    obs_trace.TRACER.reset()
+    obs_trace.TRACER.enable_duration_log()
+    metrics.solver_solve_time_seconds.enable_raw()
+    keys_before = compile_keys()
     solver = S.AssignmentSolver()
     solver.solve_structured_async(**grad).result()  # warm-up: the ping, the allocator
-    launches, walls = {}, {}
+    calls = {"structured": 1}  # solves made through each path
+    launches, walls, phases = {}, {}, {}
     paths = {
         "structured": lambda: solver.solve_structured_async(**grad).result(),
         "dense": lambda: solver.solve(hetero),
@@ -1804,7 +2080,14 @@ def phase_solver(results):
         check(counts == want and solver.routes["cuda"] == routes["cuda"] + 1
               and solver.routes["cpu"] == routes["cpu"],
               f"solver path {path}: one launch of its variant, routed to the card ({counts})")
+        check_solve_spans(path)
+        since = duration_lengths()
         walls[path] = wall_ms(fn, SOLVE_REPEATS if path != "structured_100k" else 5)
+        calls[path] = calls.get(path, 0) + 1 + len(walls[path][2])
+        phases[path] = phase_percentiles(since)
+    obs = solver_obs_checks(calls, keys_before, grad, big, storm, hetero, hetero8,
+                            ((jobs_p, domains_p), big_p))
+    obs["phases"] = phases
     on_cpu = S.AssignmentSolver(backend="default", device="cpu")
     check(np.array_equal(outs["structured"], on_cpu.solve_structured_async(**grad).result()),
           "structured 512x960: the card's solve equals the plain version's on the CPU")
@@ -1819,6 +2102,9 @@ def phase_solver(results):
     for path, (p50, p99, _) in walls.items():
         print(f"solve wall {path} (host clock, result on the host; {card}): p50 {p50:.4f} ms, "
               f"p99 {p99:.4f} ms over {len(walls[path][2])} solves", flush=True)
+        print("  phase spans: " + ", ".join(
+            f"{name.removeprefix('solver.')} p50 {v['p50_ms']:.4f} / p99 {v['p99_ms']:.4f} ms"
+            for name, v in phases[path].items()), flush=True)
 
     # -- solve_async does not block. The heterogeneous problem is polled
     #    right after dispatch; its dispatch carries the 2.5 MB cost copy,
@@ -1865,7 +2151,33 @@ def phase_solver(results):
           and np.array_equal(streamed[1], outs["dense_batch"]),
           "sidecar: packed 512x960 and [8,512,960] frames give the direct solves' assignments")
 
-    results["solver"] = {"times": times, "launches": launches, "errs": errs,
+    # -- one span's cost on this host, beside a solve's wall p50 (a solve
+    #    records five spans)
+    empty_us, recorded_us = span_cost_us()
+    obs["span_cost_us"] = {"span": empty_us, "record_span": recorded_us}
+    for path in ("structured", "dense"):
+        share = 5 * max(empty_us, recorded_us) / (1e3 * walls[path][0])
+        print(f"one span: {empty_us:.3f} µs (empty `span()` block), {recorded_us:.3f} µs "
+              f"(`record_span`), means of {SPAN_COST_N}; a {path} solve's five spans "
+              f"<= {5 * max(empty_us, recorded_us):.2f} µs beside its wall p50 "
+              f"{walls[path][0]:.4f} ms ({100 * share:.3f}%; {card})", flush=True)
+    # -- the hooks' host cost in place, and each part alone
+    ab = hook_cost_ab({path: paths[path] for path in HOOK_AB_SOLVES})
+    obs["hook_ab"] = ab
+    for path, by in ab.items():
+        none = by["no hooks"]["p50_ms"]
+        print(f"hooks in place, {path} ({card}; {HOOK_AB_ROUNDS} rounds in turn): wall p50 "
+              + ", ".join(f"{v} {x['p50_ms']:.4f} ms ({1e3 * (x['p50_ms'] - none):+.1f} µs)"
+                          for v, x in by.items()) + f" over {len(by['no hooks']['samples'])} "
+              "solves each", flush=True)
+    struct_ops = [torch.from_numpy(a).cuda() for a in
+                  S._stack_structured([grad], jobs_p, domains_p).values()]
+    obs["hook_parts_us"] = hook_part_costs_us(struct_ops, solver.max_iters)
+    print("hook parts alone (µs, means of " + f"{SPAN_COST_N}; {card}): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in obs["hook_parts_us"].items()), flush=True)
+    obs_trace.TRACER.reset()
+
+    results["solver"] = {"times": times, "launches": launches, "errs": errs, "obs": obs,
                          "walls": {k: {"p50": v[0], "p99": v[1], "samples": v[2]}
                                    for k, v in walls.items()},
                          "residency": [solver.batch_operand_transfers,
@@ -2030,6 +2342,111 @@ def same_bits(a, b) -> bool:
         a.view(np.uint8), b.view(np.uint8))
 
 
+# Phase 10's obs sequence: the calls each program makes, one bucket shape
+# twice (or with other values), so its factory misses once per shape.
+OBS_SCORER_CALLS = (("bench 64q x 1r x 8c, 512 candidates", 0, False),
+                    ("bench 64q x 1r x 8c, 512 candidates", 0, True),
+                    ("large 1024q x 8r x 64c, 16384 candidates", 1, True),
+                    ("bench 64q x 1r x 8c, 512 candidates", 0, False))
+OBS_AGG_CALLS = ("16384 pods x 1024 jobs", "16384 pods x 1024 jobs", "2^20 pods x 2^16 jobs")
+OBS_MLP_ROWS = (960, 1000, 6250)  # buckets 1024, 1024, 8192
+
+
+def control_obs_sequence(model) -> dict:
+    """From an empty registry and empty factory caches, a known call
+    sequence through each program on the card: compiles, cache hits and
+    misses per program equal what the sequence implies (one miss per
+    bucket shape), and the transfer bytes equal the copies' nbytes."""
+    from jobset_tpu_torch.core import columnar as CC
+    from jobset_tpu_torch.core import metrics
+    from jobset_tpu_torch.obs import profile
+    from jobset_tpu_torch.policy import features as PF
+    from jobset_tpu_torch.policy import model as PM
+    from jobset_tpu_torch.queue import scorer as S
+
+    torch.ones(1, device="cuda").cpu()  # the CUDA context, not a program's first call, pays here
+    metrics.reset()
+    factories = {"queue_scorer": S._kernel, "columnar_agg": CC._agg_kernel,
+                 "policy_mlp": PM._kernel}
+    for kernel, factory in factories.items():
+        factory.cache_clear()
+        profile.KERNEL_CACHES.register(kernel, factory)
+    want = {k: {"calls": 0, "buckets": set(), "h2d": 0, "d2h": 0} for k in factories}
+
+    def note(kernel, bucket, h2d, d2h):
+        w = want[kernel]
+        w["calls"] += 1
+        w["buckets"].add(bucket)
+        w["h2d"] += h2d
+        w["d2h"] += d2h
+
+    S._P_HIGH_WATER.clear()
+    for label, seed, tenths in OBS_SCORER_CALLS:
+        snap = scorer_snapshot(S, *SCORER_SHAPES[label], seed=seed, tenths=tenths)
+        arrays = S._pad(snap)  # as score() pads it: the high-water mark is set
+        P, R = arrays[6].shape
+        Q, C = arrays[0].shape[0], arrays[5].shape[0]
+        note("queue_scorer", (P, Q, C, R), sum(a.nbytes for a in arrays), 4 * (2 * P + Q))
+        S.score(snap)
+    rng = np.random.default_rng(5)
+    for label in OBS_AGG_CALLS:
+        Pc, Jc = AGG_SHAPES[label]
+        cols = (rng.integers(-1, Jc, Pc).astype(np.int32), rng.integers(0, 4, Pc).astype(np.int32),
+                (rng.random(Pc) < 0.5).astype(np.int8))
+        note("columnar_agg", (Pc, Jc), sum(a.nbytes for a in cols), 3 * 4 * Jc)
+        CC.job_counts(*cols, Jc)
+    n_params = sum(w.size + b.size for w, b in model.params)
+    for rows in OBS_MLP_ROWS:
+        rows_p = PM._round_up_pow2(rows)
+        note("policy_mlp", (rows_p, model.dims), 4 * (n_params + rows_p * PF.FEATURE_DIM),
+             4 * rows_p)
+        PM.score(model, (rng.random((rows, PF.FEATURE_DIM)) * 2).astype(np.float32))
+    snap = profile.KERNEL_CACHES.snapshot()
+    out = {}
+    for kernel, w in want.items():
+        misses = len(w["buckets"])
+        got = {"compiles": metrics.jit_compiles_total.value(kernel),
+               "compile_seconds_n": metrics.jit_compile_seconds.count(kernel),
+               "hits": snap[kernel]["hits"], "misses": snap[kernel]["misses"],
+               "gauges": [metrics.jit_cache_hits.value(kernel),
+                          metrics.jit_cache_misses.value(kernel)],
+               "h2d": metrics.jit_transfer_bytes_total.value(kernel, "h2d"),
+               "d2h": metrics.jit_transfer_bytes_total.value(kernel, "d2h"),
+               "compile_s_total": metrics.jit_compile_seconds.total(kernel)}
+        check(got["compiles"] == misses and got["compile_seconds_n"] == misses
+              and (got["hits"], got["misses"]) == (w["calls"] - misses, misses)
+              and got["gauges"] == [float(w["calls"] - misses), float(misses)]
+              and (got["h2d"], got["d2h"]) == (float(w["h2d"]), float(w["d2h"])),
+              f"control obs {kernel}: {w['calls']} calls over {misses} bucket shapes give "
+              f"{got['compiles']:.0f} compiles, {got['hits']} hits, {got['misses']} misses "
+              f"(gauges {got['gauges']}); transfers h2d {got['h2d']:.0f} / d2h {got['d2h']:.0f} B "
+              f"equal the copies' nbytes ({w['h2d']} / {w['d2h']})")
+        print(f"  jobset_jit_compile_seconds {kernel}: {misses} first calls, "
+              f"{1e3 * got['compile_s_total']:.3f} ms in all", flush=True)
+        out[kernel] = got
+    return out
+
+
+def control_obs_whole_phase() -> dict:
+    """At the end of phase 10: each factory missed once per bucket shape it
+    met over the whole phase (its cache never evicted), one compile each;
+    then the eight families' exposition."""
+    from jobset_tpu_torch.core import metrics
+    from jobset_tpu_torch.obs import profile
+
+    snap = profile.KERNEL_CACHES.snapshot()
+    for kernel, v in snap.items():
+        check(v["misses"] == v["currsize"] == metrics.jit_compiles_total.value(kernel),
+              f"control obs {kernel}, whole phase: {v['misses']} misses for {v['currsize']} "
+              f"bucket shapes, {metrics.jit_compiles_total.value(kernel):.0f} compiles, "
+              f"{v['hits']} hits")
+    text = metrics.render_prometheus()
+    print("render_prometheus() (the eight families):", flush=True)
+    for line in text.splitlines():
+        print(f"  {line}", flush=True)
+    return {"caches": snap, "exposition": text}
+
+
 def phase_control(results):
     """The scorer, the aggregate, the policy MLP and its trainer on the card."""
     import tempfile
@@ -2045,6 +2462,15 @@ def phase_control(results):
     card, dev = results["card"], torch.device("cuda")
     out: dict = {"card": card, "backend_label": backend_label()}
     check(out["backend_label"] == "cuda", f"control: backend_label() is 'cuda' ({out['backend_label']})")
+    mlp_rng = np.random.default_rng(3)  # the model, then the MLP section's rows
+    model = PM.PolicyModel(
+        params=[(w, (mlp_rng.standard_normal(b.shape) * 0.1).astype(np.float32))
+                for w, b in PM.init_params(3)],
+        feat_mean=mlp_rng.random(PF.FEATURE_DIM).astype(np.float32),
+        feat_std=(0.5 + mlp_rng.random(PF.FEATURE_DIM)).astype(np.float32),
+        label_mean=30.0, label_std=12.0)
+    print(f"control plane, compile and transfer accounting ({card}):", flush=True)
+    out["obs"] = control_obs_sequence(model)
 
     print(f"control plane, scorer ({card}):", flush=True)
     out["scorer"] = {}
@@ -2094,13 +2520,7 @@ def phase_control(results):
 
     print(f"control plane, policy MLP ({card}):", flush=True)
     out["mlp"] = {}
-    rng = np.random.default_rng(3)
-    model = PM.PolicyModel(
-        params=[(w, (rng.standard_normal(b.shape) * 0.1).astype(np.float32))
-                for w, b in PM.init_params(3)],
-        feat_mean=rng.random(PF.FEATURE_DIM).astype(np.float32),
-        feat_std=(0.5 + rng.random(PF.FEATURE_DIM)).astype(np.float32),
-        label_mean=30.0, label_std=12.0)
+    rng = mlp_rng
     dims = model.dims
     for rows in MLP_ROWS:
         feats = (rng.random((rows, PF.FEATURE_DIM)) * 2).astype(np.float32)
@@ -2195,6 +2615,7 @@ def phase_control(results):
           f"{walls[1]:.1f} ms, CPU path {walls[2]:.1f} ms; a step {step_ms:.4f} ms on the "
           f"card (busy {step_busy} ms), {step_kernels} kernels + {step_copies} copies, bound "
           f"{bound:.6f} ms", flush=True)
+    out["obs"]["whole_phase"] = control_obs_whole_phase()
     results["control"] = out
 
 

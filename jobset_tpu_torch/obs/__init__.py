@@ -1,4 +1,6 @@
-"""The port's reader of the control plane's debug bundles."""
+"""The port's observability: the span tracer (`trace`), kernel-family
+compile and transfer accounting (`profile`), and the reader of the control
+plane's debug bundles (`bundle`)."""
 
 from .bundle import BUNDLE_SCHEMA_VERSION, load_bundle
 

@@ -30,6 +30,16 @@ iteration count equal its single solve.
 cells-vs-round-trip routing between the card and the host, the host
 portfolio (a capped auction, then scipy's Hungarian), asynchronous solves
 (`PendingSolve.is_ready` polls a CUDA event) and one readback per storm.
+
+Observability, site by site as in the reference and under its names: a
+`solver.solve` span per dispatch with `solver.host_transfer` and
+`solver.dispatch` (its `compile_cache` hit or miss) under it,
+`solver.solve_loop` and `solver.readback` recorded at the first
+`result()`, `solver.hungarian_fallback` around the portfolio's Hungarian
+step; the `jobset_placement_solve_time_seconds` histogram, the batch
+gauges, and the `jobset_jit_*` compile and transfer counts of the four
+auction kernels (obs/profile.py). None of them waits on the device after
+a shape's first call.
 """
 
 from __future__ import annotations
@@ -42,7 +52,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core import metrics
 from ..device import resolve_device
+from ..obs import profile
+from ..obs import trace as obs_trace
 from ..ops import auction as auction_ops
 
 # Cost scale: costs are small non-negative ints; benefit = (COST_CAP - cost).
@@ -282,7 +295,8 @@ def _dense(benefit, eps, max_iters, batched):
     raise ValueError(f"auction: no implementation on device {benefit.device}")
 
 
-def _structured(operands, max_iters, batched):
+def _structured(*operands, max_iters, batched):
+    """Structured solves of [B]-stacked operands, num_domains last."""
     device = operands[0].device
     if device.type == "cuda":
         assignment, _, iters, _ = auction_ops.structured(*operands, max_iters=max_iters,
@@ -313,7 +327,7 @@ def _auction_structured(load, free, pods_needed, sticky, occupied, own_domain, n
     domain count -> (assignment [J_p] int32, iterations int32)."""
     nd = torch.as_tensor([int(num_domains)], dtype=torch.int32, device=load.device)
     operands = [t[None] for t in (load, free, pods_needed, sticky, occupied, own_domain)]
-    assignment, iters = _structured((*operands, nd), max_iters, batched=False)
+    assignment, iters = _structured(*operands, nd, max_iters=max_iters, batched=False)
     return assignment[0], iters[0]
 
 
@@ -322,8 +336,8 @@ def _auction_structured_batch(load, free, pods_needed, sticky, occupied, own_dom
     """Structured solves over a batch: every argument has a leading [B]
     axis (num_domains is [B] int32). A storm touching B JobSets is one
     launch."""
-    return _structured((load, free, pods_needed, sticky, occupied, own_domain, num_domains),
-                       max_iters, batched=True)
+    return _structured(load, free, pods_needed, sticky, occupied, own_domain, num_domains,
+                       max_iters=max_iters, batched=True)
 
 
 @functools.cache
@@ -359,13 +373,14 @@ def _structured_cost_np(load, free, pods_needed, sticky, occupied, own_domain):
 RECENT_ITERATIONS: "deque[int]" = deque(maxlen=256)
 RECENT_ALGORITHMS: "deque[str]" = deque(maxlen=256)
 
-
 class HostSolve:
     """Completed host-side solve with the PendingSolve surface (the
     portfolio's Hungarian path finishes synchronously)."""
 
-    def __init__(self, assignment: np.ndarray, t0: float):
+    def __init__(self, assignment: np.ndarray, num_jobs: int, num_domains: int, t0: float):
         self._assignment = assignment
+        self._num_jobs = num_jobs
+        self._num_domains = num_domains
         self._t0 = t0
         self._done_at = time.perf_counter()
         self._observe = True
@@ -382,8 +397,17 @@ class HostSolve:
         if self._observe:
             self._observe = False
             self.solve_seconds = self._done_at - self._t0
+            metrics.solver_solve_time_seconds.observe(self.solve_seconds)
             RECENT_ITERATIONS.append(0)
             RECENT_ALGORITHMS.append("hungarian")
+            # Under the fetching caller's active span, else a root of its
+            # own, as the reference records a host solve.
+            obs_trace.TRACER.record_span(
+                "solver.solve_loop",
+                self.solve_seconds,
+                {"algorithm": "hungarian", "jobs": self._num_jobs,
+                 "domains": self._num_domains},
+            )
         return self._assignment
 
     @property
@@ -396,13 +420,14 @@ class PendingSolve:
 
     On the card the kernel runs while the caller's Python goes on:
     `is_ready()` polls a CUDA event without blocking, and `result()` waits
-    on that event, then copies the assignment to the host. After the first
-    `result()`, `solve_seconds` holds dispatch -> device finished (as seen
-    by the first poll that found it ready, or by the wait) and
-    `iterations` the bidding rounds."""
+    on that event, then copies the assignment to the host. The first
+    `result()` observes `jobset_placement_solve_time_seconds` (dispatch ->
+    device finished, as seen by the first poll that found it ready, or by
+    the wait; also kept as `solve_seconds`) and records the
+    `solver.solve_loop` and `solver.readback` spans."""
 
     def __init__(self, assignment, iters, num_jobs: int, num_domains: int, t0: float,
-                 observe: bool = True):
+                 observe: bool, span_parent):
         self._assignment = assignment
         self._iters = iters
         self._num_jobs = num_jobs
@@ -410,6 +435,7 @@ class PendingSolve:
         self._t0 = t0
         self._observe = observe
         self._ready_at: float | None = None
+        self._span_parent = span_parent
         self.solve_seconds: float | None = None
 
     def is_ready(self) -> bool:
@@ -424,17 +450,42 @@ class PendingSolve:
         return time.perf_counter() - self._t0
 
     def result(self) -> np.ndarray:
+        observe_this_fetch = self._observe
+        parent = self._result_parent() if observe_this_fetch else None
+        # Wait on the device before timing the fetch, so the readback span
+        # measures only the host copy and not the rest of the solve.
         if self._ready_at is None and not self.is_ready():
             self._assignment.block_until_ready()
             self.is_ready()  # stamp _ready_at
+        fetch_t0 = time.perf_counter()
         out = np.asarray(self._assignment)[: self._num_jobs].astype(np.int64)
+        fetch_end = time.perf_counter()
         out[out >= self._num_domains] = -1  # sinks/padding -> unassigned
-        if self._observe:
+        if observe_this_fetch:
             self._observe = False  # observe once, however often fetched
             self.solve_seconds = self._ready_at - self._t0
-            RECENT_ITERATIONS.append(int(self._iters))
+            metrics.solver_solve_time_seconds.observe(self.solve_seconds)
+            iterations = int(self._iters)
+            RECENT_ITERATIONS.append(iterations)
             RECENT_ALGORITHMS.append("auction")
+            # Phase spans at first fetch: the solve loop's device wall time
+            # (the interval the histogram observes) and the host readback.
+            common = {"jobs": self._num_jobs, "domains": self._num_domains,
+                      "iterations": iterations}
+            obs_trace.TRACER.record_span(
+                "solver.solve_loop", self.solve_seconds,
+                {"algorithm": "auction", **common}, parent=parent,
+            )
+            obs_trace.TRACER.record_span(
+                "solver.readback", fetch_end - fetch_t0, common, parent=parent
+            )
         return out
+
+    def _result_parent(self):
+        """Attribution for result-time phase spans: the fetching caller's
+        active span when there is one (the caller that paid the wait),
+        else the dispatch-time solver span (late asynchronous fetches)."""
+        return None if obs_trace.current_span() else self._span_parent
 
     @property
     def iterations(self) -> int:
@@ -498,16 +549,18 @@ class _BatchIterView:
         return int(self._fetch.values()[1][self._index])
 
 
-def _pending(assignment, iters, device, members):
+def _pending(assignment, iters, device, members, span_parent):
     """PendingSolves over one launch's outputs ([B, J_p] and [B]), with
     one CUDA event and one shared readback. `members` lists (num_jobs,
-    num_domains, t0, observe) per member."""
+    num_domains, t0, observe) per member; `span_parent` is the dispatching
+    `solver.solve` span's context."""
     event = None
     if device.type == "cuda":
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(device))
     fetch = _BatchFetch(assignment, iters, event)
-    return [PendingSolve(_BatchMemberView(fetch, b), _BatchIterView(fetch, b), *m)
+    return [PendingSolve(_BatchMemberView(fetch, b), _BatchIterView(fetch, b), *m,
+                         span_parent=span_parent)
             for b, m in enumerate(members)]
 
 
@@ -662,25 +715,36 @@ class AssignmentSolver:
         return fallback()
 
     @staticmethod
-    def _hungarian_solve(cost, feasible, t0: float) -> HostSolve:
+    def _hungarian_solve(cost, feasible, num_jobs: int, num_domains: int,
+                         t0: float) -> HostSolve:
         from scipy.optimize import linear_sum_assignment  # gated upstream
 
         # 5*COST_CAP reproduces the auction's sink tradeoff: a job is
         # stranded when its best option is worse than the sink benefit
         # -4*COST_CAP, an effective cost of 5*COST_CAP.
-        big_m = 5.0 * COST_CAP
-        dense = np.where(feasible, np.clip(cost, 0.0, COST_CAP - 1.0), big_m)
-        assignment = np.full(cost.shape[0], -1, np.int64)
-        rows, cols = linear_sum_assignment(dense)
-        ok = dense[rows, cols] < big_m
-        assignment[rows[ok]] = cols[ok]
-        return HostSolve(assignment, t0)
+        with obs_trace.span(
+            "solver.hungarian_fallback",
+            {"jobs": num_jobs, "domains": num_domains},
+        ):
+            big_m = 5.0 * COST_CAP
+            dense = np.where(feasible, np.clip(cost, 0.0, COST_CAP - 1.0), big_m)
+            assignment = np.full(num_jobs, -1, np.int64)
+            rows, cols = linear_sum_assignment(dense)
+            ok = dense[rows, cols] < big_m
+            assignment[rows[ok]] = cols[ok]
+        return HostSolve(assignment, num_jobs, num_domains, t0)
 
     def solve_async(self, cost: np.ndarray, feasible: Optional[np.ndarray] = None):
         """Dispatch one assignment solve without waiting for the result.
 
         cost: [J, D] non-negative costs (smaller = better), float or int.
         feasible: [J, D] bool mask (default: all feasible).
+
+        The reference builds the [J_p, D_p] benefit on the host and copies
+        it; this path copies the [J, D] costs and mask and builds the
+        benefit on the device, so `jobset_jit_transfer_bytes_total` counts
+        5 bytes a cell (f32 cost, bool mask) where the reference counts 4
+        a padded cell. `matrix_mb` keeps the reference's formula.
         """
         t0 = time.perf_counter()
         cost = np.asarray(cost, np.float32)
@@ -691,18 +755,38 @@ class AssignmentSolver:
         domains_p = _round_up_pow2(num_domains)
         host_small = self._host_hungarian(jobs_p * domains_p)
         max_iters = self._HOST_AUCTION_ITER_CAP if host_small else self.max_iters
-        device = self._route(jobs_p * domains_p)
 
-        benefit = _dense_benefit(cost[None], np.asarray(feasible, bool)[None], jobs_p,
-                                 domains_p, device)
-        assignment, _, iters = _dense(benefit, 1.0, max_iters, batched=False)
-        (pending,) = _pending(assignment, iters, device, [(num_jobs, num_domains, t0, True)])
-        if host_small:
-            return self._capped_or_hungarian(
-                pending,
-                lambda: self._hungarian_solve(cost, feasible, t0),
+        with obs_trace.span(
+            "solver.solve",
+            {"kind": "dense", "jobs": num_jobs, "domains": num_domains},
+            activate=True,
+        ) as solve_span:
+            metrics.solver_batch_occupancy.set(
+                (num_jobs * num_domains) / (jobs_p * domains_p)
             )
-        return pending
+            metrics.solver_batch_problems.set(1)
+            device = self._route(jobs_p * domains_p)
+            with obs_trace.span(
+                "solver.host_transfer",
+                {"matrix_mb": round(jobs_p * domains_p * 4 / 1e6, 3)},
+            ):
+                cost_h, feasible_h = cost[None], np.asarray(feasible, bool)[None]
+                benefit = _dense_benefit(cost_h, feasible_h, jobs_p, domains_p, device)
+                profile.note_transfer("solver_auction", "h2d", cost_h, feasible_h)
+            with obs_trace.span("solver.dispatch") as dispatch:
+                (assignment, _, iters), first = profile.jit_shape_call(
+                    "solver_auction", _dense, benefit, 1.0, max_iters=max_iters,
+                    batched=False,
+                )
+                dispatch.set_attribute("compile_cache", "miss" if first else "hit")
+            (pending,) = _pending(assignment, iters, device,
+                                  [(num_jobs, num_domains, t0, True)], solve_span.context)
+            if host_small:
+                return self._capped_or_hungarian(
+                    pending,
+                    lambda: self._hungarian_solve(cost, feasible, num_jobs, num_domains, t0),
+                )
+            return pending
 
     def solve(self, cost: np.ndarray, feasible: Optional[np.ndarray] = None) -> np.ndarray:
         """Solve one assignment problem, waiting for the result.
@@ -716,7 +800,9 @@ class AssignmentSolver:
     def solve_structured_async(self, load, free, pods_needed, sticky, occupied, own_domain):
         """Dispatch a solve from the O(J + D) cost parametrization; the
         dense benefit is built on the device, so only kilobytes cross to
-        the card."""
+        the card. The six padded operands are counted as transferred, as
+        in the reference; the real domain count, a 4-byte scalar copied
+        with them, is counted in neither."""
         t0 = time.perf_counter()
         num_jobs = int(pods_needed.shape[0])
         num_domains = int(load.shape[0])
@@ -724,26 +810,45 @@ class AssignmentSolver:
         domains_p = _round_up_pow2(num_domains)
         host_small = self._host_hungarian(jobs_p * domains_p)
         max_iters = self._HOST_AUCTION_ITER_CAP if host_small else self.max_iters
-        device = self._route(jobs_p * domains_p)
 
-        problem = dict(load=load, free=free, pods_needed=pods_needed, sticky=sticky,
-                       occupied=occupied, own_domain=own_domain)
-        stacked = _stack_structured([problem], jobs_p, domains_p)
-        operands = [torch.from_numpy(a).to(device) for a in stacked.values()]
-        assignment, iters = _structured(operands, max_iters, batched=False)
-        (pending,) = _pending(assignment, iters, device, [(num_jobs, num_domains, t0, True)])
-        if host_small:
-            # The Hungarian fallback builds the same cost model on the host.
-            def fallback():
-                cost, feasible = _structured_cost_np(
-                    np.asarray(load, np.float32), np.asarray(free, np.float32),
-                    np.asarray(pods_needed, np.float32), np.asarray(sticky, np.int32),
-                    np.asarray(occupied, bool), np.asarray(own_domain, np.int32),
+        with obs_trace.span(
+            "solver.solve",
+            {"kind": "structured", "jobs": num_jobs, "domains": num_domains},
+        ) as solve_span:
+            metrics.solver_batch_occupancy.set(
+                (num_jobs * num_domains) / (jobs_p * domains_p)
+            )
+            metrics.solver_batch_problems.set(1)
+            device = self._route(jobs_p * domains_p)
+            with obs_trace.span("solver.host_transfer", {
+                "params_kb": round((3 * jobs_p * 4 + 3 * domains_p * 4) / 1024.0, 3),
+            }):
+                problem = dict(load=load, free=free, pods_needed=pods_needed, sticky=sticky,
+                               occupied=occupied, own_domain=own_domain)
+                stacked = _stack_structured([problem], jobs_p, domains_p)
+                operands = [torch.from_numpy(a).to(device) for a in stacked.values()]
+                profile.note_transfer("solver_auction_structured", "h2d",
+                                      *(stacked[name] for name in _STRUCTURED))
+            with obs_trace.span("solver.dispatch") as dispatch:
+                (assignment, iters), first = profile.jit_shape_call(
+                    "solver_auction_structured", _structured, *operands,
+                    max_iters=max_iters, batched=False,
                 )
-                return self._hungarian_solve(cost, feasible, t0)
+                dispatch.set_attribute("compile_cache", "miss" if first else "hit")
+            (pending,) = _pending(assignment, iters, device,
+                                  [(num_jobs, num_domains, t0, True)], solve_span.context)
+            if host_small:
+                # The Hungarian fallback builds the same cost model on the host.
+                def fallback():
+                    cost, feasible = _structured_cost_np(
+                        np.asarray(load, np.float32), np.asarray(free, np.float32),
+                        np.asarray(pods_needed, np.float32), np.asarray(sticky, np.int32),
+                        np.asarray(occupied, bool), np.asarray(own_domain, np.int32),
+                    )
+                    return self._hungarian_solve(cost, feasible, num_jobs, num_domains, t0)
 
-            return self._capped_or_hungarian(pending, fallback)
-        return pending
+                return self._capped_or_hungarian(pending, fallback)
+            return pending
 
     def solve_structured_batch_async(self, problems: "list[dict]") -> "list[PendingSolve]":
         """Dispatch many structured solves as one launch.
@@ -751,24 +856,52 @@ class AssignmentSolver:
         problems: kwargs dicts as accepted by solve_structured_async, padded
         to the batch's common power-of-two bucket. Returns one PendingSolve
         per problem, sharing one event and one readback; solve time and
-        iterations are observed once for the batch (member 0)."""
+        iterations are observed once for the batch (member 0). The
+        `resident_hits` attribute says how many operands stayed on the
+        device; `jobset_jit_transfer_bytes_total` counts the operands that
+        were copied, where the reference counts none on this path."""
         t0 = time.perf_counter()
         jobs_p = _round_up_pow2(max(int(p["pods_needed"].shape[0]) for p in problems))
         domains_p = _round_up_pow2(max(int(p["load"].shape[0]) for p in problems))
-        device = self._route(len(problems) * jobs_p * domains_p, is_batched=True)
-        stacked = _stack_structured(problems, jobs_p, domains_p)
-        operands, _ = self._resident_operands((len(problems), jobs_p, domains_p), stacked,
-                                              device)
-        assignment, iters = _structured(list(operands.values()), self.max_iters, batched=True)
-        return _pending(assignment, iters, device, [
-            (int(p["pods_needed"].shape[0]), int(p["load"].shape[0]), t0, b == 0)
-            for b, p in enumerate(problems)
-        ])
+        # Batch occupancy: real problem cells over the padded batch's cells.
+        real_cells = sum(int(p["pods_needed"].shape[0]) * int(p["load"].shape[0])
+                         for p in problems)
+        padded_cells = len(problems) * jobs_p * domains_p
+        metrics.solver_batch_occupancy.set(real_cells / max(padded_cells, 1))
+        metrics.solver_batch_problems.set(len(problems))
+
+        with obs_trace.span(
+            "solver.solve",
+            {"kind": "structured_batch", "problems": len(problems),
+             "jobs_padded": jobs_p, "domains_padded": domains_p,
+             "batch_occupancy": round(real_cells / max(padded_cells, 1), 4)},
+        ) as solve_span:
+            device = self._route(len(problems) * jobs_p * domains_p, is_batched=True)
+            with obs_trace.span("solver.host_transfer", {
+                "params_kb": round(
+                    len(problems) * (3 * jobs_p + 3 * domains_p) * 4 / 1024.0, 3
+                ),
+            }) as transfer_span:
+                stacked = _stack_structured(problems, jobs_p, domains_p)
+                operands, hits = self._resident_operands(
+                    (len(problems), jobs_p, domains_p), stacked, device)
+                transfer_span.set_attribute("resident_hits", hits)
+            with obs_trace.span("solver.dispatch") as dispatch:
+                (assignment, iters), first = profile.jit_shape_call(
+                    "solver_auction_structured_batch", _auction_structured_batch,
+                    *operands.values(), max_iters=self.max_iters,
+                )
+                dispatch.set_attribute("compile_cache", "miss" if first else "hit")
+            return _pending(assignment, iters, device, [
+                (int(p["pods_needed"].shape[0]), int(p["load"].shape[0]), t0, b == 0)
+                for b, p in enumerate(problems)
+            ], solve_span.context)
 
     def _resident_operands(self, shape_key: tuple, stacked: "dict[str, np.ndarray]", device):
         """Host arrays -> device tensors through the residency cache: an
         operand byte-equal to the previous round's stays on the device and
-        only changed operands are copied. Returns (tensors by name,
+        only changed operands are copied, and their bytes are counted as
+        the storm kernel's h2d transfer. Returns (tensors by name,
         residency hit count)."""
         key = shape_key + (str(device),)
         cached = self._batch_operands.get(key)
@@ -777,31 +910,57 @@ class AssignmentSolver:
                 self._batch_operands.pop(next(iter(self._batch_operands)))
             cached = self._batch_operands[key] = {}
         out = {}
-        hits = 0
+        copied = []
         for name, host in stacked.items():
             entry = cached.get(name)
             if entry is not None and np.array_equal(entry[0], host):
                 out[name] = entry[1]
-                hits += 1
                 self.batch_operand_reuses += 1
             else:
                 tensor = torch.from_numpy(host).to(device)
                 cached[name] = (host, tensor)
                 out[name] = tensor
+                copied.append(host)
                 self.batch_operand_transfers += 1
-        return out, hits
+        profile.note_transfer("solver_auction_structured_batch", "h2d", *copied)
+        return out, len(stacked) - len(copied)
 
     def solve_batch(self, costs: np.ndarray, feasibles: Optional[np.ndarray] = None) -> np.ndarray:
-        """Dense solves of a [B, J, D] stack in one launch -> [B, J]."""
+        """Dense solves of a [B, J, D] stack in one launch -> [B, J]. As on
+        the dense single path, the [B, J, D] costs and masks are what is
+        copied and counted."""
+        t0 = time.perf_counter()
         costs = np.asarray(costs, np.float32)
         batch, num_jobs, num_domains = costs.shape
         if feasibles is None:
             feasibles = np.ones_like(costs, dtype=bool)
         jobs_p = _round_up_pow2(num_jobs)
         domains_p = _round_up_pow2(num_domains)
-        device = self._route(batch * jobs_p * domains_p, is_batched=True)
-        benefit = _dense_benefit(costs, feasibles, jobs_p, domains_p, device)
-        assignment, _, _ = _auction_batch(benefit, 1.0, self.max_iters)
-        out = assignment.cpu().numpy()[:, :num_jobs].astype(np.int64)
+
+        metrics.solver_batch_occupancy.set(
+            (batch * num_jobs * num_domains) / (batch * jobs_p * domains_p)
+        )
+        metrics.solver_batch_problems.set(batch)
+        with obs_trace.span(
+            "solver.solve",
+            {"kind": "dense_batch", "problems": batch, "jobs": num_jobs,
+             "domains": num_domains},
+        ):
+            device = self._route(batch * jobs_p * domains_p, is_batched=True)
+            with obs_trace.span("solver.host_transfer", {
+                "matrix_mb": round(batch * jobs_p * domains_p * 4 / 1e6, 3),
+            }):
+                feasibles = np.asarray(feasibles, bool)
+                benefit = _dense_benefit(costs, feasibles, jobs_p, domains_p, device)
+                profile.note_transfer("solver_auction_batch", "h2d", costs, feasibles)
+            with obs_trace.span("solver.dispatch") as dispatch:
+                (assignment, _, _), first = profile.jit_shape_call(
+                    "solver_auction_batch", _auction_batch, benefit, 1.0,
+                    max_iters=self.max_iters,
+                )
+                dispatch.set_attribute("compile_cache", "miss" if first else "hit")
+                assignments = assignment.cpu().numpy()
+        out = assignments[:, :num_jobs].astype(np.int64)
         out[out >= num_domains] = -1
+        metrics.solver_solve_time_seconds.observe(time.perf_counter() - t0)
         return out

@@ -20,6 +20,7 @@ writer's bytes included.
 
 from __future__ import annotations
 
+import functools
 import io
 import json
 import zipfile
@@ -30,6 +31,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..obs import profile
 from .features import FEATURE_DIM, FEATURE_NAMES, DomainHistory
 
 # Checkpoint schema major version: load_checkpoint rejects anything else.
@@ -136,6 +138,22 @@ class PolicyMLP(nn.Module):
         return mlp_forward(list(self.flat), x)
 
 
+@functools.lru_cache(maxsize=32)
+def _kernel(rows_p: int, dims: tuple[int, ...]):
+    """The forward of one (row bucket, layer dims) bucket, as the
+    reference's compile-once factory keys it: its first call is timed as
+    the family's compile (obs/profile.py), and the cache's hits and misses
+    are the `jobset_jit_cache_*` gauges' "policy_mlp" series."""
+
+    def kernel(x, *flat):
+        return mlp_forward(flat, x)
+
+    return profile.timed_compile("policy_mlp", kernel)
+
+
+profile.KERNEL_CACHES.register("policy_mlp", _kernel)
+
+
 def score(
     model: PolicyModel, feats: np.ndarray, backend: str = "torch", device=None
 ) -> np.ndarray:
@@ -143,7 +161,9 @@ def score(
     better). `backend="torch"` runs the MLP on `device` (the card unless
     the caller names another; with no CUDA device and none named it
     raises), its rows padded to a pow2 bucket; `backend="numpy"` is the
-    plain version."""
+    plain version. The torch path counts its copies as transfers (the
+    packed weights and the padded rows in, the scores out); the
+    reference's jit path counts none."""
     feats = np.asarray(feats, np.float32)
     if feats.ndim != 2 or feats.shape[1] != model.feat_mean.shape[0]:
         raise ValueError(
@@ -158,10 +178,15 @@ def score(
     else:
         mlp = PolicyMLP(model.params, device=device)
         rows = x.shape[0]
-        padded = np.zeros((_round_up_pow2(rows), x.shape[1]), np.float32)
+        rows_p = _round_up_pow2(rows)
+        padded = np.zeros((rows_p, x.shape[1]), np.float32)
         padded[:rows] = x
+        profile.note_transfer("policy_mlp", "h2d", *mlp.flat, padded)
         with torch.no_grad():
-            y = mlp(torch.from_numpy(padded).to(mlp.flat[0].device)).cpu().numpy()[:rows]
+            out = _kernel(rows_p, model.dims)(
+                torch.from_numpy(padded).to(mlp.flat[0].device), *mlp.flat).cpu().numpy()
+        profile.note_transfer("policy_mlp", "d2h", out)
+        y = out[:rows]
     return y * model.label_std + model.label_mean
 
 

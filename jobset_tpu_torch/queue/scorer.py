@@ -34,12 +34,14 @@ What one scoring call computes:
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs import profile
 
 
 def _round_up_pow2(n: int, minimum: int = 8) -> int:
@@ -302,16 +304,35 @@ def _pad(snapshot: Snapshot):
     return nominal, declared, usage, weight, cohort, members, request, qi
 
 
+@functools.lru_cache(maxsize=8)
+def _kernel(P: int, Q: int, C: int, R: int):
+    """The device call of one padded (P, Q, C, R) bucket, as the
+    reference's compile-once factory keys it: its first call is timed as
+    the family's compile (obs/profile.py), and the cache's hits and misses
+    are the `jobset_jit_cache_*` gauges' "queue_scorer" series."""
+    return profile.timed_compile("queue_scorer", score_tensors)
+
+
+profile.KERNEL_CACHES.register("queue_scorer", _kernel)
+
+
 def _score_device(snapshot: Snapshot, device: torch.device) -> ScoreResult:
+    """The padded snapshot through its bucket's device call. Transfers are
+    counted at the copies this path makes: the padded arrays with the
+    cohort member table (cohort, queue indexes and members as int64) to
+    the device, one f32 vector of 2P + Q back."""
     P0 = snapshot.request.shape[0]
     Q0 = snapshot.nominal.shape[0]
     arrays = _pad(snapshot)
-    feasible, share, candidate_share = score_tensors(
+    nominal, members, request = arrays[0], arrays[5], arrays[6]
+    P, R = request.shape
+    profile.note_transfer("queue_scorer", "h2d", *arrays)
+    feasible, share, candidate_share = _kernel(P, nominal.shape[0], members.shape[0], R)(
         *(torch.from_numpy(a).to(device) for a in arrays),
         queues=Q0, resources=snapshot.nominal.shape[1])
     # One readback: the feasibility bits ride as f32 0/1 beside the shares.
     out = torch.cat([feasible.float(), candidate_share, share]).cpu().numpy()
-    P = feasible.shape[0]
+    profile.note_transfer("queue_scorer", "d2h", out)
     return ScoreResult(
         feasible=out[:P0] != 0,
         queue_share=out[2 * P:2 * P + Q0].copy(),
