@@ -490,7 +490,7 @@ def plain_attention():
 
 
 LAUNCH_COUNTERS = ("KERNEL_LAUNCHES", "TENSOR_CORE_LAUNCHES", "F32_LAUNCHES",
-                   "TILE_CLASS_LAUNCHES")
+                   "TILE_CLASS_LAUNCHES", "BACKWARD_LAUNCHES", "BACKWARD_F32_LAUNCHES")
 
 
 def reset_launches():
@@ -508,15 +508,18 @@ def empty_mask_cache():
     fb.constant_mask.cache_clear()
 
 
-def check_launches(path, expected, passes):
+def check_launches(path, expected, passes, backward=0):
     """Read the counters after a bf16 run of `path`: every block launch went
-    through the tensor-core variant, and the tile-class pass ran `passes`
-    times (once for each constant mask the run built)."""
+    through the tensor-core variant, the tile-class pass ran `passes` times
+    (once for each constant mask the run built), and the backward kernel
+    `backward` times, all in bf16."""
     counts = launches_now()
     check(counts == {"KERNEL_LAUNCHES": expected, "TENSOR_CORE_LAUNCHES": expected,
-                     "F32_LAUNCHES": 0, "TILE_CLASS_LAUNCHES": passes},
+                     "F32_LAUNCHES": 0, "TILE_CLASS_LAUNCHES": passes,
+                     "BACKWARD_LAUNCHES": backward, "BACKWARD_F32_LAUNCHES": 0},
           f"{path}: launches {counts} (expected {expected} block launches, all on the "
-          f"tensor-core variant, and {passes} tile-class passes)")
+          f"tensor-core variant, {passes} tile-class passes and {backward} bf16 backward "
+          "launches)")
     return counts
 
 
@@ -869,6 +872,254 @@ def time_classes(n) -> dict:
     }
 
 
+# The backward kernel against its plain version, per output: bf16
+# max|got - want| <= 2e-2 max|want| + 1e-5 (P and dS are rounded to bf16 as
+# operands on both sides, from exponentials that differ in the last bits:
+# ex2.approx against the max the forward kept, torch.exp in the plain
+# version, so a value on a rounding boundary may fall one bf16 ulp apart);
+# f32 1e-4 max|want| + 1e-5 (3xTF32 products, errors near 2^-22 of each,
+# against true f32 in another order; TF32 off for the plain version). The
+# forward's tolerances, for the same reasons. At the flagship block: the
+# relative norm of each output's difference, bf16 1e-2, f32 1e-4.
+BACKWARD_TOL = {torch.bfloat16: (2e-2, 1e-5), torch.float32: (1e-4, 1e-5)}
+BACKWARD_REL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+BACKWARD_NEEDS = {"all": (True, True, True, True), "qkv": (True, True, True, False),
+                  "q": (True, False, False, False), "kv": (False, True, True, False),
+                  "bias": (False, False, False, True)}
+MASKED_ROW = 3  # the "band_row" bias: the band, and row 3 masked whole
+
+
+def flash_backward_case(name, dtype, batch, tq, tk, heads, dim, bias_kind, kv_heads=None,
+                        seed=0, fused=False, needs="qkv"):
+    """The backward kernel against its plain version on the same inputs (the
+    forward kernel's block max, random cotangents), given the outputs
+    `needs` names; two calls equal bit for bit (dbias, summed by atomics,
+    within the tolerance); a fully masked row's dq and dbias, and every
+    gradient of an all-masked block, exactly 0. Returns max|d| by output."""
+    from jobset_tpu_torch.ops import flash_block as fb
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kv_heads = kv_heads or heads
+    q, k_c, v_c = make_qkv(dtype, batch, tq, tk, heads, dim, kv_heads, gen, fused)
+    k, v = (fb._repeat_heads(t, heads // kv_heads) for t in (k_c, v_c))
+    bias = make_bias("band" if bias_kind == "band_row" else bias_kind, tq, tk)
+    if bias_kind == "band_row":
+        bias[MASKED_ROW] = fb.NEG_INF
+    classes = fb.tile_classes(bias)
+    block_max = fb._block_attention_cuda(q, k, v, bias, classes)[0]
+    dsum = torch.randn((batch, heads, tq), generator=gen, device="cuda")
+    dw = torch.randn((batch, tq, heads, dim), generator=gen, device="cuda")
+    want_needs = BACKWARD_NEEDS[needs]
+    before = launches_now()
+    got = fb._block_attention_bwd_cuda(q, k, v, bias, block_max, classes, dsum, dw, want_needs)
+    again = fb._block_attention_bwd_cuda(q, k, v, bias, block_max, classes, dsum, dw, want_needs)
+    torch.cuda.synchronize()
+    after = launches_now()
+    f32 = dtype == torch.float32
+    check(after["BACKWARD_LAUNCHES"] - before["BACKWARD_LAUNCHES"] == 2
+          and after["BACKWARD_F32_LAUNCHES"] - before["BACKWARD_F32_LAUNCHES"] == 2 * f32,
+          f"flash_block backward {name}: two launches, on the {'f32' if f32 else 'bf16'} "
+          "variant")
+    check(all((g is None) == (not n) for g, n in zip(got, want_needs))
+          and all(torch.equal(a, b) for a, b in zip(got[:3], again[:3]) if a is not None),
+          f"flash_block backward {name}: the outputs asked for ({needs}), two calls equal "
+          "bit for bit")
+    if f32:
+        plain_is_f32(f"flash_block backward {name}")
+    want = fb.block_attention_bwd_reference(q, k, v, bias, block_max, dsum, dw, want_needs)
+    rtol, atol = BACKWARD_TOL[dtype]
+    errs = {}
+    for label, g, w, g2 in zip(("dq", "dk", "dv", "dbias"), got, want, again):
+        if g is None:
+            continue
+        check(g.dtype == w.dtype and g.shape == w.shape and bool(torch.isfinite(g).all()),
+              f"flash_block backward {name}: {label} finite, {tuple(w.shape)} {w.dtype}")
+        err = errs[label] = max_abs(g, w)
+        limit = atol + rtol * w.float().abs().max().item()
+        check(err <= limit and max_abs(g2, w) <= limit,
+              f"flash_block backward {name}: {label} max|d|={err:.3e} <= {limit:.3e}")
+    if bias_kind == "band_row":
+        check((got[0] is None or bool((got[0][:, MASKED_ROW] == 0).all()))
+              and (got[3] is None or bool((got[3][MASKED_ROW] == 0).all())),
+              f"flash_block backward {name}: the fully masked row's dq and dbias are 0")
+    if bias_kind == "all_masked":
+        check(all(bool((g == 0).all()) for g in got if g is not None),
+              f"flash_block backward {name}: every gradient of an all-masked block is 0")
+    print(f"flash_block backward {name}: max|d| "
+          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()), flush=True)
+    return errs
+
+
+def backward_kernel_checks() -> dict:
+    """Phase 3's backward cases: both dtypes; MHA, GQA expand views and
+    fused-QKV views; the triangle, zero, all-masked, alibi and band biases
+    (the band with a fully masked row); ragged Tq and Tk; D of 32, 64 and
+    128; every subset of outputs the passes split on, dbias included."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    errs = {}
+    for dtype, tag in ((bf16, "bf16"), (f32, "f32")):
+        cases = [
+            (f"{tag} MHA B2 H4 T256 D64 triangle", 2, 256, 256, 4, 64, "triangle", None, False,
+             "qkv"),
+            (f"{tag} GQA expand view H8/Hkv2 T256 D64 zero", 2, 256, 256, 8, 64, "zero", 2,
+             False, "qkv"),
+            (f"{tag} fused-QKV views GQA H8/Hkv2 T192 D64 triangle", 2, 192, 192, 8, 64,
+             "triangle", 2, True, "all"),
+            (f"{tag} ragged Tq100 Tk77 D32 band with a masked row", 2, 100, 77, 4, 32,
+             "band_row", 2, False, "all"),
+            (f"{tag} ragged Tq100 Tk77 D32 alibi, dbias alone", 2, 100, 77, 4, 32, "alibi",
+             None, False, "bias"),
+            (f"{tag} D128 Tq130 Tk200 triangle, dq alone", 2, 130, 200, 4, 128, "triangle",
+             None, False, "q"),
+            (f"{tag} D128 Tq130 Tk200 reverse triangle, dk and dv alone", 2, 130, 200, 4, 128,
+             "reverse_triangle", None, False, "kv"),
+            (f"{tag} all masked T200 D64", 2, 200, 200, 4, 64, "all_masked", None, False, "all"),
+        ]
+        for i, (name, *shape, bias_kind, kv, fused, needs) in enumerate(cases):
+            errs[name] = flash_backward_case(name, dtype, *shape, bias_kind, kv_heads=kv,
+                                             seed=20 + i, fused=fused, needs=needs)
+    return errs
+
+
+def backward_bound_ms(q, bias, dtype) -> tuple[float, str]:
+    """Least time for one backward call at q's shape (MHA): each input read
+    once (q, k, v, bias, dweighted f32, block max and dsum) and each output
+    written once (dq, dk, dv), or the five products over the unmasked
+    logits (S, dW.V^T, dV, dK, dQ) in the arithmetic of the dtype's variant;
+    the larger."""
+    batch, tq, heads, dim = q.shape
+    tk = bias.shape[1]
+    elem = q.element_size()
+    moved = (2 * elem * batch * heads * dim * (tq + 2 * tk)  # q, k, v in; dq, dk, dv out
+             + 4 * bias.numel() + 4 * batch * tq * heads * dim + 2 * 4 * batch * heads * tq)
+    unmasked = int((bias > -5e29).sum())
+    flops = 5 * 2 * batch * heads * dim * unmasked
+    peak, passes = PRODUCT_RATE[dtype]
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, passes * flops / peak
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_backward_block(dtype, card) -> dict:
+    """The backward at the training shape, [8, 1024, 16, 64] with the
+    causal triangle (the flagship step's 8 calls): the kernel against the
+    plain version in relative norm, two calls bit for bit; L2-cold times (two
+    input sets of fused QKV views and cotangents, 85 MB each in bf16, in
+    turns) of the kernel and the plain version; the bound; and, as a
+    yardstick of like work (not the same function: it normalizes), the
+    backward of scaled_dot_product_attention(is_causal=True) at
+    [8, 16, 1024, 64]."""
+    from jobset_tpu_torch.ops import flash_block as fb
+
+    heads, dim = 16, 64
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bias, classes = fb.constant_mask("causal", PROMPT, PROMPT, torch.device("cuda"))
+    needs = BACKWARD_NEEDS["qkv"]
+    sets = []
+    for _ in range(2):
+        q, k, v = make_qkv(dtype, BATCH, PROMPT, PROMPT, heads, dim, heads, gen, fused=True)
+        block_max = fb._block_attention_cuda(q, k, v, bias, classes)[0]
+        dsum = torch.randn((BATCH, heads, PROMPT), generator=gen, device="cuda")
+        dw = torch.randn((BATCH, PROMPT, heads, dim), generator=gen, device="cuda")
+        sets.append((q, k, v, bias, block_max, dsum, dw))
+
+    def kernel(i):
+        q, k, v, bias_, m, dsum, dw = sets[i]
+        return fb._block_attention_bwd_cuda(q, k, v, bias_, m, classes, dsum, dw, needs)
+
+    def plain(i):
+        q, k, v, bias_, m, dsum, dw = sets[i]
+        return fb.block_attention_bwd_reference(q, k, v, bias_, m, dsum, dw, needs)
+
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    if dtype == torch.float32:
+        plain_is_f32(f"flash_block backward flagship {tag}")
+    got, again, want = kernel(0), kernel(0), plain(0)
+    rels = {label: ((g.float() - w.float()).norm() / w.float().norm()).item()
+            for label, g, w in zip(("dq", "dk", "dv"), got, want)}
+    check(all(r <= BACKWARD_REL[dtype] for r in rels.values())
+          and all(bool(torch.isfinite(g).all()) for g in got[:3]),
+          f"flash_block backward flagship {tag} [8,1024,16,64] triangle: kernel vs plain, "
+          f"relative norm {', '.join(f'{k} {r:.2e}' for k, r in rels.items())} <= "
+          f"{BACKWARD_REL[dtype]}")
+    check(all(torch.equal(a, b) for a, b in zip(got[:3], again[:3])),
+          f"flash_block backward flagship {tag}: two calls equal bit for bit")
+    max_err = max(max_abs(g, w) for g, w in zip(got[:3], want[:3]))
+    del got, again, want
+    out = {"rel_norm": rels, "max_abs_err": max_err,
+           "ms": rotating_ms(kernel, 2, ITERS),
+           "plain_ms": rotating_ms(plain, 2, 4)}
+    # Each pass alone: dq alone runs the dQ pass, dk and dv the dK/dV pass.
+    for part, part_needs in (("dq_pass_ms", BACKWARD_NEEDS["q"]),
+                             ("dkdv_pass_ms", BACKWARD_NEEDS["kv"])):
+        out[part] = rotating_ms(lambda i: fb._block_attention_bwd_cuda(
+            *sets[i][:5], classes, *sets[i][5:], part_needs), 2, ITERS)
+    out["bound_ms"], out["bound_by"] = backward_bound_ms(sets[0][0], bias, dtype)
+    n_live = int((classes != fb.MASKED).sum())
+    out["tile_bound_ms"] = 1e3 * PRODUCT_RATE[dtype][1] * n_live * BATCH * heads * 5 * 2 \
+        * fb.TILE * fb.TILE * dim / PRODUCT_RATE[dtype][0]
+    del sets
+    torch.cuda.empty_cache()
+    # The yardstick: SDPA's backward alone (its forward's graph kept).
+    qs, ks, vs = (torch.randn((BATCH, heads, PROMPT, dim), generator=gen, device="cuda")
+                  .to(dtype).requires_grad_() for _ in range(3))
+    o = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    go = torch.randn_like(o)
+    out["library_ms"] = cuda_ms(lambda: torch.autograd.grad(o, (qs, ks, vs), go,
+                                                            retain_graph=True), ITERS)
+    del qs, ks, vs, o, go
+    torch.cuda.empty_cache()
+    print(f"flash_block backward flagship {tag} [8,1024,16,64] triangle, L2-cold: kernel "
+          f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
+          f"({out['bound_by']}; {out['tile_bound_ms']:.4f} ms over the live 64x64 tiles), "
+          f"{out['bound_ms'] / out['ms']:.1%} of bound (the dK/dV pass alone "
+          f"{out['dkdv_pass_ms']:.4f} ms, the dQ pass alone {out['dq_pass_ms']:.4f} ms); "
+          f"library_ms (backward of "
+          f"scaled_dot_product_attention is_causal at [8,16,1024,64]; normalized attention, "
+          f"not the same function) {out['library_ms']:.4f} ms ({card})", flush=True)
+    return out
+
+
+def backward_ptxas(log: str) -> dict:
+    """kernel_ptxas over the backward library: each pass's instantiation by
+    dtype and padded head dim (spills are printed, not failed)."""
+    log = (log.replace("kernelI13__nv_bfloat16L", "kernel_bf16IL")
+           .replace("kernelIfL", "kernel_f32IL"))
+    return kernel_ptxas(log, r"flash_bwd_(?:dkdv|dq)_kernel_(?:bf16|f32)")
+
+
+def backward_entries(results) -> list:
+    """The `kernels` line's entries of the backward kernel, bf16 and f32,
+    from phase 7's flagship-block measurements."""
+    out = []
+    for tag, variant in (("bf16", "bf16 (m16n8k16 mma.sync, ldmatrix), the flagship paths'"),
+                         ("f32", "f32 (3xTF32 on m16n8k8 mma.sync), the LM workload's default "
+                                 "f32 path; launches counted on the worker's uninterrupted run")):
+        t = results["block_backward"][tag]
+        out.append({
+            "name": "flash_block_backward" + ("" if tag == "bf16" else "_f32"),
+            "route": "cuda",
+            "source": "jobset_tpu_torch/ops/csrc/flash_block_bwd.cu",
+            "replaces": "jobset_tpu/ops/flash_block.py:483",
+            "variant": variant,
+            "max_abs_err": t["max_abs_err"],
+            "rel_norm_err": t["rel_norm"],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "tile_bound_ms": t["tile_bound_ms"],
+            "pass_ms": {"dkdv": t["dkdv_pass_ms"], "dq": t["dq_pass_ms"]},
+            "library_ms": t["library_ms"],
+            "library_call": "backward of scaled_dot_product_attention(is_causal=True) at "
+                            "[8,16,1024,64] (a yardstick: normalized attention, not the same "
+                            "function)",
+            "shape": f"{tag} B=8 H=16 Tq=Tk=1024 D=64, causal triangle; dq, dk, dv; L2-cold",
+            "ptxas": {k: v for k, v in (results.get("backward_ptxas") or {}).items()
+                      if k.endswith(tag) or f"_{tag}<" in k},
+        })
+    return out
+
+
 def phase_kernels(results):
     from jobset_tpu_torch.ops import flash_block as fb
 
@@ -952,6 +1203,7 @@ def phase_kernels(results):
     path_ms = {label: t["path_ms"] for label, t in (
         ("flagship bf16", flag_t), ("forward shape bf16", fwd_t), ("flagship f32", f32_t),
         ("forward shape f32", fwd_f32_t))}
+    results["backward_checks"] = backward_kernel_checks()
 
     return [
         {
@@ -1276,7 +1528,8 @@ def phase_train(results):
     bench = model_bench.run_model_bench(steps=TRAIN_STEPS, warmup=TRAIN_WARMUP, batch=BATCH,
                                         seq_len=PROMPT)
     steps = TRAIN_WARMUP + TRAIN_STEPS
-    counts = check_launches(f"run_model_bench ({steps} steps)", LAYERS * steps, 1)
+    counts = check_launches(f"run_model_bench ({steps} steps)", LAYERS * steps, 1,
+                            backward=LAYERS * steps)
     results["train_bench_launches"] = counts
     results["train_step_launches"] = {k: v // steps for k, v in counts.items()}
     losses = bench.pop("losses")
@@ -1298,7 +1551,8 @@ def phase_train(results):
     batch = token_batch(cfg.vocab_size, BATCH, PROMPT, seed=3)
     reset_launches()
     kernel = sgd_step(cfg, params, batch)
-    results["train_launches_remat_off"] = check_launches("train step, remat off", LAYERS, 0)
+    results["train_launches_remat_off"] = check_launches("train step, remat off", LAYERS, 0,
+                                                         backward=LAYERS)
     with plain_attention():
         plain = sgd_step(cfg, params, batch)
     results["train_grad_rel_vs_plain"] = compare_step(
@@ -1308,9 +1562,10 @@ def phase_train(results):
         reset_launches()
         # "full" re-runs each layer's forward, kernel included, in the
         # backward; "dots" keeps the attention output and re-runs no kernel.
+        # Either way each layer's block step is differentiated once.
         remat = sgd_step(replace(cfg, remat=True, remat_policy=policy), params, batch)
         results[f"train_launches_remat_{policy}"] = check_launches(
-            f"train step, remat {policy!r}", want, 0)
+            f"train step, remat {policy!r}", want, 0, backward=LAYERS)
         compare_step(f"train step flagship, remat {policy!r} vs off", remat, kernel,
                      TRAIN_LOSS_REL, TRAIN_GRAD_REL)
         del remat
@@ -1324,31 +1579,10 @@ def phase_train(results):
     del kernel
     torch.cuda.empty_cache()
 
-    # The block backward at the training shape: device time of one call
-    # (recompute, dW.V^T, dlogits, dq, dk, dv; each [B,H,T,T] f32 tensor
-    # is 512 MB, far past L2), against the forward kernel at that shape.
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    q, k, v = make_qkv(torch.bfloat16, BATCH, PROMPT, PROMPT, 16, 64, 16, gen, fused=True)
-    bias = make_bias("triangle", PROMPT, PROMPT)
-    dsum = torch.randn((BATCH, 16, PROMPT), generator=gen, device="cuda")
-    dw = torch.randn((BATCH, PROMPT, 16, 64), generator=gen, device="cuda")
-    needs = (True, True, True, False)
-    bwd_ms = cuda_ms(lambda: fb._block_attention_bwd(q, k, v, bias, dsum, dw, needs), 5)
-    results["block_backward_ms"] = bwd_ms
-    print(f"block backward bf16 [8,1024,16,64] triangle: {bwd_ms:.3f} ms a call, "
-          f"{LAYERS * bwd_ms:.3f} ms a step ({LAYERS} layers; {card})", flush=True)
-    # Its products: bf16 operands with an f32 result (the path taken)
-    # against the same product on operands upcast to f32 (TF32 off).
-    a, b = fb._heads_first(dw.to(torch.bfloat16)), fb._heads_first(v).transpose(1, 2)
-    results["backward_product_ms"] = {
-        "bf16_out_f32": cuda_ms(lambda: fb._bmm_f32(a, b), ITERS),
-        "f32_upcast": cuda_ms(lambda: torch.bmm(a.float(), b.float()), ITERS),
-    }
-    print(f"backward product dW.V^T [128,1024,64]x[128,64,1024]: bf16 with f32 result "
-          f"{results['backward_product_ms']['bf16_out_f32']:.4f} ms, f32 upcast "
-          f"{results['backward_product_ms']['f32_upcast']:.4f} ms ({card})", flush=True)
-    del a, b
-    del q, k, v, dsum, dw
+    # The backward kernel at the training shape, bf16 and f32: against its
+    # plain version, L2-cold times, the bound, SDPA's backward beside it.
+    results["block_backward"] = {tag: time_backward_block(dtype, card) for tag, dtype in (
+        ("bf16", torch.bfloat16), ("f32", torch.float32))}
 
     # The trace of one warm flagship train step (remat off, adam).
     from jobset_tpu_torch.models import build_train_step
@@ -1363,11 +1597,16 @@ def phase_train(results):
     def one_step():
         holder["out"] = step(params, state, batch)
 
-    trace = traced(one_step, f"train step (B={BATCH}, T={PROMPT}, remat off, adam)")
+    trace = traced(one_step, f"train step (B={BATCH}, T={PROMPT}, remat off, adam)",
+                   kernel="flash_bwd")
     if trace is not None:
-        trace["block_backward_share"] = LAYERS * bwd_ms / trace["device_busy_ms"]
-        print(f"block backward share of the step's device busy time: "
-              f"{trace['block_backward_share']:.1%} ({LAYERS} x {bwd_ms:.3f} ms)", flush=True)
+        trace["block_backward_share"] = trace["kernel_ms"] / trace["device_busy_ms"]
+        print(f"train step flagship: median {bench['step_time_ms_median']:.3f} ms, MFU "
+              f"{bench['mfu_pct']}%, peak memory {bench['peak_memory_gb']:.2f} GB; the backward "
+              f"kernel's share of the traced step's device busy "
+              f"{trace['block_backward_share']:.1%} ({trace['kernel_ms']:.3f} of "
+              f"{trace['device_busy_ms']:.3f} ms, {trace['kernel_ops']} launches of its two "
+              f"passes; {card})", flush=True)
     results["train_trace"] = trace
     del params, state, holder, step
     torch.cuda.empty_cache()
@@ -1377,11 +1616,13 @@ def phase_train(results):
                               n_layers=2, dtype=torch.float32, remat=False)
     small_params = init_params(small, torch.Generator().manual_seed(0), "cpu")
     small_batch = token_batch(128, 4, 64, seed=5, device="cpu")
-    before = launches_now()["F32_LAUNCHES"]
+    before = launches_now()
     card_step = sgd_step(small, to_device(small_params, "cuda"),
                          {k: t.cuda() for k, t in small_batch.items()})
-    check(launches_now()["F32_LAUNCHES"] - before == small.n_layers,
-          "small f32 train step: one f32-variant launch per layer")
+    after = launches_now()
+    check(after["F32_LAUNCHES"] - before["F32_LAUNCHES"] == small.n_layers
+          and after["BACKWARD_F32_LAUNCHES"] - before["BACKWARD_F32_LAUNCHES"] == small.n_layers,
+          "small f32 train step: one f32-variant launch per layer, forward and backward")
     compare_step("small f32 train step, card vs CPU plain path", card_step,
                  sgd_step(small, small_params, small_batch, device="cpu"),
                  F32_LOSS_REL, F32_GRAD_REL)
@@ -3871,20 +4112,24 @@ def train_counts(counts, f32) -> tuple:
             counts["GROUPED_WGRAD_LAUNCHES"] - counts["GROUPED_WGRAD_F32_LAUNCHES"])
 
 
-def check_train_launches(path, counts, want, flash, f32):
+def check_train_launches(path, counts, want, flash, f32, backward):
     """Every grouped launch of `path` on the dtype's kernels, in the counts
     `want` (forward, dgrad, wgrad), wgrad's all on the dtype's TMA kernel,
-    and `flash` block launches."""
+    `flash` block launches and `backward` launches of the block's backward
+    kernel, on the dtype's variant."""
     total = (counts["GROUPED_LAUNCHES"], counts["GROUPED_DGRAD_LAUNCHES"],
              counts["GROUPED_WGRAD_LAUNCHES"])
     block = counts["F32_LAUNCHES" if f32 else "TENSOR_CORE_LAUNCHES"]
     wgrad_tma = counts["GROUPED_WGRAD_F32_TMA_LAUNCHES" if f32 else "GROUPED_WGRAD_TMA_LAUNCHES"]
     check(train_counts(counts, f32) == total == tuple(want) and block == flash
-          and counts["KERNEL_LAUNCHES"] == flash and wgrad_tma == want[2],
+          and counts["KERNEL_LAUNCHES"] == flash and wgrad_tma == want[2]
+          and counts["BACKWARD_LAUNCHES"] == backward
+          and counts["BACKWARD_F32_LAUNCHES"] == (backward if f32 else 0),
           f"{path}: grouped (forward, dgrad, wgrad) launches {total}, on the "
           f"{'f32' if f32 else 'bf16'} kernels {train_counts(counts, f32)} (expected {tuple(want)}); "
           f"{wgrad_tma} on the {'f32' if f32 else 'bf16'} wgrad TMA kernel; {block} flash block "
-          f"launches (expected {flash})")
+          f"launches (expected {flash}); {counts['BACKWARD_LAUNCHES']} flash backward launches, "
+          f"{counts['BACKWARD_F32_LAUNCHES']} of them f32 (expected {backward})")
 
 
 def backward_operands(dtype, k, n, gen, rows=MOE_SLOTS):
@@ -4209,7 +4454,8 @@ def moe_train_trace(fn, label, f32=False):
     kernel = "grouped_mm_f32_kernel" if f32 else "grouped_mm_tma_kernel"
     forward = sorted((e for e in events if kernel in e[0]), key=lambda e: e[1])
     parts = {"forward": forward[:2 * LAYERS], "dgrad": forward[2 * LAYERS:],
-             "wgrad": [e for e in events if "grouped_wgrad_" in e[0]]}
+             "wgrad": [e for e in events if "grouped_wgrad_" in e[0]],
+             "flash backward": [e for e in events if "flash_bwd" in e[0]]}
     names = {e[0] for e in events}
     for top in trace["top10"]:
         top["name"] = next((n for n in names if n.startswith(top["name"])), top["name"])[:400]
@@ -4218,8 +4464,9 @@ def moe_train_trace(fn, label, f32=False):
         ms = sum(end - start for _, start, end in mine) / 1e3
         trace[f"{part}_ms"], trace[f"{part}_ops"] = ms, len(mine)
         trace[f"{part}_share"] = ms / trace["device_busy_ms"]
-        print(f"  grouped {part}: {ms:.3f} ms in {len(mine)} launches, "
-              f"{ms / trace['device_busy_ms']:.1%} of device busy", flush=True)
+        print(f"  {'' if part.startswith('flash') else 'grouped '}{part}: {ms:.3f} ms in "
+              f"{len(mine)} launches, {ms / trace['device_busy_ms']:.1%} of device busy",
+              flush=True)
     return trace
 
 
@@ -4247,7 +4494,8 @@ def phase_moe_train(results, baseline=None):
     counts = moe_launches_now()
     results["moe_train_bench_launches"] = counts
     check_train_launches(f"MoE run_model_bench ({steps} steps)", counts,
-                         [steps * c for c in MOE_TRAIN_LAUNCHES["off"]], steps * LAYERS, False)
+                         [steps * c for c in MOE_TRAIN_LAUNCHES["off"]], steps * LAYERS, False,
+                         steps * LAYERS)
     losses = bench.pop("losses")
     check(all(l == l and abs(l) < float("inf") for l in losses) and losses[-1] < losses[0],
           f"MoE run_model_bench: every loss finite, last {losses[-1]:.4f} < first {losses[0]:.4f}")
@@ -4273,7 +4521,8 @@ def phase_moe_train(results, baseline=None):
         stepped[policy] = sgd_step(c, params, batch)
         launches[policy] = moe_launches_now()
         check_train_launches(f"MoE train step f32, remat {policy}", launches[policy],
-                             MOE_TRAIN_LAUNCHES[policy], MOE_TRAIN_FLASH[policy], True)
+                             MOE_TRAIN_LAUNCHES[policy], MOE_TRAIN_FLASH[policy], True,
+                             LAYERS)
     results["moe_train_step_launches"] = launches
     with plain_grouped():
         plain = sgd_step(cfg32, params, batch)
@@ -4330,7 +4579,7 @@ def phase_moe_train(results, baseline=None):
     small_counts = moe_launches_now()
     check_train_launches("MoE train step small f32 config", small_counts,
                          [c // LAYERS * small.n_layers for c in MOE_TRAIN_LAUNCHES["off"]],
-                         small.n_layers, True)
+                         small.n_layers, True, small.n_layers)
     compare_step("MoE train step small f32 config, card vs CPU plain path", card_step,
                  sgd_step(small, small_params, small_batch, device="cpu"), F32_LOSS_REL,
                  F32_GRAD_REL)
@@ -5398,7 +5647,8 @@ def gang_print(label, ranks, card):
                 else f"{r['device_busy_share']:.1%}")
         print(f"  {label} rank {r['rank']} {r['coords']} ({r['backend']}): one step launches "
               f"flash bf16 {counts['TENSOR_CORE_LAUNCHES']}, f32 {counts['F32_LAUNCHES']}, "
-              f"tile-class {counts['TILE_CLASS_LAUNCHES']}; grouped fwd "
+              f"tile-class {counts['TILE_CLASS_LAUNCHES']}, flash backward "
+              f"{counts['BACKWARD_LAUNCHES']} (f32 {counts['BACKWARD_F32_LAUNCHES']}); grouped fwd "
               f"{counts['GROUPED_LAUNCHES']} (TMA {counts['GROUPED_TMA_LAUNCHES']}, f32 "
               f"{counts['GROUPED_F32_LAUNCHES']}), dgrad {counts['GROUPED_DGRAD_LAUNCHES']}, "
               f"wgrad {counts['GROUPED_WGRAD_LAUNCHES']} (TMA {counts['GROUPED_WGRAD_TMA_LAUNCHES']}"
@@ -5672,6 +5922,12 @@ def gang_launches(results) -> dict:
         "flash_block_f32": {"small f32 tp=2 step": small.get("F32_LAUNCHES"),
                             "lm-moe-dropless.yaml run, rank 0": whole.get("F32_LAUNCHES")},
         "flash_block_tile_classes": {"dense tp=2 step": b.get("TILE_CLASS_LAUNCHES")},
+        "flash_block_backward": {"dense tp=2 step": b.get("BACKWARD_LAUNCHES"),
+                                 "MoE dp=2 x tp=2 step": c.get("BACKWARD_LAUNCHES")},
+        "flash_block_backward_f32": {"small f32 tp=2 step": small.get("BACKWARD_F32_LAUNCHES"),
+                                     "MoE f32 dp=2 x tp=2 step": c32.get("BACKWARD_F32_LAUNCHES"),
+                                     "lm-moe-dropless.yaml run, rank 0": whole.get(
+                                         "BACKWARD_F32_LAUNCHES")},
         "grouped_matmul": {"MoE dp=2 x tp=2 step": c.get("GROUPED_LAUNCHES")},
         "grouped_matmul_dgrad": {"MoE dp=2 x tp=2 step": c.get("GROUPED_DGRAD_LAUNCHES")},
         "grouped_matmul_wgrad": {"MoE dp=2 x tp=2 step": c.get("GROUPED_WGRAD_LAUNCHES")},
@@ -6197,6 +6453,12 @@ def sp_launches(results) -> dict:
         "flash_block_tile_classes": {"ring sp=2 first step": first("ring", "TILE_CLASS_LAUNCHES"),
                                      "Ulysses sp=2 first step": first("ulysses",
                                                                       "TILE_CLASS_LAUNCHES")},
+        "flash_block_backward": {"ring sp=2 step": first("ring", "BACKWARD_LAUNCHES"),
+                                 "Ulysses sp=2 step": first("ulysses", "BACKWARD_LAUNCHES"),
+                                 f"ring sp=2 T={LONG_SEQ} step": first("long",
+                                                                       "BACKWARD_LAUNCHES")},
+        "flash_block_backward_f32": {"lm-long-context.yaml run, rank 0": whole.get(
+            "BACKWARD_F32_LAUNCHES")},
     }
 
 
@@ -6442,6 +6704,11 @@ def pp_launches(results) -> dict:
             "lm-pp-interleaved.yaml run, rank 0": whole.get("F32_LAUNCHES")},
         "flash_block_tile_classes": {f"{s} pp=2 first step": first(s).get("TILE_CLASS_LAUNCHES")
                                      for s in PP_SCHEDULES},
+        "flash_block_backward": {f"{s} pp=2 step": first(s).get("BACKWARD_LAUNCHES")
+                                 for s in PP_SCHEDULES},
+        "flash_block_backward_f32": {**{f"small f32 {label} pp=2 step": first(
+            f"small {label}").get("BACKWARD_F32_LAUNCHES") for label in pp_small_configs()},
+            "lm-pp-interleaved.yaml run, rank 0": whole.get("BACKWARD_F32_LAUNCHES")},
         "grouped_matmul": not_run, "grouped_matmul_dgrad": not_run,
         "grouped_matmul_wgrad": not_run,
         "grouped_matmul_f32": {k: v.get("GROUPED_F32_LAUNCHES") for k, v in dropless.items()},
@@ -6820,6 +7087,10 @@ def ep_launches(results) -> dict:
         "flash_block_f32": {**{f"small f32 {label} step": first(f"small {label}").get(
             "F32_LAUNCHES") for label in labels}, run_d: whole.get("F32_LAUNCHES")},
         "flash_block_tile_classes": {"MoE ep=2 first step": b.get("TILE_CLASS_LAUNCHES")},
+        "flash_block_backward": {"MoE ep=2 step": b.get("BACKWARD_LAUNCHES")},
+        "flash_block_backward_f32": {**{f"small f32 {label} step": first(f"small {label}").get(
+            "BACKWARD_F32_LAUNCHES") for label in labels}, run_d: whole.get(
+            "BACKWARD_F32_LAUNCHES")},
         "grouped_matmul": {"MoE ep=2 step": b.get("GROUPED_LAUNCHES")},
         "grouped_matmul_dgrad": {"MoE ep=2 step": b.get("GROUPED_DGRAD_LAUNCHES")},
         "grouped_matmul_wgrad": {"MoE ep=2 step": b.get("GROUPED_WGRAD_LAUNCHES")},
@@ -7647,15 +7918,16 @@ def main() -> int:
         return 1 if FAILURES else 0
 
     t0 = time.perf_counter()
+    flash = ["flash_block", "flash_block_bwd"]
     sources = (["auction"] if args.solver_only
-               else ["flash_block"] if args.flash_only or args.workloads_only or args.sp_only
-               else ["flash_block", "int8_matmul"] if args.serving_only
-               else ["flash_block", "int8_matmul", "grouped_matmul"] if (args.moe_only
-                                                                         or args.mesh_serving_only)
-               else ["flash_block", "grouped_matmul"] if (args.moe_train_only or args.gang_only
-                                                          or args.gang_f32_moe_batch
-                                                          or args.pp_only or args.ep_only)
-               else ["flash_block", "auction", "int8_matmul", "grouped_matmul"])
+               else flash if args.flash_only or args.workloads_only or args.sp_only
+               else flash + ["int8_matmul"] if args.serving_only
+               else flash + ["int8_matmul", "grouped_matmul"] if (args.moe_only
+                                                                  or args.mesh_serving_only)
+               else flash + ["grouped_matmul"] if (args.moe_train_only or args.gang_only
+                                                   or args.gang_f32_moe_batch
+                                                   or args.pp_only or args.ep_only)
+               else flash + ["auction", "int8_matmul", "grouped_matmul"])
     libraries = cuda_build.build_all(sources)
     results["build_s"] = time.perf_counter() - t0
     print(f"build: {results['build_s']:.2f} s", flush=True)
@@ -7666,6 +7938,8 @@ def main() -> int:
     if "int8_matmul" in cuda_build.BUILD_LOG:  # built by this process
         results["int8_ptxas"] = kernel_ptxas(cuda_build.BUILD_LOG["int8_matmul"],
                                               r"int8_matmul_(?:tc|f32)_kernel", "int8 kernel")
+    if "flash_block_bwd" in cuda_build.BUILD_LOG:
+        results["backward_ptxas"] = backward_ptxas(cuda_build.BUILD_LOG["flash_block_bwd"])
     if "grouped_matmul" in cuda_build.BUILD_LOG:
         results["grouped_ptxas"] = kernel_ptxas(
             cuda_build.BUILD_LOG["grouped_matmul"],
@@ -7766,6 +8040,12 @@ def main() -> int:
 
     kernels = timed(results, "phases 2-3", phase_kernels, results)
     if args.flash_only:
+        results["block_backward"] = {tag: time_backward_block(dtype, card) for tag, dtype in (
+            ("bf16", torch.bfloat16), ("f32", torch.float32))}
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump(results, f, indent=1)
         print(json.dumps({"kernels": kernels}))
         print(f"chip_smoke --flash-only: {len(FAILURES)} check(s) failed, "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
@@ -7787,14 +8067,19 @@ def main() -> int:
     timed(results, "phase 8", phase_worker, results)
 
     counters = {"flash_block": "TENSOR_CORE_LAUNCHES", "flash_block_f32": "F32_LAUNCHES",
-                "flash_block_tile_classes": "TILE_CLASS_LAUNCHES"}
+                "flash_block_tile_classes": "TILE_CLASS_LAUNCHES",
+                "flash_block_backward": "BACKWARD_LAUNCHES",
+                "flash_block_backward_f32": "BACKWARD_F32_LAUNCHES"}
     worker_launches = (results["worker"]["straight"] or {}).get("kernel_launches", {})
+    kernels += backward_entries(results)
     for kernel in kernels:
         counter = counters[kernel["name"]]
-        # The f32 variant's main path is the worker's f32 LM run; the
-        # others' is `generate`.
-        kernel["launches"] = (worker_launches.get(counter, 0) if counter == "F32_LAUNCHES"
-                              else results["launches"][counter])
+        # The f32 variants' main path is the worker's f32 LM run; the bf16
+        # backward's is run_model_bench's training; the others' `generate`.
+        kernel["launches"] = (
+            worker_launches.get(counter, 0) if counter in ("F32_LAUNCHES", "BACKWARD_F32_LAUNCHES")
+            else results["train_bench_launches"][counter] if counter == "BACKWARD_LAUNCHES"
+            else results["launches"][counter])
         kernel["forward_launches"] = results["forward_launches"][counter]
         kernel["train_step_launches"] = results["train_step_launches"][counter]
         kernel["train_step_launches_by_remat"] = {

@@ -37,13 +37,17 @@ view rather than copy it. The f32 kernel takes any strides: it copies
 tiles 16 bytes at a time where a view allows that, 4 bytes elsewhere.
 
 `block_attention` is differentiable: its backward is the JAX package's
-`_bwd` in torch code. It recomputes the block's probabilities from the
-saved q, k, v and bias (they are never stored) and forms the backward
-products from operands in the compute dtype with f32 results. No
-cotangent flows through `block_max`: the (max, sum, weighted) triple is a
-gauge that every consumer (merge and normalization) is invariant to, so
-the end-to-end gradient does not depend on it. The backward is torch code
-on the card too (a hand-written backward kernel is later work).
+`_bwd`. It recomputes the block's probabilities from the saved q, k, v,
+bias and the forward's own `block_max` (the probabilities are never
+stored) and forms the backward products from operands in the compute
+dtype with f32 results. No cotangent flows through `block_max`: the (max,
+sum, weighted) triple is a gauge that every consumer (merge and
+normalization) is invariant to, so the end-to-end gradient does not depend
+on it; the saved max is the one the forward's sum and weighted are
+relative to. The backward dispatches as the forward does: a CUDA tensor
+goes to the hand-written kernel in `csrc/flash_block_bwd.cu` (two passes,
+dK/dV and dQ, skipping the tile classes the forward skipped), a CPU tensor
+to the plain version, `block_attention_bwd_reference`.
 """
 
 from __future__ import annotations
@@ -59,11 +63,14 @@ NEG_INF = -1.0e30
 
 # Launches counted by the wrapper where it launches: the block kernel (all
 # variants), each variant of it, and the tile-class pass (standalone or in
-# a block call without classes).
+# a block call without classes); the backward kernel (one a backward call,
+# which runs its dK/dV pass, its dQ pass or both), and its f32 variant.
 KERNEL_LAUNCHES = 0
 TENSOR_CORE_LAUNCHES = 0
 F32_LAUNCHES = 0
 TILE_CLASS_LAUNCHES = 0
+BACKWARD_LAUNCHES = 0
+BACKWARD_F32_LAUNCHES = 0
 
 # dtype -> (kernel variant, dtype code of the C interface)
 _VARIANTS = {torch.bfloat16: ("tensor_core", 1), torch.float32: ("f32", 0)}
@@ -101,8 +108,9 @@ def _heads_first(x):
     return x.transpose(1, 2).reshape(b * h, t, d)
 
 
-def _block_probs(q, k, bias):
-    """Logits -> masked unnormalized probabilities, the softmax numerator.
+def _block_probs(q, k, bias, block_max=None):
+    """Logits -> masked unnormalized probabilities, the softmax numerator,
+    relative to `block_max` (by default the logits' row max).
 
     The products take the operands in their input dtype with f32 results
     (`_bmm_f32`); statistics are f32. Fully masked rows are zeroed.
@@ -110,7 +118,8 @@ def _block_probs(q, k, bias):
     batch, tq, heads, dim = q.shape
     logits = _bmm_f32(_heads_first(q), _heads_first(k).transpose(1, 2))
     logits = logits.view(batch, heads, tq, -1) * dim ** -0.5 + bias.float()[None, None]
-    block_max = logits.amax(dim=-1)
+    if block_max is None:
+        block_max = logits.amax(dim=-1)
     probs = torch.exp(logits - block_max[..., None])
     # exp(NEG_INF - NEG_INF) = 1 would count masked entries; zero them.
     valid = block_max > NEG_INF / 2
@@ -165,6 +174,19 @@ def _library():
     )
     for fn in (lib.flash_block_forward, lib.flash_block_tile_classes):
         fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _backward_library():
+    lib = cuda_build.load("flash_block_bwd")
+    lib.flash_block_backward.argtypes = (
+        [ctypes.c_int]
+        + [ctypes.c_void_p] * 12
+        + [ctypes.POINTER(ctypes.c_longlong)] * 2
+        + [ctypes.c_int, ctypes.c_void_p]
+    )
+    lib.flash_block_backward.restype = ctypes.c_int
     return lib
 
 
@@ -279,12 +301,27 @@ def _kernel_args(q, k, v, bias):
     return variant, code, k5, v5, dims, [x for s in strides for x in s] + list(bias.stride())
 
 
+def _check_classes(classes, shape, device):
+    if (classes.dtype != torch.uint8 or tuple(classes.shape) != shape
+            or classes.device != device or not classes.is_contiguous()):
+        raise ValueError(
+            f"block_attention: classes {tuple(classes.shape)} {classes.dtype} on "
+            f"{classes.device} are not a contiguous uint8 {shape} on {device}"
+        )
+
+
 def _block_attention_cuda(q, k, v, bias, classes=None):
+    """The block kernel's outputs (`_forward_launch` without the classes)."""
+    return _forward_launch(q, k, v, bias, classes)[:3]
+
+
+def _forward_launch(q, k, v, bias, classes=None):
     """Check the operands and launch the block kernel's variant for q's
     dtype on the current stream: alone where `classes` (the bias's tile
     classes) is given, else in one host call with the tile-class pass ahead
     of it (the block kernel under programmatic dependent launch). Raise if
-    a launch failed."""
+    a launch failed. Returns (block_max, block_sum, weighted, classes): the
+    classes given, or those the pass wrote."""
     global KERNEL_LAUNCHES, TENSOR_CORE_LAUNCHES, F32_LAUNCHES, TILE_CLASS_LAUNCHES
     variant, code, k5, v5, dims, strides = _kernel_args(q, k, v, bias)
     batch, heads, tq, tk, dim, _ = dims
@@ -292,12 +329,8 @@ def _block_attention_cuda(q, k, v, bias, classes=None):
     compute = classes is None
     if compute:
         classes = torch.empty(shape, dtype=torch.uint8, device=q.device)
-    elif (classes.dtype != torch.uint8 or tuple(classes.shape) != shape
-          or classes.device != q.device or not classes.is_contiguous()):
-        raise ValueError(
-            f"block_attention: classes {tuple(classes.shape)} {classes.dtype} on "
-            f"{classes.device} are not a contiguous uint8 {shape} on {q.device}"
-        )
+    else:
+        _check_classes(classes, shape, q.device)
     out_max = torch.empty((batch, heads, tq), dtype=torch.float32, device=q.device)
     out_sum = torch.empty_like(out_max)
     weighted = torch.empty((batch, tq, heads, dim), dtype=torch.float32, device=q.device)
@@ -317,20 +350,22 @@ def _block_attention_cuda(q, k, v, bias, classes=None):
         TENSOR_CORE_LAUNCHES += 1
     else:
         F32_LAUNCHES += 1
-    return out_max, out_sum, weighted
+    return out_max, out_sum, weighted, classes
 
 
-def _block_attention_bwd(q, k, v, bias, dsum, dweighted, needs):
-    """The JAX package's `_bwd`: gradients of (block_sum, weighted) with
-    respect to (q, k, v, bias), each in its input's dtype and shape (a GQA
-    view's gradient keeps the view's shape; autograd sums its group axis).
-    `needs` is ctx.needs_input_grad; an input that needs none gets None."""
+def block_attention_bwd_reference(q, k, v, bias, block_max, dsum, dweighted, needs):
+    """The backward in plain PyTorch, the JAX package's `_bwd`: gradients
+    of (block_sum, weighted) with respect to (q, k, v, bias), each in its
+    input's dtype and shape (a GQA view's gradient keeps the view's shape;
+    autograd sums its group axis), the probabilities taken relative to the
+    forward's `block_max`. `needs`: which of the four to compute; an input
+    that needs none gets None."""
     compute = q.dtype
     batch, tq, heads, dim = q.shape
     scale = dim ** -0.5
     # Recompute the probabilities: the same `_block_probs` the plain
-    # forward runs, so forward and backward cannot drift.
-    _, probs = _block_probs(q, k, bias)
+    # forward runs, against the max the forward returned.
+    _, probs = _block_probs(q, k, bias, block_max)
     tk = probs.shape[-1]
 
     # d(probs) from block_sum (broadcast) and from weighted = probs @ v;
@@ -354,6 +389,60 @@ def _block_attention_bwd(q, k, v, bias, dsum, dweighted, needs):
     return dq, dk, dv, dbias
 
 
+def _block_attention_bwd_cuda(q, k, v, bias, block_max, classes, dsum, dweighted, needs):
+    """Check the operands and launch the backward kernel on the current
+    stream: its dK/dV pass where dk or dv is needed, its dQ pass where dq or
+    dbias is. `classes`: the bias's tile classes the forward used. Raise if
+    a launch failed."""
+    global BACKWARD_LAUNCHES, BACKWARD_F32_LAUNCHES
+    variant, code, k5, v5, dims, strides = _kernel_args(q, k, v, bias)
+    batch, heads, tq, tk, dim, _ = dims
+    for name, t, shape in (("block_max", block_max, (batch, heads, tq)),
+                           ("dsum", dsum, (batch, heads, tq)),
+                           ("dweighted", dweighted, (batch, tq, heads, dim))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != q.device:
+            raise ValueError(
+                f"block_attention backward: {name} {tuple(t.shape)} {t.dtype} on {t.device} "
+                f"is not f32 {shape} on {q.device}"
+            )
+    _check_classes(classes, _class_shape(tq, tk), q.device)
+    if not any(needs):
+        return None, None, None, None
+    block_max, dsum, dweighted = (t.contiguous() for t in (block_max, dsum, dweighted))
+    empty = functools.partial(torch.empty, dtype=q.dtype, device=q.device)
+    dq = empty((batch, tq, heads, dim)) if needs[0] else None
+    dk = empty((batch, tk, heads, dim)) if needs[1] else None
+    dv = empty((batch, tk, heads, dim)) if needs[2] else None
+    dbias = torch.zeros((tq, tk), dtype=torch.float32, device=q.device) if needs[3] else None
+    mask = sum(1 << i for i, need in enumerate(needs) if need)
+    lib = _backward_library()
+    with torch.cuda.device(q.device):
+        err = lib.flash_block_backward(
+            code, q.data_ptr(), k5.data_ptr(), v5.data_ptr(), bias.data_ptr(),
+            classes.data_ptr(), block_max.data_ptr(), dsum.data_ptr(), dweighted.data_ptr(),
+            *(0 if t is None else t.data_ptr() for t in (dq, dk, dv, dbias)),
+            (ctypes.c_longlong * 6)(*dims), (ctypes.c_longlong * 16)(*strides), mask,
+            _stream(q.device),
+        )
+    if err:
+        raise RuntimeError(f"flash_block backward kernel launch failed: CUDA error {err}")
+    BACKWARD_LAUNCHES += 1
+    BACKWARD_F32_LAUNCHES += variant == "f32"
+    return (dq, None if dk is None else dk.view(k.shape),
+            None if dv is None else dv.view(v.shape), dbias)
+
+
+def _block_attention_bwd(q, k, v, bias, block_max, classes, dsum, dweighted, needs):
+    """The kernel on the card, the plain version on the CPU (which has no
+    use for `classes`)."""
+    if q.device.type == "cuda":
+        return _block_attention_bwd_cuda(q, k, v, bias, block_max, classes, dsum, dweighted,
+                                         needs)
+    if q.device.type == "cpu":
+        return block_attention_bwd_reference(q, k, v, bias, block_max, dsum, dweighted, needs)
+    raise ValueError(f"block_attention backward: no implementation on device {q.device}")
+
+
 def _block_attention_forward(q, k, v, bias, classes=None):
     """The kernel on the card, the plain version on the CPU (which has no
     use for `classes`)."""
@@ -366,18 +455,24 @@ def _block_attention_forward(q, k, v, bias, classes=None):
 
 class _BlockAttention(torch.autograd.Function):
     """The block step with the recompute backward (`jax.custom_vjp` of the
-    JAX version): the forward saves its inputs only."""
+    JAX version): the forward saves its inputs, its block max and the tile
+    classes it used (given, or computed by the card's one-call path; None
+    on the CPU without them), never the probabilities."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, classes):
-        ctx.save_for_backward(q, k, v, bias)
-        return _block_attention_forward(q, k, v, bias, classes)
+        if q.device.type == "cuda":
+            *out, classes = _forward_launch(q, k, v, bias, classes)
+        else:
+            out = _block_attention_forward(q, k, v, bias, classes)
+        ctx.save_for_backward(q, k, v, bias, out[0], classes)
+        return tuple(out)
 
     @staticmethod
     def backward(ctx, dmax, dsum, dweighted):
         del dmax  # the gauge direction: no flow through the block max
         return *_block_attention_bwd(*ctx.saved_tensors, dsum, dweighted,
-                                     ctx.needs_input_grad), None
+                                     ctx.needs_input_grad[:4]), None
 
 
 def block_attention(q, k, v, bias, *, classes=None):

@@ -1,6 +1,8 @@
 """Card-only tests of the port: the CUDA kernels against their plain
 versions, the serving path and the train step on the card against the same
-paths on the CPU, the block backward on the card against the CPU's, the
+paths on the CPU, the block backward kernel against its plain version
+(bit for bit twice, zeros where no tile is live) and on the card against
+the CPU's, the
 kernel launches per train step under each remat setting, the auction
 kernel and the solver surface on the card against the CPU, the control
 plane's device programs (admission scorer, gang-readiness aggregate,
@@ -321,8 +323,8 @@ def test_generate_on_card_matches_cpu_at_f32(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_block_backward_on_card_matches_cpu(cuda, dtype):
-    # The card's forward is the kernel; both backwards recompute with the
-    # plain products. bf16: 2e-2 relative to the tensor's largest value.
+    # The card's forward and backward are the kernels; the CPU's the plain
+    # versions. bf16: 2e-2 relative to the tensor's largest value.
     gen = torch.Generator().manual_seed(9)
     q = torch.randn((2, 96, 4, 32), generator=gen).to(dtype)
     k_c, v_c = (torch.randn((2, 96, 2, 32), generator=gen).to(dtype) for _ in range(2))
@@ -335,13 +337,153 @@ def test_block_backward_on_card_matches_cpu(cuda, dtype):
                                   xs[3])
         return torch.autograd.grad(outs, xs, grad_outputs=[c.to(device) for c in cot])
 
-    before = fb.KERNEL_LAUNCHES
+    before, before_bwd = fb.KERNEL_LAUNCHES, fb.BACKWARD_LAUNCHES
     got = grads(cuda)
-    assert fb.KERNEL_LAUNCHES == before + 1
+    assert fb.KERNEL_LAUNCHES == before + 1 and fb.BACKWARD_LAUNCHES == before_bwd + 1
     rtol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     for g, w in zip(got, grads("cpu")):
         assert g.dtype == w.dtype and g.shape == w.shape
         assert _within(g.cpu(), w, rtol, 1e-5)
+
+
+# The backward kernel's cases (chip_smoke.py's phase 3 runs the same kinds):
+# (Tq, Tk, H, H_kv, D, bias kind, fused QKV views). "band_row" is the band
+# with row 3 masked whole.
+BACKWARD_CASES = {
+    "mha_triangle": (256, 256, 4, 4, 64, "triangle", False),
+    "gqa_zero": (256, 256, 8, 2, 64, "zero", False),
+    "fused_gqa_triangle": (192, 192, 8, 2, 64, "triangle", True),
+    "ragged_band_row_d32": (100, 77, 4, 2, 32, "band_row", False),
+    "ragged_alibi_d32": (100, 77, 4, 4, 32, "alibi", False),
+    "d128_triangle": (130, 200, 4, 4, 128, "triangle", False),
+    "d128_reverse_triangle": (130, 200, 4, 4, 128, "reverse_triangle", False),
+    "all_masked": (200, 200, 4, 4, 64, "all_masked", False),
+}
+
+
+def _backward_operands(case, dtype, device, seed=0):
+    """(q, k, v, bias, block_max, classes, dsum, dweighted) on the card: k
+    and v GQA expand views (or views of one fused QKV buffer), block_max the
+    forward kernel's."""
+    tq, tk, heads, kv_heads, dim, kind, fused = BACKWARD_CASES[case]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if fused:
+        qkv = torch.randn((2, tq, (heads + 2 * kv_heads) * dim), generator=gen,
+                          device=device).to(dtype)
+        q, k_c, v_c = torch.split(qkv, [heads * dim, kv_heads * dim, kv_heads * dim], dim=-1)
+        q = q.reshape(2, tq, heads, dim)
+        k_c, v_c = (t.reshape(2, tk, kv_heads, dim) for t in (k_c, v_c))
+    else:
+        q = torch.randn((2, tq, heads, dim), generator=gen, device=device).to(dtype)
+        k_c, v_c = (torch.randn((2, tk, kv_heads, dim), generator=gen, device=device).to(dtype)
+                    for _ in range(2))
+    k, v = (fb._repeat_heads(t, heads // kv_heads) for t in (k_c, v_c))
+    bias = _bias("band" if kind == "band_row" else kind, tq, tk, device)
+    if kind == "band_row":
+        bias[3] = fb.NEG_INF
+    classes = fb.tile_classes(bias)
+    block_max = fb._block_attention_cuda(q, k, v, bias, classes)[0]
+    dsum = torch.randn((2, heads, tq), generator=gen, device=device)
+    dw = torch.randn((2, tq, heads, dim), generator=gen, device=device)
+    return q, k, v, bias, block_max, classes, dsum, dw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(BACKWARD_CASES))
+def test_backward_kernel_matches_plain_version(cuda, dtype, case):
+    # The forward's tolerances: bf16 2e-2 of the largest value (P and dS are
+    # rounded to bf16 from exponentials that differ in the last bits), f32
+    # 1e-4 (3xTF32 against true f32 in another order).
+    q, k, v, bias, block_max, classes, dsum, dw = _backward_operands(case, dtype, cuda)
+    needs = (True, True, True, True)
+    before = fb.BACKWARD_LAUNCHES, fb.BACKWARD_F32_LAUNCHES
+    got = fb._block_attention_bwd_cuda(q, k, v, bias, block_max, classes, dsum, dw, needs)
+    torch.cuda.synchronize()
+    f32 = dtype == torch.float32
+    assert (fb.BACKWARD_LAUNCHES, fb.BACKWARD_F32_LAUNCHES) == (before[0] + 1, before[1] + f32)
+    want = fb.block_attention_bwd_reference(q, k, v, bias, block_max, dsum, dw, needs)
+    rtol = 1e-4 if f32 else 2e-2
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.isfinite(g).all()
+        assert _within(g, w, rtol, 1e-5)
+    if BACKWARD_CASES[case][5] == "band_row":  # the fully masked row
+        assert torch.all(got[0][:, 3] == 0) and torch.all(got[3][3] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("needs", [(True, True, True, False), (True, False, False, False),
+                                   (False, True, True, False), (False, False, False, True)],
+                         ids=["qkv", "q", "kv", "bias"])
+def test_backward_kernel_is_deterministic_and_computes_what_is_needed(cuda, dtype, needs):
+    # No atomics in dq, dk or dv: two calls give the same bits. dbias is
+    # summed over (batch, head) by atomics: within the tolerance.
+    args = _backward_operands("fused_gqa_triangle", dtype, cuda, seed=1)
+    first = fb._block_attention_bwd_cuda(*args, needs)
+    second = fb._block_attention_bwd_cuda(*args, needs)
+    every = fb._block_attention_bwd_cuda(*args, (True,) * 4)
+    for need, a, b, c in zip(needs[:3], first, second, every):
+        assert (a is None) != need
+        if need:
+            assert torch.equal(a, b) and torch.equal(a, c)
+    if needs[3]:
+        assert _within(first[3], every[3], 1e-5, 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_backward_kernel_writes_zeros_where_no_tile_is_live(cuda, dtype):
+    # Every block writes its whole tile: an all-masked block's gradients are
+    # zeros, not what torch.empty left, and so are a masked row's dq and
+    # dbias and the dk and dv rows no q row sees.
+    q, k, v, bias, block_max, classes, dsum, dw = _backward_operands("all_masked", dtype, cuda)
+    for _ in range(2):  # the second call's outputs reuse the first's freed memory
+        got = fb._block_attention_bwd_cuda(q, k, v, bias, block_max, classes, dsum, dw,
+                                           (True,) * 4)
+        assert all(torch.all(g == 0) for g in got)
+        del got
+    bias = _bias("zero", 200, 200, cuda)
+    bias[:, 128:] = fb.NEG_INF  # kv tiles 2 and 3 masked in every q tile
+    classes = fb.tile_classes(bias)
+    block_max = fb._block_attention_cuda(q, k, v, bias, classes)[0]
+    dq, dk, dv, _ = fb._block_attention_bwd_cuda(q, k, v, bias, block_max, classes, dsum, dw,
+                                                 (True, True, True, False))
+    assert torch.all(dk[:, 128:] == 0) and torch.all(dv[:, 128:] == 0)
+    assert torch.all(dk[:, :128].abs().sum(dim=-1) > 0)
+
+
+@pytest.mark.cuda
+def test_flagship_train_step_with_and_without_the_backward_kernel(cuda, monkeypatch):
+    # The flagship's 8 layers at B=8, T=1024 in bf16: the step with the
+    # backward kernel against the same step with the plain backward (the
+    # forward kernel in both), chip_smoke.py's train-step bounds: loss within
+    # 1e-2 relative, each gradient leaf within 5e-2 in relative norm.
+    from jobset_tpu_torch.runtime.model_bench import flagship_config
+
+    cfg = flagship_config(n_layers=8)
+    params = transformer.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (8, 1025),
+                           generator=torch.Generator(device=cuda).manual_seed(3), device=cuda)
+    batch = {"inputs": tokens[:, :-1], "targets": tokens[:, 1:]}
+    opt = optim.sgd(1.0)
+
+    def step():
+        new, _, loss = transformer.build_train_step(cfg, opt)(params, opt.init(params), batch)
+        return float(loss), [p - n for p, n in zip(tree.leaves(params), tree.leaves(new))]
+
+    before = fb.BACKWARD_LAUNCHES
+    loss, grads = step()
+    assert fb.BACKWARD_LAUNCHES - before == cfg.n_layers
+
+    def plain(q, k, v, bias, block_max, classes, dsum, dw, needs):
+        return fb.block_attention_bwd_reference(q, k, v, bias, block_max, dsum, dw, needs)
+
+    monkeypatch.setattr(fb, "_block_attention_bwd_cuda", plain)
+    ref_loss, ref_grads = step()
+    assert abs(loss - ref_loss) <= 1e-2 * abs(ref_loss)
+    for g, w in zip(grads, ref_grads):
+        assert ((g.float() - w.float()).norm() / w.float().norm()).item() <= 5e-2
 
 
 def _small_config(**kw):

@@ -179,10 +179,9 @@ def test_repeat_heads_is_a_view():
     np.testing.assert_array_equal(tfb._flat_heads(r).numpy(), want)
 
 
-def test_block_attention_has_no_backward_yet():
-    # The name is older than the backward: block_attention is now
-    # differentiable in every input, and tests/test_torch_train.py holds its
-    # gradients against the JAX package's _bwd.
+def test_block_attention_is_differentiable_in_every_input():
+    # tests/test_torch_flash_block_bwd.py and tests/test_torch_train.py hold
+    # the gradients against the JAX package's _bwd.
     q, k, v = (torch.from_numpy(x).requires_grad_() for x in _qkv(1, 4, 4, 1, 8))
     bias = torch.zeros(4, 4, requires_grad=True)
     _, block_sum, weighted = tfb.block_attention(q, k, v, bias)
