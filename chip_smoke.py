@@ -28,7 +28,9 @@ non-zero before the result line:
      started together) and print the build seconds, the ptxas report (the
      f32 block kernel's registers and spills on a line of their own) and
      the tensor-core instructions in each kernel's SASS (the bf16 block
-     kernel must have HGMMA, i.e. wgmma; the f32 one HMMA, i.e. mma.sync);
+     kernel must have HGMMA, i.e. wgmma; the f32 one HMMA, i.e. mma.sync;
+     both bf16 backward passes HGMMA and UTMALDG, TMA loads, the f32 ones
+     HMMA), with each backward pass's ptxas registers and spills;
   3. hold each kernel (the flash block step in both dtype variants, and
      the tile-class pass) against its plain PyTorch version on the
      card, at the flagship prefill shape with six bias kinds and at edge
@@ -65,10 +67,12 @@ non-zero before the result line:
      same step through the plain version (loss and every gradient leaf),
      remat "full" (16 launches a step) and "dots" (8), the eval step
      (8), tile-class passes only on the first step at a shape, the block
-     backward's device time at the training shape and
-     the two ways to run its products, a torch.profiler trace of one
-     warm train step, and a small f32 config's step on the card against
-     the CPU;
+     backward's device time at the training shape (each pass alone, the
+     plain version and SDPA's backward, all L2-cold; with
+     `--flash-bwd-baseline DIR`, that checkout's backward kernel on the
+     same inputs, held to this one's and timed in turns), a
+     torch.profiler trace of one warm train step, and a small f32
+     config's step on the card against the CPU;
   8. the worker (`python -m jobset_tpu_torch.runtime.worker`) in a
      subprocess on a small f32 LM workload with checkpoints: an
      uninterrupted run, a run that fails at a step, and its restart,
@@ -973,6 +977,8 @@ def backward_kernel_checks() -> dict:
              None, False, "q"),
             (f"{tag} D128 Tq130 Tk200 reverse triangle, dk and dv alone", 2, 130, 200, 4, 128,
              "reverse_triangle", None, False, "kv"),
+            (f"{tag} D128 GQA expand view H8/Hkv2 Tq130 Tk200 band", 2, 130, 200, 8, 128, "band",
+             2, False, "all"),
             (f"{tag} all masked T200 D64", 2, 200, 200, 4, 64, "all_masked", None, False, "all"),
         ]
         for i, (name, *shape, bias_kind, kv, fused, needs) in enumerate(cases):
@@ -999,15 +1005,21 @@ def backward_bound_ms(q, bias, dtype) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def time_backward_block(dtype, card) -> dict:
+def time_backward_block(dtype, card, baseline=None) -> dict:
     """The backward at the training shape, [8, 1024, 16, 64] with the
     causal triangle (the flagship step's 8 calls): the kernel against the
     plain version in relative norm, two calls bit for bit; L2-cold times (two
     input sets of fused QKV views and cotangents, 85 MB each in bf16, in
-    turns) of the kernel and the plain version; the bound; and, as a
+    turns) of the kernel (the wrapper's call, bf16's rounding of dweighted
+    included), each pass alone and the plain version; the bound; and, as a
     yardstick of like work (not the same function: it normalizes), the
     backward of scaled_dot_product_attention(is_causal=True) at
-    [8, 16, 1024, 64]."""
+    [8, 16, 1024, 64], L2-cold over two input sets as the kernel is timed.
+    With a baseline wrapper (another checkout's `ops/flash_block.py`), its
+    backward kernel on the same inputs: its dq, dk and dv held to this
+    one's at BACKWARD_REL (f32: bit for bit, the f32 kernels being
+    unchanged), and timed in turns, parent, kernel, kernel, parent
+    (`parent_ms`, the faster of each kept)."""
     from jobset_tpu_torch.ops import flash_block as fb
 
     heads, dim = 16, 64
@@ -1030,6 +1042,10 @@ def time_backward_block(dtype, card) -> dict:
         q, k, v, bias_, m, dsum, dw = sets[i]
         return fb.block_attention_bwd_reference(q, k, v, bias_, m, dsum, dw, needs)
 
+    def parent(i):
+        q, k, v, bias_, m, dsum, dw = sets[i]
+        return baseline._block_attention_bwd_cuda(q, k, v, bias_, m, classes, dsum, dw, needs)
+
     tag = "bf16" if dtype == torch.bfloat16 else "f32"
     if dtype == torch.float32:
         plain_is_f32(f"flash_block backward flagship {tag}")
@@ -1044,10 +1060,30 @@ def time_backward_block(dtype, card) -> dict:
     check(all(torch.equal(a, b) for a, b in zip(got[:3], again[:3])),
           f"flash_block backward flagship {tag}: two calls equal bit for bit")
     max_err = max(max_abs(g, w) for g, w in zip(got[:3], want[:3]))
+    out = {"rel_norm": rels, "max_abs_err": max_err}
+    if baseline is not None:
+        theirs = parent(0)
+        out["parent_rel_norm"] = {
+            label: ((g.float() - w.float()).norm() / w.float().norm()).item()
+            for label, g, w in zip(("dq", "dk", "dv"), got, theirs)}
+        if dtype == torch.float32:
+            check(all(torch.equal(a, b) for a, b in zip(got[:3], theirs[:3])),
+                  f"flash_block backward flagship {tag}: equal bit for bit to the parent's kernel")
+        else:
+            check(all(r <= BACKWARD_REL[dtype] for r in out["parent_rel_norm"].values()),
+                  f"flash_block backward flagship {tag}: against the parent's kernel, relative "
+                  f"norm {', '.join(f'{k} {r:.2e}' for k, r in out['parent_rel_norm'].items())}"
+                  f" <= {BACKWARD_REL[dtype]}")
+        del theirs
     del got, again, want
-    out = {"rel_norm": rels, "max_abs_err": max_err,
-           "ms": rotating_ms(kernel, 2, ITERS),
-           "plain_ms": rotating_ms(plain, 2, 4)}
+    if baseline is not None:
+        mine, parents = [], []
+        for runs, fn in ((parents, parent), (mine, kernel), (mine, kernel), (parents, parent)):
+            runs.append(rotating_ms(fn, 2, ITERS))
+        out.update(ms=min(mine), ms_runs=mine, parent_ms=min(parents), parent_ms_runs=parents)
+    else:
+        out["ms"] = rotating_ms(kernel, 2, ITERS)
+    out["plain_ms"] = rotating_ms(plain, 2, 4)
     # Each pass alone: dq alone runs the dQ pass, dk and dv the dK/dV pass.
     for part, part_needs in (("dq_pass_ms", BACKWARD_NEEDS["q"]),
                              ("dkdv_pass_ms", BACKWARD_NEEDS["kv"])):
@@ -1059,14 +1095,17 @@ def time_backward_block(dtype, card) -> dict:
         * fb.TILE * fb.TILE * dim / PRODUCT_RATE[dtype][0]
     del sets
     torch.cuda.empty_cache()
-    # The yardstick: SDPA's backward alone (its forward's graph kept).
-    qs, ks, vs = (torch.randn((BATCH, heads, PROMPT, dim), generator=gen, device="cuda")
-                  .to(dtype).requires_grad_() for _ in range(3))
-    o = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-    go = torch.randn_like(o)
-    out["library_ms"] = cuda_ms(lambda: torch.autograd.grad(o, (qs, ks, vs), go,
-                                                            retain_graph=True), ITERS)
-    del qs, ks, vs, o, go
+    # The yardstick: SDPA's backward alone (its forward's graph kept), over
+    # two input sets in turns (84 MB each in bf16), as the kernel is timed.
+    sdpa = []
+    for _ in range(2):
+        qs, ks, vs = (torch.randn((BATCH, heads, PROMPT, dim), generator=gen, device="cuda")
+                      .to(dtype).requires_grad_() for _ in range(3))
+        o = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        sdpa.append((o, (qs, ks, vs), torch.randn_like(o)))
+    out["library_ms"] = rotating_ms(lambda i: torch.autograd.grad(
+        sdpa[i][0], sdpa[i][1], sdpa[i][2], retain_graph=True), 2, ITERS)
+    del sdpa, qs, ks, vs, o
     torch.cuda.empty_cache()
     print(f"flash_block backward flagship {tag} [8,1024,16,64] triangle, L2-cold: kernel "
           f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
@@ -1074,24 +1113,52 @@ def time_backward_block(dtype, card) -> dict:
           f"{out['bound_ms'] / out['ms']:.1%} of bound (the dK/dV pass alone "
           f"{out['dkdv_pass_ms']:.4f} ms, the dQ pass alone {out['dq_pass_ms']:.4f} ms); "
           f"library_ms (backward of "
-          f"scaled_dot_product_attention is_causal at [8,16,1024,64]; normalized attention, "
-          f"not the same function) {out['library_ms']:.4f} ms ({card})", flush=True)
+          f"scaled_dot_product_attention is_causal at [8,16,1024,64], L2-cold; normalized "
+          f"attention, not the same function) {out['library_ms']:.4f} ms"
+          + (f"; the parent's kernel {out['parent_ms']:.4f} ms (runs "
+             f"{', '.join(f'{x:.4f}' for x in out['parent_ms_runs'])}; kernel "
+             f"{', '.join(f'{x:.4f}' for x in out['ms_runs'])})" if baseline is not None else "")
+          + f" ({card})", flush=True)
     return out
+
+
+def backward_blocks(card, baseline=None) -> dict:
+    """time_backward_block in bf16 and f32; `baseline`: another checkout
+    whose backward kernel runs beside this one's."""
+    parent = load_baseline(baseline, "flash_block") if baseline else None
+    return {tag: time_backward_block(dtype, card, parent) for tag, dtype in (
+        ("bf16", torch.bfloat16), ("f32", torch.float32))}
 
 
 def backward_ptxas(log: str) -> dict:
     """kernel_ptxas over the backward library: each pass's instantiation by
-    dtype and padded head dim (spills are printed, not failed)."""
-    log = (log.replace("kernelI13__nv_bfloat16L", "kernel_bf16IL")
-           .replace("kernelIfL", "kernel_f32IL"))
-    return kernel_ptxas(log, r"flash_bwd_(?:dkdv|dq)_kernel_(?:bf16|f32)")
+    dtype (tc: bf16 on wgmma, f32) and padded head dim (spills are printed,
+    not failed)."""
+    return kernel_ptxas(log, r"flash_bwd_(?:dkdv|dq)_(?:tc|f32)_kernel")
+
+
+def backward_sass(library) -> dict:
+    """The backward library's SASS: both bf16 passes (every padded head
+    dim) run wgmma (HGMMA) on tiles that TMA loads (UTMALDG); the f32
+    passes run mma.sync (HMMA). Returns the counts by kernel."""
+    counts = sass_counts(library)
+    tc = {n: c for n, c in counts.items() if "_tc_kernel" in n}
+    check(len(tc) == 6 and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in tc.values()),
+          f"sass: both bf16 backward passes (D 64 and 128; the dQ pass with and without "
+          f"dbias) have HGMMA and UTMALDG ({tc})")
+    f32 = {n: c for n, c in counts.items() if "_f32_kernel" in n}
+    check(len(f32) == 6 and all(c["HMMA"] > 0 for c in f32.values()),
+          f"sass: the f32 backward passes have HMMA ({len(f32)} found)")
+    return counts
 
 
 def backward_entries(results) -> list:
     """The `kernels` line's entries of the backward kernel, bf16 and f32,
     from phase 7's flagship-block measurements."""
     out = []
-    for tag, variant in (("bf16", "bf16 (m16n8k16 mma.sync, ldmatrix), the flagship paths'"),
+    for tag, variant in (("bf16", "bf16 (wgmma fed by TMA through an mbarrier ring, the dQ "
+                                  "pass under PDL behind the dK/dV pass; dweighted rounded to "
+                                  "bf16 by the wrapper, in the time), the flagship paths'"),
                          ("f32", "f32 (3xTF32 on m16n8k8 mma.sync), the LM workload's default "
                                  "f32 path; launches counted on the worker's uninterrupted run")):
         t = results["block_backward"][tag]
@@ -1115,7 +1182,12 @@ def backward_entries(results) -> list:
                             "function)",
             "shape": f"{tag} B=8 H=16 Tq=Tk=1024 D=64, causal triangle; dq, dk, dv; L2-cold",
             "ptxas": {k: v for k, v in (results.get("backward_ptxas") or {}).items()
-                      if k.endswith(tag) or f"_{tag}<" in k},
+                      if f"_{'tc' if tag == 'bf16' else tag}_kernel" in k},
+            "sass": {k: v for k, v in (results.get("backward_sass") or {}).items()
+                     if f"_{'tc' if tag == 'bf16' else tag}_kernel" in k},
+            **({"parent_ms": t["parent_ms"], "parent_ms_runs": t["parent_ms_runs"],
+                "ms_runs": t["ms_runs"], "parent_rel_norm": t["parent_rel_norm"]}
+               if "parent_ms" in t else {}),
         })
     return out
 
@@ -1514,7 +1586,7 @@ def launches_now():
     return {name: getattr(fb, name) for name in LAUNCH_COUNTERS}
 
 
-def phase_train(results):
+def phase_train(results, baseline=None):
     from dataclasses import replace
 
     from jobset_tpu_torch.models import TransformerConfig, init_params
@@ -1580,9 +1652,9 @@ def phase_train(results):
     torch.cuda.empty_cache()
 
     # The backward kernel at the training shape, bf16 and f32: against its
-    # plain version, L2-cold times, the bound, SDPA's backward beside it.
-    results["block_backward"] = {tag: time_backward_block(dtype, card) for tag, dtype in (
-        ("bf16", torch.bfloat16), ("f32", torch.float32))}
+    # plain version (and the parent's kernel, given a baseline), L2-cold
+    # times, the bound, SDPA's backward beside it.
+    results["block_backward"] = backward_blocks(card, baseline)
 
     # The trace of one warm flagship train step (remat off, adam).
     from jobset_tpu_torch.models import build_train_step
@@ -7884,6 +7956,10 @@ def main() -> int:
     parser.add_argument("--int8-baseline", metavar="DIR",
                         help="another checkout of this repo (the parent commit): phase 11 "
                              "also times its int8 kernel on the same inputs")
+    parser.add_argument("--flash-bwd-baseline", metavar="DIR",
+                        help="another checkout of this repo (the parent commit): phase 7 (or "
+                             "--flash-only) also times its flash block backward kernel on the "
+                             "same inputs and holds its dq, dk and dv to this one's")
     parser.add_argument("--grouped-baseline", metavar="DIR",
                         help="another checkout of this repo (the parent commit): phases 12 "
                              "and 13 also time its grouped kernels on the same inputs, and "
@@ -7933,7 +8009,8 @@ def main() -> int:
     print(f"build: {results['build_s']:.2f} s", flush=True)
     for name, log in cuda_build.BUILD_LOG.items():
         for line in log.splitlines():
-            if any(w in line for w in ("Compiling entry", "registers", "spill", "error")):
+            if any(w in line for w in ("Compiling entry", "registers", "spill", "error",
+                                       "wgmma")):
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
     if "int8_matmul" in cuda_build.BUILD_LOG:  # built by this process
         results["int8_ptxas"] = kernel_ptxas(cuda_build.BUILD_LOG["int8_matmul"],
@@ -8037,11 +8114,11 @@ def main() -> int:
         results["f32_ptxas"] = kernel_ptxas(cuda_build.BUILD_LOG["flash_block"],
                                            "flash_block_f32_kernel")
     results["sass"] = tensor_core_sass(libraries["flash_block"])
+    results["backward_sass"] = backward_sass(libraries["flash_block_bwd"])
 
     kernels = timed(results, "phases 2-3", phase_kernels, results)
     if args.flash_only:
-        results["block_backward"] = {tag: time_backward_block(dtype, card) for tag, dtype in (
-            ("bf16", torch.bfloat16), ("f32", torch.float32))}
+        results["block_backward"] = backward_blocks(card, args.flash_bwd_baseline)
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
             with open(args.out, "w") as f:
@@ -8063,7 +8140,7 @@ def main() -> int:
     timed(results, "phase 6", phase_trace, params, results)
     del params
     torch.cuda.empty_cache()
-    timed(results, "phase 7", phase_train, results)
+    timed(results, "phase 7", phase_train, results, args.flash_bwd_baseline)
     timed(results, "phase 8", phase_worker, results)
 
     counters = {"flash_block": "TENSOR_CORE_LAUNCHES", "flash_block_f32": "F32_LAUNCHES",

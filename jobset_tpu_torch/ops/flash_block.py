@@ -46,8 +46,10 @@ normalization) is invariant to, so the end-to-end gradient does not depend
 on it; the saved max is the one the forward's sum and weighted are
 relative to. The backward dispatches as the forward does: a CUDA tensor
 goes to the hand-written kernel in `csrc/flash_block_bwd.cu` (two passes,
-dK/dV and dQ, skipping the tile classes the forward skipped), a CPU tensor
-to the plain version, `block_attention_bwd_reference`.
+dK/dV and dQ, skipping the tile classes the forward skipped; bf16 on
+`wgmma` fed by TMA, with dweighted rounded to bf16 by the wrapper first,
+f32 as 3xTF32), a CPU tensor to the plain version,
+`block_attention_bwd_reference`.
 """
 
 from __future__ import annotations
@@ -78,6 +80,14 @@ MAX_HEAD_DIM = 128  # the kernels keep a [64, D] f32 accumulator in registers
 TILE = 64  # q rows and kv rows of one tile class (and of the kernels' tiles)
 MASKED, ZERO_BIAS, BIAS = 0, 1, 2  # tile classes
 MASK_CACHE_SIZE = 16  # (kind, shape, device) entries `constant_mask` keeps
+# The bf16 backward kernels' launch (csrc/flash_block_bwd.cu: TC_THREADS,
+# TcConfig), which tests/test_torch_flash_bwd_layout.py models: one
+# warpgroup a block; by padded head dim, the depth of the ring of walked
+# tiles and the blocks an SM that each pass's registers are sized for,
+# (dK/dV pass, dQ pass).
+BWD_THREADS = 128
+BWD_STAGES = {64: 3, 128: 2}
+BWD_BLOCKS = {64: (3, 3), 128: (2, 2)}
 
 
 def _flat_heads(x):
@@ -408,8 +418,15 @@ def _block_attention_bwd_cuda(q, k, v, bias, block_max, classes, dsum, dweighted
     _check_classes(classes, _class_shape(tq, tk), q.device)
     if not any(needs):
         return None, None, None, None
-    block_max, dsum, dweighted = (t.contiguous() for t in (block_max, dsum, dweighted))
+    block_max, dsum = block_max.contiguous(), dsum.contiguous()
     empty = functools.partial(torch.empty, dtype=q.dtype, device=q.device)
+    if variant == "tensor_core":
+        # dW rounded to bf16 once, to nearest even (the reference's
+        # dweighted.astype(compute)), for both passes' TMA loads; rows padded
+        # to a multiple of 8 elements (16-byte strides), the padding never read.
+        dweighted = empty((batch, tq, heads, -(-dim // 8) * 8))[..., :dim].copy_(dweighted)
+    else:
+        dweighted = dweighted.contiguous()
     dq = empty((batch, tq, heads, dim)) if needs[0] else None
     dk = empty((batch, tk, heads, dim)) if needs[1] else None
     dv = empty((batch, tk, heads, dim)) if needs[2] else None

@@ -357,6 +357,7 @@ BACKWARD_CASES = {
     "ragged_alibi_d32": (100, 77, 4, 4, 32, "alibi", False),
     "d128_triangle": (130, 200, 4, 4, 128, "triangle", False),
     "d128_reverse_triangle": (130, 200, 4, 4, 128, "reverse_triangle", False),
+    "d128_gqa_ragged_band": (130, 200, 8, 2, 128, "band", False),
     "all_masked": (200, 200, 4, 4, 64, "all_masked", False),
 }
 
