@@ -494,7 +494,17 @@ def plain_attention():
 
 
 LAUNCH_COUNTERS = ("KERNEL_LAUNCHES", "TENSOR_CORE_LAUNCHES", "F32_LAUNCHES",
-                   "TILE_CLASS_LAUNCHES", "BACKWARD_LAUNCHES", "BACKWARD_F32_LAUNCHES")
+                   "TILE_CLASS_LAUNCHES", "BACKWARD_LAUNCHES", "BACKWARD_F32_LAUNCHES",
+                   "BACKWARD_F32_MMA_LAUNCHES")
+
+
+def f32_backward_by_variant(counts) -> dict:
+    """A run's f32 backward launches by variant: tf32 wgmma fed by TMA, and
+    the mma.sync kernels (views TMA cannot take, other D)."""
+    if not counts or counts.get("BACKWARD_F32_LAUNCHES") is None:
+        return None
+    mma = counts.get("BACKWARD_F32_MMA_LAUNCHES", 0)
+    return {"tma": counts["BACKWARD_F32_LAUNCHES"] - mma, "mma_sync": mma}
 
 
 def reset_launches():
@@ -520,7 +530,8 @@ def check_launches(path, expected, passes, backward=0):
     counts = launches_now()
     check(counts == {"KERNEL_LAUNCHES": expected, "TENSOR_CORE_LAUNCHES": expected,
                      "F32_LAUNCHES": 0, "TILE_CLASS_LAUNCHES": passes,
-                     "BACKWARD_LAUNCHES": backward, "BACKWARD_F32_LAUNCHES": 0},
+                     "BACKWARD_LAUNCHES": backward, "BACKWARD_F32_LAUNCHES": 0,
+                     "BACKWARD_F32_MMA_LAUNCHES": 0},
           f"{path}: launches {counts} (expected {expected} block launches, all on the "
           f"tensor-core variant, {passes} tile-class passes and {backward} bf16 backward "
           "launches)")
@@ -894,17 +905,23 @@ MASKED_ROW = 3  # the "band_row" bias: the band, and row 3 masked whole
 
 
 def flash_backward_case(name, dtype, batch, tq, tk, heads, dim, bias_kind, kv_heads=None,
-                        seed=0, fused=False, needs="qkv"):
+                        seed=0, fused=False, needs="qkv", d_stride=1):
     """The backward kernel against its plain version on the same inputs (the
     forward kernel's block max, random cotangents), given the outputs
-    `needs` names; two calls equal bit for bit (dbias, summed by atomics,
-    within the tolerance); a fully masked row's dq and dbias, and every
-    gradient of an all-masked block, exactly 0. Returns max|d| by output."""
+    `needs` names, on the variant the wrapper picks (f32: tf32 wgmma fed by
+    TMA where TMA takes the views and D is a multiple of 4 up to 64, else
+    mma.sync); two calls
+    equal bit for bit (dbias, summed by atomics, within the tolerance); a
+    fully masked row's dq and dbias, and every gradient of an all-masked
+    block, exactly 0. `d_stride` > 1 hands q, k and v as views with that
+    stride on D (f32 only: the mma.sync variant). Returns max|d| by output."""
     from jobset_tpu_torch.ops import flash_block as fb
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     kv_heads = kv_heads or heads
-    q, k_c, v_c = make_qkv(dtype, batch, tq, tk, heads, dim, kv_heads, gen, fused)
+    q, k_c, v_c = make_qkv(dtype, batch, tq, tk, heads, dim * d_stride, kv_heads, gen, fused)
+    if d_stride > 1:
+        q, k_c, v_c = (t[..., ::d_stride] for t in (q, k_c, v_c))
     k, v = (fb._repeat_heads(t, heads // kv_heads) for t in (k_c, v_c))
     bias = make_bias("band" if bias_kind == "band_row" else bias_kind, tq, tk)
     if bias_kind == "band_row":
@@ -914,16 +931,21 @@ def flash_backward_case(name, dtype, batch, tq, tk, heads, dim, bias_kind, kv_he
     dsum = torch.randn((batch, heads, tq), generator=gen, device="cuda")
     dw = torch.randn((batch, tq, heads, dim), generator=gen, device="cuda")
     want_needs = BACKWARD_NEEDS[needs]
+    f32 = dtype == torch.float32
+    if f32:
+        _, _, k5, v5, dims, _ = fb._kernel_args(q, k, v, bias)
+        tma = fb._f32_tma_args(q, k5, v5, dims, bias) is not None
     before = launches_now()
     got = fb._block_attention_bwd_cuda(q, k, v, bias, block_max, classes, dsum, dw, want_needs)
     again = fb._block_attention_bwd_cuda(q, k, v, bias, block_max, classes, dsum, dw, want_needs)
     torch.cuda.synchronize()
     after = launches_now()
-    f32 = dtype == torch.float32
+    variant = "bf16" if not f32 else "f32 tf32 wgmma/TMA" if tma else "f32 mma.sync"
+    mma = after["BACKWARD_F32_MMA_LAUNCHES"] - before["BACKWARD_F32_MMA_LAUNCHES"]
     check(after["BACKWARD_LAUNCHES"] - before["BACKWARD_LAUNCHES"] == 2
-          and after["BACKWARD_F32_LAUNCHES"] - before["BACKWARD_F32_LAUNCHES"] == 2 * f32,
-          f"flash_block backward {name}: two launches, on the {'f32' if f32 else 'bf16'} "
-          "variant")
+          and after["BACKWARD_F32_LAUNCHES"] - before["BACKWARD_F32_LAUNCHES"] == 2 * f32
+          and mma == (0 if not f32 or tma else 2),
+          f"flash_block backward {name}: two launches, on the {variant} variant")
     check(all((g is None) == (not n) for g, n in zip(got, want_needs))
           and all(torch.equal(a, b) for a, b in zip(got[:3], again[:3]) if a is not None),
           f"flash_block backward {name}: the outputs asked for ({needs}), two calls equal "
@@ -949,7 +971,7 @@ def flash_backward_case(name, dtype, batch, tq, tk, heads, dim, bias_kind, kv_he
     if bias_kind == "all_masked":
         check(all(bool((g == 0).all()) for g in got if g is not None),
               f"flash_block backward {name}: every gradient of an all-masked block is 0")
-    print(f"flash_block backward {name}: max|d| "
+    print(f"flash_block backward {name} ({variant}): max|d| "
           + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()), flush=True)
     return errs
 
@@ -958,8 +980,21 @@ def backward_kernel_checks() -> dict:
     """Phase 3's backward cases: both dtypes; MHA, GQA expand views and
     fused-QKV views; the triangle, zero, all-masked, alibi and band biases
     (the band with a fully masked row); ragged Tq and Tk; D of 32, 64 and
-    128; every subset of outputs the passes split on, dbias included."""
+    128; every subset of outputs the passes split on, dbias included. f32
+    runs on tf32 wgmma fed by TMA at D <= 64 and on mma.sync at D = 128;
+    f32 alone adds D of 16 and 8 (the example yamls' heads), views with
+    stride 2 on D (mma.sync) and the sequence-parallel ring's block, Tq = Tk
+    = 4096 (the longest walk of either pass)."""
     bf16, f32 = torch.bfloat16, torch.float32
+    f32_only = [
+        ("f32 D16 GQA expand view H8/Hkv2 T256 triangle", 2, 256, 256, 8, 16, "triangle", 2,
+         False, "all", 1),
+        ("f32 D8 fused-QKV views T130 band", 2, 130, 130, 8, 8, "band", None, True, "qkv", 1),
+        ("f32 D64 views with stride 2 on D T192 triangle (mma.sync)", 2, 192, 192, 4, 64,
+         "triangle", None, False, "all", 2),
+        ("f32 B1 H16 T4096 D64 triangle (the sp ring's block)", 1, 4096, 4096, 16, 64,
+         "triangle", None, False, "qkv", 1),
+    ]
     errs = {}
     for dtype, tag in ((bf16, "bf16"), (f32, "f32")):
         cases = [
@@ -984,6 +1019,9 @@ def backward_kernel_checks() -> dict:
         for i, (name, *shape, bias_kind, kv, fused, needs) in enumerate(cases):
             errs[name] = flash_backward_case(name, dtype, *shape, bias_kind, kv_heads=kv,
                                              seed=20 + i, fused=fused, needs=needs)
+    for i, (name, *shape, bias_kind, kv, fused, needs, d_stride) in enumerate(f32_only):
+        errs[name] = flash_backward_case(name, f32, *shape, bias_kind, kv_heads=kv, seed=40 + i,
+                                         fused=fused, needs=needs, d_stride=d_stride)
     return errs
 
 
@@ -1017,9 +1055,8 @@ def time_backward_block(dtype, card, baseline=None) -> dict:
     [8, 16, 1024, 64], L2-cold over two input sets as the kernel is timed.
     With a baseline wrapper (another checkout's `ops/flash_block.py`), its
     backward kernel on the same inputs: its dq, dk and dv held to this
-    one's at BACKWARD_REL (f32: bit for bit, the f32 kernels being
-    unchanged), and timed in turns, parent, kernel, kernel, parent
-    (`parent_ms`, the faster of each kept)."""
+    one's at BACKWARD_REL, and timed in turns, parent, kernel, kernel,
+    parent (`parent_ms`, the faster of each kept), each pass too."""
     from jobset_tpu_torch.ops import flash_block as fb
 
     heads, dim = 16, 64
@@ -1066,14 +1103,10 @@ def time_backward_block(dtype, card, baseline=None) -> dict:
         out["parent_rel_norm"] = {
             label: ((g.float() - w.float()).norm() / w.float().norm()).item()
             for label, g, w in zip(("dq", "dk", "dv"), got, theirs)}
-        if dtype == torch.float32:
-            check(all(torch.equal(a, b) for a, b in zip(got[:3], theirs[:3])),
-                  f"flash_block backward flagship {tag}: equal bit for bit to the parent's kernel")
-        else:
-            check(all(r <= BACKWARD_REL[dtype] for r in out["parent_rel_norm"].values()),
-                  f"flash_block backward flagship {tag}: against the parent's kernel, relative "
-                  f"norm {', '.join(f'{k} {r:.2e}' for k, r in out['parent_rel_norm'].items())}"
-                  f" <= {BACKWARD_REL[dtype]}")
+        check(all(r <= BACKWARD_REL[dtype] for r in out["parent_rel_norm"].values()),
+              f"flash_block backward flagship {tag}: against the parent's kernel, relative "
+              f"norm {', '.join(f'{k} {r:.2e}' for k, r in out['parent_rel_norm'].items())}"
+              f" <= {BACKWARD_REL[dtype]}")
         del theirs
     del got, again, want
     if baseline is not None:
@@ -1084,11 +1117,21 @@ def time_backward_block(dtype, card, baseline=None) -> dict:
     else:
         out["ms"] = rotating_ms(kernel, 2, ITERS)
     out["plain_ms"] = rotating_ms(plain, 2, 4)
-    # Each pass alone: dq alone runs the dQ pass, dk and dv the dK/dV pass.
+    # Each pass alone: dq alone runs the dQ pass, dk and dv the dK/dV pass
+    # (the parent's in turns with this one's, where it is given).
     for part, part_needs in (("dq_pass_ms", BACKWARD_NEEDS["q"]),
                              ("dkdv_pass_ms", BACKWARD_NEEDS["kv"])):
-        out[part] = rotating_ms(lambda i: fb._block_attention_bwd_cuda(
-            *sets[i][:5], classes, *sets[i][5:], part_needs), 2, ITERS)
+        def one_pass(i, wrapper=fb):
+            return wrapper._block_attention_bwd_cuda(*sets[i][:5], classes, *sets[i][5:],
+                                                     part_needs)
+
+        if baseline is not None:
+            mine, parents = [], []
+            for runs, who in ((parents, baseline), (mine, fb), (mine, fb), (parents, baseline)):
+                runs.append(rotating_ms(lambda i: one_pass(i, who), 2, ITERS))
+            out[part], out["parent_" + part] = min(mine), min(parents)
+        else:
+            out[part] = rotating_ms(one_pass, 2, ITERS)
     out["bound_ms"], out["bound_by"] = backward_bound_ms(sets[0][0], bias, dtype)
     n_live = int((classes != fb.MASKED).sum())
     out["tile_bound_ms"] = 1e3 * PRODUCT_RATE[dtype][1] * n_live * BATCH * heads * 5 * 2 \
@@ -1117,7 +1160,9 @@ def time_backward_block(dtype, card, baseline=None) -> dict:
           f"attention, not the same function) {out['library_ms']:.4f} ms"
           + (f"; the parent's kernel {out['parent_ms']:.4f} ms (runs "
              f"{', '.join(f'{x:.4f}' for x in out['parent_ms_runs'])}; kernel "
-             f"{', '.join(f'{x:.4f}' for x in out['ms_runs'])})" if baseline is not None else "")
+             f"{', '.join(f'{x:.4f}' for x in out['ms_runs'])}; its dK/dV pass "
+             f"{out['parent_dkdv_pass_ms']:.4f} ms, its dQ pass {out['parent_dq_pass_ms']:.4f} ms)"
+             if baseline is not None else "")
           + f" ({card})", flush=True)
     return out
 
@@ -1132,23 +1177,29 @@ def backward_blocks(card, baseline=None) -> dict:
 
 def backward_ptxas(log: str) -> dict:
     """kernel_ptxas over the backward library: each pass's instantiation by
-    dtype (tc: bf16 on wgmma, f32) and padded head dim (spills are printed,
-    not failed)."""
-    return kernel_ptxas(log, r"flash_bwd_(?:dkdv|dq)_(?:tc|f32)_kernel")
+    variant (tc: bf16 on wgmma, tf32: f32 on tf32 wgmma, f32: f32 on
+    mma.sync) and padded head dim (spills are printed, not failed)."""
+    return kernel_ptxas(log, r"flash_bwd_(?:dkdv|dq)_(?:tc|tf32|f32)_kernel")
 
 
 def backward_sass(library) -> dict:
     """The backward library's SASS: both bf16 passes (every padded head
-    dim) run wgmma (HGMMA) on tiles that TMA loads (UTMALDG); the f32
-    passes run mma.sync (HMMA). Returns the counts by kernel."""
+    dim) and both f32 passes on tf32 wgmma (D 32 and 64) run wgmma (HGMMA)
+    on tiles that TMA loads (UTMALDG); the kept f32 mma.sync passes run
+    HMMA and no HGMMA. Returns the counts by kernel."""
     counts = sass_counts(library)
     tc = {n: c for n, c in counts.items() if "_tc_kernel" in n}
     check(len(tc) == 6 and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in tc.values()),
           f"sass: both bf16 backward passes (D 64 and 128; the dQ pass with and without "
           f"dbias) have HGMMA and UTMALDG ({tc})")
+    tf32 = {n: c for n, c in counts.items() if "_tf32_kernel" in n}
+    check(len(tf32) == 6 and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in tf32.values()),
+          f"sass: both f32 backward passes on tf32 wgmma (D 32 and 64; the dQ pass with and "
+          f"without dbias) have HGMMA and UTMALDG ({tf32})")
     f32 = {n: c for n, c in counts.items() if "_f32_kernel" in n}
-    check(len(f32) == 6 and all(c["HMMA"] > 0 for c in f32.values()),
-          f"sass: the f32 backward passes have HMMA ({len(f32)} found)")
+    check(len(f32) == 6 and all(c["HMMA"] > 0 and c["HGMMA"] == 0 for c in f32.values()),
+          f"sass: the kept f32 mma.sync backward passes have HMMA and no HGMMA "
+          f"({len(f32)} found)")
     return counts
 
 
@@ -1159,8 +1210,12 @@ def backward_entries(results) -> list:
     for tag, variant in (("bf16", "bf16 (wgmma fed by TMA through an mbarrier ring, the dQ "
                                   "pass under PDL behind the dK/dV pass; dweighted rounded to "
                                   "bf16 by the wrapper, in the time), the flagship paths'"),
-                         ("f32", "f32 (3xTF32 on m16n8k8 mma.sync), the LM workload's default "
-                                 "f32 path; launches counted on the worker's uninterrupted run")):
+                         ("f32", "f32 (3xTF32 on tf32 wgmma m64nNk8 fed by TMA through an "
+                                 "mbarrier ring, transposed split copies of the walked tile, the "
+                                 "dQ pass under PDL behind the dK/dV pass; the mma.sync kernels "
+                                 "kept for views TMA cannot take and D > 64), the LM workload's "
+                                 "default f32 path; launches (tf32 wgmma variant) counted on the "
+                                 "worker's uninterrupted run")):
         t = results["block_backward"][tag]
         out.append({
             "name": "flash_block_backward" + ("" if tag == "bf16" else "_f32"),
@@ -1182,11 +1237,13 @@ def backward_entries(results) -> list:
                             "function)",
             "shape": f"{tag} B=8 H=16 Tq=Tk=1024 D=64, causal triangle; dq, dk, dv; L2-cold",
             "ptxas": {k: v for k, v in (results.get("backward_ptxas") or {}).items()
-                      if f"_{'tc' if tag == 'bf16' else tag}_kernel" in k},
+                      if f"_{'tc' if tag == 'bf16' else 'tf32'}_kernel" in k},
             "sass": {k: v for k, v in (results.get("backward_sass") or {}).items()
-                     if f"_{'tc' if tag == 'bf16' else tag}_kernel" in k},
+                     if f"_{'tc' if tag == 'bf16' else 'tf32'}_kernel" in k},
             **({"parent_ms": t["parent_ms"], "parent_ms_runs": t["parent_ms_runs"],
-                "ms_runs": t["ms_runs"], "parent_rel_norm": t["parent_rel_norm"]}
+                "ms_runs": t["ms_runs"], "parent_rel_norm": t["parent_rel_norm"],
+                "parent_pass_ms": {"dkdv": t["parent_dkdv_pass_ms"],
+                                   "dq": t["parent_dq_pass_ms"]}}
                if "parent_ms" in t else {}),
         })
     return out
@@ -1693,8 +1750,10 @@ def phase_train(results, baseline=None):
                          {k: t.cuda() for k, t in small_batch.items()})
     after = launches_now()
     check(after["F32_LAUNCHES"] - before["F32_LAUNCHES"] == small.n_layers
-          and after["BACKWARD_F32_LAUNCHES"] - before["BACKWARD_F32_LAUNCHES"] == small.n_layers,
-          "small f32 train step: one f32-variant launch per layer, forward and backward")
+          and after["BACKWARD_F32_LAUNCHES"] - before["BACKWARD_F32_LAUNCHES"] == small.n_layers
+          and after["BACKWARD_F32_MMA_LAUNCHES"] == before["BACKWARD_F32_MMA_LAUNCHES"],
+          "small f32 train step: one f32-variant launch per layer, forward and backward (the "
+          "backward on tf32 wgmma fed by TMA)")
     compare_step("small f32 train step, card vs CPU plain path", card_step,
                  sgd_step(small, small_params, small_batch, device="cpu"),
                  F32_LOSS_REL, F32_GRAD_REL)
@@ -1744,8 +1803,11 @@ def phase_worker(results):
               f"worker: uninterrupted run exits {rc} with its result line")
         launches = (straight or {}).get("kernel_launches", {})
         check(launches.get("F32_LAUNCHES", 0) >= 6 * small["n_layers"]
-              and launches.get("TENSOR_CORE_LAUNCHES") == 0,
-              f"worker: the f32 run launched the f32 variant ({launches})")
+              and launches.get("TENSOR_CORE_LAUNCHES") == 0
+              and launches.get("BACKWARD_F32_LAUNCHES", 0) >= 6 * small["n_layers"]
+              and launches.get("BACKWARD_F32_MMA_LAUNCHES") == 0,
+              f"worker: the f32 run launched the f32 variants, the backward on tf32 wgmma fed "
+              f"by TMA ({launches})")
         # One mask (the [16, 16] triangle) classified once per process.
         check(launches.get("TILE_CLASS_LAUNCHES") == 1,
               f"worker: the uninterrupted run ran the tile-class pass once ({launches})")
@@ -4196,12 +4258,14 @@ def check_train_launches(path, counts, want, flash, f32, backward):
     check(train_counts(counts, f32) == total == tuple(want) and block == flash
           and counts["KERNEL_LAUNCHES"] == flash and wgrad_tma == want[2]
           and counts["BACKWARD_LAUNCHES"] == backward
-          and counts["BACKWARD_F32_LAUNCHES"] == (backward if f32 else 0),
+          and counts["BACKWARD_F32_LAUNCHES"] == (backward if f32 else 0)
+          and counts["BACKWARD_F32_MMA_LAUNCHES"] == 0,
           f"{path}: grouped (forward, dgrad, wgrad) launches {total}, on the "
           f"{'f32' if f32 else 'bf16'} kernels {train_counts(counts, f32)} (expected {tuple(want)}); "
           f"{wgrad_tma} on the {'f32' if f32 else 'bf16'} wgrad TMA kernel; {block} flash block "
           f"launches (expected {flash}); {counts['BACKWARD_LAUNCHES']} flash backward launches, "
-          f"{counts['BACKWARD_F32_LAUNCHES']} of them f32 (expected {backward})")
+          f"{counts['BACKWARD_F32_LAUNCHES']} of them f32 (expected {backward}), by variant "
+          f"{f32_backward_by_variant(counts)} (all on tf32 wgmma fed by TMA)")
 
 
 def backward_operands(dtype, k, n, gen, rows=MOE_SLOTS):
@@ -5720,7 +5784,8 @@ def gang_print(label, ranks, card):
         print(f"  {label} rank {r['rank']} {r['coords']} ({r['backend']}): one step launches "
               f"flash bf16 {counts['TENSOR_CORE_LAUNCHES']}, f32 {counts['F32_LAUNCHES']}, "
               f"tile-class {counts['TILE_CLASS_LAUNCHES']}, flash backward "
-              f"{counts['BACKWARD_LAUNCHES']} (f32 {counts['BACKWARD_F32_LAUNCHES']}); grouped fwd "
+              f"{counts['BACKWARD_LAUNCHES']} (f32 by variant {f32_backward_by_variant(counts)}); "
+              f"grouped fwd "
               f"{counts['GROUPED_LAUNCHES']} (TMA {counts['GROUPED_TMA_LAUNCHES']}, f32 "
               f"{counts['GROUPED_F32_LAUNCHES']}), dgrad {counts['GROUPED_DGRAD_LAUNCHES']}, "
               f"wgrad {counts['GROUPED_WGRAD_LAUNCHES']} (TMA {counts['GROUPED_WGRAD_TMA_LAUNCHES']}"
@@ -5996,10 +6061,10 @@ def gang_launches(results) -> dict:
         "flash_block_tile_classes": {"dense tp=2 step": b.get("TILE_CLASS_LAUNCHES")},
         "flash_block_backward": {"dense tp=2 step": b.get("BACKWARD_LAUNCHES"),
                                  "MoE dp=2 x tp=2 step": c.get("BACKWARD_LAUNCHES")},
-        "flash_block_backward_f32": {"small f32 tp=2 step": small.get("BACKWARD_F32_LAUNCHES"),
-                                     "MoE f32 dp=2 x tp=2 step": c32.get("BACKWARD_F32_LAUNCHES"),
-                                     "lm-moe-dropless.yaml run, rank 0": whole.get(
-                                         "BACKWARD_F32_LAUNCHES")},
+        "flash_block_backward_f32": {"small f32 tp=2 step": f32_backward_by_variant(small),
+                                     "MoE f32 dp=2 x tp=2 step": f32_backward_by_variant(c32),
+                                     "lm-moe-dropless.yaml run, rank 0":
+                                         f32_backward_by_variant(whole)},
         "grouped_matmul": {"MoE dp=2 x tp=2 step": c.get("GROUPED_LAUNCHES")},
         "grouped_matmul_dgrad": {"MoE dp=2 x tp=2 step": c.get("GROUPED_DGRAD_LAUNCHES")},
         "grouped_matmul_wgrad": {"MoE dp=2 x tp=2 step": c.get("GROUPED_WGRAD_LAUNCHES")},
@@ -6529,8 +6594,8 @@ def sp_launches(results) -> dict:
                                  "Ulysses sp=2 step": first("ulysses", "BACKWARD_LAUNCHES"),
                                  f"ring sp=2 T={LONG_SEQ} step": first("long",
                                                                        "BACKWARD_LAUNCHES")},
-        "flash_block_backward_f32": {"lm-long-context.yaml run, rank 0": whole.get(
-            "BACKWARD_F32_LAUNCHES")},
+        "flash_block_backward_f32": {"lm-long-context.yaml run, rank 0":
+                                     f32_backward_by_variant(whole)},
     }
 
 
@@ -6778,9 +6843,9 @@ def pp_launches(results) -> dict:
                                      for s in PP_SCHEDULES},
         "flash_block_backward": {f"{s} pp=2 step": first(s).get("BACKWARD_LAUNCHES")
                                  for s in PP_SCHEDULES},
-        "flash_block_backward_f32": {**{f"small f32 {label} pp=2 step": first(
-            f"small {label}").get("BACKWARD_F32_LAUNCHES") for label in pp_small_configs()},
-            "lm-pp-interleaved.yaml run, rank 0": whole.get("BACKWARD_F32_LAUNCHES")},
+        "flash_block_backward_f32": {**{f"small f32 {label} pp=2 step": f32_backward_by_variant(
+            first(f"small {label}")) for label in pp_small_configs()},
+            "lm-pp-interleaved.yaml run, rank 0": f32_backward_by_variant(whole)},
         "grouped_matmul": not_run, "grouped_matmul_dgrad": not_run,
         "grouped_matmul_wgrad": not_run,
         "grouped_matmul_f32": {k: v.get("GROUPED_F32_LAUNCHES") for k, v in dropless.items()},
@@ -7160,9 +7225,8 @@ def ep_launches(results) -> dict:
             "F32_LAUNCHES") for label in labels}, run_d: whole.get("F32_LAUNCHES")},
         "flash_block_tile_classes": {"MoE ep=2 first step": b.get("TILE_CLASS_LAUNCHES")},
         "flash_block_backward": {"MoE ep=2 step": b.get("BACKWARD_LAUNCHES")},
-        "flash_block_backward_f32": {**{f"small f32 {label} step": first(f"small {label}").get(
-            "BACKWARD_F32_LAUNCHES") for label in labels}, run_d: whole.get(
-            "BACKWARD_F32_LAUNCHES")},
+        "flash_block_backward_f32": {**{f"small f32 {label} step": f32_backward_by_variant(
+            first(f"small {label}")) for label in labels}, run_d: f32_backward_by_variant(whole)},
         "grouped_matmul": {"MoE ep=2 step": b.get("GROUPED_LAUNCHES")},
         "grouped_matmul_dgrad": {"MoE ep=2 step": b.get("GROUPED_DGRAD_LAUNCHES")},
         "grouped_matmul_wgrad": {"MoE ep=2 step": b.get("GROUPED_WGRAD_LAUNCHES")},
@@ -8154,9 +8218,13 @@ def main() -> int:
         # The f32 variants' main path is the worker's f32 LM run; the bf16
         # backward's is run_model_bench's training; the others' `generate`.
         kernel["launches"] = (
-            worker_launches.get(counter, 0) if counter in ("F32_LAUNCHES", "BACKWARD_F32_LAUNCHES")
+            (f32_backward_by_variant(worker_launches) or {}).get("tma", 0)
+            if counter == "BACKWARD_F32_LAUNCHES"
+            else worker_launches.get(counter, 0) if counter == "F32_LAUNCHES"
             else results["train_bench_launches"][counter] if counter == "BACKWARD_LAUNCHES"
             else results["launches"][counter])
+        if counter == "BACKWARD_F32_LAUNCHES":
+            kernel["launches_by_variant"] = f32_backward_by_variant(worker_launches)
         kernel["forward_launches"] = results["forward_launches"][counter]
         kernel["train_step_launches"] = results["train_step_launches"][counter]
         kernel["train_step_launches_by_remat"] = {

@@ -95,18 +95,81 @@
 // time; a block's start (barriers, classes, its resident tiles' loads)
 // costs about as much as a tile.
 //
-// f32 (flash_bwd_dkdv_f32_kernel, flash_bwd_dq_f32_kernel): 3xTF32 on
-// mma.sync m16n8k8 (each operand split into two TF32 values, three products
-// summed in f32: an accuracy on a par with f32, as in the forward's f32
-// kernel). tf32 wgmma takes only K-major operands, so two of the five
-// products (dV and dK's, whose B is read down the columns of dW and Q) would
-// need transposed copies; the f32 kernel is not slower than SDPA's f32
-// backward, and keeps mma.sync. Each block has four warps of 16 rows; P and
-// dS never leave the registers (the accumulator fragment of S, and of dP, is
-// the A fragment of the next product), so only the B operands are read from
-// shared memory. Tiles arrive by cp.async (16-byte copies where a view
-// allows) into two buffers: the next live tile's copies run while this
-// one's products do.
+// f32 (flash_bwd_dkdv_tf32_kernel, flash_bwd_dq_tf32_kernel): 3xTF32 on tf32
+// wgmma m64nNk8 fed by TMA. Each operand x is big + small, two TF32 values,
+// and a product small.big + big.small + big.big, summed in f32: an accuracy
+// on a par with f32. The bound is the three TF32 products at 495 TFLOP/s
+// (0.26 ms at the flagship block; seven products over the live tiles, as
+// the passes do them, 0.39 ms). The bf16 design carries over: warp 0
+// loading the walked tiles by TMA into a ring of stages (4-D maps, boxes of
+// 32 f32 columns, one 128-byte swizzled row), blocks in groups of heads
+// longest tile first, the dQ pass under PDL behind the dK/dV pass, a BIAS
+// tile's loop and dbias's atomics instantiations of their own. A block is
+// two warpgroups, each taking half of every walked tile's rows (32 q rows
+// in the dK/dV pass, 32 kv rows in the dQ pass) against the block's whole
+// 64-row tile, with totals of its own that the two add at the end in a
+// fixed order: one warpgroup alone left the SM idle while it copied, split
+// and exponentiated. What it has to meet, and what it does:
+// - tf32 wgmma reads shared memory K-major only. S^T = K.Q^T and dP^T =
+//   V.dW^T (S = Q.K^T and dP = dW.V^T in the dQ pass) read both operands as
+//   TMA writes them. dV += P^T.dW, dK += dS^T.Q and dQ += dS.K read B down
+//   its columns: A (P^T, dS^T, dS) comes from the accumulators in registers
+//   (the RS form; the C fragment of n8 tile j, relabelled as in frag_c, is
+//   the A fragment of k8 step j), and each warpgroup writes its half of the
+//   walked tile's transposed copy, T[d][row] K-major in the 128-byte
+//   swizzle, big and small parts, its k positions in the relabelling's
+//   order (transpose_step). The other way, the walked tile in registers and P^T
+//   or dS^T staged in shared memory, writes as many bytes and puts the head
+//   dim on M, which wgmma takes 64 rows at a time.
+// - The split. Resident tiles are split once a block, in place: big
+//   rounded to nearest (cvt.rna), small = x - big beside it. A walked tile
+//   is read raw as its own big part (the tensor core takes an f32's top 19
+//   bits: truncation) with small = x - trunc(x) beside it; the transposed
+//   copies and the register A fragments are split to nearest. The tensor
+//   core reads each small part truncated in turn: every operand is within
+//   2^-20 of itself, and the f32 tolerances hold (the numpy model in
+//   tests/test_torch_flash_bwd_f32_layout.py).
+// - The tensor core's f32 sums truncate: each warpgroup's part of dK, dV
+//   and dQ over a walked tile's 32 rows starts from zero and is added to
+//   totals in registers in f32 (rounded to nearest). One chain over a block of Tq = 4096 would drift
+//   about 20 times further (4.8e-5 against 2.3e-6 in relative norm, in the
+//   model); the products over D of S^T and dP^T stay one chain.
+// - Shared memory, beside the tensor cores, bounds a tile. At D = 64 a
+//   walked tile in the dK/dV pass moves ~540 KB through shared memory (the
+//   shared-memory operands of S^T and dP^T, both warpgroups reading K and V
+//   whole, 288 KB; the transposed copies' B 96 KB; reading the raw tile and
+//   writing the copies and small parts 128 KB; TMA 32 KB) against the SM's
+//   128 bytes a clock, ~4,200 clocks, beside ~3,800 of the tensor cores'.
+//   So the work beside the products is put between their issues (a wgmma's
+//   issue waits for room in the tensor core's queue): every other k8 step
+//   of S^T and dP^T is followed by a step of the transposed copies, which
+//   also write the raw tile's small parts; the terms that read those
+//   (big.small) are issued after the warpgroup's barrier, the terms that
+//   read the tile raw before it. dS^T is computed beside dV's product.
+// - The resident tiles, their small parts, the walked tile's small parts and
+//   transposed copies and the ring fill one SM's shared memory at D <= 64
+//   (tf_smem_bytes: 226 KB at D = 64): one block an SM. At D = 128 they would
+//   not fit; that D, a D that is not a multiple of 4, and views TMA cannot
+//   take (unit stride on D, a 16-byte aligned base, strides that are
+//   multiples of 4 elements) run on the kernels below.
+// - Every block writes its whole tile; no atomics but dbias's: two calls
+//   give the same bits.
+// What holds it now (H100 80GB HBM3, 700.00 W; [8,1024,16,64] with the
+// triangle): 1.04 ms, 25% of the bound, the dK/dV pass 0.58 ms and the dQ
+// pass 0.46 (the mma.sync kernels took 1.42 in the same call). A dK/dV
+// block spends about 4.4 us a walked tile, against ~4,200 clocks of
+// shared-memory traffic: the two warpgroups run their phases in step
+// (staggering them by half a phase ran slower), and the copies,
+// exponentials and waits between the products leave the tensor cores idle
+// about half the time.
+//
+// f32 on mma.sync (flash_bwd_dkdv_f32_kernel, flash_bwd_dq_f32_kernel), for
+// D > 64 and views TMA cannot take: 3xTF32 on mma.sync m16n8k8. Each block
+// has four warps of 16 rows; P and dS never leave the registers (the
+// accumulator fragment of S, and of dP, is the A fragment of the next
+// product), so only the B operands are read from shared memory. Tiles
+// arrive by cp.async (16-byte copies where a view allows) into two
+// buffers: the next live tile's copies run while this one's products do.
 //
 // Operands are read in place from [B, T, H, D] (k and v as [B, T, H_kv,
 // group, D]: query head h reads kv head h / group), so GQA expand views and
@@ -142,8 +205,9 @@ struct Params {
   const unsigned char* classes;  // [n_qt, n_kt]
   const float* block_max;        // [B, H, Tq], the forward's
   const float* dsum;             // [B, H, Tq]
-  // f32: [B, Tq, H, D] f32 contiguous; bf16: [B, Tq, H, DW] bf16 contiguous,
-  // DW = D rounded up to a multiple of 8 (TMA's 16-byte strides).
+  // f32: [B, Tq, H, D] f32 contiguous (by TMA, D a multiple of 4); bf16:
+  // [B, Tq, H, DW] bf16 contiguous, DW = D rounded up to a multiple of 8
+  // (TMA's 16-byte strides).
   const void* dw;
   void* dq;                      // [B, Tq, H, D] in the input dtype, or null
   void* dk;                      // [B, Tk, H, D], or null
@@ -1384,6 +1448,766 @@ cudaError_t launch_tc(const Params& p, bool kv_pass, bool q_pass, cudaStream_t s
   return cudaSuccess;
 }
 
+// ===========================================================================
+// f32: 3xTF32 on tf32 wgmma fed by TMA
+// ===========================================================================
+
+constexpr int TF_WG = 128;              // a warpgroup: the block's 64-row tile, 16 rows a warp
+constexpr int TF_THREADS = 2 * TF_WG;   // two warpgroups, each half of every walked tile
+constexpr int HALF = TILE / 2;          // walked rows a warpgroup takes
+constexpr int TF_SUB = TILE * 128;      // one [64 rows][32] f32 sub-tile, 128-byte swizzled rows
+
+// Per padded head dim: the depth of each pass's ring of walked tiles. One
+// block an SM: shared memory holds it (tf_smem_bytes); D = 128 does not
+// fit and runs on the mma.sync kernels.
+template <int DP>
+struct TfConfig;
+template <>
+struct TfConfig<32> {
+  static constexpr int DKDV_STAGES = 3, DQ_STAGES = 3;
+};
+template <>
+struct TfConfig<64> {
+  static constexpr int DKDV_STAGES = 2, DQ_STAGES = 3;
+};
+
+// Shared memory of a pass, TB = one [64][DP] f32 tile: 1024-byte alignment
+// slack; the resident tiles, each split in place into its big part and a
+// small part beside it (4 TB); the walked tile's small parts (2 TB in the
+// dK/dV pass, Q's and dW's; 2 TB in the dQ pass, K's and V's) and its
+// transposed big and small copies (4 TB: Q^T and dW^T; 2 TB: K^T); the ring
+// of two raw walked tiles a stage (with the dK/dV pass's q rows' maxes and
+// dsums beside each); the barriers; the block's classes.
+template <int DP>
+int tf_smem_bytes(bool dkdv, int n_classes) {
+  constexpr int TB = DP / 32 * TF_SUB;
+  const int stages = dkdv ? TfConfig<DP>::DKDV_STAGES : TfConfig<DP>::DQ_STAGES;
+  return 1024 + (dkdv ? 10 : 8) * TB + stages * (2 * TB + (dkdv ? 2 * TILE * 4 : 0)) +
+         8 * (1 + stages) + n_classes;
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The 128 threads of warpgroup wg wait for each other (named barrier 1 + wg;
+// 0 is __syncthreads').
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(1 + wg), "n"(TF_WG) : "memory");
+}
+
+#define WG_D32 WG_D8(0), WG_D8(1), WG_D8(2), WG_D8(3)
+#define WG_R16 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+// d (+)= A . B, m64n32k8 in TF32, A and B K-major in shared memory (tf32
+// wgmma has no transpose); `accumulate` 0 overwrites d.
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[4][4], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " WG_R16
+      ", %16, %17, p, 1, 1;\n}\n"
+      : WG_D32
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (+)= A . B, m64nNk8 in TF32: A from registers (per warp the m16n8k8 A
+// fragment of its 16 rows: (row g, k t), (g + 8, t), (g, t + 4), (g + 8,
+// t + 4)), B K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[8][4], const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " WG_R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : WG_D64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[4][4], const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " WG_R16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : WG_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// x = big + small: big rounded to TF32 (to nearest, ties away, as
+// cvt.rna.tf32.f32), small = x - big exactly, an f32 of which the tensor
+// core reads the top 19 bits: |x - big - small read| < 2^-21 |x|.
+__device__ __forceinline__ void split_rn(float x, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// A raw f32 read by the tensor core as TF32 is truncated to its top 19
+// bits; the small part beside it is x - trunc(x), exact, read truncated in
+// turn: |x - big read - small read| < 2^-20 |x|.
+__device__ __forceinline__ float small_of_raw(float x) {
+  return x - __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+}
+
+// A resident tile as TMA wrote it, split in place by the block: each
+// element replaced by its big part, its small part at the same offset in
+// `small` (the split maps bytes to bytes, so the layout does not matter).
+template <int TB>
+__device__ __forceinline__ void split_in_place(unsigned char* tile, unsigned char* small) {
+#pragma unroll 4
+  for (int i = threadIdx.x; i < TB / 16; i += TF_THREADS) {
+    uint4 x = reinterpret_cast<uint4*>(tile)[i], b, s;
+    split_rn(__uint_as_float(x.x), b.x, s.x);
+    split_rn(__uint_as_float(x.y), b.y, s.y);
+    split_rn(__uint_as_float(x.z), b.z, s.z);
+    split_rn(__uint_as_float(x.w), b.w, s.w);
+    reinterpret_cast<uint4*>(tile)[i] = b;
+    reinterpret_cast<uint4*>(small)[i] = s;
+  }
+}
+
+// Step `it` of DP / 16: warpgroup wg writes the small parts (small_of_raw)
+// of 16 bytes a thread of its half of a raw walked tile (rows HALF * wg ..,
+// 4 KB of each 32-column sub-tile), at the same offsets in `small`.
+template <int DP>
+__device__ __forceinline__ void small_step(unsigned char* small, const unsigned char* raw, int wg,
+                                           int it) {
+  const int v = it * TF_WG + threadIdx.x % TF_WG;
+  const int at = (v / 256) * TF_SUB + wg * HALF * 128 + (v % 256) * 16;
+  const float4 x = *reinterpret_cast<const float4*>(raw + at);
+  *reinterpret_cast<float4*>(small + at) =
+      make_float4(small_of_raw(x.x), small_of_raw(x.y), small_of_raw(x.z), small_of_raw(x.w));
+}
+
+// The B operand of a product that contracts over a walked tile's rows
+// (dV += P^T.dW, dK += dS^T.Q, dQ += dS.K), made K-major: from the raw tile
+// X [64 rows][DP] as TMA wrote it, T[d][row] split into big (at t) and
+// small (TB on), each two 32-row halves of [DP][128 bytes] (DP * 128 bytes
+// apart), 128-byte swizzled; warpgroup wg writes half wg, the rows it
+// contracts over. Within k8 step j (rows 8j .. 8j + 7) the logical k p
+// holds row 8j + 2p for p < 4 and 8j + 2(p - 4) + 1 for p >= 4: the order
+// in which the accumulator relabelling (frag_split) puts the rows' columns
+// in A. Step `it` of DP / 16: a thread writes one 16-byte chunk (logical k
+// 4h .. 4h + 3 of step j of row d: rows 8j + 2i + h), a warp 32
+// consecutive d of one chunk position: its reads are one 128-byte row of
+// X, its writes 8 distinct chunks a quarter-warp, free of bank conflicts.
+// Each element read is also written to `raw_small` at its own offset as
+// the small part of the raw tile (small_of_raw), the B of the products that
+// read X K-major.
+template <int DP>
+__device__ __forceinline__ void transpose_step(unsigned char* t, unsigned char* raw_small,
+                                               const unsigned char* x, int wg, int it) {
+  constexpr int TB = DP / 32 * TF_SUB;
+  const int idx = it * TF_WG + threadIdx.x % TF_WG;
+  const int d = idx % DP, jl = idx / DP / 2, h = idx / DP % 2, j = 4 * wg + jl;
+  const int col = (d / 32) * TF_SUB + 4 * (d % 4);
+  uint32_t big[4], small[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 8 * j + 2 * i + h;
+    const int at = col + r * 128 + 16 * ((d % 32 / 4) ^ (r % 8));
+    const float v = *reinterpret_cast<const float*>(x + at);
+    *reinterpret_cast<float*>(raw_small + at) = small_of_raw(v);
+    split_rn(v, big[i], small[i]);
+  }
+  unsigned char* dst = t + wg * (DP * 128) + d * 128 + 16 * ((2 * jl + h) ^ (d % 8));
+  *reinterpret_cast<uint4*>(dst) = make_uint4(big[0], big[1], big[2], big[3]);
+  *reinterpret_cast<uint4*>(dst + TB) = make_uint4(small[0], small[1], small[2], small[3]);
+}
+
+// The tf32 A fragments (big, small) of the N k8 steps of a [64][8N]
+// accumulator tile c: step j's are the C fragment of n8 tile j relabelled
+// (logical k t and t + 4 read as physical 2t and 2t + 1, as in frag_c), so
+// A entry r of step j is c[j][a_of(r)].
+__device__ __forceinline__ int a_of(int r) { return r == 1 ? 2 : r == 2 ? 1 : r; }
+
+template <int N>
+__device__ __forceinline__ void frag_split(uint32_t (&big)[N][4], uint32_t (&small)[N][4],
+                                           const float (&c)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) split_rn(c[j][a_of(r)], big[j][r], small[j][r]);
+}
+
+// X = A.B^T over the padded head dim as 3xTF32, in two parts, A a [64][DP]
+// resident tile (big and small parts), B a warpgroup's 32 rows of a walked
+// tile (HALF * 128 bytes into each 32-column sub-tile; raw, its own big
+// part read truncated, and its small parts), every operand K-major in
+// 32-column swizzled sub-tiles. The first part, small.big and big.big a k8
+// step, reads B raw; `beside(kk)` runs after k8 step kk's products are
+// issued (a wgmma's issue waits for room in the tensor core's queue, so
+// work put between the steps runs while the products do; it must not touch
+// x), and writes B's small parts. The second part, big.small, once they are
+// written. Neither commits.
+template <int DP, typename Beside>
+__device__ __forceinline__ void issue_ss_raw(float (&x)[4][4], const unsigned char* a_big,
+                                             const unsigned char* a_small,
+                                             const unsigned char* b_raw, Beside&& beside) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 8; ++kk) {
+    // k8 step kk: 32 bytes into the 128-byte swizzled rows of its sub-tile.
+    const int off = (kk / 4) * TF_SUB + (kk % 4) * 32;
+    const uint64_t bb = sw128_desc(b_raw + off, 16, 1024);
+    wgmma_tf32_ss(x, sw128_desc(a_small + off, 16, 1024), bb, kk > 0);
+    wgmma_tf32_ss(x, sw128_desc(a_big + off, 16, 1024), bb, 1);
+    beside(kk);
+  }
+}
+
+template <int DP>
+__device__ __forceinline__ void issue_ss_small(float (&x)[4][4], const unsigned char* a_big,
+                                               const unsigned char* b_small) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 8; ++kk) {
+    const int off = (kk / 4) * TF_SUB + (kk % 4) * 32;
+    wgmma_tf32_ss(x, sw128_desc(a_big + off, 16, 1024), sw128_desc(b_small + off, 16, 1024), 1);
+  }
+}
+
+// acc = A.B over a warpgroup's 32 walked rows, as 3xTF32, one commit group:
+// A the fragments of the 4 k8 steps in registers, B its half of a
+// transposed copy (transpose_step; big at b, small TB on), k8 step j 32
+// bytes into the half's rows; `beside(j)` as in issue_ss_raw.
+template <int DP, int ON, typename Beside>
+__device__ __forceinline__ void issue_rs3(float (&acc)[ON][4], const uint32_t (&a_big)[HALF / 8][4],
+                                          const uint32_t (&a_small)[HALF / 8][4],
+                                          const unsigned char* b, Beside&& beside) {
+  constexpr int TB = DP / 32 * TF_SUB;
+#pragma unroll
+  for (int j = 0; j < HALF / 8; ++j) {
+    const uint64_t bb = sw128_desc(b + j * 32, 16, 1024);
+    wgmma_tf32_rs(acc, a_small[j], bb, j > 0);
+    wgmma_tf32_rs(acc, a_big[j], sw128_desc(b + TB + j * 32, 16, 1024), 1);
+    wgmma_tf32_rs(acc, a_big[j], bb, 1);
+    beside(j);
+  }
+  wgmma_commit();
+}
+
+template <int ON>
+__device__ __forceinline__ void add_into(float (&total)[ON][4], const float (&part)[ON][4]) {
+#pragma unroll
+  for (int j = 0; j < ON; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) total[j][e] += part[j][e];
+}
+
+// P^T from S^T over a warpgroup's 32 q columns in the dK/dV pass: entry e of
+// n8 tile j is kv row row0 + 8 (e >> 1), q column q0 + 8j + 2t + (e & 1);
+// m_s the half's raw maxes (made base 2 here, +inf past Tq). BIASED: the
+// tile's bias is read (an instantiation of its own).
+template <bool BIASED>
+__device__ __forceinline__ void probs_t_half(float (&pf)[HALF / 8][4],
+                                             const float (&s)[HALF / 8][4], const Params& p,
+                                             const float* m_s, float scale2, int q0, int k0,
+                                             int row0, int t, const bool (&row_in)[2]) {
+#pragma unroll
+  for (int j = 0; j < HALF / 8; ++j) {
+    const int c = q0 + j * 8 + 2 * t;
+    const float2 mr = *reinterpret_cast<const float2*>(m_s + j * 8 + 2 * t);
+    const float m[2] = {row_max2(mr.x, c < p.Tq), row_max2(mr.y, c + 1 < p.Tq)};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[j][e] * scale2;
+      if (BIASED) {
+        const int qr = min(c + (e & 1), p.Tq - 1), kr = min(k0 + row0 + 8 * (e >> 1), p.Tk - 1);
+        x = fmaf(p.bias[qr * p.bias_sq + kr * p.bias_sk], LOG2E, x);
+      }
+      pf[j][e] = row_in[e >> 1] ? fast_exp2(x - m[e & 1]) : 0.f;
+    }
+  }
+}
+
+// P from S over a warpgroup's 32 kv columns in the dQ pass: entry e of n8
+// tile j is q row row0 + 8 (e >> 1), kv column k0 + 8j + 2t + (e & 1);
+// columns past Tk get 0.
+template <bool BIASED>
+__device__ __forceinline__ void probs_half(float (&pf)[HALF / 8][4], const float (&s)[HALF / 8][4],
+                                           const Params& p, const float (&m2)[2], float scale2,
+                                           int q0, int k0, int row0, int t) {
+#pragma unroll
+  for (int j = 0; j < HALF / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1, col = k0 + j * 8 + 2 * t + (e & 1);
+      float x = s[j][e] * scale2;
+      if (BIASED) {
+        const int qr = min(q0 + row0 + 8 * r, p.Tq - 1), kr = min(col, p.Tk - 1);
+        x = fmaf(p.bias[qr * p.bias_sq + kr * p.bias_sk], LOG2E, x);
+      }
+      pf[j][e] = col < p.Tk ? fast_exp2(x - m2[r]) : 0.f;
+    }
+}
+
+// The two warpgroups' sums of the block's outputs, added in a fixed order
+// (warpgroup 0's, then warpgroup 1's): each writes the one it does not
+// store into `xfer` ([ON * 4][TF_WG] floats an output, a thread's entries
+// TF_WG apart: conflict-free), and after the barrier adds the other's into
+// the one it stores.
+template <int ON>
+__device__ __forceinline__ void put_sum(float* xfer, const float (&x)[ON][4]) {
+  const int tw = threadIdx.x % TF_WG;
+#pragma unroll
+  for (int j = 0; j < ON; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) xfer[(4 * j + e) * TF_WG + tw] = x[j][e];
+}
+
+template <int ON>
+__device__ __forceinline__ void take_sum(float (&x)[ON][4], const float* xfer, bool first) {
+  const int tw = threadIdx.x % TF_WG;
+#pragma unroll
+  for (int j = 0; j < ON; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float other = xfer[(4 * j + e) * TF_WG + tw];
+      x[j][e] = first ? x[j][e] + other : other + x[j][e];
+    }
+}
+
+// The dK/dV pass. Grid (B*H, kv tiles) in grouped order; two warpgroups a
+// block, warp w of each owning kv rows 16 (w % 4) .. + 15 of the block's kv
+// tile, warpgroup wg taking q rows HALF * wg .. + HALF - 1 of every walked
+// tile. K and V are resident, split in place; each live q tile's Q and dW
+// come raw through the ring (warp 0 loads them, the maxes and dsums beside
+// them), and each warpgroup writes its half's transposed copies and small
+// parts. Per tile and warpgroup: S^T = K.Q^T and dP^T = V.dW^T over its 32
+// q columns (shared-memory operands), the copies written beside their
+// issue; P^T; dV's part = P^T.dW, dS^T computed beside it; dK's part =
+// dS^T.Q. Each part starts from zero and is added to the warpgroup's dK and
+// dV totals in f32; the two warpgroups' totals are added at the end.
+template <int DP>
+__global__ void __launch_bounds__(TF_THREADS, 1)
+    flash_bwd_dkdv_tf32_kernel(const __grid_constant__ Params p,
+                               const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const __grid_constant__ CUtensorMap tm_dw) {
+  constexpr int S = TfConfig<DP>::DKDV_STAGES;
+  constexpr int NSUB = DP / 32;       // 32-column sub-tiles of the head dim
+  constexpr int TB = NSUB * TF_SUB;   // bytes of one [TILE][DP] f32 tile
+  constexpr int HN = HALF / 8;        // n8 tiles of a warpgroup's S^T (q columns)
+  constexpr int ON = DP / 8;          // n8 tiles of dK, dV (head-dim columns)
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* k_s = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* k_small = k_s + TB;
+  unsigned char* v_s = k_small + TB;
+  unsigned char* v_small = v_s + TB;
+  unsigned char* q_small = v_small + TB;
+  unsigned char* dw_small = q_small + TB;
+  unsigned char* q_t = dw_small + TB;  // Q^T big, small
+  unsigned char* dw_t = q_t + 2 * TB;  // dW^T big, small
+  unsigned char* ring = dw_t + 2 * TB;  // [stage][Q, dW][TB]
+  float* stats = reinterpret_cast<float*>(ring + S * 2 * TB);  // [stage][m, dsum][TILE]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(stats + S * 2 * TILE);
+  uint64_t* full = kv_full + 1;
+  unsigned char* cls = reinterpret_cast<unsigned char*>(full + S);  // kv tile's column
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, wg = threadIdx.x / TF_WG;
+  launch_dependents();  // the dQ pass, if launched under PDL, may be scheduled now
+  int bh, kt;
+  grouped_order(bh, kt);  // kv tile 0 walks the most q tiles under a causal mask
+  const int b = bh / p.H, h = bh % p.H;
+  const int k0 = kt * TILE;
+
+  if (threadIdx.x == 0) {
+    for (const CUtensorMap* map : {&tm_q, &tm_k, &tm_v, &tm_dw}) prefetch_map(map);
+    mbar_init(kv_full, 1);
+    // A stage is full once TMA's bytes and warp 0's 32 lanes' copies of the
+    // statistics have landed.
+    for (int s = 0; s < S; ++s) mbar_init(&full[s], 1 + 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    const int hk = h / p.group;
+    mbar_expect_tx(kv_full, 2 * TB);
+    for (int s = 0; s < NSUB; ++s) {
+      tma_load_4d(k_s + s * TF_SUB, &tm_k, kv_full, s * 32, hk, k0, b);
+      tma_load_4d(v_s + s * TF_SUB, &tm_v, kv_full, s * 32, hk, k0, b);
+    }
+  }
+  for (int i = threadIdx.x; i < p.n_qt; i += TF_THREADS)
+    cls[i] = p.classes[(long long)i * p.n_kt + kt];
+  __syncthreads();
+
+  // Warp 0 loads live q tile `qt` into `stage`: Q and dW by TMA (lane 0),
+  // the rows' maxes and dsums by 4-byte cp.async (rows past Tq zero-filled).
+  const float* bmax = p.block_max + (long long)bh * p.Tq;
+  const float* dsum = p.dsum + (long long)bh * p.Tq;
+  auto load = [&](int qt, int stage) {
+    const int q0 = qt * TILE;
+    unsigned char* q_s = ring + stage * 2 * TB;
+    if (lane == 0) {
+      mbar_expect_tx(&full[stage], 2 * TB);
+      for (int s = 0; s < NSUB; ++s) {
+        tma_load_4d(q_s + s * TF_SUB, &tm_q, &full[stage], s * 32, h, q0, b);
+        tma_load_4d(q_s + TB + s * TF_SUB, &tm_dw, &full[stage], s * 32, h, q0, b);
+      }
+    }
+    float* st = stats + stage * 2 * TILE;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + lane + 32 * r, at = min(row, p.Tq - 1), bytes = row < p.Tq ? 4 : 0;
+      cp_async4(st + lane + 32 * r, bmax + at, bytes);
+      cp_async4(st + TILE + lane + 32 * r, dsum + at, bytes);
+    }
+    cp_async_arrive(&full[stage]);
+  };
+  int ahead = next_live_tile(cls, 0, p.n_qt);
+  for (int s = 0; s < S && ahead < p.n_qt; ++s) {
+    if (warp == 0) load(ahead, s);
+    ahead = next_live_tile(cls, ahead + 1, p.n_qt);
+  }
+
+  // This thread's entries of an n8 tile j of its warpgroup's S^T: kv rows
+  // row0 and row0 + 8 (e >> 1), q columns HALF * wg + 8j + 2t + (e & 1).
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = warp % 4 * 16 + g;
+  const bool row_in[2] = {k0 + row0 < p.Tk, k0 + row0 + 8 < p.Tk};
+  const float scale2 = p.scale * LOG2E;
+  float dk[ON][4], dv[ON][4], part[ON][4], s[HN][4], dp[HN][4];
+  uint32_t a_big[HN][4], a_small[HN][4];
+  zero(dk);
+  zero(dv);
+
+  mbar_wait(kv_full, 0);  // even with no live q tile: no TMA write outlives the block
+  split_in_place<TB>(k_s, k_small);
+  split_in_place<TB>(v_s, v_small);
+  fence_proxy_async();
+  __syncthreads();  // the resident splits
+  const int own = wg * HALF * 128;  // this warpgroup's rows in a walked sub-tile
+  int qt = next_live_tile(cls, 0, p.n_qt);
+  for (int i = 0; qt < p.n_qt; ++i) {
+    const int stage = i % S, q0 = qt * TILE + wg * HALF;  // this warpgroup's first q row
+    const unsigned char* q_s = ring + stage * 2 * TB;
+    const unsigned char* dw_s = q_s + TB;
+    const float* m_s = stats + stage * 2 * TILE + wg * HALF;
+    const int next = next_live_tile(cls, qt + 1, p.n_qt);
+    // S^T = K.Q^T and dP^T = V.dW^T over this warpgroup's q rows: the parts
+    // that read Q and dW raw, the transposed copies and small parts written
+    // beside their steps (one step every other k8 step); then the parts that
+    // read the small parts.
+    mbar_wait(&full[stage], (i / S) & 1);
+    wgmma_fence();
+    issue_ss_raw<DP>(s, k_s, k_small, q_s + own, [&](int kk) {
+      if (kk % 2 == 0) transpose_step<DP>(q_t, q_small, q_s, wg, kk / 2);
+    });
+    issue_ss_raw<DP>(dp, v_s, v_small, dw_s + own, [&](int kk) {
+      if (kk % 2 == 0) transpose_step<DP>(dw_t, dw_small, dw_s, wg, kk / 2);
+    });
+    fence_proxy_async();
+    warpgroup_sync(wg);  // the warpgroup's copies and small parts are written
+    issue_ss_small<DP>(s, k_s, q_small + own);
+    wgmma_commit();
+    issue_ss_small<DP>(dp, v_s, dw_small + own);
+    wgmma_commit();
+    wgmma_wait<1>();
+    reg_fence(s);
+    // P^T, while dP^T's product runs, split into A fragments.
+    float pf[HN][4];
+    if (cls[qt] != CLASS_ZERO)
+      probs_t_half<true>(pf, s, p, m_s, scale2, q0, k0, row0, t, row_in);
+    else
+      probs_t_half<false>(pf, s, p, m_s, scale2, q0, k0, row0, t, row_in);
+    frag_split(a_big, a_small, pf);
+    wgmma_wait<0>();
+    reg_fence(dp);
+    // dV's part = P^T.dW; beside its steps, dS^T = P^T * (dP^T + dsum) in
+    // place of dP^T (P^T = big + small exactly; entry r of A step j is
+    // accumulator entry a_of(r)).
+    const float* ds_s = m_s + TILE;
+    wgmma_fence();
+    issue_rs3<DP>(part, a_big, a_small, dw_t + wg * (DP * 128), [&](int j) {
+      const float2 dc = *reinterpret_cast<const float2*>(ds_s + j * 8 + 2 * t);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float pr = __uint_as_float(a_big[j][r]) + __uint_as_float(a_small[j][r]);
+        dp[j][a_of(r)] = pr * (dp[j][a_of(r)] + (r >> 1 ? dc.y : dc.x));
+      }
+    });
+    wgmma_wait<0>();
+    reg_fence(part);
+    reg_fence(a_big);
+    reg_fence(a_small);
+    add_into(dv, part);
+    frag_split(a_big, a_small, dp);
+    wgmma_fence();
+    issue_rs3<DP>(part, a_big, a_small, q_t + wg * (DP * 128), [](int) {});  // dK's part
+    wgmma_wait<0>();
+    reg_fence(part);
+    reg_fence(a_big);
+    reg_fence(a_small);
+    add_into(dk, part);
+    fence_proxy_async();
+    __syncthreads();  // both warpgroups are done with the stage and the copies: refill
+    if (warp == 0 && ahead < p.n_qt) load(ahead, stage);
+    if (ahead < p.n_qt) ahead = next_live_tile(cls, ahead + 1, p.n_qt);
+    qt = next;
+  }
+
+  // Warpgroup 0 stores dV, warpgroup 1 dK, each the sum of both (q_t is free).
+  float* xfer = reinterpret_cast<float*>(q_t);
+  if (wg == 0)
+    put_sum(xfer, dk);
+  else
+    put_sum(xfer + ON * 4 * TF_WG, dv);
+  __syncthreads();
+  if (wg == 0)
+    take_sum(dv, xfer + ON * 4 * TF_WG, true);
+  else
+    take_sum(dk, xfer, false);
+  const long long out = ((long long)b * p.Tk + k0) * p.H + h;  // row k0 of this head
+  const long long stride = (long long)p.H * p.D;
+  if (wg == 1 && p.dk != nullptr)
+    store_rows<float, ON>(static_cast<float*>(p.dk) + out * p.D, stride, dk, p.scale, row0,
+                          p.Tk - k0, p.D, t);
+  if (wg == 0 && p.dv != nullptr)
+    store_rows<float, ON>(static_cast<float*>(p.dv) + out * p.D, stride, dv, 1.f, row0,
+                          p.Tk - k0, p.D, t);
+}
+
+// The dQ pass. Grid (B*H, q tiles) in grouped order, the q tiles with the
+// most live kv tiles under a causal mask first; two warpgroups a block, warp
+// w of each owning q rows 16 (w % 4) .. + 15 of the block's q tile,
+// warpgroup wg taking kv rows HALF * wg .. + HALF - 1 of every walked tile.
+// Q and dW are resident, split in place; each live kv tile's K and V come
+// raw through the ring (thread 0 loads them). Per tile and warpgroup: S =
+// Q.K^T and dP = dW.V^T over its 32 kv columns, K^T's transposed copy and
+// the small parts written beside their issue; P; dS; dQ's part = dS.K, added
+// to the warpgroup's dQ total in f32; the two totals are added at the end.
+// DBIAS: dS is also added into dbias (an instantiation of its own, as in
+// bf16).
+template <int DP, bool DBIAS>
+__global__ void __launch_bounds__(TF_THREADS, 1)
+    flash_bwd_dq_tf32_kernel(const __grid_constant__ Params p,
+                             const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             const __grid_constant__ CUtensorMap tm_dw) {
+  constexpr int S = TfConfig<DP>::DQ_STAGES;
+  constexpr int NSUB = DP / 32;
+  constexpr int TB = NSUB * TF_SUB;
+  constexpr int HN = HALF / 8;  // n8 tiles of a warpgroup's S (kv columns)
+  constexpr int ON = DP / 8;    // n8 tiles of dQ
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* q_s = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* q_small = q_s + TB;
+  unsigned char* dw_s = q_small + TB;
+  unsigned char* dw_small = dw_s + TB;
+  unsigned char* k_small = dw_small + TB;
+  unsigned char* v_small = k_small + TB;
+  unsigned char* k_t = v_small + TB;  // K^T big, small
+  unsigned char* ring = k_t + 2 * TB;  // [stage][K, V][TB]
+  uint64_t* qd_full = reinterpret_cast<uint64_t*>(ring + S * 2 * TB);
+  uint64_t* full = qd_full + 1;
+  unsigned char* cls = reinterpret_cast<unsigned char*>(full + S);  // q tile's row
+
+  const int wg = threadIdx.x / TF_WG;
+  int bh, order;
+  grouped_order(bh, order);
+  const int b = bh / p.H, h = bh % p.H;
+  const int qt = gridDim.y - 1 - order, q0 = qt * TILE;  // the last q tile walks the most
+  const int hk = h / p.group;
+
+  if (threadIdx.x == 0) {
+    for (const CUtensorMap* map : {&tm_q, &tm_k, &tm_v, &tm_dw}) prefetch_map(map);
+    mbar_init(qd_full, 1);
+    for (int s = 0; s < S; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(qd_full, 2 * TB);
+    for (int s = 0; s < NSUB; ++s) {
+      tma_load_4d(q_s + s * TF_SUB, &tm_q, qd_full, s * 32, h, q0, b);
+      tma_load_4d(dw_s + s * TF_SUB, &tm_dw, qd_full, s * 32, h, q0, b);
+    }
+  }
+  for (int j = threadIdx.x; j < p.n_kt; j += TF_THREADS)
+    cls[j] = p.classes[(long long)qt * p.n_kt + j];
+  __syncthreads();
+
+  // Thread 0 loads live kv tile `kt`'s K and V into `stage` by TMA.
+  auto load = [&](int kt, int stage) {
+    unsigned char* k_s = ring + stage * 2 * TB;
+    mbar_expect_tx(&full[stage], 2 * TB);
+    for (int s = 0; s < NSUB; ++s) {
+      tma_load_4d(k_s + s * TF_SUB, &tm_k, &full[stage], s * 32, hk, kt * TILE, b);
+      tma_load_4d(k_s + TB + s * TF_SUB, &tm_v, &full[stage], s * 32, hk, kt * TILE, b);
+    }
+  };
+  int ahead = next_live_tile(cls, 0, p.n_kt);
+  for (int s = 0; s < S && ahead < p.n_kt; ++s) {
+    if (threadIdx.x == 0) load(ahead, s);
+    ahead = next_live_tile(cls, ahead + 1, p.n_kt);
+  }
+
+  // This thread's entries of an n8 tile j of its warpgroup's S: q rows row0
+  // and row0 + 8 (e >> 1), kv columns HALF * wg + 8j + 2t + (e & 1).
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = warp % 4 * 16 + g;
+  float m2[2], ds[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + row0 + 8 * r;
+    const long long at = (long long)bh * p.Tq + min(row, p.Tq - 1);
+    m2[r] = row_max2(p.block_max[at], row < p.Tq);
+    ds[r] = row < p.Tq ? p.dsum[at] : 0.f;
+  }
+  const float scale2 = p.scale * LOG2E;
+  float dq[ON][4], part[ON][4], s[HN][4], dp[HN][4];
+  uint32_t a_big[HN][4], a_small[HN][4];
+  zero(dq);
+
+  mbar_wait(qd_full, 0);  // even with no live kv tile: no TMA write outlives the block
+  split_in_place<TB>(q_s, q_small);
+  split_in_place<TB>(dw_s, dw_small);
+  fence_proxy_async();
+  __syncthreads();  // the resident splits
+  const int own = wg * HALF * 128;  // this warpgroup's rows in a walked sub-tile
+  int kt = next_live_tile(cls, 0, p.n_kt);
+  for (int i = 0; kt < p.n_kt; ++i) {
+    const int stage = i % S, k0 = kt * TILE + wg * HALF;  // this warpgroup's first kv row
+    const unsigned char* k_s = ring + stage * 2 * TB;
+    const unsigned char* v_s = k_s + TB;
+    const int next = next_live_tile(cls, kt + 1, p.n_kt);
+    // S = Q.K^T and dP = dW.V^T over this warpgroup's kv rows: the parts
+    // that read K and V raw, K^T's transposed copy and the small parts
+    // written beside their steps; then the parts that read the small parts.
+    mbar_wait(&full[stage], (i / S) & 1);
+    wgmma_fence();
+    issue_ss_raw<DP>(s, q_s, q_small, k_s + own, [&](int kk) {
+      if (kk % 2 == 0) transpose_step<DP>(k_t, k_small, k_s, wg, kk / 2);
+    });
+    issue_ss_raw<DP>(dp, dw_s, dw_small, v_s + own, [&](int kk) {
+      if (kk % 2 == 0) small_step<DP>(v_small, v_s, wg, kk / 2);
+    });
+    fence_proxy_async();
+    warpgroup_sync(wg);  // the warpgroup's copy and small parts are written
+    issue_ss_small<DP>(s, q_s, k_small + own);
+    wgmma_commit();
+    issue_ss_small<DP>(dp, dw_s, v_small + own);
+    wgmma_commit();
+    wgmma_wait<1>();
+    reg_fence(s);
+    float pf[HN][4];  // P, then dS
+    if (cls[kt] != CLASS_ZERO)
+      probs_half<true>(pf, s, p, m2, scale2, q0, k0, row0, t);
+    else
+      probs_half<false>(pf, s, p, m2, scale2, q0, k0, row0, t);
+    wgmma_wait<0>();
+    reg_fence(dp);
+
+    // dS = P * (dP + dsum) (and into dbias), split into A fragments.
+#pragma unroll
+    for (int j = 0; j < HN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, col = k0 + j * 8 + 2 * t + (e & 1);
+        pf[j][e] *= dp[j][e] + ds[r];
+        if (DBIAS && col < p.Tk && q0 + row0 + 8 * r < p.Tq)
+          atomicAdd(p.dbias + (long long)(q0 + row0 + 8 * r) * p.Tk + col, pf[j][e]);
+      }
+    frag_split(a_big, a_small, pf);
+    wgmma_fence();
+    issue_rs3<DP>(part, a_big, a_small, k_t + wg * (DP * 128), [](int) {});  // dQ's part
+    wgmma_wait<0>();
+    reg_fence(part);
+    reg_fence(a_big);
+    reg_fence(a_small);
+    add_into(dq, part);
+    fence_proxy_async();
+    __syncthreads();  // both warpgroups are done with the stage and the copies: refill
+    if (threadIdx.x == 0 && ahead < p.n_kt) load(ahead, stage);
+    if (ahead < p.n_kt) ahead = next_live_tile(cls, ahead + 1, p.n_kt);
+    kt = next;
+  }
+
+  // Warpgroup 0 stores dQ, the sum of both (k_t is free).
+  float* xfer = reinterpret_cast<float*>(k_t);
+  if (wg == 1) put_sum(xfer, dq);
+  __syncthreads();
+  if (wg == 0) {
+    take_sum(dq, xfer, true);
+    if (p.dq != nullptr) {
+      const long long out = ((long long)b * p.Tq + q0) * p.H + h;  // row q0 of this head
+      store_rows<float, ON>(static_cast<float*>(p.dq) + out * p.D, (long long)p.H * p.D, dq,
+                            p.scale, row0, p.Tq - q0, p.D, t);
+    }
+  }
+  wait_for_prerequisite_grid();  // under PDL: complete only after the dK/dV pass
+}
+
+// A 4-D map over an f32 operand [B, T, Hm, D] (element strides b, t, h; unit
+// stride on D): boxes of 32 head-dim columns (one 128-byte row) by TILE rows
+// of one (b, h), 128-byte swizzled. Coordinates past the operand's edges
+// read as zeros. A dimension of size 1 is never stepped; it gets the stride
+// a compact tensor would have.
+bool make_map_f32(CUtensorMap* map, const void* ptr, int B, int T, int Hm, int D, long long sb,
+                  long long st, long long sh) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hm, (cuuint64_t)T, (cuuint64_t)B};
+  const long long given[3] = {sh, st, sb};
+  cuuint64_t strides[3];
+  cuuint64_t compact = ((cuuint64_t)D * 4 + 15) / 16 * 16;
+  for (int i = 0; i < 3; ++i) {
+    strides[i] = dims[i + 1] == 1 ? compact : (cuuint64_t)given[i] * 4;
+    compact = strides[i] * dims[i + 1];
+  }
+  const cuuint32_t box[4] = {32, 1, TILE, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DP>
+cudaError_t launch_tf32(const Params& p, bool kv_pass, bool q_pass, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_dw;
+  const int hkv = p.H / p.group;
+  const long long dw_row = p.D;
+  if (!make_map_f32(&tm_q, p.q, p.B, p.Tq, p.H, p.D, p.q_sb, p.q_st, p.q_sh) ||
+      !make_map_f32(&tm_k, p.k, p.B, p.Tk, hkv, p.D, p.k_sb, p.k_st, p.k_sh) ||
+      !make_map_f32(&tm_v, p.v, p.B, p.Tk, hkv, p.D, p.v_sb, p.v_st, p.v_sh) ||
+      !make_map_f32(&tm_dw, p.dw, p.B, p.Tq, p.H, p.D, (long long)p.Tq * p.H * dw_row,
+                    p.H * dw_row, dw_row))
+    return cudaErrorInvalidValue;
+  cudaError_t err;
+  if (kv_pass) {
+    const int bytes = tf_smem_bytes<DP>(true, p.n_qt);
+    err = cudaFuncSetAttribute(flash_bwd_dkdv_tf32_kernel<DP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkdv_tf32_kernel<DP><<<dim3(p.B * p.H, p.n_kt), TF_THREADS, bytes, stream>>>(
+        p, tm_q, tm_k, tm_v, tm_dw);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (q_pass) {
+    const int bytes = tf_smem_bytes<DP>(false, p.n_kt);
+    auto kernel = p.dbias != nullptr ? flash_bwd_dq_tf32_kernel<DP, true>
+                                     : flash_bwd_dq_tf32_kernel<DP, false>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    // Under PDL behind the dK/dV pass, when it runs.
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr.val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(p.B * p.H, p.n_qt);
+    config.blockDim = dim3(TF_THREADS);
+    config.dynamicSmemBytes = bytes;
+    config.stream = stream;
+    config.attrs = &attr;
+    config.numAttrs = kv_pass ? 1 : 0;
+    err = cudaLaunchKernelEx(&config, kernel, p, tm_q, tm_k, tm_v, tm_dw);
+    const cudaError_t last = cudaGetLastError();
+    if (err != cudaSuccess || (err = last) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 // 16-byte copies: unit stride on D (or one column), a 16-byte aligned base,
 // and every row stride a multiple of 16 bytes.
 int rows16(const void* ptr, bool unit_stride, std::initializer_list<long long> strides) {
@@ -1394,14 +2218,15 @@ int rows16(const void* ptr, bool unit_stride, std::initializer_list<long long> s
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and the outputs dq, dk, dv);
-// bias, block_max, dsum and dbias are f32. classes: the bias's tile classes
-// ([ceil(Tq/64), ceil(Tk/64)] uint8, 0 MASKED, 1 ZERO_BIAS, 2 BIAS).
+// dtype (q, k, v and the outputs dq, dk, dv): 0 = float32 on the mma.sync
+// kernels (any strides), 1 = bfloat16, 2 = float32 by TMA and tf32 wgmma (D
+// <= 64); bias, block_max, dsum and dbias are f32. classes: the bias's tile
+// classes ([ceil(Tq/64), ceil(Tk/64)] uint8, 0 MASKED, 1 ZERO_BIAS, 2 BIAS).
 // block_max, dsum: [B, H, Tq] contiguous. dweighted: f32 [B, Tq, H, D]
-// contiguous for dtype 0; for dtype 1 already rounded to bf16, [B, Tq, H,
-// DW] contiguous with DW = D rounded up to a multiple of 8 (columns past D
-// are never read). dq [B, Tq, H, D], dk and dv [B, Tk, H, D] contiguous (per
-// query head), dbias [Tq, Tk] contiguous and zeroed. dims: B, H, Tq, Tk, D,
+// contiguous for dtypes 0 and 2 (for 2, D a multiple of 4); for dtype 1
+// already rounded to bf16, [B, Tq, H, DW] contiguous with DW = D rounded up
+// to a multiple of 8 (columns past D are never read). dq [B, Tq, H, D], dk
+// and dv [B, Tk, H, D] contiguous (per query head), dbias [Tq, Tk] contiguous and zeroed. dims: B, H, Tq, Tk, D,
 // group. strides (elements): q b,t,h,d; k b,t,h,g,d; v b,t,h,g,d; bias q,k.
 // needs: bit 0 dq, 1 dk, 2 dv, 3 dbias; an output not asked for may be null
 // and is not written. Launches the dK/dV pass if dk or dv is asked for, then
@@ -1433,7 +2258,7 @@ extern "C" int flash_block_backward(int dtype, const void* q, const void* k, con
   p.D = (int)dims[4];
   p.group = (int)dims[5];
   if (p.D < 1 || p.D > 128 || p.group < 1 || p.H % p.group || p.Tq < 1 || p.Tk < 1 ||
-      p.B * p.H > 65535 || (dtype != 0 && dtype != 1))
+      p.B * p.H > 65535 || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   p.n_qt = (p.Tq + TILE - 1) / TILE;
   p.n_kt = (p.Tk + TILE - 1) / TILE;
@@ -1453,6 +2278,18 @@ extern "C" int flash_block_backward(int dtype, const void* q, const void* k, con
     if (p.D <= 32) return (int)launch_f32<32>(p, kv_pass, q_pass, s);
     if (p.D <= 64) return (int)launch_f32<64>(p, kv_pass, q_pass, s);
     return (int)launch_f32<128>(p, kv_pass, q_pass, s);
+  }
+  if (dtype == 2) {
+    // f32 by TMA: unit stride on D, 16-byte aligned bases and strides that
+    // are multiples of 4 elements; D <= 64, a multiple of 4.
+    bool ok = p.D <= 64 && p.D % 4 == 0 && p.q_sd == 1 && p.k_sd == 1 && p.v_sd == 1 && aligned16(q) &&
+              aligned16(k) && aligned16(v) && aligned16(dweighted);
+    const long long rows[] = {p.q_sb, p.q_st, p.q_sh, p.k_sb, p.k_st, p.k_sh,
+                              p.k_sg, p.v_sb, p.v_st, p.v_sh, p.v_sg};
+    for (long long st : rows) ok = ok && st % 4 == 0;
+    if (!ok) return (int)cudaErrorInvalidValue;
+    if (p.D <= 32) return (int)launch_tf32<32>(p, kv_pass, q_pass, s);
+    return (int)launch_tf32<64>(p, kv_pass, q_pass, s);
   }
   // TMA: unit stride on D, 16-byte aligned bases and strides.
   bool ok = p.q_sd == 1 && p.k_sd == 1 && p.v_sd == 1 && aligned16(q) && aligned16(k) &&

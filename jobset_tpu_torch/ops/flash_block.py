@@ -24,8 +24,9 @@ launch, which overlaps the block kernel's start with the pass. The main
 path's masks (the causal triangle and the zero bias) come with their
 classes from `constant_mask`, built once per shape. The block kernel has
 one variant per dtype, both on the tensor cores: bf16 by `wgmma`, f32 as
-3xTF32 (each operand split into two TF32 values and three TF32 products
-summed in f32, an accuracy on a par with f32; the f32 tolerances hold it).
+3xTF32 on `mma.sync` (each operand split into two TF32 values and three
+TF32 products summed in f32, an accuracy on a par with f32; the f32
+tolerances hold it).
 
 k and v may also be given as the 5-D GQA view that `_repeat_heads` returns,
 [B, Tk, H_kv, group, D] with a stride-0 group axis; both paths take it as
@@ -47,8 +48,11 @@ on it; the saved max is the one the forward's sum and weighted are
 relative to. The backward dispatches as the forward does: a CUDA tensor
 goes to the hand-written kernel in `csrc/flash_block_bwd.cu` (two passes,
 dK/dV and dQ, skipping the tile classes the forward skipped; bf16 on
-`wgmma` fed by TMA, with dweighted rounded to bf16 by the wrapper first,
-f32 as 3xTF32), a CPU tensor to the plain version,
+`wgmma` fed by TMA, with dweighted rounded to bf16 by the wrapper first;
+f32 as 3xTF32 on tf32 `wgmma` fed by TMA where TMA takes the views (unit
+stride on D, 16-byte aligned bases, strides that are multiples of 4
+elements) and D is a multiple of 4 up to 64, else as 3xTF32 on
+`mma.sync`, which takes any strides and D up to 128), a CPU tensor to the plain version,
 `block_attention_bwd_reference`.
 """
 
@@ -66,13 +70,16 @@ NEG_INF = -1.0e30
 # Launches counted by the wrapper where it launches: the block kernel (all
 # variants), each variant of it, and the tile-class pass (standalone or in
 # a block call without classes); the backward kernel (one a backward call,
-# which runs its dK/dV pass, its dQ pass or both), and its f32 variant.
+# which runs its dK/dV pass, its dQ pass or both), its f32 variants (both:
+# tf32 wgmma fed by TMA, and mma.sync), and the f32 mma.sync variant alone
+# (operands TMA cannot take, or D > 64).
 KERNEL_LAUNCHES = 0
 TENSOR_CORE_LAUNCHES = 0
 F32_LAUNCHES = 0
 TILE_CLASS_LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
 BACKWARD_F32_LAUNCHES = 0
+BACKWARD_F32_MMA_LAUNCHES = 0
 
 # dtype -> (kernel variant, dtype code of the C interface)
 _VARIANTS = {torch.bfloat16: ("tensor_core", 1), torch.float32: ("f32", 0)}
@@ -88,6 +95,17 @@ MASK_CACHE_SIZE = 16  # (kind, shape, device) entries `constant_mask` keeps
 BWD_THREADS = 128
 BWD_STAGES = {64: 3, 128: 2}
 BWD_BLOCKS = {64: (3, 3), 128: (2, 2)}
+# The f32 backward kernels on tf32 wgmma fed by TMA (csrc/flash_block_bwd.cu:
+# TF_WG, TF_THREADS, TfConfig), which tests/test_torch_flash_bwd_f32_layout.py
+# models: two warpgroups a block, each half of every walked tile's rows, one
+# block an SM; by padded head dim, the depth of each pass's ring (dK/dV
+# pass, dQ pass). They take D up to BWD_F32_TMA_MAX_DIM; a larger D (its
+# tiles and their split copies exceed a block's shared memory) or a view
+# TMA cannot load goes to the mma.sync kernels.
+BWD_F32_WARPGROUP = 128
+BWD_F32_THREADS = 2 * BWD_F32_WARPGROUP
+BWD_F32_STAGES = {32: (3, 3), 64: (2, 3)}
+BWD_F32_TMA_MAX_DIM = 64
 
 
 def _flat_heads(x):
@@ -234,16 +252,21 @@ def tile_classes(bias):
     raise ValueError(f"tile_classes: no implementation on device {bias.device}")
 
 
-def _check_rows(name, t):
-    """A bf16 operand of the tensor-core kernel, whose TMA tensor maps take
-    unit stride on D, a 16-byte aligned base, and non-zero strides that are
-    multiples of 8 elements (a dim of size 1 is exempt: its stride is never
-    used; so is the stride-0 group axis of a GQA view)."""
+def _tma_rows(t, elems):
+    """Whether TMA tensor maps take t: unit stride on D, a 16-byte aligned
+    base, and non-zero strides that are multiples of `elems` elements (16
+    bytes; a dim of size 1 is exempt: its stride is never used; so is the
+    stride-0 group axis of a GQA view)."""
     strides = [s for i, (s, n) in enumerate(zip(t.stride()[:-1], t.shape[:-1]))
                if n > 1 and not (i == 3 and s == 0)]
-    if (t.shape[-1] > 1 and t.stride(-1) != 1) or t.data_ptr() % 16 or any(
-        s % 8 or s == 0 for s in strides
-    ):
+    return ((t.shape[-1] == 1 or t.stride(-1) == 1) and t.data_ptr() % 16 == 0
+            and all(s and s % elems == 0 for s in strides))
+
+
+def _check_rows(name, t):
+    """A bf16 operand of the tensor-core kernel, which TMA loads
+    (`_tma_rows` at 8 elements)."""
+    if not _tma_rows(t, 8):
         raise ValueError(
             f"block_attention: bf16 {name} view (strides {t.stride()}, base "
             f"offset {t.data_ptr() % 16} mod 16 bytes) does not give 16-byte "
@@ -399,13 +422,44 @@ def block_attention_bwd_reference(q, k, v, bias, block_max, dsum, dweighted, nee
     return dq, dk, dv, dbias
 
 
+def _f32_tma_args(q, k5, v5, dims, bias):
+    """The f32 backward's TMA kernels' (k5, v5, dims, strides) for the C
+    interface, as `_kernel_args` gives them to the bf16 kernels, where they
+    take the operands: D a multiple of 4 up to BWD_F32_TMA_MAX_DIM (so the
+    contiguous dweighted's rows are 16 bytes apart) and q, k, v loadable by
+    TMA (`_tma_rows` at 4 elements; a 5-D k/v with a group axis of its own
+    read as H heads). None where they do not: the mma.sync kernels take any
+    view."""
+    batch, heads, tq, tk, dim, group = dims
+    if dim > BWD_F32_TMA_MAX_DIM or dim % 4:
+        return None
+    if group > 1 and (k5.stride(3) or v5.stride(3)):
+        try:
+            k5, v5 = (t.view(batch, tk, heads, 1, dim) for t in (k5, v5))
+        except RuntimeError:
+            return None
+        group = 1
+    if not all(_tma_rows(t, 4) for t in (q, k5, v5)):
+        return None
+    strides = [_used_strides(t) for t in (q, k5, v5)]
+    for s in strides:
+        s[-1] = 1
+    return (k5, v5, (batch, heads, tq, tk, dim, group),
+            [x for s in strides for x in s] + list(bias.stride()))
+
+
 def _block_attention_bwd_cuda(q, k, v, bias, block_max, classes, dsum, dweighted, needs):
     """Check the operands and launch the backward kernel on the current
     stream: its dK/dV pass where dk or dv is needed, its dQ pass where dq or
-    dbias is. `classes`: the bias's tile classes the forward used. Raise if
-    a launch failed."""
-    global BACKWARD_LAUNCHES, BACKWARD_F32_LAUNCHES
+    dbias is. `classes`: the bias's tile classes the forward used. f32 runs
+    on tf32 wgmma fed by TMA where TMA takes the operands (`_f32_tma_args`),
+    on the mma.sync kernels elsewhere. Raise if a launch failed."""
+    global BACKWARD_LAUNCHES, BACKWARD_F32_LAUNCHES, BACKWARD_F32_MMA_LAUNCHES
     variant, code, k5, v5, dims, strides = _kernel_args(q, k, v, bias)
+    tma = _f32_tma_args(q, k5, v5, dims, bias) if variant == "f32" else None
+    if tma is not None:
+        k5, v5, dims, strides = tma
+        code = 2
     batch, heads, tq, tk, dim, _ = dims
     for name, t, shape in (("block_max", block_max, (batch, heads, tq)),
                            ("dsum", dsum, (batch, heads, tq)),
@@ -445,6 +499,7 @@ def _block_attention_bwd_cuda(q, k, v, bias, block_max, classes, dsum, dweighted
         raise RuntimeError(f"flash_block backward kernel launch failed: CUDA error {err}")
     BACKWARD_LAUNCHES += 1
     BACKWARD_F32_LAUNCHES += variant == "f32"
+    BACKWARD_F32_MMA_LAUNCHES += code == 0
     return (dq, None if dk is None else dk.view(k.shape),
             None if dv is None else dv.view(v.shape), dbias)
 

@@ -38,7 +38,8 @@ from .distributed import ENV_RESTART_ATTEMPT, ENV_WORKLOAD
 
 # The kernel launch counters the result line reports, by module.
 _FLASH_COUNTERS = ("KERNEL_LAUNCHES", "TENSOR_CORE_LAUNCHES", "F32_LAUNCHES",
-                   "TILE_CLASS_LAUNCHES", "BACKWARD_LAUNCHES", "BACKWARD_F32_LAUNCHES")
+                   "TILE_CLASS_LAUNCHES", "BACKWARD_LAUNCHES", "BACKWARD_F32_LAUNCHES",
+                   "BACKWARD_F32_MMA_LAUNCHES")
 _GROUPED_COUNTERS = ("GROUPED_LAUNCHES", "GROUPED_TMA_LAUNCHES", "GROUPED_F32_LAUNCHES",
                      "GROUPED_DGRAD_LAUNCHES", "GROUPED_WGRAD_LAUNCHES",
                      "GROUPED_WGRAD_F32_LAUNCHES", "GROUPED_WGRAD_TMA_LAUNCHES")

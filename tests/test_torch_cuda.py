@@ -455,6 +455,45 @@ def test_backward_kernel_writes_zeros_where_no_tile_is_live(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tq,tk,heads,kv_heads,dim,kind,d_stride", [
+    (100, 77, 4, 2, 8, "band_row", 1),
+    (70, 130, 8, 4, 16, "alibi", 1),
+    (130, 70, 4, 4, 36, "triangle", 1),
+    (129, 129, 4, 1, 64, "reverse_triangle", 1),
+    (100, 77, 4, 2, 64, "triangle", 2),
+], ids=["d8_band_row", "d16_alibi", "d36_triangle", "d64_reverse_triangle", "d64_strided"])
+def test_f32_backward_runs_on_tma_where_it_takes_the_views(cuda, tq, tk, heads, kv_heads, dim,
+                                                          kind, d_stride):
+    # Small ragged shapes against the plain version at the f32 tolerance, on
+    # the variant the wrapper picks: tf32 wgmma fed by TMA for every view TMA
+    # takes, mma.sync for views with stride 2 on D.
+    gen = torch.Generator(device=cuda).manual_seed(dim)
+    q = torch.randn((2, tq, heads, dim * d_stride), generator=gen, device=cuda)[..., ::d_stride]
+    k_c, v_c = (torch.randn((2, tk, kv_heads, dim * d_stride), generator=gen,
+                            device=cuda)[..., ::d_stride] for _ in range(2))
+    k, v = (fb._repeat_heads(t, heads // kv_heads) for t in (k_c, v_c))
+    bias = _bias("band" if kind == "band_row" else kind, tq, tk, cuda)
+    if kind == "band_row":
+        bias[3] = fb.NEG_INF
+    classes = fb.tile_classes(bias)
+    block_max = fb._block_attention_cuda(q, k, v, bias, classes)[0]
+    dsum = torch.randn((2, heads, tq), generator=gen, device=cuda)
+    dw = torch.randn((2, tq, heads, dim), generator=gen, device=cuda)
+    needs = (True, True, True, True)
+    before = fb.BACKWARD_F32_LAUNCHES, fb.BACKWARD_F32_MMA_LAUNCHES
+    got = fb._block_attention_bwd_cuda(q, k, v, bias, block_max, classes, dsum, dw, needs)
+    torch.cuda.synchronize()
+    assert (fb.BACKWARD_F32_LAUNCHES, fb.BACKWARD_F32_MMA_LAUNCHES) == (
+        before[0] + 1, before[1] + (d_stride > 1))
+    want = fb.block_attention_bwd_reference(q, k, v, bias, block_max, dsum, dw, needs)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.isfinite(g).all()
+        assert _within(g, w, 1e-4, 1e-5)
+    again = fb._block_attention_bwd_cuda(q, k, v, bias, block_max, classes, dsum, dw, needs)
+    assert all(torch.equal(a, b) for a, b in zip(got[:3], again[:3]))
+
+
+@pytest.mark.cuda
 def test_flagship_train_step_with_and_without_the_backward_kernel(cuda, monkeypatch):
     # The flagship's 8 layers at B=8, T=1024 in bf16: the step with the
     # backward kernel against the same step with the plain backward (the
